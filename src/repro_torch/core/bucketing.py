@@ -1,0 +1,179 @@
+"""Gradient bucketing (paper §III-C.1): the CHUNK-aligned packed layout.
+
+A port of ``repro.core.bucketing``. ``BucketPlan`` is computed once from a
+tree of descriptors or tensors in **reverse flatten order** (the JAX
+package's order: dict keys sorted, so ``stem/conv, stem/bn/scale,
+stem/bn/bias, s3b2/conv3, …``), and must equal the reference's plan slot
+for slot. Every tensor is padded to CHUNK elements; a tensor larger than
+the bucket budget is split into CHUNK-aligned spans, one ``TensorSlot``
+each (``elem_offset`` marks where the span starts in the flattened
+tensor), and segment maps key on the *tensor* id.
+
+The packed buffer plus its per-chunk segment ids is the input layout of the
+batched-norm kernel (``kernels/batched_norm``). The shard helpers of the
+ZeRO ladder are ROADMAP §1 item 7.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+
+CHUNK = 1024  # the packing quantum (8 sublanes x 128 lanes on the TPU)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSlot:
+    path: str
+    shape: Tuple[int, ...]  # FULL tensor shape (shared by every span)
+    size: int              # unpadded element count of THIS span
+    padded: int            # span padded to CHUNK
+    bucket: int            # bucket index
+    offset: int            # element offset within its bucket
+    elem_offset: int = 0   # span start inside the flattened tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketPlan:
+    slots: Tuple[TensorSlot, ...]     # in packing order (reverse flatten)
+    bucket_sizes: Tuple[int, ...]     # elements per bucket (CHUNK-aligned)
+    paths: Tuple[str, ...]            # leaf paths in flatten order
+
+    @property
+    def n_buckets(self) -> int:
+        return len(self.bucket_sizes)
+
+    @property
+    def n_slots(self) -> int:
+        return len(self.slots)
+
+    @property
+    def n_tensors(self) -> int:
+        """Distinct tensors (a split tensor counts once, not per span)."""
+        return sum(1 for s in self.slots if s.elem_offset == 0)
+
+    @property
+    def n_chunks(self) -> int:
+        return sum(self.bucket_sizes) // CHUNK
+
+    @property
+    def slot_tensor_ids(self) -> Tuple[int, ...]:
+        """Per-slot tensor index in packing order: spans of one split
+        tensor share an id."""
+        ids, t = [], -1
+        for s in self.slots:
+            if s.elem_offset == 0:
+                t += 1
+            ids.append(t)
+        return tuple(ids)
+
+
+def make_plan(tree, *, bucket_mb: float = 4.0,
+              dtype_bytes: int = 2) -> BucketPlan:
+    """Greedy fill in reverse flatten order: open a new bucket whenever the
+    current one would exceed ``bucket_mb``; split a leaf whose padded size
+    exceeds the budget into CHUNK-aligned spans (full spans fill a bucket
+    each, the tail span opens a bucket that later leaves keep filling).
+    Leaves are descriptors or tensors: only ``.shape`` is read. A bucket
+    past the budget is a packing bug and raises."""
+    flat = tree_flatten(tree)
+    target_elems = int(bucket_mb * 2 ** 20 / dtype_bytes)
+    span_elems = max(CHUNK, (target_elems // CHUNK) * CHUNK)
+    slots: List[TensorSlot] = []
+    bucket_sizes: List[int] = []
+    cur, cur_off = 0, 0
+    for path, leaf in reversed(flat):
+        shape = tuple(leaf.shape)
+        size = math.prod(shape)
+        padded = -(-size // CHUNK) * CHUNK
+        if padded > target_elems:
+            # close the open bucket, then one bucket per full span
+            if cur_off:
+                bucket_sizes.append(cur_off)
+                cur, cur_off = cur + 1, 0
+            eo = 0
+            while size - eo > span_elems:
+                slots.append(TensorSlot(path, shape, span_elems, span_elems,
+                                        cur, 0, eo))
+                bucket_sizes.append(span_elems)
+                cur, eo = cur + 1, eo + span_elems
+            rem = size - eo
+            rem_padded = -(-rem // CHUNK) * CHUNK
+            slots.append(TensorSlot(path, shape, rem, rem_padded, cur, 0, eo))
+            cur_off = rem_padded     # tail span leaves its bucket open
+            continue
+        if cur_off and cur_off + padded > target_elems:
+            bucket_sizes.append(cur_off)
+            cur, cur_off = cur + 1, 0
+        slots.append(TensorSlot(path, shape, size, padded, cur, cur_off))
+        cur_off += padded
+    if cur_off or not bucket_sizes:
+        bucket_sizes.append(cur_off)
+    plan = BucketPlan(tuple(slots), tuple(bucket_sizes),
+                      tuple(p for p, _ in flat))
+    worst = max(plan.bucket_sizes, default=0)
+    if worst > max(target_elems, CHUNK):
+        raise ValueError(
+            f"bucket {plan.bucket_sizes.index(worst)} packs {worst} elems > "
+            f"budget {target_elems} despite leaf splitting — packing bug")
+    return plan
+
+
+def pack_flat(tree, plan: BucketPlan, dtype=torch.bfloat16) -> torch.Tensor:
+    """Tree -> ONE flat buffer holding every bucket back to back (what
+    ``concat_buckets(pack(...))`` gives, without the second copy), in
+    ``dtype``, zero-padded per slot. Split tensors hand the same leaf to
+    every bucket that holds one of their spans."""
+    leaves = list(reversed(tree_leaves(tree)))
+    if len(leaves) != plan.n_tensors:
+        raise ValueError(f"tree has {len(leaves)} leaves, plan "
+                         f"{plan.n_tensors} tensors")
+    flat = torch.zeros(sum(plan.bucket_sizes), dtype=dtype,
+                       device=leaves[0].device)
+    starts = np.cumsum((0,) + plan.bucket_sizes[:-1])
+    for ti, slot in zip(plan.slot_tensor_ids, plan.slots):
+        src = leaves[ti].reshape(-1)[slot.elem_offset:
+                                     slot.elem_offset + slot.size]
+        at = int(starts[slot.bucket]) + slot.offset
+        flat[at:at + slot.size].copy_(src)
+    return flat
+
+
+def pack(tree, plan: BucketPlan, dtype=torch.bfloat16) -> List[torch.Tensor]:
+    """Tree -> list of flat per-bucket buffers (views of one allocation)."""
+    return list(pack_flat(tree, plan, dtype).split(plan.bucket_sizes))
+
+
+def unpack(bufs: List[torch.Tensor], plan: BucketPlan,
+           dtype=torch.float32) -> dict:
+    """Inverse of :func:`pack`: buffers -> tree in ``dtype``. Split tensors
+    are reassembled by concatenating their spans in order."""
+    leaves, pieces = [], []
+    n = len(plan.slots)
+    for i, slot in enumerate(plan.slots):
+        buf = bufs[slot.bucket]
+        pieces.append(buf[slot.offset:slot.offset + slot.size].to(dtype))
+        if i + 1 == n or plan.slots[i + 1].elem_offset == 0:
+            full = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+            leaves.append(full.reshape(slot.shape))
+            pieces = []
+    return tree_unflatten(plan.paths, list(reversed(leaves)))
+
+
+def segment_ids(plan: BucketPlan) -> np.ndarray:
+    """Per-CHUNK tensor index over the *concatenated* buckets — the
+    batched-norm kernel's segment map, non-decreasing. Split spans repeat
+    their tensor's id. Shape: (total_chunks,)."""
+    ids = []
+    for ti, slot in zip(plan.slot_tensor_ids, plan.slots):
+        ids.extend([ti] * (slot.padded // CHUNK))
+    return np.asarray(ids, np.int32)
+
+
+def concat_buckets(bufs: List[torch.Tensor]) -> torch.Tensor:
+    return torch.cat(bufs) if len(bufs) > 1 else bufs[0]

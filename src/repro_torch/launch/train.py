@@ -1,0 +1,118 @@
+"""Training launcher of the port (the flags of ``repro.launch.train`` that
+this slice covers, plus ``--device``).
+
+Example:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch resnet50 \\
+      --reduced --batch 8 --steps 2            # on the card
+  PYTHONPATH=src python -m repro_torch.launch.train --arch resnet50 \\
+      --reduced --batch 8 --steps 2 --device cpu
+
+The reference's flags for parts not ported yet are accepted by name and
+exit with the ROADMAP item that will bring them.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import InputShape
+from repro_torch.core import lars
+from repro_torch.core.schedule import ScheduleConfig, linear_scaled_lr, \
+    make_schedule
+from repro_torch.data.synthetic import make_batch_fn
+from repro_torch.kernels.backend import resolve_device
+from repro_torch.models.registry import build_model
+from repro_torch.train import loop
+from repro_torch.train.state import init_state
+from repro_torch.train.step import make_eval_step, make_train_step
+
+#: reference flag -> ROADMAP §1 item that ports it
+_NOT_PORTED = {
+    "--bucket-mb": 6, "--no-overlap": 6, "--model-parallel": 6,
+    "--backward-profile": 6,
+    "--sharding": 7, "--gather": 7, "--shard-update": 7,
+    "--update-kernel": 7, "--no-gather-ahead": 7,
+    "--ckpt-dir": 8, "--ckpt-every": 8, "--resume-elastic": 8,
+    "--keep-last-k": 8, "--step-timeout-s": 8, "--max-step-retries": 8,
+    "--inject-fault": 8, "--guard": 8, "--rollback-ring": 8,
+    "--rollback-every": 8, "--rewarmup-steps": 8, "--trace": 8,
+    "--metrics": 8,
+    "--data": 10,
+}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true",
+                    help="smoke-sized variant of the same family")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--optimizer", default="lars",
+                    choices=["lars", "sgdm", "lamb"])
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--comm", default="xla",
+                    help="only 'xla' (the replicated single-device step) is "
+                         "ported; the explicit-DP schedules are ROADMAP §1 "
+                         "item 6")
+    ap.add_argument("--lr", type=float, default=None,
+                    help="default: linear-scaling rule from batch size")
+    ap.add_argument("--warmup", type=int, default=None)
+    ap.add_argument("--decay", default="poly2")
+    ap.add_argument("--smoothing", type=float, default=0.1)
+    ap.add_argument("--momentum", type=float, default=0.9)
+    ap.add_argument("--weight-decay", type=float, default=5e-5)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--eval-every", type=int, default=0)
+    ap.add_argument("--history-out", default=None)
+    ap.add_argument("--device", default=None,
+                    help="torch device; default: the CUDA card (the run "
+                         "fails without one unless --device cpu is given)")
+    for flag in _NOT_PORTED:
+        ap.add_argument(flag, nargs="?", const=True, default=None,
+                        help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    for flag, item in _NOT_PORTED.items():
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            ap.error(f"{flag} is not ported to repro_torch yet "
+                     f"(ROADMAP §1 item {item})")
+    if args.comm != "xla":
+        ap.error(f"--comm {args.comm} is not ported to repro_torch yet "
+                 f"(ROADMAP §1 item 6)")
+    return _run(args)
+
+
+def _run(args):
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = build_model(cfg)
+
+    lr = args.lr if args.lr is not None else linear_scaled_lr(0.1, args.batch)
+    warmup = args.warmup if args.warmup is not None else args.steps // 10
+    sched = make_schedule(ScheduleConfig(
+        base_lr=lr, warmup_steps=warmup, total_steps=args.steps,
+        decay=args.decay))
+    opt = lars.OptConfig(kind=args.optimizer, momentum=args.momentum,
+                         weight_decay=args.weight_decay)
+    shape = InputShape("cli", "train", args.seq, args.batch)
+    batch_fn = make_batch_fn(cfg, shape, seed=args.seed, device=device)
+    train_step = make_train_step(model, opt, sched, smoothing=args.smoothing,
+                                 grad_accum=args.grad_accum)
+    eval_step = make_eval_step(model) if args.eval_every else None
+    state = init_state(model, args.seed, device=device,
+                       opt_kind=args.optimizer)
+    state, history = loop.train(
+        state, train_step, batch_fn, steps=args.steps, eval_step=eval_step,
+        eval_batch_fn=batch_fn, eval_every=args.eval_every, seed=args.seed)
+    if args.history_out:
+        with open(args.history_out, "w") as f:
+            json.dump(history, f, indent=1)
+    return history
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,68 @@
+"""Carry weights and train states across from the JAX package.
+
+The JAX package draws its parameters and data from threefry and the port
+from ``torch.Generator``s, so the two never draw the same numbers. To hold
+the port against the reference, the tests feed both the reference's own
+values: numpy trees at the reference's paths and shapes (HWIO weights stay
+HWIO), checked here against the port's descriptor trees.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models import resnet
+from repro_torch.train.state import TrainState
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+
+
+def _to_torch(np_tree, pd_tree, device, what: str) -> dict:
+    got = dict(tree_flatten(np_tree))
+    want = dict(tree_flatten(pd_tree))
+    if set(got) != set(want):
+        raise ValueError(
+            f"{what}: paths differ from the port's; missing "
+            f"{sorted(set(want) - set(got))}, unexpected "
+            f"{sorted(set(got) - set(want))}")
+    leaves = []
+    for path, pd in want.items():
+        x = np.asarray(got[path])
+        if tuple(x.shape) != tuple(pd.shape):
+            raise ValueError(f"{what}: {path} has shape {x.shape}, the "
+                             f"port's is {pd.shape}")
+        # numpy has no bf16: such leaves come in via f32 (exact)
+        t = torch.from_numpy(np.ascontiguousarray(x.astype(np.float32)))
+        leaves.append(t.to(device=device, dtype=pd.dtype))
+    return tree_unflatten(list(want), leaves)
+
+
+def params_from_jax(np_tree, cfg, device) -> dict:
+    """Reference ResNet params (numpy leaves) -> the port's tree."""
+    return _to_torch(np_tree, resnet.resnet_pd(cfg)[0], device, "params")
+
+
+def bn_state_from_jax(np_tree, cfg, device) -> dict:
+    """Reference BN statistics (numpy leaves) -> the port's tree."""
+    return _to_torch(np_tree, resnet.resnet_pd(cfg)[1], device, "bn_state")
+
+
+def state_from_jax(jax_state, cfg, device) -> TrainState:
+    """A reference ``TrainState`` of a replicated LARS/SGD-M run (numpy
+    leaves: ``jax.device_get(state)``) -> the port's ``TrainState``."""
+    if jax_state.shards is not None:
+        raise NotImplementedError("sharded states are ROADMAP §1 item 7")
+    return TrainState(
+        int(jax_state.step),
+        params_from_jax(jax_state.params, cfg, device),
+        params_from_jax(jax_state.mom, cfg, device),
+        bn_state_from_jax(jax_state.bn_state, cfg, device))
+
+
+def to_numpy(tree):
+    """The inverse: a tree of tensors -> numpy leaves (bf16 as f32)."""
+    def f(x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu()
+            return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+        return x
+    return tree_map(f, tree)
