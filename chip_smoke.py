@@ -6,19 +6,31 @@ card: the quickest proof that the port still builds, is right and trains.
 
 Phases, in order; any failure exits non-zero and prints no result:
   1. card     needs CUDA; prints the card's name and power limit
-  2. build    compiles every CUDA kernel from the checkout (nvcc, sm_90a)
+  2. build    compiles every CUDA kernel from the checkout (one nvcc per
+              source, all started together; sm_90a)
   3. kernels  each kernel against its plain PyTorch version on the card, at
-              the shapes the training path gives it; times the kernel, the
+              the shapes the training paths give it; times the kernel, the
               plain version and a library yardstick beside the bound
   4. slice    full-width ResNet-50 (224², 1000 classes, width 64), batch 64,
               6 LARS steps (poly2, label smoothing 0.1, bf16 compute, fp32
               masters, OptConfig(use_kernel=True)) through make_train_step +
-              loop.train; every kernel must be launched on this path
+              loop.train, comm='xla'; K1 must be launched twice a step
   5. context  one step with the norm kernel and one without, from one state
               and batch: the new params agree to 1e-5
-  6. cli      python -m repro_torch.launch.train --reduced on the card
-Then one JSON line with every kernel's numbers, and as the last line
-``{"ok": true, "device": {...}}``.
+  6. zero1    the same model and recipe as the ZeRO-1 explicit-DP step on a
+              one-rank NCCL group (psum schedule, 4 MB buckets: 16, gather
+              ahead, in-backward reduce-scatter, fused update): K2 must be
+              launched 16 times a step and K1 32 times; an eval through
+              make_params_reader
+  7. zero1 context  one ZeRO-1 step (K1 + K2) and one replicated comm='xla'
+              step (per-tensor norms, no kernel) from one state and batch:
+              the masters agree to 1e-5 of each tensor's max
+  8. cli      python -m repro_torch.launch.train --reduced on the card, as
+              the replicated step and as ZeRO-1 (--comm ring --sharding
+              zero1 --update-kernel)
+Each path's launch counts are set to 0 just before it and read just after.
+Then one JSON line with every kernel's numbers, the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
 import json
 import math
@@ -69,6 +81,153 @@ def bound_ms(bytes_moved: int, f32_ops: int):
     t_ops = f32_ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def _zero(*wrappers):
+    for w in wrappers:
+        w.launches = 0
+
+
+def _one_rank():
+    """A one-rank shard axis with no process group, for the kernel
+    checks."""
+    from repro_torch.launch.mesh import Axis
+    return Axis("data", 1, 0, (0,), None)
+
+
+def _shard_case(plan, n_shards, k, dev, gen):
+    """Rank-k bucket shards of p, g, m at ``plan``'s shapes, the shard
+    segment maps, and the trust ratios from K1 (as the ZeRO-1 path makes
+    them)."""
+    import torch
+    from repro_torch.core import bucketing, lars
+    sizes = bucketing.shard_sizes(plan, n_shards)
+    draw = lambda s: [s * torch.randn(c, generator=gen, device=dev)
+                      for c in sizes]
+    p, g, m = draw(1.0), draw(0.01), draw(0.001)
+    segs = [torch.from_numpy(x[k].copy()).to(dev)
+            for x in bucketing.shard_segment_ids(plan, n_shards)]
+    trust = lars.shard_trust_ratios(p, g, segs, plan, lars.OptConfig(),
+                                    shard_axis=_one_rank())
+    return p, g, m, segs, trust
+
+
+def check_lars_update(dev):
+    """K2 at the ZeRO-1 path's shapes: each of the 16 bucket shards of the
+    full-width 4 MB plan, with real segment maps and trust values from K1;
+    a ragged case (0.25 MB buckets, tensors split across buckets, 3 shards
+    with padding chunks); the in-place form; determinism. Times the 16
+    launches of one step (in place, as the step runs them) and K1's 32
+    launches on the same shards."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import bucketing
+    from repro_torch.kernels import batched_norm, lars_update, ref
+    from repro_torch.models import resnet
+
+    pd = resnet.resnet_pd(get_config("resnet50"))[0]
+    plan = bucketing.make_plan(pd)
+    if plan.n_buckets != 16:
+        fail(f"the full-width plan has {plan.n_buckets} buckets, not 16")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    lr = torch.tensor(0.37, dtype=torch.float32, device=dev)
+    kw = dict(lr=lr, momentum=0.9, wd=5e-5)
+    worst_abs, worst_rel = 0.0, 0.0
+
+    def check(p, g, m, trust, seg, what):
+        nonlocal worst_abs, worst_rel
+        got = lars_update.lars_packed_update(p, g, m, trust, seg, **kw)
+        want = ref.lars_packed_update(p, g, m, trust, seg, **kw)
+        again = lars_update.lars_packed_update(p, g, m, trust, seg, **kw)
+        pin, min_ = p.clone(), m.clone()
+        lars_update.lars_packed_update(pin, g, min_, trust, seg,
+                                       inplace=True, **kw)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            if not torch.allclose(x, y, rtol=1e-5, atol=1e-6):
+                fail(f"lars_packed_update {what} disagrees with its plain "
+                     f"version (rtol 1e-5, atol 1e-6)")
+            d = (x - y).abs()
+            worst_abs = max(worst_abs, d.max().item())
+            worst_rel = max(worst_rel, (d / y.abs().clamp_min(1e-30))
+                            .max().item())
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"lars_packed_update {what}: two calls differ")
+        if not (torch.equal(pin, got[0]) and torch.equal(min_, got[1])):
+            fail(f"lars_packed_update {what}: in place differs")
+
+    p, g, m, segs, trust = _shard_case(plan, 1, 0, dev, gen)
+    for b in range(plan.n_buckets):
+        check(p[b], g[b], m[b], trust, segs[b], f"bucket {b}")
+    rag = bucketing.make_plan(pd, bucket_mb=0.25)
+    if not any(s.elem_offset for s in rag.slots):
+        fail("the 0.25 MB plan splits no tensor")
+    for k in range(3):
+        rp, rg, rm, rsegs, rtrust = _shard_case(rag, 3, k, dev, gen)
+        for b in range(rag.n_buckets):
+            check(rp[b], rg[b], rm[b], rtrust, rsegs[b], f"ragged {k}/{b}")
+    print(f"lars_packed_update: 16 bucket shards ({plan.n_chunks} chunks x "
+          f"{plan.n_tensors} tensors) and {3 * rag.n_buckets} ragged "
+          f"shards: max abs err {worst_abs:.3e}, max rel err "
+          f"{worst_rel:.3e} (rtol 1e-5, atol 1e-6); in place and repeat "
+          f"calls equal", flush=True)
+
+    def k2_step():
+        for b in range(plan.n_buckets):
+            lars_update.lars_packed_update(p[b], g[b], m[b], trust, segs[b],
+                                           inplace=True, **kw)
+
+    def plain_step():
+        for b in range(plan.n_buckets):
+            ref.lars_packed_update(p[b], g[b], m[b], trust, segs[b], **kw)
+
+    def k1_step():
+        for b in range(plan.n_buckets):
+            batched_norm.batched_sumsq(p[b], segs[b], plan.n_tensors)
+            batched_norm.batched_sumsq(g[b], segs[b], plan.n_tensors)
+
+    def k1_plain_step():
+        for b in range(plan.n_buckets):
+            ref.batched_sumsq(p[b], segs[b], plan.n_tensors)
+            ref.batched_sumsq(g[b], segs[b], plan.n_tensors)
+
+    # the same work as one launch over all 25,021 chunks: what the kernel
+    # costs on the device without 16 host round trips between launches
+    flat = [torch.cat(x) for x in (p, g, m)]
+    seg_all = torch.from_numpy(bucketing.segment_ids(plan)).to(dev)
+    one = time_ms(lambda: lars_update.lars_packed_update(
+        *flat, trust, seg_all, inplace=True, **kw), iters=50)
+    ms, plain = time_ms(k2_step, iters=50), time_ms(plain_step, iters=20)
+    k1_ms = time_ms(k1_step, iters=50)
+    k1_plain = time_ms(k1_plain_step, iters=20)
+    elems, chunks = plan.n_chunks * bucketing.CHUNK, plan.n_chunks
+    b_ms, b_by = bound_ms(
+        5 * 4 * elems + 4 * chunks + plan.n_buckets * (4 * plan.n_tensors
+                                                       + 4), 6 * elems)
+    k1_b, _ = bound_ms(2 * (4 * elems + 4 * chunks) + 2 * plan.n_buckets
+                       * 4 * plan.n_tensors, 2 * 2 * elems)
+    print(f"lars_packed_update, one step (16 launches, in place): kernel "
+          f"{ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, bound "
+          f"{b_ms * 1e3:.1f} us ({b_by}); no single PyTorch call computes "
+          f"it (no library time); as one launch over all {chunks} chunks "
+          f"{one * 1e3:.1f} us", flush=True)
+    print(f"batched_sumsq at the ZeRO-1 call site, one step (32 launches on "
+          f"the 16 p and g shards): kernel {k1_ms * 1e3:.1f} us, plain "
+          f"{k1_plain * 1e3:.1f} us, bound {k1_b * 1e3:.1f} us", flush=True)
+    entry = {"name": "lars_packed_update", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/lars_update.cu",
+             "replaces": "src/repro/kernels/lars_update.py:32",
+             "launches": None, "max_abs_err": worst_abs,
+             "max_rel_err": worst_rel, "ms": ms, "plain_ms": plain,
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+             "library": "none: no single PyTorch call computes it",
+             "timed": "one step: 16 launches over the 16 bucket shards",
+             "one_launch_ms": one,
+             "shape": [elems], "segments": plan.n_tensors,
+             "dtype": "float32"}
+    k1_site = {"zero1_step_ms": k1_ms, "zero1_step_plain_ms": k1_plain,
+               "zero1_step_bound_ms": k1_b}
+    return entry, k1_site
 
 
 def check_batched_sumsq(dev):
@@ -177,7 +336,7 @@ def run_slice(dev):
 
     torch.cuda.reset_peak_memory_stats(dev)
     sink = obs_metrics.MemorySink()
-    batched_norm.batched_sumsq.launches = 0
+    _zero(batched_norm.batched_sumsq)
     with obs_metrics.default_registry().use_sink(sink):
         state, history = loop.train(state0, timed_step, batch_fn,
                                     steps=STEPS, log_every=1, seed=100000)
@@ -241,15 +400,148 @@ def check_in_context(dev, state0, batch_fn):
         fail("the step with the norm kernel disagrees with the plain step")
 
 
+def _zero1_step(model, sched, mesh):
+    from repro_torch.configs.base import CommConfig
+    from repro_torch.core import lars
+    from repro_torch.train.step import make_train_step
+    comm = CommConfig(strategy="psum", sharding="zero1", gather="ahead",
+                      overlap=True, update_kernel=True, bucket_mb=4)
+    return make_train_step(model, lars.OptConfig(kind="lars",
+                                                 weight_decay=5e-5,
+                                                 use_kernel=True),
+                           sched, smoothing=0.1, mesh=mesh, comm=comm)
+
+
+def run_zero1(dev, mesh):
+    """The ZeRO-1 explicit-DP step at full width on a one-rank NCCL group,
+    through make_train_step + loop.train, as the CLI drives it."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core.schedule import ScheduleConfig, linear_scaled_lr, \
+        make_schedule
+    from repro_torch.data.synthetic import make_batch_fn, prototype_imagenet
+    from repro_torch.kernels import batched_norm, lars_update
+    from repro_torch.models.registry import build_model
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.train import loop
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_eval_step
+
+    cfg = get_config("resnet50")
+    model = build_model(cfg)
+    sched = make_schedule(ScheduleConfig(
+        base_lr=linear_scaled_lr(16.0, BATCH) / 4, warmup_steps=STEPS // 8,
+        total_steps=STEPS, decay="poly2"))
+    step = _zero1_step(model, sched, mesh)
+    plan = step.bucket_plan
+    if (plan.n_buckets, step.n_shards, step.gather) != (16, 1, "ahead"):
+        fail(f"unexpected ZeRO-1 plan: {plan.n_buckets} buckets, "
+             f"{step.n_shards} shards, gather {step.gather!r}")
+    batch_fn = make_batch_fn(cfg, InputShape("in", "train", 0, BATCH),
+                             device=dev, mesh=mesh)
+    state0 = init_state(model, seed=100000, device=dev, sharded_plan=plan,
+                        n_shards=step.n_shards, mesh=mesh)
+    times = []
+
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return out
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    sink = obs_metrics.MemorySink()
+    _zero(batched_norm.batched_sumsq, lars_update.lars_packed_update)
+    with obs_metrics.default_registry().use_sink(sink):
+        state, history = loop.train(state0, timed_step, batch_fn,
+                                    steps=STEPS, log_every=1, seed=100000)
+    k1 = batched_norm.batched_sumsq.launches
+    k2 = lars_update.lars_packed_update.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [h["loss"] for h in history]
+    if len(losses) != STEPS or not all(math.isfinite(v) for v in losses):
+        fail(f"zero1 losses not all finite: {losses}")
+    if not sink.find("run_stop"):
+        fail("zero1: loop.train did not reach run_stop")
+    if k2 != 16 * STEPS or k1 != 32 * STEPS:
+        fail(f"zero1: {k2} lars_packed_update and {k1} batched_sumsq "
+             f"launches in {STEPS} steps; the path must launch them 16 "
+             f"and 32 times a step")
+    ev = make_eval_step(model)(
+        loop.make_params_reader(step)(state),
+        prototype_imagenet(cfg, batch=BATCH, step=10 ** 6, seed=100000,
+                           device=dev), state.bn_state)
+    if not (math.isfinite(float(ev["loss"])) and 0 <= float(ev["acc"]) <= 1):
+        fail(f"zero1 eval step gave {ev}")
+    med = statistics.median(times)
+    print(f"zero1: losses {[round(v, 4) for v in losses]}; eval loss "
+          f"{float(ev['loss']):.4f}", flush=True)
+    print(f"zero1: step times ms {[round(t * 1e3, 2) for t in times]}; "
+          f"median {med * 1e3:.2f} ms, {BATCH / med:.1f} images/s, peak "
+          f"memory {peak / 2 ** 30:.2f} GiB; launches lars_packed_update "
+          f"{k2}, batched_sumsq {k1}", flush=True)
+    return k1, k2
+
+
+def check_zero1_in_context(dev, mesh, batch_fn):
+    """One ZeRO-1 step (K1 + K2) and one replicated comm='xla' step
+    (per-tensor norms, no kernel) from one state and batch: the masters
+    read back from the shards must agree with the replicated params."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import lars
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import state as st
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_flatten
+
+    model = build_model(get_config("resnet50"))
+    sched = make_schedule(ScheduleConfig(base_lr=1.0, total_steps=STEPS))
+    zero = _zero1_step(model, sched, mesh)
+    plan = zero.bucket_plan
+    s0 = st.init_state(model, seed=7, device=dev)
+    packed = lambda tree: st.local_shards(st.init_packed_shards(tree, plan),
+                                          1, 0)
+    z0 = st.TrainState(0, s0.params, packed(s0.mom), s0.bn_state,
+                       packed(s0.params))
+    batch = batch_fn(0)
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = make_train_step(model, lars.OptConfig(use_kernel=False),
+                               sched)(s0, batch)[0].params
+        z1 = zero(z0, batch)[0]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    got = st.full_params_from_shards(z1.shards, plan)
+    worst, moved = 0.0, 0.0
+    for (_, a), (_, b), (_, c) in zip(tree_flatten(got), tree_flatten(want),
+                                      tree_flatten(s0.params)):
+        worst = max(worst, (a - b).abs().max().item()
+                    / max(b.abs().max().item(), 1e-30))
+        moved = max(moved, (a - c).abs().max().item())
+    print(f"zero1 context: ZeRO-1 masters vs the replicated step's params, "
+          f"worst difference {worst:.3e} of the tensor's max (limit 1e-5); "
+          f"largest update {moved:.3e}", flush=True)
+    if not worst <= 1e-5 or moved == 0.0:
+        fail("the ZeRO-1 step disagrees with the replicated step")
+
+
 def run_cli():
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-           "resnet50", "--reduced", "--steps", "2", "--batch", "8"]
-    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                         timeout=600, env=dict(os.environ,
-                                               PYTHONPATH=str(SRC)))
-    print(out.stdout[-2000:], end="", flush=True)
-    if out.returncode != 0 or "run_stop" not in out.stdout:
-        fail(f"CLI exited {out.returncode}: {out.stderr[-3000:]}")
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "resnet50", "--reduced", "--steps", "2", "--batch", "8"]
+    for extra in ([], ["--comm", "ring", "--sharding", "zero1",
+                       "--update-kernel"]):
+        out = subprocess.run(base + extra, cwd=ROOT, capture_output=True,
+                             text=True, timeout=600,
+                             env=dict(os.environ, PYTHONPATH=str(SRC)))
+        print(out.stdout[-1500:], end="", flush=True)
+        if out.returncode != 0 or "run_stop" not in out.stdout:
+            fail(f"CLI {extra} exited {out.returncode}: "
+                 f"{out.stderr[-3000:]}")
 
 
 def main():
@@ -280,17 +572,34 @@ def main():
 
     phase("kernels")
     k1 = check_batched_sumsq(dev)
+    k2, k1_site = check_lars_update(dev)
+    k1.update(k1_site)
 
     phase("slice")
-    state0, batch_fn, k1["launches"] = run_slice(dev)
+    state0, batch_fn, k1_slice = run_slice(dev)
 
     phase("context")
     check_in_context(dev, state0, batch_fn)
+    del state0
+
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh()
+    try:
+        phase("zero1")
+        k1_zero1, k2["launches"] = run_zero1(dev, mesh)
+
+        phase("zero1 context")
+        check_zero1_in_context(dev, mesh, batch_fn)
+    finally:
+        mesh.destroy()
+    k1["launches"] = k1_slice + k1_zero1
+    k1["launches_by_path"] = {"slice": k1_slice, "zero1": k1_zero1}
+    k2["launches_by_path"] = {"zero1": k2["launches"]}
 
     phase("cli")
     run_cli()
 
-    print(json.dumps({"kernels": [k1]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

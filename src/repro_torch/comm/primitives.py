@@ -1,0 +1,145 @@
+"""Ring collective primitives over point-to-point sends (a port of
+``repro.comm.primitives``).
+
+Every schedule in ``repro_torch.comm.schedules`` is built from these, on
+flat 1-D buffers, along one mesh axis (``launch.mesh.Axis``):
+
+  ring_reduce_scatter  n-1 shift-and-add steps; rank r ends holding the
+                       fully reduced chunk ``(r+1) % n`` of the buffer.
+  ring_all_gather      n-1 shift-and-deposit steps; the inverse layout
+                       walk rebuilds the full buffer from per-rank chunks.
+  ring_all_reduce      reduce-scatter + all-gather, the bandwidth-optimal
+                       ring (2(n-1) messages of B/n).
+
+Chunk convention, as the reference's: the buffer is zero-padded to
+``n * c`` elements and viewed as ``(n, c)`` chunk rows. At reduce-scatter
+step ``s`` rank ``r`` sends its partial sum of chunk ``(r - s) % n`` to
+``r + 1`` and folds the one it receives into chunk ``(r - 1 - s) % n``.
+The neighbour exchange is one ``dist.batch_isend_irecv`` (send right,
+receive left), so the same code runs on gloo and NCCL.
+
+A size-1 axis returns the input unchanged, so schedules compose over
+meshes with trivial axes (the local ``(data, model=1)`` mesh). ``psum`` is
+the fused all-reduce (``dist.all_reduce``).
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.tree import tree_flatten, tree_unflatten
+
+
+def axes_size(axes) -> int:
+    """Product of the sizes of several mesh axes."""
+    n = 1
+    for a in axes:
+        n *= a.size
+    return n
+
+
+def psum(x: torch.Tensor, axes) -> torch.Tensor:
+    """Sum ``x`` over every rank of ``axes``, IN PLACE (callers hand a
+    buffer they own), one ``all_reduce`` per axis that a process group
+    spans; returns ``x``."""
+    for a in axes:
+        if a.group is not None:
+            dist.all_reduce(x, group=a.group)
+    return x
+
+
+def pmean_tree(tree, axes):
+    """Mean of a dict tree of tensors over ``axes`` in ONE all-reduce: the
+    leaves are packed into a flat f32 buffer and split back into their
+    own dtypes and shapes."""
+    flat = tree_flatten(tree)
+    leaves = [x for _, x in flat]
+    buf = torch.cat([x.detach().reshape(-1).float() for x in leaves])
+    buf = psum(buf, axes) / axes_size(axes)
+    out = [piece.reshape(x.shape).to(x.dtype) for piece, x in
+           zip(buf.split([x.numel() for x in leaves]), leaves)]
+    return tree_unflatten([p for p, _ in flat], out)
+
+
+def _ppermute(x: torch.Tensor, axis) -> torch.Tensor:
+    """Send ``x`` to the next rank on the axis, receive the previous
+    rank's (the reference's ``ppermute`` over ``(i, (i+1) % n)``)."""
+    n, i = axis.size, axis.index
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x, axis.ranks[(i + 1) % n], axis.group),
+           dist.P2POp(dist.irecv, out, axis.ranks[(i - 1) % n], axis.group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+def default_step_fn(recv, chunks, k):
+    """Fold the received partial into local chunk ``k``: recv + chunks[k]."""
+    return recv + chunks[k]
+
+
+def _as_chunks(x, n, pad_to: int = 1):
+    """View 1-D ``x`` as (n, c) zero-padded chunk rows; c % pad_to == 0."""
+    L = x.shape[0]
+    c = -(-L // (n * pad_to)) * pad_to
+    if n * c != L:
+        x = torch.nn.functional.pad(x, (0, n * c - L))
+    return x.reshape(n, c)
+
+
+def ring_reduce_scatter(x, axis, *, step_fn=None, pad_to: int = 1):
+    """Returns (shard, orig_len): rank r holds the summed chunk (r+1)%n."""
+    n = axis.size
+    L = x.shape[0]
+    if n == 1:
+        return x, L
+    step_fn = step_fn or default_step_fn
+    r = axis.index
+    chunks = _as_chunks(x, n, pad_to)
+    acc = chunks[r]
+    for s in range(n - 1):
+        acc = _ppermute(acc, axis)
+        acc = step_fn(acc, chunks, (r - 1 - s) % n)
+    return acc, L
+
+
+def ring_all_gather(shard, axis, orig_len: int):
+    """Inverse of ``ring_reduce_scatter``'s layout: rebuild the flat buffer
+    (rank r starts holding chunk (r+1)%n), truncated to ``orig_len``."""
+    n = axis.size
+    if n == 1:
+        return shard
+    r = axis.index
+    out = shard.new_zeros((n,) + tuple(shard.shape))
+    out[(r + 1) % n] = shard
+    cur = shard
+    for t in range(1, n):
+        cur = _ppermute(cur, axis)
+        out[(r - t + 1) % n] = cur
+    return out.reshape(-1)[:orig_len]
+
+
+def ring_all_reduce(x, axis, *, step_fn=None, pad_to: int = 1):
+    """Bandwidth-optimal single-axis ring all-reduce (sum)."""
+    shard, L = ring_reduce_scatter(x, axis, step_fn=step_fn, pad_to=pad_to)
+    return ring_all_gather(shard, axis, L)
+
+
+def shard_index(axis) -> int:
+    """Which chunk of an ``n``-chunked buffer this rank owns under the ring
+    reduce-scatter layout: ``(r + 1) % n``."""
+    n = axis.size
+    if n == 1:
+        return 0
+    return (axis.index + 1) % n
+
+
+def slice_own_chunk(x, axis, *, pad_to: int = 1):
+    """Reduce-scatter tail for schedules without a native scatter (psum):
+    view the already fully reduced buffer as ``(n, c)`` chunk rows and
+    keep the chunk this rank owns under the ring layout."""
+    n = axis.size
+    if n == 1:
+        return x
+    return _as_chunks(x, n, pad_to)[shard_index(axis)]

@@ -10,8 +10,8 @@ each (``elem_offset`` marks where the span starts in the flattened
 tensor), and segment maps key on the *tensor* id.
 
 The packed buffer plus its per-chunk segment ids is the input layout of the
-batched-norm kernel (``kernels/batched_norm``). The shard helpers of the
-ZeRO ladder are ROADMAP §1 item 7.
+batched-norm kernel (``kernels/batched_norm``). The shard-aware layout of
+the ZeRO-1 path (``shard_elems`` … ``trust_scaled_mask``) is at the end.
 """
 from __future__ import annotations
 
@@ -71,6 +71,24 @@ class BucketPlan:
                 t += 1
             ids.append(t)
         return tuple(ids)
+
+    @property
+    def groups(self) -> Tuple[Tuple[TensorSlot, ...], ...]:
+        """Slots grouped per bucket, in packing (= backward-completion)
+        order: the static layer groups of §III-C.2, one collective each."""
+        out: List[List[TensorSlot]] = [[] for _ in self.bucket_sizes]
+        for slot in self.slots:
+            out[slot.bucket].append(slot)
+        return tuple(tuple(g) for g in out)
+
+    @property
+    def slot_is_final_span(self) -> Tuple[bool, ...]:
+        """Per slot: True on the LAST span of its tensor (every slot of an
+        unsplit plan). The final span lives in the tensor's highest bucket,
+        whose in-backward identity fires last."""
+        n = len(self.slots)
+        return tuple(i + 1 == n or self.slots[i + 1].elem_offset == 0
+                     for i in range(n))
 
 
 def make_plan(tree, *, bucket_mb: float = 4.0,
@@ -165,6 +183,34 @@ def unpack(bufs: List[torch.Tensor], plan: BucketPlan,
     return tree_unflatten(plan.paths, list(reversed(leaves)))
 
 
+def pack_group(leaves, slots, dtype=torch.bfloat16) -> torch.Tensor:
+    """One bucket group's leaves -> its flat wire buffer in ``dtype``
+    (``leaves`` ordered like ``slots``; each leaf is the FULL tensor, the
+    slot's ``elem_offset`` span is sliced out here), zero-padded per slot."""
+    buf = torch.zeros(sum(s.padded for s in slots), dtype=dtype,
+                      device=leaves[0].device)
+    at = 0
+    for slot, leaf in zip(slots, leaves):
+        buf[at:at + slot.size].copy_(
+            leaf.reshape(-1)[slot.elem_offset:slot.elem_offset + slot.size])
+        at += slot.padded
+    return buf
+
+
+def unpack_group(buf: torch.Tensor, slots, dtype=torch.float32):
+    """Inverse of :func:`pack_group`: per-slot values in ``dtype``. A slot
+    covering its whole tensor yields the reshaped tensor; a split span its
+    flat ``(size,)`` piece. The dtype is applied once on the buffer."""
+    buf = buf.to(dtype)
+    out = []
+    for s in slots:
+        piece = buf[s.offset:s.offset + s.size]
+        if s.elem_offset == 0 and s.size == math.prod(s.shape):
+            piece = piece.reshape(s.shape)
+        out.append(piece)
+    return out
+
+
 def segment_ids(plan: BucketPlan) -> np.ndarray:
     """Per-CHUNK tensor index over the *concatenated* buckets — the
     batched-norm kernel's segment map, non-decreasing. Split spans repeat
@@ -177,3 +223,80 @@ def segment_ids(plan: BucketPlan) -> np.ndarray:
 
 def concat_buckets(bufs: List[torch.Tensor]) -> torch.Tensor:
     return torch.cat(bufs) if len(bufs) > 1 else bufs[0]
+
+
+# --------------------------------------------------------------------------
+# shard-aware layout (ZeRO-1 sharded-update path)
+#
+# A bucket of L elements sharded n ways is zero-padded to n * shard_elems
+# and viewed as n contiguous CHUNK-aligned shards; shard k covers elements
+# [k * c, (k + 1) * c). This is ``comm.primitives.ring_reduce_scatter``'s
+# chunk view, so a reduce-scatter-terminal schedule's output on rank r IS
+# shard k = (r + 1) % n of this layout.
+
+def shard_elems(bucket_elems: int, n_shards: int) -> int:
+    """Per-shard element count c: the bucket padded to ``n_shards * c``
+    with ``c`` CHUNK-aligned."""
+    return -(-bucket_elems // (n_shards * CHUNK)) * CHUNK
+
+
+def pad_to_shards(buf: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """Zero-pad one packed bucket buffer to the sharded layout length."""
+    c = shard_elems(buf.shape[0], n_shards)
+    if n_shards * c != buf.shape[0]:
+        buf = torch.nn.functional.pad(buf, (0, n_shards * c - buf.shape[0]))
+    return buf
+
+
+def shard_sizes(plan: BucketPlan, n_shards: int) -> Tuple[int, ...]:
+    """Per-bucket shard length c (``shard_elems``)."""
+    return tuple(shard_elems(s, n_shards) for s in plan.bucket_sizes)
+
+
+def rotate_to_shards(buf: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """Packed bucket buffer -> the rank-major persistent-shard layout:
+    zero-pad to ``n_shards * c``, view as ``(n, c)`` rows, and rotate so
+    row r holds chunk ``(r + 1) % n``, the chunk rank r owns after a ring
+    reduce-scatter (``comm.primitives.shard_index``)."""
+    buf = pad_to_shards(buf, n_shards)
+    if n_shards == 1:
+        return buf
+    c = buf.shape[0] // n_shards
+    return torch.roll(buf.reshape(n_shards, c), -1, dims=0).reshape(-1)
+
+
+def unrotate_shards(buf: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """Inverse of ``rotate_to_shards`` (still padded to ``n_shards * c``;
+    callers slice to the bucket size)."""
+    if n_shards == 1:
+        return buf
+    c = buf.shape[0] // n_shards
+    return torch.roll(buf.reshape(n_shards, c), 1, dims=0).reshape(-1)
+
+
+def shard_segment_ids(plan: BucketPlan, n_shards: int) -> List[np.ndarray]:
+    """Per-bucket shard-aware segment maps: one ``(n_shards,
+    chunks_per_shard)`` int32 array per bucket whose row k holds the
+    tensor id (``slot_tensor_ids``) of each CHUNK in shard k. Padding
+    chunks past the bucket's last tensor repeat its id (their p/g/m are
+    zeros, so the packed update is a no-op there), which keeps every row
+    non-decreasing, as the batched-norm kernel's binary search needs."""
+    tids = plan.slot_tensor_ids
+    out = []
+    for b, size in enumerate(plan.bucket_sizes):
+        c = shard_elems(size, n_shards)
+        ids = []
+        for ti, slot in zip(tids, plan.slots):
+            if slot.bucket == b:
+                ids.extend([ti] * (slot.padded // CHUNK))
+        total = n_shards * c // CHUNK
+        ids.extend([ids[-1]] * (total - len(ids)))
+        out.append(np.asarray(ids, np.int32).reshape(n_shards, c // CHUNK))
+    return out
+
+
+def trust_scaled_mask(plan: BucketPlan) -> np.ndarray:
+    """Per-tensor bool mask, indexed by tensor id: True where LARS trust
+    scaling applies (>= 2-D tensors, as ``lars._is_scaled``)."""
+    return np.asarray([len(s.shape) >= 2 for s in plan.slots
+                       if s.elem_offset == 0], bool)

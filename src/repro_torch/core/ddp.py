@@ -1,0 +1,208 @@
+"""Explicit data-parallel gradient reduction (paper §III-C), a port of
+``repro.core.ddp``.
+
+Gradients are packed into the bucket plan's several-MB flat buffers, in
+backward-completion order (static layer groups, §III-C.2), and one
+collective runs per bucket: the named schedule of ``repro_torch.comm``
+(``psum``, ``ring``; ``bucketed`` is an alias of ``psum``).
+
+Two places to run them: ``allreduce_grads`` / ``reduce_scatter_grads`` run after
+the whole backward (``CommConfig.overlap=False``), while
+``wrap_params_for_overlap`` plants them *inside* the backward (the
+default): each bucket group's params pass through one
+``torch.autograd.Function`` identity whose backward packs the group's
+cotangents and runs the collective as soon as they exist. This works with
+``torch.autograd.grad`` over leaves (a post-accumulate-grad hook would
+not fire there). Every rank must build the same graph, so that the
+backward runs the collectives in the same order everywhere.
+
+``axes`` are the mesh's ``launch.mesh.Axis`` objects (every axis is data
+parallel). ZeRO-3's just-in-time gather is ROADMAP §1 item 7.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch.comm import primitives as prim
+from repro_torch.core import bucketing
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+
+
+def allreduce_grads(grads, *, strategy: str, axes: Sequence,
+                    plan: "bucketing.BucketPlan",
+                    comm_dtype=torch.bfloat16, use_kernel: bool = False):
+    """Reduce-mean gradients over the data-parallel axes after the
+    backward. ``comm_dtype`` is the wire dtype (paper §IV: bf16). Returns
+    fp32 gradients."""
+    from repro_torch.comm import get_schedule
+    schedule = get_schedule(strategy)
+    n = prim.axes_size(axes)
+    bufs = bucketing.pack(grads, plan, dtype=comm_dtype)
+    out = [schedule(buf, tuple(axes), use_kernel=use_kernel) for buf in bufs]
+    red = bucketing.unpack(out, plan, dtype=torch.float32)
+    return tree_map(lambda g: g / n, red)
+
+
+class _BucketIdentity(torch.autograd.Function):
+    """Identity over one bucket group's leaves (plus, on the sharded path,
+    a zero-valued gradient sink) whose backward runs the group's
+    collective. ``spec`` holds the group's static arguments."""
+
+    @staticmethod
+    def forward(ctx, spec, *args):
+        ctx.spec = spec
+        return args[:-1] if spec["sink"] else args
+
+    @staticmethod
+    def backward(ctx, *gs):
+        spec = ctx.spec
+        slots, axes = spec["slots"], spec["axes"]
+        n = prim.axes_size(axes)
+        buf = bucketing.pack_group(gs, slots, dtype=spec["comm_dtype"])
+        if spec["sink"]:
+            # reduce-scatter: the reduced-mean fp32 local shard is the
+            # sink's gradient; a leaf's cotangent is zeroed only in the
+            # group of its FINAL span (earlier groups of a split tensor
+            # still need the raw gradient to pack their own span)
+            shard = spec["fn"](buf, axes, use_kernel=spec["use_kernel"])
+            shard = shard.float() / n
+            outs = tuple(torch.zeros_like(g) if fin else g
+                         for g, fin in zip(gs, spec["finals"]))
+            return (None,) + outs + (shard,)
+        buf = spec["fn"](buf, axes, use_kernel=spec["use_kernel"])
+        pieces = bucketing.unpack_group(buf, slots, dtype=torch.float32)
+        outs = []
+        for slot, g, piece in zip(slots, gs, pieces):
+            if piece.shape == g.shape:          # slot covers the whole leaf
+                outs.append(piece / n)
+                continue
+            # split span: write the reduced span into the raw cotangent;
+            # the leaf's other spans belong to other groups, whose
+            # identities (chained) reduce them in turn
+            flat = g.float().reshape(-1).clone()
+            flat[slot.elem_offset:slot.elem_offset + slot.size] = piece / n
+            outs.append(flat.reshape(g.shape))
+        return (None,) + tuple(outs)
+
+
+def _wrap_param_groups(params, plan: "bucketing.BucketPlan", make_spec,
+                       extras=None):
+    """Route each bucket group's leaves through its identity. Slot i
+    describes leaf ``n-1-slot_tensor_ids[i]`` (the plan walks reverse
+    flatten order; a split tensor's spans map to one leaf). A leaf in
+    several groups is CHAINED through their identities, applied in
+    DECREASING group order so the backward fires them in bucket order
+    (group 0, the backward-completion head, first)."""
+    flat = tree_flatten(params)
+    leaves = [x for _, x in flat]
+    n_leaves = len(leaves)
+    if n_leaves != plan.n_tensors:
+        raise ValueError(f"tree has {n_leaves} leaves, plan "
+                         f"{plan.n_tensors} tensors")
+    leaf_idx = {id(slot): n_leaves - 1 - t
+                for t, slot in zip(plan.slot_tensor_ids, plan.slots)}
+    groups = plan.groups
+    for gi in range(len(groups) - 1, -1, -1):
+        group = groups[gi]
+        idxs = [leaf_idx[id(s)] for s in group]
+        args = [leaves[j] for j in idxs]
+        if extras is not None:
+            args.append(extras[gi])
+        outs = _BucketIdentity.apply(make_spec(gi, group), *args)
+        for j, o in zip(idxs, outs):
+            leaves[j] = o
+    return tree_unflatten([p for p, _ in flat], leaves)
+
+
+def make_shard_sinks(plan: "bucketing.BucketPlan", n_shards: int, *,
+                     device=None):
+    """Zero-valued gradient sinks for the in-backward reduce-scatter: one
+    fp32 ``(bucketing.shard_elems,)`` leaf per bucket, requiring grad.
+    Differentiating a ``wrap_params_for_overlap(..., shard_sinks=sinks)``
+    -wrapped loss with respect to them yields the per-bucket reduced-mean
+    fp32 local gradient shards."""
+    return tuple(torch.zeros(c, dtype=torch.float32, device=device,
+                             requires_grad=True)
+                 for c in bucketing.shard_sizes(plan, n_shards))
+
+
+def wrap_params_for_overlap(params, plan: "bucketing.BucketPlan", *,
+                            strategy: str, axes: Sequence,
+                            comm_dtype=torch.bfloat16,
+                            use_kernel: bool = False, shard_sinks=None):
+    """Overlap-aware bucket scheduling (paper §III-C.2): ``params`` with
+    each bucket group's leaves routed through an identity whose backward
+    performs that bucket's collective. Differentiating a loss of the
+    wrapped params yields already reduced-mean fp32 gradients, each
+    bucket's collective started the moment its group's cotangents exist.
+
+    ``shard_sinks`` (from ``make_shard_sinks``) switches each group's
+    collective to the schedule's reduce-scatter-terminal form (ZeRO-1):
+    the backward hands back only this rank's reduced-mean fp32 shard, as
+    the gradient of the matching sink; the params themselves need not
+    require grad. No full reduced gradient ever exists."""
+    axes = tuple(axes)
+    if shard_sinks is not None:
+        from repro_torch.comm import get_reduce_scatter
+        rs = get_reduce_scatter(strategy)
+        final_map = {id(s): fin for s, fin in zip(plan.slots,
+                                                  plan.slot_is_final_span)}
+
+        def shard_spec(gi, group):
+            return {"slots": group, "axes": axes, "fn": rs, "sink": True,
+                    "comm_dtype": comm_dtype, "use_kernel": use_kernel,
+                    "finals": tuple(final_map[id(s)] for s in group)}
+
+        return _wrap_param_groups(params, plan, shard_spec,
+                                  extras=shard_sinks)
+    from repro_torch.comm import get_schedule
+    schedule = get_schedule(strategy)
+    return _wrap_param_groups(
+        params, plan,
+        lambda gi, group: {"slots": group, "axes": axes, "fn": schedule,
+                           "sink": False, "comm_dtype": comm_dtype,
+                           "use_kernel": use_kernel})
+
+
+# --------------------------------------------------------------------------
+# ZeRO-1 sharded-update path
+
+def reduce_scatter_grads(grads, *, strategy: str, axes: Sequence,
+                         plan: "bucketing.BucketPlan",
+                         comm_dtype=torch.bfloat16, use_kernel: bool = False):
+    """POST-backward scatter (``CommConfig.overlap=False``): pack the
+    gradients into the bucket plan and stop each bucket's collective at
+    the reduce-scatter. Returns one fp32 reduced-MEAN shard per bucket,
+    this rank's contiguous CHUNK-aligned slice (``shard_index`` layout)."""
+    from repro_torch.comm import get_reduce_scatter
+    rs = get_reduce_scatter(strategy)
+    n = prim.axes_size(axes)
+    return [rs(buf, tuple(axes), use_kernel=use_kernel).float() / n
+            for buf in bucketing.pack(grads, plan, dtype=comm_dtype)]
+
+
+def all_gather_params(param_shards, plan: "bucketing.BucketPlan", *,
+                      shard_axis, wire_dtype=torch.bfloat16):
+    """Gather phase: cast each fp32 master shard to the wire dtype once,
+    ring all-gather along the shard axis, and unpack into the full fp32
+    param tree (one collective per bucket)."""
+    # a copy even where the wire dtype is the masters' (f32 wire, one
+    # rank): the update writes the shards in place, and the gathered
+    # forward copy must not follow it
+    bufs = [prim.ring_all_gather(shard.to(wire_dtype, copy=True), shard_axis,
+                                 plan.bucket_sizes[b])
+            for b, shard in enumerate(param_shards)]
+    return bucketing.unpack(bufs, plan, dtype=torch.float32)
+
+
+def gather_ahead_params(shards, plan: "bucketing.BucketPlan", *,
+                        shard_axis, wire_dtype=torch.bfloat16):
+    """Gather-AHEAD: rebuild this step's forward params from the persistent
+    master shards (``TrainState.shards``, updated by the previous step) at
+    the START of the step. Same collectives as ``all_gather_params``; only
+    when it runs differs. The fp32 masters never round-trip through the
+    wire dtype: only this forward copy is quantised."""
+    return all_gather_params(shards, plan, shard_axis=shard_axis,
+                             wire_dtype=wire_dtype)

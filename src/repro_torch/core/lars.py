@@ -12,12 +12,15 @@ classifier head's ``head/w`` included (the reference's ``_is_scaled``);
 
 Per-tensor norms are computed either one tensor at a time or, with
 ``OptConfig.use_kernel``, by the batched-norm kernel over the bucket-packed
-buffer (``kernels/ops.tree_norms``). The ZeRO-1 sharded update is ROADMAP
-§1 item 7.
+buffer (``kernels/ops.tree_norms``). The ZeRO-1 sharded update
+(``sharded_update_from_shards``) works on this rank's packed bucket shards:
+its trust norms always go through the batched-norm wrapper (the kernel on
+the card), and ``update_kernel=True`` runs the fused packed update kernel.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -124,3 +127,98 @@ def update(params, grads, mom, lr, cfg: OptConfig):
     new_params = tree_map(lambda t: t[0], out)
     new_mom = tree_map(lambda t: t[1], out)
     return new_params, new_mom
+
+
+# --------------------------------------------------------------------------
+# ZeRO-1 sharded update (explicit-DP path; see core/ddp.py)
+
+@functools.lru_cache(maxsize=16)
+def _shard_maps(plan, n_shards: int, k: int, device: torch.device):
+    """Rank-``k`` row of every bucket's shard segment map, on ``device``,
+    built once per plan. Each row must be non-decreasing: the
+    batched-norm kernel finds a segment by binary search."""
+    from repro_torch.core import bucketing
+    segs = []
+    for m in bucketing.shard_segment_ids(plan, n_shards):
+        row = m[k]
+        if (row[1:] < row[:-1]).any():
+            raise ValueError("shard segment map is not non-decreasing")
+        segs.append(torch.from_numpy(row.copy()).to(device))
+    return tuple(segs)
+
+
+@functools.lru_cache(maxsize=16)
+def _scaled_mask(plan, device: torch.device):
+    from repro_torch.core import bucketing
+    return torch.from_numpy(bucketing.trust_scaled_mask(plan)).to(device)
+
+
+def shard_trust_ratios(param_shards, grad_shards, segs, plan, cfg: OptConfig,
+                       *, shard_axis):
+    """Per-tensor LARS trust ratios from summed partial norms.
+
+    Each rank holds one contiguous shard per bucket; a tensor's squared
+    norm is the sum over the shard axis of every shard's per-CHUNK partial
+    sums, routed to the tensor by the shard-aware segment map (split spans
+    share one id). The partial sums are ``kernels.batched_norm.
+    batched_sumsq`` (the kernel for CUDA tensors, 2 launches a bucket);
+    the sum over ranks is ONE all-reduce of both vectors. Returns a
+    ``(n_tensors,)`` f32 trust vector indexed by tensor id (1.0 for <2-D
+    tensors and for sgdm)."""
+    from repro_torch.comm import primitives as prim
+    from repro_torch.kernels.batched_norm import batched_sumsq
+    dev = param_shards[0].device
+    if cfg.kind != "lars":
+        return torch.ones(plan.n_tensors, dtype=torch.float32, device=dev)
+    sq = torch.zeros(2, plan.n_tensors, dtype=torch.float32, device=dev)
+    for p_s, g_s, seg in zip(param_shards, grad_shards, segs):
+        sq[0] += batched_sumsq(p_s, seg, plan.n_tensors)
+        sq[1] += batched_sumsq(g_s, seg, plan.n_tensors)
+    sq = prim.psum(sq, (shard_axis,))
+    wn, gn = torch.sqrt(sq[0]), torch.sqrt(sq[1])
+    raw = cfg.trust_coef * wn / (gn + cfg.weight_decay * wn + cfg.eps)
+    return torch.where(_scaled_mask(plan, dev) & (wn > 0), raw, 1.0)
+
+
+@torch.no_grad()
+def sharded_update_from_shards(p_shards, grad_shards, mom_shards, lr,
+                               cfg: OptConfig, plan, *, shard_axis,
+                               n_shards: int, update_kernel: bool = False):
+    """One ZeRO-1 optimizer step on this rank's PERSISTENT bucket shards.
+
+    ``p_shards`` / ``grad_shards`` / ``mom_shards``: per-bucket local fp32
+    buffers of ``bucketing.shard_elems`` length: the master shards carried
+    in ``TrainState.shards``, the reduce-scatter output, and the sharded
+    momentum. Returns ``(param_shards, mom_shards)``. With
+    ``update_kernel=True`` the fused update kernel (``kernels.lars_update``)
+    updates ``p_shards`` and ``mom_shards`` IN PLACE and returns them;
+    otherwise the plain version (``kernels.ref``) returns new buffers."""
+    from repro_torch.comm.primitives import shard_index
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lars_update import lars_packed_update
+    if cfg.kind not in ("lars", "sgdm"):
+        raise ValueError(f"sharded_update supports lars/sgdm, not "
+                         f"{cfg.kind!r}")
+    if cfg.nesterov:
+        raise ValueError("nesterov momentum is unsupported on shards")
+    segs = _shard_maps(plan, n_shards, shard_index(shard_axis),
+                       p_shards[0].device)
+    trust = shard_trust_ratios(p_shards, grad_shards, segs, plan, cfg,
+                               shard_axis=shard_axis)
+    if update_kernel and p_shards[0].is_cuda:
+        # one upload a step for every launch; the kernel reads it there
+        lr = torch.as_tensor(lr, dtype=torch.float32).to(
+            p_shards[0].device, non_blocking=True)
+    new_p, new_m = [], []
+    for p_s, g_s, m_s, seg in zip(p_shards, grad_shards, mom_shards, segs):
+        if update_kernel:
+            p2, m2 = lars_packed_update(p_s, g_s, m_s, trust, seg, lr=lr,
+                                        momentum=cfg.momentum,
+                                        wd=cfg.weight_decay, inplace=True)
+        else:
+            p2, m2 = ref.lars_packed_update(p_s, g_s, m_s, trust, seg, lr=lr,
+                                            momentum=cfg.momentum,
+                                            wd=cfg.weight_decay)
+        new_p.append(p2)
+        new_m.append(m2)
+    return tuple(new_p), tuple(new_m)

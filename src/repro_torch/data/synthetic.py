@@ -44,10 +44,28 @@ def prototype_imagenet(cfg, *, batch: int, step: int, seed: int = 0,
     return {"images": imgs, "labels": labels}
 
 
-def make_batch_fn(cfg, shape, *, seed: int = 0, device):
-    """step -> batch function for the training loop (conv family)."""
+def make_batch_fn(cfg, shape, *, seed: int = 0, device, mesh=None):
+    """step -> batch function for the training loop (conv family). With a
+    ``mesh`` (``launch.mesh``) each rank gets rows ``[r·B/n, (r+1)·B/n)``
+    of the global batch, r its position over the mesh's axes in order:
+    the split the reference's ``P(axes)`` batch sharding gives."""
     if cfg.family != "conv":
         raise NotImplementedError(
             "token batches for the LM families are ROADMAP §1 item 10")
-    return lambda step: prototype_imagenet(
-        cfg, batch=shape.global_batch, step=step, seed=seed, device=device)
+    B = shape.global_batch
+    r, n = 0, 1
+    if mesh is not None:
+        for a in mesh.axes:
+            r, n = r * a.size + a.index, n * a.size
+    if B % n:
+        raise ValueError(f"global batch {B} does not split over {n} ranks")
+    lo, hi = r * B // n, (r + 1) * B // n
+
+    def batch_fn(step):
+        batch = prototype_imagenet(cfg, batch=B, step=step, seed=seed,
+                                   device=device)
+        if n == 1:
+            return batch
+        return {k: v[lo:hi] for k, v in batch.items()}
+
+    return batch_fn

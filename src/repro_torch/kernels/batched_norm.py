@@ -13,6 +13,7 @@ Layout (produced by ``repro_torch.core.bucketing``):
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -25,6 +26,7 @@ _ENTRY = {torch.float32: "batched_sumsq_f32",
           torch.bfloat16: "batched_sumsq_bf16"}
 
 
+@functools.lru_cache(maxsize=None)
 def _entry(dtype):
     fn = getattr(backend.load_library("batched_norm"), _ENTRY[dtype])
     fn.argtypes = [_P, _P, _P, _P, _I, _I, _P]
@@ -60,13 +62,13 @@ def batched_sumsq(flat, seg_ids, n_tensors: int):
         raise ValueError("batched_sumsq: inputs must be contiguous")
     if flat.data_ptr() % (4 * flat.element_size()):
         raise ValueError("batched_sumsq: flat must be aligned to 4 elements")
-    fn = _entry(flat.dtype)
     partial = torch.empty(n_chunks, dtype=torch.float32, device=flat.device)
     out = torch.empty(n_tensors, dtype=torch.float32, device=flat.device)
     with torch.cuda.device(flat.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(flat.data_ptr(), seg_ids.data_ptr(), partial.data_ptr(),
-                out.data_ptr(), n_chunks, n_tensors, stream)
+        rc = _entry(flat.dtype)(flat.data_ptr(), seg_ids.data_ptr(),
+                                partial.data_ptr(), out.data_ptr(), n_chunks,
+                                n_tensors,
+                                torch.cuda.current_stream().cuda_stream)
     batched_sumsq.launches += 1
     backend.check_launch(rc, "batched_sumsq")
     return out

@@ -1,18 +1,29 @@
 """Where a training step's time goes, on the card.
 
-Drives the port's replicated step (full-width ResNet-50 by default) and
-prints one JSON object:
+Drives the port's replicated step (full-width ResNet-50 by default) or,
+with ``--sharding zero1``, its ZeRO-1 explicit-DP step over every rank of
+the job (one without ``torchrun``; psum schedule, 4 MB buckets, gather
+ahead, in-backward reduce-scatter, the fused update kernel unless
+``--no-kernel``), or with ``--comm psum|bucketed|ring`` the replicated
+explicit-DP step, and prints one JSON object (one per rank):
 
 * ``step_ms``: host clock around whole steps ending in a device sync
   (median and quartiles over ``--steps``), images/s, peak memory;
-* ``phase_ms``: CUDA-event times of the step's three phases, run one after
+* ``phase_ms``: CUDA-event times of the step's phases, run one after
   another: forward (loss), backward (``autograd.grad``), optimizer
-  (``lars.update``, with the batched-norm kernel or without);
+  (``lars.update``, with the batched-norm kernel or without); for zero1
+  also the gather ahead, with the reduce-scatters inside the backward and
+  the sharded update (K1 + K2) as the optimizer; none for the replicated
+  explicit step;
 * ``profile``: from ``torch.profiler`` over ``PROFILE_STEPS`` steps, the
   device time per kernel group and the device's idle share of the window
   (1 − the union of kernel intervals over the window's span).
 
   PYTHONPATH=src python -m repro_torch.launch.profile_step --batch 64
+  PYTHONPATH=src python -m repro_torch.launch.profile_step --batch 64 \\
+      --sharding zero1
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m \\
+      repro_torch.launch.profile_step --batch 256 --comm psum   # 64 a card
 """
 from __future__ import annotations
 
@@ -24,12 +35,14 @@ import time
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.configs.base import CommConfig
 from repro_torch.configs.shapes import InputShape
-from repro_torch.core import lars
+from repro_torch.core import ddp, lars
 from repro_torch.core.precision import cast_to_compute
 from repro_torch.core.schedule import ScheduleConfig, make_schedule
 from repro_torch.data.synthetic import make_batch_fn
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.registry import build_model
 from repro_torch.train.state import init_state
 from repro_torch.train.step import make_loss_fn, make_train_step
@@ -39,6 +52,8 @@ WARMUP, PROFILE_STEPS = 3, 3
 
 #: kernel-name substrings -> group, first match wins
 GROUPS = (("batched_sumsq", ("chunk_sumsq", "segment_sum")),
+          ("lars_packed_update", ("lars_update",)),
+          ("nccl", ("nccl",)),
           ("convolution", ("conv", "cudnn", "xmma", "sm90_", "implicit",
                            "wgrad", "dgrad", "fprop", "gemm", "cutlass")),
           ("reduction", ("reduce",)),
@@ -66,9 +81,21 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--no-kernel", action="store_true",
-                    help="per-tensor LARS norms instead of the kernel")
+                    help="per-tensor LARS norms instead of the kernel; "
+                         "zero1: the plain packed update instead of K2 "
+                         "(its trust norms always run K1)")
+    ap.add_argument("--sharding", default="replicated",
+                    choices=["replicated", "zero1"])
+    ap.add_argument("--comm", default=None,
+                    choices=["xla", "psum", "bucketed", "ring"],
+                    help="default: 'psum' with --sharding zero1, else "
+                         "'xla'; an explicit schedule runs over every rank "
+                         "of the job (torchrun)")
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
+    comm = args.comm or ("psum" if args.sharding == "zero1" else "xla")
+    if comm == "xla" and args.sharding != "replicated":
+        ap.error("--sharding zero1 needs an explicit schedule (--comm)")
 
     dev = resolve_device(args.device)
     cfg = get_config("resnet50")
@@ -78,10 +105,22 @@ def main(argv=None):
     opt = lars.OptConfig(use_kernel=not args.no_kernel)
     sched = make_schedule(ScheduleConfig(base_lr=0.1,
                                          total_steps=10 ** 6))
-    step = make_train_step(model, opt, sched)
+    mesh = None
+    if comm != "xla":
+        mesh = make_local_mesh(device=args.device)
+        dev = mesh.device
+        step = make_train_step(model, opt, sched, mesh=mesh, comm=CommConfig(
+            strategy=comm, sharding=args.sharding, overlap=True,
+            update_kernel=not args.no_kernel, bucket_mb=4))
+        state = init_state(model, 0, device=dev,
+                           sharded_plan=(step.bucket_plan
+                                         if step.shard_update else None),
+                           n_shards=step.n_shards, mesh=mesh)
+    else:
+        step = make_train_step(model, opt, sched)
+        state = init_state(model, 0, device=dev)
     batch_fn = make_batch_fn(cfg, InputShape("p", "train", 0, args.batch),
-                             device=dev)
-    state = init_state(model, 0, device=dev)
+                             device=dev, mesh=mesh)
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
         else (lambda: None)
 
@@ -102,17 +141,59 @@ def main(argv=None):
     out = {"device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                       else "cpu"),
            "arch": cfg.arch_id, "batch": args.batch,
-           "use_kernel": opt.use_kernel, "steps": args.steps,
+           "comm": comm, "sharding": args.sharding,
+           "ranks": mesh.size if mesh else 1,
+           "use_kernel": opt.use_kernel,
+           "steps": args.steps,
            "step_ms": step_ms,
            "images_per_s": args.batch / step_ms["median"] * 1e3,
            "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                             if dev.type == "cuda" else None)}
 
     if dev.type == "cuda":
-        out["phase_ms"] = _phases(model, opt, state, batch_fn(0), dev)
+        if comm == "xla":
+            out["phase_ms"] = _phases(model, opt, state, batch_fn(0), dev)
+        elif args.sharding == "zero1":
+            out["phase_ms"] = _phases_zero1(model, opt, state, batch_fn(0),
+                                            dev, step)
         out["profile"] = _profile(step, state, batch_fn, PROFILE_STEPS, dev)
+    if mesh is not None:
+        mesh.destroy()
     print(json.dumps(out), flush=True)
     return out
+
+
+def _phases_zero1(model, opt, state, batch, dev, step, reps: int = 5):
+    """Median CUDA-event time of the ZeRO-1 step's phases: the gather
+    ahead, the forward, the backward (with the in-backward
+    reduce-scatters) and the sharded update (K1 trust norms + K2)."""
+    loss_fn = make_loss_fn(model)
+    plan, axes = step.bucket_plan, step.mesh.axes
+    axis = step.mesh.axis(step.shard_axis)
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    acc = {"gather": [], "forward": [], "backward": [], "optimizer": []}
+    for _ in range(reps):
+        shards = [x.clone() for x in state.shards]
+        mom = [x.clone() for x in state.mom]
+        e = [ev() for _ in range(5)]
+        e[0].record()
+        params = ddp.gather_ahead_params(shards, plan, shard_axis=axis)
+        e[1].record()
+        sinks = ddp.make_shard_sinks(plan, step.n_shards, device=dev)
+        p = ddp.wrap_params_for_overlap(params, plan, strategy=step.comm,
+                                        axes=axes, shard_sinks=sinks)
+        total, _ = loss_fn(p, batch, state.bn_state)
+        e[2].record()
+        g_shards = torch.autograd.grad(total, sinks)
+        e[3].record()
+        lars.sharded_update_from_shards(
+            shards, list(g_shards), mom, 0.1, opt, plan, shard_axis=axis,
+            n_shards=step.n_shards, update_kernel=opt.use_kernel)
+        e[4].record()
+        torch.cuda.synchronize(dev)
+        for k, (a, b) in zip(acc, zip(e, e[1:])):
+            acc[k].append(a.elapsed_time(b))
+    return {k: statistics.median(v) for k, v in acc.items()}
 
 
 def _phases(model, opt, state, batch, dev, reps: int = 5):

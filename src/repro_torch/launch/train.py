@@ -6,6 +6,13 @@ Example:
       --reduced --batch 8 --steps 2            # on the card
   PYTHONPATH=src python -m repro_torch.launch.train --arch resnet50 \\
       --reduced --batch 8 --steps 2 --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --arch resnet50 --reduced --batch 8 --steps 2 --comm ring \\
+      --sharding zero1 --device cpu        # ZeRO-1 on two gloo ranks
+
+An explicit schedule (``--comm psum|bucketed|ring``) runs over a process
+group of every rank of the job (``launch.mesh``: NCCL on the card, gloo
+on the CPU; one process without ``torchrun``).
 
 The reference's flags for parts not ported yet are accepted by name and
 exit with the ROADMAP item that will bring them.
@@ -16,6 +23,7 @@ import argparse
 import json
 
 from repro_torch.configs import get_config
+from repro_torch.configs.base import CommConfig
 from repro_torch.configs.shapes import InputShape
 from repro_torch.core import lars
 from repro_torch.core.schedule import ScheduleConfig, linear_scaled_lr, \
@@ -25,14 +33,13 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.models.registry import build_model
 from repro_torch.train import loop
 from repro_torch.train.state import init_state
-from repro_torch.train.step import make_eval_step, make_train_step
+from repro_torch.train.step import SCHEDULES_NOT_PORTED, make_eval_step, \
+    make_train_step
 
 #: reference flag -> ROADMAP §1 item that ports it
 _NOT_PORTED = {
-    "--bucket-mb": 6, "--no-overlap": 6, "--model-parallel": 6,
-    "--backward-profile": 6,
-    "--sharding": 7, "--gather": 7, "--shard-update": 7,
-    "--update-kernel": 7, "--no-gather-ahead": 7,
+    "--model-parallel": 6, "--backward-profile": 7,
+    "--shard-update": 7, "--no-gather-ahead": 7,
     "--ckpt-dir": 8, "--ckpt-every": 8, "--resume-elastic": 8,
     "--keep-last-k": 8, "--step-timeout-s": 8, "--max-step-retries": 8,
     "--inject-fault": 8, "--guard": 8, "--rollback-ring": 8,
@@ -54,9 +61,26 @@ def main(argv=None):
                     choices=["lars", "sgdm", "lamb"])
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--comm", default="xla",
-                    help="only 'xla' (the replicated single-device step) is "
-                         "ported; the explicit-DP schedules are ROADMAP §1 "
-                         "item 6")
+                    choices=["xla", "psum", "bucketed", "ring",
+                             *SCHEDULES_NOT_PORTED],
+                    help="'xla': the replicated single-device step; else "
+                         "an explicit-DP schedule over every rank")
+    ap.add_argument("--bucket-mb", default=4.0, type=float,
+                    help="bucket size in MB ('auto', the autotuner, is "
+                         "ROADMAP §1 item 7)")
+    ap.add_argument("--no-overlap", action="store_true",
+                    help="post-backward collectives instead of issuing "
+                         "each bucket's collective inside the backward")
+    ap.add_argument("--sharding", default=None,
+                    choices=["replicated", "zero1", "zero2", "zero3"],
+                    help="'zero1' reduce-scatters the grads, updates this "
+                         "rank's fp32 master shards and all-gathers the "
+                         "params (zero2/zero3: ROADMAP §1 item 7)")
+    ap.add_argument("--gather", default=None, choices=["ahead", "at_end", "per_group"],
+                    help="zero1 param gather: at the start of the next "
+                         "step ('ahead', default) or at the end of this one")
+    ap.add_argument("--update-kernel", action="store_true",
+                    help="fused LARS update kernel on the zero1 shards")
     ap.add_argument("--lr", type=float, default=None,
                     help="default: linear-scaling rule from batch size")
     ap.add_argument("--warmup", type=int, default=None)
@@ -78,14 +102,32 @@ def main(argv=None):
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             ap.error(f"{flag} is not ported to repro_torch yet "
                      f"(ROADMAP §1 item {item})")
-    if args.comm != "xla":
+    if args.comm in SCHEDULES_NOT_PORTED:
         ap.error(f"--comm {args.comm} is not ported to repro_torch yet "
                  f"(ROADMAP §1 item 6)")
+    if args.sharding in ("zero2", "zero3") or args.gather == "per_group":
+        ap.error("--sharding zero2|zero3 and --gather per_group are not "
+                 "ported to repro_torch yet (ROADMAP §1 item 7)")
+    if args.sharding == "zero1" and args.comm == "xla":
+        ap.error("--sharding zero1 needs an explicit-DP schedule (--comm "
+                 "psum|bucketed|ring), not 'xla'")
     return _run(args)
 
 
 def _run(args):
-    device = resolve_device(args.device)
+    mesh = None
+    if args.comm != "xla":
+        from repro_torch.launch.mesh import make_local_mesh
+        mesh = make_local_mesh(device=args.device)
+    try:
+        return _train(args, mesh)
+    finally:
+        if mesh is not None:
+            mesh.destroy()
+
+
+def _train(args, mesh):
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -99,12 +141,23 @@ def _run(args):
     opt = lars.OptConfig(kind=args.optimizer, momentum=args.momentum,
                          weight_decay=args.weight_decay)
     shape = InputShape("cli", "train", args.seq, args.batch)
-    batch_fn = make_batch_fn(cfg, shape, seed=args.seed, device=device)
+    batch_fn = make_batch_fn(cfg, shape, seed=args.seed, device=device,
+                             mesh=mesh)
+    comm = CommConfig(strategy=args.comm, bucket_mb=args.bucket_mb,
+                      overlap=not args.no_overlap,
+                      update_kernel=args.update_kernel,
+                      sharding=args.sharding, gather=args.gather)
     train_step = make_train_step(model, opt, sched, smoothing=args.smoothing,
+                                 mesh=mesh, comm=comm,
                                  grad_accum=args.grad_accum)
     eval_step = make_eval_step(model) if args.eval_every else None
+    sharded = getattr(train_step, "shard_update", False)
     state = init_state(model, args.seed, device=device,
-                       opt_kind=args.optimizer)
+                       opt_kind=args.optimizer,
+                       sharded_plan=(train_step.bucket_plan if sharded
+                                     else None),
+                       n_shards=getattr(train_step, "n_shards", 1),
+                       mesh=mesh)
     state, history = loop.train(
         state, train_step, batch_fn, steps=args.steps, eval_step=eval_step,
         eval_batch_fn=batch_fn, eval_every=args.eval_every, seed=args.seed)

@@ -30,6 +30,39 @@ def mlperf_log(tag: str, value=None):
     obs_metrics.event(tag, value, where=_WHERE)
 
 
+def make_params_reader(train_step: Callable) -> Callable:
+    """The params evals must read. A ZeRO-1 state carries its fp32 masters
+    in ``state.shards``; with gather-ahead (the default) ``state.params``
+    is the forward copy, one update BEHIND them. So for a sharded step
+    this reads the masters from the shards, gathering every rank's shard
+    along the shard axis; for a replicated step it is ``state.params``."""
+    if getattr(train_step, "sharding", "replicated") == "replicated":
+        return lambda state: state.params
+    import torch.distributed as dist
+    from repro_torch.train.state import full_params_from_shards
+    plan, n = train_step.bucket_plan, train_step.n_shards
+    axis = train_step.mesh.axis(train_step.shard_axis)
+
+    def rows(shard):
+        if n == 1:
+            return shard
+        parts = [torch.empty_like(shard) for _ in range(n)]
+        dist.all_gather(parts, shard, group=axis.group)
+        return torch.cat(parts)
+
+    def read(state: TrainState):
+        if state.shards is None:
+            return state.params
+        return full_params_from_shards([rows(s) for s in state.shards],
+                                       plan, n)
+    return read
+
+
+def authoritative_params(state: TrainState, train_step: Callable):
+    """One-off form of :func:`make_params_reader`."""
+    return make_params_reader(train_step)(state)
+
+
 def _sync(metrics) -> None:
     """Wait for the step, as the reference's ``block_until_ready``."""
     if metrics["loss"].is_cuda:
@@ -49,6 +82,8 @@ def train(state: TrainState, train_step: Callable, batch_fn: Callable, *,
             raise NotImplementedError(
                 f"loop.train({name}=...) is not ported to repro_torch yet "
                 f"(ROADMAP §1 item 8)")
+    read_params = make_params_reader(train_step)
+    mesh = getattr(train_step, "mesh", None)
     mlperf_log("run_start")
     mlperf_log("run_set_random_seed", seed)
     history = []
@@ -68,8 +103,11 @@ def train(state: TrainState, train_step: Callable, batch_fn: Callable, *,
                 and (i + 1) % eval_every == 0:
             mlperf_log("eval_start")
             eb = eval_batch_fn(state.step + 100_000)
-            em = {k: float(v) for k, v in
-                  eval_step(state.params, eb, state.bn_state).items()}
+            em = eval_step(read_params(state), eb, state.bn_state)
+            if mesh is not None:     # each rank evaluated its own rows
+                from repro_torch.comm.primitives import pmean_tree
+                em = pmean_tree(em, mesh.axes)
+            em = {k: float(v) for k, v in em.items()}
             mlperf_log("eval_accuracy",
                        {"step": i, **{k: round(v, 4) for k, v in em.items()}})
             mlperf_log("eval_stop")

@@ -1,32 +1,93 @@
 """Train state: fp32 master params + momentum (the paper's mixed-precision
-scheme keeps the update in fp32), BN statistics for the conv family.
+scheme keeps the update in fp32), BN statistics for the conv family, and
+on the ZeRO-1 path the persistent fp32 master shards.
 
 The step counter is a host integer: the schedule and the data are
 functions of it, and keeping it off the device spares a sync per step.
-The sharded states of the ZeRO ladder are ROADMAP §1 item 7.
+
+Sharded layouts: ``init_packed_momentum``, ``init_packed_shards`` and
+``full_params_from_shards`` work on the reference's GLOBAL layout (one
+``(n_shards * c,)`` buffer per bucket, rank-major: row r holds the chunk
+rank r owns), so they match it bit for bit. A rank keeps only its own row
+(``local_shards``) in ``TrainState.shards`` and ``TrainState.mom``.
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
-from repro_torch.core import lars, pinit
+import torch
+
+from repro_torch.core import bucketing, lars, pinit
 from repro_torch.kernels.backend import resolve_device
 
 
 class TrainState(NamedTuple):
     step: int
-    params: Any          # fp32 master tree
-    mom: Any             # fp32 momentum tree (lamb: {'m', 'v', 'count'})
+    params: Any          # fp32 master tree; ZeRO-1: the gathered forward
+                         # copy (with gather='ahead' one update behind)
+    mom: Any             # fp32 momentum tree (lamb: {'m', 'v', 'count'});
+                         # sharded: this rank's packed bucket shards
     bn_state: Any = None  # resnet only
+    shards: Any = None   # ZeRO-1: this rank's fp32 master shards, one flat
+                         # buffer per bucket; the authoritative masters
 
 
-def init_state(model, seed: int = 0, *, device=None,
-               opt_kind: str = "lars") -> TrainState:
-    """Replicated single-device state on ``device`` (default: the card)."""
+def init_packed_momentum(plan, n_shards: int = 1, *, device=None):
+    """ZeRO-1 sharded momentum in the global layout: one zero fp32
+    ``(n_shards * bucketing.shard_elems,)`` buffer per bucket."""
+    return tuple(torch.zeros(n_shards * bucketing.shard_elems(s, n_shards),
+                             dtype=torch.float32, device=device)
+                 for s in plan.bucket_sizes)
+
+
+def init_packed_shards(params, plan, n_shards: int = 1):
+    """ZeRO-1 persistent master shards in the global layout: the fp32
+    params packed into the bucket plan and each bucket rotated into the
+    rank-major sharded layout (``bucketing.rotate_to_shards``)."""
+    bufs = bucketing.pack(params, plan, dtype=torch.float32)
+    return tuple(bucketing.rotate_to_shards(b, n_shards) for b in bufs)
+
+
+def full_params_from_shards(shards, plan, n_shards: int = 1):
+    """The full fp32 master param tree from the global shard buffers: the
+    exact inverse of ``init_packed_shards``, in buffers of its own. With
+    gather-ahead this, not ``state.params``, is the authoritative read of
+    a sharded state."""
+    bufs = [bucketing.unrotate_shards(b, n_shards)[:plan.bucket_sizes[i]]
+            .clone() for i, b in enumerate(shards)]   # no view of shards
+    return bucketing.unpack(bufs, plan, dtype=torch.float32)
+
+
+def local_shards(bufs, n_shards: int, index: int):
+    """Rank ``index``'s row of each global sharded buffer, as buffers of
+    its own (``TrainState.shards`` / ``mom`` on the sharded path)."""
+    return tuple(b.reshape(n_shards, -1)[index].clone() for b in bufs)
+
+
+def init_state(model, seed: int = 0, *, device=None, opt_kind: str = "lars",
+               sharded_plan=None, n_shards: int = 1,
+               mesh=None) -> TrainState:
+    """State on ``device`` (default: the card). ``sharded_plan`` (a
+    ``BucketPlan``, typically ``train_step.bucket_plan``) switches the
+    momentum to the packed sharded layout of ``sharding='zero1'`` and
+    adds the persistent master shards; each rank keeps the row of its
+    position on the mesh's shard axis (0 without a ``mesh``)."""
     device = resolve_device(device)
     params = pinit.materialize(model.param_pd, seed, device)
-    mom = lars.init_momentum(params, opt_kind)
+    shards = None
+    if sharded_plan is not None:
+        index = 0
+        if mesh is not None:
+            from repro_torch.comm.schedules import shard_axis
+            index = shard_axis(mesh.axes).index
+        mom = local_shards(init_packed_momentum(sharded_plan, n_shards,
+                                                device=device),
+                           n_shards, index)
+        shards = local_shards(init_packed_shards(params, sharded_plan,
+                                                 n_shards), n_shards, index)
+    else:
+        mom = lars.init_momentum(params, opt_kind)
     bn = None
     if model.bn_state_pd is not None:
         bn = pinit.materialize(model.bn_state_pd, seed, device)
-    return TrainState(0, params, mom, bn)
+    return TrainState(0, params, mom, bn, shards)

@@ -1,23 +1,37 @@
 """Train/eval steps (a port of ``repro.train.step``).
 
-The port runs the reference's ``comm='xla'`` replicated step on a single
-device: the loss is label-smoothed cross entropy (paper §III-A.2), the
-optimizer LARS or momentum-SGD (paper §III-A.1) on fp32 masters with bf16
-compute (paper §IV). Gradients are taken with respect to the bf16 compute
-copy of the weights, as in the reference: each bf16 copy is an autograd
-leaf of its own, not a cast of the master that autograd follows, so the
-gradients arrive in bf16 and the optimizer upcasts them.
+The loss is label-smoothed cross entropy (paper §III-A.2), the optimizer
+LARS or momentum-SGD (paper §III-A.1) on fp32 masters with bf16 compute
+(paper §IV). Two distribution paths:
 
-The explicit data-parallel schedules (ROADMAP §1 item 6), the ZeRO ladder
-(item 7) and the guard and tracer (item 8) are not ported yet; asking for
-them raises ``NotImplementedError``.
+* ``comm='xla'``: the replicated single-device step. Gradients are taken
+  with respect to the bf16 compute copy of the weights, as in the
+  reference: each bf16 copy is an autograd leaf of its own, not a cast of
+  the master that autograd follows, so the gradients arrive in bf16 and
+  the optimizer upcasts them.
+* an explicit data-parallel schedule (``psum``, ``bucketed``, ``ring``;
+  paper §III-C) over a ``launch.mesh`` process group: the gradients of the
+  fp32 params are packed into static buckets and reduced bucket by bucket,
+  from inside the backward (``CommConfig.overlap``, the default) or after
+  it. ``CommConfig.sharding='zero1'`` reduce-scatters instead, updates this
+  rank's persistent fp32 master shards (``lars.sharded_update_from_shards``:
+  the batched-norm kernel for the trust norms, and with
+  ``update_kernel=True`` the fused update kernel) and all-gathers the
+  params, ahead of the next forward (``gather='ahead'``, the default) or
+  at the end of the step. Batch statistics stay per rank; the BN buffers
+  and the metrics are averaged over ranks.
+
+Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item:
+the naive, hierarchical, 2d_torus and dbtree schedules and the ring-step
+kernel (§1 item 6), zero2/zero3 and the bucket autotuner (item 7), the
+guard and the tracer (item 8).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import CommConfig
-from repro_torch.core import lars
+from repro_torch.core import bucketing, ddp, lars
 from repro_torch.core.label_smoothing import smoothed_xent, top1_accuracy
 from repro_torch.core.precision import cast_to_compute
 from repro_torch.models.resnet import resnet_forward
@@ -42,35 +56,53 @@ def _not_ported(what: str, item: int):
         f"{what} is not ported to repro_torch yet (ROADMAP §1 item {item})")
 
 
+#: the reference's schedules that this port does not have yet
+SCHEDULES_NOT_PORTED = ("naive", "hierarchical", "2d_torus", "dbtree")
+
+
 def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
                     smoothing: float = 0.1, mesh=None, comm="xla",
                     bucket_mb: float = 4.0, comm_dtype: str = "bf16",
                     grad_accum: int = 1, tracer=None, guard: bool = False):
     """Returns train_step(state, batch) -> (state, metrics).
 
-    ``comm`` is 'xla' or a ``CommConfig`` with ``strategy='xla'`` and
-    ``sharding='replicated'``; ``mesh`` must be None (one device).
-    ``comm_dtype='bf16'`` differentiates the bf16 compute copy, 'f32' the
-    fp32 masters. ``grad_accum`` splits the batch into that many
+    ``comm`` is a strategy name ('xla', 'psum', 'bucketed', 'ring') or a
+    full ``CommConfig``. 'xla' runs on one device (``mesh`` None);
+    ``comm_dtype='bf16'`` then differentiates the bf16 compute copy, 'f32'
+    the fp32 masters, and ``grad_accum`` splits the batch into that many
     microbatches, chains the BN statistics through them and means the f32
-    gradients and the metrics, as the reference's scan does. Metrics are
-    0-d tensors on the batch's device; ``lr`` a 0-d f32 CPU tensor."""
+    gradients and the metrics, as the reference's scan does.
+
+    The explicit schedules need a ``mesh`` (``launch.mesh.make_local_mesh``)
+    and every rank calls the step with its own slice of the batch. With
+    ``sharding='zero1'`` the state must carry the packed sharded momentum
+    and master shards (``init_state(..., sharded_plan=train_step.
+    bucket_plan, n_shards=train_step.n_shards, mesh=mesh)``); the step
+    updates them in place when ``update_kernel`` is set, so the input
+    state is consumed. Full params are read through
+    ``train.loop.make_params_reader``.
+
+    Metrics are 0-d tensors on the batch's device; ``lr`` a 0-d f32 CPU
+    tensor."""
     comm_cfg = comm if isinstance(comm, CommConfig) else CommConfig(
         strategy=comm, bucket_mb=bucket_mb, wire_dtype=comm_dtype)
-    if comm_cfg.strategy != "xla":
-        raise _not_ported(f"comm={comm_cfg.strategy!r}", 6)
-    if comm_cfg.sharding != "replicated":
-        raise _not_ported(f"sharding={comm_cfg.sharding!r}", 7)
-    if mesh is not None:
-        raise _not_ported("a multi-device mesh", 6)
     if guard:
         raise _not_ported("guard=True", 8)
     if tracer is not None:
         raise _not_ported("the step tracer", 8)
     if comm_cfg.wire_dtype not in ("bf16", "f32"):
         raise ValueError(comm_cfg.wire_dtype)
-    bf16 = comm_cfg.wire_dtype == "bf16"
     loss_fn = make_loss_fn(model, smoothing=smoothing)
+    if comm_cfg.strategy != "xla":
+        return _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg,
+                              mesh, grad_accum)
+    if comm_cfg.sharding != "replicated":
+        raise ValueError(
+            f"sharding={comm_cfg.sharding!r} needs an explicit-DP schedule "
+            f"(comm='psum', 'bucketed' or 'ring'), not comm='xla'")
+    if mesh is not None:
+        raise _not_ported("comm='xla' over a multi-device mesh", 6)
+    bf16 = comm_cfg.wire_dtype == "bf16"
 
     def grads_of(p_in, batch, bn_state):
         flat = tree_flatten(p_in)
@@ -103,6 +135,138 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
         metrics = dict(metrics, lr=lr)
         return TrainState(state.step + 1, params, mom, new_bn), metrics
 
+    train_step.sharding = "replicated"
+    train_step.guarded = False
+    return train_step
+
+
+def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
+                   grad_accum):
+    """The explicit data-parallel step (paper §III-C): replicated or
+    ZeRO-1, over ``mesh``'s axes (every axis is data parallel)."""
+    from repro_torch.comm import get_schedule, shard_axis_size
+    from repro_torch.comm import primitives as prim
+    comm, sharding = comm_cfg.strategy, comm_cfg.sharding
+    if comm in SCHEDULES_NOT_PORTED:
+        raise _not_ported(f"comm={comm!r}", 6)
+    get_schedule(comm)                    # unknown names raise here
+    if sharding in ("zero2", "zero3"):
+        raise _not_ported(f"sharding={sharding!r}", 7)
+    if comm_cfg.bucket_mb == "auto":
+        raise _not_ported("bucket_mb='auto' (the bucket autotuner)", 7)
+    if mesh is None:
+        raise ValueError(f"comm={comm!r} needs a mesh "
+                         f"(repro_torch.launch.mesh.make_local_mesh)")
+    if grad_accum != 1:
+        raise ValueError("grad_accum is a comm='xla' option")
+    shard_update = sharding != "replicated"
+    if shard_update and (opt_cfg.kind not in ("lars", "sgdm")
+                         or opt_cfg.nesterov):
+        raise ValueError(f"sharding={sharding!r} supports lars/sgdm "
+                         f"without nesterov, not {opt_cfg.kind!r}")
+    axes = mesh.axes
+    # shard over the innermost non-trivial axis, as the scatter schedules
+    name, n_shards = shard_axis_size(mesh.axis_names,
+                                     [a.size for a in axes])
+    sh_axis = mesh.axis(name)
+    gather_mode = comm_cfg.gather if shard_update else "at_end"
+    gather_ahead = gather_mode == "ahead" and sharding == "zero1"
+    overlap = comm_cfg.overlap
+    wire = torch.bfloat16 if comm_cfg.wire_dtype == "bf16" else torch.float32
+    plan = bucketing.make_plan(model.param_pd, bucket_mb=comm_cfg.bucket_mb,
+                               dtype_bytes=2 if wire == torch.bfloat16
+                               else 4)
+    collective = dict(strategy=comm, axes=axes, comm_dtype=wire,
+                      use_kernel=comm_cfg.use_kernel)
+    paths = plan.paths
+
+    def grads_of(params, batch, bn_state):
+        """Local (unreduced) fp32 gradients, for the post-backward path."""
+        leaves = [params_leaf.detach().requires_grad_()
+                  for _, params_leaf in tree_flatten(params)]
+        p = tree_unflatten(paths, leaves)
+        total, (metrics, new_bn) = loss_fn(p, batch, bn_state)
+        return (tree_unflatten(paths, torch.autograd.grad(total, leaves)),
+                metrics, new_bn)
+
+    def finish(state, metrics, new_bn):
+        new_bn = prim.pmean_tree(new_bn, axes) if new_bn is not None \
+            else None
+        return prim.pmean_tree(metrics, axes), new_bn, schedule(state.step)
+
+    def replicated_step(state: TrainState, batch):
+        if overlap:
+            leaves = [x.detach().requires_grad_()
+                      for _, x in tree_flatten(state.params)]
+            p = ddp.wrap_params_for_overlap(tree_unflatten(paths, leaves),
+                                            plan, **collective)
+            total, (metrics, new_bn) = loss_fn(p, batch, state.bn_state)
+            grads = tree_unflatten(paths,
+                                   torch.autograd.grad(total, leaves))
+        else:
+            grads, metrics, new_bn = grads_of(state.params, batch,
+                                              state.bn_state)
+            grads = ddp.allreduce_grads(grads, plan=plan, **collective)
+        metrics, new_bn, lr = finish(state, metrics, new_bn)
+        params, mom = lars.update(state.params, grads, state.mom, lr,
+                                  opt_cfg)
+        return (TrainState(state.step + 1, params, mom, new_bn),
+                dict(metrics, lr=lr))
+
+    def sharded_step(state: TrainState, batch):
+        if state.shards is None:
+            raise ValueError(
+                f"sharding={sharding!r} needs the persistent-shard state: "
+                f"init_state(..., sharded_plan=train_step.bucket_plan, "
+                f"n_shards=train_step.n_shards, mesh=mesh)")
+        # gather-ahead: this step's forward params from the master shards
+        # the previous step updated; otherwise the copy gathered at the
+        # end of the previous step
+        params = (ddp.gather_ahead_params(state.shards, plan,
+                                          shard_axis=sh_axis,
+                                          wire_dtype=wire)
+                  if gather_ahead else state.params)
+        if overlap:
+            # in-backward reduce-scatter: the reduced-mean fp32 shards
+            # come back as the gradients of zero sinks; the params are not
+            # differentiated, so no full reduced gradient exists
+            sinks = ddp.make_shard_sinks(plan, n_shards,
+                                         device=state.shards[0].device)
+            p = ddp.wrap_params_for_overlap(params, plan, shard_sinks=sinks,
+                                            **collective)
+            total, (metrics, new_bn) = loss_fn(p, batch, state.bn_state)
+            g_shards = list(torch.autograd.grad(total, sinks))
+        else:
+            grads, metrics, new_bn = grads_of(params, batch, state.bn_state)
+            g_shards = ddp.reduce_scatter_grads(grads, plan=plan,
+                                                **collective)
+        metrics, new_bn, lr = finish(state, metrics, new_bn)
+        p_shards, m_shards = lars.sharded_update_from_shards(
+            list(state.shards), g_shards, list(state.mom), lr, opt_cfg,
+            plan, shard_axis=sh_axis, n_shards=n_shards,
+            update_kernel=comm_cfg.update_kernel)
+        new_params = (params if gather_ahead else
+                      ddp.all_gather_params(p_shards, plan,
+                                            shard_axis=sh_axis,
+                                            wire_dtype=wire))
+        return (TrainState(state.step + 1, new_params, m_shards, new_bn,
+                           p_shards), dict(metrics, lr=lr))
+
+    train_step = sharded_step if shard_update else replicated_step
+    # introspection: the resolved comm plan, as the reference's step has it
+    train_step.guarded = False
+    train_step.comm = comm
+    train_step.mesh = mesh
+    train_step.bucket_plan = plan
+    train_step.bucket_mb = comm_cfg.bucket_mb
+    train_step.tuned = None
+    train_step.overlap = overlap
+    train_step.sharding = sharding
+    train_step.gather = gather_mode
+    train_step.shard_update = shard_update
+    train_step.gather_ahead = gather_ahead
+    train_step.shard_axis = sh_axis.name
+    train_step.n_shards = n_shards
     return train_step
 
 

@@ -47,15 +47,19 @@ def bn_state_from_jax(np_tree, cfg, device) -> dict:
 
 
 def state_from_jax(jax_state, cfg, device) -> TrainState:
-    """A reference ``TrainState`` of a replicated LARS/SGD-M run (numpy
-    leaves: ``jax.device_get(state)``) -> the port's ``TrainState``."""
-    if jax_state.shards is not None:
-        raise NotImplementedError("sharded states are ROADMAP §1 item 7")
-    return TrainState(
-        int(jax_state.step),
-        params_from_jax(jax_state.params, cfg, device),
-        params_from_jax(jax_state.mom, cfg, device),
-        bn_state_from_jax(jax_state.bn_state, cfg, device))
+    """A reference ``TrainState`` (numpy leaves: ``jax.device_get(state)``)
+    of a replicated LARS/SGD-M run or of a ZeRO-1 run on ONE shard (its
+    global shard layout is then the one rank's) -> the port's
+    ``TrainState``."""
+    params = params_from_jax(jax_state.params, cfg, device)
+    bn = bn_state_from_jax(jax_state.bn_state, cfg, device)
+    if jax_state.shards is None:
+        return TrainState(int(jax_state.step), params,
+                          params_from_jax(jax_state.mom, cfg, device), bn)
+    bufs = lambda xs: tuple(
+        torch.from_numpy(np.array(x, np.float32)).to(device) for x in xs)
+    return TrainState(int(jax_state.step), params, bufs(jax_state.mom), bn,
+                      bufs(jax_state.shards))
 
 
 def to_numpy(tree):

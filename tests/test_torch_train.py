@@ -159,9 +159,50 @@ def test_cli_flag_not_ported_names_roadmap(capsys):
     from repro_torch.launch import train as launch
     with pytest.raises(SystemExit) as exit_info:
         launch.main(["--arch", "resnet50", "--reduced", "--device", "cpu",
-                     "--sharding", "zero1"])
+                     "--comm", "ring", "--sharding", "zero2"])
     assert exit_info.value.code != 0
     assert "ROADMAP §1 item 7" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("extra", [
+    ["--comm", "ring", "--sharding", "zero1", "--update-kernel"],
+    ["--comm", "psum", "--sharding", "zero1", "--gather", "at_end",
+     "--no-overlap", "--eval-every", "2"],
+    ["--comm", "bucketed", "--bucket-mb", "0.25"]])
+def test_cli_explicit_dp_on_cpu_reaches_run_stop(capsys, extra):
+    """The explicit-DP flags in one process (a one-rank gloo group)."""
+    from repro_torch.launch import train as launch
+    history = launch.main(["--arch", "resnet50", "--reduced", "--steps", "2",
+                           "--batch", "4", "--device", "cpu", *extra])
+    assert all(np.isfinite(h["loss"]) for h in history if "loss" in h)
+    assert "(repro_torch/train/loop.py) run_stop:" in capsys.readouterr().out
+    import torch.distributed as dist
+    assert not dist.is_initialized()     # the CLI tore its group down
+
+
+def test_make_train_step_names_what_is_not_ported():
+    from repro_torch.configs.base import CommConfig
+    from repro_torch.launch.mesh import Axis, Mesh
+    model = build_model(get_config("resnet50").reduced())
+    mesh = Mesh((Axis("data", 1, 0, (0,), None),), torch.device("cpu"))
+    sched = make_schedule(ScheduleConfig(base_lr=0.1, total_steps=2))
+    opt = lars.OptConfig()
+    for comm, item in ((CommConfig(strategy="hierarchical"), 6),
+                       (CommConfig(strategy="naive"), 6),
+                       (CommConfig(strategy="ring", sharding="zero2"), 7),
+                       (CommConfig(strategy="ring", bucket_mb="auto"), 7)):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP §1 item {item}"):
+            make_train_step(model, opt, sched, mesh=mesh, comm=comm)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        make_train_step(model, opt, sched, comm="ring")
+    with pytest.raises(ValueError, match="explicit-DP schedule"):
+        make_train_step(model, opt, sched,
+                        comm=CommConfig(strategy="xla", sharding="zero1"))
+    # the ring-step fold kernel K3 needs two or more cards
+    from repro_torch.comm import get_schedule
+    with pytest.raises(NotImplementedError, match="K3"):
+        get_schedule("ring")(torch.zeros(4), mesh.axes, use_kernel=True)
 
 
 def test_entry_points_raise_without_card(monkeypatch):
@@ -173,5 +214,11 @@ def test_entry_points_raise_without_card(monkeypatch):
     from repro_torch.launch import train as launch
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch.main(["--arch", "resnet50", "--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.main(["--arch", "resnet50", "--reduced", "--steps", "1",
+                     "--comm", "ring", "--sharding", "zero1"])
+    from repro_torch.launch.mesh import make_local_mesh
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_local_mesh()
     assert init_state(model, 0, device="cpu").params["stem"]["conv"] \
         .device.type == "cpu"

@@ -10,6 +10,17 @@ to an ``.npz`` of ``kind/path`` keys.
 
   python tests/torch_reference.py resnet_grads OUT.npz
   python tests/torch_reference.py train_steps OUT.npz
+  python tests/torch_reference.py zero1_steps OUT.npz
+  python tests/torch_reference.py comm_shards OUT.npz   (4 host devices)
+
+The reference's explicit data-parallel steps fail under jax 0.9.0 before
+they compute anything: ``repro/core/compat.py`` passes ``check_rep=`` to
+``jax.shard_map``, which now takes ``check_vma=``, and ``jax.make_mesh``
+now makes Explicit axes, which the step's sharding constraints reject.
+``zero1_steps`` routes around both without touching ``src/repro``: it
+replaces ``compat.shard_map`` in its own process with a shim that calls
+``jax.shard_map(..., check_vma=False)``, builds an Auto-axis mesh, and
+feeds numpy batches (no mesh-bound batch function).
 """
 import os
 import subprocess
@@ -30,13 +41,15 @@ STEPS = 3
 BN3_SCALE = 0.1
 
 
-def run(what: str, out: str) -> dict:
-    """Run ``what`` in a fresh interpreter; returns the saved arrays as
-    nested dicts keyed like the trees."""
+def run(what: str, out: str, *, devices: int = 1) -> dict:
+    """Run ``what`` in a fresh interpreter (on ``devices`` host devices);
+    returns the saved arrays as nested dicts keyed like the trees."""
+    flags = os.environ.get("XLA_FLAGS", "") + \
+        " --xla_allow_excess_precision=false"
+    if devices > 1:
+        flags += f" --xla_force_host_platform_device_count={devices}"
     env = dict(os.environ, JAX_PLATFORMS="cpu",
-               PYTHONPATH=os.path.join(ROOT, "src"),
-               XLA_FLAGS=(os.environ.get("XLA_FLAGS", "")
-                          + " --xla_allow_excess_precision=false").strip())
+               PYTHONPATH=os.path.join(ROOT, "src"), XLA_FLAGS=flags.strip())
     subprocess.run([sys.executable, os.path.abspath(__file__), what, out],
                    env=env, check=True, timeout=600, cwd=ROOT)
     tree: dict = {}
@@ -172,7 +185,146 @@ def train_steps():
     return out
 
 
+#: the ZeRO-1 parity configuration: the reference's own 1-device test
+#: (``test_comm.py::test_shard_update_train_step_1_device``) at f32 wire
+ZERO1_COMM = dict(strategy="ring", bucket_mb=0.25, wire_dtype="f32",
+                  sharding="zero1")
+ZERO1_STEPS = 2
+#: (overlap, update_kernel) of the reference's runs
+ZERO1_CASES = ((1, 1), (0, 0))
+
+
+def _shard_map_shim():
+    """``repro.core.compat.shard_map`` for jax >= 0.7 (see the module
+    docstring); replaced in this process only."""
+    import jax
+    from repro.core import compat
+
+    def shard_map(f, *, mesh, in_specs, out_specs, check_rep=False):
+        return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
+                             out_specs=out_specs, check_vma=False)
+    compat.shard_map = shard_map
+
+
+def zero1_steps():
+    """Reduced ResNet-50, LARS poly2, the ZeRO-1 explicit-DP step on a
+    (1, 1) Auto-axis mesh (ring schedule, f32 wire, 0.25 MB buckets, so
+    split tensors), for each (overlap, update_kernel) of ``ZERO1_CASES``:
+    two jitted steps
+    along the reference's own trajectory; each step's input state, batch,
+    output state and metrics. ``o{overlap}u{kernel}/s{k}/...``; shards and
+    momentum as ``shards/{bucket}``, ``mom/{bucket}``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import AxisType, NamedSharding
+    from jax.sharding import PartitionSpec as P
+    from repro.configs import get_config
+    from repro.configs.base import CommConfig
+    from repro.core import lars
+    from repro.core.schedule import ScheduleConfig, make_schedule
+    from repro.models.registry import build_model
+    from repro.train import state as st
+    from repro.train.step import make_train_step
+
+    _shard_map_shim()
+    cfg = get_config("resnet50").reduced()
+    model = build_model(cfg)
+    sched = make_schedule(ScheduleConfig(**LR))
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    params, bn = _init(cfg)
+    out = {}
+    # the two corners: a mixed case differs from them only in how the
+    # reference reduces (overlap) or updates (Pallas kernel in interpret
+    # mode vs jnp), and each configuration costs ~25 s of compile here
+    for overlap, kernel in ZERO1_CASES:
+        step = make_train_step(
+            model, lars.OptConfig(kind="lars"), sched, mesh=mesh,
+            comm=CommConfig(overlap=bool(overlap),
+                            update_kernel=bool(kernel), **ZERO1_COMM))
+        assert step.n_shards == 1 and step.gather_ahead
+        plan = step.bucket_plan
+        s = st.TrainState(jnp.zeros((), jnp.int32), params,
+                          st.init_packed_momentum(plan, 1), bn,
+                          st.init_packed_shards(params, plan, 1))
+        # placed as the step's outputs are, so step 2 reuses step 1's
+        # compile
+        s = jax.device_put(s, NamedSharding(mesh, P()))
+        jstep = jax.jit(step)
+        for k in range(ZERO1_STEPS):
+            batch = _batch(cfg, k)
+            s2, m = jstep(s, batch)
+            pre = f"o{overlap}u{kernel}/s{k}"
+            for io, x in (("in", s), ("out", s2)):
+                x = jax.device_get(x)
+                out[f"{pre}/{io}/step"] = np.asarray(x.step)
+                _flat(f"{pre}/{io}/params", x.params, out)
+                _flat(f"{pre}/{io}/bn_state", x.bn_state, out)
+                for name in ("shards", "mom"):
+                    for b, buf in enumerate(getattr(x, name)):
+                        out[f"{pre}/{io}/{name}/{b}"] = np.asarray(buf)
+            _flat(f"{pre}/batch", batch, out)
+            _flat(f"{pre}/metrics", jax.device_get(m), out)
+            s = s2
+    return out
+
+
+#: the small tree of the comm tests (``test_comm.py``'s part A tree, with
+#: dict keys): at ``COMM_BUCKET_MB`` its head splits across buckets
+COMM_TREE = {"conv": (7, 7, 3, 17), "blocks0": {"w": (33, 65), "b": (65,)},
+             "blocks1": {"w": (129, 31)}, "head": (200, 99), "scalar": ()}
+COMM_BUCKET_MB = 0.02
+COMM_RANKS = 4
+
+
+def comm_tree():
+    """COMM_TREE's values, drawn with numpy (f32)."""
+    rng = np.random.default_rng(42)
+
+    def draw(t):
+        if isinstance(t, dict):
+            return {k: draw(v) for k, v in sorted(t.items())}
+        return rng.standard_normal(t).astype(np.float32)
+    return draw(COMM_TREE)
+
+
+def comm_shards():
+    """On ``COMM_RANKS`` host devices, device r's gradients
+    ``tree * (1 + 0.1 r)`` reduced by each schedule's reduce-scatter-
+    terminal form (``ddp.reduce_scatter_grads``, f32 wire): the global
+    ``(n * c,)`` shard layout of every bucket, row r from device r, as
+    ``{strategy}/{bucket}``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import AxisType
+    from jax.sharding import PartitionSpec as P
+    from repro.core import bucketing, ddp
+
+    tree = comm_tree()
+    plan = bucketing.make_plan(tree, bucket_mb=COMM_BUCKET_MB)
+    mesh = jax.make_mesh((COMM_RANKS,), ("data",),
+                         axis_types=(AxisType.Auto,))
+    spec = jax.tree.map(lambda _: P(), tree)
+    out = {}
+    for strategy in ("psum", "ring"):
+        def fn(t):
+            r = jax.lax.axis_index("data").astype(jnp.float32)
+            g = jax.tree.map(lambda x: x * (1.0 + 0.1 * r), t)
+            return tuple(ddp.reduce_scatter_grads(
+                g, strategy=strategy, axes=("data",), plan=plan,
+                comm_dtype=jnp.float32))
+        shards = jax.jit(jax.shard_map(
+            fn, mesh=mesh, in_specs=(spec,),
+            out_specs=tuple(P("data") for _ in range(plan.n_buckets)),
+            check_vma=False))(tree)
+        for b, x in enumerate(shards):
+            out[f"{strategy}/{b}"] = np.asarray(x)
+    return out
+
+
 if __name__ == "__main__":
     what, dest = sys.argv[1], sys.argv[2]
     np.savez(dest, **{"resnet_grads": resnet_grads,
-                      "train_steps": train_steps}[what]())
+                      "train_steps": train_steps,
+                      "zero1_steps": zero1_steps,
+                      "comm_shards": comm_shards}[what]())
