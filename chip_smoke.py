@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero and prints no result:
   2. build    compiles every CUDA kernel from the checkout (one nvcc per
               source, all started together; sm_90a)
   3. kernels  each kernel against its plain PyTorch version on the card, at
-              the shapes the training paths give it; times the kernel, the
+              the shapes the training and serving paths give it (K5 also at
+              a GQA, a windowed and an MLA shape); times the kernel, the
               plain version and a library yardstick beside the bound
   4. slice    full-width ResNet-50 (224², 1000 classes, width 64), batch 64,
               6 LARS steps (poly2, label smoothing 0.1, bf16 compute, fp32
@@ -28,6 +29,18 @@ Phases, in order; any failure exits non-zero and prints no result:
   8. cli      python -m repro_torch.launch.train --reduced on the card, as
               the replicated step and as ZeRO-1 (--comm ring --sharding
               zero1 --update-kernel)
+  9. serve    full-width qwen1.5-0.5b (24 layers, d 1024, 16 heads of 64,
+              vocab 151,936; params from pinit) with flash_attention=True:
+              serve.decode.generate on 8 prompts of 2048 tokens, 32 greedy
+              tokens, cache_len 2088; the flash kernel (K5) must be launched
+              24 times (once a layer, in the prefill); prints prefill ms,
+              decode ms a token, tokens/s and peak memory
+ 10. serve context  from the same params and prompts: the K5 prefill's last
+              logits against the chunked path's (no kernel), and one decode
+              step from the K5 cache against the chunked full forward over
+              prompt + that token, both within 3e-2 of the logit max
+ 11. serve cli  python -m repro_torch.serve.decode --reduced --flash-attention
+              on the card
 Each path's launch counts are set to 0 just before it and read just after.
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -44,12 +57,35 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-#: H100 SXM peaks (NVIDIA data sheet) for the bound: HBM3 bytes/s, and f32
-#: operations/s outside the tensor cores (the kernels square and add in f32)
+#: H100 SXM peaks (NVIDIA data sheet) for the bound: HBM3 bytes/s, f32
+#: operations/s outside the tensor cores (K1 and K2 square and add in f32;
+#: K5 on f32 inputs), and the bf16 dense tensor-core rate (K5 on bf16
+#: inputs: the least time any kernel could take for that work)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 BATCH, STEPS = 64, 6
+
+#: K5 shapes: (name, B, S, H, K, Dk, Dv, window, dtype), all causal. "path"
+#: is the serving prefill's (qwen1.5-0.5b, 8 x 2048 tokens); then the same
+#: in f32, qwen3-14b's GQA heads without and with a window, MLA's dims
+FLASH_SHAPES = (("path", 8, 2048, 16, 16, 64, 64, 0, "bfloat16"),
+                ("path_f32", 8, 2048, 16, 16, 64, 64, 0, "float32"),
+                ("gqa", 2, 1024, 40, 8, 128, 128, 0, "bfloat16"),
+                ("gqa_window", 2, 1024, 40, 8, 128, 128, 256, "bfloat16"),
+                ("mla", 2, 1024, 16, 16, 192, 128, 0, "bfloat16"))
+#: (rtol, atol) of K5 against its plain version: f32 sums in another order;
+#: in bf16 that may flip the output's rounding by one ulp (2^-7 relative)
+FLASH_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-5)}
+
+#: the serving path: 8 requests, 2048-token prompts, 32 new tokens
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
+SERVE_CACHE = SERVE_PROMPT + SERVE_NEW + 8
+#: K5 prefill vs chunked prefill, and decode vs the full forward: two bf16
+#: paths that round in different places, held to the reference's own bound
+#: for decode against the full forward (tests/test_serve.py)
+SERVE_TOL = 3e-2
 
 
 def fail(msg: str):
@@ -76,9 +112,9 @@ def time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(bytes_moved: int, f32_ops: int):
+def bound_ms(bytes_moved: int, ops: int, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = f32_ops / F32_OPS_PER_S
+    t_ops = ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -530,6 +566,210 @@ def check_zero1_in_context(dev, mesh, batch_fn):
         fail("the ZeRO-1 step disagrees with the replicated step")
 
 
+def _visible_pairs(S: int, window: int) -> int:
+    """(query, key) pairs a causal (windowed) attention over S tokens
+    computes: sum over q of min(q + 1, window)."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def _flash_case(dev, gen, name, B, S, H, K, Dk, Dv, window, dt):
+    """K5 at one shape, causal: checked against its plain version, then
+    timed beside the plain version, SDPA on the same inputs and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dtype = getattr(torch, dt)
+    q, k, v = (torch.randn((B * n, S, d), generator=gen, device=dev)
+               .to(dtype) for n, d in ((H, Dk), (K, Dk), (K, Dv)))
+    kw = dict(causal=True, window=window, n_q_heads=H, n_kv_heads=K)
+    got = fa.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    rtol, atol = FLASH_TOL[dt]
+    err = (got.float() - want.float()).abs()
+    if not bool((err <= atol + rtol * want.float().abs()).all()):
+        fail(f"flash_attention {name} disagrees with its plain version "
+             f"(rtol {rtol}, atol {atol}): max abs err "
+             f"{err.max().item():.3e}")
+    if not torch.equal(fa.flash_attention(q, k, v, **kw), got):
+        fail(f"flash_attention {name}: two calls differ")
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), iters=20,
+                 warmup=3)
+    plain = time_ms(lambda: ref.flash_attention(q, k, v, **kw), iters=5,
+                    warmup=1)
+    qs, ks, vs = (x.view(B, -1, S, x.shape[-1]) for x in (q, k, v))
+    sdpa = dict(enable_gqa=K != H)
+    if window:
+        i = torch.arange(S, device=dev)
+        sdpa["attn_mask"] = (i[None] <= i[:, None]) & (
+            i[None] > i[:, None] - window)
+    else:
+        sdpa["is_causal"] = True
+    library = time_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, **sdpa), iters=20, warmup=3)
+    ops = 2 * B * H * _visible_pairs(S, window) * (Dk + Dv)
+    nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()
+                                 + got.numel())
+    b_ms, b_by = bound_ms(nbytes, ops, BF16_OPS_PER_S
+                          if dtype == torch.bfloat16 else F32_OPS_PER_S)
+    print(f"flash_attention {name} (B {B}, S {S}, H {H}, K {K}, Dk {Dk}, "
+          f"Dv {Dv}, window {window}, {dt}): max abs err "
+          f"{err.max().item():.3e} (rtol {rtol}, atol {atol}); kernel "
+          f"{ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, sdpa "
+          f"{library * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by}: "
+          f"{ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+    return {"shape": [B, S, H, K, Dk, Dv], "window": window, "dtype": dt,
+            "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain,
+            "library_ms": library, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_flash_attention(dev):
+    """K5 against its plain version at ``FLASH_SHAPES`` (the serving
+    prefill's shape first), each timed beside its plain version,
+    ``scaled_dot_product_attention`` and the bound."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain version in f32
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = {case[0]: _flash_case(dev, gen, *case) for case in FLASH_SHAPES}
+    path = rows["path"]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:87",
+            "launches": None, "max_abs_err": path["max_abs_err"],
+            "ms": path["ms"], "plain_ms": path["plain_ms"],
+            "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
+            "library_ms": path["library_ms"],
+            "library": "torch.nn.functional.scaled_dot_product_attention",
+            "shape": path["shape"], "dtype": path["dtype"],
+            "shapes": rows}
+
+
+def run_serve(dev):
+    """Full-width qwen1.5-0.5b served through serve.decode.generate with
+    the flash kernel in the prefill, as examples/serve_decode.py drives
+    the JAX package (at full width here)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import pinit
+    from repro_torch.kernels import batched_norm, lars_update
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.decode import generate
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
+                              flash_attention=True)
+    model = build_model(cfg)
+    t = time.perf_counter()
+    params = pinit.materialize(model.param_pd, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=gen, dtype=torch.int32).to(dev)
+    batch = {"tokens": tokens}
+    # warm-up (cuBLAS handles, first launches); not timed, not counted
+    generate(model, params, batch, max_new=2, cache_len=SERVE_CACHE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    timings = {}
+    _zero(batched_norm.batched_sumsq, lars_update.lars_packed_update,
+          fa.flash_attention)
+    out = generate(model, params, batch, max_new=SERVE_NEW,
+                   cache_len=SERVE_CACHE, timings=timings)
+    torch.cuda.synchronize()
+    launches = fa.flash_attention.launches
+    others = (batched_norm.batched_sumsq.launches,
+              lars_update.lars_packed_update.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches != cfg.n_layers:
+        fail(f"serve: flash_attention launched {launches} times; the "
+             f"prefill must launch it once a layer ({cfg.n_layers})")
+    if others != (0, 0):
+        fail(f"serve: training kernels launched {others}")
+    if tuple(out.shape) != (SERVE_BATCH, SERVE_NEW):
+        fail(f"serve: generated shape {tuple(out.shape)}")
+    if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        fail("serve: a token outside the vocabulary")
+    dec = timings["decode_ms"]
+    q1, med, q3 = statistics.quantiles(dec, n=4)
+    print(f"serve: {n_params / 1e6:.1f} M params, pinit {init_s:.2f} s; "
+          f"prefill {timings['prefill_ms']:.2f} ms "
+          f"({SERVE_BATCH * SERVE_PROMPT / timings['prefill_ms'] * 1e3:.0f}"
+          f" prompt tokens/s); decode ms a token median {med:.3f} "
+          f"(p25 {q1:.3f}, p75 {q3:.3f}, {len(dec)} steps), "
+          f"{SERVE_BATCH * 1e3 / med:.1f} tokens/s; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; flash_attention launches {launches}",
+          flush=True)
+    print(f"serve: first request's tokens {out[0].tolist()}", flush=True)
+    return model, params, batch, out, launches
+
+
+def _rel(a, b) -> float:
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def check_serve_in_context(dev, model, params, batch, out):
+    """The K5 prefill against the chunked one (no kernel), and one decode
+    step from the K5 cache against the chunked full forward."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.precision import cast_to_compute
+    from repro_torch.models.registry import build_model
+
+    plain = build_model(dataclasses.replace(model.cfg,
+                                            flash_attention=False))
+    p16 = cast_to_compute(params)
+    k5_last, cache = model.forward_prefill(p16, batch, SERVE_CACHE)
+    if not bool(torch.isfinite(k5_last).all()):
+        fail("serve context: non-finite prefill logits")
+    if not torch.equal(k5_last[:, -1].argmax(-1).int(), out[:, 0]):
+        fail("serve context: the prefill's argmax is not generate's first "
+             "token")
+    ch_last, _ = plain.forward_prefill(p16, batch, SERVE_CACHE)
+    d_prefill = _rel(k5_last, ch_last)
+    del ch_last
+    tok = out[:, :1]
+    dl, _ = model.forward_decode(p16, cache, tok, SERVE_PROMPT)
+    del cache
+    if not bool(torch.isfinite(dl).all()):
+        fail("serve context: non-finite decode logits")
+    (full, _), _ = plain.forward_train(
+        p16, {"tokens": torch.cat([batch["tokens"], tok], dim=1)})
+    d_decode = _rel(dl[:, 0], full[:, -1])
+    del full
+    print(f"serve context: K5 prefill vs chunked prefill, last logits "
+          f"differ by {d_prefill:.3e} of their max (limit {SERVE_TOL}); "
+          f"decode step vs chunked full forward {d_decode:.3e} (limit "
+          f"{SERVE_TOL})", flush=True)
+    if not d_prefill <= SERVE_TOL:
+        fail("the K5 prefill disagrees with the chunked prefill")
+    if not d_decode < SERVE_TOL:
+        fail("the decode step disagrees with the full forward")
+    return {"prefill_vs_chunked": d_prefill, "decode_vs_full": d_decode}
+
+
+def run_serve_cli():
+    cmd = [sys.executable, "-m", "repro_torch.serve.decode", "--reduced",
+           "--flash-attention"]
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ,
+                                               PYTHONPATH=str(SRC)))
+    print(out.stdout[-1500:], end="", flush=True)
+    if out.returncode != 0 or "generated (4, 16) tokens" not in out.stdout:
+        fail(f"serve CLI exited {out.returncode}: {out.stderr[-3000:]}")
+
+
 def run_cli():
     base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
             "resnet50", "--reduced", "--steps", "2", "--batch", "8"]
@@ -574,6 +814,7 @@ def main():
     k1 = check_batched_sumsq(dev)
     k2, k1_site = check_lars_update(dev)
     k1.update(k1_site)
+    k5 = check_flash_attention(dev)
 
     phase("slice")
     state0, batch_fn, k1_slice = run_slice(dev)
@@ -599,7 +840,20 @@ def main():
     phase("cli")
     run_cli()
 
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    phase("serve")
+    model, params, batch, out, k5["launches"] = run_serve(dev)
+    k5["launches_by_path"] = {"serve": k5["launches"]}
+    k1["launches_by_path"]["serve"] = k2["launches_by_path"]["serve"] = 0
+
+    phase("serve context")
+    k5["serve_context"] = check_serve_in_context(dev, model, params, batch,
+                                                 out)
+    del model, params
+
+    phase("serve cli")
+    run_serve_cli()
+
+    print(json.dumps({"kernels": [k1, k2, k5]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

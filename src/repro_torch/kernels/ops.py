@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.core import bucketing
 from repro_torch.kernels.batched_norm import batched_sumsq  # noqa: F401
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.lars_update import lars_packed_update  # noqa: F401
 from repro_torch.models.common import PD
 from repro_torch.tree import tree_flatten, tree_unflatten
@@ -42,3 +43,16 @@ def tree_norms(tree, *, plan=None):
     norms = torch.sqrt(batched_sumsq(flat, seg, plan.n_tensors))
     # packing order is the reverse flatten order
     return tree_unflatten(plan.paths, list(norms.unbind())[::-1])
+
+
+def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0):
+    """(B, S, H, Dk) / (B, S, K, D*) layout wrapper around the flash kernel.
+    Returns (B, Sq, H, Dv) (a transposed view of the kernel's output)."""
+    B, Sq, H, Dk = q.shape
+    K, Dv = k.shape[2], v.shape[-1]
+    qf = q.transpose(1, 2).contiguous().view(B * H, Sq, Dk)
+    kf = k.transpose(1, 2).contiguous().view(B * K, k.shape[1], Dk)
+    vf = v.transpose(1, 2).contiguous().view(B * K, v.shape[1], Dv)
+    o = flash_attention(qf, kf, vf, causal=causal, window=window,
+                        n_q_heads=H, n_kv_heads=K)
+    return o.reshape(B, H, Sq, Dv).transpose(1, 2)

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.bucketing import CHUNK
+from repro_torch.models.common import attention_mask
 
 
 def batched_sumsq(flat, seg_ids, n_tensors: int):
@@ -34,3 +35,37 @@ def lars_packed_update(p, g, m, trust, seg_ids, *, lr, momentum, wd):
     g = g.float() + wd * p
     m2 = momentum * m + (lr * t) * g
     return p - m2, m2
+
+
+#: the masked-score fill of the TPU kernel and of the chunked path: finite,
+#: so a row that has seen only masked keys never computes inf - inf
+NEG = -1e30
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    n_q_heads: int = None, n_kv_heads: int = None):
+    """q: (B·H, Sq, Dk); k: (B·K, Sk, Dk); v: (B·K, Sk, Dv). Returns
+    (B·H, Sq, Dv) in q's dtype: a plain masked softmax in f32 with q scaled
+    by Dk^-0.5, key and query positions both from 0, mask ``kpos <= qpos``
+    (causal) and ``kpos > qpos - window`` (window > 0), query row-block
+    ``bh`` reading kv head ``(bh // H)·K + (bh % H) // G``."""
+    BH, Sq, Dk = q.shape
+    BK, Sk, Dv = v.shape
+    H = n_q_heads or BH
+    K = n_kv_heads or BK
+    G = H // K
+    if BH % H or (BH // H) * K != BK or H % K:
+        raise ValueError(f"flash_attention: BH {BH}, BK {BK} do not fit "
+                         f"H {H}, K {K}")
+    bh = torch.arange(BH, device=q.device)
+    kv = (bh // H) * K + (bh % H) // G
+    s = torch.einsum("bqd,bkd->bqk", q.float() * Dk ** -0.5,
+                     k.float()[kv])
+    if causal or window:
+        s = s.masked_fill(~attention_mask(torch.arange(Sq, device=q.device),
+                                          torch.arange(Sk, device=q.device),
+                                          causal, window), NEG)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bqk,bkd->bqd", p, v.float()[kv])
+    return (o / l.clamp_min(1e-30)).to(q.dtype)

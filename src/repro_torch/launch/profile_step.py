@@ -61,15 +61,17 @@ GROUPS = (("batched_sumsq", ("chunk_sumsq", "segment_sum")),
           ("copy/cast", ("copy", "cat", "memset", "fill")))
 
 
-def _group(name: str) -> str:
+def _group(name: str, groups=GROUPS) -> str:
     low = name.lower()
-    for group, keys in GROUPS:
+    for group, keys in groups:
         if any(k in low for k in keys):
             return group
     return "other"
 
 
-def _quartiles(xs):
+def quartiles(xs):
+    if len(xs) < 2:
+        return {"median": xs[0] if xs else None}
     q = statistics.quantiles(xs, n=4)
     return {"p25": q[0], "median": statistics.median(xs), "p75": q[2]}
 
@@ -137,7 +139,7 @@ def main(argv=None):
         state, _ = step(state, batch)
         sync()
         times.append((time.perf_counter() - t) * 1e3)
-    step_ms = _quartiles(times)
+    step_ms = quartiles(times)
     out = {"device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                       else "cpu"),
            "arch": cfg.arch_id, "batch": args.batch,
@@ -221,13 +223,26 @@ def _phases(model, opt, state, batch, dev, reps: int = 5):
 
 
 def _profile(step, state, batch_fn, n: int, dev):
-    from torch.profiler import ProfilerActivity, profile
     batches = [batch_fn(i) for i in range(n)]
+
+    def run():
+        s = state
+        for b in batches:
+            s, _ = step(s, b)
+
+    return device_profile(run, dev, n)
+
+
+def device_profile(fn, dev, steps: int, groups=GROUPS):
+    """``torch.profiler`` over ``fn()`` (``steps`` steps): device time by
+    kernel group (``groups``: name substrings, first match wins) and by
+    kernel, and the device's idle share of the window (1 - the union of
+    kernel intervals over the window's span)."""
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for b in batches:
-            state, _ = step(state, b)
+        fn()
         torch.cuda.synchronize(dev)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -243,19 +258,20 @@ def _profile(step, state, batch_fn, n: int, dev):
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     window = spans[-1][1] - spans[0][0]
-    groups, names = {}, {}
+    by_group, names = {}, {}
     for e in kernels:
         d = e.time_range.end - e.time_range.start
-        g = _group(e.name)
-        groups[g] = groups.get(g, 0.0) + d
+        g = _group(e.name, groups)
+        by_group[g] = by_group.get(g, 0.0) + d
         names[e.name] = names.get(e.name, 0.0) + d
     top = sorted(names.items(), key=lambda t: -t[1])[:12]
-    return {"steps": n, "window_ms": window / 1e3,
+    return {"steps": steps, "window_ms": window / 1e3,
             "busy_ms": busy / 1e3, "idle_share": 1 - busy / window,
-            "kernels": len(kernels),
-            "group_ms_per_step": {g: v / 1e3 / n for g, v in
-                                  sorted(groups.items(), key=lambda t: -t[1])},
-            "top_kernels_ms_per_step": [[k[:90], v / 1e3 / n]
+            "kernels": len(kernels), "kernels_per_step": len(kernels) / steps,
+            "group_ms_per_step": {g: v / 1e3 / steps for g, v in
+                                  sorted(by_group.items(),
+                                         key=lambda t: -t[1])},
+            "top_kernels_ms_per_step": [[k[:90], v / 1e3 / steps]
                                         for k, v in top]}
 
 

@@ -24,7 +24,7 @@ LARS or momentum-SGD (paper §III-A.1) on fp32 masters with bf16 compute
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item:
 the naive, hierarchical, 2d_torus and dbtree schedules and the ring-step
 kernel (§1 item 6), zero2/zero3 and the bucket autotuner (item 7), the
-guard and the tracer (item 8).
+guard and the tracer (item 8), the LM train step (item 10).
 """
 from __future__ import annotations
 
@@ -86,6 +86,8 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
     tensor."""
     comm_cfg = comm if isinstance(comm, CommConfig) else CommConfig(
         strategy=comm, bucket_mb=bucket_mb, wire_dtype=comm_dtype)
+    if model.cfg.family != "conv":
+        raise _not_ported(f"the LM train step ({model.cfg.arch_id})", 10)
     if guard:
         raise _not_ported("guard=True", 8)
     if tracer is not None:

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models import resnet
+from repro_torch.models import resnet, transformer
 from repro_torch.train.state import TrainState
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -60,6 +60,20 @@ def state_from_jax(jax_state, cfg, device) -> TrainState:
         torch.from_numpy(np.array(x, np.float32)).to(device) for x in xs)
     return TrainState(int(jax_state.step), params, bufs(jax_state.mom), bn,
                       bufs(jax_state.shards))
+
+
+def lm_params_from_jax(np_tree, cfg, device) -> dict:
+    """Reference LM params (numpy leaves, stacked (L, ...) layers) -> the
+    port's tree, checked path by path and shape by shape against
+    ``transformer.lm_pd``."""
+    return _to_torch(np_tree, transformer.lm_pd(cfg), device, "params")
+
+
+def cache_from_jax(np_tree, cfg, batch: int, max_seq: int, device) -> dict:
+    """A reference KV cache (numpy leaves, bf16 as f32) of ``batch``
+    requests and ``max_seq`` rows -> the port's stacked bf16 cache."""
+    return _to_torch(np_tree, transformer.cache_pd(cfg, batch, max_seq),
+                     device, "cache")
 
 
 def to_numpy(tree):

@@ -196,3 +196,105 @@ def test_sharded_update_on_card_runs_both_kernels():
         for x, y in zip(gs, ws):
             # trust ratios from sums in another order (K1 vs index_add_)
             torch.testing.assert_close(x.cpu(), y, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------- K5
+
+#: (B, S, H, K, Dk, Dv, causal, window): the CPU tests' shapes and masks
+#: (``test_kernels.py``'s flash cases), ragged lengths, qwen3-14b's GQA
+#: heads with and without a window, MLA's (192, 128) and the serving
+#: path's qwen1.5-0.5b heads
+FLASH_CASES = [(*s, c, w)
+               for s in ((2, 64, 4, 2, 32, 32), (1, 128, 2, 2, 16, 16),
+                         (2, 96, 4, 4, 32, 16))
+               for c, w in ((True, 0), (True, 24), (False, 0))] + [
+    (2, 100, 4, 2, 64, 64, True, 0), (1, 1000, 2, 1, 64, 64, True, 37),
+    (1, 1024, 40, 8, 128, 128, True, 0), (1, 1024, 40, 8, 128, 128, True,
+                                          256),
+    (1, 512, 16, 16, 192, 128, True, 0), (2, 2048, 16, 16, 64, 64, True, 0)]
+#: kernel against plain, both on the card: f32 sums in another order; in
+#: bf16 that can flip the output's rounding by one ulp (2^-7 relative)
+FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+             torch.bfloat16: dict(rtol=1e-2, atol=1e-5)}
+
+
+def _flash_inputs(B, S, H, K, Dk, Dv, dtype, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=gen, device=dev).to(dtype)
+            for s in ((B, S, H, Dk), (B, S, K, Dk), (B, S, K, Dv))]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(case, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, H, K, Dk, Dv, causal, window = case
+    q, k, v = _flash_inputs(B, S, H, K, Dk, Dv, dtype, dev)
+    before = fa.flash_attention.launches
+    got = ops.flash_attention_bshd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    flat = lambda x: x.transpose(1, 2).reshape(-1, S, x.shape[-1])
+    want = ref.flash_attention(flat(q), flat(k), flat(v), causal=causal,
+                               window=window, n_q_heads=H, n_kv_heads=K)
+    want = want.reshape(B, H, S, Dv).transpose(1, 2)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got, want, **FLASH_TOL[dtype])
+    again = ops.flash_attention_bshd(q, k, v, causal=causal, window=window)
+    assert torch.equal(got, again)
+
+
+def test_flash_attention_kernel_unequal_lengths():
+    """Sq != Sk over the (B·H, S, D) layout, non-causal and causal."""
+    from repro_torch.kernels import flash_attention as fa
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn(4, 70, 64, generator=gen, device=dev)
+    k = torch.randn(2, 130, 64, generator=gen, device=dev)
+    v = torch.randn(2, 130, 64, generator=gen, device=dev)
+    for causal in (False, True):
+        got = fa.flash_attention(q, k, v, causal=causal, n_q_heads=2,
+                                 n_kv_heads=1)
+        want = ref.flash_attention(q, k, v, causal=causal, n_q_heads=2,
+                                   n_kv_heads=1)
+        torch.testing.assert_close(got, want, **FLASH_TOL[torch.float32])
+
+
+def test_flash_attention_kernel_rejects_bad_inputs():
+    from repro_torch.kernels import flash_attention as fa
+    dev = _card()
+    x = torch.zeros(2, 8, 64, device=dev)
+    with pytest.raises(TypeError):
+        fa.flash_attention(x.half(), x.half(), x.half())
+    with pytest.raises(TypeError):
+        fa.flash_attention(x, x.bfloat16(), x)
+    with pytest.raises(ValueError, match="head dims"):
+        y = torch.zeros(2, 8, 48, device=dev)
+        fa.flash_attention(y, y, y)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros(8, 2, 64, device=dev).transpose(0, 1)
+        fa.flash_attention(t, x, x)
+    with pytest.raises(ValueError):
+        fa.flash_attention(x, x.cpu(), x)
+
+
+def test_prefill_on_card_launches_the_kernel_once_a_layer():
+    """Reduced qwen1.5-0.5b with flash_attention: one launch a layer, and
+    the same last logits as the chunked path within 3e-2 of their max."""
+    import dataclasses
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.registry import build_model
+    dev = _card()
+    base = get_config("qwen1.5-0.5b").reduced()
+    model = build_model(dataclasses.replace(base, flash_attention=True))
+    params = pinit.materialize(model.param_pd, 0, dev)
+    toks = torch.randint(0, base.vocab_size, (2, 96), device=dev)
+    before = fa.flash_attention.launches
+    got, _ = model.forward_prefill(params, {"tokens": toks}, 104)
+    assert fa.flash_attention.launches == before + base.n_layers
+    want, _ = build_model(base).forward_prefill(params, {"tokens": toks},
+                                                104)
+    err = (got - want).abs().max() / want.abs().max()
+    assert float(err) < 3e-2

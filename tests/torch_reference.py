@@ -12,6 +12,8 @@ to an ``.npz`` of ``kind/path`` keys.
   python tests/torch_reference.py train_steps OUT.npz
   python tests/torch_reference.py zero1_steps OUT.npz
   python tests/torch_reference.py comm_shards OUT.npz   (4 host devices)
+  python tests/torch_reference.py attention_cases OUT.npz
+  python tests/torch_reference.py lm_cases OUT.npz
 
 The reference's explicit data-parallel steps fail under jax 0.9.0 before
 they compute anything: ``repro/core/compat.py`` passes ``check_rep=`` to
@@ -322,9 +324,148 @@ def comm_shards():
     return out
 
 
+#: the shapes and masks of ``test_kernels.py::test_flash_attention_vs_oracle``
+#: (causal, window 24, non-causal; GQA; Dv != Dk), at f32 and bf16
+ATTN_SHAPES = ((2, 64, 4, 2, 32, 32), (1, 128, 2, 2, 16, 16),
+               (2, 96, 4, 4, 32, 16))
+ATTN_MASKS = ((True, 0), (True, 24), (False, 0))
+ATTN_CHUNK = 32
+#: decode_attention: (B, Smax, H, K, Dh), the new token's position, windows
+DECODE_SHAPES = ((2, 40, 4, 2, 32), (2, 48, 4, 4, 64))
+DECODE_POS = 29
+DECODE_WINDOWS = (0, 8)
+
+
+def attention_inputs(shape, dtype_name, seed):
+    """q (B,S,H,Dk), k (B,S,K,Dk), v (B,S,K,Dv) as f32 numpy, already
+    rounded to ``dtype_name`` (bf16 values are exact in f32)."""
+    B, S, H, K, Dk, Dv = shape
+    rng = np.random.default_rng(seed)
+    xs = [rng.standard_normal(s).astype(np.float32)
+          for s in ((B, S, H, Dk), (B, S, K, Dk), (B, S, K, Dv))]
+    if dtype_name == "bfloat16":
+        import torch
+        xs = [torch.from_numpy(x).bfloat16().float().numpy() for x in xs]
+    return xs
+
+
+def decode_inputs(shape, dtype_name, seed):
+    """q (B,1,H,Dh), k/v caches (B,Smax,K,Dh) as f32 numpy, rounded to
+    ``dtype_name``."""
+    B, Smax, H, K, Dh = shape
+    q, kc, vc = attention_inputs((B, Smax, H, K, Dh, Dh), dtype_name, seed)
+    return q[:, :1], kc, vc
+
+
+def attention_cases():
+    """``chunked_attention`` and ``flash_attention_bshd`` (the Pallas kernel
+    in interpret mode) at ``ATTN_SHAPES`` x ``ATTN_MASKS`` x {f32, bf16},
+    and ``decode_attention`` at ``DECODE_SHAPES`` x ``DECODE_WINDOWS`` x
+    {f32, bf16}, on the inputs of ``attention_inputs`` /
+    ``decode_inputs``."""
+    import jax.numpy as jnp
+    from repro.kernels.ops import flash_attention_bshd
+    from repro.models.attention import chunked_attention, decode_attention
+
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        for i, shape in enumerate(ATTN_SHAPES):
+            q, k, v = (jnp.asarray(x, dt)
+                       for x in attention_inputs(shape, dt, i))
+            for causal, window in ATTN_MASKS:
+                key = f"{dt}/s{i}/c{int(causal)}w{window}"
+                out[f"{key}/chunked"] = chunked_attention(
+                    q, k, v, q_offset=0, causal=causal, window=window,
+                    chunk=ATTN_CHUNK)
+                out[f"{key}/flash"] = flash_attention_bshd(
+                    q, k, v, causal=causal, window=window)
+        for i, shape in enumerate(DECODE_SHAPES):
+            q, kc, vc = (jnp.asarray(x, dt)
+                         for x in decode_inputs(shape, dt, 100 + i))
+            for window in DECODE_WINDOWS:
+                out[f"{dt}/d{i}/w{window}"] = decode_attention(
+                    q, kc, vc, jnp.int32(DECODE_POS), window=window)
+    return {k: np.asarray(v, np.float32) for k, v in out.items()}
+
+
+#: the LM parity setting: reduced qwen1.5-0.5b, a 32-token prompt and the
+#: 33rd token for one decode step, 8 greedy tokens from a 40-row cache
+LM_ARCH = "qwen1.5-0.5b"
+LM_BATCH, LM_PROMPT, LM_CACHE, LM_NEW = 2, 32, 40, 8
+
+
+def lm_params(cfg, seed=0):
+    """Reduced-LM params drawn with numpy from the reference's descriptors:
+    clipped normals at each leaf's scale; the biases (zeros at init) and
+    norm scales (ones) are drawn too, so their paths carry values."""
+    import jax
+    from repro.models import transformer
+    rng = np.random.default_rng(seed)
+
+    def leaf(pd):
+        x = np.clip(rng.standard_normal(pd.shape), -2.0, 2.0)
+        if pd.init == "normal":
+            return (pd.scale * x).astype(np.float32)
+        base = {"zeros": 0.0, "ones": 1.0}[pd.init]
+        return (base + 0.1 * x).astype(np.float32)
+
+    return jax.tree.map(leaf, transformer.lm_pd(cfg),
+                        is_leaf=lambda x: hasattr(x, "init"))
+
+
+def lm_tokens(cfg, seed=1):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab_size,
+                        (LM_BATCH, LM_PROMPT + 1)).astype(np.int32)
+
+
+def lm_cases():
+    """Reduced qwen1.5-0.5b with ``flash_attention`` False and True (the
+    Pallas kernel in interpret mode), ``mesh=None``: the full forward over
+    prompt + 1 tokens, the prefill of the prompt (last logits and cache),
+    one decode step of token 33 from that cache, and ``generate``'s greedy
+    tokens. ``f{flash}/...``; params as ``params/...``."""
+    import dataclasses
+
+    import jax
+    from repro.configs import get_config
+    from repro.models.registry import build_model
+
+    base = get_config(LM_ARCH).reduced()
+    params = lm_params(base)
+    toks = lm_tokens(base)
+    out = {}
+    _flat("params", params, out)
+    for flash in (0, 1):
+        model = build_model(dataclasses.replace(base,
+                                                flash_attention=bool(flash)))
+        _flat(f"f{flash}", jax.device_get(_lm_run(model, params, toks)),
+              out)
+    return out
+
+
+def _lm_run(model, params, toks):
+    import jax
+    import jax.numpy as jnp
+    from repro.serve.decode import generate
+
+    (logits, _), _ = jax.jit(lambda p, t: model.forward_train(
+        p, {"tokens": t}))(params, toks)
+    last, cache = jax.jit(lambda p, t: model.forward_prefill(
+        p, {"tokens": t}, LM_CACHE))(params, toks[:, :LM_PROMPT])
+    dl, cache2 = jax.jit(model.forward_decode)(
+        params, cache, toks[:, LM_PROMPT:], jnp.int32(LM_PROMPT))
+    gen = generate(model, params, {"tokens": toks[:, :LM_PROMPT]},
+                   max_new=LM_NEW, cache_len=LM_CACHE, mesh=None)
+    return {"train_logits": logits, "prefill_logits": last, "cache": cache,
+            "decode_logits": dl, "decode_cache": cache2, "generate": gen}
+
+
 if __name__ == "__main__":
     what, dest = sys.argv[1], sys.argv[2]
     np.savez(dest, **{"resnet_grads": resnet_grads,
                       "train_steps": train_steps,
                       "zero1_steps": zero1_steps,
-                      "comm_shards": comm_shards}[what]())
+                      "comm_shards": comm_shards,
+                      "attention_cases": attention_cases,
+                      "lm_cases": lm_cases}[what]())
