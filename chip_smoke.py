@@ -41,7 +41,25 @@ Phases, in order; any failure exits non-zero and prints no result:
               prompt + that token, both within 3e-2 of the logit max
  11. serve cli  python -m repro_torch.serve.decode --reduced --flash-attention
               on the card
-Each path's launch counts are set to 0 just before it and read just after.
+ 12. lm_train  full-width qwen1.5-0.5b (params from pinit; remat on, the
+              chunked attention: flash_attention stays off in training),
+              batch 2 x seq 4096 of lcg tokens, 5 LARS steps (poly2 with
+              warm-up, label smoothing 0.1, OptConfig(use_kernel=True))
+              through make_train_step + loop.train, then one eval: the
+              smoothed cross-entropy kernel (K4) must be launched once
+              forward and once backward a step and once for the eval, K1
+              twice a step; prints step ms, tokens/s, peak memory, losses
+ 13. lm_train context  one step with the K4 loss and two with a loss built
+              on K4's plain version, from one state and batch: losses to
+              1e-5 relative, K4's gradient at the step's logits to rtol
+              1e-5 / atol 1e-7, the plain steps bit for bit, new params to
+              5e-2 of each tensor's largest update (bf16 gradients: not
+              1e-5 of its max, the function says why)
+The kernels phase also holds K4, forward and backward, against its plain
+version (at the path's shape in f32 and bf16, at T 16 x V 333, and with
+IGNORE labels), beside F.cross_entropy; the cli phase also trains the
+reduced LM. Each path's launch counts are set to 0 just before it and read
+just after.
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -82,6 +100,37 @@ FLASH_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-5)}
 #: the serving path: 8 requests, 2048-token prompts, 32 new tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
 SERVE_CACHE = SERVE_PROMPT + SERVE_NEW + 8
+#: K4 shapes: (name, T, V, dtype, IGNORE labels). "path" is the LM
+#: training step's loss (2 x 4096 tokens of qwen1.5-0.5b's vocabulary, f32
+#: logits); then the same in bf16, the reference test's ragged (16, 333),
+#: and 1,024 path-width rows with every third label IGNORE
+XENT_SHAPES = (("path", 8192, 151_936, "float32", False),
+               ("path_bf16", 8192, 151_936, "bfloat16", False),
+               ("ragged", 16, 333, "float32", False),
+               ("ignore", 1024, 151_936, "float32", True))
+#: (rtol, atol) of K4 against its plain version: the forward at the
+#: reference's own tolerances (test_kernels.py); the backward against
+#: autograd of the plain version, and one bf16 ulp where dx is bf16. The
+#: backward's atol is per unit of the row's upstream gradient g (see
+#: ``_dx_close``)
+XENT_FWD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}
+XENT_BWD_TOL = {"float32": (1e-5, 1e-7), "bfloat16": (1e-2, 1e-7)}
+#: f32 operations a logit: max, subtract, exp, add to the sum-exp, add to
+#: the plain sum (forward); subtract, exp, two subtractions, multiply
+#: (backward)
+XENT_OPS = 5
+
+#: the LM training path: the assigned train_4k sequence, its 256-sequence
+#: global batch cut to one card's share
+LM_BATCH, LM_SEQ, LM_STEPS = 2, 4096, 5
+LM_LR = 4.0
+#: K4 loss vs the plain version's, as the ResNet context checks hold
+#: theirs; the new params against the update (check_lm_train_in_context
+#: says why not against the tensor's max): about four times the 1.3e-2
+#: measured on the H100
+LM_CONTEXT_TOL = 1e-5
+LM_UPDATE_TOL = 5e-2
+
 #: K5 prefill vs chunked prefill, and decode vs the full forward: two bf16
 #: paths that round in different places, held to the reference's own bound
 #: for decode against the full forward (tests/test_serve.py)
@@ -650,6 +699,323 @@ def check_flash_attention(dev):
             "shapes": rows}
 
 
+def _dx_close(got, want, g, rtol, atol):
+    """K4's gradient against autograd of the plain version, with the atol
+    in dx's own scale: ``dx = g·(p - (1-ε)·[v = y] - ε/V)``, so a row's
+    limit is ``atol·g[t] + rtol·|want|``. The step hands the kernel
+    g = 1/n_valid (1.2e-4 at 8,192 tokens), where a typical element is
+    about 1e-10: a fixed atol of 1e-7 would hold nothing but the target
+    column. Returns (ok, max abs err, max err per unit of g)."""
+    err = (got.float() - want.float()).abs()
+    ok = bool((err <= atol * g[:, None] + rtol * want.float().abs()).all())
+    err_max = err.max().item()
+    err.div_(g.clamp(min=1e-30)[:, None])
+    return ok, err_max, err[g > 0].max().item()
+
+
+def _xent_case(dev, gen, name, T, V, dt, ignore):
+    """K4 at one shape, forward and backward: checked against the plain
+    version (the backward against its autograd), then each timed beside
+    the plain version, F.cross_entropy on the same inputs and the bound.
+    The loss's gradient is what the LM step hands the kernel: 1/n_valid
+    on valid rows, 0 on IGNORE rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import smoothed_xent as sx
+
+    dtype = getattr(torch, dt)
+    x = (4.0 * torch.randn((T, V), generator=gen, device=dev)).to(dtype)
+    labels = torch.randint(0, V, (T,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    if ignore:
+        labels[::3] = -1
+    valid = labels >= 0
+    g = valid.float() / valid.sum().clamp(min=1)
+    eps = 0.1
+
+    nll, lse = sx.smoothed_xent_rows_forward(x, labels, eps)
+    dx = sx.smoothed_xent_rows_backward(x, labels, lse, g, eps)
+    xp = x.detach().requires_grad_()
+    want = ref.smoothed_xent_rows(xp, labels, smoothing=eps)
+    (want_dx,) = torch.autograd.grad(want, xp, g, retain_graph=True)
+    torch.cuda.synchronize()
+    rtol, atol = XENT_FWD_TOL[dt]
+    err = (nll - want.detach()).abs()
+    errs = {"forward": err.max().item()}
+    if not bool((err <= atol + rtol * want.detach().abs()).all()):
+        fail(f"smoothed_xent_rows {name} forward disagrees with its plain "
+             f"version (rtol {rtol}, atol {atol}): max abs err "
+             f"{errs['forward']:.3e}")
+    rtol, atol = XENT_BWD_TOL[dt]
+    ok, errs["backward"], per_g = _dx_close(dx, want_dx, g, rtol, atol)
+    if not ok:
+        fail(f"smoothed_xent_rows {name} backward disagrees with autograd of "
+             f"its plain version (rtol {rtol}, atol {atol}·g): max abs err "
+             f"{errs['backward']:.3e}, {per_g:.3e} per unit of g")
+    del want_dx
+    if bool(dx[~valid].any()):
+        fail(f"smoothed_xent_rows {name}: a masked row's gradient is not 0")
+    if not torch.equal(sx.smoothed_xent_rows_forward(x, labels, eps)[0],
+                       nll):
+        fail(f"smoothed_xent_rows {name}: two calls differ")
+    del dx
+
+    it = dict(iters=20, warmup=3) if T * V > 10 ** 8 else {}
+    few = dict(iters=5, warmup=1) if T * V > 10 ** 8 else {}
+    fwd_ms = time_ms(lambda: ops.smoothed_xent_rows(x, labels, eps), **it)
+    bwd_ms = time_ms(lambda: sx.smoothed_xent_rows_backward(
+        x, labels, lse, g, eps), **it)
+    plain_fwd = time_ms(lambda: ref.smoothed_xent_rows(
+        x, labels, smoothing=eps), **few)
+    plain_bwd = time_ms(lambda: torch.autograd.grad(
+        want, xp, g, retain_graph=True), **few)
+    del want, xp
+    xl = x.detach().requires_grad_()
+    lib = F.cross_entropy(xl, labels.long(), reduction="none",
+                          label_smoothing=eps, ignore_index=-1)
+    lib_err = (lib.detach().float() - nll)[valid].abs().max().item()
+    lib_fwd = time_ms(lambda: F.cross_entropy(
+        x, labels.long(), reduction="none", label_smoothing=eps,
+        ignore_index=-1), **it)
+    gl = g.to(lib.dtype)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        lib, xl, gl, retain_graph=True), **few)
+    del lib, xl
+    es = x.element_size()
+    n_read = int(g.count_nonzero())       # masked rows: x is not read
+    f_ms, f_by = bound_ms(T * V * es + 3 * T * 4, XENT_OPS * T * V)
+    b_ms, b_by = bound_ms((T + n_read) * V * es + 3 * T * 4,
+                          XENT_OPS * n_read * V)
+    print(f"smoothed_xent_rows {name} (T {T}, V {V}, {dt}, "
+          f"{T - int(valid.sum())} IGNORE): max abs err forward "
+          f"{errs['forward']:.3e}, backward {errs['backward']:.3e} "
+          f"({per_g:.3e} per unit of g); "
+          f"forward: kernel {fwd_ms * 1e3:.1f} us, plain {plain_fwd * 1e3:.1f}"
+          f" us, F.cross_entropy {lib_fwd * 1e3:.1f} us, bound "
+          f"{f_ms * 1e3:.1f} us ({f_by}); backward: kernel "
+          f"{bwd_ms * 1e3:.1f} us, plain {plain_bwd * 1e3:.1f} us, "
+          f"F.cross_entropy {lib_bwd * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us"
+          f" ({b_by}); F.cross_entropy rows differ from the kernel's by "
+          f"{lib_err:.3e}", flush=True)
+    row = {"shape": [T, V], "dtype": dt, "ignore": int(T - valid.sum())}
+    return ({**row, "max_abs_err": errs["forward"], "ms": fwd_ms,
+             "plain_ms": plain_fwd, "library_ms": lib_fwd, "bound_ms": f_ms,
+             "bound_by": f_by, "library_max_abs_diff": lib_err},
+            {**row, "max_abs_err": errs["backward"],
+             "max_err_per_unit_g": per_g, "ms": bwd_ms,
+             "plain_ms": plain_bwd, "library_ms": lib_bwd, "bound_ms": b_ms,
+             "bound_by": b_by})
+
+
+def check_smoothed_xent(dev):
+    """K4, forward and backward, at ``XENT_SHAPES`` (the LM training
+    path's first): two entries of the kernels line."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    fwd, bwd = {}, {}
+    for case in XENT_SHAPES:
+        fwd[case[0]], bwd[case[0]] = _xent_case(dev, gen, *case)
+        torch.cuda.empty_cache()
+    common = {"route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/smoothed_xent.cu",
+              "replaces": "src/repro/kernels/smoothed_xent.py:56",
+              "launches": None}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "shape", "dtype")
+    return ({"name": "smoothed_xent_rows", **common,
+             **{k: fwd["path"][k] for k in keys},
+             "library": "torch.nn.functional.cross_entropy(reduction="
+                        "'none', label_smoothing=0.1)", "shapes": fwd},
+            {"name": "smoothed_xent_rows_backward", **common,
+             **{k: bwd["path"][k] for k in keys},
+             "library": "the autograd backward of the same "
+                        "F.cross_entropy call",
+             "note": "the gradient of K4's function; the reference has no "
+                     "backward kernel (XLA differentiates its jnp loss)",
+             "shapes": bwd})
+
+
+def _lm_counters():
+    from repro_torch.kernels import batched_norm, lars_update
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import smoothed_xent as sx
+    return (sx.smoothed_xent_rows_forward, sx.smoothed_xent_rows_backward,
+            batched_norm.batched_sumsq, lars_update.lars_packed_update,
+            fa.flash_attention)
+
+
+def run_lm_train(dev):
+    """Full-width qwen1.5-0.5b trained through the port's entry points, as
+    ``python -m repro.launch.train --arch qwen1.5-0.5b`` drives the JAX
+    package (here at full width, batch 2 x seq 4096)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import lars
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.models.registry import build_model
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.train import loop
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_eval_step, make_train_step
+
+    cfg = get_config("qwen1.5-0.5b")
+    if not cfg.remat or cfg.flash_attention:
+        fail("lm_train: the config must train with remat and without the "
+             "flash kernel")
+    model = build_model(cfg)
+    sched = make_schedule(ScheduleConfig(base_lr=LM_LR, warmup_steps=1,
+                                         total_steps=LM_STEPS,
+                                         decay="poly2"))
+    opt = lars.OptConfig(kind="lars", weight_decay=5e-5, use_kernel=True)
+    train_step = make_train_step(model, opt, sched, smoothing=0.1)
+    batch_fn = make_batch_fn(cfg, InputShape("train_4k", "train", LM_SEQ,
+                                             LM_BATCH), device=dev)
+    state0 = init_state(model, seed=0, device=dev)
+    times = []
+
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    sink = obs_metrics.MemorySink()
+    counters = _lm_counters()
+    _zero(*counters)
+    with obs_metrics.default_registry().use_sink(sink):
+        state, history = loop.train(
+            state0, timed_step, batch_fn, steps=LM_STEPS,
+            eval_step=make_eval_step(model), eval_batch_fn=batch_fn,
+            eval_every=LM_STEPS, log_every=1, seed=0)
+    fwd, bwd, k1, k2, k5 = (c.launches for c in counters)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [h["loss"] for h in history if "loss" in h]
+    evals = [h["eval_loss"] for h in history if "eval_loss" in h]
+    if len(losses) != LM_STEPS or not all(math.isfinite(v) for v in losses):
+        fail(f"lm_train: losses not all finite: {losses}")
+    if len(evals) != 1 or not math.isfinite(evals[0]):
+        fail(f"lm_train: eval gave {evals}")
+    if not sink.find("run_stop"):
+        fail("lm_train: loop.train did not reach run_stop")
+    if (fwd, bwd, k1, k2, k5) != (LM_STEPS + 1, LM_STEPS, 2 * LM_STEPS, 0,
+                                  0):
+        fail(f"lm_train: launches K4 forward {fwd}, backward {bwd}, K1 {k1},"
+             f" K2 {k2}, K5 {k5} in {LM_STEPS} steps and one eval; the path"
+             f" must launch K4 once forward and once backward a step and "
+             f"once for the eval, K1 twice a step, K2 and K5 never")
+    q1, med, q3 = statistics.quantiles(times, n=4)
+    print(f"lm_train: losses {[round(v, 4) for v in losses]}; eval loss "
+          f"{evals[0]:.4f}", flush=True)
+    print(f"lm_train: step times ms {[round(t * 1e3, 2) for t in times]}; "
+          f"median {med * 1e3:.2f} ms (p25 {q1 * 1e3:.2f}, p75 "
+          f"{q3 * 1e3:.2f}), {LM_BATCH * LM_SEQ / med:.0f} tokens/s, peak "
+          f"memory {peak / 2 ** 30:.2f} GiB; launches K4 forward {fwd}, "
+          f"backward {bwd}, K1 {k1}", flush=True)
+    return model, state0, batch_fn(0), (fwd, bwd, k1)
+
+
+def check_lm_train_in_context(dev, model, state0, batch):
+    """One step with the K4 loss and two with the loss built on K4's plain
+    version, from one state and batch; and K4's gradient against autograd
+    of the plain version on that step's own logits.
+
+    The new params cannot agree to 1e-5 of each tensor's max, the bound of
+    the ResNet context checks (which compare steps with one loss and so
+    one set of gradients). The LM step differentiates the bf16 compute
+    copy: K4's dlogits, which differ from autograd's in the last f32 bits,
+    round to bf16 differently here and there, and the flipped roundings
+    spread through 24 layers of bf16 backward until the weight gradients
+    differ by about one bf16 rounding in most elements. The two plain steps
+    are bit-identical, so the spread is rounding, not nondeterminism. Held
+    instead: the loss to 1e-5 relative, the gradient at the logits to the
+    kernel's own bound, the plain steps bit for bit, and each tensor's new
+    params to ``LM_UPDATE_TOL`` of its largest update element; the figure
+    against the tensor's max is printed beside them."""
+    import torch
+    from repro_torch.core import lars
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import smoothed_xent as sx
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_flatten
+
+    sched = make_schedule(ScheduleConfig(base_lr=LM_LR,
+                                         total_steps=LM_STEPS))
+    step = make_train_step(model, lars.OptConfig(use_kernel=True), sched,
+                           smoothing=0.1)
+    fwd, bwd = _lm_counters()[:2]
+    _zero(fwd, bwd)
+    got, m = step(state0, batch)
+    kernel = ops.smoothed_xent_rows
+    ops.smoothed_xent_rows = lambda x, y, s: ref.smoothed_xent_rows(
+        x, y, smoothing=s)
+    try:
+        want, wm = step(state0, batch)
+        again, _ = step(state0, batch)
+    finally:
+        ops.smoothed_xent_rows = kernel
+    torch.cuda.synchronize()
+    if (fwd.launches, bwd.launches) != (1, 1):
+        fail(f"lm_train context: K4 launched {fwd.launches} / "
+             f"{bwd.launches} times for one kernel step and two plain steps")
+    d_loss = abs(float(m["loss"]) - float(wm["loss"])) / abs(
+        float(wm["loss"]))
+
+    # the gradient at the step's own logits, as the loss hands it to K4
+    with torch.no_grad():
+        (logits, _), _ = model.forward_train(state0.params, batch)
+    logits = logits.reshape(-1, logits.shape[-1])
+    labels = batch["labels"].reshape(-1)
+    valid = labels >= 0
+    safe = torch.where(valid, labels, 0)
+    g = valid.float() / valid.sum()
+    _, lse = sx.smoothed_xent_rows_forward(logits, safe, 0.1)
+    dx = sx.smoothed_xent_rows_backward(logits, safe, lse, g, 0.1)
+    xp = logits.requires_grad_()
+    (want_dx,) = torch.autograd.grad(
+        ref.smoothed_xent_rows(xp, safe, smoothing=0.1), xp, g)
+    rtol, atol = XENT_BWD_TOL["float32"]
+    dx_ok, dx_err, dx_per_g = _dx_close(dx, want_dx, g, rtol, atol)
+    del logits, xp, dx, want_dx
+
+    rows = []
+    for (n, a), (_, b), (_, c), (_, p0) in zip(
+            tree_flatten(got.params), tree_flatten(want.params),
+            tree_flatten(again.params), tree_flatten(state0.params)):
+        d = (a - b).abs().max().item()
+        upd = (b - p0).abs().max().item()
+        rows.append((n, d / max(b.abs().max().item(), 1e-30),
+                     d / max(upd, 1e-30), upd, torch.equal(b, c)))
+    of_max = max(rows, key=lambda r: r[1])
+    of_upd = max(rows, key=lambda r: r[2])
+    print(f"lm_train context: K4 loss vs plain loss differ by {d_loss:.3e} "
+          f"relative (limit {LM_CONTEXT_TOL}); dlogits by {dx_err:.3e} at "
+          f"most, {dx_per_g:.3e} per unit of g (rtol {rtol}, atol "
+          f"{atol}·g); two plain steps "
+          f"{'bit-identical' if all(r[4] for r in rows) else 'DIFFER'}; new "
+          f"params differ by {of_upd[2]:.3e} of the largest update "
+          f"({of_upd[0]}; limit {LM_UPDATE_TOL}), by {of_max[1]:.3e} of the "
+          f"tensor's max ({of_max[0]}; not held, see the docstring); "
+          f"smallest largest-update {min(r[3] for r in rows):.3e}",
+          flush=True)
+    if not (d_loss <= LM_CONTEXT_TOL and dx_ok and all(r[4] for r in rows)
+            and of_upd[2] <= LM_UPDATE_TOL
+            and min(r[3] for r in rows) > 0.0):
+        fail("the step with the K4 loss disagrees with the plain step")
+    return {"loss_rel_diff": d_loss, "dlogits_max_abs_err": dx_err,
+            "dlogits_max_err_per_unit_g": dx_per_g,
+            "param_diff_of_update": [of_upd[0], of_upd[2]],
+            "param_diff_of_max": [of_max[0], of_max[1]]}
+
+
 def run_serve(dev):
     """Full-width qwen1.5-0.5b served through serve.decode.generate with
     the flash kernel in the prefill, as examples/serve_decode.py drives
@@ -659,7 +1025,6 @@ def run_serve(dev):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import pinit
-    from repro_torch.kernels import batched_norm, lars_update
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.registry import build_model
     from repro_torch.serve.decode import generate
@@ -682,20 +1047,20 @@ def run_serve(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     timings = {}
-    _zero(batched_norm.batched_sumsq, lars_update.lars_packed_update,
-          fa.flash_attention)
+    counters = _lm_counters()
+    _zero(*counters)
     out = generate(model, params, batch, max_new=SERVE_NEW,
                    cache_len=SERVE_CACHE, timings=timings)
     torch.cuda.synchronize()
     launches = fa.flash_attention.launches
-    others = (batched_norm.batched_sumsq.launches,
-              lars_update.lars_packed_update.launches)
+    others = tuple(c.launches for c in counters[:4])
     peak = torch.cuda.max_memory_allocated(dev)
     if launches != cfg.n_layers:
         fail(f"serve: flash_attention launched {launches} times; the "
              f"prefill must launch it once a layer ({cfg.n_layers})")
-    if others != (0, 0):
-        fail(f"serve: training kernels launched {others}")
+    if others != (0, 0, 0, 0):
+        fail(f"serve: training kernels (K4 forward and backward, K1, K2) "
+             f"launched {others}")
     if tuple(out.shape) != (SERVE_BATCH, SERVE_NEW):
         fail(f"serve: generated shape {tuple(out.shape)}")
     if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
@@ -771,10 +1136,12 @@ def run_serve_cli():
 
 
 def run_cli():
-    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-            "resnet50", "--reduced", "--steps", "2", "--batch", "8"]
-    for extra in ([], ["--comm", "ring", "--sharding", "zero1",
-                       "--update-kernel"]):
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--reduced"]
+    resnet = ["--arch", "resnet50", "--steps", "2", "--batch", "8"]
+    lm = ["--arch", "qwen1.5-0.5b", "--seq", "128", "--batch", "8",
+          "--steps", "3"]
+    for extra in (resnet, resnet + ["--comm", "ring", "--sharding", "zero1",
+                                    "--update-kernel"], lm):
         out = subprocess.run(base + extra, cwd=ROOT, capture_output=True,
                              text=True, timeout=600,
                              env=dict(os.environ, PYTHONPATH=str(SRC)))
@@ -815,6 +1182,7 @@ def main():
     k2, k1_site = check_lars_update(dev)
     k1.update(k1_site)
     k5 = check_flash_attention(dev)
+    k4, k4_bwd = check_smoothed_xent(dev)
 
     phase("slice")
     state0, batch_fn, k1_slice = run_slice(dev)
@@ -853,7 +1221,22 @@ def main():
     phase("serve cli")
     run_serve_cli()
 
-    print(json.dumps({"kernels": [k1, k2, k5]}), flush=True)
+    phase("lm_train")
+    model, state0, batch, (fwd, bwd, k1_lm) = run_lm_train(dev)
+    k4["launches"], k4_bwd["launches"] = fwd, bwd
+    k4["launches_by_path"] = {"lm_train": fwd}
+    k4_bwd["launches_by_path"] = {"lm_train": bwd}
+    k1["launches"] += k1_lm
+    k1["launches_by_path"]["lm_train"] = k1_lm
+    k2["launches_by_path"]["lm_train"] = 0
+    k5["launches_by_path"]["lm_train"] = 0
+
+    phase("lm_train context")
+    k4["lm_train_context"] = check_lm_train_in_context(dev, model, state0,
+                                                       batch)
+    del model, state0, batch
+
+    print(json.dumps({"kernels": [k1, k2, k4, k4_bwd, k5]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -57,7 +57,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
     A CPU tensor takes the plain version (``kernels/ref``). A CUDA tensor
     launches the kernel on the current stream, or raises: there is no
-    fallback. ``flash_attention.launches`` counts kernel launches."""
+    fallback. ``flash_attention.launches`` counts kernel launches.
+
+    Forward only, on every device: with grad enabled and any of q, k, v
+    requiring grad it raises ``NotImplementedError``, as the reference
+    cannot differentiate its Pallas kernel either (no ``custom_vjp``)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise NotImplementedError(
+            "flash_attention has no backward: training with "
+            "flash_attention=True waits for the K5 backward kernel "
+            "(ROADMAP §2, K5 backward); train with flash_attention=False")
     H, K = _heads(q, k, v, n_q_heads, n_kv_heads)
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, window=window,

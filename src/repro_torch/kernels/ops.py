@@ -14,6 +14,7 @@ from repro_torch.core import bucketing
 from repro_torch.kernels.batched_norm import batched_sumsq  # noqa: F401
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.lars_update import lars_packed_update  # noqa: F401
+from repro_torch.kernels.smoothed_xent import smoothed_xent_rows  # noqa: F401
 from repro_torch.models.common import PD
 from repro_torch.tree import tree_flatten, tree_unflatten
 

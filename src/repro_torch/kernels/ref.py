@@ -37,6 +37,21 @@ def lars_packed_update(p, g, m, trust, seg_ids, *, lr, momentum, wd):
     return p - m2, m2
 
 
+def smoothed_xent_rows(logits, labels, *, smoothing: float):
+    """Per-row label-smoothed NLL ``lse - ((1-ε)·x_y + ε·mean(x))``, no
+    masking or averaging. logits: (T, V) f32 or bf16, upcast to f32;
+    labels: (T,) integer. Returns (T,) f32. A label outside [0, V) (IGNORE)
+    takes no target logit, as the kernel's column test gives."""
+    x = logits.float()
+    V = x.shape[-1]
+    lab = labels.long()
+    hit = (lab >= 0) & (lab < V)
+    tgt = torch.gather(x, -1, torch.where(hit, lab, 0)[:, None])[:, 0]
+    tgt = torch.where(hit, tgt, 0.0)
+    return torch.logsumexp(x, dim=-1) - ((1.0 - smoothing) * tgt
+                                         + smoothing * x.mean(dim=-1))
+
+
 #: the masked-score fill of the TPU kernel and of the chunked path: finite,
 #: so a row that has seen only masked keys never computes inf - inf
 NEG = -1e30

@@ -1,6 +1,8 @@
 """Where a training step's time goes, on the card.
 
-Drives the port's replicated step (full-width ResNet-50 by default) or,
+Drives the port's replicated step (full-width ResNet-50 by default; with
+``--arch qwen1.5-0.5b`` the dense LM, batch 2 x seq 4096 of lcg tokens,
+remat on, its loss through the smoothed cross-entropy kernel K4) or,
 with ``--sharding zero1``, its ZeRO-1 explicit-DP step over every rank of
 the job (one without ``torchrun``; psum schedule, 4 MB buckets, gather
 ahead, in-backward reduce-scatter, the fused update kernel unless
@@ -8,7 +10,8 @@ ahead, in-backward reduce-scatter, the fused update kernel unless
 explicit-DP step, and prints one JSON object (one per rank):
 
 * ``step_ms``: host clock around whole steps ending in a device sync
-  (median and quartiles over ``--steps``), images/s, peak memory;
+  (median and quartiles over ``--steps``), images/s (tokens/s for an LM),
+  peak memory;
 * ``phase_ms``: CUDA-event times of the step's phases, run one after
   another: forward (loss), backward (``autograd.grad``), optimizer
   (``lars.update``, with the batched-norm kernel or without); for zero1
@@ -17,9 +20,12 @@ explicit-DP step, and prints one JSON object (one per rank):
   explicit step;
 * ``profile``: from ``torch.profiler`` over ``PROFILE_STEPS`` steps, the
   device time per kernel group and the device's idle share of the window
-  (1 − the union of kernel intervals over the window's span).
+  (1 − the union of kernel intervals over the window's span), kernels a
+  step.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_step --batch 64
+  PYTHONPATH=src python -m repro_torch.launch.profile_step \\
+      --arch qwen1.5-0.5b --seq 4096 --batch 2 --steps 8
   PYTHONPATH=src python -m repro_torch.launch.profile_step --batch 64 \\
       --sharding zero1
   PYTHONPATH=src torchrun --nproc-per-node 4 -m \\
@@ -59,6 +65,19 @@ GROUPS = (("batched_sumsq", ("chunk_sumsq", "segment_sum")),
           ("reduction", ("reduce",)),
           ("elementwise", ("elementwise", "vectorized", "unrolled")),
           ("copy/cast", ("copy", "cat", "memset", "fill")))
+#: the same for an LM step: the loss kernel K4 on its own, the matmuls
+#: (cuBLAS's nvjet_* among them), the chunked attention's softmax parts;
+#: copies and casts ahead of the elementwise group, whose launcher
+#: templates (elementwise_kernel<..., direct_copy_kernel_cuda>) they share
+LM_GROUPS = (("smoothed_xent", ("smoothed_xent",)),
+             ("batched_sumsq", ("chunk_sumsq", "segment_sum")),
+             ("gemm", ("gemm", "nvjet", "cutlass", "sm90_", "xmma", "cublas",
+                       "gemv")),
+             ("softmax", ("softmax",)),
+             ("reduction", ("reduce",)),
+             ("copy/cast/index", ("copy", "cat", "memset", "fill",
+                                  "index", "scatter", "gather")),
+             ("elementwise", ("elementwise", "vectorized", "unrolled")))
 
 
 def _group(name: str, groups=GROUPS) -> str:
@@ -78,9 +97,14 @@ def quartiles(xs):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="resnet50",
+                    choices=["resnet50", "qwen1.5-0.5b"])
     ap.add_argument("--reduced", action="store_true",
-                    help="the smoke-sized ResNet (for a CPU rehearsal)")
-    ap.add_argument("--batch", type=int, default=64)
+                    help="the smoke-sized model (for a CPU rehearsal)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default: 64 images, or 2 sequences for an LM")
+    ap.add_argument("--seq", type=int, default=4096,
+                    help="LM sequence length")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--no-kernel", action="store_true",
                     help="per-tensor LARS norms instead of the kernel; "
@@ -100,9 +124,12 @@ def main(argv=None):
         ap.error("--sharding zero1 needs an explicit schedule (--comm)")
 
     dev = resolve_device(args.device)
-    cfg = get_config("resnet50")
+    cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    lm = cfg.family != "conv"
+    if args.batch is None:
+        args.batch = 2 if lm else 64
     model = build_model(cfg)
     opt = lars.OptConfig(use_kernel=not args.no_kernel)
     sched = make_schedule(ScheduleConfig(base_lr=0.1,
@@ -121,7 +148,8 @@ def main(argv=None):
     else:
         step = make_train_step(model, opt, sched)
         state = init_state(model, 0, device=dev)
-    batch_fn = make_batch_fn(cfg, InputShape("p", "train", 0, args.batch),
+    batch_fn = make_batch_fn(cfg, InputShape("p", "train", args.seq if lm
+                                             else 0, args.batch),
                              device=dev, mesh=mesh)
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
         else (lambda: None)
@@ -146,9 +174,11 @@ def main(argv=None):
            "comm": comm, "sharding": args.sharding,
            "ranks": mesh.size if mesh else 1,
            "use_kernel": opt.use_kernel,
+           "seq": args.seq if lm else None, "remat": cfg.remat,
            "steps": args.steps,
            "step_ms": step_ms,
-           "images_per_s": args.batch / step_ms["median"] * 1e3,
+           ("tokens_per_s" if lm else "images_per_s"):
+               args.batch * (args.seq if lm else 1) / step_ms["median"] * 1e3,
            "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                             if dev.type == "cuda" else None)}
 
@@ -158,7 +188,8 @@ def main(argv=None):
         elif args.sharding == "zero1":
             out["phase_ms"] = _phases_zero1(model, opt, state, batch_fn(0),
                                             dev, step)
-        out["profile"] = _profile(step, state, batch_fn, PROFILE_STEPS, dev)
+        out["profile"] = _profile(step, state, batch_fn, PROFILE_STEPS, dev,
+                                  LM_GROUPS if lm else GROUPS)
     if mesh is not None:
         mesh.destroy()
     print(json.dumps(out), flush=True)
@@ -222,7 +253,7 @@ def _phases(model, opt, state, batch, dev, reps: int = 5):
     return {k: statistics.median(v) for k, v in acc.items()}
 
 
-def _profile(step, state, batch_fn, n: int, dev):
+def _profile(step, state, batch_fn, n: int, dev, groups):
     batches = [batch_fn(i) for i in range(n)]
 
     def run():
@@ -230,7 +261,7 @@ def _profile(step, state, batch_fn, n: int, dev):
         for b in batches:
             s, _ = step(s, b)
 
-    return device_profile(run, dev, n)
+    return device_profile(run, dev, n, groups)
 
 
 def device_profile(fn, dev, steps: int, groups=GROUPS):

@@ -6,6 +6,8 @@ Example:
       --reduced --batch 8 --steps 2            # on the card
   PYTHONPATH=src python -m repro_torch.launch.train --arch resnet50 \\
       --reduced --batch 8 --steps 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
+      --reduced --seq 128 --batch 8 --steps 3 --device cpu   # LM, lcg tokens
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
       --arch resnet50 --reduced --batch 8 --steps 2 --comm ring \\
       --sharding zero1 --device cpu        # ZeRO-1 on two gloo ranks
@@ -45,7 +47,6 @@ _NOT_PORTED = {
     "--inject-fault": 8, "--guard": 8, "--rollback-ring": 8,
     "--rollback-every": 8, "--rewarmup-steps": 8, "--trace": 8,
     "--metrics": 8,
-    "--data": 10,
 }
 
 
@@ -57,6 +58,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--data", default="lcg", choices=["lcg", "uniform"],
+                    help="LM token distribution (data/synthetic.token_batch)")
     ap.add_argument("--optimizer", default="lars",
                     choices=["lars", "sgdm", "lamb"])
     ap.add_argument("--grad-accum", type=int, default=1)
@@ -141,8 +144,8 @@ def _train(args, mesh):
     opt = lars.OptConfig(kind=args.optimizer, momentum=args.momentum,
                          weight_decay=args.weight_decay)
     shape = InputShape("cli", "train", args.seq, args.batch)
-    batch_fn = make_batch_fn(cfg, shape, seed=args.seed, device=device,
-                             mesh=mesh)
+    batch_fn = make_batch_fn(cfg, shape, seed=args.seed, kind=args.data,
+                             device=device, mesh=mesh)
     comm = CommConfig(strategy=args.comm, bucket_mb=args.bucket_mb,
                       overlap=not args.no_overlap,
                       update_kernel=args.update_kernel,

@@ -1,7 +1,7 @@
 """Model registry: the uniform functional API over architecture families.
 
 The port builds the conv family (ResNet-50: training) and the dense LM
-family (GQA decoder: forward, prefill and one-token decode). The other LM
+family (GQA decoder: training, prefill and one-token decode). The other LM
 families (MoE, MLA, hybrid, xLSTM, whisper, VLM) raise
 ``NotImplementedError``: ROADMAP §1 item 10.
 """

@@ -7,7 +7,8 @@ it with a Python loop over views of the stacked leaves, and writes the
 stacked (L, B, S, K, Dh) cache in place.
 
 Three entry points, as the JAX package has them: ``forward_train`` (full
-logits; forward only here, the LM train step is ROADMAP §1 item 10),
+logits, differentiable; with ``cfg.remat`` each layer is recomputed in the
+backward, as the JAX package wraps its layer scan in ``jax.checkpoint``),
 ``forward_prefill`` (logits of the last position + a filled cache) and
 ``forward_decode`` (one token against the cache).
 
@@ -19,6 +20,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
@@ -107,15 +109,30 @@ def _dense_block(p, x, positions, cfg, *, decode=False, cache=None,
     return x + mlpm.swiglu_apply(p["mlp"], h), new_cache
 
 
+def _train_block(p, x, positions, cfg):
+    return _dense_block(p, x, positions, cfg)[0]
+
+
 def _dense_forward(params, cfg, x, positions, *, mode, cache=None, pos=None,
                    cache_len=0):
     """mode: train | prefill | decode. x: embedded inputs (B,S,d). Returns
     (x, cache); the decode cache is the given one, updated in place."""
     L = cfg.n_layers
     if mode == "train":
+        # the stacked leaves unbound once: their backward is one stack of
+        # the L layer gradients, not a zero-filled full-size gradient per
+        # layer as slicing each layer out would give
+        unbound = tree_map(lambda a: a.unbind(0), params["layers"])
+        remat = cfg.remat and torch.is_grad_enabled()
         for i in range(L):
-            x, _ = _dense_block(_layer(params["layers"], i), x, positions,
-                                cfg)
+            p = tree_map(lambda t: t[i], unbound)
+            if remat:
+                # recomputed in the backward; a layer draws no random
+                # numbers, so no RNG state needs keeping
+                x = checkpoint(_train_block, p, x, positions, cfg,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = _train_block(p, x, positions, cfg)
         return x, None
     if mode == "prefill":
         stacked = None

@@ -2,7 +2,10 @@
 
 The loss is label-smoothed cross entropy (paper §III-A.2), the optimizer
 LARS or momentum-SGD (paper §III-A.1) on fp32 masters with bf16 compute
-(paper §IV). Two distribution paths:
+(paper §IV). For the LM families the loss's per-row NLL runs through the
+smoothed cross-entropy kernel (``kernels/ops.smoothed_xent_rows``, K4,
+forward and backward) and the masked mean stays outside it. Two
+distribution paths:
 
 * ``comm='xla'``: the replicated single-device step. Gradients are taken
   with respect to the bf16 compute copy of the weights, as in the
@@ -24,7 +27,8 @@ LARS or momentum-SGD (paper §III-A.1) on fp32 masters with bf16 compute
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item:
 the naive, hierarchical, 2d_torus and dbtree schedules and the ring-step
 kernel (§1 item 6), zero2/zero3 and the bucket autotuner (item 7), the
-guard and the tracer (item 8), the LM train step (item 10).
+guard and the tracer (item 8), the explicit-DP and ZeRO-1 LM step
+(item 10).
 """
 from __future__ import annotations
 
@@ -32,17 +36,39 @@ import torch
 
 from repro_torch.configs.base import CommConfig
 from repro_torch.core import bucketing, ddp, lars
-from repro_torch.core.label_smoothing import smoothed_xent, top1_accuracy
+from repro_torch.core.label_smoothing import IGNORE, smoothed_xent, \
+    top1_accuracy
 from repro_torch.core.precision import cast_to_compute
+from repro_torch.kernels import ops
 from repro_torch.models.resnet import resnet_forward
 from repro_torch.train.state import TrainState
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 
+def _lm_loss(logits, labels, *, smoothing):
+    """The reference's LM loss: ``smoothed_xent`` with its per-row NLL from
+    the K4 wrapper (labels clamped to 0 where IGNORE), then the masked mean.
+    Returns (mean loss, n_valid)."""
+    if labels.shape != logits.shape[:-1]:
+        raise NotImplementedError(
+            "labels narrower than the logits (the VLM image prefix) are not "
+            "ported to repro_torch yet (ROADMAP §1 item 10)")
+    valid = labels != IGNORE
+    safe = torch.where(valid, labels, 0)
+    nll = ops.smoothed_xent_rows(logits.reshape(-1, logits.shape[-1]),
+                                 safe.reshape(-1), smoothing)
+    n_valid = valid.sum()
+    loss = torch.where(valid.reshape(-1), nll, 0.0).sum() \
+        / n_valid.clamp(min=1)
+    return loss, n_valid
+
+
 def make_loss_fn(model, *, smoothing: float = 0.1, aux_coef: float = 0.01):
+    xent = smoothed_xent if model.cfg.family == "conv" else _lm_loss
+
     def loss_fn(params, batch, bn_state=None):
         (logits, aux), new_bn = model.forward_train(params, batch, bn_state)
-        loss, _ = smoothed_xent(logits, batch["labels"], smoothing=smoothing)
+        loss, _ = xent(logits, batch["labels"], smoothing=smoothing)
         total = loss + aux_coef * aux
         acc = top1_accuracy(logits.detach(), batch["labels"])
         metrics = {"loss": loss.detach(), "aux": aux.detach(), "acc": acc}
@@ -86,8 +112,9 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
     tensor."""
     comm_cfg = comm if isinstance(comm, CommConfig) else CommConfig(
         strategy=comm, bucket_mb=bucket_mb, wire_dtype=comm_dtype)
-    if model.cfg.family != "conv":
-        raise _not_ported(f"the LM train step ({model.cfg.arch_id})", 10)
+    if model.cfg.family != "conv" and comm_cfg.strategy != "xla":
+        raise _not_ported(f"the explicit-DP LM step ({model.cfg.arch_id}, "
+                          f"comm={comm_cfg.strategy!r})", 10)
     if guard:
         raise _not_ported("guard=True", 8)
     if tracer is not None:
@@ -273,12 +300,19 @@ def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
 
 
 def make_eval_step(model):
-    """eval_step(params, batch, bn_state) -> {'loss', 'acc'} with the
-    running BN statistics and no smoothing (conv family)."""
+    """eval_step(params, batch, bn_state) -> {'loss', 'acc'}, no
+    smoothing: the conv family with the running BN statistics; the LMs
+    through ``_lm_loss`` (K4 on the card) with ``acc`` 0, as the reference
+    returns it."""
     cfg = model.cfg
 
     @torch.no_grad()
     def eval_step(params, batch, bn_state=None):
+        if cfg.family != "conv":
+            (logits, _), _ = model.forward_train(params, batch)
+            loss, _ = _lm_loss(logits, batch["labels"], smoothing=0.0)
+            return {"loss": loss,
+                    "acc": torch.zeros((), device=loss.device)}
         logits, _ = resnet_forward(cast_to_compute(params), bn_state, cfg,
                                    batch["images"], train=False)
         loss, _ = smoothed_xent(logits, batch["labels"], smoothing=0.0)

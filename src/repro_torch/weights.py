@@ -69,6 +69,15 @@ def lm_params_from_jax(np_tree, cfg, device) -> dict:
     return _to_torch(np_tree, transformer.lm_pd(cfg), device, "params")
 
 
+def lm_state_from_jax(jax_state, cfg, device) -> TrainState:
+    """A reference LM ``TrainState`` of a replicated LARS/SGD-M run (numpy
+    leaves: ``jax.device_get(state)``; its ``bn_state`` is None) -> the
+    port's: the fp32 params and the momentum, both at the params' paths."""
+    return TrainState(int(jax_state.step),
+                      lm_params_from_jax(jax_state.params, cfg, device),
+                      lm_params_from_jax(jax_state.mom, cfg, device))
+
+
 def cache_from_jax(np_tree, cfg, batch: int, max_seq: int, device) -> dict:
     """A reference KV cache (numpy leaves, bf16 as f32) of ``batch``
     requests and ``max_seq`` rows -> the port's stacked bf16 cache."""

@@ -298,3 +298,147 @@ def test_prefill_on_card_launches_the_kernel_once_a_layer():
                                                 104)
     err = (got - want).abs().max() / want.abs().max()
     assert float(err) < 3e-2
+
+
+def test_flash_attention_refuses_autograd_on_card():
+    """As on the CPU: no backward, so a graph through K5 is refused before
+    any launch, with the ROADMAP item named."""
+    from repro_torch.kernels import flash_attention as fa
+    dev = _card()
+    q = torch.zeros(2, 8, 64, device=dev, requires_grad=True)
+    before = fa.flash_attention.launches
+    with pytest.raises(NotImplementedError, match="K5 backward"):
+        fa.flash_attention(q, q.detach(), q.detach())
+    assert fa.flash_attention.launches == before
+    with torch.no_grad():
+        fa.flash_attention(q, q, q)
+    assert fa.flash_attention.launches == before + 1
+
+
+# ---------------------------------------------------------------- K4
+
+#: (T, V): test_kernels.py's grid, V 513 (rows off the 16-byte grid), the
+#: full-width vocabulary for a few rows and for a ragged T
+XENT_CASES = [(8, 512), (64, 1000), (128, 4096), (256, 2048), (16, 333),
+              (37, 513), (3, 151_936), (77, 151_936)]
+#: forward: the reference's own tolerances (test_kernels.py); backward:
+#: rtol 1e-5 / atol 1e-7 in f32, and one bf16 ulp (2^-7) when dx is bf16
+XENT_FWD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+                torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+XENT_BWD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-7),
+                torch.bfloat16: dict(rtol=1e-2, atol=1e-7)}
+
+
+def _xent_inputs(T, V, dtype, dev, *, ignore=False, offset=0):
+    """4·N(0, 1) logits (``offset`` elements into their buffer, so rows
+    start off the 16-byte grid), uniform labels (every third IGNORE with
+    ``ignore``), and a gradient with every fifth row 0."""
+    from repro_torch.core.label_smoothing import IGNORE
+    gen = torch.Generator(device=dev).manual_seed(T + V)
+    buf = 4.0 * torch.randn(T * V + offset, generator=gen, device=dev)
+    logits = buf.to(dtype)[offset:].view(T, V)
+    labels = torch.randint(0, V, (T,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    if ignore:
+        labels[::3] = IGNORE
+    g = torch.rand(T, generator=gen, device=dev)
+    g[1::5] = 0.0
+    return logits, labels, g
+
+
+def _xent_check(logits, labels, g, dtype):
+    from repro_torch.kernels import smoothed_xent as sx
+    x = logits.detach().requires_grad_()
+    f0, b0 = sx.smoothed_xent_rows_forward.launches, \
+        sx.smoothed_xent_rows_backward.launches
+    nll = ops.smoothed_xent_rows(x, labels, 0.1)
+    (dx,) = torch.autograd.grad(nll, x, g)
+    torch.cuda.synchronize()
+    assert sx.smoothed_xent_rows_forward.launches == f0 + 1
+    assert sx.smoothed_xent_rows_backward.launches == b0 + 1
+    xp = logits.detach().clone().requires_grad_()
+    want = ref.smoothed_xent_rows(xp, labels, smoothing=0.1)
+    (want_dx,) = torch.autograd.grad(want, xp, g)
+    assert nll.dtype == torch.float32 and dx.dtype == dtype
+    torch.testing.assert_close(nll, want, **XENT_FWD_TOL[dtype])
+    torch.testing.assert_close(dx, want_dx, **XENT_BWD_TOL[dtype])
+    assert not dx[g == 0].any()                # masked rows: exact zeros
+    again = ops.smoothed_xent_rows(logits, labels, 0.1)
+    assert torch.equal(again, nll.detach())    # deterministic
+
+
+@pytest.mark.parametrize("case", XENT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_smoothed_xent_kernel_matches_plain(case, dtype):
+    dev = _card()
+    _xent_check(*_xent_inputs(*case, dtype, dev), dtype)
+
+
+@pytest.mark.parametrize("case", [(16, 333), (64, 1000), (9, 151_936)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_smoothed_xent_kernel_ignore_labels_and_misaligned_rows(case,
+                                                                dtype):
+    """IGNORE labels take no target (forward) and no one-hot (backward);
+    logits one element off their buffer's alignment take the scalar head
+    in the forward and the scalar path in the backward."""
+    dev = _card()
+    _xent_check(*_xent_inputs(*case, dtype, dev, ignore=True), dtype)
+    _xent_check(*_xent_inputs(*case, dtype, dev, ignore=True, offset=1),
+                dtype)
+
+
+def test_smoothed_xent_kernel_rejects_bad_inputs():
+    from repro_torch.kernels import smoothed_xent as sx
+    dev = _card()
+    x = torch.zeros(4, 8, device=dev)
+    lab = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        sx.smoothed_xent_rows(x.half(), lab)
+    with pytest.raises(TypeError):
+        sx.smoothed_xent_rows(x, lab.float())
+    with pytest.raises(ValueError):
+        sx.smoothed_xent_rows(x[0], lab)
+    with pytest.raises(ValueError):
+        sx.smoothed_xent_rows(x, lab[:3])
+    with pytest.raises(ValueError, match="contiguous"):
+        sx.smoothed_xent_rows(torch.zeros(8, 4, device=dev).T, lab)
+    with pytest.raises(ValueError):
+        sx.smoothed_xent_rows(x, lab.cpu())
+
+
+def test_lm_train_step_on_card_runs_k4_and_k1(monkeypatch):
+    """Reduced qwen1.5-0.5b, one LARS step with the norm kernel on the
+    card: K4 once forward and once backward, K1 twice; the loss and the
+    new params as a step whose loss is built on the plain version, to
+    1e-5."""
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.kernels import smoothed_xent as sx
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_train_step
+    dev = _card()
+    base = get_config("qwen1.5-0.5b").reduced()
+    model = build_model(base)
+    step = make_train_step(model, lars.OptConfig(use_kernel=True),
+                           make_schedule(ScheduleConfig(base_lr=1.0,
+                                                        total_steps=4)))
+    state = init_state(model, 0, device=dev)
+    batch = token_batch(base, batch=4, seq=64, step=0, device=dev)
+    counts = lambda: (sx.smoothed_xent_rows_forward.launches,
+                      sx.smoothed_xent_rows_backward.launches,
+                      batched_norm.batched_sumsq.launches)
+    before = counts()
+    got, m = step(state, batch)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [1, 1, 2]
+    monkeypatch.setattr(ops, "smoothed_xent_rows",
+                        lambda x, y, s: ref.smoothed_xent_rows(
+                            x, y, smoothing=s))
+    want, wm = step(state, batch)
+    assert counts()[:2] == (before[0] + 1, before[1] + 1)
+    assert abs(float(m["loss"]) - float(wm["loss"])) \
+        <= 1e-5 * abs(float(wm["loss"]))
+    for (p, a), (_, b) in zip(tree_flatten(got.params),
+                              tree_flatten(want.params)):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), p

@@ -225,6 +225,7 @@ def test_unported_lm_parts_name_roadmap(base):
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
         make_train_step(build_model(base), lars.OptConfig(),
                         make_schedule(ScheduleConfig(base_lr=0.1,
-                                                     total_steps=2)))
+                                                     total_steps=2)),
+                        comm="psum")
     with pytest.raises(KeyError, match="not ported yet"):
         get_config("qwen3-14b")

@@ -14,6 +14,7 @@ to an ``.npz`` of ``kind/path`` keys.
   python tests/torch_reference.py comm_shards OUT.npz   (4 host devices)
   python tests/torch_reference.py attention_cases OUT.npz
   python tests/torch_reference.py lm_cases OUT.npz
+  python tests/torch_reference.py lm_train_steps OUT.npz
 
 The reference's explicit data-parallel steps fail under jax 0.9.0 before
 they compute anything: ``repro/core/compat.py`` passes ``check_rep=`` to
@@ -461,6 +462,60 @@ def _lm_run(model, params, toks):
             "decode_logits": dl, "decode_cache": cache2, "generate": gen}
 
 
+#: the LM training parity setting: reduced qwen1.5-0.5b, lcg token batches
+#: of the reference's own ``token_batch``, LARS poly2 (``LR``); per case
+#: (remat, grad_accum), ``LM_TRAIN_STEPS`` steps along the reference's own
+#: trajectory
+LM_TRAIN_CASES = {"r0a1": (False, 1), "r1a1": (True, 1), "r0a2": (False, 2)}
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 4, 32, 2
+
+
+def lm_train_steps():
+    """Reduced qwen1.5-0.5b, ``make_train_step(comm='xla', mesh=None)``
+    jitted, for each case of ``LM_TRAIN_CASES`` (the config passed with
+    its ``remat``): each step's input and output params and momentum,
+    batch and metrics, as ``{case}/s{k}/...``; the step counters as
+    ``{case}/s{k}/{in,out}/step``."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config
+    from repro.core import lars
+    from repro.core.schedule import ScheduleConfig, make_schedule
+    from repro.data.synthetic import token_batch
+    from repro.models.registry import build_model
+    from repro.train.state import TrainState
+    from repro.train.step import make_train_step
+
+    base = get_config(LM_ARCH).reduced()
+    params = lm_params(base)
+    sched = make_schedule(ScheduleConfig(**LR))
+    batches = [jax.device_get(token_batch(
+        base, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, step=k, kind="lcg"))
+        for k in range(LM_TRAIN_STEPS)]
+    out = {}
+    for case, (remat, accum) in LM_TRAIN_CASES.items():
+        model = build_model(dataclasses.replace(base, remat=remat))
+        step = jax.jit(make_train_step(model, lars.OptConfig(kind="lars"),
+                                       sched, mesh=None, comm="xla",
+                                       grad_accum=accum))
+        s = TrainState(jnp.zeros((), jnp.int32), params,
+                       jax.tree.map(np.zeros_like, params))
+        for k, batch in enumerate(batches):
+            s2, m = step(s, batch)
+            pre = f"{case}/s{k}"
+            for io, x in (("in", s), ("out", s2)):
+                x = jax.device_get(x)
+                out[f"{pre}/{io}/step"] = np.asarray(x.step)
+                _flat(f"{pre}/{io}/params", x.params, out)
+                _flat(f"{pre}/{io}/mom", x.mom, out)
+            _flat(f"{pre}/batch", batch, out)
+            _flat(f"{pre}/metrics", jax.device_get(m), out)
+            s = s2
+    return out
+
+
 if __name__ == "__main__":
     what, dest = sys.argv[1], sys.argv[2]
     np.savez(dest, **{"resnet_grads": resnet_grads,
@@ -468,4 +523,5 @@ if __name__ == "__main__":
                       "zero1_steps": zero1_steps,
                       "comm_shards": comm_shards,
                       "attention_cases": attention_cases,
-                      "lm_cases": lm_cases}[what]())
+                      "lm_cases": lm_cases,
+                      "lm_train_steps": lm_train_steps}[what]())
