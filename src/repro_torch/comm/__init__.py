@@ -1,10 +1,10 @@
 """Collective-schedule subsystem (paper §III-C): gradient all-reduce
 decomposed into schedules over the mesh's data-parallel axes, each with a
-reduce-scatter-terminal form for the ZeRO-1 path. A port of
-``repro.comm``; this slice has the ``psum`` and ``ring`` schedules (and
-the ``bucketed`` alias). The hierarchical, 2d_torus and dbtree schedules,
-the cost model, the autotuner and the serialisable CommPlan are ROADMAP
-§1 items 6 and 7.
+reduce-scatter-terminal form for the sharded rungs. A port of
+``repro.comm``: every schedule of the reference (psum, ring, hierarchical,
+2d_torus, dbtree, and the ``bucketed`` alias), with the ring-step fold
+kernel K3 (``comm.ring_kernel``). The cost model, the autotuner and the
+serialisable CommPlan are ROADMAP §1 item 7.
 """
 from typing import Sequence
 

@@ -10,13 +10,18 @@ flat 1-D buffers, along one mesh axis (``launch.mesh.Axis``):
                        walk rebuilds the full buffer from per-rank chunks.
   ring_all_reduce      reduce-scatter + all-gather, the bandwidth-optimal
                        ring (2(n-1) messages of B/n).
+  tree_all_reduce      two mirrored binomial trees, each reducing and
+                       broadcasting half the buffer (the dbtree schedule).
 
 Chunk convention, as the reference's: the buffer is zero-padded to
 ``n * c`` elements and viewed as ``(n, c)`` chunk rows. At reduce-scatter
 step ``s`` rank ``r`` sends its partial sum of chunk ``(r - s) % n`` to
 ``r + 1`` and folds the one it receives into chunk ``(r - 1 - s) % n``.
-The neighbour exchange is one ``dist.batch_isend_irecv`` (send right,
-receive left), so the same code runs on gloo and NCCL.
+The fold is ``step_fn`` (``default_step_fn``, or the ring-step kernel K3,
+``comm.ring_kernel``). The neighbour exchange is one
+``dist.batch_isend_irecv`` (send right, receive left), so the same code
+runs on gloo and NCCL; a tree level posts only the sends and receives of
+its own edges.
 
 A size-1 axis returns the input unchanged, so schedules compose over
 meshes with trivial axes (the local ``(data, model=1)`` mesh). ``psum`` is
@@ -136,10 +141,91 @@ def shard_index(axis) -> int:
 
 
 def slice_own_chunk(x, axis, *, pad_to: int = 1):
-    """Reduce-scatter tail for schedules without a native scatter (psum):
+    """Reduce-scatter tail for schedules without a native scatter (psum,
+    dbtree, hierarchical's fallback):
     view the already fully reduced buffer as ``(n, c)`` chunk rows and
     keep the chunk this rank owns under the ring layout."""
     n = axis.size
     if n == 1:
         return x
     return _as_chunks(x, n, pad_to)[shard_index(axis)]
+
+
+# --------------------------------------------------------------------------
+# binomial trees (the dbtree schedule's building block)
+
+def tree_edges(n: int):
+    """Binomial-tree edges rooted at rank 0, as per-level (child, parent)
+    pair lists, leaves first. Level ``l`` pairs every rank whose lowest set
+    bit is ``l`` with that bit cleared, so every rank sends once and rank 0
+    holds the full reduction after ``ceil(log2 n)`` levels. Any ``n``:
+    non-powers of two have sparser levels."""
+    levels, step = [], 1
+    while step < n:
+        levels.append([(s, s - step) for s in range(step, n, 2 * step)])
+        step *= 2
+    return levels
+
+
+def _exchange(sends, axis):
+    """One batch of point-to-point messages along ``axis``: ``sends`` are
+    (tensor, dst index, src index) of the edges this rank takes part in;
+    the tensor is sent where this rank is the source, and a buffer shaped
+    like it receives where this rank is the destination. Returns the
+    received buffers, ``None`` for the edges this rank sends on. A rank on
+    no edge posts nothing."""
+    me, ops, out = axis.index, [], []
+    for x, dst, src in sends:
+        if src == me:
+            ops.append(dist.P2POp(dist.isend, x.contiguous(),
+                                  axis.ranks[dst], axis.group))
+            out.append(None)
+        else:
+            buf = torch.empty_like(x)
+            ops.append(dist.P2POp(dist.irecv, buf, axis.ranks[src],
+                                  axis.group))
+            out.append(buf)
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
+def tree_all_reduce(x, axis):
+    """Double-binary-tree all-reduce (sum) along one axis (NCCL lineage):
+    tree A (rooted at rank 0) reduces and broadcasts the first half of the
+    buffer, its rank-mirrored twin B (rooted at n-1) the second, so the
+    critical path is ``2*ceil(log2 n)`` messages of B/2. A reducing parent
+    adds what its child sends; everyone else keeps its value. In the
+    broadcast a child takes its parent's value; everyone else keeps its
+    own (the reference's ``jnp.where`` masks select exactly the
+    receivers). Both trees' edges of a level go in one batch."""
+    n = axis.size
+    if n == 1:
+        return x
+    r = axis.index
+    levels = tree_edges(n)
+    h = -(-x.shape[0] // 2)
+    halves = [x[:h], x[h:]]             # tree A: ranks as-is; B: mirrored
+
+    def level(pairs, down):
+        sends, owners = [], []
+        for i, half in enumerate(halves):
+            if half.numel() == 0:
+                continue
+            for c, p in pairs:
+                src, dst = (p, c) if down else (c, p)
+                if i == 1:
+                    src, dst = n - 1 - src, n - 1 - dst
+                if r in (src, dst):
+                    sends.append((half, dst, src))
+                    owners.append(i)
+        for i, got in zip(owners, _exchange(sends, axis)):
+            if got is not None:
+                halves[i] = got if down else halves[i] + got
+
+    for pairs in levels:                 # reduce toward the roots
+        level(pairs, down=False)
+    for pairs in reversed(levels):       # broadcast back down
+        level(pairs, down=True)
+    return torch.cat(halves)

@@ -4,25 +4,41 @@
 A *schedule* is ``fn(buf, axes, *, use_kernel=False) -> buf``: it takes one
 flat bucket buffer and the ordered tuple of mesh axes (``launch.mesh.Axis``)
 to reduce over, and returns the elementwise SUM over every rank of those
-axes (callers divide for the mean). Outer axes come first, so ``axes[-1]``
-is the innermost one, where the scatter rings run.
+axes (callers divide for the mean). Outer axes come first (``(pod, data)``
+on the 2-pod mesh), so ``axes[-1]`` is the innermost one, where the scatter
+rings run.
 
 Registered here:
 
-  psum  one fused all-reduce over all axes (``dist.all_reduce``; NCCL or
-        gloo picks the algorithm). It reduces its buffer in place.
-  ring  the bandwidth-optimal ring (reduce-scatter + all-gather over
-        point-to-point sends) per axis, innermost first.
+  psum          one fused all-reduce per axis (``dist.all_reduce``; NCCL
+                or gloo picks the algorithm). It reduces its buffer in
+                place.
+  ring          the bandwidth-optimal ring (reduce-scatter + all-gather
+                over point-to-point sends) per axis, innermost first.
+  hierarchical  Akiba-style (arXiv:1711.04325): ring reduce-scatter on
+                ``shard_axis`` (the innermost non-trivial axis), one fused
+                all-reduce of the 1/n shard across the other axes, ring
+                all-gather back.
+  2d_torus      Sony-style (arXiv:1811.05233): ring reduce-scatter on
+                ``shard_axis``, ring all-reduce of the shard along each
+                other axis, ring all-gather back.
+  dbtree        double binary tree per axis (``primitives.tree_all_reduce``),
+                innermost first.
 
-Each has a reduce-scatter-terminal form (``@register_rs``) for the ZeRO-1
-path: this rank's contiguous CHUNK-aligned 1/n shard of the summed buffer,
-sharded over ``shard_axis(axes)`` under the ring layout
-(``primitives.shard_index``). ring stops at its native scatter; psum
-reduces fully, then keeps its chunk.
+``use_kernel=True`` swaps the reduce-scatter fold for the ring-step kernel
+K3 (``comm.ring_kernel``), which needs CHUNK-aligned chunk rows: the ring
+forms then pass ``pad_to=CHUNK``. The tree's fold is a plain add, so
+``use_kernel`` is inert for psum and dbtree, as in the reference.
 
-The hierarchical, 2d_torus and dbtree schedules are ROADMAP §1 item 6, and
-so is ``use_kernel=True``: the ring-step fold kernel (K3) is reached only
-by a ring across two or more cards.
+Each schedule has a reduce-scatter-terminal form (``@register_rs``) for the
+sharded rungs: this rank's contiguous CHUNK-aligned 1/n shard of the summed
+buffer, sharded over ``shard_axis(axes)`` under the ring layout
+(``primitives.shard_index``) and already reduced over every other axis.
+ring, hierarchical and 2d_torus stop at their native scatter; psum and
+dbtree reduce fully, then keep their chunk. Summation order is part of the
+contract: each all-reduce form scatters on the same axis, in the same
+order, as its reduce-scatter form, so the replicated and sharded rungs of
+one schedule sum alike.
 """
 from __future__ import annotations
 
@@ -32,9 +48,10 @@ from repro_torch.core.bucketing import CHUNK
 
 
 def shard_axis(axes):
-    """The axis the ZeRO-1 shards live on: the innermost axis of size > 1,
-    so a trailing trivial axis (the local ``(data, model=1)`` mesh) does
-    not stop the scatter from splitting the buffer."""
+    """The axis the shards live on: the innermost axis of size > 1, so a
+    trailing trivial axis (the local ``(data, model=1)`` mesh) neither
+    stops the scatter from splitting the buffer nor collapses the
+    hierarchy into a fused all-reduce."""
     for a in reversed(tuple(axes)):
         if a.size > 1:
             return a
@@ -44,10 +61,14 @@ def shard_axis(axes):
 def _step_fn(use_kernel: bool):
     if not use_kernel:
         return prim.default_step_fn, 1
-    raise NotImplementedError(
-        "the ring-step fold kernel K3 (repro/comm/ring_kernel.py::"
-        "ring_add_step, CommConfig.use_kernel) is not ported to repro_torch "
-        "yet (ROADMAP §1 item 6)")
+    from repro_torch.comm.ring_kernel import kernel_step_fn
+    return kernel_step_fn(), CHUNK
+
+
+def _split(axes):
+    intra = shard_axis(axes)
+    rest = tuple(a for a in axes if a is not intra)
+    return intra, rest
 
 
 @register("psum")
@@ -63,19 +84,44 @@ def ring_schedule(buf, axes, *, use_kernel: bool = False):
     return buf
 
 
+@register("hierarchical")
+def hierarchical_schedule(buf, axes, *, use_kernel: bool = False):
+    intra, rest = _split(axes)
+    step_fn, pad_to = _step_fn(use_kernel)
+    shard, n = prim.ring_reduce_scatter(buf, intra, step_fn=step_fn,
+                                        pad_to=pad_to)
+    shard = prim.psum(shard, rest)
+    return prim.ring_all_gather(shard, intra, n)
+
+
+@register("dbtree")
+def dbtree_schedule(buf, axes, *, use_kernel: bool = False):
+    for axis in reversed(tuple(axes)):
+        buf = prim.tree_all_reduce(buf, axis)
+    return buf
+
+
+@register("2d_torus")
+def torus_schedule(buf, axes, *, use_kernel: bool = False):
+    intra, rest = _split(axes)
+    step_fn, pad_to = _step_fn(use_kernel)
+    shard, n = prim.ring_reduce_scatter(buf, intra, step_fn=step_fn,
+                                        pad_to=pad_to)
+    for axis in reversed(rest):
+        shard = prim.ring_all_reduce(shard, axis, step_fn=step_fn,
+                                     pad_to=pad_to)
+    return prim.ring_all_gather(shard, intra, n)
+
+
 # --------------------------------------------------------------------------
-# reduce-scatter-terminal forms (ZeRO-1 sharded-update path)
+# reduce-scatter-terminal forms (the sharded rungs)
 #
 # Contract: fn(buf, axes, *, use_kernel) -> shard, this rank's contiguous
 # CHUNK-aligned 1/n slice of the summed buffer (n = size of
 # shard_axis(axes), ring layout: rank r owns chunk (r+1)%n), already
-# reduced over every other axis.
-
-def _rs_split(axes):
-    intra = shard_axis(axes)
-    rest = tuple(a for a in axes if a is not intra)
-    return intra, rest
-
+# reduced over every other axis, so that
+# ``primitives.ring_all_gather(shard, shard_axis, L)`` rebuilds the full
+# buffer from the shard axis alone.
 
 @register_rs("psum")
 def psum_reduce_scatter(buf, axes, *, use_kernel: bool = False):
@@ -85,10 +131,12 @@ def psum_reduce_scatter(buf, axes, *, use_kernel: bool = False):
 
 
 @register_rs("ring")
+@register_rs("2d_torus")
 def ring_reduce_scatter_schedule(buf, axes, *, use_kernel: bool = False):
     """Native: ring reduce-scatter on the shard axis, ring all-reduce of
-    the 1/n shard along the remaining axes."""
-    intra, rest = _rs_split(axes)
+    the 1/n shard along the remaining axes. This is also the torus
+    all-reduce's scatter phase, so 2d_torus registers it too."""
+    intra, rest = _split(axes)
     step_fn, pad_to = _step_fn(use_kernel)
     shard, _ = prim.ring_reduce_scatter(buf, intra, step_fn=step_fn,
                                         pad_to=max(pad_to, CHUNK))
@@ -96,3 +144,24 @@ def ring_reduce_scatter_schedule(buf, axes, *, use_kernel: bool = False):
         shard = prim.ring_all_reduce(shard, axis, step_fn=step_fn,
                                      pad_to=pad_to)
     return shard
+
+
+@register_rs("hierarchical")
+def hierarchical_reduce_scatter(buf, axes, *, use_kernel: bool = False):
+    """Ring reduce-scatter within the shard axis, fused all-reduce of the
+    shard across the outer axes (the hierarchical schedule minus its
+    all-gather)."""
+    intra, rest = _split(axes)
+    step_fn, pad_to = _step_fn(use_kernel)
+    shard, _ = prim.ring_reduce_scatter(buf, intra, step_fn=step_fn,
+                                        pad_to=max(pad_to, CHUNK))
+    return prim.psum(shard, rest)
+
+
+@register_rs("dbtree")
+def dbtree_reduce_scatter(buf, axes, *, use_kernel: bool = False):
+    """The tree has no scatter form: the full double-binary-tree
+    all-reduce per axis, then keep the owned chunk."""
+    for axis in reversed(tuple(axes)):
+        buf = prim.tree_all_reduce(buf, axis)
+    return prim.slice_own_chunk(buf, shard_axis(axes), pad_to=CHUNK)

@@ -20,19 +20,21 @@ class CommConfig:
     """Gradient-communication knob (paper §III-C), with the JAX package's
     fields and validation so one config resolves the same in both.
 
-    The port runs ``strategy='xla'`` only, the single-device replicated
-    step; ``train.step.make_train_step`` raises ``NotImplementedError``
-    for the explicit-DP schedules and the sharding ladder (ROADMAP §1
-    items 6 and 7). See ``repro.configs.base.CommConfig`` for what each
-    field selects there.
+    ``train.step.make_train_step`` runs every strategy and sharding level
+    of the reference; ``bucket_mb='auto'`` (the autotuner, which alone
+    reads ``backward_profile``) raises ``NotImplementedError`` (ROADMAP §1
+    item 7). See ``repro.configs.base.CommConfig`` for what each field
+    selects. ``use_kernel`` runs the ring folds through the ring-step
+    kernel K3, ``update_kernel`` the sharded update through the fused
+    LARS kernel K2.
     """
     strategy: str = "xla"
     bucket_mb: float = 4.0       # the paper's "several megabytes", | 'auto'
     wire_dtype: str = "bf16"     # bf16 | f32 on the wire (paper §IV)
-    use_kernel: bool = False     # Pallas ring-step fold (comm/ring_kernel)
+    use_kernel: bool = False     # ring-step fold kernel K3 (comm/ring_kernel)
     overlap: bool = True         # issue bucket collectives inside backward
     shard_update: Optional[bool] = None   # DEPRECATED: use sharding=
-    update_kernel: bool = False  # fused lars_update Pallas kernel on shards
+    update_kernel: bool = False  # fused LARS update kernel K2 on shards
     gather_ahead: Optional[bool] = None   # DEPRECATED: use gather=
     backward_profile: str = "model"   # 'model' | 'measured' (autotune)
     sharding: Optional[str] = None    # 'replicated' | 'zero1' | 'zero3'

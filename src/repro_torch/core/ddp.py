@@ -4,7 +4,9 @@
 Gradients are packed into the bucket plan's several-MB flat buffers, in
 backward-completion order (static layer groups, §III-C.2), and one
 collective runs per bucket: the named schedule of ``repro_torch.comm``
-(``psum``, ``ring``; ``bucketed`` is an alias of ``psum``).
+(``psum``, ``ring``, ``hierarchical``, ``2d_torus``, ``dbtree``;
+``bucketed`` is an alias of ``psum``). ``naive``, the baseline the paper
+attacks, is one all-reduce per tensor in the wire dtype, no buckets.
 
 Two places to run them: ``allreduce_grads`` / ``reduce_scatter_grads`` run after
 the whole backward (``CommConfig.overlap=False``), while
@@ -17,7 +19,10 @@ not fire there). Every rank must build the same graph, so that the
 backward runs the collectives in the same order everywhere.
 
 ``axes`` are the mesh's ``launch.mesh.Axis`` objects (every axis is data
-parallel). ZeRO-3's just-in-time gather is ROADMAP §1 item 7.
+parallel). The sharded rungs (zero1, zero2, zero3) stop each bucket's
+collective at the reduce-scatter and gather the params back
+(``all_gather_params``, or per group inside the forward for ZeRO-3,
+``jit_gather_params``).
 """
 from __future__ import annotations
 
@@ -34,11 +39,17 @@ def allreduce_grads(grads, *, strategy: str, axes: Sequence,
                     plan: "bucketing.BucketPlan",
                     comm_dtype=torch.bfloat16, use_kernel: bool = False):
     """Reduce-mean gradients over the data-parallel axes after the
-    backward. ``comm_dtype`` is the wire dtype (paper §IV: bf16). Returns
-    fp32 gradients."""
+    backward. ``comm_dtype`` is the wire dtype (paper §IV: bf16);
+    ``use_kernel`` runs the ring folds through K3. Returns fp32
+    gradients."""
+    n = prim.axes_size(axes)
+    if strategy == "naive":
+        # a contiguous buffer of its own per tensor: psum reduces in place
+        return tree_map(lambda g: prim.psum(
+            g.to(comm_dtype, memory_format=torch.contiguous_format,
+                 copy=True), tuple(axes)).float() / n, grads)
     from repro_torch.comm import get_schedule
     schedule = get_schedule(strategy)
-    n = prim.axes_size(axes)
     bufs = bucketing.pack(grads, plan, dtype=comm_dtype)
     out = [schedule(buf, tuple(axes), use_kernel=use_kernel) for buf in bufs]
     red = bucketing.unpack(out, plan, dtype=torch.float32)
@@ -206,3 +217,28 @@ def gather_ahead_params(shards, plan: "bucketing.BucketPlan", *,
     wire dtype: only this forward copy is quantised."""
     return all_gather_params(shards, plan, shard_axis=shard_axis,
                              wire_dtype=wire_dtype)
+
+
+def jit_gather_params(shards, plan: "bucketing.BucketPlan", *, shard_axis,
+                      wire_dtype=torch.bfloat16):
+    """ZeRO-3's gather: the forward's fp32 param tree rebuilt from the
+    master shards group by group (one ring all-gather a bucket group, each
+    unpacked into its own leaves at once), called INSIDE the step's
+    differentiated function, so that no full replica lives in the state.
+    Split tensors are reassembled from their span pieces."""
+    vals = []
+    for gi, group in enumerate(plan.groups):
+        wire = shards[gi].to(wire_dtype, copy=True)
+        buf = prim.ring_all_gather(wire, shard_axis, plan.bucket_sizes[gi])
+        vals.extend(bucketing.unpack_group(buf, group, dtype=torch.float32))
+    # the groups concatenate back to plan.slots order
+    leaves, pieces = [], []
+    for slot, fin, v in zip(plan.slots, plan.slot_is_final_span, vals):
+        if slot.elem_offset == 0 and fin:      # unsplit: already reshaped
+            leaves.append(v)
+            continue
+        pieces.append(v)
+        if fin:
+            leaves.append(torch.cat(pieces).reshape(slot.shape))
+            pieces = []
+    return tree_unflatten(plan.paths, leaves[::-1])

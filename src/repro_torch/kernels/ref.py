@@ -37,6 +37,12 @@ def lars_packed_update(p, g, m, trust, seg_ids, *, lr, momentum, wd):
     return p - m2, m2
 
 
+def ring_add_step(recv, chunks, k: int):
+    """The ring reduce-scatter's fold: ``recv + chunks[k]`` in recv's
+    dtype (PyTorch adds bf16 in f32 and rounds once)."""
+    return recv + chunks[k]
+
+
 def smoothed_xent_rows(logits, labels, *, smoothing: float):
     """Per-row label-smoothed NLL ``lse - ((1-ε)·x_y + ε·mean(x))``, no
     masking or averaging. logits: (T, V) f32 or bf16, upcast to f32;

@@ -2,16 +2,19 @@
 
 Drives the port's replicated step (full-width ResNet-50 by default; with
 ``--arch qwen1.5-0.5b`` the dense LM, batch 2 x seq 4096 of lcg tokens,
-remat on, its loss through the smoothed cross-entropy kernel K4) or,
-with ``--sharding zero1``, its ZeRO-1 explicit-DP step over every rank of
-the job (one without ``torchrun``; psum schedule, 4 MB buckets, gather
-ahead, in-backward reduce-scatter, the fused update kernel unless
-``--no-kernel``), or with ``--comm psum|bucketed|ring`` the replicated
-explicit-DP step, and prints one JSON object (one per rank):
+remat on, its loss through the smoothed cross-entropy kernel K4) or an
+explicit-DP step over every rank of the job (one without ``torchrun``):
+``--comm`` names the schedule (default psum), ``--sharding
+zero1|zero2|zero3`` the rung (4 MB buckets, in-backward collectives, the
+fused update kernel K2 unless ``--no-kernel``), ``--pods N`` lays the
+ranks out as the ``(pod, data)`` mesh (else ``(data, model=1)``) and
+``--ring-kernel`` runs the ring folds through K3
+(``CommConfig.use_kernel``). It prints one JSON object (one per rank):
 
 * ``step_ms``: host clock around whole steps ending in a device sync
-  (median and quartiles over ``--steps``), images/s (tokens/s for an LM),
-  peak memory;
+  (median and quartiles over ``--steps``), images/s (tokens/s for an LM;
+  over every rank), peak memory, and the launches a step of K3 (the
+  ring-step fold), K1 and K2 in the timed steps;
 * ``phase_ms``: CUDA-event times of the step's phases, run one after
   another: forward (loss), backward (``autograd.grad``), optimizer
   (``lars.update``, with the batched-norm kernel or without); for zero1
@@ -30,16 +33,21 @@ explicit-DP step, and prints one JSON object (one per rank):
       --sharding zero1
   PYTHONPATH=src torchrun --nproc-per-node 4 -m \\
       repro_torch.launch.profile_step --batch 256 --comm psum   # 64 a card
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 -m \\
+      repro_torch.launch.profile_step --batch 256 --comm 2d_torus \\
+      --pods 2 --ring-kernel
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import time
 
 import torch
 
+from repro_torch.comm import ring_kernel
 from repro_torch.configs import get_config
 from repro_torch.configs.base import CommConfig
 from repro_torch.configs.shapes import InputShape
@@ -47,10 +55,12 @@ from repro_torch.core import ddp, lars
 from repro_torch.core.precision import cast_to_compute
 from repro_torch.core.schedule import ScheduleConfig, make_schedule
 from repro_torch.data.synthetic import make_batch_fn
+from repro_torch.kernels import batched_norm, lars_update
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.mesh import make_local_mesh, make_mesh
+from repro_torch.launch.train import SCHEDULES
 from repro_torch.models.registry import build_model
-from repro_torch.train.state import init_state
+from repro_torch.train.state import init_state, sharded_state_kwargs
 from repro_torch.train.step import make_loss_fn, make_train_step
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -59,6 +69,7 @@ WARMUP, PROFILE_STEPS = 3, 3
 #: kernel-name substrings -> group, first match wins
 GROUPS = (("batched_sumsq", ("chunk_sumsq", "segment_sum")),
           ("lars_packed_update", ("lars_update",)),
+          ("ring_add_step", ("ring_add",)),
           ("nccl", ("nccl",)),
           ("convolution", ("conv", "cudnn", "xmma", "sm90_", "implicit",
                            "wgrad", "dgrad", "fprop", "gemm", "cutlass")),
@@ -111,17 +122,27 @@ def main(argv=None):
                          "zero1: the plain packed update instead of K2 "
                          "(its trust norms always run K1)")
     ap.add_argument("--sharding", default="replicated",
-                    choices=["replicated", "zero1"])
-    ap.add_argument("--comm", default=None,
-                    choices=["xla", "psum", "bucketed", "ring"],
-                    help="default: 'psum' with --sharding zero1, else "
-                         "'xla'; an explicit schedule runs over every rank "
-                         "of the job (torchrun)")
+                    choices=["replicated", "zero1", "zero2", "zero3"])
+    ap.add_argument("--comm", default=None, choices=["xla", *SCHEDULES],
+                    help="default: 'psum' with a sharded rung or --pods, "
+                         "else 'xla'; an explicit schedule runs over every "
+                         "rank of the job (torchrun)")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="lay the ranks out as the (pod, data) mesh with "
+                         "this many pods")
+    ap.add_argument("--ring-kernel", action="store_true",
+                    help="ring folds through the kernel K3 "
+                         "(CommConfig.use_kernel)")
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
-    comm = args.comm or ("psum" if args.sharding == "zero1" else "xla")
-    if comm == "xla" and args.sharding != "replicated":
-        ap.error("--sharding zero1 needs an explicit schedule (--comm)")
+    explicit = args.sharding != "replicated" or args.pods > 1
+    comm = args.comm or ("psum" if explicit else "xla")
+    if comm in ("xla", "naive") and args.sharding != "replicated":
+        ap.error(f"--sharding {args.sharding} needs a bucketed schedule "
+                 f"(--comm)")
+    if comm == "xla" and (args.pods > 1 or args.ring_kernel):
+        ap.error("--pods and --ring-kernel need an explicit schedule "
+                 "(--comm)")
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -136,15 +157,19 @@ def main(argv=None):
                                          total_steps=10 ** 6))
     mesh = None
     if comm != "xla":
-        mesh = make_local_mesh(device=args.device)
+        if args.pods > 1:
+            world = int(os.environ.get("WORLD_SIZE", 1))
+            mesh = make_mesh((args.pods, world // args.pods),
+                             ("pod", "data"), device=args.device)
+        else:
+            mesh = make_local_mesh(device=args.device)
         dev = mesh.device
         step = make_train_step(model, opt, sched, mesh=mesh, comm=CommConfig(
             strategy=comm, sharding=args.sharding, overlap=True,
-            update_kernel=not args.no_kernel, bucket_mb=4))
+            update_kernel=not args.no_kernel, use_kernel=args.ring_kernel,
+            bucket_mb=4))
         state = init_state(model, 0, device=dev,
-                           sharded_plan=(step.bucket_plan
-                                         if step.shard_update else None),
-                           n_shards=step.n_shards, mesh=mesh)
+                           **sharded_state_kwargs(step))
     else:
         step = make_train_step(model, opt, sched)
         state = init_state(model, 0, device=dev)
@@ -159,6 +184,10 @@ def main(argv=None):
     sync()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    counters = (ring_kernel.ring_add_step, batched_norm.batched_sumsq,
+                lars_update.lars_packed_update)
+    for c in counters:
+        c.launches = 0
     times = []
     for i in range(args.steps):
         batch = batch_fn(i)
@@ -168,12 +197,19 @@ def main(argv=None):
         sync()
         times.append((time.perf_counter() - t) * 1e3)
     step_ms = quartiles(times)
+    launches = {name: c.launches / args.steps for name, c in
+                zip(("k3_ring_add_step", "k1_batched_sumsq",
+                     "k2_lars_packed_update"), counters)}
     out = {"device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                       else "cpu"),
            "arch": cfg.arch_id, "batch": args.batch,
            "comm": comm, "sharding": args.sharding,
            "ranks": mesh.size if mesh else 1,
-           "use_kernel": opt.use_kernel,
+           "mesh": (dict(zip(mesh.axis_names, [a.size for a in mesh.axes]))
+                    if mesh else None),
+           "rank": mesh.rank if mesh else 0,
+           "use_kernel": opt.use_kernel, "ring_kernel": args.ring_kernel,
+           "launches_per_step": launches,
            "seq": args.seq if lm else None, "remat": cfg.remat,
            "steps": args.steps,
            "step_ms": step_ms,

@@ -12,9 +12,11 @@ Example:
       --arch resnet50 --reduced --batch 8 --steps 2 --comm ring \\
       --sharding zero1 --device cpu        # ZeRO-1 on two gloo ranks
 
-An explicit schedule (``--comm psum|bucketed|ring``) runs over a process
-group of every rank of the job (``launch.mesh``: NCCL on the card, gloo
-on the CPU; one process without ``torchrun``).
+An explicit schedule (``--comm naive|psum|bucketed|ring|hierarchical|
+2d_torus|dbtree``) runs over the ``(data, model=1)`` mesh of every rank of
+the job (``launch.mesh``: NCCL on the card, gloo on the CPU; one process
+without ``torchrun``); ``--sharding zero1|zero2|zero3`` picks the rung.
+As in the reference, there is no flag for the ``(pod, data)`` mesh.
 
 The reference's flags for parts not ported yet are accepted by name and
 exit with the ROADMAP item that will bring them.
@@ -34,9 +36,12 @@ from repro_torch.data.synthetic import make_batch_fn
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models.registry import build_model
 from repro_torch.train import loop
-from repro_torch.train.state import init_state
-from repro_torch.train.step import SCHEDULES_NOT_PORTED, make_eval_step, \
-    make_train_step
+from repro_torch.train.state import init_state, sharded_state_kwargs
+from repro_torch.train.step import make_eval_step, make_train_step
+
+#: the explicit-DP schedules, as the reference's CLI offers them
+SCHEDULES = ("naive", "bucketed", "psum", "ring", "hierarchical",
+             "2d_torus", "dbtree")
 
 #: reference flag -> ROADMAP §1 item that ports it
 _NOT_PORTED = {
@@ -63,9 +68,7 @@ def main(argv=None):
     ap.add_argument("--optimizer", default="lars",
                     choices=["lars", "sgdm", "lamb"])
     ap.add_argument("--grad-accum", type=int, default=1)
-    ap.add_argument("--comm", default="xla",
-                    choices=["xla", "psum", "bucketed", "ring",
-                             *SCHEDULES_NOT_PORTED],
+    ap.add_argument("--comm", default="xla", choices=["xla", *SCHEDULES],
                     help="'xla': the replicated single-device step; else "
                          "an explicit-DP schedule over every rank")
     ap.add_argument("--bucket-mb", default=4.0, type=float,
@@ -78,10 +81,16 @@ def main(argv=None):
                     choices=["replicated", "zero1", "zero2", "zero3"],
                     help="'zero1' reduce-scatters the grads, updates this "
                          "rank's fp32 master shards and all-gathers the "
-                         "params (zero2/zero3: ROADMAP §1 item 7)")
-    ap.add_argument("--gather", default=None, choices=["ahead", "at_end", "per_group"],
-                    help="zero1 param gather: at the start of the next "
-                         "step ('ahead', default) or at the end of this one")
+                         "params; 'zero2' keeps the replicated params as "
+                         "masters (fp32 step-end gather); 'zero3' keeps "
+                         "none and gathers each bucket group in the "
+                         "forward")
+    ap.add_argument("--gather", default=None,
+                    choices=["ahead", "at_end", "per_group"],
+                    help="zero1: at the start of the next step ('ahead', "
+                         "default) or at the end of this one; zero3: "
+                         "gather again in the backward ('per_group', "
+                         "default) or keep the forward's ('ahead')")
     ap.add_argument("--update-kernel", action="store_true",
                     help="fused LARS update kernel on the zero1 shards")
     ap.add_argument("--lr", type=float, default=None,
@@ -105,15 +114,11 @@ def main(argv=None):
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             ap.error(f"{flag} is not ported to repro_torch yet "
                      f"(ROADMAP §1 item {item})")
-    if args.comm in SCHEDULES_NOT_PORTED:
-        ap.error(f"--comm {args.comm} is not ported to repro_torch yet "
-                 f"(ROADMAP §1 item 6)")
-    if args.sharding in ("zero2", "zero3") or args.gather == "per_group":
-        ap.error("--sharding zero2|zero3 and --gather per_group are not "
-                 "ported to repro_torch yet (ROADMAP §1 item 7)")
-    if args.sharding == "zero1" and args.comm == "xla":
-        ap.error("--sharding zero1 needs an explicit-DP schedule (--comm "
-                 "psum|bucketed|ring), not 'xla'")
+    if args.sharding in ("zero1", "zero2", "zero3") \
+            and args.comm in ("xla", "naive"):
+        ap.error(f"--sharding {args.sharding} needs an explicit-DP schedule "
+                 f"(--comm {{bucketed,psum,ring,hierarchical,2d_torus,"
+                 f"dbtree}}), not {args.comm!r}")
     return _run(args)
 
 
@@ -154,13 +159,9 @@ def _train(args, mesh):
                                  mesh=mesh, comm=comm,
                                  grad_accum=args.grad_accum)
     eval_step = make_eval_step(model) if args.eval_every else None
-    sharded = getattr(train_step, "shard_update", False)
     state = init_state(model, args.seed, device=device,
                        opt_kind=args.optimizer,
-                       sharded_plan=(train_step.bucket_plan if sharded
-                                     else None),
-                       n_shards=getattr(train_step, "n_shards", 1),
-                       mesh=mesh)
+                       **sharded_state_kwargs(train_step))
     state, history = loop.train(
         state, train_step, batch_fn, steps=args.steps, eval_step=eval_step,
         eval_batch_fn=batch_fn, eval_every=args.eval_every, seed=args.seed)

@@ -31,11 +31,13 @@ def mlperf_log(tag: str, value=None):
 
 
 def make_params_reader(train_step: Callable) -> Callable:
-    """The params evals must read. A ZeRO-1 state carries its fp32 masters
-    in ``state.shards``; with gather-ahead (the default) ``state.params``
-    is the forward copy, one update BEHIND them. So for a sharded step
-    this reads the masters from the shards, gathering every rank's shard
-    along the shard axis; for a replicated step it is ``state.params``."""
+    """The params evals must read. A zero1 or zero3 state carries its fp32
+    masters in ``state.shards``: under zero1 with gather-ahead (the
+    default) ``state.params`` is the forward copy, one update BEHIND them,
+    and under zero3 it is None. So for a sharded step this reads the
+    masters from the shards, gathering every rank's shard along the shard
+    axis; a zero2 state (no shards) and a replicated one read
+    ``state.params``, the masters."""
     if getattr(train_step, "sharding", "replicated") == "replicated":
         return lambda state: state.params
     import torch.distributed as dist

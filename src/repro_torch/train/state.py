@@ -1,6 +1,7 @@
 """Train state: fp32 master params + momentum (the paper's mixed-precision
 scheme keeps the update in fp32), BN statistics for the conv family, and
-on the ZeRO-1 path the persistent fp32 master shards.
+on the sharded rungs the packed momentum shards and (zero1, zero3) the
+persistent fp32 master shards.
 
 The step counter is a host integer: the schedule and the data are
 functions of it, and keeping it off the device spares a sync per step.
@@ -24,12 +25,14 @@ from repro_torch.kernels.backend import resolve_device
 class TrainState(NamedTuple):
     step: int
     params: Any          # fp32 master tree; ZeRO-1: the gathered forward
-                         # copy (with gather='ahead' one update behind)
+                         # copy (with gather='ahead' one update behind);
+                         # ZeRO-2: the masters; ZeRO-3: None
     mom: Any             # fp32 momentum tree (lamb: {'m', 'v', 'count'});
                          # sharded: this rank's packed bucket shards
     bn_state: Any = None  # resnet only
-    shards: Any = None   # ZeRO-1: this rank's fp32 master shards, one flat
-                         # buffer per bucket; the authoritative masters
+    shards: Any = None   # ZeRO-1/3: this rank's fp32 master shards, one
+                         # flat buffer per bucket; the authoritative
+                         # masters (ZeRO-2: None)
 
 
 def init_packed_momentum(plan, n_shards: int = 1, *, device=None):
@@ -65,13 +68,19 @@ def local_shards(bufs, n_shards: int, index: int):
 
 
 def init_state(model, seed: int = 0, *, device=None, opt_kind: str = "lars",
-               sharded_plan=None, n_shards: int = 1,
-               mesh=None) -> TrainState:
+               sharded_plan=None, n_shards: int = 1, mesh=None,
+               materialize_params: bool = True,
+               shard_params: bool = True) -> TrainState:
     """State on ``device`` (default: the card). ``sharded_plan`` (a
     ``BucketPlan``, typically ``train_step.bucket_plan``) switches the
-    momentum to the packed sharded layout of ``sharding='zero1'`` and
-    adds the persistent master shards; each rank keeps the row of its
-    position on the mesh's shard axis (0 without a ``mesh``)."""
+    momentum to the packed sharded layout of the sharded rungs and adds
+    the persistent master shards; each rank keeps the row of its position
+    on the mesh's shard axis (0 without a ``mesh``). As the reference's:
+    ``materialize_params=False`` (the ZeRO-3 state) drops the full params
+    once the shards are packed; ``shard_params=False`` (the ZeRO-2 state)
+    keeps the replicated params as the masters and packs only the
+    momentum. ``sharded_state_kwargs(train_step)`` gives what a step
+    needs."""
     device = resolve_device(device)
     params = pinit.materialize(model.param_pd, seed, device)
     shards = None
@@ -83,11 +92,34 @@ def init_state(model, seed: int = 0, *, device=None, opt_kind: str = "lars",
         mom = local_shards(init_packed_momentum(sharded_plan, n_shards,
                                                 device=device),
                            n_shards, index)
-        shards = local_shards(init_packed_shards(params, sharded_plan,
-                                                 n_shards), n_shards, index)
+        if shard_params:
+            shards = local_shards(init_packed_shards(params, sharded_plan,
+                                                     n_shards), n_shards,
+                                  index)
+            if not materialize_params:
+                params = None
+        elif not materialize_params:
+            raise ValueError("shard_params=False (ZeRO-2) keeps the "
+                             "replicated masters")
     else:
+        if not materialize_params:
+            raise ValueError("materialize_params=False needs a sharded_plan "
+                             "(ZeRO-3)")
         mom = lars.init_momentum(params, opt_kind)
     bn = None
     if model.bn_state_pd is not None:
         bn = pinit.materialize(model.bn_state_pd, seed, device)
     return TrainState(0, params, mom, bn, shards)
+
+
+def sharded_state_kwargs(train_step) -> dict:
+    """The ``init_state`` keywords of the state ``train_step`` takes (the
+    reference's CLI spells the same choice out): the packed layout for a
+    sharded rung, no params for zero3, no master shards for zero2."""
+    sharding = getattr(train_step, "sharding", "replicated")
+    if sharding == "replicated":
+        return {}
+    return dict(sharded_plan=train_step.bucket_plan,
+                n_shards=train_step.n_shards, mesh=train_step.mesh,
+                materialize_params=sharding != "zero3",
+                shard_params=sharding != "zero2")

@@ -12,27 +12,33 @@ distribution paths:
   reference: each bf16 copy is an autograd leaf of its own, not a cast of
   the master that autograd follows, so the gradients arrive in bf16 and
   the optimizer upcasts them.
-* an explicit data-parallel schedule (``psum``, ``bucketed``, ``ring``;
-  paper §III-C) over a ``launch.mesh`` process group: the gradients of the
-  fp32 params are packed into static buckets and reduced bucket by bucket,
-  from inside the backward (``CommConfig.overlap``, the default) or after
-  it. ``CommConfig.sharding='zero1'`` reduce-scatters instead, updates this
-  rank's persistent fp32 master shards (``lars.sharded_update_from_shards``:
-  the batched-norm kernel for the trust norms, and with
-  ``update_kernel=True`` the fused update kernel) and all-gathers the
-  params, ahead of the next forward (``gather='ahead'``, the default) or
-  at the end of the step. Batch statistics stay per rank; the BN buffers
-  and the metrics are averaged over ranks.
+* an explicit data-parallel schedule (``naive``, ``psum``, ``bucketed``,
+  ``ring``, ``hierarchical``, ``2d_torus``, ``dbtree``; paper §III-C)
+  over a ``launch.mesh`` mesh: the gradients of the fp32 params are packed
+  into static buckets and reduced bucket by bucket, from inside the
+  backward (``CommConfig.overlap``, the default) or after it (``naive``:
+  one all-reduce a tensor after the backward, replicated only).
+  ``CommConfig.use_kernel`` runs the ring folds through K3. The sharded
+  rungs reduce-scatter instead and update this rank's fp32 master shards
+  (``lars.sharded_update_from_shards``: the batched-norm kernel for the
+  trust norms, and with ``update_kernel=True`` the fused update kernel):
+  ``zero1`` keeps them across steps and all-gathers the params ahead of
+  the next forward (``gather='ahead'``, the default) or at the end of the
+  step; ``zero2`` keeps the replicated params as the masters and writes
+  them back with an fp32 all-gather at the end of the step; ``zero3``
+  keeps no params at all and all-gathers each bucket group inside the
+  forward (and again in the backward, ``gather='per_group'``, the
+  default). Batch statistics stay per rank; the BN buffers and the
+  metrics are averaged over ranks.
 
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item:
-the naive, hierarchical, 2d_torus and dbtree schedules and the ring-step
-kernel (§1 item 6), zero2/zero3 and the bucket autotuner (item 7), the
-guard and the tracer (item 8), the explicit-DP and ZeRO-1 LM step
-(item 10).
+the bucket autotuner (§1 item 7), the guard and the tracer (item 8), the
+explicit-DP LM step (item 10).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import CommConfig
 from repro_torch.core import bucketing, ddp, lars
@@ -82,30 +88,26 @@ def _not_ported(what: str, item: int):
         f"{what} is not ported to repro_torch yet (ROADMAP §1 item {item})")
 
 
-#: the reference's schedules that this port does not have yet
-SCHEDULES_NOT_PORTED = ("naive", "hierarchical", "2d_torus", "dbtree")
-
-
 def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
                     smoothing: float = 0.1, mesh=None, comm="xla",
                     bucket_mb: float = 4.0, comm_dtype: str = "bf16",
                     grad_accum: int = 1, tracer=None, guard: bool = False):
     """Returns train_step(state, batch) -> (state, metrics).
 
-    ``comm`` is a strategy name ('xla', 'psum', 'bucketed', 'ring') or a
-    full ``CommConfig``. 'xla' runs on one device (``mesh`` None);
+    ``comm`` is a strategy name ('xla', 'naive', 'psum', 'bucketed',
+    'ring', 'hierarchical', '2d_torus', 'dbtree') or a full
+    ``CommConfig``. 'xla' runs on one device (``mesh`` None);
     ``comm_dtype='bf16'`` then differentiates the bf16 compute copy, 'f32'
     the fp32 masters, and ``grad_accum`` splits the batch into that many
     microbatches, chains the BN statistics through them and means the f32
     gradients and the metrics, as the reference's scan does.
 
-    The explicit schedules need a ``mesh`` (``launch.mesh.make_local_mesh``)
-    and every rank calls the step with its own slice of the batch. With
-    ``sharding='zero1'`` the state must carry the packed sharded momentum
-    and master shards (``init_state(..., sharded_plan=train_step.
-    bucket_plan, n_shards=train_step.n_shards, mesh=mesh)``); the step
-    updates them in place when ``update_kernel`` is set, so the input
-    state is consumed. Full params are read through
+    The explicit schedules need a ``mesh`` (``launch.mesh.make_mesh``)
+    and every rank calls the step with its own slice of the batch. A
+    sharded rung needs the packed state (``init_state(...,
+    **train.state.sharded_state_kwargs(train_step))``); the step updates
+    the shards in place when ``update_kernel`` is set, so the input state is
+    consumed. Full params are read through
     ``train.loop.make_params_reader``.
 
     Metrics are 0-d tensors on the batch's device; ``lr`` a 0-d f32 CPU
@@ -128,7 +130,7 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
     if comm_cfg.sharding != "replicated":
         raise ValueError(
             f"sharding={comm_cfg.sharding!r} needs an explicit-DP schedule "
-            f"(comm='psum', 'bucketed' or 'ring'), not comm='xla'")
+            f"(comm='psum', 'ring', ...), not comm='xla'")
     if mesh is not None:
         raise _not_ported("comm='xla' over a multi-device mesh", 6)
     bf16 = comm_cfg.wire_dtype == "bf16"
@@ -171,23 +173,24 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
 
 def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
                    grad_accum):
-    """The explicit data-parallel step (paper §III-C): replicated or
-    ZeRO-1, over ``mesh``'s axes (every axis is data parallel)."""
+    """The explicit data-parallel step (paper §III-C): replicated or one of
+    the sharded rungs, over ``mesh``'s axes (every axis is data
+    parallel)."""
     from repro_torch.comm import get_schedule, shard_axis_size
     from repro_torch.comm import primitives as prim
-    comm, sharding = comm_cfg.strategy, comm_cfg.sharding
-    if comm in SCHEDULES_NOT_PORTED:
-        raise _not_ported(f"comm={comm!r}", 6)
-    get_schedule(comm)                    # unknown names raise here
-    if sharding in ("zero2", "zero3"):
-        raise _not_ported(f"sharding={sharding!r}", 7)
+    comm = comm_cfg.strategy
+    if comm != "naive":
+        get_schedule(comm)                # unknown names raise here
     if comm_cfg.bucket_mb == "auto":
         raise _not_ported("bucket_mb='auto' (the bucket autotuner)", 7)
     if mesh is None:
         raise ValueError(f"comm={comm!r} needs a mesh "
-                         f"(repro_torch.launch.mesh.make_local_mesh)")
+                         f"(repro_torch.launch.mesh.make_mesh)")
     if grad_accum != 1:
         raise ValueError("grad_accum is a comm='xla' option")
+    # 'naive' has no bucket plan to shard against: replicated, as in the
+    # reference
+    sharding = comm_cfg.sharding if comm != "naive" else "replicated"
     shard_update = sharding != "replicated"
     if shard_update and (opt_cfg.kind not in ("lars", "sgdm")
                          or opt_cfg.nesterov):
@@ -199,8 +202,10 @@ def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
                                      [a.size for a in axes])
     sh_axis = mesh.axis(name)
     gather_mode = comm_cfg.gather if shard_update else "at_end"
+    # the step-start prefetch is a zero1 notion; zero3's 'ahead' keeps the
+    # forward's gathers for the backward
     gather_ahead = gather_mode == "ahead" and sharding == "zero1"
-    overlap = comm_cfg.overlap
+    overlap = comm_cfg.overlap and comm != "naive"
     wire = torch.bfloat16 if comm_cfg.wire_dtype == "bf16" else torch.float32
     plan = bucketing.make_plan(model.param_pd, bucket_mb=comm_cfg.bucket_mb,
                                dtype_bytes=2 if wire == torch.bfloat16
@@ -218,10 +223,39 @@ def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
         return (tree_unflatten(paths, torch.autograd.grad(total, leaves)),
                 metrics, new_bn)
 
+    def scatter(params_of, batch, bn_state, remat=False):
+        """The gradient's reduce-scatter, of the loss at the params
+        ``params_of()`` builds: inside the backward (the reduced-mean fp32
+        shards come back as the gradients of zero sinks; the params are
+        not differentiated, so no full reduced gradient exists) or after
+        it. ``remat`` checkpoints the loss with ``params_of`` inside it,
+        so the backward builds the params again. Returns (g_shards,
+        metrics, new_bn)."""
+        if not overlap:
+            grads, metrics, new_bn = grads_of(params_of(), batch, bn_state)
+            return (ddp.reduce_scatter_grads(grads, plan=plan, **collective),
+                    metrics, new_bn)
+
+        def loss(sinks, b, bn):
+            return loss_fn(ddp.wrap_params_for_overlap(
+                params_of(), plan, shard_sinks=sinks, **collective), b, bn)
+
+        sinks = ddp.make_shard_sinks(plan, n_shards, device=mesh.device)
+        total, (metrics, new_bn) = (
+            checkpoint(loss, sinks, batch, bn_state, use_reentrant=False)
+            if remat else loss(sinks, batch, bn_state))
+        return list(torch.autograd.grad(total, sinks)), metrics, new_bn
+
     def finish(state, metrics, new_bn):
         new_bn = prim.pmean_tree(new_bn, axes) if new_bn is not None \
             else None
         return prim.pmean_tree(metrics, axes), new_bn, schedule(state.step)
+
+    def update(state, p_shards, g_shards, lr):
+        return lars.sharded_update_from_shards(
+            list(p_shards), g_shards, list(state.mom), lr, opt_cfg, plan,
+            shard_axis=sh_axis, n_shards=n_shards,
+            update_kernel=comm_cfg.update_kernel)
 
     def replicated_step(state: TrainState, batch):
         if overlap:
@@ -242,12 +276,14 @@ def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
         return (TrainState(state.step + 1, params, mom, new_bn),
                 dict(metrics, lr=lr))
 
-    def sharded_step(state: TrainState, batch):
+    def need_shards(state):
         if state.shards is None:
             raise ValueError(
                 f"sharding={sharding!r} needs the persistent-shard state: "
-                f"init_state(..., sharded_plan=train_step.bucket_plan, "
-                f"n_shards=train_step.n_shards, mesh=mesh)")
+                f"init_state(..., **train.state.sharded_state_kwargs(step))")
+
+    def zero1_step(state: TrainState, batch):
+        need_shards(state)
         # gather-ahead: this step's forward params from the master shards
         # the previous step updated; otherwise the copy gathered at the
         # end of the previous step
@@ -255,25 +291,10 @@ def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
                                           shard_axis=sh_axis,
                                           wire_dtype=wire)
                   if gather_ahead else state.params)
-        if overlap:
-            # in-backward reduce-scatter: the reduced-mean fp32 shards
-            # come back as the gradients of zero sinks; the params are not
-            # differentiated, so no full reduced gradient exists
-            sinks = ddp.make_shard_sinks(plan, n_shards,
-                                         device=state.shards[0].device)
-            p = ddp.wrap_params_for_overlap(params, plan, shard_sinks=sinks,
-                                            **collective)
-            total, (metrics, new_bn) = loss_fn(p, batch, state.bn_state)
-            g_shards = list(torch.autograd.grad(total, sinks))
-        else:
-            grads, metrics, new_bn = grads_of(params, batch, state.bn_state)
-            g_shards = ddp.reduce_scatter_grads(grads, plan=plan,
-                                                **collective)
+        g_shards, metrics, new_bn = scatter(lambda: params, batch,
+                                            state.bn_state)
         metrics, new_bn, lr = finish(state, metrics, new_bn)
-        p_shards, m_shards = lars.sharded_update_from_shards(
-            list(state.shards), g_shards, list(state.mom), lr, opt_cfg,
-            plan, shard_axis=sh_axis, n_shards=n_shards,
-            update_kernel=comm_cfg.update_kernel)
+        p_shards, m_shards = update(state, state.shards, g_shards, lr)
         new_params = (params if gather_ahead else
                       ddp.all_gather_params(p_shards, plan,
                                             shard_axis=sh_axis,
@@ -281,7 +302,53 @@ def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
         return (TrainState(state.step + 1, new_params, m_shards, new_bn,
                            p_shards), dict(metrics, lr=lr))
 
-    train_step = sharded_step if shard_update else replicated_step
+    def zero2_step(state: TrainState, batch):
+        # the replicated fp32 params ARE the masters (no shards, no
+        # start-of-step gather); gradients and momentum shard as in zero1
+        if state.params is None or state.shards is not None:
+            raise ValueError(
+                "sharding='zero2' keeps the replicated params as masters "
+                "with sharded momentum and no shards: init_state(..., "
+                "**train.state.sharded_state_kwargs(step))")
+        g_shards, metrics, new_bn = scatter(lambda: state.params, batch,
+                                            state.bn_state)
+        metrics, new_bn, lr = finish(state, metrics, new_bn)
+        # transient master shards: this rank's ring chunk of each packed
+        # bucket (the chunk its reduce-scatter left here)
+        k = prim.shard_index(sh_axis)
+        p_shards = []
+        for buf in bucketing.pack(state.params, plan, dtype=torch.float32):
+            padded = bucketing.pad_to_shards(buf, n_shards)
+            c = padded.shape[0] // n_shards
+            p_shards.append(padded[k * c:(k + 1) * c])
+        p_shards, m_shards = update(state, p_shards, g_shards, lr)
+        # fp32 on the wire: this gather writes the masters back
+        new_params = ddp.all_gather_params(p_shards, plan,
+                                           shard_axis=sh_axis,
+                                           wire_dtype=torch.float32)
+        return (TrainState(state.step + 1, new_params, m_shards, new_bn),
+                dict(metrics, lr=lr))
+
+    def zero3_step(state: TrainState, batch):
+        # no params anywhere: the forward rebuilds them from the master
+        # shards group by group; with gather='per_group' the gathered loss
+        # is checkpointed, so the backward gathers again instead of
+        # keeping the forward's copies ('ahead' keeps them). Post-backward
+        # the gathered tree is a step transient (per_group then keeps it,
+        # as in the reference)
+        need_shards(state)
+        g_shards, metrics, new_bn = scatter(
+            lambda: ddp.jit_gather_params(state.shards, plan,
+                                          shard_axis=sh_axis,
+                                          wire_dtype=wire),
+            batch, state.bn_state, remat=gather_mode == "per_group")
+        metrics, new_bn, lr = finish(state, metrics, new_bn)
+        p_shards, m_shards = update(state, state.shards, g_shards, lr)
+        return (TrainState(state.step + 1, None, m_shards, new_bn,
+                           p_shards), dict(metrics, lr=lr))
+
+    train_step = {"replicated": replicated_step, "zero1": zero1_step,
+                  "zero2": zero2_step, "zero3": zero3_step}[sharding]
     # introspection: the resolved comm plan, as the reference's step has it
     train_step.guarded = False
     train_step.comm = comm

@@ -48,18 +48,22 @@ def bn_state_from_jax(np_tree, cfg, device) -> dict:
 
 def state_from_jax(jax_state, cfg, device) -> TrainState:
     """A reference ``TrainState`` (numpy leaves: ``jax.device_get(state)``)
-    of a replicated LARS/SGD-M run or of a ZeRO-1 run on ONE shard (its
+    of a replicated LARS/SGD-M run, or of a sharded run on ONE shard (its
     global shard layout is then the one rank's) -> the port's
-    ``TrainState``."""
-    params = params_from_jax(jax_state.params, cfg, device)
+    ``TrainState``. The sharded states: zero1 (params, packed momentum and
+    master shards), zero2 (params and packed momentum, no shards), zero3
+    (no params: ``params`` None; packed momentum and master shards)."""
+    params = (None if jax_state.params is None
+              else params_from_jax(jax_state.params, cfg, device))
     bn = bn_state_from_jax(jax_state.bn_state, cfg, device)
-    if jax_state.shards is None:
-        return TrainState(int(jax_state.step), params,
-                          params_from_jax(jax_state.mom, cfg, device), bn)
     bufs = lambda xs: tuple(
         torch.from_numpy(np.array(x, np.float32)).to(device) for x in xs)
+    if isinstance(jax_state.mom, dict):          # replicated: a tree
+        return TrainState(int(jax_state.step), params,
+                          params_from_jax(jax_state.mom, cfg, device), bn)
+    shards = None if jax_state.shards is None else bufs(jax_state.shards)
     return TrainState(int(jax_state.step), params, bufs(jax_state.mom), bn,
-                      bufs(jax_state.shards))
+                      shards)
 
 
 def lm_params_from_jax(np_tree, cfg, device) -> dict:

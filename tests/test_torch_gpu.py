@@ -198,6 +198,119 @@ def test_sharded_update_on_card_runs_both_kernels():
             torch.testing.assert_close(x.cpu(), y, rtol=1e-5, atol=1e-6)
 
 
+# ---------------------------------------------------------------- K3
+
+#: test_comm.py's ragged (n, length) pairs of the ring-kernel parity test
+RING_RAGGED = [(2, 1000), (3, 5000), (4, 4096), (8, 33000)]
+
+
+def _ring_fold_equal(recv, chunks, k):
+    """K3 against its plain version, bit for bit; counts one launch."""
+    from repro_torch.comm import ring_kernel
+    before = ring_kernel.ring_add_step.launches
+    got = ring_kernel.ring_add_step(recv, chunks, k)
+    assert ring_kernel.ring_add_step.launches == before + 1
+    want = ref.ring_add_step(recv, chunks, k)
+    torch.cuda.synchronize()
+    assert got.dtype == recv.dtype and torch.equal(got, want), k
+    return got
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("which", ["largest", "smallest"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_add_kernel_matches_plain_at_path_rows(n, which, dtype):
+    """The chunk rows the ring gives K3 on the ResNet-50 path: the largest
+    and the smallest bucket of the 4 MB plan on 4 and 2 ranks, every k."""
+    from repro_torch.comm import primitives as prim
+    dev = _card()
+    sizes = _full_width_plan().bucket_sizes
+    L = max(sizes) if which == "largest" else min(sizes)
+    rng = np.random.default_rng(L + n)
+    x = torch.from_numpy(rng.standard_normal(L).astype(np.float32)).to(
+        dev, dtype)
+    chunks = prim._as_chunks(x, n, pad_to=CHUNK)
+    recv = torch.from_numpy(rng.standard_normal(chunks.shape[1])
+                            .astype(np.float32)).to(dev, dtype)
+    for k in range(n):
+        _ring_fold_equal(recv, chunks, k)
+
+
+def test_ring_add_kernel_reference_shapes_and_ragged_rows():
+    """test_comm.py's shapes: (4, 2·1024) f32 at k 0 and 3, bf16 ones +
+    0.5, and the ragged (n, length) pairs through ``_as_chunks(pad_to=
+    CHUNK)`` at every k."""
+    from repro_torch.comm import primitives as prim
+    dev = _card()
+    rng = np.random.default_rng(0)
+    chunks = torch.from_numpy(rng.standard_normal((4, 2 * CHUNK))
+                              .astype(np.float32)).to(dev)
+    recv = torch.from_numpy(rng.standard_normal(2 * CHUNK)
+                            .astype(np.float32)).to(dev)
+    for k in (0, 3):
+        _ring_fold_equal(recv, chunks, k)
+    out = _ring_fold_equal(torch.full((CHUNK,), 0.5, dtype=torch.bfloat16,
+                                      device=dev),
+                           torch.ones((2, CHUNK), dtype=torch.bfloat16,
+                                      device=dev), 1)
+    assert bool((out == 1.5).all())
+    for n, length in RING_RAGGED:
+        x = torch.from_numpy(rng.standard_normal(length)
+                             .astype(np.float32)).to(dev)
+        chunks = prim._as_chunks(x, n, pad_to=CHUNK)
+        recv = torch.randn(chunks.shape[1], device=dev)
+        for k in range(n):
+            _ring_fold_equal(recv, chunks, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_add_kernel_misaligned_and_in_place(dtype):
+    """Views off the 16-byte grid: all three operands shifted alike by one
+    element (scalar head, vectors, scalar tail) and recv shifted apart
+    (every element a scalar); then the fold into recv itself, whose caller
+    still holds it. chunks are never written."""
+    from repro_torch.comm import ring_kernel
+    dev = _card()
+    c = 3 * CHUNK
+    draw = lambda m: torch.randn(m, device=dev).to(dtype)
+    chunks = draw(2 * c + 1)[1:].view(2, c)        # rows shifted by one
+    snapshot = chunks.clone()
+    for shift in (1, 2):                           # alike, then apart
+        recv = draw(c + shift)[shift:]
+        out = torch.empty(c + 1, device=dev, dtype=dtype)[1:]
+        for k in range(2):
+            got = ring_kernel.ring_add_step(recv, chunks, k, out=out)
+            torch.cuda.synchronize()
+            assert got is out
+            assert torch.equal(out, ref.ring_add_step(recv, chunks, k))
+    held = draw(c)
+    want = ref.ring_add_step(held, chunks, 1)
+    got = ring_kernel.kernel_step_fn()(held, chunks, 1)
+    torch.cuda.synchronize()
+    assert got is held and torch.equal(held, want)
+    assert torch.equal(chunks, snapshot)
+
+
+def test_ring_add_kernel_rejects_bad_inputs():
+    from repro_torch.comm import ring_kernel
+    dev = _card()
+    chunks = torch.zeros((2, CHUNK), device=dev)
+    recv = torch.zeros(CHUNK, device=dev)
+    for k in (2, -1, True, 1.0):
+        with pytest.raises(ValueError, match="k must be"):
+            ring_kernel.ring_add_step(recv, chunks, k)
+    with pytest.raises(ValueError, match="c %"):
+        ring_kernel.ring_add_step(recv[:1000], chunks[:, :1000], 0)
+    with pytest.raises(TypeError, match="chunks are"):
+        ring_kernel.ring_add_step(recv.bfloat16(), chunks, 0)
+    with pytest.raises(TypeError):
+        ring_kernel.ring_add_step(recv.half(), chunks.half(), 0)
+    with pytest.raises(ValueError):
+        ring_kernel.ring_add_step(recv, chunks.cpu(), 0)
+    with pytest.raises(ValueError):
+        ring_kernel.ring_add_step(recv, chunks, 0, out=recv[:CHUNK // 2])
+
+
 # ---------------------------------------------------------------- K5
 
 #: (B, S, H, K, Dk, Dv, causal, window): the CPU tests' shapes and masks

@@ -159,9 +159,9 @@ def test_cli_flag_not_ported_names_roadmap(capsys):
     from repro_torch.launch import train as launch
     with pytest.raises(SystemExit) as exit_info:
         launch.main(["--arch", "resnet50", "--reduced", "--device", "cpu",
-                     "--comm", "ring", "--sharding", "zero2"])
+                     "--comm", "ring", "--guard"])
     assert exit_info.value.code != 0
-    assert "ROADMAP §1 item 7" in capsys.readouterr().err
+    assert "ROADMAP §1 item 8" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("extra", [
@@ -187,22 +187,37 @@ def test_make_train_step_names_what_is_not_ported():
     mesh = Mesh((Axis("data", 1, 0, (0,), None),), torch.device("cpu"))
     sched = make_schedule(ScheduleConfig(base_lr=0.1, total_steps=2))
     opt = lars.OptConfig()
-    for comm, item in ((CommConfig(strategy="hierarchical"), 6),
-                       (CommConfig(strategy="naive"), 6),
-                       (CommConfig(strategy="ring", sharding="zero2"), 7),
-                       (CommConfig(strategy="ring", bucket_mb="auto"), 7)):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP §1 item {item}"):
-            make_train_step(model, opt, sched, mesh=mesh, comm=comm)
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 7"):
+        make_train_step(model, opt, sched, mesh=mesh,
+                        comm=CommConfig(strategy="ring", bucket_mb="auto"))
+    lm = build_model(get_config("qwen1.5-0.5b").reduced())
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
+        make_train_step(lm, opt, sched, mesh=mesh, comm="ring")
     with pytest.raises(ValueError, match="needs a mesh"):
         make_train_step(model, opt, sched, comm="ring")
     with pytest.raises(ValueError, match="explicit-DP schedule"):
         make_train_step(model, opt, sched,
                         comm=CommConfig(strategy="xla", sharding="zero1"))
-    # the ring-step fold kernel K3 needs two or more cards
-    from repro_torch.comm import get_schedule
-    with pytest.raises(NotImplementedError, match="K3"):
-        get_schedule("ring")(torch.zeros(4), mesh.axes, use_kernel=True)
+    # the ring-step fold kernel K3 (use_kernel=True): CPU buffers take its
+    # plain version, with CHUNK-aligned chunk rows
+    from repro_torch.comm import get_schedule, ring_kernel, schedules
+    from repro_torch.core.bucketing import CHUNK
+    before = ring_kernel.ring_add_step.launches
+    step_fn, pad_to = schedules._step_fn(True)
+    assert pad_to == CHUNK
+    chunks = torch.randn(3, CHUNK)
+    recv = torch.randn(CHUNK)
+    want = recv + chunks[2]
+    assert torch.equal(step_fn(recv, chunks, 2), want)
+    buf = torch.arange(4.0)
+    out = get_schedule("ring")(buf.clone(), mesh.axes, use_kernel=True)
+    assert torch.equal(out, buf)          # one rank: the sum is the buffer
+    assert ring_kernel.ring_add_step.launches == before
+    # naive has no bucket plan to shard: replicated, as in the reference
+    step = make_train_step(model, opt, sched, mesh=mesh,
+                           comm=CommConfig(strategy="naive",
+                                           sharding="zero1"))
+    assert step.sharding == "replicated" and not step.overlap
 
 
 def test_entry_points_raise_without_card(monkeypatch):

@@ -63,13 +63,34 @@ def _maxdiff(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+#: every schedule of the port; naive has only the post-backward all-reduce
+STRATEGIES = ("naive", "psum", "bucketed", "ring", "hierarchical",
+              "2d_torus", "dbtree")
+
+
+def comm_meshes(world: int, device=None):
+    """The meshes the schedules run on, by name: the flat ``(data,)``, the
+    trailing-trivial ``(data, model=1)`` and, on four ranks, the
+    ``(pod 2, data 2)`` mesh (``torch_reference.COMM_MESHES``)."""
+    from repro_torch.launch.mesh import make_mesh
+    meshes = {"flat": make_mesh((world,), ("data",), device=device),
+              "dm": make_mesh((world, 1), ("data", "model"), device=device)}
+    if world == 4:
+        meshes["pod"] = make_mesh((2, 2), ("pod", "data"), device=device)
+    return meshes
+
+
 def schedules(mesh):
-    """Every schedule, post-backward and in-backward, all-reduce and
-    reduce-scatter forms, against the naive mean of the ranks' gradients
-    (rank r's are ``tree * (1 + 0.1 r)``), f32 wire. Returns the
-    reduce-scatter shards for the cross-rank and reference checks."""
+    """Every schedule, with ``use_kernel`` both ways, post-backward and
+    in-backward, all-reduce and reduce-scatter forms, on every mesh of
+    ``comm_meshes``, against the naive mean of the ranks' gradients (rank
+    r's are ``tree * (1 + 0.1 r)``), f32 wire. The kernel flag must not
+    change a bit of a reduce-scatter. Returns the reduce-scatter shards
+    (``{mesh}/{strategy}/k{kernel}/{bucket}``) for the cross-rank and
+    reference checks."""
     import torch
     import torch_reference
+    from repro_torch.comm.schedules import shard_axis
     from repro_torch.core import bucketing, ddp
     from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -83,46 +104,74 @@ def schedules(mesh):
     naive = tree_map(lambda x: (x.double() * sum(1.0 + 0.1 * q
                                                  for q in range(n)) / n)
                      .float(), tree)
-    # rank r's chunk of the packed, rotated naive mean
-    naive_rows = [bucketing.rotate_to_shards(b, n).reshape(n, -1)[r]
-                  for b in bucketing.pack(naive, plan, dtype=torch.float32)]
-    out = {}
-    for strategy in ("psum", "ring", "bucketed"):
-        kw = dict(strategy=strategy, axes=mesh.axes,
-                  comm_dtype=torch.float32)
-        # post-backward all-reduce
-        red = ddp.allreduce_grads(g_r, plan=plan, **kw)
-        for (p, a), (_, b) in zip(tree_flatten(red), tree_flatten(naive)):
-            assert _maxdiff(a, b) <= TOL, (strategy, "allreduce", p)
-        # in-backward all-reduce: d/dp sum(p * g_r) = g_r
-        leaves = [x.clone().requires_grad_() for _, x in tree_flatten(tree)]
-        wrapped = ddp.wrap_params_for_overlap(tree_unflatten(paths, leaves),
-                                              plan, **kw)
-        loss = sum((x * g).sum() for (_, x), (_, g) in
-                   zip(tree_flatten(wrapped), tree_flatten(g_r)))
-        for x, (p, b) in zip(torch.autograd.grad(loss, leaves),
-                             tree_flatten(naive)):
-            assert _maxdiff(x, b) <= TOL, (strategy, "overlap", p)
-        # post-backward reduce-scatter: rank r's chunk of the naive mean
-        shards = ddp.reduce_scatter_grads(g_r, plan=plan, **kw)
-        for b, (a, w) in enumerate(zip(shards, naive_rows)):
-            assert _maxdiff(a, w) <= TOL, (strategy, "rs", b)
-            out[f"{strategy}/{b}"] = a.cpu().numpy()
+    naive_bufs = bucketing.pack(naive, plan, dtype=torch.float32)
 
-        # in-backward reduce-scatter (gradient sinks) == post-backward
-        def local_loss(p):
-            return sum((torch.sin(x * (1.0 + 0.1 * r)) * x).sum()
-                       for _, x in tree_flatten(p))
-        sinks = ddp.make_shard_sinks(plan, n, device=mesh.device)
-        got = torch.autograd.grad(local_loss(ddp.wrap_params_for_overlap(
-            tree, plan, shard_sinks=sinks, **kw)), sinks)
-        leaves = [x.clone().requires_grad_() for _, x in tree_flatten(tree)]
-        grads = torch.autograd.grad(
-            local_loss(tree_unflatten(paths, leaves)), leaves)
-        want = ddp.reduce_scatter_grads(tree_unflatten(paths, grads),
-                                        plan=plan, **kw)
-        for b, (a, w) in enumerate(zip(got, want)):
-            assert _maxdiff(a, w) <= TOL, (strategy, "in-bwd rs", b)
+    def local_loss(p):
+        return sum((torch.sin(x * (1.0 + 0.1 * r)) * x).sum()
+                   for _, x in tree_flatten(p))
+
+    out = {}
+    for mname, m in comm_meshes(n, mesh.device).items():
+        axes, sh = m.axes, shard_axis(m.axes)
+        # this rank's chunk of the packed, rotated naive mean
+        naive_rows = [bucketing.rotate_to_shards(b, sh.size)
+                      .reshape(sh.size, -1)[sh.index] for b in naive_bufs]
+        for strategy in STRATEGIES:
+            first = None
+            for kernel in (False, True):
+                kw = dict(strategy=strategy, axes=axes,
+                          comm_dtype=torch.float32, use_kernel=kernel)
+                where = (mname, strategy, kernel)
+                # post-backward all-reduce
+                red = ddp.allreduce_grads(g_r, plan=plan, **kw)
+                for (p, a), (_, b) in zip(tree_flatten(red),
+                                          tree_flatten(naive)):
+                    assert _maxdiff(a, b) <= TOL, (where, "allreduce", p)
+                if strategy == "naive":
+                    break
+                # in-backward all-reduce: d/dp sum(p * g_r) = g_r
+                leaves = [x.clone().requires_grad_()
+                          for _, x in tree_flatten(tree)]
+                wrapped = ddp.wrap_params_for_overlap(
+                    tree_unflatten(paths, leaves), plan, **kw)
+                loss = sum((x * g).sum() for (_, x), (_, g) in
+                           zip(tree_flatten(wrapped), tree_flatten(g_r)))
+                for x, (p, b) in zip(torch.autograd.grad(loss, leaves),
+                                     tree_flatten(naive)):
+                    assert _maxdiff(x, b) <= TOL, (where, "overlap", p)
+                # post-backward reduce-scatter: this rank's chunk
+                shards = ddp.reduce_scatter_grads(g_r, plan=plan, **kw)
+                for b, (a, w) in enumerate(zip(shards, naive_rows)):
+                    assert _maxdiff(a, w) <= TOL, (where, "rs", b)
+                    out[f"{mname}/{strategy}/k{int(kernel)}/{b}"] = \
+                        a.cpu().numpy()
+                # in-backward reduce-scatter (gradient sinks) ==
+                # post-backward
+                sinks = ddp.make_shard_sinks(plan, sh.size,
+                                             device=mesh.device)
+                got = torch.autograd.grad(local_loss(
+                    ddp.wrap_params_for_overlap(tree, plan,
+                                                shard_sinks=sinks, **kw)),
+                    sinks)
+                leaves = [x.clone().requires_grad_()
+                          for _, x in tree_flatten(tree)]
+                grads = torch.autograd.grad(
+                    local_loss(tree_unflatten(paths, leaves)), leaves)
+                want = ddp.reduce_scatter_grads(
+                    tree_unflatten(paths, grads), plan=plan, **kw)
+                for b, (a, w) in enumerate(zip(got, want)):
+                    assert _maxdiff(a, w) <= TOL, (where, "in-bwd rs", b)
+                if first is None:
+                    first = shards
+                    continue
+                # the reduce-scatter forms cut the same CHUNK-aligned
+                # chunks either way, so the fold (K3's plain version on
+                # the CPU) sums in the same order: the same bits. (The
+                # all-reduce forms pad to CHUNK only with the kernel, so
+                # their chunks, and beyond two ranks their sums' order,
+                # may differ: held to TOL above.)
+                assert all(torch.equal(a, b)
+                           for a, b in zip(shards, first)), where
     return out
 
 
@@ -131,12 +180,24 @@ ZERO1_CASES = (("psum", False, False), ("psum", True, True),
                ("ring", True, False), ("ring", False, True))
 
 
-def zero1_step(mesh):
-    """Reduced ResNet-50 on ``mesh``: the ZeRO-1 step against the
-    replicated explicit step of the same schedule, f32 wire, for each of
-    ``ZERO1_CASES``; two steps, each from the replicated step's state.
-    Returns the largest master and momentum differences, each relative to
-    its tensor's max (absolute below 1)."""
+#: (sharding, gather, schedule, overlap, update_kernel, use_kernel) of the
+#: 2-rank zero2 / zero3 check: each rung, gather mode and factor both
+#: ways, over five schedules
+ZERO23_CASES = (("zero2", None, "ring", True, True, True),
+                ("zero2", None, "hierarchical", False, False, False),
+                ("zero3", "per_group", "ring", True, True, True),
+                ("zero3", "per_group", "dbtree", False, True, False),
+                ("zero3", "ahead", "2d_torus", True, False, True),
+                ("zero3", "ahead", "psum", True, True, False))
+
+
+def _sharded_vs_replicated(mesh, cases):
+    """Reduced ResNet-50 on ``mesh``: each sharded step of ``cases``
+    (``(key, sharding, gather, schedule, overlap, update_kernel,
+    use_kernel)``) against the replicated explicit step of the same
+    schedule, f32 wire; two steps, each from the replicated step's state.
+    Returns, by key, the largest master and momentum differences, each
+    relative to its tensor's max (absolute below 1)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import CommConfig
     from repro_torch.configs.shapes import InputShape
@@ -157,18 +218,18 @@ def zero1_step(mesh):
     batch_fn = make_batch_fn(cfg, InputShape("t", "train", 0, 8), seed=0,
                              device=mesh.device, mesh=mesh)
     out = {}
-    # each factor both ways, in four of the eight combinations
-    for strategy, overlap, kernel in ZERO1_CASES:
-        kw = dict(strategy=strategy, bucket_mb=0.02,
-                  wire_dtype="f32", overlap=overlap)
+    for key, sharding, gather, strategy, overlap, kernel, ring in cases:
+        kw = dict(strategy=strategy, bucket_mb=0.02, wire_dtype="f32",
+                  overlap=overlap, use_kernel=ring)
         repl = make_train_step(model, opt, sched, mesh=mesh,
                                comm=CommConfig(**kw))
         zero = make_train_step(model, opt, sched, mesh=mesh,
-                               comm=CommConfig(sharding="zero1",
-                                               update_kernel=kernel,
-                                               **kw))
+                               comm=CommConfig(sharding=sharding,
+                                               gather=gather,
+                                               update_kernel=kernel, **kw))
         plan, n = zero.bucket_plan, zero.n_shards
         assert n == mesh.size and plan.n_buckets > 10
+        assert zero.sharding == sharding
         index = mesh.axis(zero.shard_axis).index
         read = make_params_reader(zero)
         s = st.init_state(model, 0, device=mesh.device)
@@ -176,11 +237,15 @@ def zero1_step(mesh):
         for k in range(2):
             packed = lambda tree: st.local_shards(
                 st.init_packed_shards(tree, plan, n), n, index)
-            zs = st.TrainState(s.step, s.params, packed(s.mom),
-                               s.bn_state, packed(s.params))
+            zs = st.TrainState(
+                s.step, None if sharding == "zero3" else s.params,
+                packed(s.mom), s.bn_state,
+                None if sharding == "zero2" else packed(s.params))
             batch = batch_fn(k)
             s, _ = repl(s, batch)
             zs, _ = zero(zs, batch)
+            assert (zs.params is None) == (sharding == "zero3")
+            assert (zs.shards is None) == (sharding == "zero2")
             masters = read(zs)
             mom = read(zs._replace(shards=zs.mom))
             for got, want in ((masters, s.params), (mom, s.mom),
@@ -191,15 +256,36 @@ def zero1_step(mesh):
                     # sum in another order, and an untrained step's BN
                     # scales reach 1e6
                     d = _maxdiff(a, b) / max(1.0, float(b.abs().max()))
-                    assert d <= TOL, (strategy, overlap, kernel, k,
-                                      p, d)
+                    assert d <= TOL, (key, k, p, d)
                     worst = max(worst, d)
-        out[f"{strategy}/o{int(overlap)}u{int(kernel)}"] = \
-            np.float64(worst)
+        out[key] = np.float64(worst)
     return out
 
 
-SCENARIOS = {"schedules": schedules, "zero1_step": zero1_step}
+def zero1_step(mesh):
+    """The ZeRO-1 step against the replicated explicit step, for each of
+    ``ZERO1_CASES`` (``_sharded_vs_replicated``); keys
+    ``{schedule}/o{overlap}u{update_kernel}``."""
+    # each factor both ways, in four of the eight combinations
+    return _sharded_vs_replicated(mesh, [
+        (f"{s}/o{int(o)}u{int(u)}", "zero1", None, s, o, u, False)
+        for s, o, u in ZERO1_CASES])
+
+
+def zero23_key(sharding, gather, strategy, overlap, kernel, ring) -> str:
+    return (f"{sharding}-{gather or 'at_end'}/{strategy}/o{int(overlap)}"
+            f"u{int(kernel)}k{int(ring)}")
+
+
+def zero23_step(mesh):
+    """The zero2 and zero3 steps against the replicated explicit step,
+    for each of ``ZERO23_CASES`` (``_sharded_vs_replicated``)."""
+    return _sharded_vs_replicated(mesh, [(zero23_key(*c), *c)
+                                         for c in ZERO23_CASES])
+
+
+SCENARIOS = {"schedules": schedules, "zero1_step": zero1_step,
+             "zero23_step": zero23_step}
 
 
 def main(scenario: str, out_dir: str, device: str = "cpu"):

@@ -11,6 +11,7 @@ to an ``.npz`` of ``kind/path`` keys.
   python tests/torch_reference.py resnet_grads OUT.npz
   python tests/torch_reference.py train_steps OUT.npz
   python tests/torch_reference.py zero1_steps OUT.npz
+  python tests/torch_reference.py zero23_steps OUT.npz
   python tests/torch_reference.py comm_shards OUT.npz   (4 host devices)
   python tests/torch_reference.py attention_cases OUT.npz
   python tests/torch_reference.py lm_cases OUT.npz
@@ -20,10 +21,10 @@ The reference's explicit data-parallel steps fail under jax 0.9.0 before
 they compute anything: ``repro/core/compat.py`` passes ``check_rep=`` to
 ``jax.shard_map``, which now takes ``check_vma=``, and ``jax.make_mesh``
 now makes Explicit axes, which the step's sharding constraints reject.
-``zero1_steps`` routes around both without touching ``src/repro``: it
-replaces ``compat.shard_map`` in its own process with a shim that calls
-``jax.shard_map(..., check_vma=False)``, builds an Auto-axis mesh, and
-feeds numpy batches (no mesh-bound batch function).
+``zero1_steps`` and ``zero23_steps`` route around both without touching
+``src/repro``: each replaces ``compat.shard_map`` in its own process with
+a shim that calls ``jax.shard_map(..., check_vma=False)``, builds an
+Auto-axis mesh, and feeds numpy batches (no mesh-bound batch function).
 """
 import os
 import subprocess
@@ -272,6 +273,76 @@ def zero1_steps():
     return out
 
 
+#: the zero2 / zero3 parity configurations, in the reference's own 1-device
+#: setting (``ZERO1_COMM``'s ring, f32 wire, 0.25 MB buckets):
+#: (sharding, gather, overlap, update_kernel) by key
+ZERO23_CASES = {"zero2": ("zero2", "at_end", 1, 1),
+                "zero3_per_group": ("zero3", "per_group", 1, 0),
+                "zero3_ahead": ("zero3", "ahead", 0, 1)}
+
+
+def zero23_steps():
+    """Reduced ResNet-50, LARS poly2, the zero2 and zero3 explicit-DP
+    steps on a (1, 1) Auto-axis mesh, for each of ``ZERO23_CASES``: two
+    jitted steps along the reference's own trajectory; each step's input
+    state (params absent under zero3, shards under zero2), batch, output
+    state and metrics, as ``{case}/s{k}/...``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import AxisType, NamedSharding
+    from jax.sharding import PartitionSpec as P
+    from repro.configs import get_config
+    from repro.configs.base import CommConfig
+    from repro.core import lars
+    from repro.core.schedule import ScheduleConfig, make_schedule
+    from repro.models.registry import build_model
+    from repro.train import state as st
+    from repro.train.step import make_train_step
+
+    _shard_map_shim()
+    cfg = get_config("resnet50").reduced()
+    model = build_model(cfg)
+    sched = make_schedule(ScheduleConfig(**LR))
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    params, bn = _init(cfg)
+    comm = {k: v for k, v in ZERO1_COMM.items() if k != "sharding"}
+    out = {}
+    for case, (sharding, gather, overlap, kernel) in ZERO23_CASES.items():
+        step = make_train_step(
+            model, lars.OptConfig(kind="lars"), sched, mesh=mesh,
+            comm=CommConfig(sharding=sharding, gather=gather,
+                            overlap=bool(overlap),
+                            update_kernel=bool(kernel), **comm))
+        assert step.n_shards == 1 and step.sharding == sharding
+        plan = step.bucket_plan
+        s = st.TrainState(
+            jnp.zeros((), jnp.int32),
+            None if sharding == "zero3" else params,
+            st.init_packed_momentum(plan, 1), bn,
+            None if sharding == "zero2"
+            else st.init_packed_shards(params, plan, 1))
+        s = jax.device_put(s, NamedSharding(mesh, P()))
+        jstep = jax.jit(step)
+        for k in range(ZERO1_STEPS):
+            batch = _batch(cfg, k)
+            s2, m = jstep(s, batch)
+            pre = f"{case}/s{k}"
+            for io, x in (("in", s), ("out", s2)):
+                x = jax.device_get(x)
+                out[f"{pre}/{io}/step"] = np.asarray(x.step)
+                if x.params is not None:
+                    _flat(f"{pre}/{io}/params", x.params, out)
+                _flat(f"{pre}/{io}/bn_state", x.bn_state, out)
+                for name in ("shards", "mom"):
+                    for b, buf in enumerate(getattr(x, name) or ()):
+                        out[f"{pre}/{io}/{name}/{b}"] = np.asarray(buf)
+            _flat(f"{pre}/batch", batch, out)
+            _flat(f"{pre}/metrics", jax.device_get(m), out)
+            s = s2
+    return out
+
+
 #: the small tree of the comm tests (``test_comm.py``'s part A tree, with
 #: dict keys): at ``COMM_BUCKET_MB`` its head splits across buckets
 COMM_TREE = {"conv": (7, 7, 3, 17), "blocks0": {"w": (33, 65), "b": (65,)},
@@ -291,12 +362,24 @@ def comm_tree():
     return draw(COMM_TREE)
 
 
+#: the meshes of the schedule checks: (shape, axis names) by name
+COMM_MESHES = {"flat": ((COMM_RANKS,), ("data",)),
+               "dm": ((COMM_RANKS, 1), ("data", "model")),
+               "pod": ((2, 2), ("pod", "data"))}
+#: the reference's reduce-scatter forms, and those it also runs with its
+#: Pallas ring-step kernel (interpret mode): the ring family
+COMM_STRATEGIES = ("psum", "ring", "hierarchical", "2d_torus", "dbtree")
+COMM_KERNEL_STRATEGIES = ("ring", "hierarchical", "2d_torus")
+
+
 def comm_shards():
     """On ``COMM_RANKS`` host devices, device r's gradients
     ``tree * (1 + 0.1 r)`` reduced by each schedule's reduce-scatter-
-    terminal form (``ddp.reduce_scatter_grads``, f32 wire): the global
-    ``(n * c,)`` shard layout of every bucket, row r from device r, as
-    ``{strategy}/{bucket}``."""
+    terminal form (``ddp.reduce_scatter_grads``, f32 wire) on each mesh of
+    ``COMM_MESHES``: the global ``(n * c,)`` shard layout of every bucket,
+    row i from the device at index i of the shard axis (the innermost
+    non-trivial one; the shard is the same across the other axes), as
+    ``{mesh}/{strategy}/k{use_kernel}/{bucket}``."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import AxisType
@@ -305,23 +388,31 @@ def comm_shards():
 
     tree = comm_tree()
     plan = bucketing.make_plan(tree, bucket_mb=COMM_BUCKET_MB)
-    mesh = jax.make_mesh((COMM_RANKS,), ("data",),
-                         axis_types=(AxisType.Auto,))
     spec = jax.tree.map(lambda _: P(), tree)
     out = {}
-    for strategy in ("psum", "ring"):
-        def fn(t):
-            r = jax.lax.axis_index("data").astype(jnp.float32)
-            g = jax.tree.map(lambda x: x * (1.0 + 0.1 * r), t)
-            return tuple(ddp.reduce_scatter_grads(
-                g, strategy=strategy, axes=("data",), plan=plan,
-                comm_dtype=jnp.float32))
-        shards = jax.jit(jax.shard_map(
-            fn, mesh=mesh, in_specs=(spec,),
-            out_specs=tuple(P("data") for _ in range(plan.n_buckets)),
-            check_vma=False))(tree)
-        for b, x in enumerate(shards):
-            out[f"{strategy}/{b}"] = np.asarray(x)
+    for mname, (shape, names) in COMM_MESHES.items():
+        mesh = jax.make_mesh(shape, names,
+                             axis_types=(AxisType.Auto,) * len(names))
+        shard_axis = [a for a, n in zip(names, shape) if n > 1][-1]
+        for strategy in COMM_STRATEGIES:
+            for kernel in ((0, 1) if strategy in COMM_KERNEL_STRATEGIES
+                           else (0,)):
+                def fn(t):
+                    r = jnp.float32(0)
+                    for a in names:        # the global rank, row-major
+                        r = r * jax.lax.axis_size(a) + jax.lax.axis_index(a)
+                    g = jax.tree.map(lambda x: x * (1.0 + 0.1 * r), t)
+                    return tuple(ddp.reduce_scatter_grads(
+                        g, strategy=strategy, axes=names, plan=plan,
+                        comm_dtype=jnp.float32, use_kernel=bool(kernel),
+                        interpret=True))
+                shards = jax.jit(jax.shard_map(
+                    fn, mesh=mesh, in_specs=(spec,),
+                    out_specs=tuple(P(shard_axis)
+                                    for _ in range(plan.n_buckets)),
+                    check_vma=False))(tree)
+                for b, x in enumerate(shards):
+                    out[f"{mname}/{strategy}/k{kernel}/{b}"] = np.asarray(x)
     return out
 
 
@@ -521,6 +612,7 @@ if __name__ == "__main__":
     np.savez(dest, **{"resnet_grads": resnet_grads,
                       "train_steps": train_steps,
                       "zero1_steps": zero1_steps,
+                      "zero23_steps": zero23_steps,
                       "comm_shards": comm_shards,
                       "attention_cases": attention_cases,
                       "lm_cases": lm_cases,
