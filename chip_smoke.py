@@ -12,8 +12,9 @@ Phases, in order; any failure exits non-zero and prints no result:
               source, all started together; sm_90a)
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the shapes the training and serving paths give it (K5 also at
-              a GQA, a windowed and an MLA shape); times the kernel, the
-              plain version and a library yardstick beside the bound
+              a GQA, a windowed, an MLA and a peaked-softmax shape); times
+              the kernel, the plain version and a library yardstick beside
+              the bound
   4. slice    full-width ResNet-50 (224², 1000 classes, width 64), batch 64,
               6 LARS steps (poly2, label smoothing 0.1, bf16 compute, fp32
               masters, OptConfig(use_kernel=True)) through make_train_step +
@@ -114,14 +115,21 @@ BF16_OPS_PER_S = 989e12
 
 BATCH, STEPS = 64, 6
 
-#: K5 shapes: (name, B, S, H, K, Dk, Dv, window, dtype), all causal. "path"
-#: is the serving prefill's (qwen1.5-0.5b, 8 x 2048 tokens); then the same
-#: in f32, qwen3-14b's GQA heads without and with a window, MLA's dims
-FLASH_SHAPES = (("path", 8, 2048, 16, 16, 64, 64, 0, "bfloat16"),
-                ("path_f32", 8, 2048, 16, 16, 64, 64, 0, "float32"),
-                ("gqa", 2, 1024, 40, 8, 128, 128, 0, "bfloat16"),
-                ("gqa_window", 2, 1024, 40, 8, 128, 128, 256, "bfloat16"),
-                ("mla", 2, 1024, 16, 16, 192, 128, 0, "bfloat16"))
+#: K5 shapes: (name, B, S, H, K, Dk, Dv, window, dtype, q scale), all
+#: causal. "path" is the serving prefill's (qwen1.5-0.5b, 8 x 2048 tokens);
+#: then the same in f32, qwen3-14b's GQA heads without and with a window,
+#: MLA's dims, and the path's heads with q x 8 (a peaked softmax: large
+#: corrections of the running max, P near 0 or 1)
+FLASH_SHAPES = (("path", 8, 2048, 16, 16, 64, 64, 0, "bfloat16", 1),
+                ("path_f32", 8, 2048, 16, 16, 64, 64, 0, "float32", 1),
+                ("gqa", 2, 1024, 40, 8, 128, 128, 0, "bfloat16", 1),
+                ("gqa_window", 2, 1024, 40, 8, 128, 128, 256, "bfloat16", 1),
+                ("mla", 2, 1024, 16, 16, 192, 128, 0, "bfloat16", 1),
+                ("peaked", 2, 2048, 16, 16, 64, 64, 0, "bfloat16", 8))
+#: K5's route for each input dtype
+FLASH_ROUTES = {"bfloat16": "tensor cores: mma.sync m16n8k16 bf16, P split "
+                            "into bf16 hi + lo, cp.async K/V tiles",
+                "float32": "CUDA cores: f32 FMA"}
 #: (rtol, atol) of K5 against its plain version: f32 sums in another order;
 #: in bf16 that may flip the output's rounding by one ulp (2^-7 relative)
 FLASH_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-5)}
@@ -847,10 +855,10 @@ def _visible_pairs(S: int, window: int) -> int:
     return window * (window + 1) // 2 + (S - window) * window
 
 
-def _flash_case(dev, gen, name, B, S, H, K, Dk, Dv, window, dt):
-    """K5 at one shape, causal: checked against its plain version, then
-    timed beside the plain version, SDPA on the same inputs and the
-    bound."""
+def _flash_case(dev, gen, name, B, S, H, K, Dk, Dv, window, dt, q_scale):
+    """K5 at one shape, causal, q multiplied by ``q_scale``: checked against
+    its plain version, then timed beside the plain version, SDPA on the
+    same inputs and the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -859,6 +867,7 @@ def _flash_case(dev, gen, name, B, S, H, K, Dk, Dv, window, dt):
     dtype = getattr(torch, dt)
     q, k, v = (torch.randn((B * n, S, d), generator=gen, device=dev)
                .to(dtype) for n, d in ((H, Dk), (K, Dk), (K, Dv)))
+    q = (q.float() * q_scale).to(dtype)
     kw = dict(causal=True, window=window, n_q_heads=H, n_kv_heads=K)
     got = fa.flash_attention(q, k, v, **kw)
     want = ref.flash_attention(q, k, v, **kw)
@@ -891,12 +900,13 @@ def _flash_case(dev, gen, name, B, S, H, K, Dk, Dv, window, dt):
     b_ms, b_by = bound_ms(nbytes, ops, BF16_OPS_PER_S
                           if dtype == torch.bfloat16 else F32_OPS_PER_S)
     print(f"flash_attention {name} (B {B}, S {S}, H {H}, K {K}, Dk {Dk}, "
-          f"Dv {Dv}, window {window}, {dt}): max abs err "
+          f"Dv {Dv}, window {window}, {dt}, q x {q_scale}): max abs err "
           f"{err.max().item():.3e} (rtol {rtol}, atol {atol}); kernel "
           f"{ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, sdpa "
           f"{library * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by}: "
           f"{ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
     return {"shape": [B, S, H, K, Dk, Dv], "window": window, "dtype": dt,
+            "q_scale": q_scale,
             "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain,
             "library_ms": library, "bound_ms": b_ms, "bound_by": b_by}
 
@@ -920,7 +930,7 @@ def check_flash_attention(dev):
             "library_ms": path["library_ms"],
             "library": "torch.nn.functional.scaled_dot_product_attention",
             "shape": path["shape"], "dtype": path["dtype"],
-            "shapes": rows}
+            "routes": FLASH_ROUTES, "shapes": rows}
 
 
 def _dx_close(got, want, g, rtol, atol):

@@ -3,9 +3,11 @@ softmax) on the (B·H, S, D) layout.
 
 Replaces the Pallas kernel ``repro/kernels/flash_attention.py::
 flash_attention`` with the hand-written CUDA kernel
-``csrc/flash_attention.cu`` (one 256-thread block per (b·h, 64 query
-rows), K/V tiles of 64 rows staged in shared memory, four threads a query
-row; the source says why and what bounds it).
+``csrc/flash_attention.cu``: one block per (b·h, 64 query rows) walking
+64-key tiles. bf16 inputs run on the tensor cores (mma.sync bf16 MMAs,
+P split into two bf16 halves for PV, K/V tiles double-buffered with
+cp.async); f32 inputs on the CUDA cores. The source says why and what
+bounds it.
 
 Layout (``kernels/ops.flash_attention_bshd`` makes it from (B, S, H, D)):
   q : (B·H, Sq, Dk)   k : (B·K, Sk, Dk)   v : (B·K, Sk, Dv)

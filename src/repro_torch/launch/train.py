@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import CommConfig
@@ -67,7 +68,8 @@ def main(argv=None):
                     help="LM token distribution (data/synthetic.token_batch)")
     ap.add_argument("--optimizer", default="lars",
                     choices=["lars", "sgdm", "lamb"])
-    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--grad-accum", type=int, default=1,
+                    help="micro-batches a step; --comm xla only")
     ap.add_argument("--comm", default="xla", choices=["xla", *SCHEDULES],
                     help="'xla': the replicated single-device step; else "
                          "an explicit-DP schedule over every rank")
@@ -119,6 +121,18 @@ def main(argv=None):
         ap.error(f"--sharding {args.sharding} needs an explicit-DP schedule "
                  f"(--comm {{bucketed,psum,ring,hierarchical,2d_torus,"
                  f"dbtree}}), not {args.comm!r}")
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if args.comm == "xla" and world > 1:
+        ap.error(f"--comm xla is the single-device step: under a "
+                 f"{world}-rank launch every rank would train its own "
+                 f"unsynchronised replica. Use an explicit schedule such as "
+                 f"--comm psum; the reference's GSPMD --comm xla over every "
+                 f"rank comes with the model axis (ROADMAP §1 item 6)")
+    if args.grad_accum > 1 and args.comm != "xla":
+        ap.error(f"--grad-accum {args.grad_accum} is a --comm xla option: "
+                 f"the explicit schedules do not accumulate. The reference's "
+                 f"explicit path never reads grad_accum and silently trains "
+                 f"at the full per-rank batch; the port refuses instead")
     return _run(args)
 
 

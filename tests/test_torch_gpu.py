@@ -337,14 +337,15 @@ def _flash_inputs(B, S, H, K, Dk, Dv, dtype, dev, seed=0):
             for s in ((B, S, H, Dk), (B, S, K, Dk), (B, S, K, Dv))]
 
 
-@pytest.mark.parametrize("case", FLASH_CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_kernel_matches_plain(case, dtype):
+def _flash_matches_plain(case, dtype, q_scale=1.0):
+    """K5 through ``ops.flash_attention_bshd`` against its plain version on
+    the card: one launch, the tolerance, equal bits on a second call."""
     from repro_torch.kernels import flash_attention as fa
     dev = _card()
     torch.backends.cuda.matmul.allow_tf32 = False
     B, S, H, K, Dk, Dv, causal, window = case
     q, k, v = _flash_inputs(B, S, H, K, Dk, Dv, dtype, dev)
+    q = (q.float() * q_scale).to(dtype)
     before = fa.flash_attention.launches
     got = ops.flash_attention_bshd(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -357,6 +358,33 @@ def test_flash_attention_kernel_matches_plain(case, dtype):
     torch.testing.assert_close(got, want, **FLASH_TOL[dtype])
     again = ops.flash_attention_bshd(q, k, v, causal=causal, window=window)
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(case, dtype):
+    _flash_matches_plain(case, dtype)
+
+
+@pytest.mark.parametrize("case", [
+    (2, 2048, 16, 16, 64, 64, True, 0), (1, 1024, 40, 8, 128, 128, True, 256),
+    (1, 512, 16, 16, 192, 128, True, 0)])
+def test_flash_attention_bf16_peaked_softmax(case):
+    """q x 8: scores spread over a wide range, so the running max moves
+    often and by much, and P is near 0 or 1: the split P_hi + P_lo under
+    large corrections."""
+    _flash_matches_plain(case, torch.bfloat16, q_scale=8.0)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 1), (True, 24),
+                                           (False, 1)])
+def test_flash_attention_bf16_rows_that_see_no_key_in_a_tile(causal, window):
+    """S 100 (a ragged last tile): with window 24 the rows 88..99 see no
+    key of the first tile they read, with window 1 each row sees one key,
+    and the rows past S see none at all, so the -1e30 start (exp(0) on
+    masked keys, then a correction of 0) carries through the split."""
+    _flash_matches_plain((1, 100, 2, 1, 64, 64, causal, window),
+                         torch.bfloat16)
 
 
 def test_flash_attention_kernel_unequal_lengths():

@@ -164,6 +164,48 @@ def test_cli_flag_not_ported_names_roadmap(capsys):
     assert "ROADMAP §1 item 8" in capsys.readouterr().err
 
 
+def test_cli_refuses_comm_xla_under_multi_rank_launch(capsys, monkeypatch):
+    """Under a launcher that sets WORLD_SIZE > 1, the single-device
+    '--comm xla' step would train one unsynchronised replica a rank: the
+    CLI refuses it before building anything, naming the way out."""
+    from repro_torch.launch import train as launch
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setattr(launch, "_run", lambda args: pytest.fail("ran"))
+    with pytest.raises(SystemExit) as exit_info:
+        launch.main(["--arch", "resnet50", "--reduced", "--steps", "1",
+                     "--device", "cpu"])
+    assert exit_info.value.code != 0
+    err = capsys.readouterr().err
+    assert "--comm psum" in err and "ROADMAP §1 item 6" in err
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    ran = []
+    monkeypatch.setattr(launch, "_run", ran.append)
+    launch.main(["--arch", "resnet50", "--reduced", "--device", "cpu"])
+    assert len(ran) == 1 and ran[0].comm == "xla"
+
+
+@pytest.mark.parametrize("comm", ["naive", "psum", "ring"])
+def test_cli_refuses_grad_accum_with_explicit_schedule(capsys, monkeypatch,
+                                                       comm):
+    """The explicit schedules do not accumulate; the reference's explicit
+    path drops grad_accum silently, the port's CLI refuses it before the
+    mesh is built."""
+    from repro_torch.launch import train as launch
+    monkeypatch.setattr(launch, "_run", lambda args: pytest.fail("ran"))
+    with pytest.raises(SystemExit) as exit_info:
+        launch.main(["--arch", "resnet50", "--reduced", "--device", "cpu",
+                     "--comm", comm, "--grad-accum", "2"])
+    assert exit_info.value.code != 0
+    err = capsys.readouterr().err
+    assert "--grad-accum 2 is a --comm xla option" in err
+    assert "never reads grad_accum" in err
+    ran = []
+    monkeypatch.setattr(launch, "_run", ran.append)
+    launch.main(["--arch", "resnet50", "--reduced", "--device", "cpu",
+                 "--grad-accum", "2"])
+    assert ran[0].grad_accum == 2
+
+
 @pytest.mark.parametrize("extra", [
     ["--comm", "ring", "--sharding", "zero1", "--update-kernel"],
     ["--comm", "psum", "--sharding", "zero1", "--gather", "at_end",
