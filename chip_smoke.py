@@ -24,8 +24,8 @@ Phases, in order; any failure exits non-zero and prints no result:
   6. zero1    the same model and recipe as the ZeRO-1 explicit-DP step on a
               one-rank NCCL group (psum schedule, 4 MB buckets: 16, gather
               ahead, in-backward reduce-scatter, fused update): K2 must be
-              launched 16 times a step and K1 32 times; an eval through
-              make_params_reader
+              launched 16 times a step and K1 once (one call over every
+              bucket's p and g shards); an eval through make_params_reader
   7. zero1 context  one ZeRO-1 step (K1 + K2) and one replicated comm='xla'
               step (per-tensor norms, no kernel) from one state and batch:
               the masters agree to 1e-5 of each tensor's max
@@ -68,7 +68,8 @@ Phases, in order; any failure exits non-zero and prints no result:
               dbtree on (pod 2, data 2). The ring-step kernel (K3) must fold
               16 x (ranks - 1) times a step along each ring axis (48 on data
               4; 32 for ring and 2d_torus, 16 for hierarchical on the pod
-              mesh, 0 for dbtree), K1 and K2 as on one card; prints step ms
+              mesh, 0 for dbtree), K1 twice a replicated step and once a
+              sharded one, K2 16 times a sharded step; prints step ms
               (median after the first step), images/s over all cards and
               peak memory per rank
  15. ring context  one packed bf16 gradient through the ring all-reduce and
@@ -79,12 +80,15 @@ Phases, in order; any failure exits non-zero and prints no result:
               masters within 1e-5 of each tensor's max
 On one card the ring phases print that they need two or more cards and
 were not run, and K3's launches_by_path has "ring": null. The kernels
-phase also holds K4, forward and backward, against its plain version (at
-the path's shape in f32 and bf16, at T 16 x V 333, and with IGNORE
-labels), beside F.cross_entropy, and K3, bit for bit, at the ring's chunk
-rows (the path's largest and smallest on 4 and 2 ranks, bf16 and f32,
-every k), the reference's shapes, ragged rows, misaligned views and in
-place, beside torch.add; the cli phase also trains the reduced LM. Every
+phase also holds K1's multi-buffer form (the sharded step's one call)
+against its plain version at the 4 MB and 0.25 MB plans' shards, K4,
+forward and backward, against its plain version (at the path's shape in
+f32 and bf16, at T 16 x V 333, and with IGNORE labels), beside
+F.cross_entropy, and K3, bit for bit, at the ring's chunk rows (the
+path's largest and smallest on 4 and 2 ranks, bf16 and f32, every k, by
+the wrapper and by the fold the ring binds once a bucket), the
+reference's shapes, ragged rows, misaligned views and in place, beside
+torch.add; the cli phase also trains the reduced LM. Every
 kernel's launch count is set to 0 just before each path (slice, zero1,
 serve, lm_train, each ring configuration) and read just after: a kernel
 the path runs must show its count, every other kernel 0, and the JSON
@@ -206,6 +210,17 @@ def time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, iters: int = 20000) -> float:
+    """Host time per call in microseconds, for calls that do no device
+    work."""
+    for _ in range(100):
+        fn()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t) / iters * 1e6
+
+
 def bound_ms(bytes_moved: int, ops: int, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = ops / ops_per_s
@@ -253,19 +268,18 @@ def _one_rank():
 
 def _shard_case(plan, n_shards, k, dev, gen):
     """Rank-k bucket shards of p, g, m at ``plan``'s shapes, the shard
-    segment maps, and the trust ratios from K1 (as the ZeRO-1 path makes
-    them)."""
+    segment maps of each bucket and of all (the call site's), and the
+    trust ratios from K1 (as the ZeRO-1 path makes them)."""
     import torch
     from repro_torch.core import bucketing, lars
     sizes = bucketing.shard_sizes(plan, n_shards)
     draw = lambda s: [s * torch.randn(c, generator=gen, device=dev)
                       for c in sizes]
     p, g, m = draw(1.0), draw(0.01), draw(0.001)
-    segs = [torch.from_numpy(x[k].copy()).to(dev)
-            for x in bucketing.shard_segment_ids(plan, n_shards)]
-    trust = lars.shard_trust_ratios(p, g, segs, plan, lars.OptConfig(),
+    segs, seg_all = lars._shard_maps(plan, n_shards, k, dev)
+    trust = lars.shard_trust_ratios(p, g, seg_all, plan, lars.OptConfig(),
                                     shard_axis=_one_rank())
-    return p, g, m, segs, trust
+    return p, g, m, segs, seg_all, trust
 
 
 def check_lars_update(dev):
@@ -273,8 +287,9 @@ def check_lars_update(dev):
     full-width 4 MB plan, with real segment maps and trust values from K1;
     a ragged case (0.25 MB buckets, tensors split across buckets, 3 shards
     with padding chunks); the in-place form; determinism. Times the 16
-    launches of one step (in place, as the step runs them) and K1's 32
-    launches on the same shards."""
+    launches of one step (in place, as the step runs them) and K1 at its
+    call site on the same shards both ways: the one call of the step
+    (``batched_sumsq_multi``) and the 32 per-bucket calls it replaced."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import bucketing
@@ -312,14 +327,14 @@ def check_lars_update(dev):
         if not (torch.equal(pin, got[0]) and torch.equal(min_, got[1])):
             fail(f"lars_packed_update {what}: in place differs")
 
-    p, g, m, segs, trust = _shard_case(plan, 1, 0, dev, gen)
+    p, g, m, segs, seg_all, trust = _shard_case(plan, 1, 0, dev, gen)
     for b in range(plan.n_buckets):
         check(p[b], g[b], m[b], trust, segs[b], f"bucket {b}")
     rag = bucketing.make_plan(pd, bucket_mb=0.25)
     if not any(s.elem_offset for s in rag.slots):
         fail("the 0.25 MB plan splits no tensor")
     for k in range(3):
-        rp, rg, rm, rsegs, rtrust = _shard_case(rag, 3, k, dev, gen)
+        rp, rg, rm, rsegs, _, rtrust = _shard_case(rag, 3, k, dev, gen)
         for b in range(rag.n_buckets):
             check(rp[b], rg[b], rm[b], rtrust, rsegs[b], f"ragged {k}/{b}")
     print(f"lars_packed_update: 16 bucket shards ({plan.n_chunks} chunks x "
@@ -337,39 +352,42 @@ def check_lars_update(dev):
         for b in range(plan.n_buckets):
             ref.lars_packed_update(p[b], g[b], m[b], trust, segs[b], **kw)
 
-    def k1_step():
+    def k1_per_bucket():
+        # the call site before: two calls a bucket and an add each
+        sq = torch.zeros(2, plan.n_tensors, device=dev)
         for b in range(plan.n_buckets):
-            batched_norm.batched_sumsq(p[b], segs[b], plan.n_tensors)
-            batched_norm.batched_sumsq(g[b], segs[b], plan.n_tensors)
-
-    def k1_plain_step():
-        for b in range(plan.n_buckets):
-            ref.batched_sumsq(p[b], segs[b], plan.n_tensors)
-            ref.batched_sumsq(g[b], segs[b], plan.n_tensors)
+            sq[0] += batched_norm.batched_sumsq(p[b], segs[b], plan.n_tensors)
+            sq[1] += batched_norm.batched_sumsq(g[b], segs[b], plan.n_tensors)
 
     # the same work as one launch over all 25,021 chunks: what the kernel
     # costs on the device without 16 host round trips between launches
     flat = [torch.cat(x) for x in (p, g, m)]
-    seg_all = torch.from_numpy(bucketing.segment_ids(plan)).to(dev)
     one = time_ms(lambda: lars_update.lars_packed_update(
         *flat, trust, seg_all, inplace=True, **kw), iters=50)
     ms, plain = time_ms(k2_step, iters=50), time_ms(plain_step, iters=20)
-    k1_ms = time_ms(k1_step, iters=50)
-    k1_plain = time_ms(k1_plain_step, iters=20)
+    k1_ms = time_ms(lambda: batched_norm.batched_sumsq_multi(
+        (p, g), seg_all, plan.n_tensors), iters=50)
+    k1_32 = time_ms(k1_per_bucket, iters=50)
+    k1_plain = time_ms(lambda: ref.batched_sumsq_multi(
+        (p, g), seg_all, plan.n_tensors), iters=20)
     elems, chunks = plan.n_chunks * bucketing.CHUNK, plan.n_chunks
     b_ms, b_by = bound_ms(
         5 * 4 * elems + 4 * chunks + plan.n_buckets * (4 * plan.n_tensors
                                                        + 4), 6 * elems)
-    k1_b, _ = bound_ms(2 * (4 * elems + 4 * chunks) + 2 * plan.n_buckets
-                       * 4 * plan.n_tensors, 2 * 2 * elems)
+    k1_b, _ = bound_ms(2 * 4 * elems + 4 * chunks + 2 * 4 * plan.n_tensors,
+                       2 * 2 * elems)
+    k1_32_b, _ = bound_ms(2 * (4 * elems + 4 * chunks) + 2 * plan.n_buckets
+                          * 4 * plan.n_tensors, 2 * 2 * elems)
     print(f"lars_packed_update, one step (16 launches, in place): kernel "
           f"{ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, bound "
           f"{b_ms * 1e3:.1f} us ({b_by}); no single PyTorch call computes "
           f"it (no library time); as one launch over all {chunks} chunks "
           f"{one * 1e3:.1f} us", flush=True)
-    print(f"batched_sumsq at the ZeRO-1 call site, one step (32 launches on "
-          f"the 16 p and g shards): kernel {k1_ms * 1e3:.1f} us, plain "
-          f"{k1_plain * 1e3:.1f} us, bound {k1_b * 1e3:.1f} us", flush=True)
+    print(f"batched_sumsq at the ZeRO-1 call site, one step (the 16 p and g "
+          f"shards): one launch (batched_sumsq_multi) {k1_ms * 1e3:.1f} us, "
+          f"bound {k1_b * 1e3:.1f} us; the 32 per-bucket launches it "
+          f"replaced {k1_32 * 1e3:.1f} us, bound {k1_32_b * 1e3:.1f} us; "
+          f"plain {k1_plain * 1e3:.1f} us", flush=True)
     entry = {"name": "lars_packed_update", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/lars_update.cu",
              "replaces": "src/repro/kernels/lars_update.py:32",
@@ -381,17 +399,25 @@ def check_lars_update(dev):
              "one_launch_ms": one,
              "shape": [elems], "segments": plan.n_tensors,
              "dtype": "float32"}
-    k1_site = {"zero1_step_ms": k1_ms, "zero1_step_plain_ms": k1_plain,
-               "zero1_step_bound_ms": k1_b}
+    k1_site = {"zero1_site": {
+        "ms": k1_ms, "per_bucket_32_launches_ms": k1_32,
+        "plain_ms": k1_plain, "bound_ms": k1_b,
+        "per_bucket_bound_ms": k1_32_b,
+        "library": "none: no single call sums squares by segment across "
+                   "buffers"}}
     return entry, k1_site
 
 
 def check_batched_sumsq(dev):
     """K1 at the training path's shape (ResNet-50's plan) in f32 and bf16,
-    plus a ragged case with empty segments; timings at the f32 shape."""
+    plus a ragged case with empty segments; timings at the f32 shape. Its
+    multi-buffer form at the sharded step's call site: every bucket's p
+    and g shards at rank k, every k, of the 4 MB plan on one shard and of
+    the 0.25 MB plan (2 x 211 buffers: two pass-1 launches in one call)
+    on one and three, f32 and bf16, and bit-equal across two calls."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core import bucketing
+    from repro_torch.core import bucketing, lars
     from repro_torch.kernels import batched_norm, ref
     from repro_torch.models import resnet
     from repro_torch.tree import tree_leaves
@@ -423,6 +449,39 @@ def check_batched_sumsq(dev):
             fail(f"batched_sumsq {name} disagrees with its plain version")
         errs[name] = (abs_err, rel)
 
+    pd = resnet.resnet_pd(get_config("resnet50"))[0]
+    multi_abs, multi_rel, n_multi = 0.0, 0.0, 0
+    for mb, n_shards in ((4.0, 1), (0.25, 1), (0.25, 3)):
+        mplan = bucketing.make_plan(pd, bucket_mb=mb)
+        sizes = bucketing.shard_sizes(mplan, n_shards)
+        for k in range(n_shards):
+            _, seg_all = lars._shard_maps(mplan, n_shards, k, dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                rows = [[(sc * torch.randn(c, generator=gen, device=dev))
+                         .to(dtype) for c in sizes] for sc in (1.0, 0.01)]
+                got = batched_norm.batched_sumsq_multi(rows, seg_all,
+                                                       n_tensors)
+                again = batched_norm.batched_sumsq_multi(rows, seg_all,
+                                                         n_tensors)
+                want = ref.batched_sumsq_multi(rows, seg_all, n_tensors)
+                torch.cuda.synchronize()
+                d = (got - want).abs()
+                rel = (d / want.abs().clamp_min(1e-30)).max().item()
+                what = (f"batched_sumsq_multi {mb} MB plan, {n_shards} "
+                        f"shards, rank {k}, {dtype}")
+                if not rel <= 2e-3:
+                    fail(f"{what} disagrees with its plain version (max "
+                         f"rel err {rel:.3e}, rtol 2e-3)")
+                if not torch.equal(got, again):
+                    fail(f"{what}: two calls differ")
+                multi_abs = max(multi_abs, d.max().item())
+                multi_rel, n_multi = max(multi_rel, rel), n_multi + 1
+                del rows
+    print(f"batched_sumsq_multi: {n_multi} calls (p and g shards of every "
+          f"bucket; 4 MB plan on 1 shard, 0.25 MB plan on 1 and 3, every "
+          f"rank, f32 and bf16): max abs err {multi_abs:.3e}, max rel err "
+          f"{multi_rel:.3e} (rtol 2e-3); two calls bit-equal", flush=True)
+
     x, s, n = cases["float32"]
     # the yardstick computes the same norms from the unpacked tensors
     leaves = tree_leaves(bucketing.unpack(list(x.split(plan.bucket_sizes)),
@@ -449,7 +508,8 @@ def check_batched_sumsq(dev):
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library, "library": "torch._foreach_norm",
             "shape": [n_chunks * bucketing.CHUNK], "segments": n,
-            "dtype": "float32", "bf16_ms": bf16_ms, "bf16_bound_ms": b16_ms}
+            "dtype": "float32", "bf16_ms": bf16_ms, "bf16_bound_ms": b16_ms,
+            "multi_max_abs_err": multi_abs, "multi_max_rel_err": multi_rel}
 
 
 def run_slice(dev):
@@ -611,8 +671,8 @@ def run_zero1(dev, mesh):
     with obs_metrics.default_registry().use_sink(sink):
         state, history = loop.train(state0, timed_step, batch_fn,
                                     steps=STEPS, log_every=1, seed=100000)
-    # K2 16 and K1 32 times a step; no other kernel (one rank: no fold)
-    counts = _read_path("zero1", {"k1": 32 * STEPS, "k2": 16 * STEPS})
+    # K2 16 times and K1 once a step; no other kernel (one rank: no fold)
+    counts = _read_path("zero1", {"k1": STEPS, "k2": 16 * STEPS})
     k1, k2 = counts["k1"], counts["k2"]
     peak = torch.cuda.max_memory_allocated(dev)
     losses = [h["loss"] for h in history]
@@ -693,16 +753,19 @@ def _ring_rows(dev, gen, L, n, dtype):
 
 
 def check_ring_add(dev):
-    """K3 against its plain version, bit for bit, at the ring's shapes:
-    the ResNet-50 path's chunk rows (the largest and the smallest of its
-    16 buckets on 4 and 2 ranks, bf16 and f32, every k), the reference
+    """K3 against its plain version, bit for bit, through the wrapper and
+    through the fold ``kernel_step_fn`` binds once a chunks, at the ring's
+    shapes: the ResNet-50 path's chunk rows (the largest and the smallest
+    of its 16 buckets on 4 and 2 ranks, bf16 and f32, every k), the reference
     test's shapes ((4, 2·1024) f32 at k 0 and 3; bf16 ones + 0.5), its
     ragged (n, length) pairs through ``_as_chunks(pad_to=CHUNK)``, views
     off the 16-byte grid and the fold in place. Times one fold at the
-    largest row and the 48 folds of a four-rank ring step (through the
-    wrapper, through ``kernel_step_fn`` as the ring folds, and with a
-    device switch a fold as the wrapper once had), beside the plain
-    version, ``torch.add(..., out=)`` and the bound."""
+    largest row (through ``kernel_step_fn`` bound to its chunks, as the
+    ring folds, and through the public wrapper) and the 48 folds of a
+    four-rank ring step (the same two ways), beside the plain version,
+    ``torch.add(..., out=)`` and the bound; then splits a bound fold's
+    host time: the bare C call (c = 0: no launch), ``data_ptr()``, and
+    the C call with its launch from precomputed arguments."""
     import torch
     from repro_torch.comm import ring_kernel as rk
     from repro_torch.configs import get_config
@@ -716,19 +779,30 @@ def check_ring_add(dev):
         fail(f"the full-width plan has {plan.n_buckets} buckets, not 16")
     gen = torch.Generator(device=dev).manual_seed(4)
     n_checked, worst = 0, 0.0
+    # the chunks the last kernel_step_fn was bound to, and that adapter:
+    # the k of one chunks fold through one adapter, as in the ring
+    bound = [None, None]
 
     def check(recv, chunks, k, what, out=None):
         nonlocal n_checked, worst
         want = ref.ring_add_step(recv, chunks, k)    # before any in place
+        buf = recv.clone()
         snap = chunks.clone()
         got = rk.ring_add_step(recv, chunks, k, out=out)
+        if bound[0] is not chunks:
+            bound[:] = [chunks, rk.kernel_step_fn()]
+        before = rk.ring_add_step.launches
+        bound[1](buf, chunks, k)
+        if rk.ring_add_step.launches != before + 1:
+            fail(f"ring_add_step {what}: the bound fold did not launch once")
         torch.cuda.synchronize()
-        if got.dtype != want.dtype:
-            fail(f"ring_add_step {what}: dtype {got.dtype}")
-        worst = max(worst, (got.float() - want.float()).abs().max().item())
-        if not torch.equal(got, want):
-            fail(f"ring_add_step {what} k={k} is not bit-equal to its plain "
-                 f"version")
+        for name, x in (("the wrapper", got), ("the bound fold", buf)):
+            if x.dtype != want.dtype:
+                fail(f"ring_add_step {what}, {name}: dtype {x.dtype}")
+            worst = max(worst, (x.float() - want.float()).abs().max().item())
+            if not torch.equal(x, want):
+                fail(f"ring_add_step {what} k={k}, {name}, is not bit-equal "
+                     f"to its plain version")
         if not torch.equal(chunks, snap):
             fail(f"ring_add_step {what}: chunks were written")
         n_checked += 1
@@ -766,7 +840,8 @@ def check_ring_add(dev):
                   out=out)
         held = torch.randn(c, generator=gen, device=dev).to(dtype)
         check(held, chunks, 0, f"in place, {dtype}", out=held)
-    print(f"ring_add_step: {n_checked} folds bit-equal to the plain version "
+    print(f"ring_add_step: {n_checked} folds, each through the wrapper and "
+          f"the bound fold, bit-equal to the plain version "
           f"(max abs err {worst:.1e}): the path's largest and smallest chunk "
           f"rows on 4 and 2 ranks in bf16 and f32 at every k, the reference "
           f"shapes, ragged {list(RING_RAGGED)}, misaligned views, in place",
@@ -776,9 +851,14 @@ def check_ring_add(dev):
 
     # one fold at the largest row of a four-rank ring, in the wire dtype
     recv, chunks = _ring_rows(dev, gen, sizes["largest"], 4, bf16)
-    out = torch.empty_like(recv)
-    ms = time_ms(lambda: rk.ring_add_step(recv, chunks, 1, out=out),
-                 iters=200, warmup=20)
+    out = recv.clone()
+    bound_fold = rk.kernel_step_fn()
+    ms = time_ms(lambda: bound_fold(out, chunks, 1), iters=200, warmup=20)
+    # a bucket's first fold: a new adapter checks in full and binds
+    first_ms = time_ms(lambda: rk.kernel_step_fn()(out, chunks, 1),
+                       iters=200, warmup=20)
+    wrapper = time_ms(lambda: rk.ring_add_step(recv, chunks, 1, out=out),
+                      iters=200, warmup=20)
     plain = time_ms(lambda: ref.ring_add_step(recv, chunks, 1), iters=200,
                     warmup=20)
     library = time_ms(lambda: torch.add(recv, chunks[1], out=out),
@@ -786,11 +866,20 @@ def check_ring_add(dev):
     cr = recv.numel()
     b_ms, b_by = bound_ms(3 * cr * 2, cr)
     r32, c32 = _ring_rows(dev, gen, sizes["largest"], 4, f32)
-    o32 = torch.empty_like(r32)
-    f32_ms = time_ms(lambda: rk.ring_add_step(r32, c32, 1, out=o32),
-                     iters=200, warmup=20)
+    f32_fold = rk.kernel_step_fn()
+    f32_ms = time_ms(lambda: f32_fold(r32, c32, 1), iters=200, warmup=20)
     f32_b, _ = bound_ms(3 * cr * 4, cr)
-    del r32, c32, o32
+    del r32, c32, f32_fold
+    # where a bound fold's host time goes, at the same row: the typed
+    # entry called bare (c = 0 returns before any launch), data_ptr(),
+    # and the call with its launch from arguments computed beforehand
+    fn = rk._inplace_entry(bf16)
+    o_ptr, row_ptr = out.data_ptr(), chunks[1].data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    bare_us = host_us(lambda: fn(o_ptr, row_ptr, 0, stream))
+    ptr_us = host_us(out.data_ptr)
+    raw = time_ms(lambda: fn(o_ptr, row_ptr, cr, stream), iters=200,
+                  warmup=20)
     # the 48 folds of one four-rank ring step: 16 buckets x k 0, 1, 2, in
     # place into fresh receives as the ring does (115 MB: past the L2)
     rows = [_ring_rows(dev, gen, L, 4, bf16) for L in plan.bucket_sizes]
@@ -801,23 +890,17 @@ def check_ring_add(dev):
             for k in range(3):
                 fold(r, ch, k, o)
 
-    def switched(r, ch, k, o):
-        # the wrapper as it was: a device switch around every launch
-        with torch.cuda.device(r.device):
-            rk.ring_add_step(r, ch, k, out=o)
-
-    def adapter_step():
-        # the ring's own path: one kernel_step_fn a bucket, its first fold
-        # checked in full, in place into the receive buffer
+    def ring_step():
+        # the ring's own path: one kernel_step_fn a bucket, bound on its
+        # first fold, in place into the receive buffer
         for (_, ch), o in zip(rows, outs):
             fold = rk.kernel_step_fn()
             for k in range(3):
                 fold(o, ch, k)
 
-    s_ms = time_ms(lambda: step(lambda r, ch, k, o: rk.ring_add_step(
+    s_ms = time_ms(ring_step, iters=20, warmup=3)
+    s_wrapper = time_ms(lambda: step(lambda r, ch, k, o: rk.ring_add_step(
         r, ch, k, out=o)), iters=20, warmup=3)
-    s_adapter = time_ms(adapter_step, iters=20, warmup=3)
-    s_switched = time_ms(lambda: step(switched), iters=20, warmup=3)
     s_plain = time_ms(lambda: step(lambda r, ch, k, o: ref.ring_add_step(
         r, ch, k)), iters=20, warmup=3)
     s_lib = time_ms(lambda: step(lambda r, ch, k, o: torch.add(
@@ -825,26 +908,35 @@ def check_ring_add(dev):
     s_elems = 3 * sum(r.numel() for r, _ in rows)
     s_b, _ = bound_ms(3 * s_elems * 2, s_elems)
     print(f"ring_add_step bf16 at the largest row (4 ranks, {cr} elements): "
-          f"kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, torch.add "
-          f"{library * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}); f32: "
-          f"kernel {f32_ms * 1e3:.2f} us, bound {f32_b * 1e3:.2f} us; a "
-          f"four-rank step's 48 folds: kernel {s_ms * 1e3:.1f} us (through "
-          f"kernel_step_fn {s_adapter * 1e3:.1f} us, with a device switch "
-          f"a fold {s_switched * 1e3:.1f} us), plain {s_plain * 1e3:.1f} "
-          f"us, torch.add {s_lib * 1e3:.1f} us, bound {s_b * 1e3:.1f} us",
-          flush=True)
+          f"kernel_step_fn's bound fold {ms * 1e3:.2f} us (a bucket's first "
+          f"fold, checked and bound, {first_ms * 1e3:.2f} us), the wrapper "
+          f"{wrapper * 1e3:.2f} us, plain {plain * 1e3:.2f} us, torch.add "
+          f"{library * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}); f32 "
+          f"bound fold {f32_ms * 1e3:.2f} us, bound {f32_b * 1e3:.2f} us; a "
+          f"four-rank step's 48 folds: through kernel_step_fn "
+          f"{s_ms * 1e3:.1f} us, the wrapper {s_wrapper * 1e3:.1f} us, plain "
+          f"{s_plain * 1e3:.1f} us, torch.add {s_lib * 1e3:.1f} us, bound "
+          f"{s_b * 1e3:.1f} us", flush=True)
+    print(f"ring_add_step, a bound fold's host time: bare C call (no "
+          f"launch) {bare_us:.2f} us, data_ptr() {ptr_us:.2f} us, C call "
+          f"with its launch {raw * 1e3:.2f} us; the fold's Python checks "
+          f"the rest of {ms * 1e3:.2f} us", flush=True)
     return {"name": "ring_add_step", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ring_add.cu",
             "replaces": "src/repro/comm/ring_kernel.py:38",
             "launches": None, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library,
+            "timed": "kernel_step_fn's fold, bound to its chunks",
+            "first_fold_ms": first_ms, "wrapper_ms": wrapper,
+            "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library,
             "library": "torch.add(recv, chunks[k], out=out)",
             "shape": [4, cr], "dtype": "bfloat16", "f32_ms": f32_ms,
             "f32_bound_ms": f32_b, "folds_checked": n_checked,
-            "step_48_folds": {"ms": s_ms, "step_fn_ms": s_adapter,
-                              "switched_ms": s_switched, "plain_ms": s_plain,
-                              "library_ms": s_lib, "bound_ms": s_b}}
+            "host_split_us": {"bare_call": bare_us, "data_ptr": ptr_us,
+                              "call_and_launch": raw * 1e3},
+            "step_48_folds": {"step_fn_ms": s_ms, "wrapper_ms": s_wrapper,
+                              "plain_ms": s_plain, "library_ms": s_lib,
+                              "bound_ms": s_b}}
 
 
 def _visible_pairs(S: int, window: int) -> int:
@@ -1328,7 +1420,7 @@ def _ring_run(model, mesh, comm, sharding, gather, say):
     sharded = sharding != "replicated"
     counts = _read_path(f"ring {what}", {
         "k3": _folds_a_step(mesh, comm, nb) * RING_STEPS,
-        "k1": (2 * nb if sharded else 2) * RING_STEPS,
+        "k1": (1 if sharded else 2) * RING_STEPS,
         "k2": (nb if sharded else 0) * RING_STEPS})
     a_step = {key: v / RING_STEPS for key, v in counts.items()}
     peak = torch.cuda.max_memory_allocated(dev)

@@ -15,7 +15,6 @@ must share it.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 
@@ -81,12 +80,7 @@ def _fold(recv, chunks, k, out):
         raise ValueError(f"ring_add_step: no kernel for {recv.device}")
     if out is None:
         out = torch.empty_like(recv)
-    # a device switch is host time on every fold; the ring folds on the
-    # rank's current device, where none is needed
-    ctx = (contextlib.nullcontext()
-           if recv.device.index == torch.cuda.current_device()
-           else torch.cuda.device(recv.device))
-    with ctx:
+    with backend.on_device(recv.device):
         rc = _entry()(recv.data_ptr(), chunks.data_ptr(), k, out.data_ptr(),
                       chunks.shape[1], _DTYPES[recv.dtype],
                       torch.cuda.current_stream().cuda_stream)
@@ -109,25 +103,65 @@ def ring_add_step(recv, chunks, k: int, *, out=None):
 ring_add_step.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _inplace_entry(dtype):
+    fn = getattr(backend.load_library("ring_add"),
+                 "ring_add_f32" if dtype == torch.float32 else "ring_add_bf16")
+    fn.argtypes = [_P, _P, ctypes.c_longlong, _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def kernel_step_fn():
     """Adapter with ``primitives.default_step_fn``'s signature. It folds
     in place into ``recv``: the ring primitive owns that buffer (a fresh
     receive) and reads it only through the fold.
 
     One ring reduce-scatter folds every step against the same ``chunks``
-    with receives of one shape, so the full check runs on the first fold
-    of each ``chunks``; later folds check ``k`` and recv's shape and dtype
-    only."""
-    checked = None
+    with receives of one shape, on one device and one stream. So the
+    first fold against a ``chunks`` runs the wrapper's full check and, on
+    the card, binds what every later fold reuses: the typed in-place C
+    entry, chunks' base pointer and row stride, ``c``, the dtype, the
+    device (which must be the current one) and the current stream's
+    handle, read once: the ring does not change streams within a
+    reduce-scatter, and a caller that does needs a new adapter. A later
+    fold checks ``k`` and that recv has the bound dtype, shape and device
+    and is contiguous (a mismatch is one the full check rejects, with the
+    wrapper's message), then makes one C call at row k. A CPU tensor takes
+    the plain version, checked in full every fold. One adapter serves one
+    bucket's reduce-scatter (``comm/schedules.py``), so nothing bound
+    outlives the bucket."""
+    bound = fn = base = row_bytes = n = c = shape = dtype = dev = None
+    stream = None
 
     def fold(recv, chunks, k):
-        nonlocal checked
-        if checked is not chunks:
-            _check(recv, chunks, k, recv)
-            checked = chunks
+        nonlocal bound, fn, base, row_bytes, n, c, shape, dtype, dev, stream
+        if chunks is not bound:
+            _check(recv, chunks, k, None)     # out is recv: nothing more
+            if recv.device.type != "cuda":
+                return _fold(recv, chunks, k, recv)
+            dev = recv.get_device()
+            if dev != torch.cuda.current_device():
+                raise ValueError(f"ring_add_step: recv on {recv.device}, "
+                                 f"the current device is cuda:"
+                                 f"{torch.cuda.current_device()}")
+            fn = _inplace_entry(recv.dtype)
+            base = chunks.data_ptr()
+            row_bytes = chunks.stride(0) * chunks.element_size()
+            (n, c), shape, dtype = chunks.shape, recv.shape, recv.dtype
+            # the handle itself: torch.cuda.current_stream() builds a
+            # Stream object under a device switch, several us on the host
+            stream = torch._C._cuda_getCurrentRawStream(dev)
+            bound = chunks
         else:
-            _check_k(k, chunks.shape[0])
-            if (recv.shape, recv.dtype) != (chunks.shape[1:], chunks.dtype):
-                _check(recv, chunks, k, recv)
-        return _fold(recv, chunks, k, recv)
+            if type(k) is not int or not 0 <= k < n:
+                _check_k(k, n)
+            if (recv.dtype != dtype or recv.shape != shape
+                    or recv.get_device() != dev or not recv.is_contiguous()):
+                _check(recv, chunks, k, recv)      # raises the message
+        rc = fn(recv.data_ptr(), base + k * row_bytes, c, stream)
+        ring_add_step.launches += 1
+        if rc:
+            backend.check_launch(rc, "ring_add_step")
+        return recv
     return fold

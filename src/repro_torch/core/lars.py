@@ -22,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.tree import tree_map
@@ -134,17 +135,19 @@ def update(params, grads, mom, lr, cfg: OptConfig):
 
 @functools.lru_cache(maxsize=16)
 def _shard_maps(plan, n_shards: int, k: int, device: torch.device):
-    """Rank-``k`` row of every bucket's shard segment map, on ``device``,
-    built once per plan. Each row must be non-decreasing: the
-    batched-norm kernel finds a segment by binary search."""
+    """Rank-``k`` row of every bucket's shard segment map, and the rows
+    concatenated in bucket order (the map of the one batched-norm call
+    over all shards), on ``device``, built once per plan. The
+    concatenation must be non-decreasing, as the kernel finds a segment by
+    binary search: ids rise with the packing order and padding repeats a
+    bucket's last id, so it is by construction, and checked here once."""
     from repro_torch.core import bucketing
-    segs = []
-    for m in bucketing.shard_segment_ids(plan, n_shards):
-        row = m[k]
-        if (row[1:] < row[:-1]).any():
-            raise ValueError("shard segment map is not non-decreasing")
-        segs.append(torch.from_numpy(row.copy()).to(device))
-    return tuple(segs)
+    rows = [m[k] for m in bucketing.shard_segment_ids(plan, n_shards)]
+    cat = np.concatenate(rows)
+    if (cat[1:] < cat[:-1]).any():
+        raise ValueError("shard segment map is not non-decreasing")
+    return (tuple(torch.from_numpy(r.copy()).to(device) for r in rows),
+            torch.from_numpy(cat).to(device))
 
 
 @functools.lru_cache(maxsize=16)
@@ -153,27 +156,27 @@ def _scaled_mask(plan, device: torch.device):
     return torch.from_numpy(bucketing.trust_scaled_mask(plan)).to(device)
 
 
-def shard_trust_ratios(param_shards, grad_shards, segs, plan, cfg: OptConfig,
-                       *, shard_axis):
+def shard_trust_ratios(param_shards, grad_shards, seg_ids, plan,
+                       cfg: OptConfig, *, shard_axis):
     """Per-tensor LARS trust ratios from summed partial norms.
 
     Each rank holds one contiguous shard per bucket; a tensor's squared
     norm is the sum over the shard axis of every shard's per-CHUNK partial
-    sums, routed to the tensor by the shard-aware segment map (split spans
-    share one id). The partial sums are ``kernels.batched_norm.
-    batched_sumsq`` (the kernel for CUDA tensors, 2 launches a bucket);
-    the sum over ranks is ONE all-reduce of both vectors. Returns a
+    sums, routed to the tensor by ``seg_ids``, the rank's shard segment
+    maps of all buckets concatenated (split spans share one id). The
+    partial sums are ONE ``kernels.batched_norm.batched_sumsq_multi`` call
+    over both vectors' shards (one launch on the card); a tensor split
+    across buckets is summed in that one pass, not as a sum of per-bucket
+    sums. The sum over ranks is ONE all-reduce of both vectors. Returns a
     ``(n_tensors,)`` f32 trust vector indexed by tensor id (1.0 for <2-D
     tensors and for sgdm)."""
     from repro_torch.comm import primitives as prim
-    from repro_torch.kernels.batched_norm import batched_sumsq
+    from repro_torch.kernels.batched_norm import batched_sumsq_multi
     dev = param_shards[0].device
     if cfg.kind != "lars":
         return torch.ones(plan.n_tensors, dtype=torch.float32, device=dev)
-    sq = torch.zeros(2, plan.n_tensors, dtype=torch.float32, device=dev)
-    for p_s, g_s, seg in zip(param_shards, grad_shards, segs):
-        sq[0] += batched_sumsq(p_s, seg, plan.n_tensors)
-        sq[1] += batched_sumsq(g_s, seg, plan.n_tensors)
+    sq = batched_sumsq_multi((param_shards, grad_shards), seg_ids,
+                             plan.n_tensors)
     sq = prim.psum(sq, (shard_axis,))
     wn, gn = torch.sqrt(sq[0]), torch.sqrt(sq[1])
     raw = cfg.trust_coef * wn / (gn + cfg.weight_decay * wn + cfg.eps)
@@ -201,9 +204,9 @@ def sharded_update_from_shards(p_shards, grad_shards, mom_shards, lr,
                          f"{cfg.kind!r}")
     if cfg.nesterov:
         raise ValueError("nesterov momentum is unsupported on shards")
-    segs = _shard_maps(plan, n_shards, shard_index(shard_axis),
-                       p_shards[0].device)
-    trust = shard_trust_ratios(p_shards, grad_shards, segs, plan, cfg,
+    segs, seg_all = _shard_maps(plan, n_shards, shard_index(shard_axis),
+                                p_shards[0].device)
+    trust = shard_trust_ratios(p_shards, grad_shards, seg_all, plan, cfg,
                                shard_axis=shard_axis)
     if update_kernel and p_shards[0].is_cuda:
         # one upload a step for every launch; the kernel reads it there

@@ -14,6 +14,7 @@ kernel, or an error).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -97,6 +98,14 @@ def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and load it (once per process)."""
     build([name])
     return ctypes.CDLL(str(_lib_path(name)))
+
+
+def on_device(dev: torch.device):
+    """The device context for a launch on ``dev``: none where ``dev`` is
+    already the current device (a switch is host time on every call)."""
+    return (contextlib.nullcontext()
+            if dev.index == torch.cuda.current_device()
+            else torch.cuda.device(dev))
 
 
 def check_launch(rc: int, what: str) -> None:

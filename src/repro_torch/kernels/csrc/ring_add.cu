@@ -22,6 +22,12 @@
 // (the fold in place): each element is read before it is written, by the
 // same thread, so no pointer is __restrict__.
 //
+// Host path: the ring folds n - 1 times a bucket against one chunks
+// buffer, and eagerly every fold pays its host cost. So the ring binds
+// once a bucket (comm/ring_kernel.kernel_step_fn) to a typed in-place
+// entry, ring_add_f32 or ring_add_bf16, that takes row k's own pointer:
+// a fold is one 4-argument C call and one launch.
+//
 // Bound: memory. One add per element against 3 x 2 bytes (bf16, the wire
 // dtype) or 3 x 4 bytes moved. The largest row on the ResNet-50 path (a
 // 2,097,152-element bucket on four ranks: 524,288 elements) moves 3.1 MB
@@ -105,12 +111,14 @@ ring_add(const T* recv, const T* row, T* out, long long c, long long head) {
     add_one(recv + i, row + i, out + i);
 }
 
+// The fold of one row: out = recv + row, c elements.
 template <typename T>
-int launch(const void* recv, const void* chunks, int k, void* out,
-           long long c, cudaStream_t stream) {
+int launch(const void* recv, const void* row, void* out, long long c,
+           void* stream) {
+  if (c <= 0) return 0;
   constexpr int N = 16 / sizeof(T);
   const T* r = static_cast<const T*>(recv);
-  const T* w = static_cast<const T*>(chunks) + static_cast<long long>(k) * c;
+  const T* w = static_cast<const T*>(row);
   T* o = static_cast<T*>(out);
   const uintptr_t mis = reinterpret_cast<uintptr_t>(r) % 16;
   long long head = -1;
@@ -123,8 +131,8 @@ int launch(const void* recv, const void* chunks, int k, void* out,
   long long blocks = (work + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   if (blocks < 1) blocks = 1;
-  ring_add<T><<<static_cast<int>(blocks), kThreads, 0, stream>>>(r, w, o, c,
-                                                                 head);
+  ring_add<T><<<static_cast<int>(blocks), kThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(r, w, o, c, head);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -137,8 +145,23 @@ int launch(const void* recv, const void* chunks, int k, void* out,
 extern "C" int ring_add_step(const void* recv, const void* chunks, int k,
                              void* out, long long c, int dtype,
                              void* stream) {
-  if (c <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch<float>(recv, chunks, k, out, c, s)
-                    : launch<__nv_bfloat16>(recv, chunks, k, out, c, s);
+  if (dtype == 0)
+    return launch<float>(recv, static_cast<const float*>(chunks) + k * c, out,
+                         c, stream);
+  return launch<__nv_bfloat16>(
+      recv, static_cast<const __nv_bfloat16*>(chunks) + k * c, out, c,
+      stream);
+}
+
+// The ring's own entries, one a dtype, bound once a bucket by
+// comm/ring_kernel.kernel_step_fn: the caller passes row k's own pointer,
+// and the fold is in place (recv += row). c <= 0 launches nothing.
+extern "C" int ring_add_f32(void* recv, const void* row, long long c,
+                            void* stream) {
+  return launch<float>(recv, row, recv, c, stream);
+}
+
+extern "C" int ring_add_bf16(void* recv, const void* row, long long c,
+                             void* stream) {
+  return launch<__nv_bfloat16>(recv, row, recv, c, stream);
 }

@@ -24,6 +24,14 @@ def batched_sumsq(flat, seg_ids, n_tensors: int):
     return out.index_add_(0, seg[keep], per_chunk[keep])
 
 
+def batched_sumsq_multi(rows, seg_ids, n_tensors: int):
+    """rows: R sequences of packed buffers; seg_ids: the segment map of a
+    row's concatenated chunks. Returns (R, n_tensors) f32: ``batched_sumsq``
+    of each row's buffers concatenated."""
+    return torch.stack([batched_sumsq(torch.cat(list(row)), seg_ids,
+                                      n_tensors) for row in rows])
+
+
 def lars_packed_update(p, g, m, trust, seg_ids, *, lr, momentum, wd):
     """Flat packed LARS step. p/g/m: (n_chunks*CHUNK,) f32 (g may be
     bf16); trust: (n_tensors,) f32; seg_ids: (n_chunks,) integer; ``lr`` a

@@ -83,6 +83,58 @@ def test_tree_norms_on_card_match_per_tensor_norms():
         torch.testing.assert_close(got[path], want[path], rtol=1e-5, atol=0)
 
 
+#: (bucket_mb, n_shards) of the ZeRO step's K1 call site at full width:
+#: the main path's 4 MB plan (2 x 16 buffers), and the 0.25 MB plan (2 x
+#: 211 buffers: past the kernel's 256-buffer table, so two pass-1
+#: launches in the one call; tensors split across buckets) on 1 and 3
+#: shards
+MULTI_SITES = [(4.0, 1), (0.25, 1), (0.25, 3)]
+
+
+@pytest.mark.parametrize("bucket_mb,n_shards", MULTI_SITES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_sumsq_multi_kernel_matches_plain(bucket_mb, n_shards,
+                                                  dtype):
+    """One call over every bucket's p and g shards at rank k, every k: one
+    launch, within rtol 2e-3 of the plain version, bit-equal twice."""
+    dev = _card()
+    plan = bucketing.make_plan(resnet.resnet_pd(get_config("resnet50"))[0],
+                               bucket_mb=bucket_mb)
+    sizes = bucketing.shard_sizes(plan, n_shards)
+    for k in range(n_shards):
+        rng = np.random.default_rng(k)
+        rows = [[torch.from_numpy((s * rng.standard_normal(c))
+                                  .astype(np.float32)).to(dev, dtype)
+                 for c in sizes] for s in (1.0, 0.01)]
+        _, seg = lars._shard_maps(plan, n_shards, k, dev)
+        before = batched_norm.batched_sumsq.launches
+        got = batched_norm.batched_sumsq_multi(rows, seg, plan.n_tensors)
+        torch.cuda.synchronize()
+        assert batched_norm.batched_sumsq.launches == before + 1
+        assert tuple(got.shape) == (2, plan.n_tensors)
+        want = ref.batched_sumsq_multi(rows, seg, plan.n_tensors)
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=0)
+        again = batched_norm.batched_sumsq_multi(rows, seg, plan.n_tensors)
+        assert torch.equal(again, got)
+
+
+def test_batched_sumsq_multi_kernel_rejects_bad_inputs():
+    dev = _card()
+    seg = torch.zeros(2, dtype=torch.int32, device=dev)
+    x = torch.zeros(CHUNK, device=dev)
+    f = batched_norm.batched_sumsq_multi
+    with pytest.raises(TypeError, match="mixed dtypes"):
+        f([[x, x], [x, x.bfloat16()]], seg, 1)
+    with pytest.raises(ValueError, match="one device"):
+        f([[x, x.cpu()]], seg, 1)
+    with pytest.raises(ValueError, match="seg_ids must be contiguous"):
+        f([[x, x]], seg.cpu(), 1)
+    with pytest.raises(ValueError, match="aligned"):
+        f([[x, torch.zeros(CHUNK + 1, device=dev)[1:]]], seg, 1)
+    with pytest.raises(ValueError, match="holds 2 chunks, seg_ids 1"):
+        f([[x, x]], seg[:1], 1)
+
+
 # ---------------------------------------------------------------- K2
 
 #: a one-rank shard axis without a process group: the sums over ranks are
@@ -101,8 +153,8 @@ def _shard_case(plan, n_shards, k, dev, seed=0):
     p, g, m = draw(1.0), draw(0.01), draw(0.001)
     segs = [torch.from_numpy(x[k].copy()).to(dev)
             for x in bucketing.shard_segment_ids(plan, n_shards)]
-    trust = lars.shard_trust_ratios(p, g, segs, plan, lars.OptConfig(),
-                                    shard_axis=_ONE_RANK)
+    trust = lars.shard_trust_ratios(p, g, torch.cat(segs), plan,
+                                    lars.OptConfig(), shard_axis=_ONE_RANK)
     return p, g, m, segs, trust
 
 
@@ -173,8 +225,9 @@ def test_lars_update_kernel_rejects_bad_inputs():
 
 
 def test_sharded_update_on_card_runs_both_kernels():
-    """The ZeRO-1 update's call sites: K1 twice a bucket for the trust
-    norms, K2 once a bucket, against the same update on the CPU."""
+    """The ZeRO-1 update's call sites: K1 once a step for the trust norms
+    of every bucket's shards, K2 once a bucket, against the same update on
+    the CPU."""
     from repro_torch.kernels import lars_update
     dev = _card()
     plan = _full_width_plan()
@@ -190,7 +243,7 @@ def test_sharded_update_on_card_runs_both_kernels():
         [x.clone() for x in p], g, [x.clone() for x in m], 0.3, cfg, plan,
         shard_axis=axis, n_shards=1, update_kernel=True)
     torch.cuda.synchronize()
-    assert batched_norm.batched_sumsq.launches - k1 == 2 * plan.n_buckets
+    assert batched_norm.batched_sumsq.launches - k1 == 1
     assert lars_update.lars_packed_update.launches - k2 == plan.n_buckets
     for gs, ws in zip(got, want):
         for x, y in zip(gs, ws):
@@ -234,6 +287,49 @@ def test_ring_add_kernel_matches_plain_at_path_rows(n, which, dtype):
                             .astype(np.float32)).to(dev, dtype)
     for k in range(n):
         _ring_fold_equal(recv, chunks, k)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("which", ["largest", "smallest"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_fold_bound_matches_plain_at_path_rows(n, which, dtype):
+    """The fold as the ring makes it, through one ``kernel_step_fn`` bound
+    once to a bucket's chunks, in place into fresh receives at every k:
+    bit for bit the plain fold, one launch a fold; then bound to a second
+    bucket's chunks, and a mismatched receive still raises."""
+    from repro_torch.comm import primitives as prim
+    from repro_torch.comm import ring_kernel
+    dev = _card()
+    sizes = _full_width_plan().bucket_sizes
+    L = max(sizes) if which == "largest" else min(sizes)
+    rng = np.random.default_rng(L + n + 1)
+    draw = lambda m: torch.from_numpy(rng.standard_normal(m).astype(
+        np.float32)).to(dev, dtype)
+    step = ring_kernel.kernel_step_fn()
+    for chunks in (prim._as_chunks(draw(L), n, pad_to=CHUNK),
+                   prim._as_chunks(draw(L), n, pad_to=CHUNK)):
+        snapshot = chunks.clone()
+        for k in range(n):
+            recv = draw(chunks.shape[1])
+            want = ref.ring_add_step(recv, chunks, k)
+            before = ring_kernel.ring_add_step.launches
+            got = step(recv, chunks, k)
+            assert ring_kernel.ring_add_step.launches == before + 1
+            torch.cuda.synchronize()
+            assert got is recv and torch.equal(recv, want), k
+        assert torch.equal(chunks, snapshot)
+    c = chunks.shape[1]
+    with pytest.raises(ValueError, match="k must be"):
+        step(draw(c), chunks, n)
+    with pytest.raises(ValueError, match="recv has shape"):
+        step(draw(c + CHUNK), chunks, 0)
+    other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+    with pytest.raises(TypeError, match="chunks are"):
+        step(torch.zeros(c, dtype=other, device=dev), chunks, 0)
+    with pytest.raises(ValueError, match="on cpu"):
+        step(draw(c).cpu(), chunks, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        step(draw(2 * c)[::2], chunks, 0)
 
 
 def test_ring_add_kernel_reference_shapes_and_ragged_rows():

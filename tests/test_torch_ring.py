@@ -137,3 +137,30 @@ def test_step_fn_checks_every_fold():
     with pytest.raises(TypeError, match="chunks are"):
         step(torch.zeros(CHUNK, dtype=torch.bfloat16), chunks, 1)
     assert step(torch.ones(CHUNK), chunks, 1).sum().item() == CHUNK
+
+
+def test_step_fn_rebinds_on_a_new_chunks():
+    """One adapter folding against one chunks buffer, then a second (the
+    fold binds to each anew), then the first again: every fold is the
+    Pallas kernel's bit for bit; after a rebind a mismatched receive
+    still raises the wrapper's messages."""
+    rng = np.random.default_rng(23)
+    a = rng.standard_normal((3, 2 * CHUNK)).astype(np.float32)
+    b = rng.standard_normal((2, CHUNK)).astype(np.float32)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    step = ring_kernel.kernel_step_fn()
+    for chunks, tchunks, k in ((a, ta, 2), (a, ta, 0), (b, tb, 1),
+                               (b, tb, 0), (a, ta, 1)):
+        recv = rng.standard_normal(chunks.shape[1]).astype(np.float32)
+        _, want = _both(recv, chunks, k)
+        buf = torch.from_numpy(recv.copy())
+        assert step(buf, tchunks, k) is buf
+        np.testing.assert_array_equal(buf.numpy(), want)
+    with pytest.raises(ValueError, match="recv has shape"):
+        step(torch.zeros(CHUNK), ta, 1)
+    with pytest.raises(ValueError, match="k must be"):
+        step(torch.zeros(2 * CHUNK), ta, 3)
+    with pytest.raises(TypeError, match="chunks are"):
+        step(torch.zeros(2 * CHUNK, dtype=torch.bfloat16), ta, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        step(torch.zeros(4 * CHUNK)[::2], ta, 1)
