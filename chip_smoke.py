@@ -24,8 +24,9 @@ Phases, in order; any failure exits non-zero and prints no result:
   6. zero1    the same model and recipe as the ZeRO-1 explicit-DP step on a
               one-rank NCCL group (psum schedule, 4 MB buckets: 16, gather
               ahead, in-backward reduce-scatter, fused update): K2 must be
-              launched 16 times a step and K1 once (one call over every
-              bucket's p and g shards); an eval through make_params_reader
+              launched once a step (one call over every bucket's p, g and
+              m shards) and K1 once (one call over every bucket's p and g
+              shards); an eval through make_params_reader
   7. zero1 context  one ZeRO-1 step (K1 + K2) and one replicated comm='xla'
               step (per-tensor norms, no kernel) from one state and batch:
               the masters agree to 1e-5 of each tensor's max
@@ -69,7 +70,7 @@ Phases, in order; any failure exits non-zero and prints no result:
               16 x (ranks - 1) times a step along each ring axis (48 on data
               4; 32 for ring and 2d_torus, 16 for hierarchical on the pod
               mesh, 0 for dbtree), K1 twice a replicated step and once a
-              sharded one, K2 16 times a sharded step; prints step ms
+              sharded one, K2 once a sharded step; prints step ms
               (median after the first step), images/s over all cards and
               peak memory per rank
  15. ring context  one packed bf16 gradient through the ring all-reduce and
@@ -81,7 +82,12 @@ Phases, in order; any failure exits non-zero and prints no result:
 On one card the ring phases print that they need two or more cards and
 were not run, and K3's launches_by_path has "ring": null. The kernels
 phase also holds K1's multi-buffer form (the sharded step's one call)
-against its plain version at the 4 MB and 0.25 MB plans' shards, K4,
+against its plain version at the 4 MB and 0.25 MB plans' shards, K2's
+(the sharded step's one update call) against its plain version and, bit
+for bit, against its per-bucket launches at the 4 MB plan on 1 and 4
+shards and the 0.25 MB plan on 3 (every rank), timing it at 1 and 4
+shards beside the per-bucket launches and one launch over the shards
+concatenated, K4,
 forward and backward, against its plain version (at the path's shape in
 f32 and bf16, at T 16 x V 333, and with IGNORE labels), beside
 F.cross_entropy, and K3, bit for bit, at the ring's chunk rows (the
@@ -210,6 +216,27 @@ def time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 50):
+    """Device time per call with the host's cost hidden: a sleep kernel
+    holds the stream while the host queues ``iters`` calls, then CUDA
+    events time them back to back on the device. None where the device
+    caught up with the host before the last call was queued (the time
+    would hold host gaps)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(2_000_000 * iters)      # ~1 ms a call at ~2 GHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    hidden = not start.query()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters if hidden else None
+
+
 def host_us(fn, iters: int = 20000) -> float:
     """Host time per call in microseconds, for calls that do no device
     work."""
@@ -282,14 +309,29 @@ def _shard_case(plan, n_shards, k, dev, gen):
     return p, g, m, segs, seg_all, trust
 
 
+#: K2's call site, (name, bucket_mb, shards): (a) the main path's, the
+#: full-width 4 MB plan on one shard; (b) the 0.25 MB plan on 3 shards
+#: (tensors split across buckets, padding chunks, 211 buckets: two
+#: launches in the one call); (c) the 4 MB plan on 4 shards, a four-card
+#: rank's shards, measured on one card. Every rank k of each
+K2_SITES = (("a", 4.0, 1), ("b", 0.25, 3), ("c", 4.0, 4))
+#: rounds of K2's timings, the variants in turns within each round
+K2_ROUNDS = 3
+
+
 def check_lars_update(dev):
-    """K2 at the ZeRO-1 path's shapes: each of the 16 bucket shards of the
-    full-width 4 MB plan, with real segment maps and trust values from K1;
-    a ragged case (0.25 MB buckets, tensors split across buckets, 3 shards
-    with padding chunks); the in-place form; determinism. Times the 16
-    launches of one step (in place, as the step runs them) and K1 at its
-    call site on the same shards both ways: the one call of the step
-    (``batched_sumsq_multi``) and the 32 per-bucket calls it replaced."""
+    """K2 at the sharded step's call site, at K2_SITES' shapes with real
+    segment maps and trust values from K1: the one call over every
+    bucket's shards (``lars_packed_update_multi``, in place) against its
+    plain version (rtol 1e-5, atol 1e-6), bit for bit against the
+    per-bucket launches it replaces, in place, and equal across two calls;
+    each per-bucket launch also against its plain version, in place and
+    twice. Times, in turns at (a) and (c): the one launch, the 16
+    per-bucket launches, the single-buffer launch over the shards
+    concatenated, and the plain version; the three launch forms again on
+    the device alone (``device_ms``); and K1 at its call site on (a)'s
+    shards both ways: the one call of the step (``batched_sumsq_multi``)
+    and the 32 per-bucket calls it replaced."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import bucketing
@@ -305,8 +347,19 @@ def check_lars_update(dev):
     kw = dict(lr=lr, momentum=0.9, wd=5e-5)
     worst_abs, worst_rel = 0.0, 0.0
 
-    def check(p, g, m, trust, seg, what):
+    def close(got, want, what):
         nonlocal worst_abs, worst_rel
+        for x, y in zip(got, want):
+            if not torch.allclose(x, y, rtol=1e-5, atol=1e-6):
+                fail(f"{what} disagrees with its plain version (rtol 1e-5, "
+                     f"atol 1e-6)")
+            d = (x - y).abs()
+            worst_abs = max(worst_abs, d.max().item())
+            worst_rel = max(worst_rel, (d / y.abs().clamp_min(1e-30))
+                            .max().item())
+
+    def check(p, g, m, trust, seg, what):
+        what = f"lars_packed_update {what}"
         got = lars_update.lars_packed_update(p, g, m, trust, seg, **kw)
         want = ref.lars_packed_update(p, g, m, trust, seg, **kw)
         again = lars_update.lars_packed_update(p, g, m, trust, seg, **kw)
@@ -314,43 +367,114 @@ def check_lars_update(dev):
         lars_update.lars_packed_update(pin, g, min_, trust, seg,
                                        inplace=True, **kw)
         torch.cuda.synchronize()
-        for x, y in zip(got, want):
-            if not torch.allclose(x, y, rtol=1e-5, atol=1e-6):
-                fail(f"lars_packed_update {what} disagrees with its plain "
-                     f"version (rtol 1e-5, atol 1e-6)")
-            d = (x - y).abs()
-            worst_abs = max(worst_abs, d.max().item())
-            worst_rel = max(worst_rel, (d / y.abs().clamp_min(1e-30))
-                            .max().item())
+        close(got, want, what)
         if not all(torch.equal(x, y) for x, y in zip(got, again)):
-            fail(f"lars_packed_update {what}: two calls differ")
+            fail(f"{what}: two calls differ")
         if not (torch.equal(pin, got[0]) and torch.equal(min_, got[1])):
-            fail(f"lars_packed_update {what}: in place differs")
+            fail(f"{what}: in place differs")
+        return got
 
-    p, g, m, segs, seg_all, trust = _shard_case(plan, 1, 0, dev, gen)
-    for b in range(plan.n_buckets):
-        check(p[b], g[b], m[b], trust, segs[b], f"bucket {b}")
-    rag = bucketing.make_plan(pd, bucket_mb=0.25)
-    if not any(s.elem_offset for s in rag.slots):
-        fail("the 0.25 MB plan splits no tensor")
-    for k in range(3):
-        rp, rg, rm, rsegs, _, rtrust = _shard_case(rag, 3, k, dev, gen)
-        for b in range(rag.n_buckets):
-            check(rp[b], rg[b], rm[b], rtrust, rsegs[b], f"ragged {k}/{b}")
-    print(f"lars_packed_update: 16 bucket shards ({plan.n_chunks} chunks x "
-          f"{plan.n_tensors} tensors) and {3 * rag.n_buckets} ragged "
-          f"shards: max abs err {worst_abs:.3e}, max rel err "
-          f"{worst_rel:.3e} (rtol 1e-5, atol 1e-6); in place and repeat "
-          f"calls equal", flush=True)
+    def check_multi(p, g, m, segs, seg_all, trust, what):
+        what = f"lars_packed_update_multi {what}"
+        per = [check(p[b], g[b], m[b], trust, segs[b], f"{what} bucket {b}")
+               for b in range(len(p))]
+        clone = lambda xs: [x.clone() for x in xs]
+        runs = []
+        for _ in range(2):
+            pc, mc = clone(p), clone(m)
+            out = lars_update.lars_packed_update_multi(pc, g, mc, trust,
+                                                       seg_all, **kw)
+            if not (all(x is y for x, y in zip(out[0], pc))
+                    and all(x is y for x, y in zip(out[1], mc))):
+                fail(f"{what}: not in place")
+            runs.append(out)
+        want = ref.lars_packed_update_multi(clone(p), g, clone(m), trust,
+                                            seg_all, **kw)
+        torch.cuda.synchronize()
+        for b, (p2, m2) in enumerate(per):
+            got = (runs[0][0][b], runs[0][1][b])
+            if not (torch.equal(got[0], p2) and torch.equal(got[1], m2)):
+                fail(f"{what}: bucket {b} differs from its own launch")
+            if not (torch.equal(got[0], runs[1][0][b])
+                    and torch.equal(got[1], runs[1][1][b])):
+                fail(f"{what}: two calls differ")
+            close(got, (want[0][b], want[1][b]), f"{what} bucket {b}")
 
-    def k2_step():
-        for b in range(plan.n_buckets):
-            lars_update.lars_packed_update(p[b], g[b], m[b], trust, segs[b],
-                                           inplace=True, **kw)
+    timed = {}
+    n_checked = 0
+    for name, mb, n in K2_SITES:
+        splan = plan if mb == 4.0 else bucketing.make_plan(pd, bucket_mb=mb)
+        if mb != 4.0 and not any(s.elem_offset for s in splan.slots):
+            fail(f"the {mb} MB plan splits no tensor")
+        for k in range(n):
+            p, g, m, segs, seg_all, trust = _shard_case(splan, n, k, dev, gen)
+            check_multi(p, g, m, segs, seg_all, trust,
+                        f"({name}) {mb} MB plan, rank {k} of {n}")
+            n_checked += 1
+            if name != "b" and k == 0:
+                timed[name] = (p, g, m, segs, seg_all, trust)
+    print(f"lars_packed_update_multi: {n_checked} calls at (a) 4 MB on 1 "
+          f"shard, (b) 0.25 MB on 3 and (c) 4 MB on 4 (every rank): bit-"
+          f"equal to the per-bucket launches, in place and repeat calls "
+          f"equal; with every per-bucket launch, max abs err "
+          f"{worst_abs:.3e}, max rel err {worst_rel:.3e} (rtol 1e-5, atol "
+          f"1e-6)", flush=True)
 
-    def plain_step():
-        for b in range(plan.n_buckets):
-            ref.lars_packed_update(p[b], g[b], m[b], trust, segs[b], **kw)
+    def variants(p, g, m, segs, seg_all, trust):
+        flat = [torch.cat(x) for x in (p, g, m)]
+
+        def per_bucket():
+            for b in range(len(p)):
+                lars_update.lars_packed_update(p[b], g[b], m[b], trust,
+                                               segs[b], inplace=True, **kw)
+        return {"one_launch": (lambda: lars_update.lars_packed_update_multi(
+                    p, g, m, trust, seg_all, **kw), 50),
+                "per_bucket_16_launches": (per_bucket, 50),
+                "single_buffer_one_launch": (
+                    lambda: lars_update.lars_packed_update(
+                        *flat, trust, seg_all, inplace=True, **kw), 50),
+                "plain": (lambda: ref.lars_packed_update_multi(
+                    p, g, m, trust, seg_all, **kw), 10)}
+
+    def bounds(p, seg_all, trust):
+        elems, chunks = sum(x.numel() for x in p), seg_all.numel()
+        one = bound_ms(5 * 4 * elems + 4 * chunks + 4 * trust.numel() + 4,
+                       6 * elems)
+        per = bound_ms(5 * 4 * elems + 4 * chunks
+                       + len(p) * (4 * trust.numel() + 4), 6 * elems)
+        return elems, one, per
+
+    sites = {}
+    for name, case in timed.items():
+        fns = variants(*case)
+        rounds = {key: [] for key in fns}
+        for _ in range(K2_ROUNDS):
+            for key, (fn, iters) in fns.items():
+                rounds[key].append(time_ms(fn, iters=iters))
+        elems, (b_ms, b_by), (b16, _) = bounds(case[0], case[4], case[5])
+        dev_only = {key: device_ms(fns[key][0]) for key in
+                    ("one_launch", "per_bucket_16_launches",
+                     "single_buffer_one_launch")}
+        med = {key: statistics.median(v) for key, v in rounds.items()}
+        sites[name] = dict(med, rounds=rounds, device_ms=dev_only,
+                           bound_ms=b_ms, bound_by=b_by,
+                           per_bucket_bound_ms=b16, elements=elems)
+        us = lambda key: "/".join(f"{t * 1e3:.1f}" for t in rounds[key])
+        dus = lambda key: ("host-paced" if dev_only[key] is None
+                           else f"{dev_only[key] * 1e3:.1f}")
+        print(f"lars_packed_update at call site ({name}), {elems} elements "
+              f"in {len(case[0])} shards, us in {K2_ROUNDS} rounds in "
+              f"turns: one launch {us('one_launch')}, the 16 per-bucket "
+              f"launches {us('per_bucket_16_launches')}, single-buffer "
+              f"launch {us('single_buffer_one_launch')}, plain "
+              f"{us('plain')}; device alone (host hidden): one launch "
+              f"{dus('one_launch')}, the 16 launches "
+              f"{dus('per_bucket_16_launches')}, single-buffer "
+              f"{dus('single_buffer_one_launch')}; bound {b_ms * 1e3:.1f} "
+              f"us ({b_by}), the 16 launches' {b16 * 1e3:.1f}; no single "
+              f"PyTorch call computes it (no library time)", flush=True)
+
+    p, g, _, segs, seg_all, _ = timed["a"]
 
     def k1_per_bucket():
         # the call site before: two calls a bucket and an add each
@@ -359,45 +483,48 @@ def check_lars_update(dev):
             sq[0] += batched_norm.batched_sumsq(p[b], segs[b], plan.n_tensors)
             sq[1] += batched_norm.batched_sumsq(g[b], segs[b], plan.n_tensors)
 
-    # the same work as one launch over all 25,021 chunks: what the kernel
-    # costs on the device without 16 host round trips between launches
-    flat = [torch.cat(x) for x in (p, g, m)]
-    one = time_ms(lambda: lars_update.lars_packed_update(
-        *flat, trust, seg_all, inplace=True, **kw), iters=50)
-    ms, plain = time_ms(k2_step, iters=50), time_ms(plain_step, iters=20)
     k1_ms = time_ms(lambda: batched_norm.batched_sumsq_multi(
         (p, g), seg_all, plan.n_tensors), iters=50)
     k1_32 = time_ms(k1_per_bucket, iters=50)
     k1_plain = time_ms(lambda: ref.batched_sumsq_multi(
         (p, g), seg_all, plan.n_tensors), iters=20)
     elems, chunks = plan.n_chunks * bucketing.CHUNK, plan.n_chunks
-    b_ms, b_by = bound_ms(
-        5 * 4 * elems + 4 * chunks + plan.n_buckets * (4 * plan.n_tensors
-                                                       + 4), 6 * elems)
     k1_b, _ = bound_ms(2 * 4 * elems + 4 * chunks + 2 * 4 * plan.n_tensors,
                        2 * 2 * elems)
     k1_32_b, _ = bound_ms(2 * (4 * elems + 4 * chunks) + 2 * plan.n_buckets
                           * 4 * plan.n_tensors, 2 * 2 * elems)
-    print(f"lars_packed_update, one step (16 launches, in place): kernel "
-          f"{ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, bound "
-          f"{b_ms * 1e3:.1f} us ({b_by}); no single PyTorch call computes "
-          f"it (no library time); as one launch over all {chunks} chunks "
-          f"{one * 1e3:.1f} us", flush=True)
     print(f"batched_sumsq at the ZeRO-1 call site, one step (the 16 p and g "
           f"shards): one launch (batched_sumsq_multi) {k1_ms * 1e3:.1f} us, "
           f"bound {k1_b * 1e3:.1f} us; the 32 per-bucket launches it "
           f"replaced {k1_32 * 1e3:.1f} us, bound {k1_32_b * 1e3:.1f} us; "
           f"plain {k1_plain * 1e3:.1f} us", flush=True)
+    a, c = sites["a"], sites["c"]
     entry = {"name": "lars_packed_update", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/lars_update.cu",
              "replaces": "src/repro/kernels/lars_update.py:32",
              "launches": None, "max_abs_err": worst_abs,
-             "max_rel_err": worst_rel, "ms": ms, "plain_ms": plain,
-             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+             "max_rel_err": worst_rel, "ms": a["one_launch"],
+             "plain_ms": a["plain"], "bound_ms": a["bound_ms"],
+             "bound_by": a["bound_by"], "library_ms": None,
              "library": "none: no single PyTorch call computes it",
-             "timed": "one step: 16 launches over the 16 bucket shards",
-             "one_launch_ms": one,
-             "shape": [elems], "segments": plan.n_tensors,
+             "timed": "the sharded step's call site, full-width 4 MB plan "
+                      "on one shard: one launch (lars_packed_update_multi) "
+                      "over the 16 bucket shards, in place; median of "
+                      f"{K2_ROUNDS} rounds in turns",
+             "per_bucket_16_launches_ms": a["per_bucket_16_launches"],
+             "per_bucket_bound_ms": a["per_bucket_bound_ms"],
+             "single_buffer_one_launch_ms": a["single_buffer_one_launch"],
+             "rounds_ms": a["rounds"], "device_ms": a["device_ms"],
+             "four_card_rank": {
+                 "shape": "4 MB plan, rank 0 of 4 shards",
+                 "elements": c["elements"], "ms": c["one_launch"],
+                 "per_bucket_16_launches_ms": c["per_bucket_16_launches"],
+                 "single_buffer_one_launch_ms":
+                     c["single_buffer_one_launch"],
+                 "plain_ms": c["plain"], "bound_ms": c["bound_ms"],
+                 "per_bucket_bound_ms": c["per_bucket_bound_ms"],
+                 "rounds_ms": c["rounds"], "device_ms": c["device_ms"]},
+             "shape": [a["elements"]], "segments": plan.n_tensors,
              "dtype": "float32"}
     k1_site = {"zero1_site": {
         "ms": k1_ms, "per_bucket_32_launches_ms": k1_32,
@@ -671,8 +798,8 @@ def run_zero1(dev, mesh):
     with obs_metrics.default_registry().use_sink(sink):
         state, history = loop.train(state0, timed_step, batch_fn,
                                     steps=STEPS, log_every=1, seed=100000)
-    # K2 16 times and K1 once a step; no other kernel (one rank: no fold)
-    counts = _read_path("zero1", {"k1": STEPS, "k2": 16 * STEPS})
+    # K2 and K1 once a step; no other kernel (one rank: no fold)
+    counts = _read_path("zero1", {"k1": STEPS, "k2": STEPS})
     k1, k2 = counts["k1"], counts["k2"]
     peak = torch.cuda.max_memory_allocated(dev)
     losses = [h["loss"] for h in history]
@@ -1421,7 +1548,7 @@ def _ring_run(model, mesh, comm, sharding, gather, say):
     counts = _read_path(f"ring {what}", {
         "k3": _folds_a_step(mesh, comm, nb) * RING_STEPS,
         "k1": (1 if sharded else 2) * RING_STEPS,
-        "k2": (nb if sharded else 0) * RING_STEPS})
+        "k2": (1 if sharded else 0) * RING_STEPS})
     a_step = {key: v / RING_STEPS for key, v in counts.items()}
     peak = torch.cuda.max_memory_allocated(dev)
     peaks = [None] * n

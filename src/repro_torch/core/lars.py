@@ -15,7 +15,9 @@ Per-tensor norms are computed either one tensor at a time or, with
 buffer (``kernels/ops.tree_norms``). The ZeRO-1 sharded update
 (``sharded_update_from_shards``) works on this rank's packed bucket shards:
 its trust norms always go through the batched-norm wrapper (the kernel on
-the card), and ``update_kernel=True`` runs the fused packed update kernel.
+the card, once a step), and ``update_kernel=True`` runs the fused packed
+update once a step over every bucket's shards
+(``kernels.lars_update.lars_packed_update_multi``: one launch on the card).
 """
 from __future__ import annotations
 
@@ -136,11 +138,12 @@ def update(params, grads, mom, lr, cfg: OptConfig):
 @functools.lru_cache(maxsize=16)
 def _shard_maps(plan, n_shards: int, k: int, device: torch.device):
     """Rank-``k`` row of every bucket's shard segment map, and the rows
-    concatenated in bucket order (the map of the one batched-norm call
-    over all shards), on ``device``, built once per plan. The
-    concatenation must be non-decreasing, as the kernel finds a segment by
-    binary search: ids rise with the packing order and padding repeats a
-    bucket's last id, so it is by construction, and checked here once."""
+    concatenated in bucket order (the map of the one batched-norm call and
+    of the one fused-update call over all shards), on ``device``, built
+    once per plan. The concatenation must be non-decreasing, as the
+    batched-norm kernel finds a segment by binary search: ids rise with the
+    packing order and padding repeats a bucket's last id, so it is by
+    construction, and checked here once."""
     from repro_torch.core import bucketing
     rows = [m[k] for m in bucketing.shard_segment_ids(plan, n_shards)]
     cat = np.concatenate(rows)
@@ -193,12 +196,15 @@ def sharded_update_from_shards(p_shards, grad_shards, mom_shards, lr,
     buffers of ``bucketing.shard_elems`` length: the master shards carried
     in ``TrainState.shards``, the reduce-scatter output, and the sharded
     momentum. Returns ``(param_shards, mom_shards)``. With
-    ``update_kernel=True`` the fused update kernel (``kernels.lars_update``)
-    updates ``p_shards`` and ``mom_shards`` IN PLACE and returns them;
-    otherwise the plain version (``kernels.ref``) returns new buffers."""
+    ``update_kernel=True`` ONE call of the fused update
+    (``kernels.lars_update.lars_packed_update_multi``, K2 once a step: one
+    launch on the card, its plain version on the CPU) updates every
+    bucket's ``p_shards`` and ``mom_shards`` IN PLACE and returns them;
+    otherwise the plain version (``kernels.ref``) runs bucket by bucket,
+    as the reference's loop does, and returns new buffers."""
     from repro_torch.comm.primitives import shard_index
     from repro_torch.kernels import ref
-    from repro_torch.kernels.lars_update import lars_packed_update
+    from repro_torch.kernels.lars_update import lars_packed_update_multi
     if cfg.kind not in ("lars", "sgdm"):
         raise ValueError(f"sharded_update supports lars/sgdm, not "
                          f"{cfg.kind!r}")
@@ -208,20 +214,13 @@ def sharded_update_from_shards(p_shards, grad_shards, mom_shards, lr,
                                 p_shards[0].device)
     trust = shard_trust_ratios(p_shards, grad_shards, seg_all, plan, cfg,
                                shard_axis=shard_axis)
-    if update_kernel and p_shards[0].is_cuda:
-        # one upload a step for every launch; the kernel reads it there
-        lr = torch.as_tensor(lr, dtype=torch.float32).to(
-            p_shards[0].device, non_blocking=True)
+    kw = dict(lr=lr, momentum=cfg.momentum, wd=cfg.weight_decay)
+    if update_kernel:
+        return lars_packed_update_multi(p_shards, grad_shards, mom_shards,
+                                        trust, seg_all, **kw)
     new_p, new_m = [], []
     for p_s, g_s, m_s, seg in zip(p_shards, grad_shards, mom_shards, segs):
-        if update_kernel:
-            p2, m2 = lars_packed_update(p_s, g_s, m_s, trust, seg, lr=lr,
-                                        momentum=cfg.momentum,
-                                        wd=cfg.weight_decay, inplace=True)
-        else:
-            p2, m2 = ref.lars_packed_update(p_s, g_s, m_s, trust, seg, lr=lr,
-                                            momentum=cfg.momentum,
-                                            wd=cfg.weight_decay)
+        p2, m2 = ref.lars_packed_update(p_s, g_s, m_s, trust, seg, **kw)
         new_p.append(p2)
         new_m.append(m2)
     return tuple(new_p), tuple(new_m)

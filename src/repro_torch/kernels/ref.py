@@ -45,6 +45,23 @@ def lars_packed_update(p, g, m, trust, seg_ids, *, lr, momentum, wd):
     return p - m2, m2
 
 
+def lars_packed_update_multi(p_shards, g_shards, m_shards, trust, seg_ids,
+                             *, lr, momentum, wd):
+    """``lars_packed_update`` of each bucket's shards, in place: bucket b
+    takes its span of ``seg_ids``, the segment map over the buckets'
+    chunks concatenated. Returns ``(p_shards, m_shards)`` as tuples of the
+    buffers given, updated."""
+    lo = 0
+    for p, g, m in zip(p_shards, g_shards, m_shards):
+        hi = lo + p.numel() // CHUNK
+        p2, m2 = lars_packed_update(p, g, m, trust, seg_ids[lo:hi], lr=lr,
+                                    momentum=momentum, wd=wd)
+        p.copy_(p2)
+        m.copy_(m2)
+        lo = hi
+    return tuple(p_shards), tuple(m_shards)
+
+
 def ring_add_step(recv, chunks, k: int):
     """The ring reduce-scatter's fold: ``recv + chunks[k]`` in recv's
     dtype (PyTorch adds bf16 in f32 and rounds once)."""

@@ -224,10 +224,101 @@ def test_lars_update_kernel_rejects_bad_inputs():
         lars_update.lars_packed_update(x, x.cpu(), x, t, seg, **kw)
 
 
+#: (bucket_mb, n_shards) of K2's one call a sharded step at full width: the
+#: main path's 4 MB plan on one shard, the 0.25 MB plan on 3 (split
+#: tensors, padding chunks, 211 buckets: two launches in the one call),
+#: and the 4 MB plan on 4 (a four-card rank's shards)
+K2_SITES = [(4.0, 1), (0.25, 3), (4.0, 4)]
+
+
+@pytest.mark.parametrize("bucket_mb,n_shards", K2_SITES)
+def test_lars_update_multi_kernel_matches_per_bucket_and_plain(bucket_mb,
+                                                               n_shards):
+    """One call over every bucket's shards at rank k, every k: one count,
+    in place, bit-equal to the per-bucket launches, within the reference's
+    rtol 1e-5 / atol 1e-6 of the plain version."""
+    from repro_torch.kernels import lars_update
+    dev = _card()
+    plan = bucketing.make_plan(resnet.resnet_pd(get_config("resnet50"))[0],
+                               bucket_mb=bucket_mb)
+    kw = dict(lr=torch.tensor(0.37, device=dev), momentum=0.9, wd=5e-5)
+    for k in range(n_shards):
+        p, g, m, segs, trust = _shard_case(plan, n_shards, k, dev, seed=k)
+        _, seg_all = lars._shard_maps(plan, n_shards, k, dev)
+        per = [lars_update.lars_packed_update(p[b], g[b], m[b], trust,
+                                              segs[b], **kw)
+               for b in range(plan.n_buckets)]
+        want = ref.lars_packed_update_multi([x.clone() for x in p], g,
+                                            [x.clone() for x in m], trust,
+                                            seg_all, **kw)
+        before = lars_update.lars_packed_update.launches
+        got = lars_update.lars_packed_update_multi(p, g, m, trust, seg_all,
+                                                   **kw)
+        torch.cuda.synchronize()
+        assert lars_update.lars_packed_update.launches == before + 1
+        assert all(x is y for x, y in zip(got[0], p))
+        assert all(x is y for x, y in zip(got[1], m))
+        for b, (p2, m2) in enumerate(per):
+            assert torch.equal(got[0][b], p2) and torch.equal(got[1][b], m2)
+            torch.testing.assert_close(got[0][b], want[0][b], rtol=1e-5,
+                                       atol=1e-6)
+            torch.testing.assert_close(got[1][b], want[1][b], rtol=1e-5,
+                                       atol=1e-6)
+
+
+@pytest.mark.parametrize("bucket_mb,kernels", [(4.0, 1), (0.25, 2)])
+def test_lars_update_multi_launches_a_call(bucket_mb, kernels):
+    """The device's own count: one launch for the 4 MB plan's 16 shards,
+    two for the 0.25 MB plan's 211 (the table holds 128), in one call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import lars_update
+    dev = _card()
+    plan = bucketing.make_plan(resnet.resnet_pd(get_config("resnet50"))[0],
+                               bucket_mb=bucket_mb)
+    p, g, m, _, trust = _shard_case(plan, 1, 0, dev)
+    _, seg_all = lars._shard_maps(plan, 1, 0, dev)
+    lr = torch.tensor(0.1, device=dev)
+    kw = dict(lr=lr, momentum=0.9, wd=5e-5)
+    lars_update.lars_packed_update_multi(p, g, m, trust, seg_all, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lars_update.lars_packed_update_multi(p, g, m, trust, seg_all, **kw)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if "lars_update_multi" in e.name]
+    assert len(names) == kernels, names
+
+
+def test_lars_update_multi_kernel_rejects_bad_inputs():
+    from repro_torch.kernels import lars_update
+    dev = _card()
+    z = lambda n: torch.zeros(n * CHUNK, device=dev)
+    seg = torch.zeros(3, dtype=torch.int32, device=dev)
+    t = torch.ones(1, device=dev)
+    kw = dict(lr=0.1, momentum=0.9, wd=0.0)
+    f = lars_update.lars_packed_update_multi
+    with pytest.raises(ValueError, match="one non-zero length"):
+        f([z(1), z(2)], [z(1)], [z(1), z(2)], t, seg, **kw)
+    with pytest.raises(ValueError, match="hold 3 chunks, seg_ids 2"):
+        f([z(1), z(2)], [z(1), z(2)], [z(1), z(2)], t, seg[:2], **kw)
+    with pytest.raises(TypeError, match="float32"):
+        f([z(1), z(2)], [z(1), z(2).bfloat16()], [z(1), z(2)], t, seg, **kw)
+    with pytest.raises(TypeError, match="int32"):
+        f([z(1), z(2)], [z(1), z(2)], [z(1), z(2)], t, seg.long(), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        f([z(1), z(2)], [z(1), z(2).cpu()], [z(1), z(2)], t, seg, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        f([z(1), z(4)[::2]], [z(1), z(2)], [z(1), z(2)], t, seg, **kw)
+    with pytest.raises(ValueError, match="aligned"):
+        y = torch.zeros(2 * CHUNK + 1, device=dev)[1:]
+        f([z(1), z(2)], [z(1), z(2)], [z(1), y], t, seg, **kw)
+
+
 def test_sharded_update_on_card_runs_both_kernels():
     """The ZeRO-1 update's call sites: K1 once a step for the trust norms
-    of every bucket's shards, K2 once a bucket, against the same update on
-    the CPU."""
+    of every bucket's shards, K2 once a step for the update of every
+    bucket's shards, against the same update on the CPU."""
     from repro_torch.kernels import lars_update
     dev = _card()
     plan = _full_width_plan()
@@ -244,7 +335,7 @@ def test_sharded_update_on_card_runs_both_kernels():
         shard_axis=axis, n_shards=1, update_kernel=True)
     torch.cuda.synchronize()
     assert batched_norm.batched_sumsq.launches - k1 == 1
-    assert lars_update.lars_packed_update.launches - k2 == plan.n_buckets
+    assert lars_update.lars_packed_update.launches - k2 == 1
     for gs, ws in zip(got, want):
         for x, y in zip(gs, ws):
             # trust ratios from sums in another order (K1 vs index_add_)
