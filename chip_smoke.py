@@ -30,22 +30,43 @@ Phases, in order; any failure exits non-zero and prints no result:
   7. zero1 context  one ZeRO-1 step (K1 + K2) and one replicated comm='xla'
               step (per-tensor norms, no kernel) from one state and batch:
               the masters agree to 1e-5 of each tensor's max
-  8. cli      python -m repro_torch.launch.train --reduced on the card, as
+  8. durability  the zero1 path's step (K1 + K2) through loop.train at
+              full width: a checkpoint after 2 steps with its CommPlan
+              (verified, sha256, loaded back bit for bit; payload MB, save
+              and load ms), reshard_buffers of the masters and momentum 4 MB
+              / 1 -> 4 shards -> 1 MB plan -> 1 shard -> 4 MB bit-equal, an
+              elastic resume from a 1 MB-plan checkpoint and a step; a
+              guarded nan@2 run of 6 steps (one guard_skip) against the
+              uninjected run, masters bit for bit under
+              torch.use_deterministic_algorithms (or 1e-5 of the max, the
+              op named, where one has no deterministic form), spike@3:1e4
+              (a guard_rollback, finite losses); 3 traced steps (forward,
+              backward, update, rs[b0..15] and ag[b0..15] in each step
+              window of a valid Chrome JSON); the step ms unguarded,
+              guarded and traced, interleaved, and a rollback snapshot's
+              ms. K1 and K2 must read one launch a committed step call
+              (none on a skipped one)
+  9. cli      python -m repro_torch.launch.train --reduced on the card, as
               the replicated step and as ZeRO-1 (--comm ring --sharding
-              zero1 --update-kernel)
-  9. serve    full-width qwen1.5-0.5b (24 layers, d 1024, 16 heads of 64,
+              zero1 --update-kernel); then on the ZeRO-1 run with
+              --ckpt-every 1: kill@3 (SIGKILL) and a --resume-elastic rerun
+              from step 3, sigterm@3 (drained, step 4 saved once, exit 0),
+              stall@2:3 with --step-timeout-s 1 (watchdog_restore), and
+              corrupt@2 with --metrics and --trace (the load falls back to
+              step 1, every tag line in the JSONL, a valid Chrome trace)
+ 10. serve    full-width qwen1.5-0.5b (24 layers, d 1024, 16 heads of 64,
               vocab 151,936; params from pinit) with flash_attention=True:
               serve.decode.generate on 8 prompts of 2048 tokens, 32 greedy
               tokens, cache_len 2088; the flash kernel (K5) must be launched
               24 times (once a layer, in the prefill); prints prefill ms,
               decode ms a token, tokens/s and peak memory
- 10. serve context  from the same params and prompts: the K5 prefill's last
+ 11. serve context  from the same params and prompts: the K5 prefill's last
               logits against the chunked path's (no kernel), and one decode
               step from the K5 cache against the chunked full forward over
               prompt + that token, both within 3e-2 of the logit max
- 11. serve cli  python -m repro_torch.serve.decode --reduced --flash-attention
+ 12. serve cli  python -m repro_torch.serve.decode --reduced --flash-attention
               on the card
- 12. lm_train  full-width qwen1.5-0.5b (params from pinit; remat on, the
+ 13. lm_train  full-width qwen1.5-0.5b (params from pinit; remat on, the
               chunked attention: flash_attention stays off in training),
               batch 2 x seq 4096 of lcg tokens, 5 LARS steps (poly2 with
               warm-up, label smoothing 0.1, OptConfig(use_kernel=True))
@@ -53,13 +74,13 @@ Phases, in order; any failure exits non-zero and prints no result:
               smoothed cross-entropy kernel (K4) must be launched once
               forward and once backward a step and once for the eval, K1
               twice a step; prints step ms, tokens/s, peak memory, losses
- 13. lm_train context  one step with the K4 loss and two with a loss built
+ 14. lm_train context  one step with the K4 loss and two with a loss built
               on K4's plain version, from one state and batch: losses to
               1e-5 relative, K4's gradient at the step's logits to rtol
               1e-5 / atol 1e-7, the plain steps bit for bit, new params to
               5e-2 of each tensor's largest update (bf16 gradients: not
               1e-5 of its max, the function says why)
- 14. ring     on two or more cards (min(count, 4) ranks, one card each,
+ 15. ring     on two or more cards (min(count, 4) ranks, one card each,
               over NCCL: this script under torch.distributed.run with
               --ring-rank), full-width ResNet-50, batch 64 a card, the slice's
               recipe, CommConfig(use_kernel=True, update_kernel=True), 5
@@ -73,7 +94,7 @@ Phases, in order; any failure exits non-zero and prints no result:
               sharded one, K2 once a sharded step; prints step ms
               (median after the first step), images/s over all cards and
               peak memory per rank
- 15. ring context  one packed bf16 gradient through the ring all-reduce and
+ 16. ring context  one packed bf16 gradient through the ring all-reduce and
               every schedule's reduce-scatter form, with K3 and with the
               plain fold: bit-equal (counted apart for the forms that fold
               through K3: ring, hierarchical, 2d_torus); with f32 wire, every schedule and rung
@@ -96,21 +117,28 @@ the wrapper and by the fold the ring binds once a bucket), the
 reference's shapes, ragged rows, misaligned views and in place, beside
 torch.add; the cli phase also trains the reduced LM. Every
 kernel's launch count is set to 0 just before each path (slice, zero1,
-serve, lm_train, each ring configuration) and read just after: a kernel
+durability, serve, lm_train, each ring configuration) and read just after: a kernel
 the path runs must show its count, every other kernel 0, and the JSON
 line's launches_by_path holds these readings.
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
+import gc
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
+
+# cuBLAS is deterministic only with a fixed workspace, which must be set
+# before it first runs: the durability phase replays runs bit for bit under
+# torch.use_deterministic_algorithms
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -185,6 +213,17 @@ LM_LR = 4.0
 #: measured on the H100
 LM_CONTEXT_TOL = 1e-5
 LM_UPDATE_TOL = 5e-2
+
+#: the durability phase: steps of each run, the interleaved timing rounds,
+#: snapshot timings, and the spike's magnitude (a grad-norm far past the
+#: detector's 10x EMA)
+DUR_STEPS, DUR_ROUNDS, DUR_SNAPSHOTS = 6, 8, 5
+DUR_SPIKE = "spike@3:1e4"
+#: the determinism rule's fallback: where an op of the path has no
+#: deterministic form, a replayed run is held to 1e-5 of a tensor's max,
+#: the gate check_zero1_in_context uses
+DUR_TOL = 1e-5
+
 
 #: K5 prefill vs chunked prefill, and decode vs the full forward: two bf16
 #: paths that round in different places, held to the reference's own bound
@@ -741,7 +780,9 @@ def check_in_context(dev, state0, batch_fn):
         fail("the step with the norm kernel disagrees with the plain step")
 
 
-def _zero1_step(model, sched, mesh):
+def _zero1_step(model, sched, mesh, **kw):
+    """The ZeRO-1 step of the zero1 path; ``kw``: ``make_train_step``'s
+    ``guard`` and ``tracer``."""
     from repro_torch.configs.base import CommConfig
     from repro_torch.core import lars
     from repro_torch.train.step import make_train_step
@@ -750,7 +791,7 @@ def _zero1_step(model, sched, mesh):
     return make_train_step(model, lars.OptConfig(kind="lars",
                                                  weight_decay=5e-5,
                                                  use_kernel=True),
-                           sched, smoothing=0.1, mesh=mesh, comm=comm)
+                           sched, smoothing=0.1, mesh=mesh, comm=comm, **kw)
 
 
 def run_zero1(dev, mesh):
@@ -865,6 +906,278 @@ def check_zero1_in_context(dev, mesh, batch_fn):
           f"largest update {moved:.3e}", flush=True)
     if not worst <= 1e-5 or moved == 0.0:
         fail("the ZeRO-1 step disagrees with the replicated step")
+
+
+def _counting(step, tally):
+    """``step`` that adds one to ``tally[0]`` for every call the guard let
+    commit (every call of an unguarded step): K1 and K2 launch once in
+    each such call of the zero1 step and in no other."""
+    def call(*args):
+        out = step(*args)
+        if float(out[1].get("skipped", 0.0)) == 0.0:
+            tally[0] += 1
+        return out
+    call.__dict__.update(step.__dict__)
+    return call
+
+
+def _tensors(tree) -> list:
+    from repro_torch.tree import tree_leaves
+    return tree_leaves(tree) if isinstance(tree, dict) else list(tree)
+
+
+def _bit_equal(a, b) -> bool:
+    """Every tensor of two trees (or sequences) equal, bit for bit."""
+    import torch
+    la, lb = _tensors(a), _tensors(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and bool(torch.equal(x, y))
+        for x, y in zip(la, lb))
+
+
+def _worst_rel(a, b) -> float:
+    """Largest difference over buffers, relative to each buffer's max."""
+    return max((x - y).abs().max().item() / max(y.abs().max().item(), 1e-30)
+               for x, y in zip(a, b))
+
+
+def _state_bit_equal(a, b) -> bool:
+    return a.step == b.step and all(
+        _bit_equal(x, y) for x, y in ((a.params, b.params), (a.mom, b.mom),
+                                      (a.bn_state, b.bn_state),
+                                      (a.shards, b.shards)))
+
+
+def run_durability(dev, mesh, batch_fn, tmp):
+    """Durability and observability on the full-width ZeRO-1 step (K1, K2)
+    through loop.train: a checkpoint round trip, the n→m relayout and an
+    elastic resume, a guarded nan@2 run against its oracle and a spike
+    rollback, a traced run, and the guard's, the tracer's and a snapshot's
+    cost. Returns every kernel's launches (K1 and K2 once a committed step
+    call, 0 on a skipped one)."""
+    import hashlib
+
+    import torch
+    from repro_torch import comm
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import CommConfig
+    from repro_torch.core import bucketing
+    from repro_torch.core.schedule import ScheduleConfig, linear_scaled_lr, \
+        make_schedule
+    from repro_torch.models.registry import build_model
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import elastic, guard, loop
+    from repro_torch.train import state as st
+
+    model = build_model(get_config("resnet50"))
+    sched = make_schedule(ScheduleConfig(
+        base_lr=linear_scaled_lr(16.0, BATCH) / 4, warmup_steps=STEPS // 8,
+        total_steps=STEPS, decay="poly2"))
+    committed = [0]
+    step = _counting(_zero1_step(model, sched, mesh), committed)
+    plan = step.bucket_plan
+    fresh = lambda: st.init_state(   # noqa: E731
+        model, seed=100000, device=dev, **st.sharded_state_kwargs(step))
+    sink = obs_metrics.MemorySink()
+    _zero(*_counters().values())
+    reg = obs_metrics.default_registry()
+
+    # 1. checkpoint round trip after 2 steps, with the CommPlan
+    d1 = os.path.join(tmp, "ckpt")
+    with reg.use_sink(sink):
+        s2, _ = loop.train(fresh(), step, batch_fn, steps=2, log_every=0,
+                           ckpt_dir=d1, ckpt_every=2,
+                           comm_plan=step.comm_plan, seed=100000)
+    tag = ckpt.step_tag(2)
+    ent = ckpt.verify(d1, tag)
+    with open(os.path.join(d1, ent["file"]), "rb") as f:
+        if hashlib.sha256(f.read()).hexdigest() != ent["sha256"]:
+            fail("durability: the manifest's sha256 is not the payload's")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ckpt.save(s2, d1, tag="timed", comm_plan=step.comm_plan, mesh=mesh)
+    save_ms = (time.perf_counter() - t) * 1e3
+    template = fresh()
+    t = time.perf_counter()
+    back = ckpt.load(template, d1, tag=tag, mesh=mesh)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t) * 1e3
+    if not _state_bit_equal(back, s2):
+        fail("durability: the checkpoint did not load back bit for bit")
+    if ckpt.load_comm_plan(d1, tag=tag) != step.comm_plan:
+        fail("durability: the CommPlan did not load back equal")
+    mib = ckpt.read_manifest(d1)["entries"][tag]["bytes"] / 2 ** 20
+    print(f"durability: checkpoint after 2 steps: {mib:.1f} MiB payload, save "
+          f"{save_ms:.1f} ms, load {load_ms:.1f} ms; every tensor of "
+          f"params, momentum, BN and shards bit-equal; sha256 and CommPlan "
+          f"match", flush=True)
+
+    # 2. n→m relayout of the full-width masters and momentum, then an
+    # elastic resume from a 1 MB-plan checkpoint into the 4 MB step
+    plan1 = bucketing.make_plan(model.param_pd, bucket_mb=1.0)
+    chain = ((plan, 1), (plan, 4), (plan1, 4), (plan1, 1), (plan, 1))
+    times = []
+    for name in ("shards", "mom"):
+        bufs = list(getattr(s2, name))
+        for (pa, na), (pb, nb) in zip(chain, chain[1:]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            bufs = elastic.reshard_buffers(bufs, pa, na, pb, nb)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        if not _bit_equal(bufs, getattr(s2, name)):
+            fail(f"durability: {name} 4 MB/1 -> 4 MB/4 -> 1 MB/4 -> 1 MB/1 "
+                 f"-> 4 MB/1 is not bit-equal")
+    relay = lambda b: elastic.reshard_buffers(b, plan, 1, plan1, 1)  # noqa
+    s1mb = st.TrainState(s2.step, s2.params, tuple(relay(list(s2.mom))),
+                         s2.bn_state, tuple(relay(list(s2.shards))))
+    d2 = os.path.join(tmp, "ckpt_1mb")
+    cp1 = comm.plan_for(CommConfig(strategy="psum", bucket_mb=1.0,
+                                   sharding="zero1", update_kernel=True),
+                        mesh, model.param_pd)
+    ckpt.save(s1mb, d2, tag=tag, comm_plan=cp1, mesh=mesh)
+    template = fresh()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    r = elastic.load_resharded(d2, template, plan, 1, mesh=mesh)
+    torch.cuda.synchronize()
+    resume_ms = (time.perf_counter() - t) * 1e3
+    if not (_bit_equal(r.shards, s2.shards) and _bit_equal(r.mom, s2.mom)):
+        fail("durability: load_resharded from the 1 MB plan is not bit-equal")
+    r, m = step(r, batch_fn(r.step))
+    if r.step != 3 or not math.isfinite(float(m["loss"])):
+        fail(f"durability: the resumed step gave step {r.step}, loss "
+             f"{float(m['loss'])}")
+    print(f"durability: reshard_buffers at full width (16 buckets <-> "
+          f"{plan1.n_buckets}, 1 <-> 4 shards) {min(times):.1f}-"
+          f"{max(times):.1f} ms a relayout, bit-equal; load_resharded from "
+          f"the 1 MB plan {resume_ms:.1f} ms, then a step: loss "
+          f"{float(m['loss']):.4f}", flush=True)
+    del s1mb, r, back, template
+
+    # 3. guarded nan@2 against the uninjected run, bit for bit under the
+    # determinism rule; then a spike and its rollback
+    gstep = _counting(_zero1_step(model, sched, mesh, guard=True),
+                      committed)
+
+    def guarded(faults):
+        mem = obs_metrics.MemorySink()
+        with reg.use_sink(mem):
+            s, hist = loop.train(fresh(), gstep, batch_fn, steps=DUR_STEPS,
+                                 log_every=1, faults=faults, seed=100000,
+                                 guard=guard.GuardConfig())
+        return s, hist, mem
+
+    det_op, before = None, torch.are_deterministic_algorithms_enabled()
+    try:
+        torch.use_deterministic_algorithms(True)
+        a, _, mem_a = guarded("nan@2")
+        o, _, mem_o = guarded(None)
+    except RuntimeError as e:
+        if "deterministic" not in str(e):
+            raise
+        det_op = str(e).splitlines()[0]
+        torch.use_deterministic_algorithms(before)
+        a, _, mem_a = guarded("nan@2")
+        o, _, mem_o = guarded(None)
+    finally:
+        torch.use_deterministic_algorithms(before)
+    skips = len(mem_a.find("guard_skip"))
+    if skips != 1 or mem_o.find("guard_skip") or not (a.step == o.step
+                                                      == DUR_STEPS):
+        fail(f"durability: nan@2 gave {skips} guard_skip, steps {a.step} / "
+             f"{o.step}")
+    if det_op is None:
+        if not _bit_equal(a.shards, o.shards):
+            fail("durability: the guarded nan@2 run's masters are not the "
+                 "oracle's bit for bit (deterministic algorithms on)")
+        how = "bit for bit (torch.use_deterministic_algorithms)"
+    else:
+        worst = _worst_rel(a.shards, o.shards)
+        if not worst <= DUR_TOL:
+            fail(f"durability: nan@2 masters {worst:.3e} of the max from "
+                 f"the oracle's (limit {DUR_TOL}; {det_op})")
+        how = (f"{worst:.3e} of the max (limit {DUR_TOL}): no deterministic "
+               f"form for: {det_op}")
+    with reg.use_sink(obs_metrics.MemorySink()) as mem_s:
+        s, hist = loop.train(fresh(), gstep, batch_fn, steps=DUR_STEPS,
+                             log_every=1, faults=DUR_SPIKE, seed=100000,
+                             guard=guard.GuardConfig())
+    losses = [h["loss"] for h in hist if "loss" in h]
+    if not (mem_s.find("guard_rollback") and mem_s.find("run_stop")
+            and all(math.isfinite(v) for v in losses)):
+        fail(f"durability: {DUR_SPIKE}: rollbacks "
+             f"{len(mem_s.find('guard_rollback'))}, losses {losses}")
+    print(f"durability: guarded nan@2, {DUR_STEPS} steps: 1 guard_skip, "
+          f"masters equal to the uninjected run {how}; {DUR_SPIKE}: "
+          f"{len(mem_s.find('guard_rollback'))} guard_rollback, finite "
+          f"losses, run_stop", flush=True)
+    del a, o, s
+
+    # 4. the tracer: 3 traced steps through the loop, the Chrome JSON
+    tracer = obs_trace.Tracer()
+    tstep = _counting(_zero1_step(model, sched, mesh, tracer=tracer), committed)
+    loop.train(fresh(), tstep, batch_fn, steps=3, log_every=0,
+               tracer=tracer, seed=100000)
+    path = obs_trace.export_chrome(tracer, os.path.join(tmp, "trace.json"))
+    spans = obs_trace.spans_from_chrome(obs_trace.load_chrome(path))
+    want = {"forward", "backward", "update"} | {
+        f"{k}[b{i}]" for k in ("rs", "ag") for i in range(plan.n_buckets)}
+    for i in range(3):
+        mine = [sp for sp in spans if sp.step == i]
+        win = [sp for sp in mine if sp.name == "step"]
+        names = {sp.name for sp in mine} - {"step"}
+        if len(win) != 1 or names != want or not all(
+                win[0].t0 <= sp.t0 <= sp.t1 <= win[0].t1 for sp in mine):
+            fail(f"durability: traced step {i}: spans {sorted(names)}, "
+                 f"want {sorted(want)}, each inside its window")
+
+    # 5. the guard's and the tracer's cost, interleaved; a snapshot's cost
+    variants = {"unguarded": (step, None), "guarded": (gstep, None),
+                "traced": (tstep, tracer)}
+    states = {k: fresh() for k in variants}
+    ms = {k: [] for k in variants}
+    for r_i in range(DUR_ROUNDS):
+        for k, (fn, tr) in variants.items():
+            batch = batch_fn(r_i)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if tr is not None:
+                tr.begin_step()
+            args = (guard.neutral_inputs(),) if k == "guarded" else ()
+            states[k], _ = fn(states[k], batch, *args)
+            if tr is not None:
+                tr.end_step(100 + r_i)
+            torch.cuda.synchronize()
+            ms[k].append((time.perf_counter() - t) * 1e3)
+    snaps = []
+    for _ in range(DUR_SNAPSHOTS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        snap = st.host_snapshot(states["unguarded"])
+        torch.cuda.synchronize()
+        snaps.append((time.perf_counter() - t) * 1e3)
+    nbytes = sum(x.numel() * x.element_size() for x in
+                 _tensors(snap.shards) + _tensors(snap.mom)
+                 + _tensors(snap.params) + _tensors(snap.bn_state))
+    del snap, states
+    med = {k: statistics.median(v[1:]) for k, v in ms.items()}
+    print(f"durability: step ms, {DUR_ROUNDS} interleaved rounds (median "
+          f"after the first): unguarded {med['unguarded']:.2f}, guarded "
+          f"{med['guarded']:.2f}, traced {med['traced']:.2f}; all "
+          + "; ".join(f"{k} {[round(x, 2) for x in v]}"
+                      for k, v in ms.items()), flush=True)
+    print(f"durability: a rollback snapshot (device copy, "
+          f"{nbytes / 2 ** 20:.1f} MiB) {statistics.median(snaps):.3f} ms "
+          f"(median of {DUR_SNAPSHOTS})", flush=True)
+    counts = _read_path("durability", {"k1": committed[0],
+                                       "k2": committed[0]})
+    print(f"durability: {committed[0]} committed step calls: launches "
+          f"batched_sumsq {counts['k1']}, lars_packed_update {counts['k2']}",
+          flush=True)
+    return counts
 
 
 def _ring_rows(dev, gen, L, n, dtype):
@@ -1900,20 +2213,84 @@ def run_serve_cli():
         fail(f"serve CLI exited {out.returncode}: {out.stderr[-3000:]}")
 
 
+def _cli(extra, rc=0):
+    """``python -m repro_torch.launch.train --reduced`` + ``extra`` on the
+    card; fails unless it exits with ``rc`` (a signal: negative)."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+           *extra]
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ,
+                                               PYTHONPATH=str(SRC)))
+    print(out.stdout[-1500:], end="", flush=True)
+    if out.returncode != rc or (rc == 0 and "run_stop" not in out.stdout):
+        fail(f"CLI {extra} exited {out.returncode} (want {rc}): "
+             f"{out.stderr[-3000:]}")
+    return out.stdout
+
+
 def run_cli():
-    base = [sys.executable, "-m", "repro_torch.launch.train", "--reduced"]
     resnet = ["--arch", "resnet50", "--steps", "2", "--batch", "8"]
     lm = ["--arch", "qwen1.5-0.5b", "--seq", "128", "--batch", "8",
           "--steps", "3"]
     for extra in (resnet, resnet + ["--comm", "ring", "--sharding", "zero1",
                                     "--update-kernel"], lm):
-        out = subprocess.run(base + extra, cwd=ROOT, capture_output=True,
-                             text=True, timeout=600,
-                             env=dict(os.environ, PYTHONPATH=str(SRC)))
-        print(out.stdout[-1500:], end="", flush=True)
-        if out.returncode != 0 or "run_stop" not in out.stdout:
-            fail(f"CLI {extra} exited {out.returncode}: "
-                 f"{out.stderr[-3000:]}")
+        _cli(extra)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        run_cli_faults(Path(tmp))
+
+
+def run_cli_faults(tmp: Path):
+    """The CLI's durability flags on the reduced ZeRO-1 run: a SIGKILL and
+    the resume from the last committed tag, a SIGTERM drain, a stall that
+    the watchdog restores, and a corrupted checkpoint that the load falls
+    back from, with the metrics JSONL and the Chrome trace."""
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.train import checkpoint as ckpt
+    run = ["--arch", "resnet50", "--batch", "8", "--comm", "psum",
+           "--sharding", "zero1", "--update-kernel", "--ckpt-every", "1"]
+    d = str(tmp / "kill")
+    _cli(run + ["--steps", "5", "--ckpt-dir", d, "--inject-fault", "kill@3"],
+         rc=-9)
+    if ckpt.latest_tag(d) != ckpt.step_tag(3):
+        fail(f"cli kill@3: last committed tag {ckpt.latest_tag(d)}")
+    out = _cli(run + ["--steps", "5", "--ckpt-dir", d, "--resume-elastic"])
+    if "elastic resume: restored step 3" not in out:
+        fail("cli kill@3: the rerun did not resume from step 3")
+    d = str(tmp / "sigterm")
+    out = _cli(run + ["--steps", "6", "--ckpt-dir", d,
+                      "--inject-fault", "sigterm@3"])
+    saves = [ln for ln in out.splitlines() if "checkpoint_saved" in ln]
+    if "preempt_drain" not in out or "'preempted': True" not in out or \
+            sum("'step': 4," in ln for ln in saves) != 1:
+        fail("cli sigterm@3: no drain, or step 4 not saved exactly once")
+    out = _cli(run + ["--steps", "4", "--ckpt-dir", str(tmp / "stall"),
+                      "--inject-fault", "stall@2:3", "--step-timeout-s", "1"])
+    if "watchdog_restore" not in out:
+        fail("cli stall@2:3: no watchdog_restore")
+    d, jl, tr = (str(tmp / "corrupt"), str(tmp / "m.jsonl"),
+                 str(tmp / "t.json"))
+    out = _cli(run + ["--steps", "2", "--ckpt-dir", d, "--inject-fault",
+                      "corrupt@2", "--metrics", jl, "--trace", tr])
+    mem = obs_metrics.MemorySink()
+    with obs_metrics.default_registry().use_sink(mem):
+        meta = ckpt.load_arrays(d)[0]
+    if meta["step"] != 1 or [e.value["rejected_tag"] for e in
+                             mem.find("checkpoint_fallback")] != [
+                                 ckpt.step_tag(2)]:
+        fail(f"cli corrupt@2: the load gave step {meta['step']}")
+    tags = [ln.split(") ", 1)[1].split(":", 1)[0] for ln in out.splitlines()
+            if ln.startswith(":::MLPv0.5.0 ")]
+    with open(jl) as f:
+        rows = [json.loads(ln)["name"] for ln in f]
+    if tags != rows:
+        fail(f"cli --metrics: JSONL names {rows} != stdout tags {tags}")
+    spans = obs_trace.spans_from_chrome(obs_trace.load_chrome(tr))
+    print(f"cli faults: kill@3 -> SIGKILL, resumed from step 3; sigterm@3 "
+          f"drained and saved once; stall@2:3 restored by the watchdog; "
+          f"corrupt@2 fell back to step 1; {len(rows)} tag lines in the "
+          f"JSONL; {len(spans)} spans in a valid Chrome trace", flush=True)
 
 
 def main():
@@ -1967,6 +2344,15 @@ def main():
 
         phase("zero1 context")
         check_zero1_in_context(dev, mesh, batch_fn)
+
+        phase("durability")
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            by_path["durability"] = run_durability(dev, mesh, batch_fn, tmp)
+        # torch.use_deterministic_algorithms leaves a reference cycle
+        # through the phase's frame (an import's traceback); free its states
+        # before the later phases read their peak memory
+        gc.collect()
     finally:
         mesh.destroy()
 

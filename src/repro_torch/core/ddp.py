@@ -23,6 +23,11 @@ parallel). The sharded rungs (zero1, zero2, zero3) stop each bucket's
 collective at the reduce-scatter and gather the params back
 (``all_gather_params``, or per group inside the forward for ZeRO-3,
 ``jit_gather_params``).
+
+``tracer`` (``obs.trace.Tracer``) stamps each bucket's collective as the
+reference's probes name it: ``ar[b<i>]`` (all-reduce), ``rs[b<i>]``
+(reduce-scatter), ``ag[b<i>]`` (param all-gather) and, under zero3,
+``ag[g<i>]`` (a group's just-in-time gather). ``None`` stamps nothing.
 """
 from __future__ import annotations
 
@@ -32,12 +37,14 @@ import torch
 
 from repro_torch.comm import primitives as prim
 from repro_torch.core import bucketing
+from repro_torch.obs.trace import mark
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 
 def allreduce_grads(grads, *, strategy: str, axes: Sequence,
                     plan: "bucketing.BucketPlan",
-                    comm_dtype=torch.bfloat16, use_kernel: bool = False):
+                    comm_dtype=torch.bfloat16, use_kernel: bool = False,
+                    tracer=None):
     """Reduce-mean gradients over the data-parallel axes after the
     backward. ``comm_dtype`` is the wire dtype (paper §IV: bf16);
     ``use_kernel`` runs the ring folds through K3. Returns fp32
@@ -50,8 +57,11 @@ def allreduce_grads(grads, *, strategy: str, axes: Sequence,
                  copy=True), tuple(axes)).float() / n, grads)
     from repro_torch.comm import get_schedule
     schedule = get_schedule(strategy)
-    bufs = bucketing.pack(grads, plan, dtype=comm_dtype)
-    out = [schedule(buf, tuple(axes), use_kernel=use_kernel) for buf in bufs]
+    out = []
+    for b, buf in enumerate(bucketing.pack(grads, plan, dtype=comm_dtype)):
+        mark(tracer, f"ar[b{b}]", "B", [buf], bucket=b)
+        out.append(schedule(buf, tuple(axes), use_kernel=use_kernel))
+        mark(tracer, f"ar[b{b}]", "E", [out[-1]], bucket=b)
     red = bucketing.unpack(out, plan, dtype=torch.float32)
     return tree_map(lambda g: g / n, red)
 
@@ -70,7 +80,10 @@ class _BucketIdentity(torch.autograd.Function):
     def backward(ctx, *gs):
         spec = ctx.spec
         slots, axes = spec["slots"], spec["axes"]
+        tracer, gi = spec["tracer"], spec["gi"]
         n = prim.axes_size(axes)
+        name = f"{'rs' if spec['sink'] else 'ar'}[b{gi}]"
+        mark(tracer, name, "B", gs, bucket=gi)
         buf = bucketing.pack_group(gs, slots, dtype=spec["comm_dtype"])
         if spec["sink"]:
             # reduce-scatter: the reduced-mean fp32 local shard is the
@@ -79,10 +92,12 @@ class _BucketIdentity(torch.autograd.Function):
             # still need the raw gradient to pack their own span)
             shard = spec["fn"](buf, axes, use_kernel=spec["use_kernel"])
             shard = shard.float() / n
+            mark(tracer, name, "E", [shard], bucket=gi)
             outs = tuple(torch.zeros_like(g) if fin else g
                          for g, fin in zip(gs, spec["finals"]))
             return (None,) + outs + (shard,)
         buf = spec["fn"](buf, axes, use_kernel=spec["use_kernel"])
+        mark(tracer, name, "E", [buf], bucket=gi)
         pieces = bucketing.unpack_group(buf, slots, dtype=torch.float32)
         outs = []
         for slot, g, piece in zip(slots, gs, pieces):
@@ -142,7 +157,8 @@ def make_shard_sinks(plan: "bucketing.BucketPlan", n_shards: int, *,
 def wrap_params_for_overlap(params, plan: "bucketing.BucketPlan", *,
                             strategy: str, axes: Sequence,
                             comm_dtype=torch.bfloat16,
-                            use_kernel: bool = False, shard_sinks=None):
+                            use_kernel: bool = False, shard_sinks=None,
+                            tracer=None):
     """Overlap-aware bucket scheduling (paper §III-C.2): ``params`` with
     each bucket group's leaves routed through an identity whose backward
     performs that bucket's collective. Differentiating a loss of the
@@ -164,7 +180,8 @@ def wrap_params_for_overlap(params, plan: "bucketing.BucketPlan", *,
         def shard_spec(gi, group):
             return {"slots": group, "axes": axes, "fn": rs, "sink": True,
                     "comm_dtype": comm_dtype, "use_kernel": use_kernel,
-                    "finals": tuple(final_map[id(s)] for s in group)}
+                    "finals": tuple(final_map[id(s)] for s in group),
+                    "tracer": tracer, "gi": gi}
 
         return _wrap_param_groups(params, plan, shard_spec,
                                   extras=shard_sinks)
@@ -174,7 +191,8 @@ def wrap_params_for_overlap(params, plan: "bucketing.BucketPlan", *,
         params, plan,
         lambda gi, group: {"slots": group, "axes": axes, "fn": schedule,
                            "sink": False, "comm_dtype": comm_dtype,
-                           "use_kernel": use_kernel})
+                           "use_kernel": use_kernel, "tracer": tracer,
+                           "gi": gi})
 
 
 # --------------------------------------------------------------------------
@@ -182,7 +200,8 @@ def wrap_params_for_overlap(params, plan: "bucketing.BucketPlan", *,
 
 def reduce_scatter_grads(grads, *, strategy: str, axes: Sequence,
                          plan: "bucketing.BucketPlan",
-                         comm_dtype=torch.bfloat16, use_kernel: bool = False):
+                         comm_dtype=torch.bfloat16, use_kernel: bool = False,
+                         tracer=None):
     """POST-backward scatter (``CommConfig.overlap=False``): pack the
     gradients into the bucket plan and stop each bucket's collective at
     the reduce-scatter. Returns one fp32 reduced-MEAN shard per bucket,
@@ -190,37 +209,45 @@ def reduce_scatter_grads(grads, *, strategy: str, axes: Sequence,
     from repro_torch.comm import get_reduce_scatter
     rs = get_reduce_scatter(strategy)
     n = prim.axes_size(axes)
-    return [rs(buf, tuple(axes), use_kernel=use_kernel).float() / n
-            for buf in bucketing.pack(grads, plan, dtype=comm_dtype)]
+    out = []
+    for b, buf in enumerate(bucketing.pack(grads, plan, dtype=comm_dtype)):
+        mark(tracer, f"rs[b{b}]", "B", [buf], bucket=b)
+        out.append(rs(buf, tuple(axes), use_kernel=use_kernel).float() / n)
+        mark(tracer, f"rs[b{b}]", "E", [out[-1]], bucket=b)
+    return out
 
 
 def all_gather_params(param_shards, plan: "bucketing.BucketPlan", *,
-                      shard_axis, wire_dtype=torch.bfloat16):
+                      shard_axis, wire_dtype=torch.bfloat16, tracer=None):
     """Gather phase: cast each fp32 master shard to the wire dtype once,
     ring all-gather along the shard axis, and unpack into the full fp32
     param tree (one collective per bucket)."""
     # a copy even where the wire dtype is the masters' (f32 wire, one
     # rank): the update writes the shards in place, and the gathered
     # forward copy must not follow it
-    bufs = [prim.ring_all_gather(shard.to(wire_dtype, copy=True), shard_axis,
-                                 plan.bucket_sizes[b])
-            for b, shard in enumerate(param_shards)]
+    bufs = []
+    for b, shard in enumerate(param_shards):
+        wire = shard.to(wire_dtype, copy=True)
+        mark(tracer, f"ag[b{b}]", "B", [wire], bucket=b)
+        bufs.append(prim.ring_all_gather(wire, shard_axis,
+                                         plan.bucket_sizes[b]))
+        mark(tracer, f"ag[b{b}]", "E", [bufs[-1]], bucket=b)
     return bucketing.unpack(bufs, plan, dtype=torch.float32)
 
 
 def gather_ahead_params(shards, plan: "bucketing.BucketPlan", *,
-                        shard_axis, wire_dtype=torch.bfloat16):
+                        shard_axis, wire_dtype=torch.bfloat16, tracer=None):
     """Gather-AHEAD: rebuild this step's forward params from the persistent
     master shards (``TrainState.shards``, updated by the previous step) at
     the START of the step. Same collectives as ``all_gather_params``; only
     when it runs differs. The fp32 masters never round-trip through the
     wire dtype: only this forward copy is quantised."""
     return all_gather_params(shards, plan, shard_axis=shard_axis,
-                             wire_dtype=wire_dtype)
+                             wire_dtype=wire_dtype, tracer=tracer)
 
 
 def jit_gather_params(shards, plan: "bucketing.BucketPlan", *, shard_axis,
-                      wire_dtype=torch.bfloat16):
+                      wire_dtype=torch.bfloat16, tracer=None):
     """ZeRO-3's gather: the forward's fp32 param tree rebuilt from the
     master shards group by group (one ring all-gather a bucket group, each
     unpacked into its own leaves at once), called INSIDE the step's
@@ -229,7 +256,9 @@ def jit_gather_params(shards, plan: "bucketing.BucketPlan", *, shard_axis,
     vals = []
     for gi, group in enumerate(plan.groups):
         wire = shards[gi].to(wire_dtype, copy=True)
+        mark(tracer, f"ag[g{gi}]", "B", [wire], bucket=gi)
         buf = prim.ring_all_gather(wire, shard_axis, plan.bucket_sizes[gi])
+        mark(tracer, f"ag[g{gi}]", "E", [buf], bucket=gi)
         vals.extend(bucketing.unpack_group(buf, group, dtype=torch.float32))
     # the groups concatenate back to plan.slots order
     leaves, pieces = [], []

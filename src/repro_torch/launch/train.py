@@ -11,12 +11,26 @@ Example:
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
       --arch resnet50 --reduced --batch 8 --steps 2 --comm ring \\
       --sharding zero1 --device cpu        # ZeRO-1 on two gloo ranks
+  PYTHONPATH=src python -m repro_torch.launch.train --arch resnet50 \\
+      --reduced --batch 8 --steps 6 --device cpu --comm psum \\
+      --sharding zero1 --ckpt-dir /tmp/ck --ckpt-every 1 --guard \\
+      --inject-fault nan@2 --metrics m.jsonl --trace t.json
+  PYTHONPATH=src python -m repro_torch.launch.train ... --ckpt-dir /tmp/ck \\
+      --resume-elastic                     # resume from the newest tag
 
 An explicit schedule (``--comm naive|psum|bucketed|ring|hierarchical|
 2d_torus|dbtree``) runs over the ``(data, model=1)`` mesh of every rank of
 the job (``launch.mesh``: NCCL on the card, gloo on the CPU; one process
 without ``torchrun``); ``--sharding zero1|zero2|zero3`` picks the rung.
 As in the reference, there is no flag for the ``(pod, data)`` mesh.
+
+Durability and observability (the reference's flags and defaults):
+checkpoints (``--ckpt-dir``, ``--ckpt-every``, ``--keep-last-k``),
+``--resume-elastic`` (the saved CommPlan drives the packing layout; n→m
+shards), the step watchdog (``--step-timeout-s``, ``--max-step-retries``),
+``--inject-fault``, the numerical guard (``--guard``, ``--rollback-ring``,
+``--rollback-every``, ``--rewarmup-steps``), ``--trace`` (Chrome JSON) and
+``--metrics`` (JSONL mirror of the tag stream).
 
 The reference's flags for parts not ported yet are accepted by name and
 exit with the ROADMAP item that will bring them.
@@ -36,7 +50,13 @@ from repro_torch.core.schedule import ScheduleConfig, linear_scaled_lr, \
 from repro_torch.data.synthetic import make_batch_fn
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models.registry import build_model
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import loop
+from repro_torch.train.faults import FaultInjector, FaultSpecError, \
+    parse_faults
+from repro_torch.train.guard import GuardConfig
 from repro_torch.train.state import init_state, sharded_state_kwargs
 from repro_torch.train.step import make_eval_step, make_train_step
 
@@ -44,15 +64,12 @@ from repro_torch.train.step import make_eval_step, make_train_step
 SCHEDULES = ("naive", "bucketed", "psum", "ring", "hierarchical",
              "2d_torus", "dbtree")
 
+WHERE = "repro_torch/launch/train.py"
+
 #: reference flag -> ROADMAP §1 item that ports it
 _NOT_PORTED = {
     "--model-parallel": 6, "--backward-profile": 7,
     "--shard-update": 7, "--no-gather-ahead": 7,
-    "--ckpt-dir": 8, "--ckpt-every": 8, "--resume-elastic": 8,
-    "--keep-last-k": 8, "--step-timeout-s": 8, "--max-step-retries": 8,
-    "--inject-fault": 8, "--guard": 8, "--rollback-ring": 8,
-    "--rollback-every": 8, "--rewarmup-steps": 8, "--trace": 8,
-    "--metrics": 8,
 }
 
 
@@ -108,6 +125,50 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device; default: the CUDA card (the run "
                          "fails without one unless --device cpu is given)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--resume-elastic", action="store_true",
+                    help="resume from --ckpt-dir onto THIS mesh, resharding "
+                         "the ZeRO masters/momentum n->m if the rank count "
+                         "changed; the saved CommPlan drives the packing "
+                         "layout")
+    ap.add_argument("--keep-last-k", type=int, default=0, metavar="K",
+                    help="retention: prune step-tagged checkpoints beyond "
+                         "the newest K (0 = keep everything)")
+    ap.add_argument("--step-timeout-s", type=float, default=0.0,
+                    help="step watchdog budget: a step exceeding this is "
+                         "abandoned, the last good checkpoint restored, "
+                         "and the step retried with backoff (0 = off; each "
+                         "step then runs on a copy of the state)")
+    ap.add_argument("--max-step-retries", type=int, default=3)
+    ap.add_argument("--inject-fault", default=None, metavar="SPEC",
+                    help="fault injection (train/faults.py): comma-separated "
+                         "kind@step[:arg] — e.g. kill@7, sigterm@5, "
+                         "stall@3:2.5, corrupt@4:manifest, nan@3, spike@6:50")
+    ap.add_argument("--guard", action="store_true",
+                    help="numerical-integrity guard (train/guard.py): NaN "
+                         "sentinel with skip-update, divergence detector, "
+                         "in-memory rollback ring escalating to checkpoint "
+                         "restore")
+    ap.add_argument("--rollback-ring", type=int, default=2, metavar="N",
+                    help="guard rollback ring capacity: N snapshots of the "
+                         "state (device copies; 0 = skip straight to "
+                         "checkpoint restore)")
+    ap.add_argument("--rollback-every", type=int, default=1, metavar="K",
+                    help="guard snapshot cadence in steps")
+    ap.add_argument("--rewarmup-steps", type=int, default=0, metavar="R",
+                    help="LR re-warmup window after a guard recovery, "
+                         "composed with the run schedule (0 = off, the "
+                         "trajectory-preserving setting)")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="attach the step-timeline tracer and write a "
+                         "Chrome-trace JSON (chrome://tracing / Perfetto) "
+                         "at exit; scoring the traced comm spans against "
+                         "the CommPlan's prediction waits for the cost "
+                         "model (ROADMAP §1 item 7b)")
+    ap.add_argument("--metrics", default=None, metavar="OUT.jsonl",
+                    help="mirror every metrics event (the MLPerf tag "
+                         "stream + obs.* rows) to a JSONL file")
     for flag in _NOT_PORTED:
         ap.add_argument(flag, nargs="?", const=True, default=None,
                         help=argparse.SUPPRESS)
@@ -133,22 +194,44 @@ def main(argv=None):
                  f"the explicit schedules do not accumulate. The reference's "
                  f"explicit path never reads grad_accum and silently trains "
                  f"at the full per-rank batch; the port refuses instead")
+    if args.resume_elastic and not args.ckpt_dir:
+        ap.error("--resume-elastic needs --ckpt-dir")
+    try:
+        faults = parse_faults(args.inject_fault)
+    except FaultSpecError as e:
+        ap.error(str(e))
+    if any(f.kind == "spike" for f in faults) and not args.guard:
+        ap.error("spike@s:mag rides in through the guarded step's "
+                 "loss_scale input — add --guard")
     return _run(args)
 
 
 def _run(args):
+    reg = obs_metrics.default_registry()
+    sink = (reg.add_sink(obs_metrics.JsonlSink(args.metrics))
+            if args.metrics else None)
+    saved_plan = None
+    if args.resume_elastic:
+        try:
+            saved_plan = ckpt.load_comm_plan(args.ckpt_dir)
+        except ckpt.CheckpointError:
+            saved_plan = None        # a replicated run: plain restore
     mesh = None
-    if args.comm != "xla":
-        from repro_torch.launch.mesh import make_local_mesh
-        mesh = make_local_mesh(device=args.device)
     try:
-        return _train(args, mesh)
+        schedule = saved_plan.schedule if saved_plan is not None \
+            else args.comm
+        if schedule != "xla":
+            from repro_torch.launch.mesh import make_local_mesh
+            mesh = make_local_mesh(device=args.device)
+        return _train(args, mesh, reg, saved_plan)
     finally:
         if mesh is not None:
             mesh.destroy()
+        if sink is not None:
+            reg.remove_sink(sink)
 
 
-def _train(args, mesh):
+def _train(args, mesh, reg, saved_plan):
     device = mesh.device if mesh is not None else resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -169,16 +252,61 @@ def _train(args, mesh):
                       overlap=not args.no_overlap,
                       update_kernel=args.update_kernel,
                       sharding=args.sharding, gather=args.gather)
+    if saved_plan is not None:
+        # the committed plan wins over the CLI's comm flags: the resumed
+        # run keeps the checkpoint's packing semantics
+        comm = saved_plan.comm_config(reautotune=True)
+        reg.event(
+            "elastic_resume_plan",
+            f"resuming elastically from {args.ckpt_dir}: CommPlan "
+            f"schedule={saved_plan.schedule} "
+            f"bucket={saved_plan.bucket_mb:g}MB "
+            f"(requested {saved_plan.requested_bucket_mb!r}), saved on mesh "
+            f"{dict(zip(saved_plan.mesh_axes, saved_plan.mesh_sizes))} "
+            f"with n_shards={saved_plan.n_shards}", where=WHERE)
+    guard_cfg = None
+    if args.guard:
+        guard_cfg = GuardConfig(ring_capacity=args.rollback_ring,
+                                snapshot_every=max(args.rollback_every, 1),
+                                rewarmup_steps=args.rewarmup_steps)
+        reg.event("guard_armed",
+                  f"numerical guard on: ring={args.rollback_ring} "
+                  f"snapshots every {max(args.rollback_every, 1)} step(s), "
+                  f"rewarmup={args.rewarmup_steps}", where=WHERE)
+    tracer = obs_trace.Tracer() if args.trace else None
     train_step = make_train_step(model, opt, sched, smoothing=args.smoothing,
                                  mesh=mesh, comm=comm,
-                                 grad_accum=args.grad_accum)
+                                 grad_accum=args.grad_accum, tracer=tracer,
+                                 guard=args.guard)
     eval_step = make_eval_step(model) if args.eval_every else None
     state = init_state(model, args.seed, device=device,
                        opt_kind=args.optimizer,
                        **sharded_state_kwargs(train_step))
+    if args.resume_elastic:
+        from repro_torch.train import elastic
+        new_n = getattr(train_step, "n_shards", 1) \
+            if train_step.sharding != "replicated" else 1
+        state = elastic.load_resharded(
+            args.ckpt_dir, state, getattr(train_step, "bucket_plan", None),
+            new_n, old_comm_plan=saved_plan, mesh=mesh)
+        old_n = saved_plan.n_shards if saved_plan is not None else 1
+        reg.event("elastic_resume",
+                  f"elastic resume: restored step {int(state.step)}, "
+                  f"resharded {old_n} -> {new_n} shards", where=WHERE)
     state, history = loop.train(
         state, train_step, batch_fn, steps=args.steps, eval_step=eval_step,
-        eval_batch_fn=batch_fn, eval_every=args.eval_every, seed=args.seed)
+        eval_batch_fn=batch_fn, eval_every=args.eval_every, seed=args.seed,
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        keep_last_k=args.keep_last_k, step_timeout_s=args.step_timeout_s,
+        max_step_retries=args.max_step_retries,
+        comm_plan=getattr(train_step, "comm_plan", None),
+        faults=FaultInjector(parse_faults(args.inject_fault)),
+        tracer=tracer, guard=guard_cfg)
+    if tracer is not None:
+        path = obs_trace.export_chrome(tracer, args.trace)
+        reg.event("trace_written",
+                  {"path": path, "steps": len(tracer.steps),
+                   "spans": len(tracer.spans())}, where=WHERE)
     if args.history_out:
         with open(args.history_out, "w") as f:
             json.dump(history, f, indent=1)

@@ -31,9 +31,17 @@ distribution paths:
   default). Batch statistics stay per rank; the BN buffers and the
   metrics are averaged over ranks.
 
+``guard=True`` arms the numerical-integrity sentinel (``train/guard.py``)
+on every path: the step takes ``(state, batch, guard_in)`` and, before it
+writes anything, counts the nonfinite entries of the loss and the reduced
+gradient; a bad step returns its input state untouched (no norm or update
+kernel launched) with ``skipped`` 1. ``tracer`` (``obs.trace.Tracer``)
+stamps the explicit steps' ``forward``/``backward``/``update`` spans and
+each bucket's collective. Both off (the defaults) leave the step as it
+was.
+
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item:
-the bucket autotuner (§1 item 7), the guard and the tracer (item 8), the
-explicit-DP LM step (item 10).
+the bucket autotuner (§1 item 7b), the explicit-DP LM step (item 10).
 """
 from __future__ import annotations
 
@@ -47,6 +55,8 @@ from repro_torch.core.label_smoothing import IGNORE, smoothed_xent, \
 from repro_torch.core.precision import cast_to_compute
 from repro_torch.kernels import ops
 from repro_torch.models.resnet import resnet_forward
+from repro_torch.obs.trace import mark
+from repro_torch.train import guard as guard_lib
 from repro_torch.train.state import TrainState
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -110,23 +120,26 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
     consumed. Full params are read through
     ``train.loop.make_params_reader``.
 
-    Metrics are 0-d tensors on the batch's device; ``lr`` a 0-d f32 CPU
-    tensor."""
+    ``guard=True`` returns ``train_step(state, batch, guard_in)`` with
+    ``guard_in = {'lr_scale', 'loss_scale'}`` (``guard.neutral_inputs()``
+    on the happy path); its metrics gain ``gnorm``, ``nonfinite`` and
+    ``skipped``, and a skipped step returns the input state. ``tracer``
+    stamps the explicit steps' spans. The step carries ``.guarded``.
+
+    Metrics are 0-d tensors on the batch's device; ``lr`` and the guard's
+    rows 0-d f32 CPU tensors."""
     comm_cfg = comm if isinstance(comm, CommConfig) else CommConfig(
         strategy=comm, bucket_mb=bucket_mb, wire_dtype=comm_dtype)
     if model.cfg.family != "conv" and comm_cfg.strategy != "xla":
         raise _not_ported(f"the explicit-DP LM step ({model.cfg.arch_id}, "
                           f"comm={comm_cfg.strategy!r})", 10)
-    if guard:
-        raise _not_ported("guard=True", 8)
-    if tracer is not None:
-        raise _not_ported("the step tracer", 8)
     if comm_cfg.wire_dtype not in ("bf16", "f32"):
         raise ValueError(comm_cfg.wire_dtype)
     loss_fn = make_loss_fn(model, smoothing=smoothing)
     if comm_cfg.strategy != "xla":
-        return _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg,
-                              mesh, grad_accum)
+        return _guarded(_explicit_step(model, opt_cfg, schedule, loss_fn,
+                                       comm_cfg, mesh, grad_accum, tracer),
+                        guard)
     if comm_cfg.sharding != "replicated":
         raise ValueError(
             f"sharding={comm_cfg.sharding!r} needs an explicit-DP schedule "
@@ -135,17 +148,19 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
         raise _not_ported("comm='xla' over a multi-device mesh", 6)
     bf16 = comm_cfg.wire_dtype == "bf16"
 
-    def grads_of(p_in, batch, bn_state):
+    def grads_of(p_in, batch, bn_state, lfn):
         flat = tree_flatten(p_in)
-        total, (metrics, new_bn) = loss_fn(p_in, batch, bn_state)
+        total, (metrics, new_bn) = lfn(p_in, batch, bn_state)
         grads = torch.autograd.grad(total, [leaf for _, leaf in flat])
         return tree_unflatten([p for p, _ in flat], grads), metrics, new_bn
 
-    def train_step(state: TrainState, batch):
+    def train_step(state: TrainState, batch, guard_in=None):
+        lfn = _loss_for(loss_fn, guard_in)
         p_in = cast_to_compute(state.params) if bf16 else state.params
         p_in = tree_map(lambda p: p.detach().requires_grad_(), p_in)
         if grad_accum == 1:
-            grads, metrics, new_bn = grads_of(p_in, batch, state.bn_state)
+            grads, metrics, new_bn = grads_of(p_in, batch, state.bn_state,
+                                              lfn)
         else:
             # the paper's 81,920 global batch on fewer chips: microbatches
             micro = {k: v.reshape(grad_accum, v.shape[0] // grad_accum,
@@ -153,31 +168,65 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
             grads, new_bn, ms = None, state.bn_state, []
             for i in range(grad_accum):
                 g, m, new_bn = grads_of(
-                    p_in, {k: v[i] for k, v in micro.items()}, new_bn)
+                    p_in, {k: v[i] for k, v in micro.items()}, new_bn, lfn)
                 g = tree_map(lambda x: x.float(), g)
                 grads = g if grads is None else tree_map(torch.add, grads, g)
                 ms.append(m)
             grads = tree_map(lambda g: g / grad_accum, grads)
             metrics = {k: torch.stack([m[k] for m in ms]).mean()
                        for k in ms[0]}
-        lr = schedule(state.step)
+        lr = _lr(schedule, state, guard_in)
+        if guard_in is not None:
+            ok, metrics = guard_lib.check(metrics, grads)
+            if not ok:
+                return state, dict(metrics, lr=lr)
         params, mom = lars.update(state.params, grads, state.mom, lr,
                                   opt_cfg)
         metrics = dict(metrics, lr=lr)
         return TrainState(state.step + 1, params, mom, new_bn), metrics
 
     train_step.sharding = "replicated"
-    train_step.guarded = False
+    return _guarded(train_step, guard)
+
+
+def _loss_for(loss_fn, guard_in):
+    """The loss a guarded step differentiates (scaled by ``loss_scale``:
+    the spike fault), or ``loss_fn`` itself."""
+    if guard_in is None:
+        return loss_fn
+    return guard_lib.scale_loss(loss_fn, float(guard_in["loss_scale"]))
+
+
+def _lr(schedule, state, guard_in):
+    lr = schedule(state.step)
+    if guard_in is not None:
+        lr = lr * torch.tensor(guard_in["lr_scale"], dtype=torch.float32)
+    return lr
+
+
+def _guarded(step, guard: bool):
+    """``step`` as the caller asked for it: ``guard=True`` takes a
+    ``guard_in`` argument it must be given; the introspection attributes
+    are carried over."""
+    if guard:
+        def train_step(state: TrainState, batch, guard_in):
+            return step(state, batch, guard_in)
+    else:
+        def train_step(state: TrainState, batch):
+            return step(state, batch)
+    train_step.__dict__.update(step.__dict__)
+    train_step.guarded = guard
     return train_step
 
 
 def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
-                   grad_accum):
+                   grad_accum, tracer):
     """The explicit data-parallel step (paper §III-C): replicated or one of
     the sharded rungs, over ``mesh``'s axes (every axis is data
-    parallel)."""
-    from repro_torch.comm import get_schedule, shard_axis_size
+    parallel). Takes ``guard_in`` (None: unguarded)."""
+    from repro_torch.comm import get_schedule, plan_for
     from repro_torch.comm import primitives as prim
+    from repro_torch.comm.schedules import shard_axis
     comm = comm_cfg.strategy
     if comm != "naive":
         get_schedule(comm)                # unknown names raise here
@@ -198,9 +247,8 @@ def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
                          f"without nesterov, not {opt_cfg.kind!r}")
     axes = mesh.axes
     # shard over the innermost non-trivial axis, as the scatter schedules
-    name, n_shards = shard_axis_size(mesh.axis_names,
-                                     [a.size for a in axes])
-    sh_axis = mesh.axis(name)
+    sh_axis = shard_axis(axes)
+    n_shards = sh_axis.size
     gather_mode = comm_cfg.gather if shard_update else "at_end"
     # the step-start prefetch is a zero1 notion; zero3's 'ahead' keeps the
     # forward's gathers for the backward
@@ -211,19 +259,32 @@ def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
                                dtype_bytes=2 if wire == torch.bfloat16
                                else 4)
     collective = dict(strategy=comm, axes=axes, comm_dtype=wire,
-                      use_kernel=comm_cfg.use_kernel)
+                      use_kernel=comm_cfg.use_kernel, tracer=tracer)
     paths = plan.paths
 
-    def grads_of(params, batch, bn_state):
+    def stamp(name, phase, deps):
+        mark(tracer, name, phase, deps, cat="compute")
+
+    def differentiate(lfn, wrt, *args):
+        """``lfn(*args)`` and its gradient with respect to ``wrt``, with
+        the forward and backward spans stamped between them."""
+        stamp("forward", "B", wrt[:1])
+        total, (metrics, new_bn) = lfn(*args)
+        stamp("forward", "E", [total])
+        stamp("backward", "B", [total])
+        grads = torch.autograd.grad(total, wrt)
+        stamp("backward", "E", grads[:1])
+        return grads, metrics, new_bn
+
+    def grads_of(params, batch, bn_state, lfn):
         """Local (unreduced) fp32 gradients, for the post-backward path."""
         leaves = [params_leaf.detach().requires_grad_()
                   for _, params_leaf in tree_flatten(params)]
-        p = tree_unflatten(paths, leaves)
-        total, (metrics, new_bn) = loss_fn(p, batch, bn_state)
-        return (tree_unflatten(paths, torch.autograd.grad(total, leaves)),
-                metrics, new_bn)
+        grads, metrics, new_bn = differentiate(
+            lfn, leaves, tree_unflatten(paths, leaves), batch, bn_state)
+        return tree_unflatten(paths, grads), metrics, new_bn
 
-    def scatter(params_of, batch, bn_state, remat=False):
+    def scatter(params_of, batch, bn_state, lfn, remat=False):
         """The gradient's reduce-scatter, of the loss at the params
         ``params_of()`` builds: inside the backward (the reduced-mean fp32
         shards come back as the gradients of zero sinks; the params are
@@ -232,47 +293,69 @@ def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
         so the backward builds the params again. Returns (g_shards,
         metrics, new_bn)."""
         if not overlap:
-            grads, metrics, new_bn = grads_of(params_of(), batch, bn_state)
+            grads, metrics, new_bn = grads_of(params_of(), batch, bn_state,
+                                              lfn)
             return (ddp.reduce_scatter_grads(grads, plan=plan, **collective),
                     metrics, new_bn)
 
         def loss(sinks, b, bn):
-            return loss_fn(ddp.wrap_params_for_overlap(
+            return lfn(ddp.wrap_params_for_overlap(
                 params_of(), plan, shard_sinks=sinks, **collective), b, bn)
 
         sinks = ddp.make_shard_sinks(plan, n_shards, device=mesh.device)
-        total, (metrics, new_bn) = (
-            checkpoint(loss, sinks, batch, bn_state, use_reentrant=False)
-            if remat else loss(sinks, batch, bn_state))
-        return list(torch.autograd.grad(total, sinks)), metrics, new_bn
+        fn = (lambda *a: checkpoint(loss, *a, use_reentrant=False)) \
+            if remat else loss
+        g_shards, metrics, new_bn = differentiate(fn, sinks, sinks, batch,
+                                                  bn_state)
+        return list(g_shards), metrics, new_bn
 
-    def finish(state, metrics, new_bn):
+    def gate(state, metrics, grads, lr, guard_in, sharded):
+        """The guard's decision, before any write: (metrics, the skipped
+        step's result or None to go on)."""
+        if guard_in is None:
+            return metrics, None
+        ok, metrics = guard_lib.check(metrics, grads,
+                                      axes=(sh_axis,) if sharded else None)
+        return metrics, None if ok else (state, dict(metrics, lr=lr))
+
+    def finish(state, metrics, new_bn, guard_in):
         new_bn = prim.pmean_tree(new_bn, axes) if new_bn is not None \
             else None
-        return prim.pmean_tree(metrics, axes), new_bn, schedule(state.step)
+        return (prim.pmean_tree(metrics, axes), new_bn,
+                _lr(schedule, state, guard_in))
 
     def update(state, p_shards, g_shards, lr):
-        return lars.sharded_update_from_shards(
+        stamp("update", "B", g_shards[:1])
+        out = lars.sharded_update_from_shards(
             list(p_shards), g_shards, list(state.mom), lr, opt_cfg, plan,
             shard_axis=sh_axis, n_shards=n_shards,
             update_kernel=comm_cfg.update_kernel)
+        stamp("update", "E", out[0][:1])
+        return out
 
-    def replicated_step(state: TrainState, batch):
+    def replicated_step(state: TrainState, batch, guard_in=None):
+        lfn = _loss_for(loss_fn, guard_in)
         if overlap:
             leaves = [x.detach().requires_grad_()
                       for _, x in tree_flatten(state.params)]
             p = ddp.wrap_params_for_overlap(tree_unflatten(paths, leaves),
                                             plan, **collective)
-            total, (metrics, new_bn) = loss_fn(p, batch, state.bn_state)
-            grads = tree_unflatten(paths,
-                                   torch.autograd.grad(total, leaves))
+            grads, metrics, new_bn = differentiate(lfn, leaves, p, batch,
+                                                   state.bn_state)
+            grads = tree_unflatten(paths, grads)
         else:
             grads, metrics, new_bn = grads_of(state.params, batch,
-                                              state.bn_state)
+                                              state.bn_state, lfn)
             grads = ddp.allreduce_grads(grads, plan=plan, **collective)
-        metrics, new_bn, lr = finish(state, metrics, new_bn)
+        metrics, new_bn, lr = finish(state, metrics, new_bn, guard_in)
+        metrics, skip = gate(state, metrics, grads, lr, guard_in, False)
+        if skip is not None:
+            return skip
+        first = tree_flatten(grads)[:1]
+        stamp("update", "B", [g for _, g in first])
         params, mom = lars.update(state.params, grads, state.mom, lr,
                                   opt_cfg)
+        stamp("update", "E", [g for _, g in first])
         return (TrainState(state.step + 1, params, mom, new_bn),
                 dict(metrics, lr=lr))
 
@@ -282,27 +365,31 @@ def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
                 f"sharding={sharding!r} needs the persistent-shard state: "
                 f"init_state(..., **train.state.sharded_state_kwargs(step))")
 
-    def zero1_step(state: TrainState, batch):
+    def zero1_step(state: TrainState, batch, guard_in=None):
         need_shards(state)
         # gather-ahead: this step's forward params from the master shards
         # the previous step updated; otherwise the copy gathered at the
         # end of the previous step
         params = (ddp.gather_ahead_params(state.shards, plan,
                                           shard_axis=sh_axis,
-                                          wire_dtype=wire)
+                                          wire_dtype=wire, tracer=tracer)
                   if gather_ahead else state.params)
         g_shards, metrics, new_bn = scatter(lambda: params, batch,
-                                            state.bn_state)
-        metrics, new_bn, lr = finish(state, metrics, new_bn)
+                                            state.bn_state,
+                                            _loss_for(loss_fn, guard_in))
+        metrics, new_bn, lr = finish(state, metrics, new_bn, guard_in)
+        metrics, skip = gate(state, metrics, g_shards, lr, guard_in, True)
+        if skip is not None:
+            return skip
         p_shards, m_shards = update(state, state.shards, g_shards, lr)
         new_params = (params if gather_ahead else
                       ddp.all_gather_params(p_shards, plan,
                                             shard_axis=sh_axis,
-                                            wire_dtype=wire))
+                                            wire_dtype=wire, tracer=tracer))
         return (TrainState(state.step + 1, new_params, m_shards, new_bn,
                            p_shards), dict(metrics, lr=lr))
 
-    def zero2_step(state: TrainState, batch):
+    def zero2_step(state: TrainState, batch, guard_in=None):
         # the replicated fp32 params ARE the masters (no shards, no
         # start-of-step gather); gradients and momentum shard as in zero1
         if state.params is None or state.shards is not None:
@@ -311,8 +398,12 @@ def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
                 "with sharded momentum and no shards: init_state(..., "
                 "**train.state.sharded_state_kwargs(step))")
         g_shards, metrics, new_bn = scatter(lambda: state.params, batch,
-                                            state.bn_state)
-        metrics, new_bn, lr = finish(state, metrics, new_bn)
+                                            state.bn_state,
+                                            _loss_for(loss_fn, guard_in))
+        metrics, new_bn, lr = finish(state, metrics, new_bn, guard_in)
+        metrics, skip = gate(state, metrics, g_shards, lr, guard_in, True)
+        if skip is not None:
+            return skip
         # transient master shards: this rank's ring chunk of each packed
         # bucket (the chunk its reduce-scatter left here)
         k = prim.shard_index(sh_axis)
@@ -325,11 +416,12 @@ def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
         # fp32 on the wire: this gather writes the masters back
         new_params = ddp.all_gather_params(p_shards, plan,
                                            shard_axis=sh_axis,
-                                           wire_dtype=torch.float32)
+                                           wire_dtype=torch.float32,
+                                           tracer=tracer)
         return (TrainState(state.step + 1, new_params, m_shards, new_bn),
                 dict(metrics, lr=lr))
 
-    def zero3_step(state: TrainState, batch):
+    def zero3_step(state: TrainState, batch, guard_in=None):
         # no params anywhere: the forward rebuilds them from the master
         # shards group by group; with gather='per_group' the gathered loss
         # is checkpointed, so the backward gathers again instead of
@@ -340,9 +432,13 @@ def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
         g_shards, metrics, new_bn = scatter(
             lambda: ddp.jit_gather_params(state.shards, plan,
                                           shard_axis=sh_axis,
-                                          wire_dtype=wire),
-            batch, state.bn_state, remat=gather_mode == "per_group")
-        metrics, new_bn, lr = finish(state, metrics, new_bn)
+                                          wire_dtype=wire, tracer=tracer),
+            batch, state.bn_state, _loss_for(loss_fn, guard_in),
+            remat=gather_mode == "per_group")
+        metrics, new_bn, lr = finish(state, metrics, new_bn, guard_in)
+        metrics, skip = gate(state, metrics, g_shards, lr, guard_in, True)
+        if skip is not None:
+            return skip
         p_shards, m_shards = update(state, state.shards, g_shards, lr)
         return (TrainState(state.step + 1, None, m_shards, new_bn,
                            p_shards), dict(metrics, lr=lr))
@@ -350,7 +446,6 @@ def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
     train_step = {"replicated": replicated_step, "zero1": zero1_step,
                   "zero2": zero2_step, "zero3": zero3_step}[sharding]
     # introspection: the resolved comm plan, as the reference's step has it
-    train_step.guarded = False
     train_step.comm = comm
     train_step.mesh = mesh
     train_step.bucket_plan = plan
@@ -363,6 +458,11 @@ def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
     train_step.gather_ahead = gather_ahead
     train_step.shard_axis = sh_axis.name
     train_step.n_shards = n_shards
+    # the serializable CommPlan, saved beside every checkpoint
+    train_step.comm_plan = plan_for(
+        comm_cfg, mesh, model.param_pd, strategy=comm, overlap=overlap,
+        sharding=sharding, gather=gather_mode,
+        n_shards=n_shards if shard_update else 1)
     return train_step
 
 

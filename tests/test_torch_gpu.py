@@ -770,3 +770,94 @@ def test_lm_train_step_on_card_runs_k4_and_k1(monkeypatch):
     for (p, a), (_, b) in zip(tree_flatten(got.params),
                               tree_flatten(want.params)):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), p
+
+
+def _zero1_on_card(guard):
+    """The reduced ZeRO-1 step with both kernels (K1 for the norms, K2 for
+    the update) on a one-rank NCCL group, and a fresh state for it."""
+    from repro_torch.configs.base import CommConfig
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import state as st
+    from repro_torch.train.step import make_train_step
+    _card()
+    mesh = make_local_mesh()
+    model = build_model(get_config("resnet50").reduced())
+    step = make_train_step(
+        model, lars.OptConfig(use_kernel=True), make_schedule(
+            ScheduleConfig(base_lr=0.5, total_steps=4)), mesh=mesh,
+        comm=CommConfig(strategy="psum", bucket_mb=0.25, sharding="zero1",
+                        update_kernel=True), guard=guard)
+    return mesh, model, step, lambda: st.init_state(
+        model, 0, device=mesh.device, **st.sharded_state_kwargs(step))
+
+
+def test_checkpoint_round_trip_on_the_card(tmp_path):
+    """A zero1 state after a step on the card saves and loads back bit for
+    bit, in new tensors on the card."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.train import checkpoint as ckpt
+    mesh, model, step, fresh = _zero1_on_card(False)
+    try:
+        batch = make_batch_fn(model.cfg, InputShape("t", "train", 0, 8),
+                              device=mesh.device, mesh=mesh)(0)
+        s, _ = step(fresh(), batch)
+        ckpt.save(s, str(tmp_path), tag="step00000001",
+                  comm_plan=step.comm_plan, mesh=mesh)
+        template = fresh()
+        back = ckpt.load(template, str(tmp_path), mesh=mesh)
+    finally:
+        mesh.destroy()
+    assert back.step == 1
+    for a, b, t in zip(back.shards + back.mom, s.shards + s.mom,
+                       template.shards + template.mom):
+        assert a.is_cuda and torch.equal(a, b)
+        assert a.data_ptr() != t.data_ptr()
+    for (p, a), (_, b) in zip(tree_flatten(back.params),
+                              tree_flatten(s.params)):
+        assert a.is_cuda and torch.equal(a, b), p
+    for (p, a), (_, b) in zip(tree_flatten(back.bn_state),
+                              tree_flatten(s.bn_state)):
+        assert torch.equal(a, b), p
+
+
+def test_skipped_step_launches_neither_norm_nor_update_kernel():
+    """The guard's gate comes before K1 and K2: a NaN batch's step
+    launches neither (the profiler's kernels and the wrappers' counts), a
+    clean step launches each once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.kernels import lars_update
+    from repro_torch.train import faults, guard
+    mesh, model, step, fresh = _zero1_on_card(True)
+    try:
+        batch = make_batch_fn(model.cfg, InputShape("t", "train", 0, 8),
+                              device=mesh.device, mesh=mesh)(0)
+        s = fresh()
+        step(s, batch, guard.neutral_inputs())           # warm up
+        counts = []
+        for b in (faults.poison_nan(batch), batch):
+            k1 = batched_norm.batched_sumsq.launches
+            k2 = lars_update.lars_packed_update.launches
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                s2, m = step(s, b, guard.neutral_inputs())
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()]
+            counts.append((
+                float(m["skipped"]),
+                sum("chunk_sumsq" in n for n in names),
+                sum("lars_update_multi" in n for n in names),
+                batched_norm.batched_sumsq.launches - k1,
+                lars_update.lars_packed_update.launches - k2))
+            if b is batch:
+                assert s2.step == s.step + 1
+            else:
+                assert s2 is s
+    finally:
+        mesh.destroy()
+    assert counts == [(1.0, 0, 0, 0, 0), (0.0, 1, 1, 1, 1)], counts

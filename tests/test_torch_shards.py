@@ -92,12 +92,17 @@ def test_shard_helpers_match_reference(reduced, bucket_mb, n_shards):
 
 
 def test_shard_axis_size_matches_reference():
+    """The port picks the shard axis with ``comm.schedules.shard_axis``
+    (``make_train_step``, ``comm.plan_for``), the reference's cost model
+    with ``shard_axis_size``: the same axis and size."""
     from repro.comm.cost import shard_axis_size as want
-    from repro_torch.comm import shard_axis_size as got
+    from repro_torch.comm.schedules import shard_axis
     for axes, sizes in ((("data", "model"), (8, 1)), (("data", "model"),
                                                       (1, 1)),
                         (("pod", "data"), (2, 4)), (("data",), (3,))):
-        assert got(axes, sizes) == want(axes, sizes)
+        got = shard_axis(tuple(Axis(a, s, 0, ()) for a, s in zip(axes,
+                                                                 sizes)))
+        assert (got.name, got.size) == want(axes, sizes)
 
 
 def test_rotation_matches_ring_ownership():

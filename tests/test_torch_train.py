@@ -159,9 +159,9 @@ def test_cli_flag_not_ported_names_roadmap(capsys):
     from repro_torch.launch import train as launch
     with pytest.raises(SystemExit) as exit_info:
         launch.main(["--arch", "resnet50", "--reduced", "--device", "cpu",
-                     "--comm", "ring", "--guard"])
+                     "--comm", "ring", "--model-parallel", "2"])
     assert exit_info.value.code != 0
-    assert "ROADMAP §1 item 8" in capsys.readouterr().err
+    assert "ROADMAP §1 item 6" in capsys.readouterr().err
 
 
 def test_cli_refuses_comm_xla_under_multi_rank_launch(capsys, monkeypatch):

@@ -284,8 +284,59 @@ def zero23_step(mesh):
                                          for c in ZERO23_CASES])
 
 
+def ckpt_zero1(mesh):
+    """Two ZeRO-1 steps (reduced ResNet-50, psum, 0.25 MB buckets: split
+    tensors, the fused update), then ``checkpoint.save(mesh=...)`` into
+    ``OUT_DIR/ckpt`` with the step's CommPlan, and a load back into a fresh
+    template: this rank's shard and momentum rows as ``shards/{b}`` and
+    ``mom/{b}``, and ``loaded_equal`` 1 if the load gave them back bit for
+    bit (params and BN state too)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import CommConfig
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import lars
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.state import init_state, sharded_state_kwargs
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_flatten
+    cfg = get_config("resnet50").reduced()
+    model = build_model(cfg)
+    step = make_train_step(model, lars.OptConfig(), make_schedule(
+        ScheduleConfig(base_lr=0.5, warmup_steps=1, total_steps=3)),
+        mesh=mesh, comm=CommConfig(strategy="psum", bucket_mb=0.25,
+                                   sharding="zero1", update_kernel=True))
+    kwargs = sharded_state_kwargs(step)
+    state = init_state(model, 0, device=mesh.device, **kwargs)
+    batch_fn = make_batch_fn(cfg, InputShape("t", "train", 0, 8),
+                             device=mesh.device, mesh=mesh)
+    for _ in range(2):
+        state, _ = step(state, batch_fn(state.step))
+    d = os.path.join(sys.argv[2], "ckpt")
+    ckpt.save(state, d, tag=ckpt.step_tag(2), comm_plan=step.comm_plan,
+              mesh=mesh)
+    back = ckpt.load(init_state(model, 1, device=mesh.device, **kwargs), d,
+                     mesh=mesh)
+    same = back.step == 2 and all(
+        torch.equal(a, b) for x, y in (
+            (back.shards, state.shards), (back.mom, state.mom),
+            ([v for _, v in tree_flatten(back.params)],
+             [v for _, v in tree_flatten(state.params)]),
+            ([v for _, v in tree_flatten(back.bn_state)],
+             [v for _, v in tree_flatten(state.bn_state)]))
+        for a, b in zip(x, y))
+    out = {"loaded_equal": np.int64(same)}
+    for field in ("shards", "mom"):
+        for b, row in enumerate(getattr(state, field)):
+            out[f"{field}/{b}"] = row.cpu().numpy()
+    return out
+
+
 SCENARIOS = {"schedules": schedules, "zero1_step": zero1_step,
-             "zero23_step": zero23_step}
+             "zero23_step": zero23_step, "ckpt_zero1": ckpt_zero1}
 
 
 def main(scenario: str, out_dir: str, device: str = "cpu"):

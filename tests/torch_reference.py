@@ -16,12 +16,15 @@ to an ``.npz`` of ``kind/path`` keys.
   python tests/torch_reference.py attention_cases OUT.npz
   python tests/torch_reference.py lm_cases OUT.npz
   python tests/torch_reference.py lm_train_steps OUT.npz
+  python tests/torch_reference.py guard_zero1_run OUT.npz
+  python tests/torch_reference.py traced_zero1_step OUT.npz
 
 The reference's explicit data-parallel steps fail under jax 0.9.0 before
 they compute anything: ``repro/core/compat.py`` passes ``check_rep=`` to
 ``jax.shard_map``, which now takes ``check_vma=``, and ``jax.make_mesh``
 now makes Explicit axes, which the step's sharding constraints reject.
-``zero1_steps`` and ``zero23_steps`` route around both without touching
+``zero1_steps``, ``zero23_steps``, ``guard_zero1_run`` and
+``traced_zero1_step`` route around both without touching
 ``src/repro``: each replaces ``compat.shard_map`` in its own process with
 a shim that calls ``jax.shard_map(..., check_vma=False)``, builds an
 Auto-axis mesh, and feeds numpy batches (no mesh-bound batch function).
@@ -260,17 +263,131 @@ def zero1_steps():
             s2, m = jstep(s, batch)
             pre = f"o{overlap}u{kernel}/s{k}"
             for io, x in (("in", s), ("out", s2)):
-                x = jax.device_get(x)
-                out[f"{pre}/{io}/step"] = np.asarray(x.step)
-                _flat(f"{pre}/{io}/params", x.params, out)
-                _flat(f"{pre}/{io}/bn_state", x.bn_state, out)
-                for name in ("shards", "mom"):
-                    for b, buf in enumerate(getattr(x, name)):
-                        out[f"{pre}/{io}/{name}/{b}"] = np.asarray(buf)
+                _zero1_state(f"{pre}/{io}", jax.device_get(x), out)
             _flat(f"{pre}/batch", batch, out)
             _flat(f"{pre}/metrics", jax.device_get(m), out)
             s = s2
     return out
+
+
+#: the guarded ZeRO-1 run: ``ZERO1_COMM`` with the plain update, a
+#: schedule that moves the params on every step, and a NaN batch at step 2
+GUARD_LR = dict(base_lr=0.5, warmup_steps=1, total_steps=6, decay="poly2")
+GUARD_STEPS = 4
+GUARD_FAULTS = "nan@2"
+
+
+def _zero1_setup(guard=False, tracer=None):
+    """The reduced-ResNet ZeRO-1 step of ``ZERO1_COMM`` (plain update) on a
+    (1, 1) Auto-axis mesh under the shard_map shim, and its initial state
+    from ``_init``: (cfg, step, state)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import AxisType, NamedSharding
+    from jax.sharding import PartitionSpec as P
+    from repro.configs import get_config
+    from repro.configs.base import CommConfig
+    from repro.core import lars
+    from repro.core.schedule import ScheduleConfig, make_schedule
+    from repro.models.registry import build_model
+    from repro.train import state as st
+    from repro.train.step import make_train_step
+
+    _shard_map_shim()
+    cfg = get_config("resnet50").reduced()
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    step = make_train_step(
+        build_model(cfg), lars.OptConfig(kind="lars"),
+        make_schedule(ScheduleConfig(**GUARD_LR)), mesh=mesh,
+        comm=CommConfig(**ZERO1_COMM), guard=guard, tracer=tracer)
+    params, bn = _init(cfg)
+    plan = step.bucket_plan
+    s = st.TrainState(jnp.zeros((), jnp.int32), params,
+                      st.init_packed_momentum(plan, 1), bn,
+                      st.init_packed_shards(params, plan, 1))
+    # placed as the step's outputs are, so step 2 reuses step 1's compile
+    return cfg, step, jax.device_put(s, NamedSharding(mesh, P()))
+
+
+def guard_zero1_run():
+    """The guarded ZeRO-1 step through the reference's ``loop.train`` for
+    ``GUARD_STEPS`` steps with ``GUARD_FAULTS``: every step call the loop
+    made (``call{k}/``: its input state, the batch as the step got it,
+    poisoned or not, its output state and metrics; shards and momentum as
+    ``shards/{bucket}``, ``mom/{bucket}``), the final masters
+    (``masters/...``), the loop's history rows (``history``: step, loss,
+    gnorm, skipped, guard_skip) and the names of the events it emitted, in
+    order (``events``). The calls are recorded around the loop's own jitted
+    step, so the loop runs as it is."""
+    import types
+
+    import jax
+    from repro.obs import metrics as obs_metrics
+    from repro.train import loop
+    from repro.train import state as st
+    from repro.train.guard import GuardConfig
+
+    cfg, step, s = _zero1_setup(guard=True)
+    out, calls = {}, []
+
+    def recording_jit(fn, **kw):
+        jitted = jax.jit(fn, **kw)
+
+        def call(*args):
+            if len(args) != 3:
+                return jitted(*args)
+            pre = f"call{len(calls)}"
+            calls.append(pre)
+            _zero1_state(f"{pre}/in", jax.device_get(args[0]), out)
+            _flat(f"{pre}/batch", args[1], out)
+            res = jitted(*args)
+            _zero1_state(f"{pre}/out", jax.device_get(res[0]), out)
+            _flat(f"{pre}/metrics", jax.device_get(res[1]), out)
+            return res
+        return call
+
+    loop.jax = types.SimpleNamespace(jit=recording_jit,
+                                     block_until_ready=jax.block_until_ready)
+    sink = obs_metrics.MemorySink()
+    with obs_metrics.default_registry().use_sink(sink):
+        s, hist = loop.train(s, step, lambda k: _batch(cfg, int(k)),
+                             steps=GUARD_STEPS, log_every=1,
+                             faults=GUARD_FAULTS, guard=GuardConfig())
+    _flat("masters", jax.device_get(st.full_params_from_shards(
+        s.shards, step.bucket_plan, 1)), out)
+    out["step"] = np.asarray(int(s.step))
+    out["calls"] = np.asarray(len(calls))
+    out["events"] = np.asarray([e.name for e in sink.events])
+    out["history"] = np.asarray(
+        [[h["step"], h.get("loss", np.nan), h.get("gnorm", np.nan),
+          h.get("skipped", np.nan), "guard_skip" in h] for h in hist],
+        np.float64)
+    return out
+
+
+def _zero1_state(prefix, x, out):
+    out[f"{prefix}/step"] = np.asarray(x.step)
+    _flat(f"{prefix}/params", x.params, out)
+    _flat(f"{prefix}/bn_state", x.bn_state, out)
+    for name in ("shards", "mom"):
+        for b, buf in enumerate(getattr(x, name)):
+            out[f"{prefix}/{name}/{b}"] = np.asarray(buf)
+
+
+def traced_zero1_step():
+    """One ZeRO-1 step of ``_zero1_setup`` under the reference's tracer:
+    the names and categories of its spans (``spans``)."""
+    import jax
+    from repro.obs.trace import Tracer
+
+    tracer = Tracer()
+    cfg, step, s = _zero1_setup(tracer=tracer)
+    tracer.begin_step()
+    jax.block_until_ready(jax.jit(step)(s, _batch(cfg, 0)))
+    tracer.end_step(0)
+    return {"spans": np.asarray([[sp.name, sp.cat]
+                                 for sp in tracer.spans(0)])}
 
 
 #: the zero2 / zero3 parity configurations, in the reference's own 1-device
@@ -616,4 +733,6 @@ if __name__ == "__main__":
                       "comm_shards": comm_shards,
                       "attention_cases": attention_cases,
                       "lm_cases": lm_cases,
-                      "lm_train_steps": lm_train_steps}[what]())
+                      "lm_train_steps": lm_train_steps,
+                      "guard_zero1_run": guard_zero1_run,
+                      "traced_zero1_step": traced_zero1_step}[what]())
