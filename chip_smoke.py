@@ -83,7 +83,7 @@ Phases, in order; any failure exits non-zero and prints no result:
  15. ring     on two or more cards (min(count, 4) ranks, one card each,
               over NCCL: this script under torch.distributed.run with
               --ring-rank), full-width ResNet-50, batch 64 a card, the slice's
-              recipe, CommConfig(use_kernel=True, update_kernel=True), 5
+              recipe, CommConfig(use_kernel=True, update_kernel=True), 3
               steps each through make_train_step + loop.train: ring
               replicated, zero1, zero2 and zero3 (per_group) on (data n,
               model 1), and on four cards ring, hierarchical, 2d_torus and
@@ -100,16 +100,45 @@ Phases, in order; any failure exits non-zero and prints no result:
               through K3: ring, hierarchical, 2d_torus); with f32 wire, every schedule and rung
               against the replicated psum step from one state and batch:
               masters within 1e-5 of each tensor's max
+ 17. lm_ring  on four cards (this script under torch.distributed.run with
+              --lm-ring-rank, one rank a card, NCCL): the card's link
+              (alpha, beta of a ring exchange), HBM and bf16 matmul rates
+              measured (launch/hw.measure) and held within 2x of
+              launch/hw.py's; full-width qwen1.5-0.5b (remat, the chunked
+              attention), batch 2 x seq 4096 a card, lcg tokens, LARS poly2,
+              OptConfig(use_kernel=True), 4 MB buckets (224, 222 split
+              spans): psum replicated (the anchor), ring replicated with
+              K3, ring zero1 with K3 and K2, ring zero3 per_group with K3
+              and K2, each one warm-up step on a copy of its state and 2
+              timed steps through make_train_step + loop.train; K3 672
+              folds a ring step, K1 2 a replicated step and 1 a sharded
+              one, K2 1 a sharded step, K4 1 + 1 (2 + 1 under zero3's
+              checkpointed loss); every configuration's masters within
+              5e-2 of the anchor's largest update; prints step ms,
+              tokens/s over the cards and peak memory a rank; ring zero1's
+              state saved (every rank's rows gathered, rank 0 writing).
+              Then bucket_mb='auto' with backward_profile='measured' on
+              ring zero1, for the LM and for ResNet-50 (batch 64 a card):
+              the chosen bucket size, the simulated and the measured step
+              time, and obs.drift's measured / predicted per span kind
+              over 3 traced steps; the profile must be the measured one
+ 18. lm_ring resume  the four-card ring zero1 checkpoint resumed on one
+              card (elastic.load_resharded, 4 -> 1 shards over the LM's
+              split-leaf plan): masters bit-equal to the gathered rows
+              (sha256), then one step with a finite loss (K1, K2, K4)
 On one card the ring phases print that they need two or more cards and
-were not run, and K3's launches_by_path has "ring": null. The kernels
+were not run, and K3's launches_by_path has "ring": null; with fewer than
+four, lm_ring and its resume are not run and every kernel's
+launches_by_path has "lm_ring" and "lm_resume" null. The kernels
 phase also holds K1's multi-buffer form (the sharded step's one call)
 against its plain version at the 4 MB and 0.25 MB plans' shards, K2's
 (the sharded step's one update call) against its plain version and, bit
 for bit, against its per-bucket launches at the 4 MB plan on 1 and 4
 shards and the 0.25 MB plan on 3 (every rank), timing it at 1 and 4
 shards beside the per-bucket launches and one launch over the shards
-concatenated, K4,
-forward and backward, against its plain version (at the path's shape in
+concatenated, K1's and K2's one call at the four-card LM step's shard
+site (qwen1.5-0.5b's 224 buckets on 4 shards, rank 0: two launches
+inside each call), K4, forward and backward, against its plain version (at the path's shape in
 f32 and bf16, at T 16 x V 333, and with IGNORE labels), beside
 F.cross_entropy, and K3, bit for bit, at the ring's chunk rows (the
 path's largest and smallest on 4 and 2 ranks, bf16 and f32, every k, by
@@ -117,8 +146,9 @@ the wrapper and by the fold the ring binds once a bucket), the
 reference's shapes, ragged rows, misaligned views and in place, beside
 torch.add; the cli phase also trains the reduced LM. Every
 kernel's launch count is set to 0 just before each path (slice, zero1,
-durability, serve, lm_train, each ring configuration) and read just after: a kernel
-the path runs must show its count, every other kernel 0, and the JSON
+durability, serve, lm_train, each ring and lm_ring configuration and
+autotune run, the lm_ring resume) and read just after: a kernel the path
+runs must show its count, every other kernel 0, and the JSON
 line's launches_by_path holds these readings.
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -173,7 +203,7 @@ FLASH_ROUTES = {"bfloat16": "tensor cores: mma.sync m16n8k16 bf16, P split "
 FLASH_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-5)}
 
 #: the ring phases: steps a configuration, and their time limit
-RING_STEPS = 5
+RING_STEPS = 3
 RING_TIMEOUT_S = 420
 
 #: K3's ragged (n, length) pairs: the reference's own ring-kernel test
@@ -224,6 +254,23 @@ DUR_SPIKE = "spike@3:1e4"
 #: the gate check_zero1_in_context uses
 DUR_TOL = 1e-5
 
+
+#: the four-card LM phase (lm_ring): full-width qwen1.5-0.5b, batch
+#: LM_BATCH x LM_SEQ a card, 4 MB bf16 buckets (224 of them, 222 split
+#: spans), each configuration (schedule, sharding, gather) one warm-up
+#: step on a copy of its state, then LM_RING_STEPS timed steps; psum
+#: replicated is the anchor the others' masters are held against
+LM_RING_CONFIGS = (("psum", "replicated", None),
+                   ("ring", "replicated", None),
+                   ("ring", "zero1", None),
+                   ("ring", "zero3", "per_group"))
+LM_RING_STEPS = 2
+LM_RING_BUCKETS = 224
+LM_RING_TIMEOUT_S = 600
+LM_CKPT_TAG = "lm_zero1"
+#: the card's constants measured in the phase against launch/hw.py's: a
+#: figure more than this factor off fails
+HW_TOL = 2.0
 
 #: K5 prefill vs chunked prefill, and decode vs the full forward: two bf16
 #: paths that round in different places, held to the reference's own bound
@@ -2060,13 +2107,39 @@ def ring_rank():
     base.destroy()
 
 
+def _launch_ranks(args, n: int, timeout_s: float, what: str) -> str:
+    """This script under ``torch.distributed.run`` on ``n`` cards, one
+    rank each, with ``args``; rank 0's standard output. Fails if a rank
+    fails or the run outlasts ``timeout_s`` (then every rank is killed)."""
+    import signal
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+           str(n), "--master-addr", "127.0.0.1", "--master-port", str(port),
+           str(ROOT / "chip_smoke.py"), *args]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True,
+                            env=dict(os.environ, OMP_NUM_THREADS="4"))
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"{what} did not end within {timeout_s} s")
+    if proc.returncode != 0:
+        for line in out.splitlines()[-20:]:
+            print(line, flush=True)
+        fail(f"{what} exited {proc.returncode}: {err[-4000:]}")
+    return out
+
+
 def run_ring():
     """The ring phases on min(count, 4) cards, one rank each over NCCL
     (``torch.distributed.run`` starts this script with ``--ring-rank``);
     None on one card."""
-    import signal
-    import socket
-
     import torch
     n = min(torch.cuda.device_count(), 4)
     if n < 2:
@@ -2074,31 +2147,558 @@ def run_ring():
               f"(NCCL gives each rank a card of its own)", flush=True)
         return None
     torch.cuda.empty_cache()
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
-           str(n), "--master-addr", "127.0.0.1", "--master-port", str(port),
-           str(ROOT / "chip_smoke.py"), "--ring-rank"]
-    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True,
-                            start_new_session=True,
-                            env=dict(os.environ, OMP_NUM_THREADS="4"))
-    try:
-        out, err = proc.communicate(timeout=RING_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        fail(f"the ring phases did not end within {RING_TIMEOUT_S} s")
+    out = _launch_ranks(["--ring-rank"], n, RING_TIMEOUT_S,
+                        "the ring phases")
     result = None
     for line in out.splitlines():     # rank 0's lines; not the ranks'
         if line.startswith("ring-json: "):        # MLPerf tag streams
             result = json.loads(line[len("ring-json: "):])
         elif line.startswith("ring"):
             print(line, flush=True)
-    if proc.returncode != 0 or result is None:
-        fail(f"the ring phases exited {proc.returncode}: {err[-4000:]}")
+    if result is None:
+        fail("the ring phases printed no result")
     return result
+
+
+def check_lm_shard_site(dev):
+    """K1 and K2 at the four-card LM step's call site, measured on one
+    card: rank 0's shards of full-width qwen1.5-0.5b's 4 MB plan on 4
+    shards (224 buckets, ~116 M f32 elements a rank). K1's one call over
+    the 448 p and g shards (``batched_sumsq_multi``: two pass-1 launches,
+    the pointer table holds 256) against its plain version at rtol 2e-3;
+    K2's one call over the 224 buckets (``lars_packed_update_multi``: two
+    launches, 128 a table) against its plain version at rtol 1e-5 / atol
+    1e-6 and equal across two calls. Times each beside its plain version
+    and bound. Returns ({'lm_shard_site': ...} for K1, the same for K2)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import bucketing
+    from repro_torch.kernels import batched_norm, lars_update, ref
+    from repro_torch.models.registry import build_model
+
+    plan = bucketing.make_plan(
+        build_model(get_config("qwen1.5-0.5b")).param_pd)
+    if plan.n_buckets != LM_RING_BUCKETS:
+        fail(f"the qwen1.5-0.5b 4 MB plan has {plan.n_buckets} buckets, "
+             f"not {LM_RING_BUCKETS}")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p, g, m, _, seg_all, trust = _shard_case(plan, 4, 0, dev, gen)
+    n_t = plan.n_tensors
+    got = batched_norm.batched_sumsq_multi((p, g), seg_all, n_t)
+    want = ref.batched_sumsq_multi((p, g), seg_all, n_t)
+    torch.cuda.synchronize()
+    k1_rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+    if not k1_rel <= 2e-3:
+        fail(f"batched_sumsq_multi at the LM shard site disagrees with its "
+             f"plain version (max rel err {k1_rel:.3e}, rtol 2e-3)")
+    lr = torch.tensor(0.37, dtype=torch.float32, device=dev)
+    kw = dict(lr=lr, momentum=0.9, wd=5e-5)
+    clone = lambda xs: [x.clone() for x in xs]
+    runs = [lars_update.lars_packed_update_multi(clone(p), g, clone(m),
+                                                 trust, seg_all, **kw)
+            for _ in range(2)]
+    want2 = ref.lars_packed_update_multi(clone(p), g, clone(m), trust,
+                                         seg_all, **kw)
+    torch.cuda.synchronize()
+    k2_abs = 0.0
+    for b in range(plan.n_buckets):
+        for x, x2, y in ((runs[0][0][b], runs[1][0][b], want2[0][b]),
+                         (runs[0][1][b], runs[1][1][b], want2[1][b])):
+            if not torch.equal(x, x2):
+                fail(f"lars_packed_update_multi at the LM shard site: two "
+                     f"calls differ (bucket {b})")
+            if not torch.allclose(x, y, rtol=1e-5, atol=1e-6):
+                fail(f"lars_packed_update_multi at the LM shard site "
+                     f"disagrees with its plain version (bucket {b}, rtol "
+                     f"1e-5, atol 1e-6)")
+            k2_abs = max(k2_abs, (x - y).abs().max().item())
+    del runs, want2
+    elems, chunks = sum(x.numel() for x in p), seg_all.numel()
+    k1_ms = time_ms(lambda: batched_norm.batched_sumsq_multi(
+        (p, g), seg_all, n_t), iters=20, warmup=3)
+    k1_plain = time_ms(lambda: ref.batched_sumsq_multi((p, g), seg_all, n_t),
+                       iters=5, warmup=1)
+    k1_b, k1_by = bound_ms(2 * 4 * elems + 4 * chunks + 2 * 4 * n_t,
+                           2 * 2 * elems)
+    k2_ms = time_ms(lambda: lars_update.lars_packed_update_multi(
+        p, g, m, trust, seg_all, **kw), iters=20, warmup=3)
+    k2_plain = time_ms(lambda: ref.lars_packed_update_multi(
+        p, g, m, trust, seg_all, **kw), iters=5, warmup=1)
+    k2_b, k2_by = bound_ms(5 * 4 * elems + 4 * chunks + 4 * n_t + 4,
+                           6 * elems)
+    # the device alone, the host's table packing hidden
+    k1_dev = device_ms(lambda: batched_norm.batched_sumsq_multi(
+        (p, g), seg_all, n_t), iters=10)
+    k2_dev = device_ms(lambda: lars_update.lars_packed_update_multi(
+        p, g, m, trust, seg_all, **kw), iters=10)
+    dev_us = lambda t: "host-paced" if t is None else f"{t * 1e3:.1f} us"
+    print(f"LM shard site (qwen1.5-0.5b 4 MB plan, {plan.n_buckets} "
+          f"buckets, rank 0 of 4, {elems} elements): batched_sumsq_multi "
+          f"over {2 * plan.n_buckets} shards {k1_ms * 1e3:.1f} us (device "
+          f"alone {dev_us(k1_dev)}), plain "
+          f"{k1_plain * 1e3:.1f} us, bound {k1_b * 1e3:.1f} us ({k1_by}), "
+          f"max rel err {k1_rel:.3e} (rtol 2e-3); lars_packed_update_multi "
+          f"over {plan.n_buckets} buckets {k2_ms * 1e3:.1f} us (device "
+          f"alone {dev_us(k2_dev)}), plain "
+          f"{k2_plain * 1e3:.1f} us, bound {k2_b * 1e3:.1f} us ({k2_by}), "
+          f"max abs err {k2_abs:.3e} (rtol 1e-5, atol 1e-6), two calls "
+          f"bit-equal", flush=True)
+    site = lambda ms, dev, plain, b, by, err: {
+        "shape": f"qwen1.5-0.5b 4 MB plan, rank 0 of 4: {plan.n_buckets} "
+                 f"buckets, {elems} elements", "ms": ms, "device_ms": dev,
+        "plain_ms": plain, "bound_ms": b, "bound_by": by, "max_err": err}
+    return ({"lm_shard_site": site(k1_ms, k1_dev, k1_plain, k1_b, k1_by,
+                                   k1_rel)},
+            {"lm_shard_site": site(k2_ms, k2_dev, k2_plain, k2_b, k2_by,
+                                   k2_abs)})
+
+
+def _lm_sched():
+    """The LM phases' schedule: LARS poly2 with a one-step warm-up."""
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    return make_schedule(ScheduleConfig(base_lr=LM_LR, warmup_steps=1,
+                                        total_steps=LM_STEPS, decay="poly2"))
+
+
+def _lm_ring_state(state0, step, mesh):
+    """The state ``step`` takes, from the replicated ``state0`` (fresh
+    buffers: the sharded step updates its input in place): the packed
+    master shards and zero momentum of this rank on a sharded rung, the
+    params and a zero momentum replicated."""
+    import torch
+    from repro_torch.train import state as st
+    from repro_torch.tree import tree_map
+    if step.sharding == "replicated":
+        return st.TrainState(0, tree_map(torch.clone, state0.params),
+                             tree_map(torch.zeros_like, state0.params))
+    plan, n = step.bucket_plan, step.n_shards
+    i = mesh.axis(step.shard_axis).index
+    return st.TrainState(
+        0, None if step.sharding == "zero3"
+        else tree_map(torch.clone, state0.params),
+        st.local_shards(st.init_packed_momentum(plan, n, device=mesh.device),
+                        n, i), None,
+        None if step.sharding == "zero2"
+        else st.local_shards(st.init_packed_shards(state0.params, plan, n),
+                             n, i))
+
+
+def _lm_ring_want(comm, sharding, nb, steps):
+    """The launches a run of ``steps`` LM steps must read: K3 folds 3 a
+    bucket a step on four cards' ring, K1 twice a replicated step and once
+    a sharded one, K2 once a sharded step (update_kernel), K4 once forward
+    and once backward; zero3's checkpointed loss runs its forward, K4
+    included, again in the backward."""
+    sharded = sharding != "replicated"
+    return {"k3": (3 * nb if comm == "ring" else 0) * steps,
+            "k1": (1 if sharded else 2) * steps,
+            "k2": (1 if sharded else 0) * steps,
+            "k4": (2 if sharding == "zero3" else 1) * steps,
+            "k4_bwd": steps}
+
+
+def _sha(tree) -> str:
+    """sha256 over a tensor tree's bytes, leaves in flatten order."""
+    import hashlib
+    from repro_torch.tree import tree_flatten
+    h = hashlib.sha256()
+    for path, x in tree_flatten(tree):
+        h.update(path.encode())
+        h.update(x.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _lm_ring_run(model, mesh, comm, sharding, gather, state0, batch_fn,
+                 say, ckpt_dir=None):
+    """One configuration of the lm_ring phase: one warm-up step on a copy
+    of its state, then ``LM_RING_STEPS`` timed steps through loop.train.
+    Checks the launches and the losses; with ``ckpt_dir``, saves the state
+    there (every rank's rows gathered, rank 0 writing). Returns (row, the
+    masters after the timed steps)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import CommConfig
+    from repro_torch.core import lars
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.train import checkpoint, loop
+    from repro_torch.train.state import host_snapshot
+    from repro_torch.train.step import make_train_step
+
+    dev, n = mesh.device, mesh.size
+    ring = comm == "ring"
+    step = make_train_step(
+        model, lars.OptConfig(kind="lars", weight_decay=5e-5,
+                              use_kernel=True), _lm_sched(), smoothing=0.1,
+        mesh=mesh, comm=CommConfig(strategy=comm, sharding=sharding,
+                                   gather=gather, use_kernel=ring,
+                                   update_kernel=sharding != "replicated",
+                                   bucket_mb=4))
+    plan = step.bucket_plan
+    what = f"{comm} {sharding}{'/' + gather if gather else ''}"
+    if plan.n_buckets != LM_RING_BUCKETS or step.sharding != sharding:
+        fail(f"lm_ring {what}: {plan.n_buckets} buckets, sharding "
+             f"{step.sharding!r}")
+    state = _lm_ring_state(state0, step, mesh)
+    step(host_snapshot(state), batch_fn(0))       # the warm-up, on a copy
+    times = []
+
+    def timed_step(s, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(s, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    sink = obs_metrics.MemorySink()
+    _zero(*_counters().values())
+    with obs_metrics.default_registry().use_sink(sink):
+        state, history = loop.train(state, timed_step, batch_fn,
+                                    steps=LM_RING_STEPS, log_every=1,
+                                    seed=0)
+    counts = _read_path(f"lm_ring {what}", _lm_ring_want(
+        comm, sharding, plan.n_buckets, LM_RING_STEPS))
+    peak = torch.cuda.max_memory_allocated(dev)
+    peaks = [None] * n
+    dist.all_gather_object(peaks, peak)
+    losses = [h["loss"] for h in history]
+    if len(losses) != LM_RING_STEPS or not all(math.isfinite(v)
+                                               for v in losses):
+        fail(f"lm_ring {what}: losses not all finite: {losses}")
+    if not sink.find("run_stop"):
+        fail(f"lm_ring {what}: loop.train did not reach run_stop")
+    masters = loop.make_params_reader(step)(state)
+    row = {"comm": comm, "sharding": sharding, "gather": gather,
+           "buckets": plan.n_buckets, "step_ms": [t * 1e3 for t in times],
+           "median_ms": statistics.median(times) * 1e3,
+           "tokens_per_s": LM_BATCH * LM_SEQ * n / statistics.median(times),
+           "peak_gib": [p / 2 ** 30 for p in peaks], "launches": counts,
+           "losses": losses}
+    if ckpt_dir is not None:
+        t = time.perf_counter()
+        checkpoint.save(state, ckpt_dir, tag=LM_CKPT_TAG,
+                        comm_plan=step.comm_plan, mesh=mesh)
+        row["save_ms"] = (time.perf_counter() - t) * 1e3
+        if mesh.rank == 0:
+            row["masters_sha256"] = _sha(masters)
+    del state
+    say(f"lm_ring: {what} ({plan.n_buckets} buckets): losses "
+        f"{[round(v, 4) for v in losses]}; step times ms "
+        f"{[round(t * 1e3, 2) for t in times]} after a warm-up step, median "
+        f"{row['median_ms']:.2f} ms, {row['tokens_per_s']:.0f} tokens/s on "
+        f"{n} cards; peak memory a rank GiB "
+        f"{[round(p / 2 ** 30, 2) for p in peaks]}; launches a step K3 "
+        f"{counts['k3'] / LM_RING_STEPS:g}, K1 "
+        f"{counts['k1'] / LM_RING_STEPS:g}, K2 "
+        f"{counts['k2'] / LM_RING_STEPS:g}, K4 "
+        f"{counts['k4'] / LM_RING_STEPS:g} + "
+        f"{counts['k4_bwd'] / LM_RING_STEPS:g}"
+        + (f"; saved in {row['save_ms']:.0f} ms" if ckpt_dir else ""))
+    return row, masters
+
+
+def _lm_ring_hw(mesh, say):
+    """The card's constants measured now (``launch/hw.measure``: the link
+    along the data axis, HBM, bf16 matmul) beside ``launch/hw.py``'s;
+    fails if the link's alpha or beta or the HBM rate is more than
+    ``HW_TOL`` times off the module's."""
+    from repro_torch.launch import hw
+    got = hw.measure(mesh)
+    mod = hw.H100
+    rows = {"alpha_s": (got["link"]["alpha"], mod.link_alpha),
+            "beta_bytes_per_s": (got["link"]["beta"], mod.link_bw),
+            "hbm_bytes_per_s": (got["hbm_bw"], mod.hbm_bw),
+            "bf16_flops_per_s": (got["peak_flops_bf16"],
+                                 mod.peak_flops_bf16)}
+    say(f"lm_ring hw: measured / launch/hw.py: "
+        + ", ".join(f"{k} {a:.4g} / {b:.4g}" for k, (a, b) in rows.items())
+        + f"; link fit's largest relative residual "
+          f"{got['link']['residual']:.3f} over "
+          f"{[r[0] for r in got['link']['rows']]} bytes")
+    for k in ("alpha_s", "beta_bytes_per_s", "hbm_bytes_per_s"):
+        a, b = rows[k]
+        if not (a > 0 and max(a / b, b / a) <= HW_TOL):
+            fail(f"lm_ring hw: the measured {k} {a:.4g} is more than "
+                 f"{HW_TOL}x off launch/hw.py's {b:.4g}")
+    return {"measured": got, "module": {k: b for k, (_, b) in rows.items()}}
+
+
+def _autotune_reading(model, mesh, batch_fn, name, say, want_fn, sched):
+    """``bucket_mb='auto'`` with ``backward_profile='measured'`` on ring
+    zero1 (K1, K2, K3 on): the chosen bucket size and the simulated step
+    time, then 3 traced steps through loop.train: the measured step time
+    (median of the last two) and obs.drift.compute's measured / predicted
+    per span kind (the first step skipped). Fails if the profile fell back
+    to the FLOPs model."""
+    import torch
+    from repro_torch.configs.base import CommConfig
+    from repro_torch.core import lars
+    from repro_torch.obs import drift as obs_drift
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.train import loop
+    from repro_torch.train.state import init_state, sharded_state_kwargs
+    from repro_torch.train.step import make_train_step
+
+    sink, tracer = obs_metrics.MemorySink(), Tracer()
+    with obs_metrics.default_registry().use_sink(sink):
+        step = make_train_step(
+            model, lars.OptConfig(kind="lars", weight_decay=5e-5,
+                                  use_kernel=True), sched, smoothing=0.1,
+            mesh=mesh, comm=CommConfig(
+                strategy="ring", sharding="zero1", bucket_mb="auto",
+                backward_profile="measured", use_kernel=True,
+                update_kernel=True), profile_batch=batch_fn(0),
+            tracer=tracer)
+    if sink.find("backward_profile_fallback") or \
+            not sink.find("backward_profile_measured"):
+        fail(f"autotune {name}: the measured profile was not used: "
+             f"{[(e.name, e.value) for e in sink.events]}")
+    tuned, prof = step.tuned, step.backward_profile
+    state = init_state(model, 0, device=mesh.device,
+                       **sharded_state_kwargs(step))
+    times = []
+
+    def timed_step(s, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(s, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return out
+
+    _zero(*_counters().values())
+    with obs_metrics.default_registry().use_sink(obs_metrics.MemorySink()):
+        state, history = loop.train(state, timed_step, batch_fn, steps=3,
+                                    log_every=1, seed=0, tracer=tracer)
+    counts = _read_path(f"autotune {name}",
+                        want_fn(step.bucket_plan.n_buckets, 3))
+    losses = [h["loss"] for h in history]
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"autotune {name}: losses not all finite: {losses}")
+    drifts = obs_drift.compute(tracer, step.comm_plan)
+    kinds = {}
+    for k in obs_drift.COMM_KINDS:
+        ds = [d for d in drifts if d.kind == k]
+        if ds:
+            kinds[k] = {"spans": len(ds), "measured_s":
+                        sum(d.measured_s for d in ds), "predicted_s":
+                        sum(d.predicted_s for d in ds),
+                        "rel_err": obs_drift.aggregate(ds)}
+    if not kinds:
+        fail(f"autotune {name}: no traced bucket comm span to score")
+    # where the collectives start: each rs span's begin (the moment its
+    # group's identity ran) in ms after the last step's backward span
+    # begins, that span's length (it ends once the last shard is back),
+    # and the measured profile's share of groups stamped in the backward's
+    # last tenth
+    last = tracer.steps[-1][1]
+    bwd = next(sp for sp in last if sp.name == "backward")
+    bwd_ms = (bwd.t1 - bwd.t0) * 1e3
+    starts = sorted((sp.t0 - bwd.t0) * 1e3 for sp in last
+                    if sp.name.startswith("rs["))
+    late = sum(t >= 0.9 * prof.total_s for t in prof.cum_time_s) \
+        / len(prof.cum_time_s)
+    measured = statistics.median(times[1:])
+    say(f"autotune {name} (ring zero1, bucket_mb='auto', measured "
+        f"profile: {len(prof.cum_elems)} groups, backward "
+        f"{prof.total_s * 1e3:.1f} ms, forward {prof.t_forward_s * 1e3:.1f}"
+        f" ms): chose {tuned.bucket_mb:g} MB x {tuned.n_buckets} buckets "
+        f"({tuned.sim.mode}); simulated step {tuned.sim.t_step_s * 1e3:.2f} "
+        f"ms, measured {measured * 1e3:.2f} ms (traced; steps "
+        f"{[round(t * 1e3, 2) for t in times]}); drift measured/predicted "
+        f"per span kind: "
+        + ", ".join(f"{k} {v['measured_s'] * 1e3:.3f} / "
+                    f"{v['predicted_s'] * 1e3:.3f} ms over {v['spans']} "
+                    f"spans (rel err {v['rel_err']:+.3f})"
+                    for k, v in kinds.items())
+        + f"; rs spans begin {starts[0]:.1f} / "
+          f"{statistics.median(starts):.1f} / {starts[-1]:.1f} ms (first / "
+          f"median / last) into a {bwd_ms:.1f} ms backward span; the "
+          f"profile stamped {late:.3f} of its groups in the backward's "
+          f"last tenth")
+    del state
+    return {"bucket_mb": tuned.bucket_mb, "buckets": tuned.n_buckets,
+            "mode": tuned.sim.mode, "sim_step_ms": tuned.sim.t_step_s * 1e3,
+            "sim_exposed_ms": tuned.sim.t_exposed_s * 1e3,
+            "profile_backward_ms": prof.total_s * 1e3,
+            "profile_forward_ms": prof.t_forward_s * 1e3,
+            "measured_step_ms": measured * 1e3,
+            "step_ms": [t * 1e3 for t in times], "drift": kinds,
+            "rs_begin_ms": [starts[0], statistics.median(starts),
+                            starts[-1]], "backward_span_ms": bwd_ms,
+            "profile_groups_in_last_tenth": late,
+            "launches": counts, "losses": losses}
+
+
+def lm_ring_rank(ckpt_dir):
+    """One rank of the lm_ring phase (``chip_smoke.py --lm-ring-rank DIR``
+    under torch.distributed.run, one card each): the card's constants,
+    the LM configurations (masters against the psum anchor's; ring zero1's
+    state saved to DIR), then the autotune readings. Rank 0 prints the
+    lines and, last, ``lm-ring-json: {...}``."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core.schedule import ScheduleConfig, linear_scaled_lr, \
+        make_schedule
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.state import init_state
+    from repro_torch.tree import tree_flatten
+
+    mesh = make_local_mesh()
+    n, dev = mesh.size, mesh.device
+    say = (lambda msg: print(msg, flush=True)) if mesh.rank == 0 else \
+        (lambda msg: None)
+    hw_row = _lm_ring_hw(mesh, say)
+    cfg = get_config("qwen1.5-0.5b")
+    model = build_model(cfg)
+    batch_fn = make_batch_fn(cfg, InputShape("train_4k", "train", LM_SEQ,
+                                             LM_BATCH * n), device=dev,
+                             mesh=mesh)
+    state0 = init_state(model, seed=0, device=dev)
+    p0 = [x for _, x in tree_flatten(state0.params)]
+    rows, anchor, worst = [], None, ("", 0.0)
+    for comm, sharding, gather in LM_RING_CONFIGS:
+        save = ckpt_dir if (comm, sharding) == ("ring", "zero1") else None
+        row, masters = _lm_ring_run(model, mesh, comm, sharding, gather,
+                                    state0, batch_fn, say, save)
+        got = tree_flatten(masters)
+        if anchor is None:
+            anchor = [(p, x, (x - a).abs().max().item())
+                      for (p, x), a in zip(got, p0)]
+        else:
+            d = max(((p, (x - want).abs().max().item() / max(upd, 1e-30))
+                     for (_, x), (p, want, upd) in zip(got, anchor)),
+                    key=lambda t: t[1])
+            row["masters_of_update"] = list(d)
+            worst = max(worst, d, key=lambda t: t[1])
+            say(f"lm_ring: {comm} {sharding}: masters within {d[1]:.3e} of "
+                f"the largest update of the psum anchor's ({d[0]}; limit "
+                f"{LM_UPDATE_TOL})")
+            if not d[1] <= LM_UPDATE_TOL:
+                fail(f"lm_ring {comm} {sharding}: masters {d[1]:.3e} of the "
+                     f"anchor's largest update off ({d[0]}; limit "
+                     f"{LM_UPDATE_TOL})")
+        rows.append(row)
+        del masters, got
+        torch.cuda.empty_cache()
+    if min(upd for _, _, upd in anchor) <= 0.0:
+        fail("lm_ring: the psum anchor left a tensor unchanged")
+    del anchor, state0, p0
+    torch.cuda.empty_cache()
+    sharded = lambda nb, steps: _lm_ring_want("ring", "zero1", nb, steps)
+    tune = {"lm": _autotune_reading(model, mesh, batch_fn, "qwen1.5-0.5b",
+                                    say, sharded, _lm_sched())}
+    del model
+    torch.cuda.empty_cache()
+    rcfg = get_config("resnet50")
+    rbatch = make_batch_fn(rcfg, InputShape("in", "train", 0, BATCH * n),
+                           device=dev, mesh=mesh)
+    tune["resnet50"] = _autotune_reading(
+        build_model(rcfg), mesh, rbatch, "resnet50", say,
+        lambda nb, steps: {"k3": 3 * nb * steps, "k1": steps, "k2": steps},
+        make_schedule(ScheduleConfig(
+            base_lr=linear_scaled_lr(16.0, BATCH * n) / 4, warmup_steps=1,
+            total_steps=RING_STEPS, decay="poly2")))
+    say("lm-ring-json: " + json.dumps({
+        "cards": n, "runs": rows, "masters_worst_of_update": list(worst),
+        "hw": hw_row, "autotune": tune}))
+    mesh.destroy()
+
+
+def run_lm_ring(ckpt_dir):
+    """The lm_ring phase on four cards, one rank each over NCCL
+    (``torch.distributed.run`` starts this script with ``--lm-ring-rank``);
+    None with fewer than four cards."""
+    import torch
+    n = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    if n < 4:
+        print(f"lm_ring: not run: {n} card(s); the phase needs 4", flush=True)
+        return None
+    out = _launch_ranks(["--lm-ring-rank", str(ckpt_dir)], 4,
+                        LM_RING_TIMEOUT_S, "the lm_ring phase")
+    result = None
+    for line in out.splitlines():
+        if line.startswith("lm-ring-json: "):
+            result = json.loads(line[len("lm-ring-json: "):])
+        elif line.startswith(("lm_ring", "autotune")):
+            print(line, flush=True)
+    if result is None:
+        fail("the lm_ring phase printed no result")
+    return result
+
+
+def run_lm_resume(dev, ckpt_dir, lm_ring):
+    """The four-card ring zero1 LM's checkpoint resumed on this one card
+    (``elastic.load_resharded``, 4 -> 1 shards over the LM's split-leaf
+    plan): the masters bit-equal to the four ranks' gathered rows (sha256
+    against rank 0's), then one step with a finite loss (K1, K2, K4)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import lars
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import checkpoint, elastic
+    from repro_torch.train.loop import make_params_reader
+    from repro_torch.train.state import init_state, sharded_state_kwargs
+    from repro_torch.train.step import make_train_step
+
+    want = next(r for r in lm_ring["runs"] if r["sharding"] == "zero1")
+    cfg = get_config("qwen1.5-0.5b")
+    model = build_model(cfg)
+    saved = checkpoint.load_comm_plan(str(ckpt_dir), tag=LM_CKPT_TAG)
+    if saved.n_shards != 4 or saved.sharding != "zero1":
+        fail(f"lm_ring resume: the saved plan has {saved.n_shards} shards, "
+             f"sharding {saved.sharding!r}")
+    mesh = make_local_mesh()
+    try:
+        step = make_train_step(
+            model, lars.OptConfig(kind="lars", weight_decay=5e-5,
+                                  use_kernel=True), _lm_sched(),
+            smoothing=0.1, mesh=mesh,
+            comm=saved.comm_config(reautotune=True))
+        template = init_state(model, 0, device=dev,
+                              **sharded_state_kwargs(step))
+        t = time.perf_counter()
+        state = elastic.load_resharded(str(ckpt_dir), template,
+                                       step.bucket_plan, 1, tag=LM_CKPT_TAG,
+                                       old_comm_plan=saved, mesh=mesh)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t) * 1e3
+        del template
+        sha = _sha(make_params_reader(step)(state))
+        if sha != want["masters_sha256"]:
+            fail("lm_ring resume: the masters resumed on one card are not "
+                 "bit-equal to the four ranks' gathered rows")
+        batch = make_batch_fn(cfg, InputShape("train_4k", "train", LM_SEQ,
+                                              LM_BATCH), device=dev)(
+            state.step)
+        _zero(*_counters().values())
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        counts = _read_path("lm_ring resume", {"k1": 1, "k2": 1, "k4": 1,
+                                               "k4_bwd": 1})
+        loss = float(m["loss"])
+        if not math.isfinite(loss) or state.step != LM_RING_STEPS + 1:
+            fail(f"lm_ring resume: step {state.step}, loss {loss}")
+    finally:
+        mesh.destroy()
+    print(f"lm_ring resume: the ring zero1 checkpoint ({saved.n_shards} "
+          f"shards, {len(saved.bucket_sizes)} buckets, saved in "
+          f"{want['save_ms']:.0f} ms) resumed on one card (1 shard) in "
+          f"{load_ms:.0f} ms: masters bit-equal to the gathered rows "
+          f"(sha256); then step {state.step} on one card, loss {loss:.4f}",
+          flush=True)
+    return {"load_ms": load_ms, "loss": loss, "launches": counts}
 
 
 def run_serve(dev):
@@ -2326,6 +2926,9 @@ def main():
     k5 = check_flash_attention(dev)
     k4, k4_bwd = check_smoothed_xent(dev)
     k3 = check_ring_add(dev)
+    k1_lm, k2_lm = check_lm_shard_site(dev)
+    k1.update(k1_lm)
+    k2.update(k2_lm)
 
     # each path's launches of every kernel, read just after its run
     by_path = {}
@@ -2380,6 +2983,15 @@ def main():
 
     phase("ring, ring context")
     ring = run_ring()
+
+    phase("lm_ring")
+    torch.cuda.empty_cache()
+    lm_ring = lm_resume = None
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        lm_ring = run_lm_ring(Path(tmp))
+        if lm_ring is not None:
+            phase("lm_ring resume")
+            lm_resume = run_lm_resume(dev, Path(tmp), lm_ring)
     entries = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k4_bwd": k4_bwd,
                "k5": k5}
     # rank 0's counts, summed over the ring's configurations; null where
@@ -2387,8 +2999,20 @@ def main():
     by_path["ring"] = {key: None if ring is None else
                        sum(r["launches"][key] for r in ring["runs"])
                        for key in entries}
+    # lm_ring: rank 0's counts over its configurations and autotune runs;
+    # lm_resume: the one-card step from the four-card checkpoint; null
+    # with fewer than four cards
+    by_path["lm_ring"] = {key: None if lm_ring is None else
+                          sum(r["launches"][key] for r in lm_ring["runs"])
+                          + sum(t["launches"][key]
+                                for t in lm_ring["autotune"].values())
+                          for key in entries}
+    by_path["lm_resume"] = {key: None if lm_resume is None else
+                            lm_resume["launches"][key] for key in entries}
     if ring is not None:
         k3["ring"] = ring
+    if lm_ring is not None:
+        k3["lm_ring"] = dict(lm_ring, resume=lm_resume)
     for key, entry in entries.items():
         entry["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
         entry["launches"] = sum(c[key] for c in by_path.values()
@@ -2402,11 +3026,14 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--ring-rank"]:
+    if sys.argv[1:2] in (["--ring-rank"], ["--lm-ring-rank"]):
         # a rank that fails must not wait at exit on collectives the
         # others will never join: leave at once, the launcher stops them
         try:
-            ring_rank()
+            if sys.argv[1] == "--ring-rank":
+                ring_rank()
+            else:
+                lm_ring_rank(sys.argv[2])
         except SystemExit as e:
             sys.stdout.flush()
             sys.stderr.flush()

@@ -17,9 +17,10 @@ layout of the saved shard buffers from it:
   diff instead of mis-slicing buffers.
 
 Slot paths are written ``stem/bn/scale`` in both packages, so a plan
-written by either loads in the other with every field equal. Re-resolving
-a plan for another mesh with a re-autotuned bucket size (``retarget``,
-``'auto'`` sizes) needs the cost model and autotuner, ROADMAP §1 item 7b.
+written by either loads in the other with every field equal.
+``CommPlan.retarget`` re-resolves a plan for another mesh shape (a new
+shard axis and count and, for a plan that requested ``'auto'``, a bucket
+size re-autotuned against ``comm/cost.py``'s model of that mesh).
 """
 from __future__ import annotations
 
@@ -38,12 +39,6 @@ _SHARDING_FOR_BOOL = {False: "replicated", True: "zero1"}
 class CommPlanError(RuntimeError):
     """Raised on version, schema or layout mismatches (a real exception,
     not an assert: validation must survive ``python -O``)."""
-
-
-def _autotune_not_ported(what: str):
-    return NotImplementedError(
-        f"{what} needs the bucket autotuner, which is not ported to "
-        f"repro_torch yet (ROADMAP §1 item 7b)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,15 +101,11 @@ class CommPlan:
     def comm_config(self, *, reautotune: bool = True):
         """The port's ``CommConfig`` this plan resolves from.
         ``reautotune=True`` (the elastic-resume default) hands back the
-        *requested* bucket size; for a plan that requested ``'auto'`` that
-        means the autotuner (item 7b), so it raises. ``False`` pins the
-        resolved size (bit-identical bucket boundaries on the same
-        tree)."""
+        *requested* bucket size: ``'auto'`` then runs the autotuner again
+        against whatever mesh the next ``make_train_step`` is built on.
+        ``False`` pins the resolved size (bit-identical bucket boundaries
+        on the same tree)."""
         from repro_torch.configs.base import CommConfig
-        if reautotune and self.requested_bucket_mb == "auto":
-            raise _autotune_not_ported(
-                "CommPlan.comm_config(reautotune=True) of a plan that "
-                "requested bucket_mb='auto'")
         return CommConfig(
             strategy=self.schedule,
             bucket_mb=(self.requested_bucket_mb if reautotune
@@ -184,11 +175,35 @@ class CommPlan:
                                     tuple(p for p, _ in flat))
 
     def retarget(self, axes: Sequence[str], sizes: Sequence[int],
-                 template_tree, *, family: Optional[str] = None
-                 ) -> "CommPlan":
-        """Re-resolving a plan for another mesh shape goes through the
-        cost model's shard axis and, for ``'auto'``, the autotuner."""
-        raise _autotune_not_ported("CommPlan.retarget")
+                 template_tree, *, family: Optional[str] = None,
+                 links=None, hw=None) -> "CommPlan":
+        """Re-resolve this plan for another mesh shape: the new shard axis
+        and count (``cost.shard_axis_size``) and, when the run requested
+        ``bucket_mb='auto'``, a bucket size re-autotuned for the new mesh
+        (``comm.autotune``, the card's constants of ``launch/hw.py``).
+        Metadata only: a step built from ``comm_config()`` on the new mesh
+        does the rest."""
+        from repro_torch.comm.cost import shard_axis_size
+        from repro_torch.core import bucketing
+        axes, sizes = tuple(axes), tuple(int(s) for s in sizes)
+        shard_axis, n_shards = shard_axis_size(axes, sizes)
+        bucket_mb = self.bucket_mb
+        if self.requested_bucket_mb == "auto":
+            from repro_torch.comm.autotune import autotune
+            bucket_mb = autotune(
+                template_tree, schedule=self.schedule, axes=axes,
+                sizes=sizes, dtype_bytes=self.wire_dtype_bytes,
+                family=family, sharding=self.sharding, gather=self.gather,
+                param_dtype_bytes=self.wire_dtype_bytes, links=links,
+                hw=hw).bucket_mb
+        plan = bucketing.make_plan(template_tree, bucket_mb=bucket_mb,
+                                   dtype_bytes=self.wire_dtype_bytes)
+        return dataclasses.replace(
+            self, bucket_mb=bucket_mb, mesh_axes=axes, mesh_sizes=sizes,
+            shard_axis=shard_axis,
+            n_shards=n_shards if self.shard_update else 1,
+            bucket_sizes=tuple(plan.bucket_sizes),
+            slots=tuple(_slot_spec(s) for s in plan.slots))
 
 
 def make(comm_cfg, bucket_plan, *, resolved_bucket_mb: float,

@@ -21,10 +21,10 @@ class CommConfig:
     fields and validation so one config resolves the same in both.
 
     ``train.step.make_train_step`` runs every strategy and sharding level
-    of the reference; ``bucket_mb='auto'`` (the autotuner, which alone
-    reads ``backward_profile``) raises ``NotImplementedError`` (ROADMAP §1
-    item 7). See ``repro.configs.base.CommConfig`` for what each field
-    selects. ``use_kernel`` runs the ring folds through the ring-step
+    of the reference; ``bucket_mb='auto'`` sizes the buckets with
+    ``comm.autotune``, which alone reads ``backward_profile``. See
+    ``repro.configs.base.CommConfig`` for what each field selects.
+    ``use_kernel`` runs the ring folds through the ring-step
     kernel K3, ``update_kernel`` the sharded update through the fused
     LARS kernel K2.
     """

@@ -81,6 +81,30 @@ class BucketPlan:
             out[slot.bucket].append(slot)
         return tuple(tuple(g) for g in out)
 
+    def bucket_bytes(self, dtype_bytes: int = 2) -> Tuple[int, ...]:
+        """Wire payload per bucket (padded elements x wire dtype width)."""
+        return tuple(s * dtype_bytes for s in self.bucket_sizes)
+
+    @property
+    def group_elems(self) -> Tuple[int, ...]:
+        """Unpadded parameter elements per bucket group: what a ZeRO-3
+        gather unpacks (``bucket_sizes`` is the padded wire buffer)."""
+        out = [0] * self.n_buckets
+        for slot in self.slots:
+            out[slot.bucket] += slot.size
+        return tuple(out)
+
+    @property
+    def tensor_slots(self) -> Tuple[Tuple[TensorSlot, ...], ...]:
+        """Slots regrouped per tensor, in packing order (a split tensor's
+        spans are consecutive in ``slots``)."""
+        out: List[List[TensorSlot]] = []
+        for s in self.slots:
+            if s.elem_offset == 0:
+                out.append([])
+            out[-1].append(s)
+        return tuple(tuple(g) for g in out)
+
     @property
     def slot_is_final_span(self) -> Tuple[bool, ...]:
         """Per slot: True on the LAST span of its tensor (every slot of an

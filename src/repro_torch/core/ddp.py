@@ -24,6 +24,19 @@ collective at the reduce-scatter and gather the params back
 (``all_gather_params``, or per group inside the forward for ZeRO-3,
 ``jit_gather_params``).
 
+A tensor larger than a bucket is split into spans across several
+buckets (the LM's stacked ``(layers, ...)`` weights and its embedding: at
+4 MB, 222 spans over 14 leaves). Its leaf passes through each span's
+group identity in turn; on the replicated path the spans write their
+reduced values into one f32 copy of the leaf's cotangent a backward
+(``_split_span_out``), not a copy of the whole leaf each. The gradient of
+a stacked leaf is whole only when the backward ends, so its buckets' (and
+the tied embedding's) collectives fire after it, as the reference's do.
+
+``wrap_params_for_probe``, ``mark_forward_start`` and
+``mark_backward_start`` are the measurement twins of the overlap wrap:
+the capture points of ``comm.autotune.measure_backward_profile``.
+
 ``tracer`` (``obs.trace.Tracer``) stamps each bucket's collective as the
 reference's probes name it: ``ar[b<i>]`` (all-reduce), ``rs[b<i>]``
 (reduce-scatter), ``ag[b<i>]`` (param all-gather) and, under zero3,
@@ -100,27 +113,48 @@ class _BucketIdentity(torch.autograd.Function):
         mark(tracer, name, "E", [buf], bucket=gi)
         pieces = bucketing.unpack_group(buf, slots, dtype=torch.float32)
         outs = []
-        for slot, g, piece in zip(slots, gs, pieces):
+        for slot, g, piece, fin in zip(slots, gs, pieces, spec["finals"]):
             if piece.shape == g.shape:          # slot covers the whole leaf
                 outs.append(piece / n)
                 continue
-            # split span: write the reduced span into the raw cotangent;
-            # the leaf's other spans belong to other groups, whose
+            # split span: write the reduced span into the leaf's f32
+            # cotangent; its other spans belong to other groups, whose
             # identities (chained) reduce them in turn
-            flat = g.float().reshape(-1).clone()
-            flat[slot.elem_offset:slot.elem_offset + slot.size] = piece / n
-            outs.append(flat.reshape(g.shape))
+            outs.append(_split_span_out(spec["owned"], slot, g, piece / n,
+                                        fin))
         return (None,) + tuple(outs)
 
 
+def _split_span_out(owned: dict, slot, g, reduced, final: bool):
+    """The cotangent a split leaf's span hands on: ``g`` with the span's
+    reduced values written in. The leaf's first span copies its raw f32
+    cotangent ONCE into a buffer of its own (``owned``, one per wrap and
+    leaf); the later spans' identities receive that buffer back from
+    autograd (each chained identity is the only consumer of the next one's
+    output) and write their spans into it in place, so a leaf of k spans
+    costs one copy, not k. A ``g`` that is not the owned buffer (another
+    consumer's gradient was added to it) is copied again, as the first
+    span's is; the values are the same either way."""
+    key = (slot.path, slot.shape)
+    flat = owned.pop(key, None)
+    if flat is None or g.data_ptr() != flat.data_ptr() \
+            or g.dtype != torch.float32:
+        flat = g.float().reshape(-1).clone()
+    flat[slot.elem_offset:slot.elem_offset + slot.size] = reduced
+    if not final:
+        owned[key] = flat
+    return flat.view(g.shape)
+
+
 def _wrap_param_groups(params, plan: "bucketing.BucketPlan", make_spec,
-                       extras=None):
+                       extras=None, apply=None):
     """Route each bucket group's leaves through its identity. Slot i
     describes leaf ``n-1-slot_tensor_ids[i]`` (the plan walks reverse
     flatten order; a split tensor's spans map to one leaf). A leaf in
     several groups is CHAINED through their identities, applied in
     DECREASING group order so the backward fires them in bucket order
-    (group 0, the backward-completion head, first)."""
+    (group 0, the backward-completion head, first). ``apply(spec, args)``
+    replaces the collective identity (the probe's)."""
     flat = tree_flatten(params)
     leaves = [x for _, x in flat]
     n_leaves = len(leaves)
@@ -136,7 +170,9 @@ def _wrap_param_groups(params, plan: "bucketing.BucketPlan", make_spec,
         args = [leaves[j] for j in idxs]
         if extras is not None:
             args.append(extras[gi])
-        outs = _BucketIdentity.apply(make_spec(gi, group), *args)
+        spec = make_spec(gi, group)
+        outs = (_BucketIdentity.apply(spec, *args) if apply is None
+                else apply(spec, args))
         for j, o in zip(idxs, outs):
             leaves[j] = o
     return tree_unflatten([p for p, _ in flat], leaves)
@@ -187,12 +223,17 @@ def wrap_params_for_overlap(params, plan: "bucketing.BucketPlan", *,
                                   extras=shard_sinks)
     from repro_torch.comm import get_schedule
     schedule = get_schedule(strategy)
+    final_map = {id(s): fin for s, fin in zip(plan.slots,
+                                              plan.slot_is_final_span)}
+    owned = {}      # split leaf -> its f32 cotangent buffer, this backward
     return _wrap_param_groups(
         params, plan,
         lambda gi, group: {"slots": group, "axes": axes, "fn": schedule,
                            "sink": False, "comm_dtype": comm_dtype,
                            "use_kernel": use_kernel, "tracer": tracer,
-                           "gi": gi})
+                           "gi": gi, "owned": owned,
+                           "finals": tuple(final_map[id(s)]
+                                           for s in group)})
 
 
 # --------------------------------------------------------------------------
@@ -271,3 +312,66 @@ def jit_gather_params(shards, plan: "bucketing.BucketPlan", *, shard_axis,
             leaves.append(torch.cat(pieces).reshape(slot.shape))
             pieces = []
     return tree_unflatten(plan.paths, leaves[::-1])
+
+
+# --------------------------------------------------------------------------
+# backward-profile probes (``comm.autotune.measure_backward_profile``)
+
+class _ProbeIdentity(torch.autograd.Function):
+    """Identity over one bucket group's leaves whose backward calls
+    ``probe(gi)`` once the group's cotangents exist, and passes them on."""
+
+    @staticmethod
+    def forward(ctx, probe, gi, *leaves):
+        ctx.probe, ctx.gi = probe, gi
+        return leaves
+
+    @staticmethod
+    def backward(ctx, *gs):
+        ctx.probe(ctx.gi)
+        return (None, None) + gs
+
+
+class _LossProbe(torch.autograd.Function):
+    """Identity on the scalar loss whose backward calls ``probe(idx)``
+    first: the loss's cotangent is the first value a backward makes."""
+
+    @staticmethod
+    def forward(ctx, probe, idx, loss):
+        ctx.probe, ctx.idx = probe, idx
+        return loss.view_as(loss)
+
+    @staticmethod
+    def backward(ctx, ct):
+        ctx.probe(ctx.idx)
+        return None, None, ct
+
+
+def wrap_params_for_probe(params, plan: "bucketing.BucketPlan", probe):
+    """Measurement twin of ``wrap_params_for_overlap``: the same per-group
+    identities, but the backward calls ``probe(group_index)`` the moment
+    the group's cotangents exist and passes them on unchanged: the capture
+    points of the measured backward profile. No collectives. ``probe`` is
+    called on the host in the order the backward queues work; on the card
+    it should record a CUDA event on the current stream (what
+    ``measure_backward_profile`` does), not read a host clock, which would
+    time the launch queue."""
+    return _wrap_param_groups(params, plan,
+                              lambda gi, group: gi,
+                              apply=lambda gi, args: _ProbeIdentity.apply(
+                                  probe, gi, *args))
+
+
+def mark_backward_start(loss, probe, idx: int = -1):
+    """Identity on the scalar loss that calls ``probe(idx)`` when the
+    backward begins."""
+    return _LossProbe.apply(probe, idx, loss)
+
+
+def mark_forward_start(params, probe, idx: int = -2):
+    """Calls ``probe(idx)`` now, where the forward is about to be queued,
+    and returns ``params``. Paired with :func:`mark_backward_start`, the
+    gap between the two stamps is the measured forward time."""
+    if tree_flatten(params):
+        probe(idx)
+    return params

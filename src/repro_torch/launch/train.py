@@ -30,7 +30,17 @@ checkpoints (``--ckpt-dir``, ``--ckpt-every``, ``--keep-last-k``),
 shards), the step watchdog (``--step-timeout-s``, ``--max-step-retries``),
 ``--inject-fault``, the numerical guard (``--guard``, ``--rollback-ring``,
 ``--rollback-every``, ``--rewarmup-steps``), ``--trace`` (Chrome JSON) and
-``--metrics`` (JSONL mirror of the tag stream).
+``--metrics`` (JSONL mirror of the tag stream). After ``--trace`` the
+traced bucket comm spans are scored against the CommPlan's predicted
+timeline (``obs.drift``: ``obs.drift.span`` rows and the
+``obs.drift.<schedule>.rel_err`` gauge, or ``obs.drift.no_spans``).
+
+``--bucket-mb auto`` sizes the buckets with the autotuner
+(``comm.autotune``, the card's constants of ``launch/hw.py``);
+``--backward-profile measured`` feeds it one profiled warm-up backward
+instead of the FLOPs model. The deprecated ``--shard-update`` and
+``--no-gather-ahead`` map onto ``--sharding zero1`` and ``--gather
+at_end``, as in the reference.
 
 The reference's flags for parts not ported yet are accepted by name and
 exit with the ROADMAP item that will bring them.
@@ -67,10 +77,12 @@ SCHEDULES = ("naive", "bucketed", "psum", "ring", "hierarchical",
 WHERE = "repro_torch/launch/train.py"
 
 #: reference flag -> ROADMAP §1 item that ports it
-_NOT_PORTED = {
-    "--model-parallel": 6, "--backward-profile": 7,
-    "--shard-update": 7, "--no-gather-ahead": 7,
-}
+_NOT_PORTED = {"--model-parallel": 6}
+
+
+def _bucket_mb(v: str):
+    """``--bucket-mb``: a size in MB or ``auto``."""
+    return v if v == "auto" else float(v)
 
 
 def main(argv=None):
@@ -90,9 +102,13 @@ def main(argv=None):
     ap.add_argument("--comm", default="xla", choices=["xla", *SCHEDULES],
                     help="'xla': the replicated single-device step; else "
                          "an explicit-DP schedule over every rank")
-    ap.add_argument("--bucket-mb", default=4.0, type=float,
-                    help="bucket size in MB ('auto', the autotuner, is "
-                         "ROADMAP §1 item 7)")
+    ap.add_argument("--bucket-mb", default=4.0, type=_bucket_mb,
+                    help="bucket size in MB, or 'auto' (the autotuner)")
+    ap.add_argument("--backward-profile", default="model",
+                    choices=["model", "measured"],
+                    help="the autotuner's backward-time model: the FLOPs "
+                         "model, or one profiled warm-up backward "
+                         "(with --bucket-mb auto)")
     ap.add_argument("--no-overlap", action="store_true",
                     help="post-backward collectives instead of issuing "
                          "each bucket's collective inside the backward")
@@ -112,6 +128,10 @@ def main(argv=None):
                          "default) or keep the forward's ('ahead')")
     ap.add_argument("--update-kernel", action="store_true",
                     help="fused LARS update kernel on the zero1 shards")
+    ap.add_argument("--shard-update", action="store_true",
+                    help="DEPRECATED: use --sharding zero1")
+    ap.add_argument("--no-gather-ahead", action="store_true",
+                    help="DEPRECATED: use --gather at_end")
     ap.add_argument("--lr", type=float, default=None,
                     help="default: linear-scaling rule from batch size")
     ap.add_argument("--warmup", type=int, default=None)
@@ -163,9 +183,8 @@ def main(argv=None):
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="attach the step-timeline tracer and write a "
                          "Chrome-trace JSON (chrome://tracing / Perfetto) "
-                         "at exit; scoring the traced comm spans against "
-                         "the CommPlan's prediction waits for the cost "
-                         "model (ROADMAP §1 item 7b)")
+                         "at exit, and score the traced bucket comm spans "
+                         "against the CommPlan's prediction (obs.drift)")
     ap.add_argument("--metrics", default=None, metavar="OUT.jsonl",
                     help="mirror every metrics event (the MLPerf tag "
                          "stream + obs.* rows) to a JSONL file")
@@ -177,6 +196,29 @@ def main(argv=None):
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             ap.error(f"{flag} is not ported to repro_torch yet "
                      f"(ROADMAP §1 item {item})")
+    # the deprecated boolean flags: noted and mapped onto the policy enum,
+    # as the reference does; the notes go out once the sinks are attached
+    args.notes = []
+    if args.shard_update:
+        args.notes.append(("launch_deprecated", "--shard-update is "
+                           "deprecated; use --sharding zero1"))
+        if args.sharding is None:
+            args.sharding = "zero1"
+        elif args.sharding == "replicated":
+            ap.error("--shard-update conflicts with --sharding replicated "
+                     "— drop the deprecated flag")
+    if args.no_gather_ahead:
+        args.notes.append(("launch_deprecated", "--no-gather-ahead is "
+                           "deprecated; use --gather at_end"))
+        if args.gather is None:
+            args.gather = "at_end"
+        elif args.gather == "ahead":
+            ap.error("--no-gather-ahead conflicts with --gather ahead — "
+                     "drop the deprecated flag")
+    if args.backward_profile == "measured" and args.bucket_mb != "auto":
+        args.notes.append(("launch_note", "--backward-profile measured only "
+                           "affects the bucket autotuner; add --bucket-mb "
+                           "auto or the profile is unused"))
     if args.sharding in ("zero1", "zero2", "zero3") \
             and args.comm in ("xla", "naive"):
         ap.error(f"--sharding {args.sharding} needs an explicit-DP schedule "
@@ -210,6 +252,8 @@ def _run(args):
     reg = obs_metrics.default_registry()
     sink = (reg.add_sink(obs_metrics.JsonlSink(args.metrics))
             if args.metrics else None)
+    for name, note in getattr(args, "notes", ()):
+        reg.event(name, note, where=WHERE)
     saved_plan = None
     if args.resume_elastic:
         try:
@@ -251,6 +295,7 @@ def _train(args, mesh, reg, saved_plan):
     comm = CommConfig(strategy=args.comm, bucket_mb=args.bucket_mb,
                       overlap=not args.no_overlap,
                       update_kernel=args.update_kernel,
+                      backward_profile=args.backward_profile,
                       sharding=args.sharding, gather=args.gather)
     if saved_plan is not None:
         # the committed plan wins over the CLI's comm flags: the resumed
@@ -274,10 +319,18 @@ def _train(args, mesh, reg, saved_plan):
                   f"snapshots every {max(args.rollback_every, 1)} step(s), "
                   f"rewarmup={args.rewarmup_steps}", where=WHERE)
     tracer = obs_trace.Tracer() if args.trace else None
-    train_step = make_train_step(model, opt, sched, smoothing=args.smoothing,
-                                 mesh=mesh, comm=comm,
-                                 grad_accum=args.grad_accum, tracer=tracer,
-                                 guard=args.guard)
+    train_step = make_train_step(
+        model, opt, sched, smoothing=args.smoothing, mesh=mesh, comm=comm,
+        grad_accum=args.grad_accum,
+        profile_batch=(batch_fn(0) if comm.backward_profile == "measured"
+                       else None),
+        tracer=tracer, guard=args.guard)
+    if getattr(train_step, "tuned", None) is not None:
+        t = train_step.tuned
+        reg.event("autotune_plan",
+                  f"autotuned bucket plan: {t.bucket_mb:g}MB x "
+                  f"{t.n_buckets} buckets ({t.sim.mode}), predicted overlap "
+                  f"eff {t.sim.overlap_eff:.2f}", where=WHERE)
     eval_step = make_eval_step(model) if args.eval_every else None
     state = init_state(model, args.seed, device=device,
                        opt_kind=args.optimizer,
@@ -307,6 +360,18 @@ def _train(args, mesh, reg, saved_plan):
         reg.event("trace_written",
                   {"path": path, "steps": len(tracer.steps),
                    "spans": len(tracer.spans())}, where=WHERE)
+        comm_plan = getattr(train_step, "comm_plan", None)
+        if comm_plan is not None:
+            from repro_torch.obs import drift as obs_drift
+            drifts = obs_drift.compute(tracer, comm_plan)
+            if drifts:
+                obs_drift.emit(drifts, comm_plan, registry=reg)
+            else:
+                reg.event("obs.drift.no_spans",
+                          {"schedule": comm_plan.schedule,
+                           "note": "no traced bucket comm spans to score "
+                                   "(xla path, or zero completed steps)"},
+                          where=WHERE)
     if args.history_out:
         with open(args.history_out, "w") as f:
             json.dump(history, f, indent=1)

@@ -31,6 +31,17 @@ distribution paths:
   default). Batch statistics stay per rank; the BN buffers and the
   metrics are averaged over ranks.
 
+``bucket_mb='auto'`` sizes the buckets with ``comm.autotune`` against
+the alpha-beta cost model of the mesh (the card's constants,
+``launch/hw.py``), from the FLOPs model of the backward or, with
+``backward_profile='measured'`` and a ``profile_batch``, from one profiled
+warm-up backward (``_measure_profile``). The LM families run every
+explicit schedule and rung as the conv family does: their stacked leaves
+(one ``(L, ...)`` tensor per weight kind) split across buckets by the
+dozen, and their gradients, like the tied embedding's, are whole only
+when the backward ends, so nearly every collective fires after it (as in
+the reference, whose ``lax.scan`` does the same).
+
 ``guard=True`` arms the numerical-integrity sentinel (``train/guard.py``)
 on every path: the step takes ``(state, batch, guard_in)`` and, before it
 writes anything, counts the nonfinite entries of the loss and the reduced
@@ -39,9 +50,6 @@ kernel launched) with ``skipped`` 1. ``tracer`` (``obs.trace.Tracer``)
 stamps the explicit steps' ``forward``/``backward``/``update`` spans and
 each bucket's collective. Both off (the defaults) leave the step as it
 was.
-
-Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item:
-the bucket autotuner (§1 item 7b), the explicit-DP LM step (item 10).
 """
 from __future__ import annotations
 
@@ -101,7 +109,8 @@ def _not_ported(what: str, item: int):
 def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
                     smoothing: float = 0.1, mesh=None, comm="xla",
                     bucket_mb: float = 4.0, comm_dtype: str = "bf16",
-                    grad_accum: int = 1, tracer=None, guard: bool = False):
+                    grad_accum: int = 1, profile_batch=None, tracer=None,
+                    guard: bool = False):
     """Returns train_step(state, batch) -> (state, metrics).
 
     ``comm`` is a strategy name ('xla', 'naive', 'psum', 'bucketed',
@@ -113,7 +122,9 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
     gradients and the metrics, as the reference's scan does.
 
     The explicit schedules need a ``mesh`` (``launch.mesh.make_mesh``)
-    and every rank calls the step with its own slice of the batch. A
+    and every rank calls the step with its own slice of the batch.
+    ``profile_batch`` (a batch as this rank's step takes it) enables
+    ``backward_profile='measured'`` for ``bucket_mb='auto'``. A
     sharded rung needs the packed state (``init_state(...,
     **train.state.sharded_state_kwargs(train_step))``); the step updates
     the shards in place when ``update_kernel`` is set, so the input state is
@@ -130,16 +141,13 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
     rows 0-d f32 CPU tensors."""
     comm_cfg = comm if isinstance(comm, CommConfig) else CommConfig(
         strategy=comm, bucket_mb=bucket_mb, wire_dtype=comm_dtype)
-    if model.cfg.family != "conv" and comm_cfg.strategy != "xla":
-        raise _not_ported(f"the explicit-DP LM step ({model.cfg.arch_id}, "
-                          f"comm={comm_cfg.strategy!r})", 10)
     if comm_cfg.wire_dtype not in ("bf16", "f32"):
         raise ValueError(comm_cfg.wire_dtype)
     loss_fn = make_loss_fn(model, smoothing=smoothing)
     if comm_cfg.strategy != "xla":
         return _guarded(_explicit_step(model, opt_cfg, schedule, loss_fn,
-                                       comm_cfg, mesh, grad_accum, tracer),
-                        guard)
+                                       comm_cfg, mesh, grad_accum, tracer,
+                                       profile_batch, smoothing), guard)
     if comm_cfg.sharding != "replicated":
         raise ValueError(
             f"sharding={comm_cfg.sharding!r} needs an explicit-DP schedule "
@@ -220,7 +228,7 @@ def _guarded(step, guard: bool):
 
 
 def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
-                   grad_accum, tracer):
+                   grad_accum, tracer, profile_batch, smoothing):
     """The explicit data-parallel step (paper §III-C): replicated or one of
     the sharded rungs, over ``mesh``'s axes (every axis is data
     parallel). Takes ``guard_in`` (None: unguarded)."""
@@ -230,8 +238,6 @@ def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
     comm = comm_cfg.strategy
     if comm != "naive":
         get_schedule(comm)                # unknown names raise here
-    if comm_cfg.bucket_mb == "auto":
-        raise _not_ported("bucket_mb='auto' (the bucket autotuner)", 7)
     if mesh is None:
         raise ValueError(f"comm={comm!r} needs a mesh "
                          f"(repro_torch.launch.mesh.make_mesh)")
@@ -255,9 +261,25 @@ def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
     gather_ahead = gather_mode == "ahead" and sharding == "zero1"
     overlap = comm_cfg.overlap and comm != "naive"
     wire = torch.bfloat16 if comm_cfg.wire_dtype == "bf16" else torch.float32
-    plan = bucketing.make_plan(model.param_pd, bucket_mb=comm_cfg.bucket_mb,
-                               dtype_bytes=2 if wire == torch.bfloat16
-                               else 4)
+    wire_bytes = 2 if wire == torch.bfloat16 else 4
+    bucket_mb, tuned, profile = comm_cfg.bucket_mb, None, None
+    if bucket_mb == "auto" and comm == "naive":
+        bucket_mb = 4.0                # per-tensor all-reduces: no plan used
+    elif bucket_mb == "auto":
+        from repro_torch.comm.autotune import autotune
+        if comm_cfg.backward_profile == "measured" \
+                and profile_batch is not None:
+            profile = _measure_profile(model, profile_batch,
+                                       smoothing=smoothing, mesh=mesh)
+        tuned = autotune(model.param_pd, schedule=comm,
+                         axes=mesh.axis_names,
+                         sizes=tuple(a.size for a in axes),
+                         dtype_bytes=wire_bytes, family=model.cfg.family,
+                         profile=profile, sharding=sharding,
+                         gather=gather_mode, param_dtype_bytes=wire_bytes)
+        bucket_mb = tuned.bucket_mb
+    plan = bucketing.make_plan(model.param_pd, bucket_mb=bucket_mb,
+                               dtype_bytes=wire_bytes)
     collective = dict(strategy=comm, axes=axes, comm_dtype=wire,
                       use_kernel=comm_cfg.use_kernel, tracer=tracer)
     paths = plan.paths
@@ -449,8 +471,9 @@ def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
     train_step.comm = comm
     train_step.mesh = mesh
     train_step.bucket_plan = plan
-    train_step.bucket_mb = comm_cfg.bucket_mb
-    train_step.tuned = None
+    train_step.bucket_mb = bucket_mb
+    train_step.tuned = tuned
+    train_step.backward_profile = profile
     train_step.overlap = overlap
     train_step.sharding = sharding
     train_step.gather = gather_mode
@@ -460,10 +483,54 @@ def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
     train_step.n_shards = n_shards
     # the serializable CommPlan, saved beside every checkpoint
     train_step.comm_plan = plan_for(
-        comm_cfg, mesh, model.param_pd, strategy=comm, overlap=overlap,
-        sharding=sharding, gather=gather_mode,
+        comm_cfg, mesh, model.param_pd, resolved_bucket_mb=bucket_mb,
+        strategy=comm, overlap=overlap, sharding=sharding, gather=gather_mode,
         n_shards=n_shards if shard_update else 1)
     return train_step
+
+
+def _measure_profile(model, batch, *, smoothing: float, mesh):
+    """The profiled warm-up step of ``backward_profile='measured'``: this
+    rank's loss at freshly initialised params (seed 0), differentiated on
+    its own card with probing identities at the bucket-group boundaries
+    (``comm.autotune.measure_backward_profile``: CUDA events on the card).
+    ``batch`` is this rank's. Falls back to the FLOPs model (None) if the
+    capture fails, with a ``backward_profile_fallback`` event, as the
+    reference does. Every rank then takes rank 0's profile, so that all
+    autotune the same bucket plan."""
+    import torch.distributed as dist
+
+    from repro_torch.comm.autotune import measure_backward_profile
+    from repro_torch.core import pinit
+    from repro_torch.obs import metrics as obs_metrics
+    where = "repro_torch/train/step.py"
+    try:
+        dev = mesh.device
+        params = pinit.materialize(model.param_pd, 0, dev)
+        bn = (pinit.materialize(model.bn_state_pd, 0, dev)
+              if model.bn_state_pd is not None else None)
+        local_loss = make_loss_fn(model, smoothing=smoothing)
+        prof = measure_backward_profile(
+            lambda p: local_loss(p, batch, bn)[0], params)
+        del params, bn
+        obs_metrics.event(
+            "backward_profile_measured",
+            {"groups": len(prof.cum_elems),
+             "total_ms": round(prof.total_s * 1e3, 1),
+             "forward_ms": (None if prof.t_forward_s is None
+                            else round(prof.t_forward_s * 1e3, 1))},
+            where=where)
+    except Exception as e:  # noqa: BLE001 (the profile is best-effort)
+        obs_metrics.event(
+            "backward_profile_fallback",
+            f"{type(e).__name__}: {e}; falling back to the FLOPs model",
+            where=where)
+        prof = None
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        box = [prof]
+        dist.broadcast_object_list(box, src=0)
+        prof = box[0]
+    return prof
 
 
 def make_eval_step(model):

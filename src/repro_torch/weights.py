@@ -74,12 +74,22 @@ def lm_params_from_jax(np_tree, cfg, device) -> dict:
 
 
 def lm_state_from_jax(jax_state, cfg, device) -> TrainState:
-    """A reference LM ``TrainState`` of a replicated LARS/SGD-M run (numpy
-    leaves: ``jax.device_get(state)``; its ``bn_state`` is None) -> the
-    port's: the fp32 params and the momentum, both at the params' paths."""
-    return TrainState(int(jax_state.step),
-                      lm_params_from_jax(jax_state.params, cfg, device),
-                      lm_params_from_jax(jax_state.mom, cfg, device))
+    """A reference LM ``TrainState`` (numpy leaves:
+    ``jax.device_get(state)``; its ``bn_state`` is None) -> the port's.
+    Replicated: the fp32 params and the momentum, both at the params'
+    paths. A sharded run on ONE shard, as ``state_from_jax`` takes it: the
+    packed momentum and master shards as buffers, the params None under
+    zero3."""
+    params = (None if jax_state.params is None
+              else lm_params_from_jax(jax_state.params, cfg, device))
+    if isinstance(jax_state.mom, dict):
+        return TrainState(int(jax_state.step), params,
+                          lm_params_from_jax(jax_state.mom, cfg, device))
+    bufs = lambda xs: tuple(
+        torch.from_numpy(np.array(x, np.float32)).to(device) for x in xs)
+    shards = getattr(jax_state, "shards", None)
+    return TrainState(int(jax_state.step), params, bufs(jax_state.mom),
+                      None, None if shards is None else bufs(shards))
 
 
 def cache_from_jax(np_tree, cfg, batch: int, max_seq: int, device) -> dict:

@@ -222,7 +222,9 @@ def test_unported_lm_parts_name_roadmap(base):
         build_model(dataclasses.replace(base, family="moe"))
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
         build_model(dataclasses.replace(base, qk_norm=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
+    # the explicit-DP LM step is ported: like the conv family's, it needs
+    # a mesh (test_torch_lm_dp.py trains it)
+    with pytest.raises(ValueError, match="needs a mesh"):
         make_train_step(build_model(base), lars.OptConfig(),
                         make_schedule(ScheduleConfig(base_lr=0.1,
                                                      total_steps=2)),

@@ -39,7 +39,8 @@ from repro_torch.core.schedule import ScheduleConfig, make_schedule
 from repro_torch.data.synthetic import make_batch_fn, token_batch
 from repro_torch.launch.mesh import Axis, Mesh
 from repro_torch.models.registry import build_model
-from repro_torch.train.state import init_state
+from repro_torch.train.loop import make_params_reader
+from repro_torch.train.state import init_state, sharded_state_kwargs
 from repro_torch.train.step import _lm_loss, make_eval_step, make_loss_fn, \
     make_train_step
 from repro_torch.tree import tree_flatten, tree_unflatten
@@ -154,12 +155,26 @@ def test_eval_step_is_the_unsmoothed_lm_loss(base):
 
 
 def test_explicit_lm_step_names_roadmap(base):
-    model = build_model(base)
+    """The explicit data-parallel LM step runs (it raised before, naming
+    the ROADMAP item): psum replicated and ring zero1 on a one-rank mesh,
+    from one state and batch, give the same loss and finite params
+    (``test_torch_lm_dp.py`` holds every rung against the reference)."""
+    model = build_model(dataclasses.replace(base, remat=True))
     mesh = Mesh((Axis("data", 1, 0, (0,), None),), torch.device("cpu"))
-    for comm in ("psum", CommConfig(strategy="ring", sharding="zero1")):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
-            make_train_step(model, lars.OptConfig(), _sched(), mesh=mesh,
-                            comm=comm)
+    batch = token_batch(base, batch=2, seq=32, step=0, device="cpu")
+    losses = []
+    for comm in ("psum", CommConfig(strategy="ring", sharding="zero1",
+                                    bucket_mb=0.1, update_kernel=True)):
+        step = make_train_step(model, lars.OptConfig(), _sched(), mesh=mesh,
+                               comm=comm)
+        state = init_state(model, 0, device="cpu",
+                           **sharded_state_kwargs(step))
+        state, metrics = step(state, batch)
+        assert state.step == 1
+        losses.append(float(metrics["loss"]))
+        assert all(bool(torch.isfinite(x).all()) for _, x in
+                   tree_flatten(make_params_reader(step)(state)))
+    assert losses[0] == losses[1] and np.isfinite(losses[0])
 
 
 def _lcg_breaks(tokens, V):

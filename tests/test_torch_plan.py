@@ -199,18 +199,39 @@ def test_corrupt_file_and_wrong_template_are_rejected(tmp_path):
 
 
 def test_autotune_paths_name_the_roadmap_item():
-    """Nothing is autotuned in the port yet: ``retarget`` and a re-autotuned
-    ``'auto'`` plan raise, naming item 7b; a pinned resolved size works."""
-    _, got = _plans("zero1_psum_025")
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        got.retarget(("data",), (2,), None)
-    auto = dataclasses.replace(got, requested_bucket_mb="auto")
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        auto.comm_config(reautotune=True)
-    assert auto.comm_config(reautotune=False).bucket_mb == got.bucket_mb
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        tcomm.plan_for(CommConfig(strategy="ring", bucket_mb="auto"),
-                       (("data",), (2,)), _pds()[1])
+    """The autotuned paths run (they raised before, naming ROADMAP item
+    7b), as the reference's do: ``retarget`` of an explicit plan and of a
+    plan that requested ``'auto'`` onto (data 2) and (pod 2, data 2),
+    ``comm_config(reautotune=True)`` handing back ``'auto'``, and
+    ``plan_for(bucket_mb='auto')``; every field equal to the reference's
+    when the port is given the reference's constants (the port's own are
+    the H100's, ``launch/hw.py``)."""
+    from repro.launch import mesh as jmesh
+    from repro_torch.comm import cost
+    from repro_torch.launch import hw
+    ref_hw = hw.Hardware("the reference's", jmesh.ICI_ALPHA, jmesh.ICI_BW,
+                         jmesh.DCI_ALPHA, jmesh.DCI_BW, jmesh.HBM_BW,
+                         jmesh.PEAK_FLOPS_BF16)
+    want, got = _plans("zero1_psum_025")
+    jpd, tpd = _pds()
+    auto_w = dataclasses.replace(want, requested_bucket_mb="auto")
+    auto_g = dataclasses.replace(got, requested_bucket_mb="auto")
+    for axes, sizes in ((("data",), (2,)), (("pod", "data"), (2, 2))):
+        links = cost.default_links(axes, ref_hw)
+        for w, g in ((want, got), (auto_w, auto_g)):
+            assert tplan.to_dict(g.retarget(axes, sizes, tpd, family="conv",
+                                            links=links, hw=ref_hw)) == \
+                jplan.to_dict(w.retarget(axes, sizes, jpd, family="conv"))
+        fields = dict(strategy="ring", bucket_mb="auto", sharding="zero1")
+        assert tplan.to_dict(tcomm.plan_for(
+            CommConfig(**fields), (axes, sizes), tpd, links=links,
+            hw=ref_hw)) == jplan.to_dict(jcomm.plan_for(
+                JCommConfig(**fields), (axes, sizes), jpd))
+    assert auto_g.comm_config(reautotune=True) == \
+        CommConfig(**{**dataclasses.asdict(auto_g.comm_config(
+            reautotune=False)), "bucket_mb": "auto"})
+    assert auto_g.comm_config(reautotune=False).bucket_mb == got.bucket_mb
+    assert auto_w.comm_config(reautotune=True).bucket_mb == "auto"
 
 
 @pytest.mark.parametrize("comm", [

@@ -229,12 +229,6 @@ def test_make_train_step_names_what_is_not_ported():
     mesh = Mesh((Axis("data", 1, 0, (0,), None),), torch.device("cpu"))
     sched = make_schedule(ScheduleConfig(base_lr=0.1, total_steps=2))
     opt = lars.OptConfig()
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 7"):
-        make_train_step(model, opt, sched, mesh=mesh,
-                        comm=CommConfig(strategy="ring", bucket_mb="auto"))
-    lm = build_model(get_config("qwen1.5-0.5b").reduced())
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
-        make_train_step(lm, opt, sched, mesh=mesh, comm="ring")
     with pytest.raises(ValueError, match="needs a mesh"):
         make_train_step(model, opt, sched, comm="ring")
     with pytest.raises(ValueError, match="explicit-DP schedule"):
@@ -279,3 +273,71 @@ def test_entry_points_raise_without_card(monkeypatch):
         make_local_mesh()
     assert init_state(model, 0, device="cpu").params["stem"]["conv"] \
         .device.type == "cpu"
+
+
+@pytest.mark.parametrize("flag, field, value, conflict", [
+    ("--shard-update", "sharding", "zero1", ["--sharding", "replicated"]),
+    ("--no-gather-ahead", "gather", "at_end", ["--gather", "ahead"])])
+def test_cli_deprecated_alias_maps_onto_the_policy(capsys, monkeypatch, flag,
+                                                   field, value, conflict):
+    """The reference's deprecated booleans: noted as ``launch_deprecated``
+    and mapped onto ``--sharding zero1`` / ``--gather at_end``; given with
+    the contrary policy they are refused, as the reference refuses them."""
+    from repro_torch.launch import train as launch
+    ran = []
+    monkeypatch.setattr(launch, "_run", ran.append)
+    launch.main(["--arch", "resnet50", "--reduced", "--device", "cpu",
+                 "--comm", "ring", flag])
+    assert getattr(ran[0], field) == value
+    assert [n for n, _ in ran[0].notes] == ["launch_deprecated"]
+    assert flag in ran[0].notes[0][1]
+    with pytest.raises(SystemExit) as exit_info:
+        launch.main(["--arch", "resnet50", "--reduced", "--device", "cpu",
+                     "--comm", "ring", flag, *conflict])
+    assert exit_info.value.code != 0
+    assert f"{flag} conflicts with {' '.join(conflict)}" in \
+        capsys.readouterr().err
+
+
+def test_cli_deprecated_aliases_train(capsys):
+    from repro_torch.launch import train as launch
+    history = launch.main(["--arch", "resnet50", "--reduced", "--steps", "2",
+                           "--batch", "4", "--device", "cpu", "--comm",
+                           "ring", "--shard-update", "--no-gather-ahead"])
+    assert len(history) == 2 and all(np.isfinite(h["loss"]) for h in history)
+    out = capsys.readouterr().out
+    assert out.count("launch_deprecated: ") == 2
+    assert "(repro_torch/train/loop.py) run_stop:" in out
+
+
+def test_cli_bucket_mb_auto_measured_profile_and_drift(capsys, tmp_path):
+    """``--bucket-mb auto --backward-profile measured`` on the LM's ring
+    zero1 step: the profiled warm-up backward, the autotuned plan, and
+    after ``--trace`` the drift rows of the traced bucket spans."""
+    from repro_torch.launch import train as launch
+    history = launch.main([
+        "--arch", "qwen1.5-0.5b", "--reduced", "--seq", "32", "--batch", "4",
+        "--steps", "2", "--device", "cpu", "--comm", "ring", "--sharding",
+        "zero1", "--bucket-mb", "auto", "--backward-profile", "measured",
+        "--trace", str(tmp_path / "t.json")])
+    assert len(history) == 2 and all(np.isfinite(h["loss"]) for h in history)
+    out = capsys.readouterr().out
+    for tag in ("backward_profile_measured: ", "autotune_plan: autotuned "
+                "bucket plan: ", "trace_written: ", "obs.drift.span: ",
+                "obs.drift.ring.rel_err: "):
+        assert tag in out, tag
+    assert "backward_profile_fallback" not in out
+
+
+def test_cli_backward_profile_needs_auto(monkeypatch):
+    from repro_torch.launch import train as launch
+    ran = []
+    monkeypatch.setattr(launch, "_run", ran.append)
+    launch.main(["--arch", "resnet50", "--reduced", "--device", "cpu",
+                 "--comm", "ring", "--backward-profile", "measured"])
+    assert ran[0].bucket_mb == 4.0 and [n for n, _ in ran[0].notes] == \
+        ["launch_note"]
+    launch.main(["--arch", "resnet50", "--reduced", "--device", "cpu",
+                 "--comm", "ring", "--bucket-mb", "auto",
+                 "--backward-profile", "measured"])
+    assert ran[1].bucket_mb == "auto" and ran[1].notes == []

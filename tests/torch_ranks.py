@@ -335,8 +335,70 @@ def ckpt_zero1(mesh):
     return out
 
 
+def lm_zero1(mesh):
+    """Reduced qwen1.5-0.5b: two ring zero1 steps over the mesh (0.1 MB
+    buckets, split leaves; K3 and K2 flags on; f32 wire), each rank on its
+    rows of the global batch, against two one-rank psum steps on the whole
+    batch (a size-1 axis: no collective). ``masters_of_max``: the worst
+    tensor's max difference over its max; ``loss_rel``: the last step's
+    mean loss against the one-rank loss; ``masters_of_update``: the worst
+    tensor's max difference over its largest update; ``masters_sha``: the
+    gathered masters' sha256, which every rank must share."""
+    import hashlib
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import CommConfig
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import lars
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.launch.mesh import Axis, Mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.loop import make_params_reader
+    from repro_torch.train.state import init_state, sharded_state_kwargs
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_flatten
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    model = build_model(cfg)
+    sched = make_schedule(ScheduleConfig(base_lr=0.5, warmup_steps=1,
+                                         total_steps=3, decay="poly2"))
+    comm = dict(bucket_mb=0.1, wire_dtype="f32")
+    step = make_train_step(model, lars.OptConfig(), sched, mesh=mesh,
+                           comm=CommConfig(strategy="ring", sharding="zero1",
+                                           use_kernel=True,
+                                           update_kernel=True, **comm))
+    one = Mesh((Axis("data", 1, 0, (mesh.rank,), None),), mesh.device)
+    step1 = make_train_step(model, lars.OptConfig(), sched, mesh=one,
+                            comm=CommConfig(strategy="psum", **comm))
+    shape = InputShape("t", "train", 32, 8)
+    part = make_batch_fn(cfg, shape, seed=3, device=mesh.device, mesh=mesh)
+    full = make_batch_fn(cfg, shape, seed=3, device=mesh.device)
+    s = init_state(model, 0, device=mesh.device, **sharded_state_kwargs(step))
+    s1 = init_state(model, 0, device=mesh.device)
+    p0 = [x.clone() for _, x in tree_flatten(s1.params)]
+    for i in range(2):
+        s, m = step(s, part(i))
+        s1, m1 = step1(s1, full(i))
+    got = make_params_reader(step)(s)
+    pairs = list(zip(tree_flatten(got), tree_flatten(s1.params), p0))
+    worst = max(float((a - b).abs().max() / b.abs().max())
+                for (_, a), (_, b), _ in pairs)
+    of_upd = max(float((a - b).abs().max() / (b - c).abs().max())
+                 for (_, a), (_, b), c in pairs)
+    h = hashlib.sha256()
+    for _, x in tree_flatten(got):
+        h.update(x.contiguous().numpy().tobytes())
+    return {"masters_of_max": np.float64(worst),
+            "masters_of_update": np.float64(of_upd),
+            "loss_rel": np.float64(abs(float(m["loss"]) - float(m1["loss"]))
+                                   / abs(float(m1["loss"]))),
+            "masters_sha": np.frombuffer(h.digest(), np.uint8)}
+
+
 SCENARIOS = {"schedules": schedules, "zero1_step": zero1_step,
-             "zero23_step": zero23_step, "ckpt_zero1": ckpt_zero1}
+             "zero23_step": zero23_step, "ckpt_zero1": ckpt_zero1,
+             "lm_zero1": lm_zero1}
 
 
 def main(scenario: str, out_dir: str, device: str = "cpu"):

@@ -16,6 +16,7 @@ to an ``.npz`` of ``kind/path`` keys.
   python tests/torch_reference.py attention_cases OUT.npz
   python tests/torch_reference.py lm_cases OUT.npz
   python tests/torch_reference.py lm_train_steps OUT.npz
+  python tests/torch_reference.py lm_dp_steps OUT.npz
   python tests/torch_reference.py guard_zero1_run OUT.npz
   python tests/torch_reference.py traced_zero1_step OUT.npz
 
@@ -23,8 +24,8 @@ The reference's explicit data-parallel steps fail under jax 0.9.0 before
 they compute anything: ``repro/core/compat.py`` passes ``check_rep=`` to
 ``jax.shard_map``, which now takes ``check_vma=``, and ``jax.make_mesh``
 now makes Explicit axes, which the step's sharding constraints reject.
-``zero1_steps``, ``zero23_steps``, ``guard_zero1_run`` and
-``traced_zero1_step`` route around both without touching
+``zero1_steps``, ``zero23_steps``, ``lm_dp_steps``, ``guard_zero1_run``
+and ``traced_zero1_step`` route around both without touching
 ``src/repro``: each replaces ``compat.shard_map`` in its own process with
 a shim that calls ``jax.shard_map(..., check_vma=False)``, builds an
 Auto-axis mesh, and feeds numpy batches (no mesh-bound batch function).
@@ -724,6 +725,90 @@ def lm_train_steps():
     return out
 
 
+#: the explicit-DP LM parity setting: reduced qwen1.5-0.5b at buckets of
+#: LM_DP_BUCKET_MB (bf16 wire: 51,200 elements a span, so every stacked
+#: weight and the embedding split into spans across buckets), LARS poly2,
+#: the lcg batches of ``lm_train_steps``; per case (schedule, sharding,
+#: gather) two jitted steps on a (1, 1) Auto-axis mesh
+LM_DP_BUCKET_MB = 0.1
+LM_DP_CASES = {"psum": ("psum", "replicated", None),
+               "ring": ("ring", "replicated", None),
+               "zero1": ("ring", "zero1", None),
+               "zero2": ("ring", "zero2", None),
+               "zero3": ("ring", "zero3", "per_group")}
+
+
+def lm_dp_steps():
+    """Reduced qwen1.5-0.5b through the reference's explicit data-parallel
+    step (``make_train_step(comm=CommConfig(...), mesh=...)`` under the
+    shard_map shim), for each of ``LM_DP_CASES``: each step's input and
+    output state (params absent under zero3, shards under zero2; packed
+    momentum and shards as ``{name}/{bucket}``), batch and metrics, as
+    ``{case}/s{k}/...``."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import AxisType, NamedSharding
+    from jax.sharding import PartitionSpec as P
+    from repro.configs import get_config
+    from repro.configs.base import CommConfig
+    from repro.core import lars
+    from repro.core.schedule import ScheduleConfig, make_schedule
+    from repro.data.synthetic import token_batch
+    from repro.models.registry import build_model
+    from repro.train import state as st
+    from repro.train.step import make_train_step
+
+    _shard_map_shim()
+    base = get_config(LM_ARCH).reduced()
+    model = build_model(dataclasses.replace(base))
+    params = lm_params(base)
+    sched = make_schedule(ScheduleConfig(**LR))
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    batches = [jax.device_get(token_batch(
+        base, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, step=k, kind="lcg"))
+        for k in range(LM_TRAIN_STEPS)]
+    out = {}
+    for case, (strategy, sharding, gather) in LM_DP_CASES.items():
+        step = make_train_step(
+            model, lars.OptConfig(kind="lars"), sched, mesh=mesh,
+            comm=CommConfig(strategy=strategy, sharding=sharding,
+                            gather=gather, bucket_mb=LM_DP_BUCKET_MB))
+        plan = step.bucket_plan
+        if sharding == "replicated":
+            s = st.TrainState(jnp.zeros((), jnp.int32), params,
+                              jax.tree.map(np.zeros_like, params))
+        else:
+            s = st.TrainState(
+                jnp.zeros((), jnp.int32),
+                None if sharding == "zero3" else params,
+                st.init_packed_momentum(plan, 1), None,
+                None if sharding == "zero2"
+                else st.init_packed_shards(params, plan, 1))
+        s = jax.device_put(s, NamedSharding(mesh, P()))
+        jstep = jax.jit(step)
+        for k, batch in enumerate(batches):
+            s2, m = jstep(s, batch)
+            pre = f"{case}/s{k}"
+            for io, x in (("in", s), ("out", s2)):
+                x = jax.device_get(x)
+                out[f"{pre}/{io}/step"] = np.asarray(x.step)
+                if x.params is not None:
+                    _flat(f"{pre}/{io}/params", x.params, out)
+                if isinstance(x.mom, dict):
+                    _flat(f"{pre}/{io}/mom", x.mom, out)
+                    continue
+                for name in ("shards", "mom"):
+                    for b, buf in enumerate(getattr(x, name) or ()):
+                        out[f"{pre}/{io}/{name}/{b}"] = np.asarray(buf)
+            _flat(f"{pre}/batch", batch, out)
+            _flat(f"{pre}/metrics", jax.device_get(m), out)
+            s = s2
+    return out
+
+
 if __name__ == "__main__":
     what, dest = sys.argv[1], sys.argv[2]
     np.savez(dest, **{"resnet_grads": resnet_grads,
@@ -734,5 +819,6 @@ if __name__ == "__main__":
                       "attention_cases": attention_cases,
                       "lm_cases": lm_cases,
                       "lm_train_steps": lm_train_steps,
+                      "lm_dp_steps": lm_dp_steps,
                       "guard_zero1_run": guard_zero1_run,
                       "traced_zero1_step": traced_zero1_step}[what]())
