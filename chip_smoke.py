@@ -42,7 +42,12 @@ Phases, in order; any failure exits non-zero and prints no result:
               op named, where one has no deterministic form), spike@3:1e4
               (a guard_rollback, finite losses); 3 traced steps (forward,
               backward, update, rs[b0..15] and ag[b0..15] in each step
-              window of a valid Chrome JSON); the step ms unguarded,
+              window of a valid Chrome JSON; the overlap gate: in each
+              step the rs begins are non-decreasing in the order the
+              backward reaches the groups, the reverse of the forward's
+              first reads from a meta-device forward: b15 (the head's),
+              b1 ... b14, b0 (the stem's), the first before the backward
+              span's midpoint); the step ms unguarded,
               guarded and traced, interleaved, and a rollback snapshot's
               ms. K1 and K2 must read one launch a committed step call
               (none on a skipped one)
@@ -80,7 +85,20 @@ Phases, in order; any failure exits non-zero and prints no result:
               1e-5 / atol 1e-7, the plain steps bit for bit, new params to
               5e-2 of each tensor's largest update (bf16 gradients: not
               1e-5 of its max, the function says why)
- 15. ring     on two or more cards (min(count, 4) ranks, one card each,
+ 15. examples  the four twins of examples/*.py
+              (repro_torch.examples.train_resnet_imagenet --steps 8,
+              quickstart, serve_decode, large_batch_ablation --steps 4),
+              each a subprocess on the card (this script with --example
+              NAME: the module run as __main__, its counts read at its
+              end), all started together: each exits 0 with finite losses
+              and its final line; K4 60 + 60 (quickstart's steps), every
+              other kernel 0
+ 16. report   python -m repro_torch.launch.report --section comm,
+              autotune and shard (the H100's constants named in each
+              heading) and --section trace over the durability phase's
+              Chrome trace: every rs[b*] row starts inside its step's
+              backward row
+ 17. ring     on two or more cards (min(count, 4) ranks, one card each,
               over NCCL: this script under torch.distributed.run with
               --ring-rank), full-width ResNet-50, batch 64 a card, the slice's
               recipe, CommConfig(use_kernel=True, update_kernel=True), 3
@@ -94,13 +112,13 @@ Phases, in order; any failure exits non-zero and prints no result:
               sharded one, K2 once a sharded step; prints step ms
               (median after the first step), images/s over all cards and
               peak memory per rank
- 16. ring context  one packed bf16 gradient through the ring all-reduce and
+ 18. ring context  one packed bf16 gradient through the ring all-reduce and
               every schedule's reduce-scatter form, with K3 and with the
               plain fold: bit-equal (counted apart for the forms that fold
               through K3: ring, hierarchical, 2d_torus); with f32 wire, every schedule and rung
               against the replicated psum step from one state and batch:
               masters within 1e-5 of each tensor's max
- 17. lm_ring  on four cards (this script under torch.distributed.run with
+ 19. lm_ring  on four cards (this script under torch.distributed.run with
               --lm-ring-rank, one rank a card, NCCL): the card's link
               (alpha, beta of a ring exchange), HBM and bf16 matmul rates
               measured (launch/hw.measure) and held within 2x of
@@ -121,8 +139,11 @@ Phases, in order; any failure exits non-zero and prints no result:
               ring zero1, for the LM and for ResNet-50 (batch 64 a card):
               the chosen bucket size, the simulated and the measured step
               time, and obs.drift's measured / predicted per span kind
-              over 3 traced steps; the profile must be the measured one
- 18. lm_ring resume  the four-card ring zero1 checkpoint resumed on one
+              over 3 traced steps; the profile must be the measured one;
+              ResNet-50's must stamp under half of its groups in the
+              backward's last tenth, and its rs spans begin inside the
+              backward span (the LM's stacked leaves fire late: no gate)
+ 20. lm_ring resume  the four-card ring zero1 checkpoint resumed on one
               card (elastic.load_resharded, 4 -> 1 shards over the LM's
               split-leaf plan): masters bit-equal to the gathered rows
               (sha256), then one step with a finite loss (K1, K2, K4)
@@ -138,7 +159,8 @@ shards and the 0.25 MB plan on 3 (every rank), timing it at 1 and 4
 shards beside the per-bucket launches and one launch over the shards
 concatenated, K1's and K2's one call at the four-card LM step's shard
 site (qwen1.5-0.5b's 224 buckets on 4 shards, rank 0: two launches
-inside each call), K4, forward and backward, against its plain version (at the path's shape in
+inside each call), K1 at both sharded sites beside torch._foreach_norm
+over the same per-tensor views, K4, forward and backward, against its plain version (at the path's shape in
 f32 and bf16, at T 16 x V 333, and with IGNORE labels), beside
 F.cross_entropy, and K3, bit for bit, at the ring's chunk rows (the
 path's largest and smallest on 4 and 2 ranks, bf16 and f32, every k, by
@@ -149,7 +171,8 @@ kernel's launch count is set to 0 just before each path (slice, zero1,
 durability, serve, lm_train, each ring and lm_ring configuration and
 autotune run, the lm_ring resume) and read just after: a kernel the path
 runs must show its count, every other kernel 0, and the JSON
-line's launches_by_path holds these readings.
+line's launches_by_path holds these readings (examples: the four twins'
+subprocesses, summed).
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -157,6 +180,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -278,6 +302,11 @@ HW_TOL = 2.0
 SERVE_TOL = 3e-2
 
 
+#: what one phase leaves for a later one: the durability phase's trace,
+#: for the report phase
+_RESULTS = {}
+
+
 def fail(msg: str):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -365,11 +394,34 @@ def _read_path(path: str, want: dict) -> dict:
     """Every kernel's launches, read just after a path's run (its counts
     were set to 0 just before it); fails unless each equals ``want``, where
     a kernel it does not name must not have launched."""
-    got = {key: w.launches for key, w in _counters().items()}
+    return _check_counts(path, {key: w.launches for key, w in
+                                _counters().items()}, want)
+
+
+def _check_counts(path: str, got: dict, want: dict) -> dict:
+    """``got`` (every kernel's launches on a path) against ``want``, where
+    a kernel it does not name must read 0."""
     want = {key: want.get(key, 0) for key in got}
     if got != want:
         fail(f"{path}: launches {got}; the path must launch {want}")
     return got
+
+
+def _segment_views(bufs, segs) -> list:
+    """Each shard's per-tensor views: the runs of one id in its CHUNK
+    segment map (padding repeats a bucket's last id, so the views cover
+    every element K1 reads), for ``torch._foreach_norm`` over the same
+    segments as K1's one call."""
+    from repro_torch.core.bucketing import CHUNK
+    views = []
+    for x, seg in zip(bufs, segs):
+        ids = seg.tolist()
+        start = 0
+        for i in range(1, len(ids) + 1):
+            if i == len(ids) or ids[i] != ids[start]:
+                views.append(x[start * CHUNK:i * CHUNK])
+                start = i
+    return views
 
 
 def _one_rank():
@@ -572,6 +624,8 @@ def check_lars_update(dev):
     k1_ms = time_ms(lambda: batched_norm.batched_sumsq_multi(
         (p, g), seg_all, plan.n_tensors), iters=50)
     k1_32 = time_ms(k1_per_bucket, iters=50)
+    views = _segment_views(p, segs) + _segment_views(g, segs)
+    k1_lib = time_ms(lambda: torch._foreach_norm(views), iters=50)
     k1_plain = time_ms(lambda: ref.batched_sumsq_multi(
         (p, g), seg_all, plan.n_tensors), iters=20)
     elems, chunks = plan.n_chunks * bucketing.CHUNK, plan.n_chunks
@@ -583,7 +637,9 @@ def check_lars_update(dev):
           f"shards): one launch (batched_sumsq_multi) {k1_ms * 1e3:.1f} us, "
           f"bound {k1_b * 1e3:.1f} us; the 32 per-bucket launches it "
           f"replaced {k1_32 * 1e3:.1f} us, bound {k1_32_b * 1e3:.1f} us; "
-          f"plain {k1_plain * 1e3:.1f} us", flush=True)
+          f"plain {k1_plain * 1e3:.1f} us; torch._foreach_norm over the "
+          f"same {len(views)} per-tensor views {k1_lib * 1e3:.1f} us",
+          flush=True)
     a, c = sites["a"], sites["c"]
     entry = {"name": "lars_packed_update", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/lars_update.cu",
@@ -615,9 +671,10 @@ def check_lars_update(dev):
     k1_site = {"zero1_site": {
         "ms": k1_ms, "per_bucket_32_launches_ms": k1_32,
         "plain_ms": k1_plain, "bound_ms": k1_b,
-        "per_bucket_bound_ms": k1_32_b,
-        "library": "none: no single call sums squares by segment across "
-                   "buffers"}}
+        "per_bucket_bound_ms": k1_32_b, "library_ms": k1_lib,
+        "library": f"torch._foreach_norm over the {len(views)} per-tensor "
+                   f"views of the 2 x {plan.n_buckets} shards (norms a "
+                   f"view, not summed across a tensor's spans)"}}
     return entry, k1_site
 
 
@@ -1181,6 +1238,23 @@ def run_durability(dev, mesh, batch_fn, tmp):
             fail(f"durability: traced step {i}: spans {sorted(names)}, "
                  f"want {sorted(want)}, each inside its window")
 
+    # the overlap gate: each group's reduce-scatter starts once its
+    # gradients exist, in the order the backward reaches the groups
+    order = _overlap_order(model, plan, batch_fn(0))
+    overlap = [_overlap_gate([sp for sp in spans if sp.step == i], order,
+                             f"durability: traced step {i}")
+               for i in range(3)]
+    for i, row in enumerate(overlap):
+        print(f"durability: traced step {i}: rs spans begin "
+              f"{row['first_ms']:.1f} / {row['median_ms']:.1f} / "
+              f"{row['last_ms']:.1f} ms (first / median / last) into a "
+              f"{row['backward_ms']:.1f} ms backward span; in the order "
+              f"{row['order']}, non-decreasing; the first before the "
+              f"span's midpoint", flush=True)
+    # kept past the phase's temporary directory, for the report phase
+    _RESULTS["durability_trace"] = shutil.copyfile(
+        path, ROOT / "build" / "chip_smoke_trace.json")
+
     # 5. the guard's and the tracer's cost, interleaved; a snapshot's cost
     variants = {"unguarded": (step, None), "guarded": (gstep, None),
                 "traced": (tstep, tracer)}
@@ -1225,6 +1299,68 @@ def run_durability(dev, mesh, batch_fn, tmp):
           f"batched_sumsq {counts['k1']}, lars_packed_update {counts['k2']}",
           flush=True)
     return counts
+
+
+def _overlap_order(model, plan, batch):
+    """The order in which the backward reaches ``plan``'s groups. Each
+    group's identity is made where the forward first reads one of its
+    leaves (with every group sharing a split leaf with it: a unit), and
+    autograd runs the ready node made last first, so the units run in the
+    reverse order of their first reads, each unit's groups in group order.
+    The read order is taken from one forward on the meta device (shapes
+    only) over a tree that records each leaf's first read. For ResNet the
+    plan packs in reverse flatten order, where ``stem`` is the last key:
+    group 0 holds the stem's leaves (read first, reached last)."""
+    import torch
+    from repro_torch.core import ddp
+    from repro_torch.tree import LazyTree, tree_leaves, tree_map
+
+    meta = lambda x: torch.empty(x.shape, dtype=getattr(  # noqa: E731
+        x, "dtype", torch.float32), device="meta")
+    shapes = tree_leaves(model.param_pd)
+    read = []
+    tree = LazyTree(plan.paths, lambda i: (read.append(i),
+                                           meta(shapes[i]))[1])
+    bn = (tree_map(meta, model.bn_state_pd) if model.bn_state_pd is not None
+          else None)
+    with torch.no_grad():
+        model.forward_train(tree, {k: meta(v) for k, v in batch.items()},
+                            bn)
+    n = plan.n_tensors
+    leaf = {id(s): n - 1 - t for t, s in zip(plan.slot_tensor_ids,
+                                              plan.slots)}
+    group_leaves = [[leaf[id(s)] for s in g] for g in plan.groups]
+    unit_of = ddp._units(group_leaves, n)
+    first = {}
+    for pos, j in enumerate(read):
+        first.setdefault(unit_of[j], pos)
+    return [gi for u in sorted(first, key=first.get, reverse=True)
+            for gi in u]
+
+
+def _overlap_gate(spans, order, what: str) -> dict:
+    """Where one traced step's in-backward reduce-scatters begin: fails
+    unless the ``rs[b<i>]`` begins are non-decreasing in the order the
+    backward reaches the groups (``order``, from ``_overlap_order``) and
+    the first of them begins before the backward span's midpoint. Returns
+    the begins (ms after the backward span's begin) and the span's
+    length."""
+    bwd = next(sp for sp in spans if sp.name == "backward")
+    begin = {int(sp.name[4:-1]): (sp.t0 - bwd.t0) * 1e3 for sp in spans
+             if sp.name.startswith("rs[b")}
+    if sorted(begin) != sorted(order):
+        fail(f"{what}: rs spans of groups {sorted(begin)}, want "
+             f"{sorted(order)}")
+    seq = [begin[gi] for gi in order]
+    bwd_ms = (bwd.t1 - bwd.t0) * 1e3
+    if any(b < a for a, b in zip(seq, seq[1:])) or not seq[0] < bwd_ms / 2:
+        fail(f"{what}: rs begins {[round(x, 2) for x in seq]} ms in the "
+             f"order {order} into a {bwd_ms:.2f} ms backward span; they "
+             f"must be non-decreasing, the first before the midpoint")
+    starts = sorted(seq)
+    return {"order": order, "begin_ms": seq, "backward_ms": bwd_ms,
+            "first_ms": starts[0], "median_ms": statistics.median(starts),
+            "last_ms": starts[-1]}
 
 
 def _ring_rows(dev, gen, L, n, dtype):
@@ -2182,7 +2318,7 @@ def check_lm_shard_site(dev):
         fail(f"the qwen1.5-0.5b 4 MB plan has {plan.n_buckets} buckets, "
              f"not {LM_RING_BUCKETS}")
     gen = torch.Generator(device=dev).manual_seed(3)
-    p, g, m, _, seg_all, trust = _shard_case(plan, 4, 0, dev, gen)
+    p, g, m, segs, seg_all, trust = _shard_case(plan, 4, 0, dev, gen)
     n_t = plan.n_tensors
     got = batched_norm.batched_sumsq_multi((p, g), seg_all, n_t)
     want = ref.batched_sumsq_multi((p, g), seg_all, n_t)
@@ -2220,6 +2356,8 @@ def check_lm_shard_site(dev):
                        iters=5, warmup=1)
     k1_b, k1_by = bound_ms(2 * 4 * elems + 4 * chunks + 2 * 4 * n_t,
                            2 * 2 * elems)
+    views = _segment_views(p, segs) + _segment_views(g, segs)
+    k1_lib = time_ms(lambda: torch._foreach_norm(views), iters=20, warmup=3)
     k2_ms = time_ms(lambda: lars_update.lars_packed_update_multi(
         p, g, m, trust, seg_all, **kw), iters=20, warmup=3)
     k2_plain = time_ms(lambda: ref.lars_packed_update_multi(
@@ -2237,7 +2375,9 @@ def check_lm_shard_site(dev):
           f"over {2 * plan.n_buckets} shards {k1_ms * 1e3:.1f} us (device "
           f"alone {dev_us(k1_dev)}), plain "
           f"{k1_plain * 1e3:.1f} us, bound {k1_b * 1e3:.1f} us ({k1_by}), "
-          f"max rel err {k1_rel:.3e} (rtol 2e-3); lars_packed_update_multi "
+          f"max rel err {k1_rel:.3e} (rtol 2e-3), torch._foreach_norm "
+          f"over the same {len(views)} per-tensor views "
+          f"{k1_lib * 1e3:.1f} us; lars_packed_update_multi "
           f"over {plan.n_buckets} buckets {k2_ms * 1e3:.1f} us (device "
           f"alone {dev_us(k2_dev)}), plain "
           f"{k2_plain * 1e3:.1f} us, bound {k2_b * 1e3:.1f} us ({k2_by}), "
@@ -2247,8 +2387,11 @@ def check_lm_shard_site(dev):
         "shape": f"qwen1.5-0.5b 4 MB plan, rank 0 of 4: {plan.n_buckets} "
                  f"buckets, {elems} elements", "ms": ms, "device_ms": dev,
         "plain_ms": plain, "bound_ms": b, "bound_by": by, "max_err": err}
-    return ({"lm_shard_site": site(k1_ms, k1_dev, k1_plain, k1_b, k1_by,
-                                   k1_rel)},
+    return ({"lm_shard_site": dict(
+                site(k1_ms, k1_dev, k1_plain, k1_b, k1_by, k1_rel),
+                library_ms=k1_lib, library=f"torch._foreach_norm over the "
+                f"{len(views)} per-tensor views of the 2 x {plan.n_buckets} "
+                f"shards")},
             {"lm_shard_site": site(k2_ms, k2_dev, k2_plain, k2_b, k2_by,
                                    k2_abs)})
 
@@ -2425,13 +2568,16 @@ def _lm_ring_hw(mesh, say):
     return {"measured": got, "module": {k: b for k, (_, b) in rows.items()}}
 
 
-def _autotune_reading(model, mesh, batch_fn, name, say, want_fn, sched):
+def _autotune_reading(model, mesh, batch_fn, name, say, want_fn, sched,
+                      overlap_gate=False):
     """``bucket_mb='auto'`` with ``backward_profile='measured'`` on ring
     zero1 (K1, K2, K3 on): the chosen bucket size and the simulated step
     time, then 3 traced steps through loop.train: the measured step time
     (median of the last two) and obs.drift.compute's measured / predicted
     per span kind (the first step skipped). Fails if the profile fell back
-    to the FLOPs model."""
+    to the FLOPs model; with ``overlap_gate``, also unless the profile
+    stamps under half of its groups in the backward's last tenth and the
+    last step's rs spans all begin inside its backward span."""
     import torch
     from repro_torch.configs.base import CommConfig
     from repro_torch.core import lars
@@ -2502,6 +2648,12 @@ def _autotune_reading(model, mesh, batch_fn, name, say, want_fn, sched):
     late = sum(t >= 0.9 * prof.total_s for t in prof.cum_time_s) \
         / len(prof.cum_time_s)
     measured = statistics.median(times[1:])
+    if overlap_gate and not (late < 0.5 and 0.0 <= starts[0]
+                             and starts[-1] <= bwd_ms):
+        fail(f"autotune {name}: the profile stamped {late:.3f} of its groups "
+             f"in the backward's last tenth (limit: under 0.5) and the rs "
+             f"spans begin {starts[0]:.2f}..{starts[-1]:.2f} ms into a "
+             f"{bwd_ms:.2f} ms backward span (all must begin inside it)")
     say(f"autotune {name} (ring zero1, bucket_mb='auto', measured "
         f"profile: {len(prof.cum_elems)} groups, backward "
         f"{prof.total_s * 1e3:.1f} ms, forward {prof.t_forward_s * 1e3:.1f}"
@@ -2605,7 +2757,7 @@ def lm_ring_rank(ckpt_dir):
         lambda nb, steps: {"k3": 3 * nb * steps, "k1": steps, "k2": steps},
         make_schedule(ScheduleConfig(
             base_lr=linear_scaled_lr(16.0, BATCH * n) / 4, warmup_steps=1,
-            total_steps=RING_STEPS, decay="poly2")))
+            total_steps=RING_STEPS, decay="poly2")), overlap_gate=True)
     say("lm-ring-json: " + json.dumps({
         "cards": n, "runs": rows, "masters_worst_of_update": list(worst),
         "hw": hw_row, "autotune": tune}))
@@ -2893,6 +3045,171 @@ def run_cli_faults(tmp: Path):
           f"JSONL; {len(spans)} spans in a valid Chrome trace", flush=True)
 
 
+#: the examples phase: each twin of ``examples/*.py`` as a subprocess on
+#: the card (``chip_smoke.py --example NAME ARGS``: the module run as
+#: ``__main__`` with every kernel's count set to 0 first), all started
+#: together; (name, arguments, the final line's start)
+EXAMPLES = (("train_resnet_imagenet", ("--steps", "8"),
+             "final eval accuracy: "),
+            ("quickstart", (), "loss "),
+            ("serve_decode", (), "first request's tokens: ["),
+            ("large_batch_ablation", ("--steps", "4"), "   256 "))
+EXAMPLES_TIMEOUT_S = 300
+#: K4's launches on the examples' path: one forward and one backward a
+#: quickstart step (its loss; no other twin runs K4 or any other kernel)
+QUICKSTART_STEPS = 60
+
+
+def example_main(name, args):
+    """One twin run as ``python -m repro_torch.examples.<name>`` would run
+    it, every kernel's count set to 0 just before; prints the counts last
+    (``example-launches: {...}``)."""
+    import runpy
+    sys.path.insert(0, str(SRC))
+    counters = _counters()
+    _zero(*counters.values())
+    sys.argv = [f"repro_torch.examples.{name}", *args]
+    runpy.run_module(f"repro_torch.examples.{name}", run_name="__main__",
+                     alter_sys=True)
+    print("example-launches: " + json.dumps(
+        {key: w.launches for key, w in counters.items()}), flush=True)
+
+
+def run_examples():
+    """The examples phase: the four twins at once, each in its own process
+    on the card. Each must exit 0 with finite losses and its final line;
+    their launches are summed (K4: one forward and one backward a
+    quickstart step; every other kernel 0)."""
+    procs = {}
+    t0 = time.time()
+    for name, args, _ in EXAMPLES:
+        procs[name] = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--example", name,
+             *args], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=dict(os.environ, PYTHONPATH=str(SRC)))
+    outs = {}
+    try:
+        for name, p in procs.items():
+            left = max(EXAMPLES_TIMEOUT_S - (time.time() - t0), 1)
+            outs[name] = p.communicate(timeout=left) + (p.returncode,)
+    except subprocess.TimeoutExpired:
+        fail(f"examples: {name} ran past {EXAMPLES_TIMEOUT_S} s")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    total = {key: 0 for key in _counters()}
+    for name, args, final in EXAMPLES:
+        out, err, rc = outs[name]
+        lines = out.strip().splitlines()
+        if rc != 0 or not lines or not lines[-1].startswith(
+                "example-launches: "):
+            fail(f"examples: {name} {list(args)} exited {rc}: {err[-3000:]}")
+        counts = json.loads(lines[-1][len("example-launches: "):])
+        body = [ln for ln in lines[:-1] if ln.strip()]
+        last = body[-1] if body else ""
+        if name == "large_batch_ablation":
+            rows = [ln for ln in body if ln.split()[:1] in (
+                ["16"], ["64"], ["256"])]
+            losses = [float(ln.split()[-1]) for ln in rows]
+            ok = len(rows) == 6
+        elif name == "serve_decode":
+            losses = []
+            ok = any("generated (4, 16) tokens" in ln for ln in body)
+        else:
+            losses = [float(ln.split("'loss': ")[1].split(",")[0])
+                      for ln in body if "train_step:" in ln]
+            if name == "quickstart":       # "loss 6.295 -> 2.562 (...)"
+                losses += [float(x) for x in
+                           last.split("(")[0].split()[1::2]]
+            ok = bool(losses)
+        if not (ok and last.startswith(final) and all(
+                math.isfinite(v) for v in losses)):
+            fail(f"examples: {name}: final line {last!r} (want "
+                 f"{final!r}...), losses {losses}")
+        print(f"examples: {name} {' '.join(args)}: {last.strip()}; "
+              f"{len(losses)} losses, all finite; launches {counts}",
+              flush=True)
+        for key in total:
+            total[key] += counts[key]
+    print(f"examples: the four twins in {time.time() - t0:.1f} s",
+          flush=True)
+    return _check_counts("examples", total, {
+        "k4": QUICKSTART_STEPS, "k4_bwd": QUICKSTART_STEPS})
+
+
+#: the report phase's sections, with the card's constants (launch/hw.H100)
+REPORT_SECTIONS = ("comm", "autotune", "shard")
+
+
+def run_report():
+    """The report phase: ``python -m repro_torch.launch.report`` for the
+    comm, autotune and shard sections (the H100's constants named in each
+    heading) and for the trace section over the durability phase's Chrome
+    trace, whose ``rs[b*]`` rows must start inside their step's
+    ``backward`` row. All four processes start together."""
+    trace = _RESULTS.get("durability_trace")
+    if trace is None:
+        fail("report: the durability phase left no trace")
+    jobs = {sec: ["--section", sec] for sec in REPORT_SECTIONS}
+    jobs["trace"] = ["--section", "trace", "--trace-json", str(trace)]
+    procs = {sec: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.report", *a], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC))) for sec, a in jobs.items()}
+    outs = {}
+    for sec, p in procs.items():
+        try:
+            outs[sec] = p.communicate(timeout=300) + (p.returncode,)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            fail(f"report: --section {sec} ran past 300 s")
+    from repro_torch.launch import hw
+    for sec in REPORT_SECTIONS:
+        out, err, rc = outs[sec]
+        head = out.strip().splitlines()[0] if out.strip() else ""
+        rows = [ln for ln in out.splitlines() if ln.startswith("| 16x16")
+                or ln.startswith("| 2x16x16")]
+        if rc != 0 or hw.H100.name not in head or not rows:
+            fail(f"report --section {sec} exited {rc}, heading {head!r}, "
+                 f"{len(rows)} rows: {err[-2000:]}")
+        print(f"report {sec}: {len(rows)} rows; {head}", flush=True)
+    out, err, rc = outs["trace"]
+    if rc != 0:
+        fail(f"report --section trace exited {rc}: {err[-2000:]}")
+    def secs(t):
+        """A ``report.fmt_t`` cell in seconds, and half its last digit:
+        µs to 0.1, ms to 0.01, s to 0.001."""
+        for unit, scale, half in (("µs", 1e-6, 5e-8), ("ms", 1e-3, 5e-6),
+                                  ("s", 1.0, 5e-4)):
+            if t.endswith(unit):
+                return float(t[:-len(unit)]) * scale, half
+        return float(t), 0.0
+
+    rows = {}
+    for ln in out.splitlines():
+        cells = [c.strip() for c in ln.strip("|").split("|")]
+        if len(cells) == 5 and cells[0].isdigit():
+            rows.setdefault(int(cells[0]), {})[cells[1]] = (
+                secs(cells[3]), secs(cells[4]))
+    n_rs = 0
+    for st, names in sorted(rows.items()):
+        (b0, h0), (bd, hd) = names.get("backward", ((None, 0), (None, 0)))
+        rs = {k: v for k, v in names.items() if k.startswith("rs[b")}
+        # within the table's rounding of each of the three cells compared
+        if b0 is None or not rs or not all(
+                b0 - h0 - h <= t0 <= b0 + bd + h0 + hd + h
+                for (t0, h), _ in rs.values()):
+            fail(f"report --section trace: step {st}: backward "
+                 f"{(b0, bd)}, rs rows {rs}: each must start inside the "
+                 f"backward row")
+        n_rs += len(rs)
+    print(f"report trace: {len(rows)} steps, {n_rs} rs rows, each starting "
+          f"inside its step's backward row", flush=True)
+
+
 def main():
     import torch
     phase("card")
@@ -2981,6 +3298,12 @@ def main():
                                                        batch)
     del model, state0, batch
 
+    phase("examples")
+    by_path["examples"] = run_examples()
+
+    phase("report")
+    run_report()
+
     phase("ring, ring context")
     ring = run_ring()
 
@@ -3026,7 +3349,9 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] in (["--ring-rank"], ["--lm-ring-rank"]):
+    if sys.argv[1:2] == ["--example"]:
+        example_main(sys.argv[2], sys.argv[3:])
+    elif sys.argv[1:2] in (["--ring-rank"], ["--lm-ring-rank"]):
         # a rank that fails must not wait at exit on collectives the
         # others will never join: leave at once, the launcher stops them
         try:

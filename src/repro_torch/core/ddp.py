@@ -13,9 +13,12 @@ the whole backward (``CommConfig.overlap=False``), while
 ``wrap_params_for_overlap`` plants them *inside* the backward (the
 default): each bucket group's params pass through one
 ``torch.autograd.Function`` identity whose backward packs the group's
-cotangents and runs the collective as soon as they exist. This works with
-``torch.autograd.grad`` over leaves (a post-accumulate-grad hook would
-not fire there). Every rank must build the same graph, so that the
+cotangents and runs the collective as soon as they exist. Each identity
+is made where the forward first reads one of its group's leaves (the
+wrapped tree is a ``tree.LazyTree``), so that autograd, which runs the
+ready node made last first, runs it then and not after the whole
+backward. This works with ``torch.autograd.grad`` over leaves (a
+post-accumulate-grad hook would not fire there). Every rank must build the same graph, so that the
 backward runs the collectives in the same order everywhere.
 
 ``axes`` are the mesh's ``launch.mesh.Axis`` objects (every axis is data
@@ -51,7 +54,8 @@ import torch
 from repro_torch.comm import primitives as prim
 from repro_torch.core import bucketing
 from repro_torch.obs.trace import mark
-from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.tree import LazyTree, tree_flatten, tree_map, \
+    tree_unflatten
 
 
 def allreduce_grads(grads, *, strategy: str, axes: Sequence,
@@ -148,13 +152,20 @@ def _split_span_out(owned: dict, slot, g, reduced, final: bool):
 
 def _wrap_param_groups(params, plan: "bucketing.BucketPlan", make_spec,
                        extras=None, apply=None):
-    """Route each bucket group's leaves through its identity. Slot i
-    describes leaf ``n-1-slot_tensor_ids[i]`` (the plan walks reverse
-    flatten order; a split tensor's spans map to one leaf). A leaf in
-    several groups is CHAINED through their identities, applied in
-    DECREASING group order so the backward fires them in bucket order
-    (group 0, the backward-completion head, first). ``apply(spec, args)``
-    replaces the collective identity (the probe's)."""
+    """Route each bucket group's leaves through its identity, made when the
+    forward first reads one of the group's leaves (a ``tree.LazyTree``).
+    Slot i describes leaf ``n-1-slot_tensor_ids[i]`` (the plan walks
+    reverse flatten order; a split tensor's spans map to one leaf). A leaf
+    in several groups is CHAINED through their identities, applied in
+    DECREASING group order so the backward fires them in bucket order;
+    so the unit made on a first read is every group connected to the
+    leaf's through shared leaves. ``apply(spec, args)`` replaces the
+    collective identity (the probe's).
+
+    Autograd runs the ready node of the highest sequence number first, so
+    an identity made before the forward (the oldest node of the graph)
+    would run only after the whole backward; made where the forward first
+    uses its group, it runs as soon as its group's cotangents exist."""
     flat = tree_flatten(params)
     leaves = [x for _, x in flat]
     n_leaves = len(leaves)
@@ -163,19 +174,46 @@ def _wrap_param_groups(params, plan: "bucketing.BucketPlan", make_spec,
                          f"{plan.n_tensors} tensors")
     leaf_idx = {id(slot): n_leaves - 1 - t
                 for t, slot in zip(plan.slot_tensor_ids, plan.slots)}
-    groups = plan.groups
-    for gi in range(len(groups) - 1, -1, -1):
-        group = groups[gi]
-        idxs = [leaf_idx[id(s)] for s in group]
-        args = [leaves[j] for j in idxs]
-        if extras is not None:
-            args.append(extras[gi])
-        spec = make_spec(gi, group)
-        outs = (_BucketIdentity.apply(spec, *args) if apply is None
-                else apply(spec, args))
-        for j, o in zip(idxs, outs):
-            leaves[j] = o
-    return tree_unflatten([p for p, _ in flat], leaves)
+    group_leaves = [[leaf_idx[id(s)] for s in group]
+                    for group in plan.groups]
+    unit_of = _units(group_leaves, n_leaves)
+    made = {}
+
+    def make(j):
+        if j not in made:
+            cur = {}
+            for gi in sorted(unit_of[j], reverse=True):
+                idxs = group_leaves[gi]
+                args = [cur.get(i, leaves[i]) for i in idxs]
+                if extras is not None:
+                    args.append(extras[gi])
+                spec = make_spec(gi, plan.groups[gi])
+                outs = (_BucketIdentity.apply(spec, *args) if apply is None
+                        else apply(spec, args))
+                cur.update(zip(idxs, outs))
+            made.update(cur)
+        return made.pop(j, leaves[j])
+
+    return LazyTree([p for p, _ in flat], make)
+
+
+def _units(group_leaves, n_leaves: int):
+    """Leaf index -> the group indices of its unit: the run of groups
+    chained to its own through shared leaves. A split tensor's spans lie
+    in consecutive buckets, so a unit is a run of consecutive groups, each
+    sharing a leaf with the one before it."""
+    units = []
+    for gi, idxs in enumerate(group_leaves):
+        if gi and set(idxs) & set(group_leaves[gi - 1]):
+            units[-1].append(gi)
+        else:
+            units.append([gi])
+    unit_of = [()] * n_leaves
+    for unit in units:
+        for gi in unit:
+            for j in group_leaves[gi]:
+                unit_of[j] = tuple(unit)
+    return unit_of
 
 
 def make_shard_sinks(plan: "bucketing.BucketPlan", n_shards: int, *,

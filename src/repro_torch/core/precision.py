@@ -4,14 +4,18 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import lazy_map
 
 
 def cast_to_compute(params, dtype=torch.bfloat16):
     """Cast fp32 parameter leaves to the compute dtype (fwd/bwd pass);
-    other leaves pass through unchanged."""
+    other leaves pass through unchanged. A ``tree.LazyTree`` (the overlap
+    wrap's) gives a lazy tree: each leaf is cast when the forward first
+    reads it, just after its group's identity is made there, so the
+    identity still receives the f32 cotangent and runs as soon as its
+    group's cotangents exist."""
     def f(x):
         if isinstance(x, torch.Tensor) and x.dtype == torch.float32:
             return x.to(dtype)
         return x
-    return tree_map(f, params)
+    return lazy_map(f, params)

@@ -1,0 +1,73 @@
+"""Batched serving example: prefill a prompt batch, then step-decode with
+the KV cache. The torch twin of ``examples/serve_decode.py``, for the
+architectures the port serves (the dense GQA family: qwen1.5-0.5b); the
+others raise ``NotImplementedError`` (ROADMAP §1 item 10).
+
+  PYTHONPATH=src python -m repro_torch.examples.serve_decode \\
+      [--arch qwen1.5-0.5b] [--device cpu]
+"""
+import argparse
+import time
+from types import SimpleNamespace
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core import pinit
+from repro_torch.kernels.backend import resolve_device
+from repro_torch.models.registry import build_model
+from repro_torch.serve.decode import generate
+
+
+def setup(arch: str = "qwen1.5-0.5b", batch: int = 4, prompt_len: int = 32,
+          max_new: int = 16, device=None):
+    """The run's pieces: cfg, model, params (pinit, seed 0), the prompt
+    batch (tokens from a ``torch.Generator`` seeded 0) and cache_len."""
+    dev = resolve_device(device)
+    try:
+        cfg = get_config(arch).reduced()
+    except KeyError:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported to repro_torch yet (ROADMAP §1 "
+            f"item 10)") from None
+    if cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(
+            "the vlm/audio frames are not ported to repro_torch yet "
+            "(ROADMAP §1 item 10.5)")
+    model = build_model(cfg)
+    params = pinit.materialize(model.param_pd, 0, dev)
+    gen = torch.Generator(dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=gen, device=dev)
+    return SimpleNamespace(cfg=cfg, device=dev, model=model, params=params,
+                           batch={"tokens": tokens},
+                           cache_len=prompt_len + max_new + 8)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--device", default=None,
+                    help="torch device; default: the CUDA card (the run "
+                         "fails without one unless --device cpu is given)")
+    args = ap.parse_args(argv)
+
+    run = setup(args.arch, args.batch, args.prompt_len, args.max_new,
+                args.device)
+    t0 = time.perf_counter()
+    out = generate(run.model, run.params, run.batch, max_new=args.max_new,
+                   cache_len=run.cache_len)
+    out = out.cpu()
+    dt = time.perf_counter() - t0
+    print(f"arch={args.arch} generated {tuple(out.shape)} tokens "
+          f"in {dt:.2f}s ({args.batch * args.max_new / dt:.1f} tok/s "
+          f"incl. compile)")
+    print("first request's tokens:", out[0].tolist())
+    return out
+
+
+if __name__ == "__main__":
+    main()
