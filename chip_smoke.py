@@ -60,7 +60,8 @@ Phases, in order; any failure exits non-zero and prints no result:
               corrupt@2 with --metrics and --trace (the load falls back to
               step 1, every tag line in the JSONL, a valid Chrome trace)
  10. serve    full-width qwen1.5-0.5b (24 layers, d 1024, 16 heads of 64,
-              vocab 151,936; params from pinit) with flash_attention=True:
+              vocab 151,936; bf16 params made leaf by leaf from pinit, as
+              the serving CLI holds them) with flash_attention=True:
               serve.decode.generate on 8 prompts of 2048 tokens, 32 greedy
               tokens, cache_len 2088; the flash kernel (K5) must be launched
               24 times (once a layer, in the prefill); prints prefill ms,
@@ -71,7 +72,34 @@ Phases, in order; any failure exits non-zero and prints no result:
               prompt + that token, both within 3e-2 of the logit max
  12. serve cli  python -m repro_torch.serve.decode --reduced --flash-attention
               on the card
- 13. lm_train  full-width qwen1.5-0.5b (params from pinit; remat on, the
+ 13. serve_moe  full-width, full-depth qwen2-moe-a2.7b (24 layers, d 2048,
+              16 heads of 128, 60 routed experts padded to a stack of 64,
+              top-4, 4 shared, vocab 151,936: 15.15 B params) served as
+              the serve phase serves qwen1.5-0.5b, at its sizes: K5 must be
+              launched 24 times (once a layer, in the prefill) and nothing
+              else; prints the params, pinit's seconds, prefill ms, decode
+              ms a token (median, p25, p75), tokens/s and peak memory
+ 14. serve_moe context  the serve context checks on it, within 3e-2, with
+              the chunked runs on the K5 runs' expert choices (the two
+              bf16 paths pick other experts for ~6% of token-layers, whose
+              4th and 5th router probabilities lie within their rounding,
+              and with capacity drop other tokens: the unpinned figures and
+              the differing choices are printed beside); the decode check
+              at capacity_factor 16 (prefill and full forward, as
+              tests/test_serve.py: the full forward then drops no token
+              over capacity, and decode never does)
+ 15. serve_qk  qwen3-14b at full width (d 5120, 40 heads on 8 kv heads of
+              128, qk_norm, θ 1e6, vocab 151,936), its depth cut to 4 of
+              its 40 layers (printed), served at the serve phase's sizes
+              (K5 4 times, nothing else) and checked as in serve context
+ 16. lm_train_moe  qwen2-moe-a2.7b at full width, its depth cut to 2 layers
+              (printed; 1.83 B params), batch 2 x seq 4096 of lcg tokens,
+              3 LARS steps with lm_train's recipe through make_train_step
+              + loop.train, no eval: K4 once forward and once backward a
+              step, K1 twice, finite losses and a positive aux (the
+              router's load-balance loss, 0.01 of it in the loss); prints
+              step ms, tokens/s, peak memory and the aux
+ 17. lm_train  full-width qwen1.5-0.5b (params from pinit; remat on, the
               chunked attention: flash_attention stays off in training),
               batch 2 x seq 4096 of lcg tokens, 5 LARS steps (poly2 with
               warm-up, label smoothing 0.1, OptConfig(use_kernel=True))
@@ -79,13 +107,13 @@ Phases, in order; any failure exits non-zero and prints no result:
               smoothed cross-entropy kernel (K4) must be launched once
               forward and once backward a step and once for the eval, K1
               twice a step; prints step ms, tokens/s, peak memory, losses
- 14. lm_train context  one step with the K4 loss and two with a loss built
+ 18. lm_train context  one step with the K4 loss and two with a loss built
               on K4's plain version, from one state and batch: losses to
               1e-5 relative, K4's gradient at the step's logits to rtol
               1e-5 / atol 1e-7, the plain steps bit for bit, new params to
               5e-2 of each tensor's largest update (bf16 gradients: not
               1e-5 of its max, the function says why)
- 15. examples  the four twins of examples/*.py
+ 19. examples  the four twins of examples/*.py
               (repro_torch.examples.train_resnet_imagenet --steps 8,
               quickstart, serve_decode, large_batch_ablation --steps 4),
               each a subprocess on the card (this script with --example
@@ -93,12 +121,12 @@ Phases, in order; any failure exits non-zero and prints no result:
               end), all started together: each exits 0 with finite losses
               and its final line; K4 60 + 60 (quickstart's steps), every
               other kernel 0
- 16. report   python -m repro_torch.launch.report --section comm,
+ 20. report   python -m repro_torch.launch.report --section comm,
               autotune and shard (the H100's constants named in each
               heading) and --section trace over the durability phase's
               Chrome trace: every rs[b*] row starts inside its step's
               backward row
- 17. ring     on two or more cards (min(count, 4) ranks, one card each,
+ 21. ring     on two or more cards (min(count, 4) ranks, one card each,
               over NCCL: this script under torch.distributed.run with
               --ring-rank), full-width ResNet-50, batch 64 a card, the slice's
               recipe, CommConfig(use_kernel=True, update_kernel=True), 3
@@ -112,13 +140,13 @@ Phases, in order; any failure exits non-zero and prints no result:
               sharded one, K2 once a sharded step; prints step ms
               (median after the first step), images/s over all cards and
               peak memory per rank
- 18. ring context  one packed bf16 gradient through the ring all-reduce and
+ 22. ring context  one packed bf16 gradient through the ring all-reduce and
               every schedule's reduce-scatter form, with K3 and with the
               plain fold: bit-equal (counted apart for the forms that fold
               through K3: ring, hierarchical, 2d_torus); with f32 wire, every schedule and rung
               against the replicated psum step from one state and batch:
               masters within 1e-5 of each tensor's max
- 19. lm_ring  on four cards (this script under torch.distributed.run with
+ 23. lm_ring  on four cards (this script under torch.distributed.run with
               --lm-ring-rank, one rank a card, NCCL): the card's link
               (alpha, beta of a ring exchange), HBM and bf16 matmul rates
               measured (launch/hw.measure) and held within 2x of
@@ -143,7 +171,7 @@ Phases, in order; any failure exits non-zero and prints no result:
               ResNet-50's must stamp under half of its groups in the
               backward's last tenth, and its rs spans begin inside the
               backward span (the LM's stacked leaves fire late: no gate)
- 20. lm_ring resume  the four-card ring zero1 checkpoint resumed on one
+ 24. lm_ring resume  the four-card ring zero1 checkpoint resumed on one
               card (elastic.load_resharded, 4 -> 1 shards over the LM's
               split-leaf plan): masters bit-equal to the gathered rows
               (sha256), then one step with a finite loss (K1, K2, K4)
@@ -168,13 +196,15 @@ the wrapper and by the fold the ring binds once a bucket), the
 reference's shapes, ragged rows, misaligned views and in place, beside
 torch.add; the cli phase also trains the reduced LM. Every
 kernel's launch count is set to 0 just before each path (slice, zero1,
-durability, serve, lm_train, each ring and lm_ring configuration and
-autotune run, the lm_ring resume) and read just after: a kernel the path
+durability, serve, serve_moe, serve_qk, lm_train_moe, lm_train, each ring
+and lm_ring configuration and autotune run, the lm_ring resume) and read
+just after: a kernel the path
 runs must show its count, every other kernel 0, and the JSON
 line's launches_by_path holds these readings (examples: the four twins'
 subprocesses, summed).
-Then one JSON line with every kernel's numbers, the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``.
+Then each phase's seconds, one JSON line with every kernel's numbers, the
+card's name and power limit, and as the last line ``{"ok": true,
+"device": {...}}``.
 """
 import gc
 import json
@@ -209,10 +239,14 @@ BATCH, STEPS = 64, 6
 
 #: K5 shapes: (name, B, S, H, K, Dk, Dv, window, dtype, q scale), all
 #: causal. "path" is the serving prefill's (qwen1.5-0.5b, 8 x 2048 tokens);
-#: then the same in f32, qwen3-14b's GQA heads without and with a window,
-#: MLA's dims, and the path's heads with q x 8 (a peaked softmax: large
-#: corrections of the running max, P near 0 or 1)
+#: "serve_moe" and "serve_qk" the prefills of qwen2-moe-a2.7b (16 heads of
+#: 128) and qwen3-14b (40 query heads on 8 kv heads of 128) at the same
+#: sizes; then the path in f32, qwen3-14b's GQA heads without and with a
+#: window, MLA's dims, and the path's heads with q x 8 (a peaked softmax:
+#: large corrections of the running max, P near 0 or 1)
 FLASH_SHAPES = (("path", 8, 2048, 16, 16, 64, 64, 0, "bfloat16", 1),
+                ("serve_moe", 8, 2048, 16, 16, 128, 128, 0, "bfloat16", 1),
+                ("serve_qk", 8, 2048, 40, 8, 128, 128, 0, "bfloat16", 1),
                 ("path_f32", 8, 2048, 16, 16, 64, 64, 0, "float32", 1),
                 ("gqa", 2, 1024, 40, 8, 128, 128, 0, "bfloat16", 1),
                 ("gqa_window", 2, 1024, 40, 8, 128, 128, 256, "bfloat16", 1),
@@ -300,6 +334,16 @@ HW_TOL = 2.0
 #: paths that round in different places, held to the reference's own bound
 #: for decode against the full forward (tests/test_serve.py)
 SERVE_TOL = 3e-2
+#: a MoE model's decode check runs at this capacity factor, as
+#: tests/test_serve.py does: the full forward then drops no token
+SERVE_MOE_CF = 16.0
+#: serve_qk: qwen3-14b at full width, its 40 layers cut to these, which
+#: keeps pinit short (2.9 B params)
+QK_LAYERS = 4
+#: lm_train_moe: qwen2-moe-a2.7b at full width, its 24 layers cut to these
+#: (1.83 B params: fp32 masters, momentum, bf16 copy and gradients ~26 GB),
+#: trained for these steps
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 3
 
 
 #: what one phase leaves for a later one: the durability phase's trace,
@@ -307,13 +351,26 @@ SERVE_TOL = 3e-2
 _RESULTS = {}
 
 
+#: each phase's seconds, in the order run (``phase`` closes the previous
+#: one's)
+_PHASE_S = {}
+_PHASE = [None, 0.0]
+
+
 def fail(msg: str):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
-def phase(name: str):
-    print(f"== {name}", flush=True)
+def phase(name: str = None):
+    """Start phase ``name`` (None: end the last one), recording the
+    previous phase's seconds."""
+    now = time.perf_counter()
+    if _PHASE[0] is not None:
+        _PHASE_S[_PHASE[0]] = round(now - _PHASE[1], 1)
+    _PHASE[:] = [name, now]
+    if name is not None:
+        print(f"== {name}", flush=True)
 
 
 def time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
@@ -680,16 +737,20 @@ def check_lars_update(dev):
 
 def check_batched_sumsq(dev):
     """K1 at the training path's shape (ResNet-50's plan) in f32 and bf16,
-    plus a ragged case with empty segments; timings at the f32 shape. Its
+    at the MoE LM training path's (lm_train_moe: qwen2-moe-a2.7b's 2-layer
+    tree, packed in f32 as ``ops.tree_norms`` packs it), plus a ragged case
+    with empty segments; timings at ResNet-50's f32 shape. Its
     multi-buffer form at the sharded step's call site: every bucket's p
     and g shards at rank k, every k, of the 4 MB plan on one shard and of
     the 0.25 MB plan (2 x 211 buffers: two pass-1 launches in one call)
     on one and three, f32 and bf16, and bit-equal across two calls."""
+    import dataclasses
+
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import bucketing, lars
     from repro_torch.kernels import batched_norm, ref
-    from repro_torch.models import resnet
+    from repro_torch.models import resnet, transformer
     from repro_torch.tree import tree_leaves
 
     plan = bucketing.make_plan(resnet.resnet_pd(get_config("resnet50"))[0])
@@ -705,6 +766,12 @@ def check_batched_sumsq(dev):
         0, 4, (3000,), generator=gen, device=dev)]).values.int()
     cases["ragged_f32"] = (torch.randn(3000 * bucketing.CHUNK, generator=gen,
                                        device=dev), rag, 11)
+    moe_plan = bucketing.make_plan(transformer.lm_pd(dataclasses.replace(
+        get_config("qwen2-moe-a2.7b"), n_layers=MOE_TRAIN_LAYERS)))
+    moe_seg = torch.from_numpy(bucketing.segment_ids(moe_plan)).to(dev)
+    cases["lm_train_moe_f32"] = (torch.randn(
+        moe_seg.numel() * bucketing.CHUNK, generator=gen, device=dev),
+        moe_seg, moe_plan.n_tensors)
     errs = {}
     for name, (x, s, n) in cases.items():
         got = batched_norm.batched_sumsq(x, s, n)
@@ -718,6 +785,7 @@ def check_batched_sumsq(dev):
         if not rel <= 2e-3:
             fail(f"batched_sumsq {name} disagrees with its plain version")
         errs[name] = (abs_err, rel)
+    del cases["lm_train_moe_f32"], x, got, want
 
     pd = resnet.resnet_pd(get_config("resnet50"))[0]
     multi_abs, multi_rel, n_multi = 0.0, 0.0, 0
@@ -1786,10 +1854,12 @@ def check_smoothed_xent(dev):
              "shapes": bwd})
 
 
-def run_lm_train(dev):
-    """Full-width qwen1.5-0.5b trained through the port's entry points, as
-    ``python -m repro.launch.train --arch qwen1.5-0.5b`` drives the JAX
-    package (here at full width, batch 2 x seq 4096)."""
+def run_lm_train(dev, name="lm_train", cfg=None, steps=LM_STEPS,
+                 evals=1):
+    """A full-width LM (qwen1.5-0.5b unless ``cfg``) trained through the
+    port's entry points, as ``python -m repro.launch.train --arch ...``
+    drives the JAX package (here at full width, batch 2 x seq 4096):
+    ``steps`` steps, then ``evals`` evals (0 or 1) at the end."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import InputShape
@@ -1802,18 +1872,19 @@ def run_lm_train(dev):
     from repro_torch.train.state import init_state
     from repro_torch.train.step import make_eval_step, make_train_step
 
-    cfg = get_config("qwen1.5-0.5b")
+    cfg = cfg or get_config("qwen1.5-0.5b")
     if not cfg.remat or cfg.flash_attention:
-        fail("lm_train: the config must train with remat and without the "
-             "flash kernel")
+        fail(f"{name}: the config must train with remat and without the "
+             f"flash kernel")
     model = build_model(cfg)
     sched = make_schedule(ScheduleConfig(base_lr=LM_LR, warmup_steps=1,
-                                         total_steps=LM_STEPS,
+                                         total_steps=steps,
                                          decay="poly2"))
     opt = lars.OptConfig(kind="lars", weight_decay=5e-5, use_kernel=True)
     train_step = make_train_step(model, opt, sched, smoothing=0.1)
     batch_fn = make_batch_fn(cfg, InputShape("train_4k", "train", LM_SEQ,
                                              LM_BATCH), device=dev)
+    torch.cuda.empty_cache()
     state0 = init_state(model, seed=0, device=dev)
     times = []
 
@@ -1831,33 +1902,61 @@ def run_lm_train(dev):
     _zero(*_counters().values())
     with obs_metrics.default_registry().use_sink(sink):
         state, history = loop.train(
-            state0, timed_step, batch_fn, steps=LM_STEPS,
-            eval_step=make_eval_step(model), eval_batch_fn=batch_fn,
-            eval_every=LM_STEPS, log_every=1, seed=0)
-    # K4 once forward and once backward a step and once forward for the
-    # eval, K1 twice a step; no other kernel
-    counts = _read_path("lm_train", {"k4": LM_STEPS + 1,
-                                     "k4_bwd": LM_STEPS,
-                                     "k1": 2 * LM_STEPS})
+            state0, timed_step, batch_fn, steps=steps,
+            eval_step=make_eval_step(model) if evals else None,
+            eval_batch_fn=batch_fn if evals else None,
+            eval_every=steps if evals else 0, log_every=1, seed=0)
+    # K4 once forward and once backward a step and once forward an eval,
+    # K1 twice a step; no other kernel
+    counts = _read_path(name, {"k4": steps + evals, "k4_bwd": steps,
+                               "k1": 2 * steps})
     fwd, bwd, k1 = counts["k4"], counts["k4_bwd"], counts["k1"]
     peak = torch.cuda.max_memory_allocated(dev)
     losses = [h["loss"] for h in history if "loss" in h]
-    evals = [h["eval_loss"] for h in history if "eval_loss" in h]
-    if len(losses) != LM_STEPS or not all(math.isfinite(v) for v in losses):
-        fail(f"lm_train: losses not all finite: {losses}")
-    if len(evals) != 1 or not math.isfinite(evals[0]):
-        fail(f"lm_train: eval gave {evals}")
+    aux = [h["aux"] for h in history if "aux" in h]
+    evs = [h["eval_loss"] for h in history if "eval_loss" in h]
+    if len(losses) != steps or not all(math.isfinite(v)
+                                       for v in losses + aux):
+        fail(f"{name}: losses or aux not all finite: {losses}, {aux}")
+    if cfg.moe is not None and not all(v > 0 for v in aux):
+        fail(f"{name}: the MoE's aux is not positive: {aux}")
+    if len(evs) != evals or not all(math.isfinite(v) for v in evs):
+        fail(f"{name}: eval gave {evs}")
     if not sink.find("run_stop"):
-        fail("lm_train: loop.train did not reach run_stop")
+        fail(f"{name}: loop.train did not reach run_stop")
     q1, med, q3 = statistics.quantiles(times, n=4)
-    print(f"lm_train: losses {[round(v, 4) for v in losses]}; eval loss "
-          f"{evals[0]:.4f}", flush=True)
-    print(f"lm_train: step times ms {[round(t * 1e3, 2) for t in times]}; "
+    print(f"{name}: {cfg.arch_id}, {cfg.n_layers} layers; losses "
+          f"{[round(v, 4) for v in losses]}; aux {[round(v, 4) for v in aux]}"
+          f"{f'; eval loss {evs[0]:.4f}' if evs else ''}", flush=True)
+    print(f"{name}: step times ms {[round(t * 1e3, 2) for t in times]}; "
           f"median {med * 1e3:.2f} ms (p25 {q1 * 1e3:.2f}, p75 "
           f"{q3 * 1e3:.2f}), {LM_BATCH * LM_SEQ / med:.0f} tokens/s, peak "
           f"memory {peak / 2 ** 30:.2f} GiB; launches K4 forward {fwd}, "
           f"backward {bwd}, K1 {k1}", flush=True)
-    return model, state0, batch_fn(0), counts
+    result = {"arch": cfg.arch_id, "layers": cfg.n_layers,
+              "step_ms": {"p25": q1 * 1e3, "median": med * 1e3,
+                          "p75": q3 * 1e3},
+              "tokens_per_s": LM_BATCH * LM_SEQ / med,
+              "peak_gib": peak / 2 ** 30, "losses": losses, "aux": aux}
+    return model, state0, batch_fn(0), counts, result
+
+
+def run_lm_train_moe(dev):
+    """qwen2-moe-a2.7b at full width, its depth cut to ``MOE_TRAIN_LAYERS``
+    layers, trained with lm_train's recipe for ``MOE_TRAIN_STEPS`` steps
+    (no eval): the router's aux loss in the loss, K4 and K1 on the path."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen2-moe-a2.7b")
+    print(f"lm_train_moe: {cfg.arch_id}'s depth cut to {MOE_TRAIN_LAYERS} "
+          f"of its {cfg.n_layers} layers (full width)", flush=True)
+    *_, counts, result = run_lm_train(
+        dev, "lm_train_moe", dataclasses.replace(cfg,
+                                                 n_layers=MOE_TRAIN_LAYERS),
+        steps=MOE_TRAIN_STEPS, evals=0)
+    result["depth_cut"] = [MOE_TRAIN_LAYERS, cfg.n_layers]
+    return counts, result
 
 
 def check_lm_train_in_context(dev, model, state0, batch):
@@ -2853,10 +2952,12 @@ def run_lm_resume(dev, ckpt_dir, lm_ring):
     return {"load_ms": load_ms, "loss": loss, "launches": counts}
 
 
-def run_serve(dev):
-    """Full-width qwen1.5-0.5b served through serve.decode.generate with
-    the flash kernel in the prefill, as examples/serve_decode.py drives
-    the JAX package (at full width here)."""
+def run_serve(dev, name="serve", cfg=None):
+    """A full-width LM (qwen1.5-0.5b unless ``cfg``) served through
+    serve.decode.generate with the flash kernel in the prefill, as
+    examples/serve_decode.py drives the JAX package (at full width here),
+    on bf16 weights made leaf by leaf from pinit, as the serving CLI holds
+    them."""
     import dataclasses
 
     import torch
@@ -2866,11 +2967,13 @@ def run_serve(dev):
     from repro_torch.serve.decode import generate
     from repro_torch.tree import tree_leaves
 
-    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
+    cfg = dataclasses.replace(cfg or get_config("qwen1.5-0.5b"),
                               flash_attention=True)
     model = build_model(cfg)
+    torch.cuda.empty_cache()
     t = time.perf_counter()
-    params = pinit.materialize(model.param_pd, seed=0, device=dev)
+    params = pinit.materialize(model.param_pd, seed=0, device=dev,
+                               dtype=torch.bfloat16)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
     n_params = sum(x.numel() for x in tree_leaves(params))
@@ -2888,16 +2991,17 @@ def run_serve(dev):
                    cache_len=SERVE_CACHE, timings=timings)
     torch.cuda.synchronize()
     # K5 once a layer, in the prefill; no other kernel
-    counts = _read_path("serve", {"k5": cfg.n_layers})
+    counts = _read_path(name, {"k5": cfg.n_layers})
     launches = counts["k5"]
     peak = torch.cuda.max_memory_allocated(dev)
     if tuple(out.shape) != (SERVE_BATCH, SERVE_NEW):
-        fail(f"serve: generated shape {tuple(out.shape)}")
+        fail(f"{name}: generated shape {tuple(out.shape)}")
     if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
-        fail("serve: a token outside the vocabulary")
+        fail(f"{name}: a token outside the vocabulary")
     dec = timings["decode_ms"]
     q1, med, q3 = statistics.quantiles(dec, n=4)
-    print(f"serve: {n_params / 1e6:.1f} M params, pinit {init_s:.2f} s; "
+    print(f"{name}: {cfg.arch_id}, {cfg.n_layers} layers, "
+          f"{n_params / 1e6:.1f} M params (bf16), pinit {init_s:.2f} s; "
           f"prefill {timings['prefill_ms']:.2f} ms "
           f"({SERVE_BATCH * SERVE_PROMPT / timings['prefill_ms'] * 1e3:.0f}"
           f" prompt tokens/s); decode ms a token median {med:.3f} "
@@ -2905,53 +3009,201 @@ def run_serve(dev):
           f"{SERVE_BATCH * 1e3 / med:.1f} tokens/s; peak memory "
           f"{peak / 2 ** 30:.2f} GiB; flash_attention launches {launches}",
           flush=True)
-    print(f"serve: first request's tokens {out[0].tolist()}", flush=True)
-    return model, params, batch, out, counts
+    print(f"{name}: first request's tokens {out[0].tolist()}", flush=True)
+    result = {"arch": cfg.arch_id, "layers": cfg.n_layers,
+              "params": n_params, "pinit_s": init_s,
+              "prefill_ms": timings["prefill_ms"],
+              "decode_ms": {"p25": q1, "median": med, "p75": q3},
+              "tokens_per_s": SERVE_BATCH * 1e3 / med,
+              "peak_gib": peak / 2 ** 30}
+    return model, params, batch, out, counts, result
 
 
 def _rel(a, b) -> float:
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
-def check_serve_in_context(dev, model, params, batch, out):
+class _RoutingPin:
+    """Pins a MoE model's expert choices across two runs: ``record()``
+    keeps each MoE layer's top-k ids, ``replay(ids)`` makes each layer
+    take the given ids in place of its own top-k (the gates are still its
+    own probabilities at those ids), and counts the token-layers whose own
+    choice differs, with the largest gap between its own top-k
+    probabilities and those at the pinned ids. Two bf16 paths (K5 and the
+    chunked attention) round apart by ~1e-2, and among 60 experts many a
+    token's 4th and 5th probabilities lie closer than that, so unpinned
+    the paths pick other experts for some tokens, and with capacity other
+    tokens are dropped: the pin holds the rest of the two paths against
+    each other."""
+
+    def __init__(self):
+        self.ids, self.flips, self.choices, self.gap = [], 0, 0, 0.0
+        self._replay = None
+
+    def record(self):
+        return self._patch(None)
+
+    def replay(self, ids):
+        return self._patch(list(ids))
+
+    def _patch(self, replay):
+        import contextlib
+
+        from repro_torch.models import moe
+        real = moe._top_k
+
+        def top_k(x, k):
+            vals, ids = real(x, k)
+            if self._replay is None:
+                self.ids.append(ids)
+                return vals, ids
+            want = self._replay.pop(0)
+            got = x.gather(-1, want)
+            self.flips += int((ids.sort(-1).values
+                               != want.sort(-1).values).any(-1).sum())
+            self.choices += ids.shape[0]
+            self.gap = max(self.gap, float((vals - got.sort(
+                -1, descending=True).values).abs().max()))
+            return got, want
+
+        @contextlib.contextmanager
+        def patched():
+            self._replay = replay
+            moe._top_k = top_k
+            try:
+                yield self
+            finally:
+                moe._top_k = real
+            if replay is not None and self._replay:
+                fail("routing pin: layers left unreplayed")
+        return patched()
+
+
+def check_serve_in_context(dev, model, params, batch, out, name="serve"):
     """The K5 prefill against the chunked one (no kernel), and one decode
-    step from the K5 cache against the chunked full forward."""
+    step from a K5 prefill's cache against the chunked full forward. A MoE
+    model's decode check runs at ``SERVE_MOE_CF`` (prefill and full
+    forward), as tests/test_serve.py does: the full forward drops tokens
+    over capacity, decode never does. A MoE model's chunked runs take the
+    K5 runs' expert choices (``_RoutingPin``); their differences unpinned
+    and the choices that differ are printed beside the gates."""
+    import contextlib
     import dataclasses
 
     import torch
     from repro_torch.core.precision import cast_to_compute
     from repro_torch.models.registry import build_model
 
-    plain = build_model(dataclasses.replace(model.cfg,
-                                            flash_attention=False))
+    cfg = model.cfg
+    moe = cfg.moe is not None
+    plain = build_model(dataclasses.replace(cfg, flash_attention=False))
     p16 = cast_to_compute(params)
-    k5_last, cache = model.forward_prefill(p16, batch, SERVE_CACHE)
+    pin = _RoutingPin()
+    with pin.record() if moe else contextlib.nullcontext():
+        k5_last, cache = model.forward_prefill(p16, batch, SERVE_CACHE)
     if not bool(torch.isfinite(k5_last).all()):
-        fail("serve context: non-finite prefill logits")
+        fail(f"{name} context: non-finite prefill logits")
     if not torch.equal(k5_last[:, -1].argmax(-1).int(), out[:, 0]):
-        fail("serve context: the prefill's argmax is not generate's first "
-             "token")
-    ch_last, _ = plain.forward_prefill(p16, batch, SERVE_CACHE)
+        fail(f"{name} context: the prefill's argmax is not generate's "
+             f"first token")
+    free = {}
+    if moe:
+        ch_last, _ = plain.forward_prefill(p16, batch, SERVE_CACHE)
+        free["prefill"] = _rel(k5_last, ch_last)
+        del ch_last, cache
+        replay = _RoutingPin()
+        with replay.replay(pin.ids):
+            ch_last, _ = plain.forward_prefill(p16, batch, SERVE_CACHE)
+        # the decode check's model: no token over capacity
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=SERVE_MOE_CF))
+        model = build_model(cfg)
+        plain = build_model(dataclasses.replace(cfg, flash_attention=False))
+        pin = _RoutingPin()
+        with pin.record():
+            _, cache = model.forward_prefill(p16, batch, SERVE_CACHE)
+    else:
+        ch_last, _ = plain.forward_prefill(p16, batch, SERVE_CACHE)
     d_prefill = _rel(k5_last, ch_last)
     del ch_last
     tok = out[:, :1]
-    dl, _ = model.forward_decode(p16, cache, tok, SERVE_PROMPT)
+    n_prefill = len(pin.ids)
+    with pin.record() if moe else contextlib.nullcontext():
+        dl, _ = model.forward_decode(p16, cache, tok, SERVE_PROMPT)
     del cache
     if not bool(torch.isfinite(dl).all()):
-        fail("serve context: non-finite decode logits")
-    (full, _), _ = plain.forward_train(
-        p16, {"tokens": torch.cat([batch["tokens"], tok], dim=1)})
+        fail(f"{name} context: non-finite decode logits")
+    full_batch = {"tokens": torch.cat([batch["tokens"], tok], dim=1)}
+    if moe:
+        (full, _), _ = plain.forward_train(p16, full_batch)
+        free["decode"] = _rel(dl[:, 0], full[:, -1])
+        del full
+        B, k = tok.shape[0], cfg.moe.top_k
+        # each layer's choices over prompt + token, request-major
+        ids = [torch.cat([a.view(B, -1, k), b.view(B, 1, k)], 1)
+               .reshape(-1, k) for a, b in zip(pin.ids[:n_prefill],
+                                               pin.ids[n_prefill:])]
+        decode_replay = _RoutingPin()
+        with decode_replay.replay(ids):
+            (full, _), _ = plain.forward_train(p16, full_batch)
+    else:
+        (full, _), _ = plain.forward_train(p16, full_batch)
     d_decode = _rel(dl[:, 0], full[:, -1])
     del full
-    print(f"serve context: K5 prefill vs chunked prefill, last logits "
+    pinned = ""
+    if moe:
+        pinned = (f"; the chunked runs take the K5 runs' expert choices: "
+                  f"unpinned they differ by {free['prefill']:.3e} and "
+                  f"{free['decode']:.3e}, their own top-{cfg.moe.top_k} "
+                  f"differs in {replay.flips} of {replay.choices} and "
+                  f"{decode_replay.flips} of {decode_replay.choices} "
+                  f"token-layers, by at most "
+                  f"{max(replay.gap, decode_replay.gap):.3e} in probability")
+    cf = f" (capacity_factor {SERVE_MOE_CF})" if moe else ""
+    print(f"{name} context: K5 prefill vs chunked prefill, last logits "
           f"differ by {d_prefill:.3e} of their max (limit {SERVE_TOL}); "
-          f"decode step vs chunked full forward {d_decode:.3e} (limit "
-          f"{SERVE_TOL})", flush=True)
+          f"decode step vs chunked full forward{cf} {d_decode:.3e} (limit "
+          f"{SERVE_TOL}); {batch['tokens'].shape[0]} requests{pinned}",
+          flush=True)
     if not d_prefill <= SERVE_TOL:
-        fail("the K5 prefill disagrees with the chunked prefill")
+        fail(f"{name}: the K5 prefill disagrees with the chunked prefill")
     if not d_decode < SERVE_TOL:
-        fail("the decode step disagrees with the full forward")
-    return {"prefill_vs_chunked": d_prefill, "decode_vs_full": d_decode}
+        fail(f"{name}: the decode step disagrees with the full forward")
+    result = {"prefill_vs_chunked": d_prefill, "decode_vs_full": d_decode}
+    if moe:
+        result.update(unpinned=free, flips=[replay.flips, decode_replay.flips],
+                      choices=[replay.choices, decode_replay.choices],
+                      max_gap=max(replay.gap, decode_replay.gap))
+    return result
+
+
+def run_serve_moe(dev):
+    """qwen2-moe-a2.7b at full width and full depth (15.15 B params) served
+    as the serve phase serves qwen1.5-0.5b, then its context checks."""
+    from repro_torch.configs import get_config
+    model, params, batch, out, counts, result = run_serve(
+        dev, "serve_moe", get_config("qwen2-moe-a2.7b"))
+    phase("serve_moe context")
+    result["context"] = check_serve_in_context(dev, model, params, batch,
+                                               out, "serve_moe")
+    return counts, result
+
+
+def run_serve_qk(dev):
+    """qwen3-14b at full width (qk_norm, 40 query heads on 8 kv heads),
+    its depth cut to ``QK_LAYERS`` layers, served and checked in context."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3-14b")
+    print(f"serve_qk: {cfg.arch_id}'s depth cut to {QK_LAYERS} of its "
+          f"{cfg.n_layers} layers (full width)", flush=True)
+    model, params, batch, out, counts, result = run_serve(
+        dev, "serve_qk", dataclasses.replace(cfg, n_layers=QK_LAYERS))
+    result["context"] = check_serve_in_context(dev, model, params, batch,
+                                               out, "serve_qk")
+    result["depth_cut"] = [QK_LAYERS, cfg.n_layers]
+    return counts, result
 
 
 def run_serve_cli():
@@ -3280,7 +3532,8 @@ def main():
     run_cli()
 
     phase("serve")
-    model, params, batch, out, by_path["serve"] = run_serve(dev)
+    model, params, batch, out, by_path["serve"], k5["serve"] = run_serve(
+        dev)
 
     phase("serve context")
     k5["serve_context"] = check_serve_in_context(dev, model, params, batch,
@@ -3290,8 +3543,20 @@ def main():
     phase("serve cli")
     run_serve_cli()
 
+    phase("serve_moe")
+    by_path["serve_moe"], k5["serve_moe"] = run_serve_moe(dev)
+    gc.collect()
+
+    phase("serve_qk")
+    by_path["serve_qk"], k5["serve_qk"] = run_serve_qk(dev)
+    gc.collect()
+
+    phase("lm_train_moe")
+    by_path["lm_train_moe"], k4["lm_train_moe"] = run_lm_train_moe(dev)
+    gc.collect()
+
     phase("lm_train")
-    model, state0, batch, by_path["lm_train"] = run_lm_train(dev)
+    model, state0, batch, by_path["lm_train"], _ = run_lm_train(dev)
 
     phase("lm_train context")
     k4["lm_train_context"] = check_lm_train_in_context(dev, model, state0,
@@ -3341,6 +3606,9 @@ def main():
         entry["launches"] = sum(c[key] for c in by_path.values()
                                 if c[key] is not None)
 
+    phase()
+    print(f"phase seconds: {json.dumps(_PHASE_S)}; total "
+          f"{sum(_PHASE_S.values()):.1f}", flush=True)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
 """Config registry of the port: the architectures ported so far.
 
 The JAX package registers eleven architectures; the port lists only those
-whose model it runs: ResNet-50 (training) and the dense LM qwen1.5-0.5b
-(serving: prefill and greedy decode). The other LM families (MoE, MLA,
-hybrid, xLSTM, whisper, VLM) are ROADMAP §1 item 10.
+whose model it runs: ResNet-50 (training), the dense GQA LMs qwen1.5-0.5b,
+qwen1.5-32b, qwen3-14b (``qk_norm``) and mistral-nemo-12b (sliding
+window), and the MoE LM qwen2-moe-a2.7b (serving and training). The other
+LM families (MLA, hybrid, xLSTM, whisper, VLM) are ROADMAP §1 item
+10.4-10.6.
 """
 from __future__ import annotations
 
@@ -14,7 +16,11 @@ from repro_torch.configs.shapes import SHAPES, InputShape, shapes_for  # noqa: F
 # arch id -> module name in this package
 _REGISTRY = {
     "resnet50": "resnet50",   # the paper's own architecture
-    "qwen1.5-0.5b": "qwen1_5_0_5b",   # dense GQA LM, served
+    "qwen1.5-0.5b": "qwen1_5_0_5b",   # dense LMs: GQA, QKV bias
+    "qwen1.5-32b": "qwen1_5_32b",
+    "qwen3-14b": "qwen3_14b",         # qk_norm
+    "mistral-nemo-12b": "mistral_nemo_12b",   # sliding window
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",     # MoE
 }
 
 
@@ -22,8 +28,8 @@ def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in _REGISTRY:
         raise KeyError(
             f"arch {arch_id!r} is not ported yet (ported: "
-            f"{sorted(_REGISTRY)}); the other LM families are ROADMAP §1 "
-            f"item 10")
+            f"{sorted(_REGISTRY)}); the MLA, hybrid, xLSTM, whisper and VLM "
+            f"families are ROADMAP §1 item 10.4-10.6")
     mod = importlib.import_module(
         f"repro_torch.configs.{_REGISTRY[arch_id]}")
     return mod.CONFIG

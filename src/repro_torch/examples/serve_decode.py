@@ -1,6 +1,7 @@
 """Batched serving example: prefill a prompt batch, then step-decode with
 the KV cache. The torch twin of ``examples/serve_decode.py``, for the
-architectures the port serves (the dense GQA family: qwen1.5-0.5b); the
+architectures the port serves (the dense GQA family: qwen1.5-0.5b,
+qwen1.5-32b, qwen3-14b, mistral-nemo-12b; the MoE qwen2-moe-a2.7b); the
 others raise ``NotImplementedError`` (ROADMAP §1 item 10).
 
   PYTHONPATH=src python -m repro_torch.examples.serve_decode \\

@@ -1,16 +1,18 @@
 """Where serving's time goes, on the card.
 
-Drives ``serve.decode.generate`` (full-width qwen1.5-0.5b by default: 8
-prompts of 2048 tokens, 32 greedy tokens; ``--flash-attention`` for the
-flash kernel in the prefill) and prints one JSON object:
+Drives ``serve.decode.generate`` (full-width qwen1.5-0.5b by default, or
+any ``--arch`` the port serves: 8 prompts of 2048 tokens, 32 greedy
+tokens; ``--flash-attention`` for the flash kernel in the prefill) on
+bf16 weights and prints one JSON object:
 
 * ``prefill_ms`` and ``decode_ms`` (median and quartiles of the steps) on
   CUDA events, tokens/s, peak memory;
 * ``phase_ms``: for the prefill and for one decode step, the device time
   of the model's parts, from CUDA events around each call of them summed
   over the layers: ``embed``, ``attention`` (K5, the chunked path or the
-  decode einsums and softmax), ``mlp`` (SwiGLU), ``logits`` (final norm
-  and the tied head), and ``rest`` (the step less those: the QKV and
+  decode einsums and softmax), ``mlp`` (SwiGLU; a MoE layer's shared
+  experts), ``moe`` (routing, dispatch, the experts and the combine of a
+  MoE layer), ``logits`` (final norm and the head), and ``rest`` (the step less those: the QKV and
   output projections, rope, the norms, residuals and cache writes);
 * ``profile``: from ``torch.profiler`` over one prefill and over the
   decode steps, device time by kernel group and the device's idle share
@@ -36,6 +38,7 @@ from repro_torch.core.precision import cast_to_compute
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
+from repro_torch.models import moe as moem
 from repro_torch.models import transformer as tf
 from repro_torch.models.registry import build_model
 from repro_torch.launch.profile_step import device_profile, quartiles
@@ -54,7 +57,8 @@ GROUPS = (("flash_attention", ("flash_fwd",)),
 #: (module, function name, phase) timed by ``_Phases``
 PARTS = ((tf, "_embed", "embed"), (attn, "_attend", "attention"),
          (attn, "decode_attention", "attention"),
-         (mlpm, "swiglu_apply", "mlp"), (tf, "_logits", "logits"))
+         (mlpm, "swiglu_apply", "mlp"), (moem, "moe_apply", "moe"),
+         (tf, "_logits", "logits"))
 
 
 class _Phases:
@@ -127,7 +131,9 @@ def main(argv=None):
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, flash_attention=args.flash_attention)
     model = build_model(cfg)
-    params = pinit.materialize(model.param_pd, seed=args.seed, device=dev)
+    # bf16 weights, each leaf cast as it is made (serve.decode's CLI)
+    params = pinit.materialize(model.param_pd, seed=args.seed, device=dev,
+                               dtype=torch.bfloat16)
     gen = torch.Generator().manual_seed(args.seed)
     batch = {"tokens": torch.randint(
         0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen,

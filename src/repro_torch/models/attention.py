@@ -1,4 +1,4 @@
-"""Attention: GQA (+QKV bias, sliding window) and its KV cache.
+"""Attention: GQA (+QKV bias, ``qk_norm``, sliding window) and its KV cache.
 
 Train/prefill attention runs either the flash kernel (``cfg.flash_attention``:
 ``kernels/ops.flash_attention_bshd``, K5) or the chunked online-softmax
@@ -6,7 +6,7 @@ path below, which keeps the JAX package's chunking, block skipping and
 bf16 roundings so both packages compute the same numbers. Decode is one
 token against a (B, S_max, K, Dh) cache that the port updates in place.
 
-Not ported yet (ROADMAP §1 item 10): MLA, ``qk_norm``, cross-attention.
+Not ported yet (ROADMAP §1 item 10): MLA, cross-attention.
 """
 from __future__ import annotations
 
@@ -15,7 +15,8 @@ import math
 import torch
 
 from repro_torch.kernels.ref import NEG
-from repro_torch.models.common import PD, attention_mask, dense_pd, rope
+from repro_torch.models.common import PD, attention_mask, dense_pd, \
+    rms_norm, rope
 
 NOT_PORTED = "is not ported to repro_torch yet (ROADMAP §1 item 10)"
 
@@ -42,8 +43,6 @@ def _attend(q, k, v, cfg, *, causal: bool, window: int = 0):
 
 
 def gqa_pd(cfg):
-    if cfg.qk_norm:
-        raise NotImplementedError(f"qk_norm {NOT_PORTED}")
     d, hd = cfg.d_model, cfg.resolved_head_dim
     H, K = cfg.n_heads, cfg.n_kv_heads
     p = {
@@ -57,6 +56,9 @@ def gqa_pd(cfg):
         p["bq"] = PD((H * hd,), init="zeros")
         p["bk"] = PD((K * hd,), init="zeros")
         p["bv"] = PD((K * hd,), init="zeros")
+    if cfg.qk_norm:
+        p["q_norm"] = PD((hd,), init="ones")
+        p["k_norm"] = PD((hd,), init="ones")
     return p
 
 
@@ -82,7 +84,12 @@ def chunked_attention(q, k, v, *, q_offset: int, causal: bool,
     the online softmax in f32 (products of the inputs are exact in f32),
     p rounded to v's dtype before PV, one key chunk at a time over only the
     chunks a query chunk can see; the mask is applied only to chunks that
-    straddle the causal diagonal or the window's edge."""
+    straddle the causal diagonal or the window's edge. One difference: the
+    JAX package leaves a key chunk unmasked when it lies inside the window
+    of the query chunk's first query, so with a window longer than the
+    chunk its later queries attend past their window (ROADMAP §3, fault
+    3.4); here a key chunk goes unmasked only inside the window of the
+    chunk's last query, and so of every query."""
     B, Sq, H, Dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
@@ -107,7 +114,7 @@ def chunked_attention(q, k, v, *, q_offset: int, causal: bool,
         full_hi = min(hi, (q_offset + i * cq) // ck) if causal else hi
         full_lo = lo
         if window:
-            first_inside = -(-(q_offset + i * cq + 1 - window) // ck)
+            first_inside = -(-(q_offset + (i + 1) * cq - window) // ck)
             full_lo = max(lo, max(first_inside, 0))
         full_lo = min(full_lo, full_hi)
 
@@ -159,13 +166,18 @@ def _split_heads(x, n, hd):
 
 
 def _qkv(p, x, cfg):
+    """Heads of q, k, v: projected, biased and, with ``qk_norm``, each
+    head RMS-normed (before rope, as the JAX package does)."""
     hd = cfg.resolved_head_dim
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (_split_heads(q, cfg.n_heads, hd),
-            _split_heads(k, cfg.n_kv_heads, hd),
-            _split_heads(v, cfg.n_kv_heads, hd))
+    q = _split_heads(q, cfg.n_heads, hd)
+    k = _split_heads(k, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.rms_eps)
+        k = rms_norm(k, p["k_norm"], cfg.rms_eps)
+    return q, k, _split_heads(v, cfg.n_kv_heads, hd)
 
 
 def gqa_parallel(p, x, positions, cfg, *, cache_len: int = 0,

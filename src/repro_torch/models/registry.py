@@ -1,8 +1,9 @@
 """Model registry: the uniform functional API over architecture families.
 
-The port builds the conv family (ResNet-50: training) and the dense LM
-family (GQA decoder: training, prefill and one-token decode). The other LM
-families (MoE, MLA, hybrid, xLSTM, whisper, VLM) raise
+The port builds the conv family (ResNet-50: training) and the decoder LM
+families through one branch: dense (GQA, QKV bias, ``qk_norm``, sliding
+window) and MoE, each with training, prefill and one-token decode. The
+other LM families (MLA, hybrid, xLSTM, whisper, VLM) raise
 ``NotImplementedError``: ROADMAP §1 item 10.
 """
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Language-model composition, dense decoder family.
+"""Language-model composition: the decoder family, dense and MoE.
 
 Layer parameters are stacked along a leading layer axis, as in the JAX
 package, so one descriptor tree and one set of weights mean the same model
@@ -7,13 +7,14 @@ it with a Python loop over views of the stacked leaves, and writes the
 stacked (L, B, S, K, Dh) cache in place.
 
 Three entry points, as the JAX package has them: ``forward_train`` (full
-logits, differentiable; with ``cfg.remat`` each layer is recomputed in the
-backward, as the JAX package wraps its layer scan in ``jax.checkpoint``),
+logits and the MoE aux loss summed over the layers, differentiable; with
+``cfg.remat`` each layer is recomputed in the backward, as the JAX package
+wraps its layer scan in ``jax.checkpoint``),
 ``forward_prefill`` (logits of the last position + a filled cache) and
 ``forward_decode`` (one token against the cache).
 
-Not ported yet (ROADMAP §1 item 10): MoE, MLA, the hybrid, xLSTM, whisper
-and VLM families.
+Not ported yet (ROADMAP §1 item 10): MLA, the hybrid, xLSTM, whisper and
+VLM families.
 """
 from __future__ import annotations
 
@@ -24,16 +25,15 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
+from repro_torch.models import moe as moem
 from repro_torch.models.common import PD, dense_pd, pd_stack, rms_norm
 from repro_torch.tree import tree_map
 
 
 def _check_dense(cfg):
     what = None
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         what = f"family {cfg.family!r}"
-    elif cfg.moe is not None:
-        what = "MoE"
     elif cfg.mla is not None:
         what = "MLA"
     if what:
@@ -47,8 +47,16 @@ def _check_dense(cfg):
 
 def _dense_layer_pd(cfg):
     d = cfg.d_model
-    return {"ln1": PD((d,), init="ones"), "attn": attn.gqa_pd(cfg),
-            "ln2": PD((d,), init="ones"), "mlp": mlpm.swiglu_pd(cfg)}
+    p = {"ln1": PD((d,), init="ones"), "attn": attn.gqa_pd(cfg),
+         "ln2": PD((d,), init="ones")}
+    if cfg.moe is not None:
+        p["moe"] = moem.moe_pd(cfg)
+        if cfg.moe.n_shared:
+            p["shared"] = mlpm.swiglu_pd(
+                cfg, d_ff=cfg.moe.n_shared * cfg.moe.d_expert)
+    else:
+        p["mlp"] = mlpm.swiglu_pd(cfg)
+    return p
 
 
 def lm_pd(cfg) -> Dict[str, Any]:
@@ -64,7 +72,7 @@ def lm_pd(cfg) -> Dict[str, Any]:
 
 def cache_pd(cfg, batch: int, max_seq: int):
     """Descriptor tree of what forward_prefill produces: stacked bf16
-    (L, batch, max_seq, K, Dh) k and v."""
+    (L, batch, max_seq, K, Dh) k and v (the MoE family's too)."""
     _check_dense(cfg)
     shape = (batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
     return pd_stack({"k": PD(shape, init="zeros", dtype=torch.bfloat16),
@@ -92,12 +100,13 @@ def _layer(layers, i: int):
 
 
 # ---------------------------------------------------------------------------
-# dense decoder
+# dense / MoE decoder
 
 
 def _dense_block(p, x, positions, cfg, *, decode=False, cache=None,
                  pos=None, cache_len=0):
-    """One decoder layer. Returns (x, new_cache)."""
+    """One decoder layer. Returns (x, aux, new_cache); aux is the MoE
+    layer's load-balance loss, None for a dense layer."""
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
     if decode:
         a, new_cache = attn.gqa_decode(p["attn"], h, pos, cfg, cache)
@@ -106,18 +115,32 @@ def _dense_block(p, x, positions, cfg, *, decode=False, cache=None,
                                          cache_len=cache_len)
     x = x + a
     h = rms_norm(x, p["ln2"], cfg.rms_eps)
-    return x + mlpm.swiglu_apply(p["mlp"], h), new_cache
+    aux = None
+    if cfg.moe is not None:
+        m, aux = moem.moe_apply(p["moe"], h, cfg, decode=decode)
+        if cfg.moe.n_shared:
+            m = m + mlpm.swiglu_apply(p["shared"], h)
+    else:
+        m = mlpm.swiglu_apply(p["mlp"], h)
+    return x + m, aux, new_cache
 
 
 def _train_block(p, x, positions, cfg):
-    return _dense_block(p, x, positions, cfg)[0]
+    return _dense_block(p, x, positions, cfg)[:2]
+
+
+def _add(total, a):
+    """Running sum of the layers' aux (None: a dense stack, no aux)."""
+    return a if total is None else total + a
 
 
 def _dense_forward(params, cfg, x, positions, *, mode, cache=None, pos=None,
                    cache_len=0):
     """mode: train | prefill | decode. x: embedded inputs (B,S,d). Returns
-    (x, cache); the decode cache is the given one, updated in place."""
+    (x, aux, cache): aux summed over the layers (None for a dense stack);
+    the decode cache is the given one, updated in place."""
     L = cfg.n_layers
+    aux = None
     if mode == "train":
         # the stacked leaves unbound once: their backward is one stack of
         # the L layer gradients, not a zero-filled full-size gradient per
@@ -129,26 +152,30 @@ def _dense_forward(params, cfg, x, positions, *, mode, cache=None, pos=None,
             if remat:
                 # recomputed in the backward; a layer draws no random
                 # numbers, so no RNG state needs keeping
-                x = checkpoint(_train_block, p, x, positions, cfg,
-                               use_reentrant=False, preserve_rng_state=False)
+                x, a = checkpoint(_train_block, p, x, positions, cfg,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
-                x = _train_block(p, x, positions, cfg)
-        return x, None
+                x, a = _train_block(p, x, positions, cfg)
+            aux = _add(aux, a)
+        return x, aux, None
     if mode == "prefill":
         stacked = None
         for i in range(L):
-            x, c = _dense_block(_layer(params["layers"], i), x, positions,
-                                cfg, cache_len=cache_len)
+            x, a, c = _dense_block(_layer(params["layers"], i), x,
+                                   positions, cfg, cache_len=cache_len)
+            aux = _add(aux, a)
             if stacked is None:
                 stacked = {n: t.new_empty((L, *t.shape))
                            for n, t in c.items()}
             for n, t in c.items():
                 stacked[n][i] = t
-        return x, stacked
+        return x, aux, stacked
     for i in range(L):
-        x, _ = _dense_block(_layer(params["layers"], i), x, None, cfg,
-                            decode=True, cache=_layer(cache, i), pos=pos)
-    return x, cache
+        x, a, _ = _dense_block(_layer(params["layers"], i), x, None, cfg,
+                               decode=True, cache=_layer(cache, i), pos=pos)
+        aux = _add(aux, a)
+    return x, aux, cache
 
 
 # ---------------------------------------------------------------------------
@@ -156,12 +183,16 @@ def _dense_forward(params, cfg, x, positions, *, mode, cache=None, pos=None,
 
 
 def forward_train(params, cfg, batch):
-    """batch: {'tokens': (B,S)}. Returns (logits (B,S,V) f32, aux 0)."""
+    """batch: {'tokens': (B,S)}. Returns (logits (B,S,V) f32, aux 0-d f32:
+    the MoE load-balance loss summed over the layers, 0 for a dense
+    stack)."""
     _check_dense(cfg)
     x = _embed(params, cfg, batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    x, _ = _dense_forward(params, cfg, x, positions, mode="train")
-    return _logits(params, cfg, x), torch.zeros((), device=x.device)
+    x, aux, _ = _dense_forward(params, cfg, x, positions, mode="train")
+    if aux is None:
+        aux = torch.zeros((), device=x.device)
+    return _logits(params, cfg, x), aux
 
 
 def forward_prefill(params, cfg, batch, cache_len: int):
@@ -169,8 +200,8 @@ def forward_prefill(params, cfg, batch, cache_len: int):
     _check_dense(cfg)
     x = _embed(params, cfg, batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    x, cache = _dense_forward(params, cfg, x, positions, mode="prefill",
-                              cache_len=cache_len)
+    x, _, cache = _dense_forward(params, cfg, x, positions, mode="prefill",
+                                 cache_len=cache_len)
     return _logits(params, cfg, x[:, -1:]), cache
 
 
@@ -179,6 +210,6 @@ def forward_decode(params, cfg, cache, token, pos: int):
     (B,1,V) f32, cache); the cache is updated in place."""
     _check_dense(cfg)
     x = _embed(params, cfg, token)
-    x, cache = _dense_forward(params, cfg, x, None, mode="decode",
-                              cache=cache, pos=pos)
+    x, _, cache = _dense_forward(params, cfg, x, None, mode="decode",
+                                 cache=cache, pos=pos)
     return _logits(params, cfg, x), cache

@@ -6,10 +6,15 @@ generation loop (a port of ``repro.serve.decode``), with a CLI that mirrors
   PYTHONPATH=src python -m repro_torch.serve.decode --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.serve.decode --flash-attention \\
       --batch 8 --prompt-len 2048 --max-new 32   # full width, K5 prefill
+  PYTHONPATH=src python -m repro_torch.serve.decode --arch qwen2-moe-a2.7b \\
+      --reduced --device cpu      # also qwen3-14b, mistral-nemo-12b, ...
 
 The JAX package jits the prefill and the decode step; the port runs them
-eagerly, casts the f32 masters to bf16 once per ``generate`` call, and
-updates the KV cache in place.
+eagerly, casts f32 masters to bf16 once per ``generate`` call (bf16
+leaves pass through), and updates the KV cache in place. The CLI holds
+bf16 weights, as the JAX package's inference does: each leaf is cast as
+``pinit`` makes it, so the f32 tree never exists (qwen2-moe-a2.7b's
+would take 60.6 GB).
 """
 from __future__ import annotations
 
@@ -122,7 +127,8 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, flash_attention=True)
     dev = resolve_device(args.device)
     model = build_model(cfg)
-    params = pinit.materialize(model.param_pd, seed=args.seed, device=dev)
+    params = pinit.materialize(model.param_pd, seed=args.seed, device=dev,
+                               dtype=torch.bfloat16)
     gen = torch.Generator().manual_seed(args.seed)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, dtype=torch.int32).to(dev)

@@ -145,6 +145,12 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
         raise ValueError(comm_cfg.wire_dtype)
     loss_fn = make_loss_fn(model, smoothing=smoothing)
     if comm_cfg.strategy != "xla":
+        if model.cfg.moe is not None:
+            # the reference's explicit step runs the model without a mesh,
+            # and its MoE layer needs one with a 'model' axis
+            raise _not_ported(
+                f"comm={comm_cfg.strategy!r} with a MoE config (the experts "
+                f"run over a mesh's model axis)", 6)
         return _guarded(_explicit_step(model, opt_cfg, schedule, loss_fn,
                                        comm_cfg, mesh, grad_accum, tracer,
                                        profile_batch, smoothing), guard)

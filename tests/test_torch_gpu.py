@@ -628,6 +628,44 @@ def test_prefill_on_card_launches_the_kernel_once_a_layer():
     assert float(err) < 3e-2
 
 
+def test_moe_prefill_and_decode_on_card_match_the_cpu(monkeypatch):
+    """Reduced qwen2-moe-a2.7b with flash_attention on the card: pinit's
+    bf16 leaves (cast and copied a chunk at a time) equal
+    ``cast_to_compute`` of the f32 tree bit for bit; the prefill launches
+    K5 once a layer and the decode step none; the prefill's last logits
+    and one decode step from its cache agree with the same on the CPU (the
+    plain flash version, the same params) within 3e-2 of their max."""
+    import dataclasses
+    from repro_torch.core.precision import cast_to_compute
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.registry import build_model
+    from repro_torch.tree import tree_map
+    dev = _card()
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b").reduced(),
+                              flash_attention=True)
+    model = build_model(cfg)
+    f32 = cast_to_compute(pinit.materialize(model.param_pd, 0, dev))
+    monkeypatch.setattr(pinit, "CHUNK", 1000)
+    params = pinit.materialize(model.param_pd, 0, dev, dtype=torch.bfloat16)
+    for (path, a), (_, b) in zip(tree_flatten(f32), tree_flatten(params)):
+        assert b.dtype == torch.bfloat16 and torch.equal(a, b), path
+    on_cpu = tree_map(lambda t: t.cpu(), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 97),
+                         generator=torch.Generator().manual_seed(0))
+    before = fa.flash_attention.launches
+    got, cache = model.forward_prefill(params, {"tokens": toks[:, :96]
+                                                .to(dev)}, 104)
+    assert fa.flash_attention.launches == before + cfg.n_layers
+    want, cpu_cache = model.forward_prefill(on_cpu, {"tokens": toks[:, :96]},
+                                            104)
+    rel = lambda a, b: float((a.cpu() - b).abs().max() / b.abs().max())
+    assert rel(got, want) < 3e-2
+    dg, _ = model.forward_decode(params, cache, toks[:, 96:].to(dev), 96)
+    assert fa.flash_attention.launches == before + cfg.n_layers
+    dw, _ = model.forward_decode(on_cpu, cpu_cache, toks[:, 96:], 96)
+    assert rel(dg, dw) < 3e-2
+
+
 def test_flash_attention_refuses_autograd_on_card():
     """As on the CPU: no backward, so a graph through K5 is refused before
     any launch, with the ROADMAP item named."""

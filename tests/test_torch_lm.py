@@ -218,10 +218,11 @@ def test_serve_entry_points_raise_without_card(monkeypatch):
 
 
 def test_unported_lm_parts_name_roadmap(base):
+    from repro_torch.configs.base import MLAConfig
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
-        build_model(dataclasses.replace(base, family="moe"))
+        build_model(dataclasses.replace(base, mla=MLAConfig()))
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
-        build_model(dataclasses.replace(base, qk_norm=True))
+        build_model(dataclasses.replace(base, family="hybrid"))
     # the explicit-DP LM step is ported: like the conv family's, it needs
     # a mesh (test_torch_lm_dp.py trains it)
     with pytest.raises(ValueError, match="needs a mesh"):
@@ -230,4 +231,4 @@ def test_unported_lm_parts_name_roadmap(base):
                                                      total_steps=2)),
                         comm="psum")
     with pytest.raises(KeyError, match="not ported yet"):
-        get_config("qwen3-14b")
+        get_config("deepseek-v2-236b")

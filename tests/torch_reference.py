@@ -17,6 +17,8 @@ to an ``.npz`` of ``kind/path`` keys.
   python tests/torch_reference.py lm_cases OUT.npz
   python tests/torch_reference.py lm_train_steps OUT.npz
   python tests/torch_reference.py lm_dp_steps OUT.npz
+  python tests/torch_reference.py moe_cases OUT.npz
+  python tests/torch_reference.py lm_variant_cases OUT.npz
   python tests/torch_reference.py guard_zero1_run OUT.npz
   python tests/torch_reference.py traced_zero1_step OUT.npz
 
@@ -29,6 +31,10 @@ and ``traced_zero1_step`` route around both without touching
 ``src/repro``: each replaces ``compat.shard_map`` in its own process with
 a shim that calls ``jax.shard_map(..., check_vma=False)``, builds an
 Auto-axis mesh, and feeds numpy batches (no mesh-bound batch function).
+The reference's MoE layer runs only inside ``shard_map`` on a mesh with a
+``model`` axis, and ``repro/models/moe.py`` binds ``shard_map`` at import:
+``moe_cases`` sets the shim there too and runs on a (1, 1) Auto-axis
+``("data", "model")`` mesh.
 """
 import os
 import subprocess
@@ -204,14 +210,27 @@ ZERO1_CASES = ((1, 1), (0, 0))
 
 def _shard_map_shim():
     """``repro.core.compat.shard_map`` for jax >= 0.7 (see the module
-    docstring); replaced in this process only."""
+    docstring), and the name ``repro.models.moe`` bound from it at import;
+    replaced in this process only."""
     import jax
     from repro.core import compat
+    from repro.models import moe
 
     def shard_map(f, *, mesh, in_specs, out_specs, check_rep=False):
         return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
                              out_specs=out_specs, check_vma=False)
     compat.shard_map = shard_map
+    moe.shard_map = shard_map
+
+
+def _mesh11():
+    """The (1, 1) ``("data", "model")`` mesh with Auto axes (jax 0.9's
+    ``make_mesh`` makes Explicit ones, which the steps' sharding
+    constraints reject)."""
+    import jax
+    from jax.sharding import AxisType
+    return jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
 
 
 def zero1_steps():
@@ -623,10 +642,10 @@ def lm_params(cfg, seed=0):
                         is_leaf=lambda x: hasattr(x, "init"))
 
 
-def lm_tokens(cfg, seed=1):
+def lm_tokens(cfg, seed=1, prompt=LM_PROMPT):
     rng = np.random.default_rng(seed)
     return rng.integers(0, cfg.vocab_size,
-                        (LM_BATCH, LM_PROMPT + 1)).astype(np.int32)
+                        (LM_BATCH, prompt + 1)).astype(np.int32)
 
 
 def lm_cases():
@@ -654,21 +673,61 @@ def lm_cases():
     return out
 
 
-def _lm_run(model, params, toks):
+def _lm_run(model, params, toks, *, prompt=LM_PROMPT, cache_len=LM_CACHE,
+            mesh=None):
+    """The full forward over ``toks`` (prompt + 1 tokens; with its aux),
+    the prefill of the prompt, one decode step of the last token from that
+    cache, and ``generate``'s LM_NEW greedy tokens."""
     import jax
     import jax.numpy as jnp
     from repro.serve.decode import generate
 
-    (logits, _), _ = jax.jit(lambda p, t: model.forward_train(
-        p, {"tokens": t}))(params, toks)
+    (logits, aux), _ = jax.jit(lambda p, t: model.forward_train(
+        p, {"tokens": t}, mesh))(params, toks)
     last, cache = jax.jit(lambda p, t: model.forward_prefill(
-        p, {"tokens": t}, LM_CACHE))(params, toks[:, :LM_PROMPT])
-    dl, cache2 = jax.jit(model.forward_decode)(
-        params, cache, toks[:, LM_PROMPT:], jnp.int32(LM_PROMPT))
-    gen = generate(model, params, {"tokens": toks[:, :LM_PROMPT]},
-                   max_new=LM_NEW, cache_len=LM_CACHE, mesh=None)
-    return {"train_logits": logits, "prefill_logits": last, "cache": cache,
-            "decode_logits": dl, "decode_cache": cache2, "generate": gen}
+        p, {"tokens": t}, cache_len, mesh))(params, toks[:, :prompt])
+    dl, cache2 = jax.jit(lambda p, c, t, i: model.forward_decode(
+        p, c, t, i, mesh))(params, cache, toks[:, prompt:],
+                           jnp.int32(prompt))
+    gen = generate(model, params, {"tokens": toks[:, :prompt]},
+                   max_new=LM_NEW, cache_len=cache_len, mesh=mesh)
+    return {"train_logits": logits, "train_aux": aux,
+            "prefill_logits": last, "cache": cache, "decode_logits": dl,
+            "decode_cache": cache2, "generate": gen}
+
+
+def check_greedy_tokens(model, params, toks, want, got, cache_len):
+    """The port's greedy tokens ``got`` against the reference's ``want``
+    (both (B, LM_NEW)) from the prompt ``toks``. The logits are bf16
+    values (the head's bf16 matmul), so two can tie, and where the two
+    packages' last-bit differences flip such a tie the sequences part. So:
+    along the reference's tokens (teacher-forced through the port's prefill
+    and decode), each of the reference's picks is within one bf16 ulp of
+    the port's largest logit, and each request's tokens are equal up to
+    its first step whose two largest logits lie within one bf16 ulp of
+    each other (all of them where there is none). Returns the number of
+    such tied steps a request."""
+    import torch
+    prompt = toks.shape[1]
+    logits, cache = model.forward_prefill(params, {"tokens": toks},
+                                          cache_len)
+    tied = np.zeros(want.shape, bool)
+    for i in range(want.shape[1]):
+        lg = logits[:, -1].float()
+        top = torch.topk(lg, 2).values
+        ulp = 2.0 ** (torch.floor(torch.log2(top[:, 0].abs())) - 7)
+        picked = lg[torch.arange(lg.shape[0]), torch.from_numpy(want[:, i])
+                    .long()]
+        assert bool((top[:, 0] - picked <= ulp).all()), (i, top, picked)
+        tied[:, i] = (top[:, 0] - top[:, 1] <= ulp).numpy()
+        if i + 1 < want.shape[1]:
+            logits, cache = model.forward_decode(
+                params, cache, torch.from_numpy(want[:, i:i + 1]),
+                prompt + i)
+    for b in range(want.shape[0]):
+        first = int(np.argmax(tied[b])) if tied[b].any() else want.shape[1]
+        np.testing.assert_array_equal(got[b, :first], want[b, :first])
+    return tied.sum(1)
 
 
 #: the LM training parity setting: reduced qwen1.5-0.5b, lcg token batches
@@ -809,6 +868,189 @@ def lm_dp_steps():
     return out
 
 
+#: the MoE module cases: name -> (n_routed, top_k). "cap" is the reduced
+#: qwen2-moe-a2.7b's own routing (4 experts, top-2, capacity factor 1.25);
+#: "pad" has 20 routed experts, top-4, so the stack pads to 32 and the
+#: dead slots are exercised. Inputs: MOE_B x MOE_S tokens of N(0, 1) plus
+#: a shared direction of scale MOE_SKEW, which skews the router towards
+#: some experts so that their buffers overflow and tokens are dropped
+MOE_CASES = {"cap": (4, 2), "pad": (20, 4)}
+MOE_B, MOE_S, MOE_SKEW = 2, 32, 0.5
+MOE_ARCH = "qwen2-moe-a2.7b"
+
+
+def moe_case_cfg(get_config, case):
+    """The case's config, from either package's ``get_config``."""
+    import dataclasses
+    base = get_config(MOE_ARCH).reduced()
+    n_routed, top_k = MOE_CASES[case]
+    return dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, n_routed=n_routed, top_k=top_k))
+
+
+def _moe_inputs(cfg, seed):
+    """The MoE layer's params (numpy, from the reference's descriptors) and
+    its input x (MOE_B, MOE_S, d) f32."""
+    import jax
+    from repro.models import moe
+    rng = np.random.default_rng(seed)
+    params = jax.tree.map(
+        lambda pd: (pd.scale * np.clip(rng.standard_normal(pd.shape), -2,
+                                       2)).astype(np.float32),
+        moe.moe_pd(cfg), is_leaf=lambda x: hasattr(x, "init"))
+    x = rng.standard_normal((MOE_B, MOE_S, cfg.d_model)) \
+        + MOE_SKEW * rng.standard_normal(cfg.d_model)
+    return params, x.astype(np.float32)
+
+
+#: the MoE LM training setting: the reduced qwen2-moe-a2.7b, the lcg
+#: batches and schedule of ``lm_train_steps``, MOE_TRAIN_STEPS steps
+MOE_TRAIN_STEPS = 2
+
+
+def moe_cases():
+    """The reference's MoE on a (1, 1) Auto-axis mesh, under the shard_map
+    shim. (1) ``moe_apply`` for each of ``MOE_CASES`` in f32 and bf16,
+    train and decode: out and aux (``{case}/{dt}/{mode}/...``); the
+    routing of ``_route`` on the same x (gates, ids, aux); in train, the
+    (E, C, d) buffers the expert FFN receives (``xs``, captured by a
+    debug callback), and in f32 the gradients of ``sum(out · ct) + 0.01 ·
+    aux`` with respect to the params and x. (2) The reduced
+    qwen2-moe-a2.7b's ``_lm_run`` with ``flash_attention`` False and True
+    (``f{flash}/...``, params ``params/...``). (3) Its ``make_train_step(
+    comm='xla', mesh=...)``, jitted, MOE_TRAIN_STEPS steps along its own
+    trajectory (``train/s{k}/...``)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config
+    from repro.core import lars
+    from repro.core.schedule import ScheduleConfig, make_schedule
+    from repro.data.synthetic import token_batch
+    from repro.models import moe
+    from repro.models.registry import build_model
+    from repro.train.state import TrainState
+    from repro.train.step import make_train_step
+
+    _shard_map_shim()
+    mesh = _mesh11()
+    captured = []
+    ffn = moe._expert_ffn
+
+    def capturing_ffn(w_gate, w_up, w_down, xs):
+        jax.debug.callback(lambda a: captured.append(np.asarray(
+            a, np.float32)), xs)
+        return ffn(w_gate, w_up, w_down, xs)
+
+    out = {}
+    for i, case in enumerate(MOE_CASES):
+        cfg = moe_case_cfg(get_config, case)
+        p32, x32 = _moe_inputs(cfg, 10 + i)
+        _flat(f"{case}/params", p32, out)
+        out[f"{case}/x"] = x32
+        for dt in ("float32", "bfloat16"):
+            p = jax.tree.map(lambda a: jnp.asarray(a, dt), p32)
+            x = jnp.asarray(x32, dt)
+            gates, ids, aux = jax.jit(lambda xf, w: moe._route(
+                xf, w, cfg.moe))(x.reshape(-1, cfg.d_model), p["router"])
+            for name, v in (("gates", gates), ("ids", ids), ("aux", aux)):
+                out[f"{case}/{dt}/route/{name}"] = np.asarray(v)
+            for mode in ("train", "decode"):
+                key = f"{case}/{dt}/{mode}"
+                moe._expert_ffn = capturing_ffn
+                captured.clear()
+                try:
+                    o, a = jax.jit(lambda p, x, d=mode == "decode":
+                                   moe.moe_apply(p, x, cfg, mesh, decode=d)
+                                   )(p, x)
+                    jax.effects_barrier()
+                finally:
+                    moe._expert_ffn = ffn
+                out[f"{key}/out"] = np.asarray(o, np.float32)
+                out[f"{key}/aux"] = np.asarray(a)
+                if mode == "train":
+                    (out[f"{key}/xs"],) = captured
+                if mode == "train" and dt == "float32":
+                    ct = np.random.default_rng(20 + i).standard_normal(
+                        x32.shape).astype(np.float32)
+
+                    def loss(p, x):
+                        o, a = moe.moe_apply(p, x, cfg, mesh, decode=False)
+                        return jnp.sum(o * ct) + 0.01 * a
+                    gp, gx = jax.jit(jax.grad(loss, (0, 1)))(p, x)
+                    out[f"{key}/ct"] = ct
+                    _flat(f"{key}/grads", jax.device_get(gp), out)
+                    out[f"{key}/grads/x"] = np.asarray(gx)
+
+    base = get_config(MOE_ARCH).reduced()
+    params = lm_params(base)
+    toks = lm_tokens(base)
+    _flat("params", params, out)
+    for flash in (0, 1):
+        model = build_model(dataclasses.replace(base,
+                                                flash_attention=bool(flash)))
+        _flat(f"f{flash}", jax.device_get(_lm_run(model, params, toks,
+                                                  mesh=mesh)), out)
+
+    model = build_model(base)
+    step = jax.jit(make_train_step(model, lars.OptConfig(kind="lars"),
+                                   make_schedule(ScheduleConfig(**LR)),
+                                   mesh=mesh, comm="xla"))
+    s = TrainState(jnp.zeros((), jnp.int32), params,
+                   jax.tree.map(np.zeros_like, params))
+    for k in range(MOE_TRAIN_STEPS):
+        batch = jax.device_get(token_batch(
+            base, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, step=k,
+            kind="lcg"))
+        s2, m = step(s, batch)
+        pre = f"train/s{k}"
+        for io, x in (("in", s), ("out", s2)):
+            x = jax.device_get(x)
+            out[f"{pre}/{io}/step"] = np.asarray(x.step)
+            _flat(f"{pre}/{io}/params", x.params, out)
+            _flat(f"{pre}/{io}/mom", x.mom, out)
+        _flat(f"{pre}/batch", batch, out)
+        _flat(f"{pre}/metrics", jax.device_get(m), out)
+        s = s2
+    return out
+
+
+#: the dense variants: arch -> (prompt length, flash cases). qwen3-14b
+#: (qk_norm, 4 heads on 1 kv head) and qwen1.5-32b (QKV bias, MHA) with
+#: the 32-token prompt; mistral-nemo-12b's reduced window is 32, so its
+#: prompt is 64 tokens and the window bites in the prefill and the decode
+LM_VARIANTS = {"qwen3-14b": (32, (0, 1)),
+               "mistral-nemo-12b": (64, (0, 1)),
+               "qwen1.5-32b": (32, (0,))}
+
+
+def lm_variant_cases():
+    """Each reduced dense variant of ``LM_VARIANTS``: params
+    (``{arch}/params/...``) and ``_lm_run`` with ``mesh=None`` for each of
+    its flash cases (``{arch}/f{flash}/...``); the cache is prompt + 8
+    rows."""
+    import dataclasses
+
+    import jax
+    from repro.configs import get_config
+    from repro.models.registry import build_model
+
+    out = {}
+    for arch, (prompt, flashes) in LM_VARIANTS.items():
+        base = get_config(arch).reduced()
+        params = lm_params(base)
+        toks = lm_tokens(base, prompt=prompt)
+        _flat(f"{arch}/params", params, out)
+        for flash in flashes:
+            model = build_model(dataclasses.replace(
+                base, flash_attention=bool(flash)))
+            _flat(f"{arch}/f{flash}", jax.device_get(_lm_run(
+                model, params, toks, prompt=prompt,
+                cache_len=prompt + LM_NEW)), out)
+    return out
+
+
 if __name__ == "__main__":
     what, dest = sys.argv[1], sys.argv[2]
     np.savez(dest, **{"resnet_grads": resnet_grads,
@@ -820,5 +1062,7 @@ if __name__ == "__main__":
                       "lm_cases": lm_cases,
                       "lm_train_steps": lm_train_steps,
                       "lm_dp_steps": lm_dp_steps,
+                      "moe_cases": moe_cases,
+                      "lm_variant_cases": lm_variant_cases,
                       "guard_zero1_run": guard_zero1_run,
                       "traced_zero1_step": traced_zero1_step}[what]())
