@@ -14,7 +14,9 @@ Phases, in order; any failure exits non-zero and prints no result:
               the shapes the training and serving paths give it (K5 also at
               a GQA, a windowed, an MLA and a peaked-softmax shape); times
               the kernel, the plain version and a library yardstick beside
-              the bound
+              the bound (K5: SDPA, the backend it picks named by its
+              kernel; K5's plain version one request at a time where its
+              whole (B·H, S, S) f32 scores would exceed 8 GB)
   4. slice    full-width ResNet-50 (224², 1000 classes, width 64), batch 64,
               6 LARS steps (poly2, label smoothing 0.1, bf16 compute, fp32
               masters, OptConfig(use_kernel=True)) through make_train_step +
@@ -71,7 +73,8 @@ Phases, in order; any failure exits non-zero and prints no result:
               step from the K5 cache against the chunked full forward over
               prompt + that token, both within 3e-2 of the logit max
  12. serve cli  python -m repro_torch.serve.decode --reduced --flash-attention
-              on the card
+              on the card, for qwen1.5-0.5b and for deepseek-v2-236b (MLA:
+              K5 at Dk 48, Dv 32)
  13. serve_moe  full-width, full-depth qwen2-moe-a2.7b (24 layers, d 2048,
               16 heads of 128, 60 routed experts padded to a stack of 64,
               top-4, 4 shared, vocab 151,936: 15.15 B params) served as
@@ -92,14 +95,30 @@ Phases, in order; any failure exits non-zero and prints no result:
               128, qk_norm, θ 1e6, vocab 151,936), its depth cut to 4 of
               its 40 layers (printed), served at the serve phase's sizes
               (K5 4 times, nothing else) and checked as in serve context
- 16. lm_train_moe  qwen2-moe-a2.7b at full width, its depth cut to 2 layers
+ 16. serve_mla  deepseek-v2-236b at full width (MLA: d 5120, 128 heads, q/k
+              heads of 128 + 64 rope, v heads of 128, a 512-d latent cache
+              and a 64-d shared rope key; 160 routed experts of 1536,
+              top-6, 2 shared; vocab 102,400), its depth cut to 4 of its
+              60 layers (printed; 17.26 B params), served at the serve
+              phase's sizes: K5 4 times (once a layer, at Dk 192 / Dv 128
+              on 128 heads), nothing else; prints the serve line and the
+              latent cache's bytes beside a GQA cache of the same heads
+ 17. serve_mla context  the serve context checks on it within 3e-2, the
+              routing pinned as in serve_moe context; the decode check (an
+              absorbed step from the K5 cache against the chunked,
+              non-absorbed full forward) at the least capacity factor at
+              which neither its prefill nor its full forward drops a
+              choice (from the recorded choices, plus one token a request;
+              printed), since 16 would need ~64 GB of expert buffers at
+              this width
+ 18. lm_train_moe  qwen2-moe-a2.7b at full width, its depth cut to 2 layers
               (printed; 1.83 B params), batch 2 x seq 4096 of lcg tokens,
               3 LARS steps with lm_train's recipe through make_train_step
               + loop.train, no eval: K4 once forward and once backward a
               step, K1 twice, finite losses and a positive aux (the
               router's load-balance loss, 0.01 of it in the loss); prints
               step ms, tokens/s, peak memory and the aux
- 17. lm_train  full-width qwen1.5-0.5b (params from pinit; remat on, the
+ 19. lm_train  full-width qwen1.5-0.5b (params from pinit; remat on, the
               chunked attention: flash_attention stays off in training),
               batch 2 x seq 4096 of lcg tokens, 5 LARS steps (poly2 with
               warm-up, label smoothing 0.1, OptConfig(use_kernel=True))
@@ -107,13 +126,13 @@ Phases, in order; any failure exits non-zero and prints no result:
               smoothed cross-entropy kernel (K4) must be launched once
               forward and once backward a step and once for the eval, K1
               twice a step; prints step ms, tokens/s, peak memory, losses
- 18. lm_train context  one step with the K4 loss and two with a loss built
+ 20. lm_train context  one step with the K4 loss and two with a loss built
               on K4's plain version, from one state and batch: losses to
               1e-5 relative, K4's gradient at the step's logits to rtol
               1e-5 / atol 1e-7, the plain steps bit for bit, new params to
               5e-2 of each tensor's largest update (bf16 gradients: not
               1e-5 of its max, the function says why)
- 19. examples  the four twins of examples/*.py
+ 21. examples  the four twins of examples/*.py
               (repro_torch.examples.train_resnet_imagenet --steps 8,
               quickstart, serve_decode, large_batch_ablation --steps 4),
               each a subprocess on the card (this script with --example
@@ -121,12 +140,12 @@ Phases, in order; any failure exits non-zero and prints no result:
               end), all started together: each exits 0 with finite losses
               and its final line; K4 60 + 60 (quickstart's steps), every
               other kernel 0
- 20. report   python -m repro_torch.launch.report --section comm,
+ 22. report   python -m repro_torch.launch.report --section comm,
               autotune and shard (the H100's constants named in each
               heading) and --section trace over the durability phase's
               Chrome trace: every rs[b*] row starts inside its step's
               backward row
- 21. ring     on two or more cards (min(count, 4) ranks, one card each,
+ 23. ring     on two or more cards (min(count, 4) ranks, one card each,
               over NCCL: this script under torch.distributed.run with
               --ring-rank), full-width ResNet-50, batch 64 a card, the slice's
               recipe, CommConfig(use_kernel=True, update_kernel=True), 3
@@ -140,13 +159,13 @@ Phases, in order; any failure exits non-zero and prints no result:
               sharded one, K2 once a sharded step; prints step ms
               (median after the first step), images/s over all cards and
               peak memory per rank
- 22. ring context  one packed bf16 gradient through the ring all-reduce and
+ 24. ring context  one packed bf16 gradient through the ring all-reduce and
               every schedule's reduce-scatter form, with K3 and with the
               plain fold: bit-equal (counted apart for the forms that fold
               through K3: ring, hierarchical, 2d_torus); with f32 wire, every schedule and rung
               against the replicated psum step from one state and batch:
               masters within 1e-5 of each tensor's max
- 23. lm_ring  on four cards (this script under torch.distributed.run with
+ 25. lm_ring  on four cards (this script under torch.distributed.run with
               --lm-ring-rank, one rank a card, NCCL): the card's link
               (alpha, beta of a ring exchange), HBM and bf16 matmul rates
               measured (launch/hw.measure) and held within 2x of
@@ -171,7 +190,7 @@ Phases, in order; any failure exits non-zero and prints no result:
               ResNet-50's must stamp under half of its groups in the
               backward's last tenth, and its rs spans begin inside the
               backward span (the LM's stacked leaves fire late: no gate)
- 24. lm_ring resume  the four-card ring zero1 checkpoint resumed on one
+ 26. lm_ring resume  the four-card ring zero1 checkpoint resumed on one
               card (elastic.load_resharded, 4 -> 1 shards over the LM's
               split-leaf plan): masters bit-equal to the gathered rows
               (sha256), then one step with a finite loss (K1, K2, K4)
@@ -196,7 +215,8 @@ the wrapper and by the fold the ring binds once a bucket), the
 reference's shapes, ragged rows, misaligned views and in place, beside
 torch.add; the cli phase also trains the reduced LM. Every
 kernel's launch count is set to 0 just before each path (slice, zero1,
-durability, serve, serve_moe, serve_qk, lm_train_moe, lm_train, each ring
+durability, serve, serve_moe, serve_qk, serve_mla, lm_train_moe,
+lm_train, each ring
 and lm_ring configuration and autotune run, the lm_ring resume) and read
 just after: a kernel the path
 runs must show its count, every other kernel 0, and the JSON
@@ -239,14 +259,16 @@ BATCH, STEPS = 64, 6
 
 #: K5 shapes: (name, B, S, H, K, Dk, Dv, window, dtype, q scale), all
 #: causal. "path" is the serving prefill's (qwen1.5-0.5b, 8 x 2048 tokens);
-#: "serve_moe" and "serve_qk" the prefills of qwen2-moe-a2.7b (16 heads of
-#: 128) and qwen3-14b (40 query heads on 8 kv heads of 128) at the same
+#: "serve_moe", "serve_qk" and "serve_mla" the prefills of qwen2-moe-a2.7b
+#: (16 heads of 128), qwen3-14b (40 query heads on 8 kv heads of 128) and
+#: deepseek-v2-236b (128 heads, q/k 128 + 64 rope, v 128) at the same
 #: sizes; then the path in f32, qwen3-14b's GQA heads without and with a
 #: window, MLA's dims, and the path's heads with q x 8 (a peaked softmax:
 #: large corrections of the running max, P near 0 or 1)
 FLASH_SHAPES = (("path", 8, 2048, 16, 16, 64, 64, 0, "bfloat16", 1),
                 ("serve_moe", 8, 2048, 16, 16, 128, 128, 0, "bfloat16", 1),
                 ("serve_qk", 8, 2048, 40, 8, 128, 128, 0, "bfloat16", 1),
+                ("serve_mla", 8, 2048, 128, 128, 192, 128, 0, "bfloat16", 1),
                 ("path_f32", 8, 2048, 16, 16, 64, 64, 0, "float32", 1),
                 ("gqa", 2, 1024, 40, 8, 128, 128, 0, "bfloat16", 1),
                 ("gqa_window", 2, 1024, 40, 8, 128, 128, 256, "bfloat16", 1),
@@ -259,6 +281,13 @@ FLASH_ROUTES = {"bfloat16": "tensor cores: mma.sync m16n8k16 bf16, P split "
 #: (rtol, atol) of K5 against its plain version: f32 sums in another order;
 #: in bf16 that may flip the output's rounding by one ulp (2^-7 relative)
 FLASH_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-5)}
+#: K5's plain version materialises (B·H, S, S) f32 scores and about three
+#: more of their size: past this many bytes of scores (serve_mla's 17.2
+#: GB) it runs one request at a time, its B·H rows cut into B slices
+FLASH_PLAIN_WHOLE_BYTES = 8e9
+#: SDPA's backends, by a substring of the kernel it launches (first match)
+SDPA_BACKENDS = (("cudnn", "cudnn"), ("flash", "flash"),
+                 ("fmha", "efficient"), ("efficient", "efficient"))
 
 #: the ring phases: steps a configuration, and their time limit
 RING_STEPS = 3
@@ -340,6 +369,9 @@ SERVE_MOE_CF = 16.0
 #: serve_qk: qwen3-14b at full width, its 40 layers cut to these, which
 #: keeps pinit short (2.9 B params)
 QK_LAYERS = 4
+#: serve_mla: deepseek-v2-236b at full width, its 60 layers cut to these
+#: (17.26 B params, 34.5 GB in bf16: one card, and pinit ~1 min)
+MLA_LAYERS = 4
 #: lm_train_moe: qwen2-moe-a2.7b at full width, its 24 layers cut to these
 #: (1.83 B params: fp32 masters, momentum, bf16 copy and gradients ~26 GB),
 #: trained for these steps
@@ -1652,21 +1684,30 @@ def _flash_case(dev, gen, name, B, S, H, K, Dk, Dv, window, dt, q_scale):
                .to(dtype) for n, d in ((H, Dk), (K, Dk), (K, Dv)))
     q = (q.float() * q_scale).to(dtype)
     kw = dict(causal=True, window=window, n_q_heads=H, n_kv_heads=K)
+    sliced = B * H * S * S * 4 > FLASH_PLAIN_WHOLE_BYTES
+
+    def plain():
+        if not sliced:
+            return ref.flash_attention(q, k, v, **kw)
+        return torch.cat([ref.flash_attention(
+            q[b * H:(b + 1) * H], k[b * K:(b + 1) * K], v[b * K:(b + 1) * K],
+            **kw) for b in range(B)])
+
     got = fa.flash_attention(q, k, v, **kw)
-    want = ref.flash_attention(q, k, v, **kw)
+    want = plain()
     torch.cuda.synchronize()
     rtol, atol = FLASH_TOL[dt]
     err = (got.float() - want.float()).abs()
+    max_err = err.max().item()
     if not bool((err <= atol + rtol * want.float().abs()).all()):
         fail(f"flash_attention {name} disagrees with its plain version "
-             f"(rtol {rtol}, atol {atol}): max abs err "
-             f"{err.max().item():.3e}")
+             f"(rtol {rtol}, atol {atol}): max abs err {max_err:.3e}")
+    del want, err
     if not torch.equal(fa.flash_attention(q, k, v, **kw), got):
         fail(f"flash_attention {name}: two calls differ")
     ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), iters=20,
                  warmup=3)
-    plain = time_ms(lambda: ref.flash_attention(q, k, v, **kw), iters=5,
-                    warmup=1)
+    plain_ms = time_ms(plain, iters=5, warmup=1)
     qs, ks, vs = (x.view(B, -1, S, x.shape[-1]) for x in (q, k, v))
     sdpa = dict(enable_gqa=K != H)
     if window:
@@ -1675,8 +1716,12 @@ def _flash_case(dev, gen, name, B, S, H, K, Dk, Dv, window, dt, q_scale):
             i[None] > i[:, None] - window)
     else:
         sdpa["is_causal"] = True
-    library = time_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, **sdpa), iters=20, warmup=3)
+    sdpa_call = lambda: F.scaled_dot_product_attention(qs, ks, vs, **sdpa)
+    library = time_ms(sdpa_call, iters=20, warmup=3)
+    kernels = _kernel_names(sdpa_call)
+    backend = next((b for sub, b in SDPA_BACKENDS
+                    if kernels and sub in kernels[0].lower()),
+                   "math" if kernels else "not measured")
     ops = 2 * B * H * _visible_pairs(S, window) * (Dk + Dv)
     nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()
                                  + got.numel())
@@ -1684,14 +1729,36 @@ def _flash_case(dev, gen, name, B, S, H, K, Dk, Dv, window, dt, q_scale):
                           if dtype == torch.bfloat16 else F32_OPS_PER_S)
     print(f"flash_attention {name} (B {B}, S {S}, H {H}, K {K}, Dk {Dk}, "
           f"Dv {Dv}, window {window}, {dt}, q x {q_scale}): max abs err "
-          f"{err.max().item():.3e} (rtol {rtol}, atol {atol}); kernel "
-          f"{ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, sdpa "
-          f"{library * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by}: "
-          f"{ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+          f"{max_err:.3e} (rtol {rtol}, atol {atol}); kernel "
+          f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us"
+          f"{' (one request at a time)' if sliced else ''}, sdpa "
+          f"{library * 1e3:.1f} us ({backend}: "
+          f"{kernels[0][:60] if kernels else 'no kernel recorded'}), bound "
+          f"{b_ms * 1e3:.1f} us ({b_by}: {ops / 1e9:.1f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB)", flush=True)
     return {"shape": [B, S, H, K, Dk, Dv], "window": window, "dtype": dt,
-            "q_scale": q_scale,
-            "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain,
-            "library_ms": library, "bound_ms": b_ms, "bound_by": b_by}
+            "q_scale": q_scale, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "plain_per_request": sliced,
+            "library_ms": library, "library_backend": backend,
+            "library_kernel": kernels[0][:90] if kernels else None,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _kernel_names(fn) -> list:
+    """The device kernels one call of ``fn`` launches, by name, the
+    longest first (``torch.profiler``); empty where it records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    took = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            took[e.name] = (took.get(e.name, 0.0) + e.time_range.end
+                            - e.time_range.start)
+    return sorted(took, key=lambda n: -took[n])
 
 
 def check_flash_attention(dev):
@@ -3079,12 +3146,39 @@ class _RoutingPin:
         return patched()
 
 
-def check_serve_in_context(dev, model, params, batch, out, name="serve"):
+def _least_cf(e, ids, B: int, S: int) -> float:
+    """The least capacity factor at which a prefill of B x S tokens making
+    the choices ``ids`` (each MoE layer's (B·S, k) expert ids) drops none,
+    nor a full forward over one token more a request (each may pick the
+    fullest expert): its count over the prefill, and that plus B."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models.moe import capacity
+    most = max(int(torch.bincount(i.reshape(-1), minlength=e.n_routed).max())
+               for i in ids)
+    per = e.top_k / e.n_routed
+    cf = max(most / (B * S * per), (most + B) / (B * (S + 1) * per))
+
+    def fits(cf):
+        c = dataclasses.replace(e, capacity_factor=cf)
+        return capacity(B * S, c) >= most and \
+            capacity(B * (S + 1), c) >= most + B
+    while not fits(cf):               # past the ceiling's float rounding
+        cf = math.nextafter(cf, math.inf)
+    return cf
+
+
+def check_serve_in_context(dev, model, params, batch, out, name="serve",
+                           decode_cf=SERVE_MOE_CF):
     """The K5 prefill against the chunked one (no kernel), and one decode
     step from a K5 prefill's cache against the chunked full forward. A MoE
-    model's decode check runs at ``SERVE_MOE_CF`` (prefill and full
-    forward), as tests/test_serve.py does: the full forward drops tokens
-    over capacity, decode never does. A MoE model's chunked runs take the
+    model's decode check runs at ``decode_cf`` (prefill and full forward),
+    by default ``SERVE_MOE_CF``, as tests/test_serve.py does: the full
+    forward drops tokens over capacity, decode never does; None takes the
+    least factor at which neither drops a choice (``_least_cf``, from the
+    K5 prefill's recorded choices, then from those of the prefill at that
+    factor until they need no more). A MoE model's chunked runs take the
     K5 runs' expert choices (``_RoutingPin``); their differences unpinned
     and the choices that differ are printed beside the gates."""
     import contextlib
@@ -3115,13 +3209,26 @@ def check_serve_in_context(dev, model, params, batch, out, name="serve"):
         with replay.replay(pin.ids):
             ch_last, _ = plain.forward_prefill(p16, batch, SERVE_CACHE)
         # the decode check's model: no token over capacity
-        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, capacity_factor=SERVE_MOE_CF))
-        model = build_model(cfg)
+        B, S = batch["tokens"].shape
+        least = decode_cf is None
+        if least:
+            decode_cf = _least_cf(cfg.moe, pin.ids, B, S)
+        for _ in range(3):
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=decode_cf))
+            model = build_model(cfg)
+            pin = _RoutingPin()
+            with pin.record():
+                _, cache = model.forward_prefill(p16, batch, SERVE_CACHE)
+            need = _least_cf(cfg.moe, pin.ids, B, S)
+            if not least or need <= decode_cf:
+                break
+            del cache
+            decode_cf = need
+        else:
+            fail(f"{name} context: the least capacity factor did not "
+                 f"settle ({decode_cf:.4f}, then {need:.4f})")
         plain = build_model(dataclasses.replace(cfg, flash_attention=False))
-        pin = _RoutingPin()
-        with pin.record():
-            _, cache = model.forward_prefill(p16, batch, SERVE_CACHE)
     else:
         ch_last, _ = plain.forward_prefill(p16, batch, SERVE_CACHE)
     d_prefill = _rel(k5_last, ch_last)
@@ -3159,7 +3266,7 @@ def check_serve_in_context(dev, model, params, batch, out, name="serve"):
                   f"{decode_replay.flips} of {decode_replay.choices} "
                   f"token-layers, by at most "
                   f"{max(replay.gap, decode_replay.gap):.3e} in probability")
-    cf = f" (capacity_factor {SERVE_MOE_CF})" if moe else ""
+    cf = f" (capacity_factor {decode_cf:.4f})" if moe else ""
     print(f"{name} context: K5 prefill vs chunked prefill, last logits "
           f"differ by {d_prefill:.3e} of their max (limit {SERVE_TOL}); "
           f"decode step vs chunked full forward{cf} {d_decode:.3e} (limit "
@@ -3173,7 +3280,8 @@ def check_serve_in_context(dev, model, params, batch, out, name="serve"):
     if moe:
         result.update(unpinned=free, flips=[replay.flips, decode_replay.flips],
                       choices=[replay.choices, decode_replay.choices],
-                      max_gap=max(replay.gap, decode_replay.gap))
+                      max_gap=max(replay.gap, decode_replay.gap),
+                      decode_capacity_factor=decode_cf)
     return result
 
 
@@ -3189,32 +3297,69 @@ def run_serve_moe(dev):
     return counts, result
 
 
-def run_serve_qk(dev):
-    """qwen3-14b at full width (qk_norm, 40 query heads on 8 kv heads),
-    its depth cut to ``QK_LAYERS`` layers, served and checked in context."""
+def _cut_depth(name, arch, layers):
+    """``arch``'s config at full width with its depth cut to ``layers``
+    (printed), and its own depth."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    cfg = get_config("qwen3-14b")
-    print(f"serve_qk: {cfg.arch_id}'s depth cut to {QK_LAYERS} of its "
-          f"{cfg.n_layers} layers (full width)", flush=True)
+    cfg = get_config(arch)
+    print(f"{name}: {arch}'s depth cut to {layers} of its {cfg.n_layers} "
+          f"layers (full width)", flush=True)
+    return dataclasses.replace(cfg, n_layers=layers), cfg.n_layers
+
+
+def run_serve_qk(dev):
+    """qwen3-14b at full width (qk_norm, 40 query heads on 8 kv heads),
+    its depth cut to ``QK_LAYERS`` layers, served and checked in context."""
+    cfg, depth = _cut_depth("serve_qk", "qwen3-14b", QK_LAYERS)
     model, params, batch, out, counts, result = run_serve(
-        dev, "serve_qk", dataclasses.replace(cfg, n_layers=QK_LAYERS))
+        dev, "serve_qk", cfg)
     result["context"] = check_serve_in_context(dev, model, params, batch,
                                                out, "serve_qk")
-    result["depth_cut"] = [QK_LAYERS, cfg.n_layers]
+    result["depth_cut"] = [QK_LAYERS, depth]
+    return counts, result
+
+
+def run_serve_mla(dev):
+    """deepseek-v2-236b at full width, its depth cut to ``MLA_LAYERS``
+    layers, served (K5 at Dk 192 / Dv 128 on 128 heads in the prefill, the
+    absorbed decode against the latent cache) and checked in context, the
+    decode check at the least capacity factor that drops no choice."""
+    from repro_torch.tree import tree_leaves
+    cfg, depth = _cut_depth("serve_mla", "deepseek-v2-236b", MLA_LAYERS)
+    model, params, batch, out, counts, result = run_serve(
+        dev, "serve_mla", cfg)
+    m = cfg.mla
+    latent = sum(2 * math.prod(pd.shape) for pd in tree_leaves(
+        model.cache_pd(SERVE_BATCH, SERVE_CACHE)))
+    gqa = 2 * 2 * MLA_LAYERS * SERVE_BATCH * SERVE_CACHE * cfg.n_heads \
+        * m.v_head_dim
+    print(f"serve_mla: latent cache {latent / 1e6:.2f} MB ({MLA_LAYERS} x "
+          f"{SERVE_BATCH} x {SERVE_CACHE} rows of {m.kv_lora_rank} + "
+          f"{m.rope_head_dim} bf16), where k and v of {cfg.n_heads} heads "
+          f"of {m.v_head_dim} would hold {gqa / 1e9:.2f} GB "
+          f"({gqa / latent:.1f}x)", flush=True)
+    result.update(depth_cut=[MLA_LAYERS, depth], cache_bytes=latent,
+                  gqa_cache_bytes=gqa)
+    phase("serve_mla context")
+    result["context"] = check_serve_in_context(
+        dev, model, params, batch, out, "serve_mla", decode_cf=None)
     return counts, result
 
 
 def run_serve_cli():
-    cmd = [sys.executable, "-m", "repro_torch.serve.decode", "--reduced",
-           "--flash-attention"]
-    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                         timeout=600, env=dict(os.environ,
-                                               PYTHONPATH=str(SRC)))
-    print(out.stdout[-1500:], end="", flush=True)
-    if out.returncode != 0 or "generated (4, 16) tokens" not in out.stdout:
-        fail(f"serve CLI exited {out.returncode}: {out.stderr[-3000:]}")
+    for arch in ("qwen1.5-0.5b", "deepseek-v2-236b"):
+        cmd = [sys.executable, "-m", "repro_torch.serve.decode", "--arch",
+               arch, "--reduced", "--flash-attention"]
+        out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=600, env=dict(os.environ,
+                                                   PYTHONPATH=str(SRC)))
+        print(out.stdout[-1500:], end="", flush=True)
+        if out.returncode != 0 or "generated (4, 16) tokens" \
+                not in out.stdout:
+            fail(f"serve CLI ({arch}) exited {out.returncode}: "
+                 f"{out.stderr[-3000:]}")
 
 
 def _cli(extra, rc=0):
@@ -3549,6 +3694,10 @@ def main():
 
     phase("serve_qk")
     by_path["serve_qk"], k5["serve_qk"] = run_serve_qk(dev)
+    gc.collect()
+
+    phase("serve_mla")
+    by_path["serve_mla"], k5["serve_mla"] = run_serve_mla(dev)
     gc.collect()
 
     phase("lm_train_moe")

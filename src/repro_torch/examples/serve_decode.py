@@ -1,8 +1,10 @@
 """Batched serving example: prefill a prompt batch, then step-decode with
 the KV cache. The torch twin of ``examples/serve_decode.py``, for the
 architectures the port serves (the dense GQA family: qwen1.5-0.5b,
-qwen1.5-32b, qwen3-14b, mistral-nemo-12b; the MoE qwen2-moe-a2.7b); the
-others raise ``NotImplementedError`` (ROADMAP §1 item 10).
+qwen1.5-32b, qwen3-14b, mistral-nemo-12b; the MoE qwen2-moe-a2.7b; the
+MLA MoE deepseek-v2-236b, whose cache is the latent); the hybrid, xLSTM,
+whisper and VLM families raise ``NotImplementedError`` (ROADMAP §1 item
+10.5-10.6).
 
   PYTHONPATH=src python -m repro_torch.examples.serve_decode \\
       [--arch qwen1.5-0.5b] [--device cpu]

@@ -2,15 +2,19 @@
 
 Drives ``serve.decode.generate`` (full-width qwen1.5-0.5b by default, or
 any ``--arch`` the port serves: 8 prompts of 2048 tokens, 32 greedy
-tokens; ``--flash-attention`` for the flash kernel in the prefill) on
-bf16 weights and prints one JSON object:
+tokens; ``--flash-attention`` for the flash kernel in the prefill;
+``--layers N`` cuts the depth to N layers, printed, as ``chip_smoke.py``'s
+serve phases cut qwen3-14b and deepseek-v2-236b) on bf16 weights and
+prints one JSON object:
 
 * ``prefill_ms`` and ``decode_ms`` (median and quartiles of the steps) on
   CUDA events, tokens/s, peak memory;
 * ``phase_ms``: for the prefill and for one decode step, the device time
   of the model's parts, from CUDA events around each call of them summed
   over the layers: ``embed``, ``attention`` (K5, the chunked path or the
-  decode einsums and softmax), ``mlp`` (SwiGLU; a MoE layer's shared
+  decode einsums and softmax; with MLA the whole block, ``mla_parallel``
+  and ``mla_decode``: projections, rope, the latent cache and the absorbed
+  decode), ``mlp`` (SwiGLU; a MoE layer's shared
   experts), ``moe`` (routing, dispatch, the experts and the combine of a
   MoE layer), ``logits`` (final norm and the head), and ``rest`` (the step less those: the QKV and
   output projections, rope, the norms, residuals and cache writes);
@@ -19,6 +23,8 @@ bf16 weights and prints one JSON object:
   (1 - the union of kernel intervals over the window's span).
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --flash-attention
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch \\
+      deepseek-v2-236b --layers 4 --flash-attention
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --reduced \\
       --device cpu --prompt-len 64 --max-new 4   # rehearsal: host clock,
                                                  # no profile
@@ -54,9 +60,12 @@ GROUPS = (("flash_attention", ("flash_fwd",)),
           ("elementwise", ("elementwise", "vectorized", "unrolled")),
           ("copy/cast/index", ("copy", "cat", "memset", "fill", "index")))
 
-#: (module, function name, phase) timed by ``_Phases``
+#: (module, function name, phase) timed by ``_Phases``; a call inside a
+#: timed call of the same phase (MLA's ``_attend``) is not timed again
 PARTS = ((tf, "_embed", "embed"), (attn, "_attend", "attention"),
          (attn, "decode_attention", "attention"),
+         (attn, "mla_parallel", "attention"),
+         (attn, "mla_decode", "attention"),
          (mlpm, "swiglu_apply", "mlp"), (moem, "moe_apply", "moe"),
          (tf, "_logits", "logits"))
 
@@ -67,6 +76,7 @@ class _Phases:
 
     def __init__(self, clock: DeviceClock):
         self.clock, self.spans = clock, []      # (phase, start, end)
+        self.open = set()                       # phases being timed
 
     def __enter__(self):
         self.saved = []
@@ -82,8 +92,14 @@ class _Phases:
 
     def _timed(self, fn, phase):
         def run(*args, **kw):
+            if phase in self.open:
+                return fn(*args, **kw)
+            self.open.add(phase)
             a = self.clock.mark()
-            out = fn(*args, **kw)
+            try:
+                out = fn(*args, **kw)
+            finally:
+                self.open.discard(phase)
             self.spans.append((phase, a, self.clock.mark()))
             return out
         return run
@@ -113,6 +129,19 @@ def _phases(model, params, batch, cache_len, clock):
     return {"prefill": prefill, "decode_step": decode}
 
 
+def cut_depth(cfg, layers):
+    """``cfg`` with its depth cut to ``layers`` (None: as it is), the cut
+    printed; the width stays as it is."""
+    if layers is None:
+        return cfg
+    if not 0 < layers <= cfg.n_layers:
+        raise ValueError(f"--layers {layers}: {cfg.arch_id} has "
+                         f"{cfg.n_layers} layers")
+    print(f"profile_serve: {cfg.arch_id}'s depth cut to {layers} of its "
+          f"{cfg.n_layers} layers", flush=True)
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen1.5-0.5b")
@@ -121,6 +150,9 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=2048)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--flash-attention", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (a measurement "
+                         "option: the full width on fewer layers)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
@@ -129,6 +161,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    full_depth = cfg.n_layers
+    cfg = cut_depth(cfg, args.layers)
     cfg = dataclasses.replace(cfg, flash_attention=args.flash_attention)
     model = build_model(cfg)
     # bf16 weights, each leaf cast as it is made (serve.decode's CLI)
@@ -151,6 +185,7 @@ def main(argv=None):
     dec = timings["decode_ms"]
     out = {"device": torch.cuda.get_device_name(dev) if cuda else "cpu",
            "arch": cfg.arch_id, "reduced": args.reduced,
+           "layers": [cfg.n_layers, full_depth],
            "batch": args.batch, "prompt_len": args.prompt_len,
            "max_new": args.max_new, "flash_attention": cfg.flash_attention,
            "prefill_ms": timings["prefill_ms"],

@@ -1,12 +1,14 @@
-"""Attention: GQA (+QKV bias, ``qk_norm``, sliding window) and its KV cache.
+"""Attention: GQA (+QKV bias, ``qk_norm``, sliding window), MLA, KV caches.
 
 Train/prefill attention runs either the flash kernel (``cfg.flash_attention``:
 ``kernels/ops.flash_attention_bshd``, K5) or the chunked online-softmax
 path below, which keeps the JAX package's chunking, block skipping and
 bf16 roundings so both packages compute the same numbers. Decode is one
 token against a (B, S_max, K, Dh) cache that the port updates in place.
+MLA (DeepSeek-V2) decodes in the *absorbed* form against a cache of only
+the 512-d latent and the shared rope key.
 
-Not ported yet (ROADMAP §1 item 10): MLA, cross-attention.
+Not ported yet (ROADMAP §1 item 10.6): cross-attention.
 """
 from __future__ import annotations
 
@@ -60,6 +62,21 @@ def gqa_pd(cfg):
         p["q_norm"] = PD((hd,), init="ones")
         p["k_norm"] = PD((hd,), init="ones")
     return p
+
+
+def mla_pd(cfg):
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qd = m.nope_head_dim + m.rope_head_dim
+    return {
+        "wq": dense_pd(d, H * qd),
+        "wkv_a": dense_pd(d, m.kv_lora_rank + m.rope_head_dim),
+        "ckv_norm": PD((m.kv_lora_rank,), init="ones"),
+        "wk_b": dense_pd(m.kv_lora_rank, H * m.nope_head_dim),
+        "wv_b": dense_pd(m.kv_lora_rank, H * m.v_head_dim),
+        "wo": dense_pd(H * m.v_head_dim, d, scale=(H * m.v_head_dim) ** -0.5
+                       / math.sqrt(2 * cfg.n_layers)),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -206,16 +223,16 @@ def gqa_parallel(p, x, positions, cfg, *, cache_len: int = 0,
     return out, cache
 
 
-def gqa_decode(p, x, pos: int, cfg, cache, *, cross: bool = False):
-    """One-token decode. x: (B,1,d); pos: the token's index (Python int);
-    cache: {'k','v'} (B,Smax,K,Dh), updated IN PLACE at row ``pos`` (the
-    JAX package returns an updated copy) and returned."""
-    if cross:
-        raise NotImplementedError(f"cross-attention {NOT_PORTED}")
-    kc, vc = cache["k"], cache["v"]
-    if not 0 <= pos < kc.shape[1]:
+def _check_pos(pos: int, cache_rows: int):
+    if not 0 <= pos < cache_rows:
         raise ValueError(f"decode position {pos} outside the cache "
-                         f"(length {kc.shape[1]})")
+                         f"(length {cache_rows})")
+
+
+def _gqa_decode_rows(p, x, pos: int, cfg, kc, vc):
+    """One token against one layer's (B, Smax, K, Dh) caches, its k and v
+    written into row ``pos`` in place. Returns the block's output."""
+    _check_pos(pos, kc.shape[1])
     B = x.shape[0]
     q, k, v = _qkv(p, x, cfg)
     if cfg.rope_theta:
@@ -225,4 +242,124 @@ def gqa_decode(p, x, pos: int, cfg, cache, *, cross: bool = False):
     kc[:, pos] = k[:, 0]
     vc[:, pos] = v[:, 0]
     o = decode_attention(q, kc, vc, pos, window=cfg.sliding_window)
-    return o @ p["wo"], cache
+    return o @ p["wo"]
+
+
+def gqa_decode(p, x, pos: int, cfg, cache, *, cross: bool = False):
+    """One-token decode. x: (B,1,d); pos: the token's index (Python int);
+    cache: {'k','v'} (B,Smax,K,Dh), updated IN PLACE at row ``pos`` (the
+    JAX package returns an updated copy) and returned."""
+    if cross:
+        raise NotImplementedError(f"cross-attention {NOT_PORTED}")
+    return _gqa_decode_rows(p, x, pos, cfg, cache["k"], cache["v"]), cache
+
+
+def gqa_decode_inplace(p, x, pos: int, cfg, ck_all, cv_all, layer: int):
+    """Unrolled-serving decode: ck_all/cv_all are the stacked
+    (L,B,Smax,K,Dh) caches; writes the one new token of layer ``layer`` in
+    place and attends over that layer's slice. Returns (out, ck_all,
+    cv_all), the caches being the given ones."""
+    out = _gqa_decode_rows(p, x, pos, cfg, ck_all[layer], cv_all[layer])
+    return out, ck_all, cv_all
+
+
+# ---------------------------------------------------------------------------
+# MLA block (DeepSeek-V2)
+
+
+def _mla_latent(p, x, positions, cfg):
+    """x's latent (rms-normed) and its shared rope key, rope applied:
+    (B, S, kv_lora_rank) and (B, S, rope_head_dim)."""
+    m = cfg.mla
+    B, S = x.shape[:2]
+    kv_a = x @ p["wkv_a"]
+    ckv = rms_norm(kv_a[..., :m.kv_lora_rank], p["ckv_norm"], cfg.rms_eps)
+    krope = kv_a[..., m.kv_lora_rank:].reshape(B, S, 1, m.rope_head_dim)
+    return ckv, rope(krope, positions, cfg.rope_theta)[:, :, 0]
+
+
+def _mla_q(p, x, positions, cfg):
+    """x's query heads split into the nope part and the rope part, rope
+    applied: (B, S, H, nope_head_dim) and (B, S, H, rope_head_dim)."""
+    m = cfg.mla
+    B, S = x.shape[:2]
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads,
+                              m.nope_head_dim + m.rope_head_dim)
+    return q[..., :m.nope_head_dim], rope(q[..., m.nope_head_dim:],
+                                          positions, cfg.rope_theta)
+
+
+def mla_parallel(p, x, positions, cfg, *, cache_len: int = 0):
+    """Train/prefill MLA: keys and values decompressed from the latent,
+    the shared rope key broadcast to every head and folded in as extra head
+    dims, so q and k are (B, S, H, nope + rope) and v (B, S, H, v_head_dim)
+    through ``_attend`` (K5 with ``cfg.flash_attention``). Returns (out,
+    cache|None); the cache holds the latent and the rope key written into
+    zero (B, cache_len, ·) buffers when cache_len > 0."""
+    m = cfg.mla
+    B, S = x.shape[:2]
+    H = cfg.n_heads
+    ckv, krope = _mla_latent(p, x, positions, cfg)
+    q_nope, q_rope = _mla_q(p, x, positions, cfg)
+    k_nope = (ckv @ p["wk_b"]).reshape(B, S, H, m.nope_head_dim)
+    v = (ckv @ p["wv_b"]).reshape(B, S, H, m.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, krope[:, :, None].expand(B, S, H,
+                                                    m.rope_head_dim)], dim=-1)
+    o = _attend(q, k, v, cfg, causal=True)
+    out = o.reshape(B, S, H * m.v_head_dim) @ p["wo"]
+    cache = None
+    if cache_len:
+        if cache_len < S:
+            raise ValueError(f"cache_len {cache_len} < prompt length {S}")
+        c = ckv.new_zeros((B, cache_len, m.kv_lora_rank))
+        r = krope.new_zeros((B, cache_len, m.rope_head_dim))
+        c[:, :S] = ckv
+        r[:, :S] = krope
+        cache = {"ckv": c, "krope": r}
+    return out, cache
+
+
+def _mla_decode_rows(p, x, pos: int, cfg, ckv_c, kr_c):
+    """The absorbed decode of one token against one layer's latent cache
+    (B, Smax, kv_lora_rank) and rope keys (B, Smax, rope_head_dim), its own
+    row written at ``pos`` in place. W^UK is folded into the query
+    (``q_abs``, f32, then in the cache's dtype) and W^UV applied to the
+    attended latent, with the JAX package's dtypes: scores and softmax in
+    f32 over the rows ``[0, pos]`` (the rows its mask keeps), the scale
+    (nope + rope)^-0.5 unrounded. Returns the block's output."""
+    m = cfg.mla
+    _check_pos(pos, ckv_c.shape[1])
+    B, H, r = x.shape[0], cfg.n_heads, m.kv_lora_rank
+    pp = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    ckv_new, kr_new = _mla_latent(p, x, pp, cfg)
+    ckv_c[:, pos] = ckv_new[:, 0]
+    kr_c[:, pos] = kr_new[:, 0]
+    ckv, kr = ckv_c[:, :pos + 1].float(), kr_c[:, :pos + 1].float()
+    q_nope, q_rope = _mla_q(p, x, pp, cfg)
+    wk_b = p["wk_b"].reshape(r, H, m.nope_head_dim).float()
+    q_abs = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].float(), wk_b)
+    scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
+    s = (torch.einsum("bhr,bsr->bhs", q_abs.to(ckv_c.dtype).float(), ckv)
+         + torch.einsum("bhr,bsr->bhs", q_rope[:, 0].float(), kr)) * scale
+    prob = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhs,bsr->bhr", prob.to(ckv_c.dtype).float(), ckv)
+    wv_b = p["wv_b"].reshape(r, H, m.v_head_dim).float()
+    o = torch.einsum("bhr,rhv->bhv", o_lat, wv_b)
+    return o.reshape(B, 1, H * m.v_head_dim).to(x.dtype) @ p["wo"]
+
+
+def mla_decode(p, x, pos: int, cfg, cache):
+    """Absorbed-form MLA decode: scores against the cached latent directly;
+    only (ckv, krope) are cached, DeepSeek-V2's KV-cache reduction. cache:
+    {'ckv', 'krope'}, updated IN PLACE at row ``pos`` and returned."""
+    return _mla_decode_rows(p, x, pos, cfg, cache["ckv"],
+                            cache["krope"]), cache
+
+
+def mla_decode_inplace(p, x, pos: int, cfg, ckv_all, kr_all, layer: int):
+    """Absorbed MLA decode against the stacked (L, B, Smax, ·) latent
+    caches, layer ``layer``'s row ``pos`` written in place. Returns (out,
+    ckv_all, kr_all), the caches being the given ones."""
+    out = _mla_decode_rows(p, x, pos, cfg, ckv_all[layer], kr_all[layer])
+    return out, ckv_all, kr_all

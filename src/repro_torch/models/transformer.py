@@ -1,4 +1,5 @@
-"""Language-model composition: the decoder family, dense and MoE.
+"""Language-model composition: the decoder family, dense and MoE, with GQA
+or MLA attention.
 
 Layer parameters are stacked along a leading layer axis, as in the JAX
 package, so one descriptor tree and one set of weights mean the same model
@@ -13,8 +14,8 @@ wraps its layer scan in ``jax.checkpoint``),
 ``forward_prefill`` (logits of the last position + a filled cache) and
 ``forward_decode`` (one token against the cache).
 
-Not ported yet (ROADMAP §1 item 10): MLA, the hybrid, xLSTM, whisper and
-VLM families.
+Not ported yet (ROADMAP §1 item 10.5-10.6): the hybrid, xLSTM, whisper
+and VLM families.
 """
 from __future__ import annotations
 
@@ -31,23 +32,22 @@ from repro_torch.tree import tree_map
 
 
 def _check_dense(cfg):
-    what = None
     if cfg.family not in ("dense", "moe"):
-        what = f"family {cfg.family!r}"
-    elif cfg.mla is not None:
-        what = "MLA"
-    if what:
-        raise NotImplementedError(f"{what} (arch {cfg.arch_id}) "
-                                  f"{attn.NOT_PORTED}")
+        raise NotImplementedError(f"family {cfg.family!r} (arch "
+                                  f"{cfg.arch_id}) {attn.NOT_PORTED}")
 
 
 # ---------------------------------------------------------------------------
 # parameter descriptor trees
 
 
+def _attn_pd(cfg):
+    return attn.mla_pd(cfg) if cfg.mla is not None else attn.gqa_pd(cfg)
+
+
 def _dense_layer_pd(cfg):
     d = cfg.d_model
-    p = {"ln1": PD((d,), init="ones"), "attn": attn.gqa_pd(cfg),
+    p = {"ln1": PD((d,), init="ones"), "attn": _attn_pd(cfg),
          "ln2": PD((d,), init="ones")}
     if cfg.moe is not None:
         p["moe"] = moem.moe_pd(cfg)
@@ -72,12 +72,18 @@ def lm_pd(cfg) -> Dict[str, Any]:
 
 def cache_pd(cfg, batch: int, max_seq: int):
     """Descriptor tree of what forward_prefill produces: stacked bf16
-    (L, batch, max_seq, K, Dh) k and v (the MoE family's too)."""
+    (L, batch, max_seq, K, Dh) k and v (the MoE family's too); with MLA,
+    the stacked bf16 latent ``ckv`` (L, batch, max_seq, kv_lora_rank) and
+    rope key ``krope`` (L, batch, max_seq, rope_head_dim)."""
     _check_dense(cfg)
+    zeros = lambda *shape: PD(shape, init="zeros", dtype=torch.bfloat16)
+    if cfg.mla is not None:
+        m = cfg.mla
+        return pd_stack({"ckv": zeros(batch, max_seq, m.kv_lora_rank),
+                         "krope": zeros(batch, max_seq, m.rope_head_dim)},
+                        cfg.n_layers)
     shape = (batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return pd_stack({"k": PD(shape, init="zeros", dtype=torch.bfloat16),
-                     "v": PD(shape, init="zeros", dtype=torch.bfloat16)},
-                    cfg.n_layers)
+    return pd_stack({"k": zeros(*shape), "v": zeros(*shape)}, cfg.n_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -108,7 +114,13 @@ def _dense_block(p, x, positions, cfg, *, decode=False, cache=None,
     """One decoder layer. Returns (x, aux, new_cache); aux is the MoE
     layer's load-balance loss, None for a dense layer."""
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
-    if decode:
+    if cfg.mla is not None:
+        if decode:
+            a, new_cache = attn.mla_decode(p["attn"], h, pos, cfg, cache)
+        else:
+            a, new_cache = attn.mla_parallel(p["attn"], h, positions, cfg,
+                                             cache_len=cache_len)
+    elif decode:
         a, new_cache = attn.gqa_decode(p["attn"], h, pos, cfg, cache)
     else:
         a, new_cache = attn.gqa_parallel(p["attn"], h, positions, cfg,

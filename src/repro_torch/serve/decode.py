@@ -8,6 +8,11 @@ generation loop (a port of ``repro.serve.decode``), with a CLI that mirrors
       --batch 8 --prompt-len 2048 --max-new 32   # full width, K5 prefill
   PYTHONPATH=src python -m repro_torch.serve.decode --arch qwen2-moe-a2.7b \\
       --reduced --device cpu      # also qwen3-14b, mistral-nemo-12b, ...
+  PYTHONPATH=src python -m repro_torch.serve.decode --arch deepseek-v2-236b \\
+      --reduced --flash-attention --device cpu    # MLA: the latent cache
+
+The hybrid, xLSTM, whisper and VLM families are not ported (ROADMAP §1
+item 10.5-10.6); their ``--arch`` raises.
 
 The JAX package jits the prefill and the decode step; the port runs them
 eagerly, casts f32 masters to bf16 once per ``generate`` call (bf16

@@ -14,10 +14,10 @@ any card runs it:
 - output ``acc / max(l, 1e-30)`` rounded to bf16.
 
 It is held against the Pallas kernel in interpret mode at
-``test_kernels.py``'s flash shapes, and against the plain version
-(``kernels/ref.flash_attention``) at an S 1024 GQA shape with a window, at
-the card tests' bf16 tolerance (rtol 1e-2, atol 1e-5). A guard case
-shows why the split is there: the same emulation with P rounded once to
+``test_kernels.py``'s flash shapes and the reduced MLA config's heads (Dk
+48, Dv 32), and against the plain version (``kernels/ref.flash_attention``)
+at an S 1024 GQA shape with a window, at the card tests' bf16 tolerance
+(rtol 1e-2, atol 1e-5). A guard case shows why the split is there: the same emulation with P rounded once to
 bf16 puts elements outside that tolerance."""
 import jax.numpy as jnp
 import numpy as np
@@ -88,9 +88,11 @@ def _outside(got, want):
     return int(((got - want).abs() > ATOL + RTOL * want.abs()).sum())
 
 
-#: test_kernels.py's flash shapes (B, S, H, K, Dk, Dv) and masks
+#: test_kernels.py's flash shapes (B, S, H, K, Dk, Dv) and masks, and the
+#: reduced MLA config's heads: q/k 32 + 16 = 48 wide (three k16 steps of
+#: the MMA), v 32 (four n8 tiles)
 SHAPES = [(2, 64, 4, 2, 32, 32), (1, 128, 2, 2, 16, 16),
-          (2, 96, 4, 4, 32, 16)]
+          (2, 96, 4, 4, 32, 16), (2, 96, 4, 4, 48, 32)]
 MASKS = [(True, 0), (True, 24), (False, 0)]
 
 
@@ -113,23 +115,27 @@ def test_tile_emulation_matches_pallas_kernel(shape, causal, window):
     assert _outside(got, want) == 0
 
 
-#: an S 1024 GQA shape with a window that crosses tile edges
-LONG = dict(B=1, S=1024, H=4, K=2, Dk=64, Dv=64, window=200)
+#: an S 1024 GQA shape with a window that crosses tile edges, at the LM
+#: heads' 64 and at the reduced MLA config's (48, 32)
+LONG = dict(B=1, S=1024, H=4, K=2, window=200)
+LONG_DIMS = [(64, 64), (48, 32)]
 
 
-def _long_inputs(q_scale=1.0):
-    B, S, H, K, Dk, Dv = (LONG[n] for n in ("B", "S", "H", "K", "Dk", "Dv"))
+def _long_inputs(q_scale=1.0, dims=(64, 64)):
+    B, S, H, K = (LONG[n] for n in ("B", "S", "H", "K"))
+    Dk, Dv = dims
     rng = np.random.default_rng(16)
     q = _bf16(rng, B * H, S, Dk, scale=q_scale)
     return q, _bf16(rng, B * K, S, Dk), _bf16(rng, B * K, S, Dv)
 
 
+@pytest.mark.parametrize("dims", LONG_DIMS)
 @pytest.mark.parametrize("q_scale", [1.0, 8.0])
-def test_tile_emulation_matches_plain_at_s1024(q_scale):
+def test_tile_emulation_matches_plain_at_s1024(q_scale, dims):
     """The split holds the card tests' bf16 tolerance against the f32 plain
     version, with q as drawn and with q x 8 (a peaked softmax, large
     corrections)."""
-    q, k, v = _long_inputs(q_scale)
+    q, k, v = _long_inputs(q_scale, dims)
     kw = dict(causal=True, window=LONG["window"], n_q_heads=LONG["H"],
               n_kv_heads=LONG["K"])
     got = emulate(q, k, v, **kw)
@@ -137,11 +143,12 @@ def test_tile_emulation_matches_plain_at_s1024(q_scale):
     assert _outside(got, want) == 0
 
 
-def test_tile_emulation_without_p_lo_fails_the_tolerance():
+@pytest.mark.parametrize("dims", LONG_DIMS)
+def test_tile_emulation_without_p_lo_fails_the_tolerance(dims):
     """The guard: with P rounded once to bf16 (no ``P_lo``) the same
     inputs put elements outside the tolerance, so a kernel that drops the
     split is seen to be wrong here, before any card."""
-    q, k, v = _long_inputs()
+    q, k, v = _long_inputs(dims=dims)
     kw = dict(causal=True, window=LONG["window"], n_q_heads=LONG["H"],
               n_kv_heads=LONG["K"])
     want = ref.flash_attention(q.float(), k.float(), v.float(), **kw)

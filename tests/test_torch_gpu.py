@@ -501,12 +501,12 @@ def test_ring_add_kernel_rejects_bad_inputs():
 # ---------------------------------------------------------------- K5
 
 #: (B, S, H, K, Dk, Dv, causal, window): the CPU tests' shapes and masks
-#: (``test_kernels.py``'s flash cases), ragged lengths, qwen3-14b's GQA
-#: heads with and without a window, MLA's (192, 128) and the serving
-#: path's qwen1.5-0.5b heads
+#: (``test_kernels.py``'s flash cases and the reduced MLA config's (48,
+#: 32)), ragged lengths, qwen3-14b's GQA heads with and without a window,
+#: MLA's (192, 128) and the serving path's qwen1.5-0.5b heads
 FLASH_CASES = [(*s, c, w)
                for s in ((2, 64, 4, 2, 32, 32), (1, 128, 2, 2, 16, 16),
-                         (2, 96, 4, 4, 32, 16))
+                         (2, 96, 4, 4, 32, 16), (2, 96, 4, 4, 48, 32))
                for c, w in ((True, 0), (True, 24), (False, 0))] + [
     (2, 100, 4, 2, 64, 64, True, 0), (1, 1000, 2, 1, 64, 64, True, 37),
     (1, 1024, 40, 8, 128, 128, True, 0), (1, 1024, 40, 8, 128, 128, True,
@@ -664,6 +664,45 @@ def test_moe_prefill_and_decode_on_card_match_the_cpu(monkeypatch):
     assert fa.flash_attention.launches == before + cfg.n_layers
     dw, _ = model.forward_decode(on_cpu, cpu_cache, toks[:, 96:], 96)
     assert rel(dg, dw) < 3e-2
+
+
+def test_mla_generate_on_card_matches_the_cpu():
+    """Reduced deepseek-v2-236b (MLA: K5 at Dk 48, Dv 32) with
+    flash_attention on the card, bf16 weights from pinit: the prefill
+    launches K5 once a layer and the absorbed decode none; its last
+    logits and one decode step from its latent cache agree with the same
+    on the CPU (the plain flash version, the same params) within 3e-2 of
+    their max; ``generate`` gives in-vocabulary tokens."""
+    import dataclasses
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.decode import generate
+    from repro_torch.tree import tree_map
+    dev = _card()
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b").reduced(),
+                              flash_attention=True)
+    model = build_model(cfg)
+    params = pinit.materialize(model.param_pd, 0, dev, dtype=torch.bfloat16)
+    on_cpu = tree_map(lambda t: t.cpu(), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 97),
+                         generator=torch.Generator().manual_seed(0))
+    before = fa.flash_attention.launches
+    got, cache = model.forward_prefill(params, {"tokens": toks[:, :96]
+                                                .to(dev)}, 104)
+    assert fa.flash_attention.launches == before + cfg.n_layers
+    assert sorted(cache) == ["ckv", "krope"]
+    want, cpu_cache = model.forward_prefill(on_cpu, {"tokens": toks[:, :96]},
+                                            104)
+    rel = lambda a, b: float((a.cpu() - b).abs().max() / b.abs().max())
+    assert rel(got, want) < 3e-2
+    dg, _ = model.forward_decode(params, cache, toks[:, 96:].to(dev), 96)
+    assert fa.flash_attention.launches == before + cfg.n_layers
+    dw, _ = model.forward_decode(on_cpu, cpu_cache, toks[:, 96:], 96)
+    assert rel(dg, dw) < 3e-2
+    out = generate(model, params, {"tokens": toks[:, :96].to(dev)},
+                   max_new=8, cache_len=104)
+    assert out.shape == (2, 8)
+    assert bool(((out >= 0) & (out < cfg.vocab_size)).all())
 
 
 def test_flash_attention_refuses_autograd_on_card():

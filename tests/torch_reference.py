@@ -18,6 +18,7 @@ to an ``.npz`` of ``kind/path`` keys.
   python tests/torch_reference.py lm_train_steps OUT.npz
   python tests/torch_reference.py lm_dp_steps OUT.npz
   python tests/torch_reference.py moe_cases OUT.npz
+  python tests/torch_reference.py mla_cases OUT.npz
   python tests/torch_reference.py lm_variant_cases OUT.npz
   python tests/torch_reference.py guard_zero1_run OUT.npz
   python tests/torch_reference.py traced_zero1_step OUT.npz
@@ -33,8 +34,8 @@ a shim that calls ``jax.shard_map(..., check_vma=False)``, builds an
 Auto-axis mesh, and feeds numpy batches (no mesh-bound batch function).
 The reference's MoE layer runs only inside ``shard_map`` on a mesh with a
 ``model`` axis, and ``repro/models/moe.py`` binds ``shard_map`` at import:
-``moe_cases`` sets the shim there too and runs on a (1, 1) Auto-axis
-``("data", "model")`` mesh.
+``moe_cases`` and ``mla_cases`` set the shim there too and run on a
+(1, 1) Auto-axis ``("data", "model")`` mesh.
 """
 import os
 import subprocess
@@ -627,8 +628,13 @@ def lm_params(cfg, seed=0):
     """Reduced-LM params drawn with numpy from the reference's descriptors:
     clipped normals at each leaf's scale; the biases (zeros at init) and
     norm scales (ones) are drawn too, so their paths carry values."""
-    import jax
     from repro.models import transformer
+    return draw_params(transformer.lm_pd(cfg), seed)
+
+
+def draw_params(pd_tree, seed):
+    """``lm_params``' draw over any descriptor tree of the reference."""
+    import jax
     rng = np.random.default_rng(seed)
 
     def leaf(pd):
@@ -638,8 +644,7 @@ def lm_params(cfg, seed=0):
         base = {"zeros": 0.0, "ones": 1.0}[pd.init]
         return (base + 0.1 * x).astype(np.float32)
 
-    return jax.tree.map(leaf, transformer.lm_pd(cfg),
-                        is_leaf=lambda x: hasattr(x, "init"))
+    return jax.tree.map(leaf, pd_tree, is_leaf=lambda x: hasattr(x, "init"))
 
 
 def lm_tokens(cfg, seed=1, prompt=LM_PROMPT):
@@ -910,31 +915,37 @@ MOE_TRAIN_STEPS = 2
 
 def moe_cases():
     """The reference's MoE on a (1, 1) Auto-axis mesh, under the shard_map
-    shim. (1) ``moe_apply`` for each of ``MOE_CASES`` in f32 and bf16,
-    train and decode: out and aux (``{case}/{dt}/{mode}/...``); the
-    routing of ``_route`` on the same x (gates, ids, aux); in train, the
-    (E, C, d) buffers the expert FFN receives (``xs``, captured by a
-    debug callback), and in f32 the gradients of ``sum(out · ct) + 0.01 ·
-    aux`` with respect to the params and x. (2) The reduced
-    qwen2-moe-a2.7b's ``_lm_run`` with ``flash_attention`` False and True
-    (``f{flash}/...``, params ``params/...``). (3) Its ``make_train_step(
-    comm='xla', mesh=...)``, jitted, MOE_TRAIN_STEPS steps along its own
-    trajectory (``train/s{k}/...``)."""
-    import dataclasses
-
-    import jax
-    import jax.numpy as jnp
+    shim. (1) ``_moe_layer_case`` for each of ``MOE_CASES``
+    (``{case}/...``). (2) The reduced qwen2-moe-a2.7b's ``_lm_run`` with
+    ``flash_attention`` False and True (``f{flash}/...``, params
+    ``params/...``). (3) Its ``_xla_train_run`` (``train/s{k}/...``)."""
     from repro.configs import get_config
-    from repro.core import lars
-    from repro.core.schedule import ScheduleConfig, make_schedule
-    from repro.data.synthetic import token_batch
-    from repro.models import moe
-    from repro.models.registry import build_model
-    from repro.train.state import TrainState
-    from repro.train.step import make_train_step
 
     _shard_map_shim()
     mesh = _mesh11()
+    out = {}
+    for i, case in enumerate(MOE_CASES):
+        _moe_layer_case(moe_case_cfg(get_config, case), 10 + i, case, mesh,
+                        out, grads=True)
+    base = get_config(MOE_ARCH).reduced()
+    _lm_family_cases(base, mesh, out)
+    return out
+
+
+def _moe_layer_case(cfg, seed, prefix, mesh, out, *, grads,
+                    modes=("train", "decode")):
+    """``moe_apply`` on ``_moe_inputs(cfg, seed)`` in f32 and bf16, in
+    each of ``modes`` (train, decode): out and aux
+    (``{prefix}/{dt}/{mode}/...``); the routing of ``_route`` on the same
+    x (gates, ids, aux); in train, the (E, C, d)
+    buffers the expert FFN receives (``xs``, captured by a debug
+    callback), and with ``grads``, in f32, the gradients of ``sum(out ·
+    ct) + 0.01 · aux`` with respect to the params and x. The params and x
+    as ``{prefix}/params/...`` and ``{prefix}/x``."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import moe
+
     captured = []
     ffn = moe._expert_ffn
 
@@ -943,47 +954,64 @@ def moe_cases():
             a, np.float32)), xs)
         return ffn(w_gate, w_up, w_down, xs)
 
-    out = {}
-    for i, case in enumerate(MOE_CASES):
-        cfg = moe_case_cfg(get_config, case)
-        p32, x32 = _moe_inputs(cfg, 10 + i)
-        _flat(f"{case}/params", p32, out)
-        out[f"{case}/x"] = x32
-        for dt in ("float32", "bfloat16"):
-            p = jax.tree.map(lambda a: jnp.asarray(a, dt), p32)
-            x = jnp.asarray(x32, dt)
-            gates, ids, aux = jax.jit(lambda xf, w: moe._route(
-                xf, w, cfg.moe))(x.reshape(-1, cfg.d_model), p["router"])
-            for name, v in (("gates", gates), ("ids", ids), ("aux", aux)):
-                out[f"{case}/{dt}/route/{name}"] = np.asarray(v)
-            for mode in ("train", "decode"):
-                key = f"{case}/{dt}/{mode}"
-                moe._expert_ffn = capturing_ffn
-                captured.clear()
-                try:
-                    o, a = jax.jit(lambda p, x, d=mode == "decode":
-                                   moe.moe_apply(p, x, cfg, mesh, decode=d)
-                                   )(p, x)
-                    jax.effects_barrier()
-                finally:
-                    moe._expert_ffn = ffn
-                out[f"{key}/out"] = np.asarray(o, np.float32)
-                out[f"{key}/aux"] = np.asarray(a)
-                if mode == "train":
-                    (out[f"{key}/xs"],) = captured
-                if mode == "train" and dt == "float32":
-                    ct = np.random.default_rng(20 + i).standard_normal(
-                        x32.shape).astype(np.float32)
+    p32, x32 = _moe_inputs(cfg, seed)
+    _flat(f"{prefix}/params", p32, out)
+    out[f"{prefix}/x"] = x32
+    for dt in ("float32", "bfloat16"):
+        p = jax.tree.map(lambda a: jnp.asarray(a, dt), p32)
+        x = jnp.asarray(x32, dt)
+        gates, ids, aux = jax.jit(lambda xf, w: moe._route(
+            xf, w, cfg.moe))(x.reshape(-1, cfg.d_model), p["router"])
+        for name, v in (("gates", gates), ("ids", ids), ("aux", aux)):
+            out[f"{prefix}/{dt}/route/{name}"] = np.asarray(v)
+        for mode in modes:
+            key = f"{prefix}/{dt}/{mode}"
+            moe._expert_ffn = capturing_ffn
+            captured.clear()
+            try:
+                o, a = jax.jit(lambda p, x, d=mode == "decode":
+                               moe.moe_apply(p, x, cfg, mesh, decode=d)
+                               )(p, x)
+                jax.effects_barrier()
+            finally:
+                moe._expert_ffn = ffn
+            out[f"{key}/out"] = np.asarray(o, np.float32)
+            out[f"{key}/aux"] = np.asarray(a)
+            if mode == "train":
+                (out[f"{key}/xs"],) = captured
+            if grads and mode == "train" and dt == "float32":
+                ct = np.random.default_rng(seed + 10).standard_normal(
+                    x32.shape).astype(np.float32)
 
-                    def loss(p, x):
-                        o, a = moe.moe_apply(p, x, cfg, mesh, decode=False)
-                        return jnp.sum(o * ct) + 0.01 * a
-                    gp, gx = jax.jit(jax.grad(loss, (0, 1)))(p, x)
-                    out[f"{key}/ct"] = ct
-                    _flat(f"{key}/grads", jax.device_get(gp), out)
-                    out[f"{key}/grads/x"] = np.asarray(gx)
+                def loss(p, x):
+                    o, a = moe.moe_apply(p, x, cfg, mesh, decode=False)
+                    return jnp.sum(o * ct) + 0.01 * a
+                gp, gx = jax.jit(jax.grad(loss, (0, 1)))(p, x)
+                out[f"{key}/ct"] = ct
+                _flat(f"{key}/grads", jax.device_get(gp), out)
+                out[f"{key}/grads/x"] = np.asarray(gx)
 
-    base = get_config(MOE_ARCH).reduced()
+
+def _lm_family_cases(base, mesh, out):
+    """A reduced MoE LM on ``mesh``: params (``params/...``), ``_lm_run``
+    with ``flash_attention`` False and True (``f{flash}/...``), and
+    ``make_train_step(comm='xla', mesh=mesh)``, jitted, MOE_TRAIN_STEPS
+    steps along its own trajectory from those params, LARS poly2
+    (``LR``), the lcg batches of ``lm_train_steps`` (``train/s{k}/...``),
+    with each layer's expert ids of the step's forward, in layer order
+    (``train/s{k}/route/l{i}``, captured by a debug callback)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from repro.core import lars
+    from repro.core.schedule import ScheduleConfig, make_schedule
+    from repro.data.synthetic import token_batch
+    from repro.models import moe
+    from repro.models.registry import build_model
+    from repro.train.state import TrainState
+    from repro.train.step import make_train_step
+
     params = lm_params(base)
     toks = lm_tokens(base)
     _flat("params", params, out)
@@ -992,6 +1020,15 @@ def moe_cases():
                                                 flash_attention=bool(flash)))
         _flat(f"f{flash}", jax.device_get(_lm_run(model, params, toks,
                                                   mesh=mesh)), out)
+
+    # each layer's expert choices of a step's forward, captured in the
+    # order the scan runs the layers
+    route, routed = moe._route, []
+
+    def capturing_route(x_flat, router_w, e):
+        gates, ids, aux = route(x_flat, router_w, e)
+        jax.debug.callback(lambda a: routed.append(np.asarray(a)), ids)
+        return gates, ids, aux
 
     model = build_model(base)
     step = jax.jit(make_train_step(model, lars.OptConfig(kind="lars"),
@@ -1003,8 +1040,16 @@ def moe_cases():
         batch = jax.device_get(token_batch(
             base, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, step=k,
             kind="lcg"))
-        s2, m = step(s, batch)
+        moe._route = capturing_route
+        routed.clear()
+        try:
+            s2, m = step(s, batch)
+            jax.effects_barrier()
+        finally:
+            moe._route = route
         pre = f"train/s{k}"
+        for i, ids in enumerate(routed):
+            out[f"{pre}/route/l{i}"] = ids
         for io, x in (("in", s), ("out", s2)):
             x = jax.device_get(x)
             out[f"{pre}/{io}/step"] = np.asarray(x.step)
@@ -1012,7 +1057,113 @@ def moe_cases():
             _flat(f"{pre}/{io}/mom", x.mom, out)
         _flat(f"{pre}/batch", batch, out)
         _flat(f"{pre}/metrics", jax.device_get(m), out)
-        s = s2
+        # on the host, as the first state: the step then runs the program
+        # it compiled (the outputs' mesh shardings would compile another)
+        s = jax.device_get(s2)
+
+
+#: the MLA setting: the reduced deepseek-v2-236b (2 layers, d 256, 4
+#: heads, kv_lora 64, rope 16, nope 32, v 32; 4 routed experts top-2, 1
+#: shared; vocab 512) at the LM parity sizes (LM_BATCH x LM_PROMPT tokens,
+#: LM_CACHE rows). The in-place decodes write layer MLA_LAYER of stacked
+#: caches; GQA_INPLACE_ARCHS are the GQA configs of ``gqa_decode_inplace``
+#: (QKV bias, MHA; qk_norm, 4 heads on 1 kv head)
+MLA_ARCH = "deepseek-v2-236b"
+MLA_LAYER = 1
+GQA_INPLACE_ARCHS = ("qwen1.5-0.5b", "qwen3-14b")
+
+
+def _stack_around(layer_cache, n_layers, rng):
+    """(L, ...) stacked caches: ``layer_cache`` at MLA_LAYER, the other
+    layers N(0, 1) in its dtype."""
+    import jax.numpy as jnp
+    shape = (n_layers, *layer_cache.shape)
+    stack = jnp.asarray(rng.standard_normal(shape), layer_cache.dtype)
+    return stack.at[MLA_LAYER].set(layer_cache)
+
+
+def mla_cases():
+    """The reduced deepseek-v2-236b. (1) ``mla_parallel`` with
+    ``mesh=None`` on ``mla/x`` (LM_BATCH x LM_PROMPT x d, N(0, 1)) with
+    LM_CACHE rows of cache, in f32 and bf16, flash off and on (the Pallas
+    kernel in interpret mode): out and cache (``mla/{dt}/f{flash}/...``);
+    from the flash-off cache, ``mla_decode`` of ``mla/x_dec`` at
+    position LM_PROMPT (``mla/{dt}/decode/...``), and
+    ``mla_decode_inplace`` of it into stacked caches holding that cache at
+    MLA_LAYER (``mla/{dt}/inplace/{in,out}/...``). (2) For each of
+    GQA_INPLACE_ARCHS, ``gqa_decode_inplace`` at position LM_PROMPT into
+    N(0, 1) stacked (L, LM_BATCH, LM_CACHE, K, Dh) caches, layer
+    MLA_LAYER, f32 and bf16 (``gqa/{arch}/...``). (3) On a (1, 1)
+    Auto-axis mesh under the shard_map shim: the MoE layer of the reduced
+    config in train mode (``_moe_layer_case``, ``moe/...``: routing and
+    dispatch at deepseek's routing; ``moe_cases`` holds the rest of
+    ``moe.py``) and the MLA LM
+    (``_lm_family_cases``)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config
+    from repro.models import attention as attn
+
+    out = {}
+    cfg = get_config(MLA_ARCH).reduced()
+    rng = np.random.default_rng(30)
+    p32 = draw_params(attn.mla_pd(cfg), 31)
+    x32 = rng.standard_normal((LM_BATCH, LM_PROMPT, cfg.d_model)) \
+        .astype(np.float32)
+    xd32 = rng.standard_normal((LM_BATCH, 1, cfg.d_model)).astype(np.float32)
+    _flat("mla/params", p32, out)
+    out["mla/x"], out["mla/x_dec"] = x32, xd32
+    positions = jnp.arange(LM_PROMPT)[None]
+    pos = jnp.int32(LM_PROMPT)
+    for dt in ("float32", "bfloat16"):
+        p = jax.tree.map(lambda a: jnp.asarray(a, dt), p32)
+        x, xd = jnp.asarray(x32, dt), jnp.asarray(xd32, dt)
+        for flash in (0, 1):
+            c = dataclasses.replace(cfg, flash_attention=bool(flash))
+            o, cache = jax.jit(lambda p, x, c=c: attn.mla_parallel(
+                p, x, positions, c, cache_len=LM_CACHE))(p, x)
+            _flat(f"mla/{dt}/f{flash}", {"out": o, "cache": cache}, out)
+            if not flash:
+                cache0 = cache
+        o, cache = jax.jit(lambda p, x, c, i: attn.mla_decode(
+            p, x, i, cfg, c))(p, xd, cache0, pos)
+        _flat(f"mla/{dt}/decode", {"out": o, "cache": cache}, out)
+        stack = {n: _stack_around(cache0[n], cfg.n_layers, rng)
+                 for n in ("ckv", "krope")}
+        o, ckv, kr = jax.jit(lambda p, x, a, b, i: attn.mla_decode_inplace(
+            p, x, i, cfg, a, b, MLA_LAYER))(p, xd, stack["ckv"],
+                                            stack["krope"], pos)
+        _flat(f"mla/{dt}/inplace", {"in": stack, "out": {
+            "out": o, "ckv": ckv, "krope": kr}}, out)
+
+    for arch in GQA_INPLACE_ARCHS:
+        g = get_config(arch).reduced()
+        gp32 = draw_params(attn.gqa_pd(g), 32)
+        shape = (g.n_layers, LM_BATCH, LM_CACHE, g.n_kv_heads,
+                 g.resolved_head_dim)
+        ck32, cv32 = (rng.standard_normal(shape).astype(np.float32)
+                      for _ in range(2))
+        gx32 = rng.standard_normal((LM_BATCH, 1, g.d_model)) \
+            .astype(np.float32)
+        pre = f"gqa/{arch}"
+        _flat(f"{pre}/params", gp32, out)
+        out[f"{pre}/x"], out[f"{pre}/k"], out[f"{pre}/v"] = gx32, ck32, cv32
+        for dt in ("float32", "bfloat16"):
+            gp = jax.tree.map(lambda a: jnp.asarray(a, dt), gp32)
+            o, ck, cv = jax.jit(lambda p, x, a, b, i, g=g:
+                                attn.gqa_decode_inplace(p, x, i, g, a, b,
+                                                        MLA_LAYER))(
+                gp, jnp.asarray(gx32, dt), jnp.asarray(ck32, dt),
+                jnp.asarray(cv32, dt), pos)
+            _flat(f"{pre}/{dt}", {"out": o, "k": ck, "v": cv}, out)
+
+    _shard_map_shim()
+    mesh = _mesh11()
+    _moe_layer_case(cfg, 40, "moe", mesh, out, grads=False,
+                    modes=("train",))
+    _lm_family_cases(cfg, mesh, out)
     return out
 
 
@@ -1063,6 +1214,7 @@ if __name__ == "__main__":
                       "lm_train_steps": lm_train_steps,
                       "lm_dp_steps": lm_dp_steps,
                       "moe_cases": moe_cases,
+                      "mla_cases": mla_cases,
                       "lm_variant_cases": lm_variant_cases,
                       "guard_zero1_run": guard_zero1_run,
                       "traced_zero1_step": traced_zero1_step}[what]())
