@@ -72,9 +72,10 @@ Phases, in order; any failure exits non-zero and prints no result:
               logits against the chunked path's (no kernel), and one decode
               step from the K5 cache against the chunked full forward over
               prompt + that token, both within 3e-2 of the logit max
- 12. serve cli  python -m repro_torch.serve.decode --reduced --flash-attention
-              on the card, for qwen1.5-0.5b and for deepseek-v2-236b (MLA:
-              K5 at Dk 48, Dv 32)
+ 12. serve cli  python -m repro_torch.serve.decode --reduced on the card,
+              all started together: qwen1.5-0.5b, deepseek-v2-236b (MLA:
+              K5 at Dk 48, Dv 32) and zamba2-7b with --flash-attention,
+              xlstm-125m without
  13. serve_moe  full-width, full-depth qwen2-moe-a2.7b (24 layers, d 2048,
               16 heads of 128, 60 routed experts padded to a stack of 64,
               top-4, 4 shared, vocab 151,936: 15.15 B params) served as
@@ -111,14 +112,45 @@ Phases, in order; any failure exits non-zero and prints no result:
               choice (from the recorded choices, plus one token a request;
               printed), since 16 would need ~64 GB of expert buffers at
               this width
- 18. lm_train_moe  qwen2-moe-a2.7b at full width, its depth cut to 2 layers
+ 18. serve_hybrid  zamba2-7b at full width and full depth (81 Mamba2
+              layers: d 3584, 112 SSM heads of 64, state 64, conv 4, chunk
+              64; the shared attention + SwiGLU block applied before each
+              group of 6 layers, 14 times, 32 heads of 112, d_ff 14,336;
+              vocab 32,000: 6.75 B params in the tree, 10.84 B by
+              configs.param_count, printed) served at the serve phase's
+              sizes: K5 14 times a prefill (once an application, at
+              (112, 112)), nothing else; prints the serve line and the
+              cache's bytes (the shared block's k and v, the Mamba states
+              in f32 and the conv windows)
+ 19. serve_hybrid context  the serve context checks on it (the decode
+              check: the recurrent Mamba step from the SSD prefill's
+              states against the parallel full forward over prompt + that
+              token) within 0.25 in bf16, where 95 blocks add up the two
+              paths' roundings; then the same checks in f32 on 2 requests
+              (the params cast up, the embedding kept in f32; K5's f32
+              route) within 1e-4
+ 20. serve_xlstm  xlstm-125m at full width and depth (12 layers: mLSTM
+              with sLSTM at layer 6; d 768, vocab 50,304) served at the
+              same sizes: no attention, so no kernel (K5 0); prints the
+              serve line and its states' bytes
+ 21. serve_xlstm context  the serve context checks on it within 3e-2 (its
+              two prefills run the same path)
+ 22. lm_train_moe  qwen2-moe-a2.7b at full width, its depth cut to 2 layers
               (printed; 1.83 B params), batch 2 x seq 4096 of lcg tokens,
               3 LARS steps with lm_train's recipe through make_train_step
               + loop.train, no eval: K4 once forward and once backward a
               step, K1 twice, finite losses and a positive aux (the
               router's load-balance loss, 0.01 of it in the loss); prints
               step ms, tokens/s, peak memory and the aux
- 19. lm_train  full-width qwen1.5-0.5b (params from pinit; remat on, the
+ 23. lm_train_hybrid  zamba2-7b at full width, its depth cut to 12 of its
+              81 Mamba layers (2 applications of the shared block;
+              printed; 1.37 B params), lm_train_moe's recipe and sizes: K4
+              1 + 1 and K1 2 a step, finite losses; each Mamba layer
+              recomputed in the backward (remat), the shared block not
+ 24. lm_train_xlstm  xlstm-125m whole, the same: K4 1 + 1 and K1 2 a step,
+              finite losses (the sLSTM's backward through its 4,096-step
+              time loop)
+ 25. lm_train  full-width qwen1.5-0.5b (params from pinit; remat on, the
               chunked attention: flash_attention stays off in training),
               batch 2 x seq 4096 of lcg tokens, 5 LARS steps (poly2 with
               warm-up, label smoothing 0.1, OptConfig(use_kernel=True))
@@ -126,13 +158,13 @@ Phases, in order; any failure exits non-zero and prints no result:
               smoothed cross-entropy kernel (K4) must be launched once
               forward and once backward a step and once for the eval, K1
               twice a step; prints step ms, tokens/s, peak memory, losses
- 20. lm_train context  one step with the K4 loss and two with a loss built
+ 26. lm_train context  one step with the K4 loss and two with a loss built
               on K4's plain version, from one state and batch: losses to
               1e-5 relative, K4's gradient at the step's logits to rtol
               1e-5 / atol 1e-7, the plain steps bit for bit, new params to
               5e-2 of each tensor's largest update (bf16 gradients: not
               1e-5 of its max, the function says why)
- 21. examples  the four twins of examples/*.py
+ 27. examples  the four twins of examples/*.py
               (repro_torch.examples.train_resnet_imagenet --steps 8,
               quickstart, serve_decode, large_batch_ablation --steps 4),
               each a subprocess on the card (this script with --example
@@ -140,12 +172,12 @@ Phases, in order; any failure exits non-zero and prints no result:
               end), all started together: each exits 0 with finite losses
               and its final line; K4 60 + 60 (quickstart's steps), every
               other kernel 0
- 22. report   python -m repro_torch.launch.report --section comm,
+ 28. report   python -m repro_torch.launch.report --section comm,
               autotune and shard (the H100's constants named in each
               heading) and --section trace over the durability phase's
               Chrome trace: every rs[b*] row starts inside its step's
               backward row
- 23. ring     on two or more cards (min(count, 4) ranks, one card each,
+ 29. ring     on two or more cards (min(count, 4) ranks, one card each,
               over NCCL: this script under torch.distributed.run with
               --ring-rank), full-width ResNet-50, batch 64 a card, the slice's
               recipe, CommConfig(use_kernel=True, update_kernel=True), 3
@@ -159,13 +191,13 @@ Phases, in order; any failure exits non-zero and prints no result:
               sharded one, K2 once a sharded step; prints step ms
               (median after the first step), images/s over all cards and
               peak memory per rank
- 24. ring context  one packed bf16 gradient through the ring all-reduce and
+ 30. ring context  one packed bf16 gradient through the ring all-reduce and
               every schedule's reduce-scatter form, with K3 and with the
               plain fold: bit-equal (counted apart for the forms that fold
               through K3: ring, hierarchical, 2d_torus); with f32 wire, every schedule and rung
               against the replicated psum step from one state and batch:
               masters within 1e-5 of each tensor's max
- 25. lm_ring  on four cards (this script under torch.distributed.run with
+ 31. lm_ring  on four cards (this script under torch.distributed.run with
               --lm-ring-rank, one rank a card, NCCL): the card's link
               (alpha, beta of a ring exchange), HBM and bf16 matmul rates
               measured (launch/hw.measure) and held within 2x of
@@ -190,7 +222,7 @@ Phases, in order; any failure exits non-zero and prints no result:
               ResNet-50's must stamp under half of its groups in the
               backward's last tenth, and its rs spans begin inside the
               backward span (the LM's stacked leaves fire late: no gate)
- 26. lm_ring resume  the four-card ring zero1 checkpoint resumed on one
+ 32. lm_ring resume  the four-card ring zero1 checkpoint resumed on one
               card (elastic.load_resharded, 4 -> 1 shards over the LM's
               split-leaf plan): masters bit-equal to the gathered rows
               (sha256), then one step with a finite loss (K1, K2, K4)
@@ -215,8 +247,9 @@ the wrapper and by the fold the ring binds once a bucket), the
 reference's shapes, ragged rows, misaligned views and in place, beside
 torch.add; the cli phase also trains the reduced LM. Every
 kernel's launch count is set to 0 just before each path (slice, zero1,
-durability, serve, serve_moe, serve_qk, serve_mla, lm_train_moe,
-lm_train, each ring
+durability, serve, serve_moe, serve_qk, serve_mla, serve_hybrid,
+serve_xlstm, lm_train_moe, lm_train_hybrid, lm_train_xlstm, lm_train,
+each ring
 and lm_ring configuration and autotune run, the lm_ring resume) and read
 just after: a kernel the path
 runs must show its count, every other kernel 0, and the JSON
@@ -259,16 +292,18 @@ BATCH, STEPS = 64, 6
 
 #: K5 shapes: (name, B, S, H, K, Dk, Dv, window, dtype, q scale), all
 #: causal. "path" is the serving prefill's (qwen1.5-0.5b, 8 x 2048 tokens);
-#: "serve_moe", "serve_qk" and "serve_mla" the prefills of qwen2-moe-a2.7b
-#: (16 heads of 128), qwen3-14b (40 query heads on 8 kv heads of 128) and
-#: deepseek-v2-236b (128 heads, q/k 128 + 64 rope, v 128) at the same
-#: sizes; then the path in f32, qwen3-14b's GQA heads without and with a
+#: "serve_moe", "serve_qk", "serve_mla" and "serve_hybrid" the prefills of
+#: qwen2-moe-a2.7b (16 heads of 128), qwen3-14b (40 query heads on 8 kv
+#: heads of 128), deepseek-v2-236b (128 heads, q/k 128 + 64 rope, v 128)
+#: and zamba2-7b's shared block (32 heads of 112) at the same sizes; then the path in f32, qwen3-14b's GQA heads without and with a
 #: window, MLA's dims, and the path's heads with q x 8 (a peaked softmax:
 #: large corrections of the running max, P near 0 or 1)
 FLASH_SHAPES = (("path", 8, 2048, 16, 16, 64, 64, 0, "bfloat16", 1),
                 ("serve_moe", 8, 2048, 16, 16, 128, 128, 0, "bfloat16", 1),
                 ("serve_qk", 8, 2048, 40, 8, 128, 128, 0, "bfloat16", 1),
                 ("serve_mla", 8, 2048, 128, 128, 192, 128, 0, "bfloat16", 1),
+                ("serve_hybrid", 8, 2048, 32, 32, 112, 112, 0, "bfloat16",
+                 1),
                 ("path_f32", 8, 2048, 16, 16, 64, 64, 0, "float32", 1),
                 ("gqa", 2, 1024, 40, 8, 128, 128, 0, "bfloat16", 1),
                 ("gqa_window", 2, 1024, 40, 8, 128, 128, 256, "bfloat16", 1),
@@ -363,6 +398,17 @@ HW_TOL = 2.0
 #: paths that round in different places, held to the reference's own bound
 #: for decode against the full forward (tests/test_serve.py)
 SERVE_TOL = 3e-2
+#: serve_hybrid context: zamba2-7b's 81 Mamba layers and 14 shared-block
+#: applications add up the two bf16 paths' rounding differences block by
+#: block, about as the square root of the depth
+#: (tools/hybrid_depth_rounding.py shows it on the CPU at the reduced
+#: width), so its bf16 figures are held only to this sanity bound; the
+#: correctness gate is the same checks in f32, where the paths differ by
+#: the order of f32 sums at any depth, within SERVE_F32_TOL
+#: (check_serve_f32)
+HYBRID_SERVE_TOL = 0.25
+#: check_serve_f32: its bound and the requests it takes
+SERVE_F32_TOL, SERVE_F32_REQUESTS = 1e-4, 2
 #: a MoE model's decode check runs at this capacity factor, as
 #: tests/test_serve.py does: the full forward then drops no token
 SERVE_MOE_CF = 16.0
@@ -376,6 +422,16 @@ MLA_LAYERS = 4
 #: (1.83 B params: fp32 masters, momentum, bf16 copy and gradients ~26 GB),
 #: trained for these steps
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 3
+#: lm_train_hybrid: zamba2-7b at full width, its 81 Mamba layers cut to
+#: these (2 groups of the shared block; 1.37 B params, ~19 GB of f32
+#: masters, momentum and gradients), and lm_train_xlstm: xlstm-125m whole;
+#: both trained for these steps
+HYBRID_TRAIN_LAYERS, RECURRENT_TRAIN_STEPS = 12, 3
+#: the serve CLI's runs: (arch, extra flags), each --reduced
+SERVE_CLI = (("qwen1.5-0.5b", ("--flash-attention",)),
+             ("deepseek-v2-236b", ("--flash-attention",)),
+             ("zamba2-7b", ("--flash-attention",)),
+             ("xlstm-125m", ()))
 
 
 #: what one phase leaves for a later one: the durability phase's trace,
@@ -2026,6 +2082,21 @@ def run_lm_train_moe(dev):
     return counts, result
 
 
+def run_lm_train_recurrent(dev, name, arch, layers=None):
+    """``arch`` at full width (its depth cut to ``layers``, printed, where
+    given) trained with lm_train's recipe for ``RECURRENT_TRAIN_STEPS``
+    steps, no eval: K4 and K1 on the path, as in lm_train."""
+    from repro_torch.configs import get_config
+    cfg, depth = get_config(arch), None
+    if layers is not None:
+        cfg, depth = _cut_depth(name, arch, layers)
+    *_, counts, result = run_lm_train(dev, name, cfg,
+                                      steps=RECURRENT_TRAIN_STEPS, evals=0)
+    if depth is not None:
+        result["depth_cut"] = [layers, depth]
+    return counts, result
+
+
 def check_lm_train_in_context(dev, model, state0, batch):
     """One step with the K4 loss and two with the loss built on K4's plain
     version, from one state and batch; and K4's gradient against autograd
@@ -3019,12 +3090,13 @@ def run_lm_resume(dev, ckpt_dir, lm_ring):
     return {"load_ms": load_ms, "loss": loss, "launches": counts}
 
 
-def run_serve(dev, name="serve", cfg=None):
+def run_serve(dev, name="serve", cfg=None, k5=None):
     """A full-width LM (qwen1.5-0.5b unless ``cfg``) served through
     serve.decode.generate with the flash kernel in the prefill, as
     examples/serve_decode.py drives the JAX package (at full width here),
     on bf16 weights made leaf by leaf from pinit, as the serving CLI holds
-    them."""
+    them. K5 must launch ``k5`` times (by default once a layer), in the
+    prefill, and no other kernel."""
     import dataclasses
 
     import torch
@@ -3057,8 +3129,9 @@ def run_serve(dev, name="serve", cfg=None):
     out = generate(model, params, batch, max_new=SERVE_NEW,
                    cache_len=SERVE_CACHE, timings=timings)
     torch.cuda.synchronize()
-    # K5 once a layer, in the prefill; no other kernel
-    counts = _read_path(name, {"k5": cfg.n_layers})
+    # K5 once a layer (or as the caller says), in the prefill; no other
+    # kernel
+    counts = _read_path(name, {"k5": cfg.n_layers if k5 is None else k5})
     launches = counts["k5"]
     peak = torch.cuda.max_memory_allocated(dev)
     if tuple(out.shape) != (SERVE_BATCH, SERVE_NEW):
@@ -3170,7 +3243,7 @@ def _least_cf(e, ids, B: int, S: int) -> float:
 
 
 def check_serve_in_context(dev, model, params, batch, out, name="serve",
-                           decode_cf=SERVE_MOE_CF):
+                           decode_cf=SERVE_MOE_CF, tol=SERVE_TOL):
     """The K5 prefill against the chunked one (no kernel), and one decode
     step from a K5 prefill's cache against the chunked full forward. A MoE
     model's decode check runs at ``decode_cf`` (prefill and full forward),
@@ -3268,13 +3341,13 @@ def check_serve_in_context(dev, model, params, batch, out, name="serve",
                   f"{max(replay.gap, decode_replay.gap):.3e} in probability")
     cf = f" (capacity_factor {decode_cf:.4f})" if moe else ""
     print(f"{name} context: K5 prefill vs chunked prefill, last logits "
-          f"differ by {d_prefill:.3e} of their max (limit {SERVE_TOL}); "
+          f"differ by {d_prefill:.3e} of their max (limit {tol}); "
           f"decode step vs chunked full forward{cf} {d_decode:.3e} (limit "
-          f"{SERVE_TOL}); {batch['tokens'].shape[0]} requests{pinned}",
+          f"{tol}); {batch['tokens'].shape[0]} requests{pinned}",
           flush=True)
-    if not d_prefill <= SERVE_TOL:
+    if not d_prefill <= tol:
         fail(f"{name}: the K5 prefill disagrees with the chunked prefill")
-    if not d_decode < SERVE_TOL:
+    if not d_decode < tol:
         fail(f"{name}: the decode step disagrees with the full forward")
     result = {"prefill_vs_chunked": d_prefill, "decode_vs_full": d_decode}
     if moe:
@@ -3348,18 +3421,139 @@ def run_serve_mla(dev):
     return counts, result
 
 
+def _cache_bytes(tree) -> int:
+    """Bytes of a descriptor tree's leaves."""
+    from repro_torch.tree import tree_leaves
+    return sum(math.prod(pd.shape) * pd.dtype.itemsize
+               for pd in tree_leaves(tree))
+
+
+def run_serve_hybrid(dev):
+    """zamba2-7b at full width and full depth (81 Mamba2 layers, the shared
+    block applied before each group of 6: 14 times) served as the serve
+    phase serves qwen1.5-0.5b: K5 once for each application in the
+    prefill, at 32 heads of 112; then its context checks (the recurrent
+    decode from the SSD prefill's states against the parallel full
+    forward)."""
+    from repro_torch.configs import get_config, param_count
+    cfg = get_config("zamba2-7b")
+    groups = -(-cfg.n_layers // cfg.attn_every)
+    model, params, batch, out, counts, result = run_serve(
+        dev, "serve_hybrid", cfg, k5=groups)
+    pd = model.cache_pd(SERVE_BATCH, SERVE_CACHE)
+    attn_b, state_b = _cache_bytes(pd["attn"]), _cache_bytes(
+        pd["mamba"]["state"])
+    conv_b = _cache_bytes(pd["mamba"]) - state_b
+    print(f"serve_hybrid: {result['params'] / 1e9:.3f} B params in the "
+          f"tree, {param_count(cfg) / 1e9:.2f} B by configs.param_count "
+          f"(the reference's accounting: B and C counted once a head); "
+          f"cache: the shared block's k and v {attn_b / 1e9:.2f} GB "
+          f"({groups} applications x {SERVE_BATCH} x {SERVE_CACHE} rows of "
+          f"{cfg.n_kv_heads} x {cfg.resolved_head_dim}, bf16), the Mamba "
+          f"states {state_b / 1e9:.3f} GB (f32) and conv windows "
+          f"{conv_b / 1e6:.1f} MB", flush=True)
+    result.update(groups=groups, param_count=param_count(cfg),
+                  attn_cache_bytes=attn_b, state_bytes=state_b,
+                  conv_bytes=conv_b)
+    phase("serve_hybrid context")
+    result["context"] = check_serve_in_context(
+        dev, model, params, batch, out, "serve_hybrid", tol=HYBRID_SERVE_TOL)
+    result["context_f32"] = check_serve_f32(model, params, batch, out,
+                                            "serve_hybrid", k5=groups)
+    return counts, result
+
+
+def check_serve_f32(model, params, batch, out, name, k5):
+    """The serve context checks in f32, on the first SERVE_F32_REQUESTS
+    requests: the served bf16 params cast up, the LM wholly in f32
+    (``precision.f32_compute``), every matmul in f32; K5's f32 route
+    in the prefill, which must launch ``k5`` times, against the chunked
+    prefill, and one decode step from the K5 cache, on generate's first
+    token, against the chunked full forward. Both within SERVE_F32_TOL of
+    the logits' max: the two sides differ by the order of f32 sums, which
+    depth does not grow as it grows bf16 roundings. This is the path's
+    correctness gate; the bf16 context's HYBRID_SERVE_TOL is a sanity
+    bound."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import precision
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_map
+
+    cfg = model.cfg
+    plain = dataclasses.replace(cfg, flash_attention=False)
+    p32 = tree_map(lambda t: t.float(), params)
+    toks = batch["tokens"][:SERVE_F32_REQUESTS]
+    tok = out[:SERVE_F32_REQUESTS, :1]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = fa.flash_attention.launches
+    with torch.no_grad(), precision.f32_compute():
+        k5_last, cache = tf.forward_prefill(p32, cfg, {"tokens": toks},
+                                            SERVE_CACHE)
+        launched = fa.flash_attention.launches - before
+        ch_last, _ = tf.forward_prefill(p32, plain, {"tokens": toks},
+                                        SERVE_CACHE)
+        dl, _ = tf.forward_decode(p32, cfg, cache, tok, SERVE_PROMPT)
+        full, _ = tf.forward_train(p32, plain, {"tokens": torch.cat(
+            [toks, tok], dim=1)})
+    d_prefill, d_decode = _rel(k5_last, ch_last), _rel(dl[:, 0], full[:, -1])
+    del p32, cache, full
+    print(f"{name} context f32: K5 (f32 route, {launched} launches) prefill "
+          f"vs chunked prefill {d_prefill:.3e}, decode step vs chunked full "
+          f"forward {d_decode:.3e} of the logits' max (limit "
+          f"{SERVE_F32_TOL}); {toks.shape[0]} requests", flush=True)
+    if launched != k5:
+        fail(f"{name}: the f32 prefill launched K5 {launched} times, not "
+             f"{k5}: the check would compare the chunked path with itself")
+    if not (d_prefill <= SERVE_F32_TOL and d_decode <= SERVE_F32_TOL):
+        fail(f"{name}: the f32 serve checks disagree")
+    return {"prefill_vs_chunked": d_prefill, "decode_vs_full": d_decode,
+            "requests": toks.shape[0], "k5_launches": launched}
+
+
+def run_serve_xlstm(dev):
+    """xlstm-125m at full width and depth (11 mLSTM layers and the sLSTM
+    layer 6) served as the serve phase serves qwen1.5-0.5b: no attention,
+    so no kernel (K5 0); then its context checks (its prefill twice, and
+    the recurrent decode against the parallel full forward)."""
+    from repro_torch.configs import get_config
+    model, params, batch, out, counts, result = run_serve(
+        dev, "serve_xlstm", get_config("xlstm-125m"), k5=0)
+    state_b = _cache_bytes(model.cache_pd(SERVE_BATCH, SERVE_CACHE))
+    print(f"serve_xlstm: cache {state_b / 1e6:.1f} MB of f32 recurrent "
+          f"states, whatever the context length", flush=True)
+    result["state_bytes"] = state_b
+    phase("serve_xlstm context")
+    result["context"] = check_serve_in_context(dev, model, params, batch,
+                                               out, "serve_xlstm")
+    return counts, result
+
+
 def run_serve_cli():
-    for arch in ("qwen1.5-0.5b", "deepseek-v2-236b"):
+    """Each of ``SERVE_CLI`` through python -m repro_torch.serve.decode
+    --reduced on the card, all started together."""
+    runs = []
+    for arch, flags in SERVE_CLI:
         cmd = [sys.executable, "-m", "repro_torch.serve.decode", "--arch",
-               arch, "--reduced", "--flash-attention"]
-        out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                             timeout=600, env=dict(os.environ,
-                                                   PYTHONPATH=str(SRC)))
-        print(out.stdout[-1500:], end="", flush=True)
-        if out.returncode != 0 or "generated (4, 16) tokens" \
-                not in out.stdout:
-            fail(f"serve CLI ({arch}) exited {out.returncode}: "
-                 f"{out.stderr[-3000:]}")
+               arch, "--reduced", *flags]
+        runs.append((arch, subprocess.Popen(
+            cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=dict(os.environ, PYTHONPATH=str(SRC)))))
+    for arch, proc in runs:
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for _, p in runs:
+                p.kill()
+            fail(f"serve CLI ({arch}) did not finish in 600 s")
+        print(stdout[-1500:], end="", flush=True)
+        if proc.returncode != 0 or "generated (4, 16) tokens" not in stdout:
+            for _, p in runs:
+                p.kill()
+            fail(f"serve CLI ({arch}) exited {proc.returncode}: "
+                 f"{stderr[-3000:]}")
 
 
 def _cli(extra, rc=0):
@@ -3700,8 +3894,27 @@ def main():
     by_path["serve_mla"], k5["serve_mla"] = run_serve_mla(dev)
     gc.collect()
 
+    phase("serve_hybrid")
+    by_path["serve_hybrid"], k5["serve_hybrid"] = run_serve_hybrid(dev)
+    gc.collect()
+
+    phase("serve_xlstm")
+    by_path["serve_xlstm"], k5["serve_xlstm"] = run_serve_xlstm(dev)
+    gc.collect()
+
     phase("lm_train_moe")
     by_path["lm_train_moe"], k4["lm_train_moe"] = run_lm_train_moe(dev)
+    gc.collect()
+
+    phase("lm_train_hybrid")
+    by_path["lm_train_hybrid"], k4["lm_train_hybrid"] = \
+        run_lm_train_recurrent(dev, "lm_train_hybrid", "zamba2-7b",
+                               HYBRID_TRAIN_LAYERS)
+    gc.collect()
+
+    phase("lm_train_xlstm")
+    by_path["lm_train_xlstm"], k4["lm_train_xlstm"] = \
+        run_lm_train_recurrent(dev, "lm_train_xlstm", "xlstm-125m")
     gc.collect()
 
     phase("lm_train")

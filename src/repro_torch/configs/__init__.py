@@ -4,8 +4,9 @@ The JAX package registers eleven architectures; the port lists only those
 whose model it runs: ResNet-50 (training), the dense GQA LMs qwen1.5-0.5b,
 qwen1.5-32b, qwen3-14b (``qk_norm``) and mistral-nemo-12b (sliding
 window), the MoE LM qwen2-moe-a2.7b (serving and training) and the MLA
-MoE LM deepseek-v2-236b (serving; training on the CPU). The other LM
-families (hybrid, xLSTM, whisper, VLM) are ROADMAP §1 item 10.5-10.6.
+MoE LM deepseek-v2-236b (serving; training on the CPU), the hybrid
+zamba2-7b (Mamba2 layers and a shared attention block) and the xLSTM
+xlstm-125m. Whisper and the VLM are ROADMAP §1 item 10.6.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ _REGISTRY = {
     "mistral-nemo-12b": "mistral_nemo_12b",   # sliding window
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",     # MoE
     "deepseek-v2-236b": "deepseek_v2_236b",   # MLA + MoE
+    "zamba2-7b": "zamba2_7b",                 # hybrid: Mamba2 + shared attn
+    "xlstm-125m": "xlstm_125m",               # mLSTM + sLSTM
 }
 
 
@@ -29,8 +32,8 @@ def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in _REGISTRY:
         raise KeyError(
             f"arch {arch_id!r} is not ported yet (ported: "
-            f"{sorted(_REGISTRY)}); the hybrid, xLSTM, whisper and VLM "
-            f"families are ROADMAP §1 item 10.5-10.6")
+            f"{sorted(_REGISTRY)}); whisper and the VLM are ROADMAP §1 "
+            f"item 10.6")
     mod = importlib.import_module(
         f"repro_torch.configs.{_REGISTRY[arch_id]}")
     return mod.CONFIG

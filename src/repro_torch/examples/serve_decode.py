@@ -2,9 +2,9 @@
 the KV cache. The torch twin of ``examples/serve_decode.py``, for the
 architectures the port serves (the dense GQA family: qwen1.5-0.5b,
 qwen1.5-32b, qwen3-14b, mistral-nemo-12b; the MoE qwen2-moe-a2.7b; the
-MLA MoE deepseek-v2-236b, whose cache is the latent); the hybrid, xLSTM,
-whisper and VLM families raise ``NotImplementedError`` (ROADMAP §1 item
-10.5-10.6).
+MLA MoE deepseek-v2-236b, whose cache is the latent; the hybrid zamba2-7b
+and the xLSTM xlstm-125m, whose caches hold recurrent states); whisper and
+the VLM raise ``NotImplementedError`` (ROADMAP §1 item 10.6).
 
   PYTHONPATH=src python -m repro_torch.examples.serve_decode \\
       [--arch qwen1.5-0.5b] [--device cpu]
@@ -36,7 +36,7 @@ def setup(arch: str = "qwen1.5-0.5b", batch: int = 4, prompt_len: int = 32,
     if cfg.family in ("vlm", "audio"):
         raise NotImplementedError(
             "the vlm/audio frames are not ported to repro_torch yet "
-            "(ROADMAP §1 item 10.5)")
+            "(ROADMAP §1 item 10.6)")
     model = build_model(cfg)
     params = pinit.materialize(model.param_pd, 0, dev)
     gen = torch.Generator(dev).manual_seed(0)

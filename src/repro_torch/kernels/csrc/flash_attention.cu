@@ -578,6 +578,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   FLASH_CASE(32, 32)
   FLASH_CASE(48, 32)
   FLASH_CASE(64, 64)
+  FLASH_CASE(112, 112)
   FLASH_CASE(128, 128)
   FLASH_CASE(192, 128)
 #undef FLASH_CASE

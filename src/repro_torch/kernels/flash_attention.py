@@ -25,10 +25,10 @@ from repro_torch.kernels import backend, ref
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: (Dk, Dv) pairs the kernel is instantiated for: the LM heads (64, 128),
-#: MLA's (192, 128) and its reduced config's (48, 32), and the small dims
-#: of the tests
-HEAD_DIMS = ((16, 16), (32, 16), (32, 32), (48, 32), (64, 64), (128, 128),
-             (192, 128))
+#: zamba2-7b's shared block's (112, 112), MLA's (192, 128) and its reduced
+#: config's (48, 32), and the small dims of the tests
+HEAD_DIMS = ((16, 16), (32, 16), (32, 32), (48, 32), (64, 64), (112, 112),
+             (128, 128), (192, 128))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

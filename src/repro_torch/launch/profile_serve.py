@@ -1,7 +1,8 @@
 """Where serving's time goes, on the card.
 
 Drives ``serve.decode.generate`` (full-width qwen1.5-0.5b by default, or
-any ``--arch`` the port serves: 8 prompts of 2048 tokens, 32 greedy
+any ``--arch`` the port serves, zamba2-7b and xlstm-125m among them: 8
+prompts of 2048 tokens, 32 greedy
 tokens; ``--flash-attention`` for the flash kernel in the prefill;
 ``--layers N`` cuts the depth to N layers, printed, as ``chip_smoke.py``'s
 serve phases cut qwen3-14b and deepseek-v2-236b) on bf16 weights and
@@ -15,9 +16,12 @@ prints one JSON object:
   decode einsums and softmax; with MLA the whole block, ``mla_parallel``
   and ``mla_decode``: projections, rope, the latent cache and the absorbed
   decode), ``mlp`` (SwiGLU; a MoE layer's shared
-  experts), ``moe`` (routing, dispatch, the experts and the combine of a
-  MoE layer), ``logits`` (final norm and the head), and ``rest`` (the step less those: the QKV and
-  output projections, rope, the norms, residuals and cache writes);
+  experts; the hybrid's shared block's), ``moe`` (routing, dispatch, the
+  experts and the combine of a MoE layer), ``mamba`` (a Mamba2 block:
+  ``mamba_parallel``, ``mamba_decode``), ``mlstm`` and ``slstm`` (the
+  xLSTM blocks, parallel form and decode), ``logits`` (final norm and the
+  head), and ``rest`` (the step less those: the QKV and output
+  projections, rope, the norms, residuals and cache writes);
 * ``profile``: from ``torch.profiler`` over one prefill and over the
   decode steps, device time by kernel group and the device's idle share
   (1 - the union of kernel intervals over the window's span).
@@ -25,6 +29,8 @@ prints one JSON object:
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --flash-attention
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch \\
       deepseek-v2-236b --layers 4 --flash-attention
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch \\
+      zamba2-7b --flash-attention      # also --arch xlstm-125m
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --reduced \\
       --device cpu --prompt-len 64 --max-new 4   # rehearsal: host clock,
                                                  # no profile
@@ -43,9 +49,11 @@ from repro_torch.core import pinit
 from repro_torch.core.precision import cast_to_compute
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
 from repro_torch.models import mlp as mlpm
 from repro_torch.models import moe as moem
 from repro_torch.models import transformer as tf
+from repro_torch.models import xlstm as xl
 from repro_torch.models.registry import build_model
 from repro_torch.launch.profile_step import device_profile, quartiles
 from repro_torch.serve.decode import DeviceClock, generate, \
@@ -67,6 +75,9 @@ PARTS = ((tf, "_embed", "embed"), (attn, "_attend", "attention"),
          (attn, "mla_parallel", "attention"),
          (attn, "mla_decode", "attention"),
          (mlpm, "swiglu_apply", "mlp"), (moem, "moe_apply", "moe"),
+         (mb, "mamba_parallel", "mamba"), (mb, "mamba_decode", "mamba"),
+         (xl, "mlstm_parallel", "mlstm"), (xl, "mlstm_decode", "mlstm"),
+         (xl, "slstm_parallel", "slstm"), (xl, "slstm_decode", "slstm"),
          (tf, "_logits", "logits"))
 
 

@@ -50,6 +50,20 @@ def rms_norm(x, scale, eps: float = 1e-6):
     return (x * scale.float()).to(dt)
 
 
+def softplus(x):
+    """log(1 + e^x) as ``jax.nn.softplus`` computes it, ``logaddexp(x,
+    0)``: max(x, 0) + log1p(exp(-|x|)), one rounding to x's dtype after
+    each operation (``torch.nn.functional.softplus`` returns x itself
+    above 20)."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def log_sigmoid(x):
+    """log(sigmoid(x)) as ``jax.nn.log_sigmoid`` computes it:
+    -softplus(-x)."""
+    return -softplus(-x)
+
+
 def rope(x, positions, theta: float):
     """Rotary embedding, half-split (not interleaved) rotation with f32
     angles. x: (..., S, H, Dh); positions: (..., S) integers."""

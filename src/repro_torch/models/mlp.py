@@ -1,5 +1,5 @@
-"""Dense FFN block: SwiGLU (LLaMA family). The GELU MLP (whisper) is
-ROADMAP §1 item 10."""
+"""Dense FFN block: SwiGLU (LLaMA family), and the activations the LM
+blocks share. The GELU MLP (whisper) is ROADMAP §1 item 10.6."""
 from __future__ import annotations
 
 import math
@@ -26,6 +26,16 @@ def silu(x):
     ``torch.sigmoid`` (one rounding) differs from it in a third of the
     elements (ROADMAP §3)."""
     return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default, the tanh form: x · ½(1 + tanh(√(2/π) ·
+    (x + 0.044715 · x³))), x³ as (x · x) · x, the constants rounded to x's
+    dtype and one rounding after each operation, as XLA computes it
+    (``torch.nn.functional.gelu`` defaults to the erf form)."""
+    k = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype).item()
+    a = torch.tensor(0.044715, dtype=x.dtype).item()
+    return x * (0.5 * (1.0 + torch.tanh(k * (x + a * (x * x * x)))))
 
 
 def swiglu_apply(p, x):

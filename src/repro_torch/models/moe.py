@@ -12,8 +12,10 @@ identities:
   its top-k experts; the (T·k) choices, token-major, take the slots of
   per-expert buffers of capacity C in order, so later tokens are dropped
   first; empty and dropped slots read a zero row (the sentinel row T); the
-  expert FFN runs on the (E, C, d) buffers and an f32 scatter-add of
-  ``ys · gate`` brings the outputs back to their tokens.
+  expert FFN runs on the (E, C, d) buffers, and ``ys · gate`` in f32 comes
+  back to its tokens as the reference's scatter-add sums it, each token's
+  slots in ascending expert order (``_combine``: a gather, so that the
+  card sums in that one order every run).
 * decode (``decode=True``): ``_moe_local_psum``'s body. Every expert of the
   padded stack runs on every token, weighted by the (T, E) gates: no
   capacity and no drop, and every expert's weights are read each step.
@@ -122,6 +124,31 @@ def dispatch(ids, gates, n_tokens: int, n_experts: int, cap: int):
     return disp[:n_experts], gate_ec[:n_experts]
 
 
+def _combine(contrib, disp, ids, n_tokens: int):
+    """(n_tokens, d) f32: each token's slot outputs (``contrib``, (E·C, d)
+    f32, the slots E-major as ``disp`` lays them out) added up in
+    ascending expert order, a dropped choice adding nothing. That is the
+    order of the reference's scatter-add and of a sequential
+    ``index_add``; here a gather for each of the k choices, since a scatter
+    on the card adds with f32 atomics in another order each run, and two
+    prefills of the same prompts could then part in the last bit (and in
+    a near-tied argmax)."""
+    E, C = disp.shape
+    dev = disp.device
+    # the slot of each (token, expert); E·C (the zero row) where none. The
+    # empty slots all write the sentinel row n_tokens, which is cut off
+    slot_of = torch.full((n_tokens + 1, E), E * C, dtype=torch.long,
+                         device=dev)
+    slot_of[disp, torch.arange(E, device=dev)[:, None]] = torch.arange(
+        E * C, device=dev).view(E, C)
+    slots = slot_of[:n_tokens].gather(1, ids.sort(dim=-1).values)
+    rows = torch.cat([contrib, contrib.new_zeros((1, contrib.shape[1]))])
+    out = rows[slots[:, 0]]
+    for j in range(1, slots.shape[1]):
+        out = out + rows[slots[:, j]]
+    return out
+
+
 def moe_apply(p, x, cfg, *, decode: bool):
     """x: (B, S, d). Returns (out (B, S, d) in x's dtype, aux loss 0-d
     f32)."""
@@ -143,6 +170,5 @@ def moe_apply(p, x, cfg, *, decode: bool):
     # ys · gate in f32 (the product promotes: one f32 buffer, not two)
     contrib = (ys * gate_ec[..., None]).reshape(-1, d)
     del ys
-    out = x_flat.new_zeros((T + 1, d), dtype=torch.float32).index_add(
-        0, disp.reshape(-1), contrib)
-    return out[:T].reshape(B, S, d).to(x.dtype), aux
+    out = _combine(contrib, disp, ids, T)
+    return out.reshape(B, S, d).to(x.dtype), aux

@@ -1,10 +1,11 @@
 """Model registry: the uniform functional API over architecture families.
 
-The port builds the conv family (ResNet-50: training) and the decoder LM
-families through one branch: dense and MoE, with GQA (QKV bias,
-``qk_norm``, sliding window) or MLA attention, each with training,
-prefill and one-token decode. The other LM families (hybrid, xLSTM,
-whisper, VLM) raise ``NotImplementedError``: ROADMAP §1 item 10.5-10.6.
+The port builds the conv family (ResNet-50: training) and the LM families
+through one branch: dense and MoE, with GQA (QKV bias, ``qk_norm``,
+sliding window) or MLA attention, the hybrid (Mamba2 layers and a shared
+attention block) and the xLSTM stack, each with training, prefill and
+one-token decode. Whisper and the VLM raise ``NotImplementedError``:
+ROADMAP §1 item 10.6.
 """
 from __future__ import annotations
 

@@ -1,21 +1,22 @@
-"""Language-model composition: the decoder family, dense and MoE, with GQA
-or MLA attention.
+"""Language-model composition: the decoder family (dense and MoE, with
+GQA or MLA attention), the hybrid (zamba2: Mamba2 layers with a shared
+attention block) and the xLSTM stack.
 
 Layer parameters are stacked along a leading layer axis, as in the JAX
 package, so one descriptor tree and one set of weights mean the same model
-in both. The JAX package scans the stack with ``lax.scan``; the port walks
-it with a Python loop over views of the stacked leaves, and writes the
-stacked (L, B, S, K, Dh) cache in place.
+in both; the xLSTM stack, heterogeneous, keeps one ``layer_XX`` subtree a
+layer, as the JAX package does. The JAX package scans the stacks with
+``lax.scan``; the port walks them with a Python loop over views of the
+stacked leaves, and writes the stacked caches in place.
 
 Three entry points, as the JAX package has them: ``forward_train`` (full
 logits and the MoE aux loss summed over the layers, differentiable; with
-``cfg.remat`` each layer is recomputed in the backward, as the JAX package
-wraps its layer scan in ``jax.checkpoint``),
+``cfg.remat`` each decoder or Mamba layer is recomputed in the backward,
+as the JAX package wraps its layer scans in ``jax.checkpoint``),
 ``forward_prefill`` (logits of the last position + a filled cache) and
-``forward_decode`` (one token against the cache).
+``forward_decode`` (one token against the cache, updated in place).
 
-Not ported yet (ROADMAP §1 item 10.5-10.6): the hybrid, xLSTM, whisper
-and VLM families.
+Not ported yet (ROADMAP §1 item 10.6): the whisper and VLM families.
 """
 from __future__ import annotations
 
@@ -24,17 +25,21 @@ from typing import Any, Dict
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.precision import compute_dtype
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
 from repro_torch.models import mlp as mlpm
 from repro_torch.models import moe as moem
+from repro_torch.models import xlstm as xl
 from repro_torch.models.common import PD, dense_pd, pd_stack, rms_norm
 from repro_torch.tree import tree_map
 
 
-def _check_dense(cfg):
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"family {cfg.family!r} (arch "
-                                  f"{cfg.arch_id}) {attn.NOT_PORTED}")
+def _check_ported(cfg):
+    if cfg.family in ("audio", "vlm"):
+        raise NotImplementedError(
+            f"family {cfg.family!r} (arch {cfg.arch_id}) is not ported to "
+            f"repro_torch yet (ROADMAP §1 item 10.6)")
 
 
 # ---------------------------------------------------------------------------
@@ -60,13 +65,30 @@ def _dense_layer_pd(cfg):
 
 
 def lm_pd(cfg) -> Dict[str, Any]:
-    _check_dense(cfg)
+    _check_ported(cfg)
     d, V = cfg.d_model, cfg.vocab_size
     tree: Dict[str, Any] = {"final_norm": PD((d,), init="ones"),
                             "embed": PD((V, d), scale=0.02)}
     if not cfg.tie_embeddings:
         tree["lm_head"] = dense_pd(d, V, scale=d ** -0.5)
-    tree["layers"] = pd_stack(_dense_layer_pd(cfg), cfg.n_layers)
+    fam = cfg.family
+    if fam in ("dense", "moe"):
+        tree["layers"] = pd_stack(_dense_layer_pd(cfg), cfg.n_layers)
+    elif fam == "ssm" and cfg.xlstm is not None:
+        for i in range(cfg.n_layers):
+            blk = (xl.mlstm_pd(cfg) if xl.block_kind(cfg, i) == "m"
+                   else xl.slstm_pd(cfg))
+            tree[f"layer_{i:02d}"] = {"ln": PD((d,), init="ones"),
+                                      "blk": blk}
+    elif fam == "hybrid":
+        tree["layers"] = pd_stack(
+            {"ln": PD((d,), init="ones"), "mamba": mb.mamba_pd(cfg)},
+            cfg.n_layers)
+        tree["shared_attn"] = {
+            "ln1": PD((d,), init="ones"), "attn": attn.gqa_pd(cfg),
+            "ln2": PD((d,), init="ones"), "mlp": mlpm.swiglu_pd(cfg)}
+    else:
+        raise ValueError(fam)
     return tree
 
 
@@ -74,16 +96,31 @@ def cache_pd(cfg, batch: int, max_seq: int):
     """Descriptor tree of what forward_prefill produces: stacked bf16
     (L, batch, max_seq, K, Dh) k and v (the MoE family's too); with MLA,
     the stacked bf16 latent ``ckv`` (L, batch, max_seq, kv_lora_rank) and
-    rope key ``krope`` (L, batch, max_seq, rope_head_dim)."""
-    _check_dense(cfg)
+    rope key ``krope`` (L, batch, max_seq, rope_head_dim). The hybrid:
+    ``attn``, the shared block's k and v stacked over its applications
+    (n_groups, batch, max_seq, K, Dh), and ``mamba``, the Mamba layers'
+    conv windows (bf16) and states (f32) stacked over the layers. The
+    xLSTM stack: a ``layer_XX`` tree a layer, mLSTM's C, n, m or sLSTM's
+    c, n, h, m, all f32."""
+    _check_ported(cfg)
     zeros = lambda *shape: PD(shape, init="zeros", dtype=torch.bfloat16)
+    if cfg.family == "ssm":
+        return {f"layer_{i:02d}": (xl.mlstm_cache_pd(cfg, batch)
+                                   if xl.block_kind(cfg, i) == "m"
+                                   else xl.slstm_cache_pd(cfg, batch))
+                for i in range(cfg.n_layers)}
     if cfg.mla is not None:
         m = cfg.mla
         return pd_stack({"ckv": zeros(batch, max_seq, m.kv_lora_rank),
                          "krope": zeros(batch, max_seq, m.rope_head_dim)},
                         cfg.n_layers)
     shape = (batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return pd_stack({"k": zeros(*shape), "v": zeros(*shape)}, cfg.n_layers)
+    kv = {"k": zeros(*shape), "v": zeros(*shape)}
+    if cfg.family == "hybrid":
+        return {"attn": pd_stack(kv, len(_hybrid_groups(cfg))),
+                "mamba": pd_stack(mb.mamba_cache_pd(cfg, batch),
+                                  cfg.n_layers)}
+    return pd_stack(kv, cfg.n_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -91,7 +128,7 @@ def cache_pd(cfg, batch: int, max_seq: int):
 
 
 def _embed(params, cfg, tokens):
-    return params["embed"][tokens].to(torch.bfloat16)
+    return params["embed"][tokens].to(compute_dtype())
 
 
 def _logits(params, cfg, x):
@@ -103,6 +140,16 @@ def _logits(params, cfg, x):
 def _layer(layers, i: int):
     """Layer i's parameters: views into the stacked leaves."""
     return tree_map(lambda a: a[i], layers)
+
+
+def _put(stacked, n: int, i: int, cache):
+    """Layer i's flat cache dict written into ``stacked``, whose leaves
+    (n, ...) are allocated at the first write. Returns ``stacked``."""
+    if stacked is None:
+        stacked = {k: t.new_empty((n, *t.shape)) for k, t in cache.items()}
+    for k, t in cache.items():
+        stacked[k][i] = t
+    return stacked
 
 
 # ---------------------------------------------------------------------------
@@ -177,17 +224,124 @@ def _dense_forward(params, cfg, x, positions, *, mode, cache=None, pos=None,
             x, a, c = _dense_block(_layer(params["layers"], i), x,
                                    positions, cfg, cache_len=cache_len)
             aux = _add(aux, a)
-            if stacked is None:
-                stacked = {n: t.new_empty((L, *t.shape))
-                           for n, t in c.items()}
-            for n, t in c.items():
-                stacked[n][i] = t
+            stacked = _put(stacked, L, i, c)
         return x, aux, stacked
     for i in range(L):
         x, a, _ = _dense_block(_layer(params["layers"], i), x, None, cfg,
                                decode=True, cache=_layer(cache, i), pos=pos)
         aux = _add(aux, a)
     return x, aux, cache
+
+
+# ---------------------------------------------------------------------------
+# hybrid (zamba2): Mamba layers in groups, the shared attention block
+# applied before each group
+
+
+def _shared_attn_block(p, x, positions, cfg, *, decode=False, cache=None,
+                       pos=None, cache_len=0):
+    h = rms_norm(x, p["ln1"], cfg.rms_eps)
+    if decode:
+        a, c = attn.gqa_decode(p["attn"], h, pos, cfg, cache)
+    else:
+        a, c = attn.gqa_parallel(p["attn"], h, positions, cfg,
+                                 cache_len=cache_len)
+    x = x + a
+    h = rms_norm(x, p["ln2"], cfg.rms_eps)
+    return x + mlpm.swiglu_apply(p["mlp"], h), c
+
+
+def _hybrid_groups(cfg):
+    k = cfg.attn_every
+    n = cfg.n_layers
+    return [(g * k, min((g + 1) * k, n)) for g in range(-(-n // k))]
+
+
+def _mamba_layer(p, x, cfg):
+    """One Mamba layer of the training forward, with its residual."""
+    o, _ = mb.mamba_parallel(p["mamba"], rms_norm(x, p["ln"], cfg.rms_eps),
+                             cfg)
+    return x + o
+
+
+def _hybrid_forward(params, cfg, x, positions, *, mode, cache=None,
+                    pos=None, cache_len=0):
+    """As ``_dense_forward``, for the hybrid: each group of ``attn_every``
+    Mamba layers follows an application of the shared block; only the
+    Mamba layers are recomputed in the backward under ``cfg.remat``, as
+    in the JAX package. The prefill's cache is allocated at its first
+    write; decode's is updated in place."""
+    layers, shared = params["layers"], params["shared_attn"]
+    groups = _hybrid_groups(cfg)
+    if mode == "train":
+        # unbound once, as in _dense_forward
+        unbound = tree_map(lambda a: a.unbind(0), layers)
+        remat = cfg.remat and torch.is_grad_enabled()
+    elif mode == "prefill":
+        cache = {"attn": None, "mamba": None}
+    for g, (lo, hi) in enumerate(groups):
+        if mode == "decode":
+            x, _ = _shared_attn_block(shared, x, None, cfg, decode=True,
+                                      cache=_layer(cache["attn"], g),
+                                      pos=pos)
+        else:
+            x, c = _shared_attn_block(shared, x, positions, cfg,
+                                      cache_len=cache_len)
+            if mode == "prefill":
+                cache["attn"] = _put(cache["attn"], len(groups), g, c)
+        for i in range(lo, hi):
+            if mode == "train":
+                p = tree_map(lambda t: t[i], unbound)
+                x = (checkpoint(_mamba_layer, p, x, cfg, use_reentrant=False,
+                                preserve_rng_state=False) if remat
+                     else _mamba_layer(p, x, cfg))
+                continue
+            p = _layer(layers, i)
+            h = rms_norm(x, p["ln"], cfg.rms_eps)
+            if mode == "prefill":
+                o, c = mb.mamba_parallel(p["mamba"], h, cfg,
+                                         return_cache=True)
+                cache["mamba"] = _put(cache["mamba"], cfg.n_layers, i, c)
+            else:
+                o, _ = mb.mamba_decode(p["mamba"], h, cfg,
+                                       _layer(cache["mamba"], i))
+            x = x + o
+    return x, None, (None if mode == "train" else cache)
+
+
+# ---------------------------------------------------------------------------
+# xLSTM stack (heterogeneous: one subtree a layer)
+
+
+def _xlstm_forward(params, cfg, x, positions, *, mode, cache=None, pos=None,
+                   cache_len=0):
+    """As ``_dense_forward``, for the xLSTM stack (no positions: the
+    recurrences carry them); the prefill's cache is a ``layer_XX`` tree of
+    the blocks' final states, decode's updated in place."""
+    if mode == "prefill":
+        cache = {}
+    for i in range(cfg.n_layers):
+        key = f"layer_{i:02d}"
+        p = params[key]
+        m = xl.block_kind(cfg, i) == "m"
+        h = rms_norm(x, p["ln"], cfg.rms_eps)
+        if mode == "decode":
+            fn = xl.mlstm_decode if m else xl.slstm_decode
+            o, _ = fn(p["blk"], h, cfg, cache[key])
+        else:
+            fn = xl.mlstm_parallel if m else xl.slstm_parallel
+            o, c = fn(p["blk"], h, cfg, return_cache=mode == "prefill")
+            if mode == "prefill":
+                cache[key] = c
+        x = x + o
+    return x, None, (None if mode == "train" else cache)
+
+
+def _forward(cfg):
+    """The family's stack: (params, cfg, x, positions, mode=..., ...) ->
+    (x, aux, cache)."""
+    return {"hybrid": _hybrid_forward,
+            "ssm": _xlstm_forward}.get(cfg.family, _dense_forward)
 
 
 # ---------------------------------------------------------------------------
@@ -198,10 +352,10 @@ def forward_train(params, cfg, batch):
     """batch: {'tokens': (B,S)}. Returns (logits (B,S,V) f32, aux 0-d f32:
     the MoE load-balance loss summed over the layers, 0 for a dense
     stack)."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     x = _embed(params, cfg, batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    x, aux, _ = _dense_forward(params, cfg, x, positions, mode="train")
+    x, aux, _ = _forward(cfg)(params, cfg, x, positions, mode="train")
     if aux is None:
         aux = torch.zeros((), device=x.device)
     return _logits(params, cfg, x), aux
@@ -209,19 +363,19 @@ def forward_train(params, cfg, batch):
 
 def forward_prefill(params, cfg, batch, cache_len: int):
     """Returns (last-position logits (B,1,V) f32, cache)."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     x = _embed(params, cfg, batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    x, _, cache = _dense_forward(params, cfg, x, positions, mode="prefill",
-                                 cache_len=cache_len)
+    x, _, cache = _forward(cfg)(params, cfg, x, positions, mode="prefill",
+                                cache_len=cache_len)
     return _logits(params, cfg, x[:, -1:]), cache
 
 
 def forward_decode(params, cfg, cache, token, pos: int):
     """token: (B,1) integers; pos: its index (Python int). Returns (logits
     (B,1,V) f32, cache); the cache is updated in place."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     x = _embed(params, cfg, token)
-    x, _, cache = _dense_forward(params, cfg, x, None, mode="decode",
-                                 cache=cache, pos=pos)
+    x, _, cache = _forward(cfg)(params, cfg, x, None, mode="decode",
+                                cache=cache, pos=pos)
     return _logits(params, cfg, x), cache

@@ -10,13 +10,18 @@ generation loop (a port of ``repro.serve.decode``), with a CLI that mirrors
       --reduced --device cpu      # also qwen3-14b, mistral-nemo-12b, ...
   PYTHONPATH=src python -m repro_torch.serve.decode --arch deepseek-v2-236b \\
       --reduced --flash-attention --device cpu    # MLA: the latent cache
+  PYTHONPATH=src python -m repro_torch.serve.decode --arch zamba2-7b \\
+      --reduced --flash-attention --device cpu    # hybrid: Mamba2 states
+  PYTHONPATH=src python -m repro_torch.serve.decode --arch xlstm-125m \\
+      --reduced --device cpu      # xLSTM: the recurrent states are the cache
 
-The hybrid, xLSTM, whisper and VLM families are not ported (ROADMAP §1
-item 10.5-10.6); their ``--arch`` raises.
+Whisper and the VLM are not ported (ROADMAP §1 item 10.6); their
+``--arch`` raises.
 
 The JAX package jits the prefill and the decode step; the port runs them
 eagerly, casts f32 masters to bf16 once per ``generate`` call (bf16
-leaves pass through), and updates the KV cache in place. The CLI holds
+leaves pass through), and updates the cache (KV rows, recurrent states
+and conv windows) in place. The CLI holds
 bf16 weights, as the JAX package's inference does: each leaf is cast as
 ``pinit`` makes it, so the f32 tree never exists (qwen2-moe-a2.7b's
 would take 60.6 GB).

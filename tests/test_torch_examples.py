@@ -115,7 +115,7 @@ def test_serve_setup_and_refusals():
                                device="cpu")
     assert torch.equal(run.batch["tokens"], again.batch["tokens"])
     with pytest.raises(NotImplementedError, match="item 10"):
-        serve_decode.setup("xlstm-125m", device="cpu")
+        serve_decode.setup("whisper-base", device="cpu")
 
 
 def _last_line(capsys) -> str:

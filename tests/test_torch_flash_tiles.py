@@ -154,3 +154,17 @@ def test_tile_emulation_without_p_lo_fails_the_tolerance(dims):
     want = ref.flash_attention(q.float(), k.float(), v.float(), **kw)
     assert _outside(emulate(q, k, v, split=False, **kw), want) > 0
     assert _outside(emulate(q, k, v, **kw), want) == 0
+
+
+def test_tile_emulation_holds_the_peaked_112_case():
+    """``test_torch_gpu.py``'s peaked (112, 112) case (32 heads, S 512,
+    causal, q x 8) in the emulation, on the CPU's draws: the split holds
+    it, so the card's one element past atol there (ROADMAP §3, fault 3.5)
+    does not come from P's bf16 split as emulated here."""
+    rng = np.random.default_rng(0)
+    H, S, D = 32, 512, 112
+    q = _bf16(rng, H, S, D, scale=8.0)
+    k, v = _bf16(rng, H, S, D), _bf16(rng, H, S, D)
+    kw = dict(causal=True, window=0, n_q_heads=H, n_kv_heads=H)
+    want = ref.flash_attention(q.float(), k.float(), v.float(), **kw)
+    assert _outside(emulate(q, k, v, **kw), want) == 0

@@ -503,7 +503,8 @@ def test_ring_add_kernel_rejects_bad_inputs():
 #: (B, S, H, K, Dk, Dv, causal, window): the CPU tests' shapes and masks
 #: (``test_kernels.py``'s flash cases and the reduced MLA config's (48,
 #: 32)), ragged lengths, qwen3-14b's GQA heads with and without a window,
-#: MLA's (192, 128) and the serving path's qwen1.5-0.5b heads
+#: MLA's (192, 128), zamba2-7b's shared block's (112, 112), ragged and at
+#: its 32 heads, and the serving path's qwen1.5-0.5b heads
 FLASH_CASES = [(*s, c, w)
                for s in ((2, 64, 4, 2, 32, 32), (1, 128, 2, 2, 16, 16),
                          (2, 96, 4, 4, 32, 16), (2, 96, 4, 4, 48, 32))
@@ -511,7 +512,8 @@ FLASH_CASES = [(*s, c, w)
     (2, 100, 4, 2, 64, 64, True, 0), (1, 1000, 2, 1, 64, 64, True, 37),
     (1, 1024, 40, 8, 128, 128, True, 0), (1, 1024, 40, 8, 128, 128, True,
                                           256),
-    (1, 512, 16, 16, 192, 128, True, 0), (2, 2048, 16, 16, 64, 64, True, 0)]
+    (1, 512, 16, 16, 192, 128, True, 0), (2, 100, 4, 4, 112, 112, True, 0),
+    (1, 512, 32, 32, 112, 112, True, 0), (2, 2048, 16, 16, 64, 64, True, 0)]
 #: kernel against plain, both on the card: f32 sums in another order; in
 #: bf16 that can flip the output's rounding by one ulp (2^-7 relative)
 FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
@@ -555,7 +557,7 @@ def test_flash_attention_kernel_matches_plain(case, dtype):
 
 @pytest.mark.parametrize("case", [
     (2, 2048, 16, 16, 64, 64, True, 0), (1, 1024, 40, 8, 128, 128, True, 256),
-    (1, 512, 16, 16, 192, 128, True, 0)])
+    (1, 512, 16, 16, 192, 128, True, 0), (1, 512, 32, 32, 112, 112, True, 0)])
 def test_flash_attention_bf16_peaked_softmax(case):
     """q x 8: scores spread over a wide range, so the running max moves
     often and by much, and P is near 0 or 1: the split P_hi + P_lo under
@@ -666,6 +668,31 @@ def test_moe_prefill_and_decode_on_card_match_the_cpu(monkeypatch):
     assert rel(dg, dw) < 3e-2
 
 
+def test_moe_prefill_on_card_repeats_bit_for_bit():
+    """Reduced qwen2-moe-a2.7b at 16 routed experts top-4 (each token's
+    output a sum of four expert rows) on the card: two prefills of the
+    same prompts give equal bits, logits and cache, since the combine
+    gathers each token's rows and adds them in one order
+    (``moe._combine``); a scatter-add would add them with f32 atomics in
+    another order each run."""
+    import dataclasses
+    from repro_torch.models.registry import build_model
+    dev = _card()
+    base = get_config("qwen2-moe-a2.7b").reduced()
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, n_routed=16, top_k=4))
+    model = build_model(cfg)
+    params = pinit.materialize(model.param_pd, 0, dev, dtype=torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (4, 512), device=dev,
+                         generator=torch.Generator(dev).manual_seed(0))
+    runs = [model.forward_prefill(params, {"tokens": toks}, 520)
+            for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    for (path, a), (_, b) in zip(tree_flatten(runs[0][1]),
+                                 tree_flatten(runs[1][1])):
+        assert torch.equal(a, b), path
+
+
 def test_mla_generate_on_card_matches_the_cpu():
     """Reduced deepseek-v2-236b (MLA: K5 at Dk 48, Dv 32) with
     flash_attention on the card, bf16 weights from pinit: the prefill
@@ -701,6 +728,95 @@ def test_mla_generate_on_card_matches_the_cpu():
     assert rel(dg, dw) < 3e-2
     out = generate(model, params, {"tokens": toks[:, :96].to(dev)},
                    max_new=8, cache_len=104)
+    assert out.shape == (2, 8)
+    assert bool(((out >= 0) & (out < cfg.vocab_size)).all())
+
+
+def _on_card_and_cpu(arch, cfg, n_launches):
+    """``cfg`` served on the card from bf16 pinit weights and on the CPU
+    from the same weights: the prefill launches K5 ``n_launches`` times and
+    the decode step none; the prefill's last logits and one decode step
+    from its cache agree with the CPU's (the plain flash version) within
+    3e-2 of their max. Returns the card's model, params, tokens and
+    prefill logits."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.registry import build_model
+    from repro_torch.tree import tree_map
+    dev = _card()
+    model = build_model(cfg)
+    params = pinit.materialize(model.param_pd, 0, dev, dtype=torch.bfloat16)
+    on_cpu = tree_map(lambda t: t.cpu(), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 97),
+                         generator=torch.Generator().manual_seed(0))
+    before = fa.flash_attention.launches
+    got, cache = model.forward_prefill(params, {"tokens": toks[:, :96]
+                                                .to(dev)}, 104)
+    assert fa.flash_attention.launches == before + n_launches, arch
+    want, cpu_cache = model.forward_prefill(on_cpu, {"tokens": toks[:, :96]},
+                                            104)
+    rel = lambda a, b: float((a.cpu() - b).abs().max() / b.abs().max())
+    assert rel(got, want) < 3e-2
+    dg, _ = model.forward_decode(params, cache, toks[:, 96:].to(dev), 96)
+    assert fa.flash_attention.launches == before + n_launches
+    dw, _ = model.forward_decode(on_cpu, cpu_cache, toks[:, 96:], 96)
+    assert rel(dg, dw) < 3e-2
+    return model, params, toks.to(dev), got
+
+
+def test_hybrid_prefill_and_decode_on_card():
+    """Reduced zamba2-7b (K5 at 4 heads of 64, once for each of its 2
+    shared-block applications) with flash_attention on the card: the K5
+    prefill against the chunked prefill on the card within 3e-2, and
+    prefill and decode against the CPU (``_on_card_and_cpu``); the Mamba
+    states stay f32 on the card."""
+    import dataclasses
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(get_config("zamba2-7b").reduced(),
+                              flash_attention=True)
+    model, params, toks, got = _on_card_and_cpu("zamba2-7b", cfg, 2)
+    plain = build_model(dataclasses.replace(cfg, flash_attention=False))
+    want, cache = plain.forward_prefill(params, {"tokens": toks[:, :96]}, 104)
+    assert float((got - want).abs().max() / want.abs().max()) < 3e-2
+    assert cache["mamba"]["state"].dtype == torch.float32
+    assert cache["attn"]["k"].shape[0] == 2
+
+
+def test_xlstm_generate_on_card_matches_the_cpu():
+    """Reduced xlstm-125m at 8 layers (layer 6 sLSTM) on the card, no
+    kernel. Wholly in f32 (f32 params, ``precision.f32_compute``,
+    matmuls without tf32): the prefill's last logits and one decode step from its
+    cache against the CPU's within 1e-4 of their max; in bf16 the 8-layer
+    stack grows the two devices' roundings to a few 1e-2 (as
+    ``tests/test_torch_xlstm.py`` measures against the reference), which
+    hides what the comparison is for. Then ``generate`` on bf16 weights:
+    tokens in the vocabulary."""
+    import dataclasses
+    from repro_torch.core import precision
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.decode import generate
+    from repro_torch.tree import tree_map
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("xlstm-125m").reduced(),
+                              n_layers=8)
+    on_cpu = pinit.materialize(tf.lm_pd(cfg), 0, "cpu")
+    on_card = tree_map(lambda t: t.to(dev), on_cpu)
+    toks = torch.randint(0, cfg.vocab_size, (2, 97),
+                         generator=torch.Generator().manual_seed(0))
+    with precision.f32_compute():
+        got = []
+        for params, d in ((on_card, dev), (on_cpu, "cpu")):
+            last, cache = tf.forward_prefill(
+                params, cfg, {"tokens": toks[:, :96].to(d)}, 104)
+            dl, _ = tf.forward_decode(params, cfg, cache,
+                                      toks[:, 96:].to(d), 96)
+            got.append((last.cpu(), dl.cpu()))
+    for a, b in zip(*got):
+        assert float((a - b).abs().max() / b.abs().max()) < 1e-4
+    out = generate(build_model(cfg), tree_map(
+        lambda t: t.to(torch.bfloat16), on_card),
+        {"tokens": toks[:, :96].to(dev)}, max_new=8, cache_len=104)
     assert out.shape == (2, 8)
     assert bool(((out >= 0) & (out < cfg.vocab_size)).all())
 

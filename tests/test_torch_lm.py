@@ -218,12 +218,13 @@ def test_serve_entry_points_raise_without_card(monkeypatch):
 
 
 def test_unported_lm_parts_name_roadmap(base):
-    from repro_torch.configs.base import SSMConfig
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
-        build_model(dataclasses.replace(base, family="hybrid", attn_every=2,
-                                        ssm=SSMConfig()))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
-        build_model(dataclasses.replace(base, family="ssm"))
+    from repro_torch.configs.base import EncoderConfig
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10.6"):
+        build_model(dataclasses.replace(
+            base, family="audio",
+            encoder=EncoderConfig(n_layers=2, n_frames=16)))
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10.6"):
+        build_model(dataclasses.replace(base, family="vlm"))
     # the explicit-DP LM step is ported: like the conv family's, it needs
     # a mesh (test_torch_lm_dp.py trains it)
     with pytest.raises(ValueError, match="needs a mesh"):
@@ -232,4 +233,4 @@ def test_unported_lm_parts_name_roadmap(base):
                                                      total_steps=2)),
                         comm="psum")
     with pytest.raises(KeyError, match="not ported yet"):
-        get_config("zamba2-7b")
+        get_config("whisper-base")

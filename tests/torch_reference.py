@@ -20,6 +20,8 @@ to an ``.npz`` of ``kind/path`` keys.
   python tests/torch_reference.py moe_cases OUT.npz
   python tests/torch_reference.py mla_cases OUT.npz
   python tests/torch_reference.py lm_variant_cases OUT.npz
+  python tests/torch_reference.py mamba_cases OUT.npz
+  python tests/torch_reference.py xlstm_cases OUT.npz
   python tests/torch_reference.py guard_zero1_run OUT.npz
   python tests/torch_reference.py traced_zero1_step OUT.npz
 
@@ -37,6 +39,7 @@ The reference's MoE layer runs only inside ``shard_map`` on a mesh with a
 ``moe_cases`` and ``mla_cases`` set the shim there too and run on a
 (1, 1) Auto-axis ``("data", "model")`` mesh.
 """
+import contextlib
 import os
 import subprocess
 import sys
@@ -641,7 +644,7 @@ def draw_params(pd_tree, seed):
         x = np.clip(rng.standard_normal(pd.shape), -2.0, 2.0)
         if pd.init == "normal":
             return (pd.scale * x).astype(np.float32)
-        base = {"zeros": 0.0, "ones": 1.0}[pd.init]
+        base = {"zeros": 0.0, "ones": 1.0, "const": pd.scale}[pd.init]
         return (base + 0.1 * x).astype(np.float32)
 
     return jax.tree.map(leaf, pd_tree, is_leaf=lambda x: hasattr(x, "init"))
@@ -679,10 +682,15 @@ def lm_cases():
 
 
 def _lm_run(model, params, toks, *, prompt=LM_PROMPT, cache_len=LM_CACHE,
-            mesh=None):
+            mesh=None, via_generate=True, decode=None):
     """The full forward over ``toks`` (prompt + 1 tokens; with its aux),
     the prefill of the prompt, one decode step of the last token from that
-    cache, and ``generate``'s LM_NEW greedy tokens."""
+    cache, and ``generate``'s LM_NEW greedy tokens; with ``via_generate``
+    False the same tokens from the prefill and decode programs already
+    compiled here (``generate``'s loop: the argmax of the last logits fed
+    back), which saves ``generate`` compiling both again, and ``decode``,
+    given, is a jitted ``forward_decode(p, c, t, i)`` of another run to
+    reuse (the decode takes no flash kernel)."""
     import jax
     import jax.numpy as jnp
     from repro.serve.decode import generate
@@ -691,17 +699,27 @@ def _lm_run(model, params, toks, *, prompt=LM_PROMPT, cache_len=LM_CACHE,
         p, {"tokens": t}, mesh))(params, toks)
     last, cache = jax.jit(lambda p, t: model.forward_prefill(
         p, {"tokens": t}, cache_len, mesh))(params, toks[:, :prompt])
-    dl, cache2 = jax.jit(lambda p, c, t, i: model.forward_decode(
-        p, c, t, i, mesh))(params, cache, toks[:, prompt:],
-                           jnp.int32(prompt))
-    gen = generate(model, params, {"tokens": toks[:, :prompt]},
-                   max_new=LM_NEW, cache_len=cache_len, mesh=mesh)
+    decode = decode or jax.jit(lambda p, c, t, i: model.forward_decode(
+        p, c, t, i, mesh))
+    dl, cache2 = decode(params, cache, toks[:, prompt:], jnp.int32(prompt))
+    if via_generate:
+        gen = generate(model, params, {"tokens": toks[:, :prompt]},
+                       max_new=LM_NEW, cache_len=cache_len, mesh=mesh)
+    else:
+        pick = lambda lg: jnp.argmax(lg[:, -1], axis=-1).astype(
+            jnp.int32)[:, None]
+        out, c = [pick(last)], cache
+        for i in range(LM_NEW - 1):
+            lg, c = decode(params, c, out[-1], jnp.int32(prompt + i))
+            out.append(pick(lg))
+        gen = jnp.concatenate(out, axis=1)
     return {"train_logits": logits, "train_aux": aux,
             "prefill_logits": last, "cache": cache, "decode_logits": dl,
             "decode_cache": cache2, "generate": gen}
 
 
-def check_greedy_tokens(model, params, toks, want, got, cache_len):
+def check_greedy_tokens(model, params, toks, want, got, cache_len, *,
+                        rel_margin=None):
     """The port's greedy tokens ``got`` against the reference's ``want``
     (both (B, LM_NEW)) from the prompt ``toks``. The logits are bf16
     values (the head's bf16 matmul), so two can tie, and where the two
@@ -710,8 +728,10 @@ def check_greedy_tokens(model, params, toks, want, got, cache_len):
     and decode), each of the reference's picks is within one bf16 ulp of
     the port's largest logit, and each request's tokens are equal up to
     its first step whose two largest logits lie within one bf16 ulp of
-    each other (all of them where there is none). Returns the number of
-    such tied steps a request."""
+    each other (all of them where there is none). A model whose logits
+    are held to the reference's only within ``rel_margin`` of their max
+    takes that margin (of the step's largest |logit|) in place of the
+    ulp. Returns the number of such tied steps a request."""
     import torch
     prompt = toks.shape[1]
     logits, cache = model.forward_prefill(params, {"tokens": toks},
@@ -720,7 +740,9 @@ def check_greedy_tokens(model, params, toks, want, got, cache_len):
     for i in range(want.shape[1]):
         lg = logits[:, -1].float()
         top = torch.topk(lg, 2).values
-        ulp = 2.0 ** (torch.floor(torch.log2(top[:, 0].abs())) - 7)
+        ulp = (2.0 ** (torch.floor(torch.log2(top[:, 0].abs())) - 7)
+               if rel_margin is None
+               else rel_margin * lg.abs().amax(dim=-1))
         picked = lg[torch.arange(lg.shape[0]), torch.from_numpy(want[:, i])
                     .long()]
         assert bool((top[:, 0] - picked <= ulp).all()), (i, top, picked)
@@ -733,6 +755,127 @@ def check_greedy_tokens(model, params, toks, want, got, cache_len):
         first = int(np.argmax(tied[b])) if tied[b].any() else want.shape[1]
         np.testing.assert_array_equal(got[b, :first], want[b, :first])
     return tied.sum(1)
+
+
+def check_train_step(r, base, *, loss_rtol, update_tol, f32=False):
+    """The port's ``comm='xla'`` LARS step (``LR``) from a reference
+    step's input state ``r['in']`` on its batch, against its output: the
+    loss within ``loss_rtol`` relative, and each tensor's new params
+    within ``update_tol`` of the reference's largest update element of
+    that tensor. With ``f32`` the step differentiates the f32 masters
+    (``comm_dtype='f32'``) and the LM runs wholly in f32
+    (``precision.f32_compute``), as ``_train_steps`` ran the
+    reference. Returns (loss relative difference, the worst tensor's
+    difference over its largest update, that tensor's path, the new
+    state)."""
+    import contextlib
+    import types
+
+    import torch
+    from repro_torch import weights
+    from repro_torch.core import lars, precision
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_flatten
+
+    step = make_train_step(build_model(base), lars.OptConfig(kind="lars"),
+                           make_schedule(ScheduleConfig(**LR)), comm="xla",
+                           comm_dtype="f32" if f32 else "bf16")
+    state_in = weights.lm_state_from_jax(types.SimpleNamespace(**r["in"]),
+                                         base, "cpu")
+    batch = {n: torch.from_numpy(v) for n, v in r["batch"].items()}
+    with precision.f32_compute() if f32 else contextlib.nullcontext():
+        state, metrics = step(state_in, batch)
+    assert state.step == int(r["out"]["step"])
+    d_loss = abs(float(metrics["loss"]) - float(r["metrics"]["loss"])) \
+        / abs(float(r["metrics"]["loss"]))
+    p_in = dict(tree_flatten(r["in"]["params"]))
+    got = dict(tree_flatten(weights.to_numpy(state.params)))
+    want = dict(tree_flatten(r["out"]["params"]))
+    assert set(got) == set(want)
+    worst = max((np.abs(got[n] - want[n]).max()
+                 / max(np.abs(want[n] - p_in[n]).max(), 1e-30), n)
+                for n in want)
+    assert d_loss <= loss_rtol, d_loss
+    assert worst[0] <= update_tol, worst
+    return d_loss, worst[0], worst[1], state
+
+
+#: a leaf whose reference f32 gradient stays within this share of the
+#: tree's largest gradient is zero up to f32 rounding: its exact value
+#: vanishes (as the sLSTM input gate's bias's does: a shift of that gate
+#: at every step scales c and n alike and cancels in h = o · c / n), and
+#: both sides hold rounding noise there
+F32_ZERO = 2.0 ** -23
+
+
+def leaf_grad_errors(pairs):
+    """``pairs``: {path: (the port's f32 gradient, the reference's)}. Each
+    leaf's largest difference over its own largest reference gradient,
+    save the leaves whose reference gradient is zero up to rounding
+    (``F32_ZERO`` of the tree's largest), whose port gradient must be so
+    too. Returns ({path: error} over the other leaves, the zero leaves)."""
+    scale = max(float(np.abs(w).max()) for _, w in pairs.values())
+    errors, zero = {}, []
+    for path, (g, w) in pairs.items():
+        top = float(np.abs(w).max())
+        if top <= F32_ZERO * scale:
+            assert float(np.abs(g).max()) <= F32_ZERO * scale, path
+            zero.append(path)
+        else:
+            errors[path] = float(np.abs(g - w).max()) / top
+    return errors, zero
+
+
+def module_grads_error(fn, r, name, S, cfg):
+    """The port's f32 gradients of ``sum(fn(p, x, cfg)[0] · ct)`` with
+    respect to the params and x, on the reference's ``{name}`` module
+    inputs at length S, against the reference's
+    (``_recurrent_module_cases``), leaf by leaf (``leaf_grad_errors``):
+    returns (the worst leaf's error, its path, the zero leaves)."""
+    import torch
+    params = {n: torch.tensor(v, requires_grad=True)
+              for n, v in r[name]["params"].items()}
+    x = torch.tensor(r[name][f"x{S}"], requires_grad=True)
+    out, _ = fn(params, x, cfg)
+    (out * torch.from_numpy(r[name][f"ct{S}"])).sum().backward()
+    want = r[name]["float32"][f"s{S}"]["grads"]
+    pairs = {n: (params[n].grad.numpy(), want["params"][n]) for n in params}
+    pairs["x"] = (x.grad.numpy(), want["x"])
+    errors, zero = leaf_grad_errors(pairs)
+    return (*max((e, n) for n, e in errors.items()), zero)
+
+
+def lm_f32_errors(base, r):
+    """``_lm_f32_case`` on the port: its LM wholly in f32
+    (``precision.f32_compute``, the params from ``params/``)
+    against the reference's; returns (the logits' largest difference over
+    their max, the worst leaf's gradient error, its path, the zero leaves:
+    ``leaf_grad_errors``)."""
+    import torch
+    from repro_torch import weights
+    from repro_torch.core import precision
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_flatten, tree_unflatten
+
+    params = weights.lm_params_from_jax(r["params"], base, "cpu")
+    flat = dict(tree_flatten(params))
+    for t in flat.values():
+        t.requires_grad_()
+    with precision.f32_compute():
+        logits, _ = transformer.forward_train(
+            tree_unflatten(list(flat), list(flat.values())), base,
+            {"tokens": torch.from_numpy(lm_tokens(base))})
+    (logits * torch.from_numpy(r["f32"]["ct"])).sum().backward()
+    want = dict(tree_flatten(r["f32"]["grads"]))
+    assert set(want) == set(flat)
+    want_logits = r["f32"]["logits"]
+    d_logits = float(np.abs(logits.detach().numpy() - want_logits).max()
+                     / np.abs(want_logits).max())
+    errors, zero = leaf_grad_errors({n: (flat[n].grad.numpy(), w)
+                                     for n, w in want.items()})
+    return (d_logits, *max((e, n) for n, e in errors.items()), zero)
 
 
 #: the LM training parity setting: reduced qwen1.5-0.5b, lcg token batches
@@ -1202,6 +1345,220 @@ def lm_variant_cases():
     return out
 
 
+@contextlib.contextmanager
+def _jax_f32_compute():
+    """The reference's LM wholly in f32 on f32 params while tracing (the
+    counterpart of the port's ``precision.f32_compute``): the model's
+    ``cast_to_compute`` (registry) and ``transformer._embed`` round to
+    bf16, and are replaced in this process only by the identity and the
+    lookup alone."""
+    from repro.models import registry, transformer
+    cast, embed = registry.cast_to_compute, transformer._embed
+    registry.cast_to_compute = lambda params: params
+    transformer._embed = lambda p, cfg, tokens: p["embed"][tokens]
+    try:
+        yield
+    finally:
+        registry.cast_to_compute, transformer._embed = cast, embed
+
+
+def _train_steps(base, params, out, *, f32=False):
+    """``make_train_step(comm='xla', mesh=None)``, jitted, LM_TRAIN_STEPS
+    steps along its own trajectory from ``params``, LARS poly2 (``LR``),
+    the lcg batches of ``lm_train_steps``: each step's input and output
+    states, batch and metrics (``train/s{k}/...``); with ``f32`` the step
+    differentiates the f32 masters (``comm_dtype='f32'``) and the LM runs
+    wholly in f32 (``_jax_f32_compute``)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core import lars
+    from repro.core.schedule import ScheduleConfig, make_schedule
+    from repro.data.synthetic import token_batch
+    from repro.models.registry import build_model
+    from repro.train.state import TrainState
+    from repro.train.step import make_train_step
+
+    step = jax.jit(make_train_step(build_model(base),
+                                   lars.OptConfig(kind="lars"),
+                                   make_schedule(ScheduleConfig(**LR)),
+                                   mesh=None, comm="xla",
+                                   comm_dtype="f32" if f32 else "bf16"))
+    s = TrainState(jnp.zeros((), jnp.int32), params,
+                   jax.tree.map(np.zeros_like, params))
+    for k in range(LM_TRAIN_STEPS):
+        batch = jax.device_get(token_batch(
+            base, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, step=k,
+            kind="lcg"))
+        with _jax_f32_compute() if f32 else contextlib.nullcontext():
+            s2, m = step(s, batch)
+        pre = f"train/s{k}"
+        for io, x in (("in", s), ("out", s2)):
+            x = jax.device_get(x)
+            out[f"{pre}/{io}/step"] = np.asarray(x.step)
+            _flat(f"{pre}/{io}/params", x.params, out)
+            _flat(f"{pre}/{io}/mom", x.mom, out)
+        _flat(f"{pre}/batch", batch, out)
+        _flat(f"{pre}/metrics", jax.device_get(m), out)
+        s = s2
+
+
+#: the recurrent families' module inputs: N(0, 1) (LM_BATCH, S, d) at each
+#: of SSM_LENGTHS, a multiple of the reduced chunk (16) and not (the
+#: prefill then takes the largest divisor chunk, 11), and one decode token
+SSM_LENGTHS = (32, 33)
+#: the hybrid setting: the reduced zamba2-7b (4 Mamba layers in 2 groups
+#: of 2, d 256, 16 SSM heads of 32, state 16, chunk 16; the shared block's
+#: 4 heads of 64; vocab 512) at the LM parity sizes
+HYBRID_ARCH = "zamba2-7b"
+#: the xLSTM setting: the reduced xlstm-125m (d 256, 4 heads, chunk 16) at
+#: XLSTM_LAYERS layers, so that layer 6 is the pattern's sLSTM block
+XLSTM_ARCH, XLSTM_LAYERS = "xlstm-125m", 8
+
+
+def xlstm_config(get_config):
+    """The xLSTM setting's config, from either package's ``get_config``."""
+    import dataclasses
+    return dataclasses.replace(get_config(XLSTM_ARCH).reduced(),
+                               n_layers=XLSTM_LAYERS)
+
+
+def _recurrent_module_cases(name, pd, fn, decode, cfg, seed, out, *,
+                            lengths=SSM_LENGTHS):
+    """One recurrent block ``fn`` (``fn(p, x, cfg, return_cache=...)``) on
+    its params drawn from ``pd`` (``{name}/params``) and N(0, 1) inputs
+    (``{name}/x{S}``, ``{name}/x_dec``): in f32 at each S of ``lengths``,
+    in bf16 at the first (``{name}/{dt}/s{S}``), the output with and
+    without a cache and the cache (``{out,out_nc,cache}``); at the first
+    length the f32 gradients of ``sum(out · ct)`` for an N(0, 1) cotangent
+    ``{name}/ct{S}``, as ``float32/s{S}/grads/{params/...,x}``; ``decode``
+    of x_dec from the first length's cache (``{name}/{dt}/decode/{out,
+    cache}``). The LM cases take the other lengths' gradients (33 tokens:
+    ``_lm_f32_case``); each program compiled here costs the suite seconds."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+    p32 = draw_params(pd, seed + 1)
+    _flat(f"{name}/params", p32, out)
+    xs = {S: rng.standard_normal((LM_BATCH, S, cfg.d_model))
+          .astype(np.float32) for S in lengths}
+    xd = rng.standard_normal((LM_BATCH, 1, cfg.d_model)).astype(np.float32)
+    for S, x in xs.items():
+        out[f"{name}/x{S}"] = x
+    S = lengths[0]
+    out[f"{name}/ct{S}"] = rng.standard_normal(xs[S].shape).astype(
+        np.float32)
+    gp, gx = jax.jit(jax.grad(lambda p, x, ct: jnp.sum(
+        fn(p, x, cfg)[0] * ct), argnums=(0, 1)))(p32, xs[S],
+                                                 out[f"{name}/ct{S}"])
+    _flat(f"{name}/float32/s{S}/grads", {"params": gp, "x": gx}, out)
+    out[f"{name}/x_dec"] = xd
+    for dt, at in (("float32", lengths), ("bfloat16", lengths[:1])):
+        p = jax.tree.map(lambda a: jnp.asarray(a, dt), p32)
+        caches = {}
+        for S in at:
+            (o, caches[S]), (o_nc, _) = jax.jit(lambda p, x: (
+                fn(p, x, cfg, return_cache=True), fn(p, x, cfg)))(
+                    p, jnp.asarray(xs[S], dt))
+            _flat(f"{name}/{dt}/s{S}", {"out": o, "out_nc": o_nc,
+                                        "cache": caches[S]}, out)
+        o, c = jax.jit(lambda p, x, c: decode(p, x, cfg, c))(
+            p, jnp.asarray(xd, dt), caches[lengths[0]])
+        _flat(f"{name}/{dt}/decode", {"out": o, "cache": c}, out)
+
+
+def _lm_f32_case(base, params, toks, out):
+    """The LM wholly in f32: ``forward_train`` on the f32 params under
+    ``_jax_f32_compute``, and the gradients of ``sum(logits ·
+    ct)`` for an N(0, 1) cotangent: ``f32/{logits,ct,grads/...}``. With
+    every matmul in f32 the two packages differ only by the order of f32
+    sums, so this holds the whole LM's forward and backward tightly where
+    the bf16 runs differ by amplified bf16 roundings."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import transformer
+
+    ct = np.random.default_rng(80).standard_normal(
+        (*toks.shape, base.vocab_size)).astype(np.float32)
+
+    def loss(p):
+        logits, _ = transformer.forward_train(p, base, None,
+                                              {"tokens": toks})
+        return jnp.sum(logits * ct), logits
+    with _jax_f32_compute():
+        (_, logits), grads = jax.jit(jax.value_and_grad(
+            loss, has_aux=True))(params)
+    out["f32/ct"] = ct
+    out["f32/logits"] = np.asarray(logits)
+    _flat("f32/grads", jax.device_get(grads), out)
+
+
+def mamba_cases():
+    """The reduced zamba2-7b. (1) ``_recurrent_module_cases`` of
+    ``mamba_parallel`` / ``mamba_decode`` (``mamba/...``). (2) The hybrid
+    LM with ``mesh=None``: params (``params/...``), ``_lm_run`` with
+    ``flash_attention`` False and True (the Pallas kernel in interpret
+    mode; ``f{flash}/...``; the greedy tokens by ``generate``'s loop on
+    its own programs, one decode program for both), ``_lm_f32_case``
+    (``f32/...``) and ``_train_steps`` (``train/...``)."""
+    import dataclasses
+
+    import jax
+    from repro.configs import get_config
+    from repro.models import mamba as mb
+    from repro.models.registry import build_model
+
+    out = {}
+    base = get_config(HYBRID_ARCH).reduced()
+    _recurrent_module_cases("mamba", mb.mamba_pd(base), mb.mamba_parallel,
+                            mb.mamba_decode, base, 50, out)
+    params = lm_params(base)
+    toks = lm_tokens(base)
+    _flat("params", params, out)
+    decode = jax.jit(lambda p, c, t, i: build_model(base).forward_decode(
+        p, c, t, i, None))
+    for flash in (0, 1):
+        model = build_model(dataclasses.replace(base,
+                                                flash_attention=bool(flash)))
+        _flat(f"f{flash}", jax.device_get(_lm_run(
+            model, params, toks, via_generate=False, decode=decode)), out)
+    _lm_f32_case(base, params, toks, out)
+    _train_steps(base, params, out)
+    return out
+
+
+def xlstm_cases():
+    """The reduced xlstm-125m at XLSTM_LAYERS layers. (1)
+    ``_recurrent_module_cases`` of ``mlstm_parallel`` / ``mlstm_decode``
+    (``mlstm/...``) and of ``slstm_parallel`` / ``slstm_decode``
+    (``slstm/...``, at the first length). (2) The xLSTM LM with
+    ``mesh=None``: params (``params/...``), ``_lm_run`` (``f0/...``: the
+    stack has no attention, so no flash case), ``_lm_f32_case``
+    (``f32/...``) and ``_train_steps`` wholly in f32 (``train/...``: in
+    bf16 the 8-layer stack's roundings part most tensors' updates from the
+    reference's by more than LM_UPDATE_TOL)."""
+    import jax
+    from repro.configs import get_config
+    from repro.models import xlstm as xl
+    from repro.models.registry import build_model
+
+    out = {}
+    base = xlstm_config(get_config)
+    _recurrent_module_cases("mlstm", xl.mlstm_pd(base), xl.mlstm_parallel,
+                            xl.mlstm_decode, base, 60, out)
+    _recurrent_module_cases("slstm", xl.slstm_pd(base), xl.slstm_parallel,
+                            xl.slstm_decode, base, 70, out,
+                            lengths=SSM_LENGTHS[:1])
+    params = lm_params(base)
+    toks = lm_tokens(base)
+    _flat("params", params, out)
+    _flat("f0", jax.device_get(_lm_run(build_model(base), params, toks,
+                                       via_generate=False)), out)
+    _lm_f32_case(base, params, toks, out)
+    _train_steps(base, params, out, f32=True)
+    return out
+
+
 if __name__ == "__main__":
     what, dest = sys.argv[1], sys.argv[2]
     np.savez(dest, **{"resnet_grads": resnet_grads,
@@ -1216,5 +1573,7 @@ if __name__ == "__main__":
                       "moe_cases": moe_cases,
                       "mla_cases": mla_cases,
                       "lm_variant_cases": lm_variant_cases,
+                      "mamba_cases": mamba_cases,
+                      "xlstm_cases": xlstm_cases,
                       "guard_zero1_run": guard_zero1_run,
                       "traced_zero1_step": traced_zero1_step}[what]())
