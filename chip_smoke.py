@@ -12,7 +12,8 @@ Phases, in order; any failure exits non-zero and prints no result:
               source, all started together; sm_90a)
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the shapes the training and serving paths give it (K5 also at
-              a GQA, a windowed, an MLA and a peaked-softmax shape); times
+              a GQA, a windowed, an MLA and a peaked-softmax shape, and at
+              whisper's non-causal encoder and cross shapes); times
               the kernel, the plain version and a library yardstick beside
               the bound (K5: SDPA, the backend it picks named by its
               kernel; K5's plain version one request at a time where its
@@ -74,8 +75,8 @@ Phases, in order; any failure exits non-zero and prints no result:
               prompt + that token, both within 3e-2 of the logit max
  12. serve cli  python -m repro_torch.serve.decode --reduced on the card,
               all started together: qwen1.5-0.5b, deepseek-v2-236b (MLA:
-              K5 at Dk 48, Dv 32) and zamba2-7b with --flash-attention,
-              xlstm-125m without
+              K5 at Dk 48, Dv 32), zamba2-7b, whisper-base and
+              internvl2-2b with --flash-attention, xlstm-125m without
  13. serve_moe  full-width, full-depth qwen2-moe-a2.7b (24 layers, d 2048,
               16 heads of 128, 60 routed experts padded to a stack of 64,
               top-4, 4 shared, vocab 151,936: 15.15 B params) served as
@@ -135,22 +136,48 @@ Phases, in order; any failure exits non-zero and prints no result:
               serve line and its states' bytes
  21. serve_xlstm context  the serve context checks on it within 3e-2 (its
               two prefills run the same path)
- 22. lm_train_moe  qwen2-moe-a2.7b at full width, its depth cut to 2 layers
+ 22. serve_audio  whisper-base at full width and depth (6 encoder layers
+              over 1,500 stub frames a request, 6 decoder layers with
+              cross-attention, 8 heads of 64, vocab 51,865) served to 16
+              requests of 1,500 frames and 128 prompt tokens, 64 greedy
+              tokens (prompt + new under its 448-token decoder context):
+              K5 18 times a prefill (the encoder's 6 non-causal 1,500 x
+              1,500 self-attentions, the decoder's 6 causal ones and its 6
+              cross-attentions of 128 queries over 1,500 keys), nothing
+              else; prints the serve line and the self and cross caches'
+              bytes
+ 23. serve_audio context  the serve context checks on it within 3e-2
+ 24. serve_vlm  internvl2-2b at full width and depth (24 layers, 16 query
+              heads on 8 kv heads of 128, vocab 92,553; 256 stub patch
+              embeddings through the stub projector ahead of each prompt)
+              served to 8 requests of 256 patches + 1,792 tokens (2,048
+              positions), 32 greedy tokens: K5 24 times a prefill, nothing
+              else
+ 25. serve_vlm context  the serve context checks on it within 3e-2 (the
+              decode step at position 2,048: the prefix counts)
+ 26. lm_train_moe  qwen2-moe-a2.7b at full width, its depth cut to 2 layers
               (printed; 1.83 B params), batch 2 x seq 4096 of lcg tokens,
               3 LARS steps with lm_train's recipe through make_train_step
               + loop.train, no eval: K4 once forward and once backward a
               step, K1 twice, finite losses and a positive aux (the
               router's load-balance loss, 0.01 of it in the loss); prints
               step ms, tokens/s, peak memory and the aux
- 23. lm_train_hybrid  zamba2-7b at full width, its depth cut to 12 of its
+ 27. lm_train_hybrid  zamba2-7b at full width, its depth cut to 12 of its
               81 Mamba layers (2 applications of the shared block;
               printed; 1.37 B params), lm_train_moe's recipe and sizes: K4
               1 + 1 and K1 2 a step, finite losses; each Mamba layer
               recomputed in the backward (remat), the shared block not
- 24. lm_train_xlstm  xlstm-125m whole, the same: K4 1 + 1 and K1 2 a step,
+ 28. lm_train_xlstm  xlstm-125m whole, the same: K4 1 + 1 and K1 2 a step,
               finite losses (the sLSTM's backward through its 4,096-step
               time loop)
- 25. lm_train  full-width qwen1.5-0.5b (params from pinit; remat on, the
+ 29. lm_train_audio  whisper-base at full width and depth, batch 8 x (1,500
+              stub frames + 448 tokens), lm_train_moe's recipe (remat: each
+              encoder and decoder layer recomputed in the backward): K4 1 +
+              1 (V 51,865) and K1 2 a step, finite losses
+ 30. lm_train_vlm  internvl2-2b at full width and depth, batch 2 x (256
+              patches + 3,840 tokens), the same: K4 1 + 1 (V 92,553, the
+              256 prefix rows IGNORE) and K1 2 a step, finite losses
+ 31. lm_train  full-width qwen1.5-0.5b (params from pinit; remat on, the
               chunked attention: flash_attention stays off in training),
               batch 2 x seq 4096 of lcg tokens, 5 LARS steps (poly2 with
               warm-up, label smoothing 0.1, OptConfig(use_kernel=True))
@@ -158,13 +185,13 @@ Phases, in order; any failure exits non-zero and prints no result:
               smoothed cross-entropy kernel (K4) must be launched once
               forward and once backward a step and once for the eval, K1
               twice a step; prints step ms, tokens/s, peak memory, losses
- 26. lm_train context  one step with the K4 loss and two with a loss built
+ 32. lm_train context  one step with the K4 loss and two with a loss built
               on K4's plain version, from one state and batch: losses to
               1e-5 relative, K4's gradient at the step's logits to rtol
               1e-5 / atol 1e-7, the plain steps bit for bit, new params to
               5e-2 of each tensor's largest update (bf16 gradients: not
               1e-5 of its max, the function says why)
- 27. examples  the four twins of examples/*.py
+ 33. examples  the four twins of examples/*.py
               (repro_torch.examples.train_resnet_imagenet --steps 8,
               quickstart, serve_decode, large_batch_ablation --steps 4),
               each a subprocess on the card (this script with --example
@@ -172,12 +199,12 @@ Phases, in order; any failure exits non-zero and prints no result:
               end), all started together: each exits 0 with finite losses
               and its final line; K4 60 + 60 (quickstart's steps), every
               other kernel 0
- 28. report   python -m repro_torch.launch.report --section comm,
+ 34. report   python -m repro_torch.launch.report --section comm,
               autotune and shard (the H100's constants named in each
               heading) and --section trace over the durability phase's
               Chrome trace: every rs[b*] row starts inside its step's
               backward row
- 29. ring     on two or more cards (min(count, 4) ranks, one card each,
+ 35. ring     on two or more cards (min(count, 4) ranks, one card each,
               over NCCL: this script under torch.distributed.run with
               --ring-rank), full-width ResNet-50, batch 64 a card, the slice's
               recipe, CommConfig(use_kernel=True, update_kernel=True), 3
@@ -191,13 +218,13 @@ Phases, in order; any failure exits non-zero and prints no result:
               sharded one, K2 once a sharded step; prints step ms
               (median after the first step), images/s over all cards and
               peak memory per rank
- 30. ring context  one packed bf16 gradient through the ring all-reduce and
+ 36. ring context  one packed bf16 gradient through the ring all-reduce and
               every schedule's reduce-scatter form, with K3 and with the
               plain fold: bit-equal (counted apart for the forms that fold
               through K3: ring, hierarchical, 2d_torus); with f32 wire, every schedule and rung
               against the replicated psum step from one state and batch:
               masters within 1e-5 of each tensor's max
- 31. lm_ring  on four cards (this script under torch.distributed.run with
+ 37. lm_ring  on four cards (this script under torch.distributed.run with
               --lm-ring-rank, one rank a card, NCCL): the card's link
               (alpha, beta of a ring exchange), HBM and bf16 matmul rates
               measured (launch/hw.measure) and held within 2x of
@@ -222,7 +249,7 @@ Phases, in order; any failure exits non-zero and prints no result:
               ResNet-50's must stamp under half of its groups in the
               backward's last tenth, and its rs spans begin inside the
               backward span (the LM's stacked leaves fire late: no gate)
- 32. lm_ring resume  the four-card ring zero1 checkpoint resumed on one
+ 38. lm_ring resume  the four-card ring zero1 checkpoint resumed on one
               card (elastic.load_resharded, 4 -> 1 shards over the LM's
               split-leaf plan): masters bit-equal to the gathered rows
               (sha256), then one step with a finite loss (K1, K2, K4)
@@ -248,7 +275,8 @@ reference's shapes, ragged rows, misaligned views and in place, beside
 torch.add; the cli phase also trains the reduced LM. Every
 kernel's launch count is set to 0 just before each path (slice, zero1,
 durability, serve, serve_moe, serve_qk, serve_mla, serve_hybrid,
-serve_xlstm, lm_train_moe, lm_train_hybrid, lm_train_xlstm, lm_train,
+serve_xlstm, serve_audio, serve_vlm, lm_train_moe, lm_train_hybrid,
+lm_train_xlstm, lm_train_audio, lm_train_vlm, lm_train,
 each ring
 and lm_ring configuration and autotune run, the lm_ring resume) and read
 just after: a kernel the path
@@ -290,14 +318,19 @@ BF16_OPS_PER_S = 989e12
 
 BATCH, STEPS = 64, 6
 
-#: K5 shapes: (name, B, S, H, K, Dk, Dv, window, dtype, q scale), all
-#: causal. "path" is the serving prefill's (qwen1.5-0.5b, 8 x 2048 tokens);
+#: K5 shapes: (name, B, S, H, K, Dk, Dv, window, dtype, q scale[, causal
+#: (default True)[, Sk (default S)]]). "path" is the serving prefill's
+#: (qwen1.5-0.5b, 8 x 2048 tokens);
 #: "serve_moe", "serve_qk", "serve_mla" and "serve_hybrid" the prefills of
 #: qwen2-moe-a2.7b (16 heads of 128), qwen3-14b (40 query heads on 8 kv
 #: heads of 128), deepseek-v2-236b (128 heads, q/k 128 + 64 rope, v 128)
 #: and zamba2-7b's shared block (32 heads of 112) at the same sizes; then the path in f32, qwen3-14b's GQA heads without and with a
 #: window, MLA's dims, and the path's heads with q x 8 (a peaked softmax:
-#: large corrections of the running max, P near 0 or 1)
+#: large corrections of the running max, P near 0 or 1); then whisper-base's
+#: prefill (serve_audio: the encoder's non-causal 1,500 x 1,500 and the
+#: cross-attention's 128 queries over 1,500 keys, 8 heads of 64) and
+#: internvl2-2b's (serve_vlm: 16 heads on 8 kv heads of 128 over 2,048
+#: positions)
 FLASH_SHAPES = (("path", 8, 2048, 16, 16, 64, 64, 0, "bfloat16", 1),
                 ("serve_moe", 8, 2048, 16, 16, 128, 128, 0, "bfloat16", 1),
                 ("serve_qk", 8, 2048, 40, 8, 128, 128, 0, "bfloat16", 1),
@@ -308,10 +341,16 @@ FLASH_SHAPES = (("path", 8, 2048, 16, 16, 64, 64, 0, "bfloat16", 1),
                 ("gqa", 2, 1024, 40, 8, 128, 128, 0, "bfloat16", 1),
                 ("gqa_window", 2, 1024, 40, 8, 128, 128, 256, "bfloat16", 1),
                 ("mla", 2, 1024, 16, 16, 192, 128, 0, "bfloat16", 1),
-                ("peaked", 2, 2048, 16, 16, 64, 64, 0, "bfloat16", 8))
+                ("peaked", 2, 2048, 16, 16, 64, 64, 0, "bfloat16", 8),
+                ("serve_audio_enc", 16, 1500, 8, 8, 64, 64, 0, "bfloat16",
+                 1, False),
+                ("serve_audio_cross", 16, 128, 8, 8, 64, 64, 0, "bfloat16",
+                 1, False, 1500),
+                ("serve_vlm", 8, 2048, 16, 8, 128, 128, 0, "bfloat16", 1))
 #: K5's route for each input dtype
 FLASH_ROUTES = {"bfloat16": "tensor cores: mma.sync m16n8k16 bf16, P split "
-                            "into bf16 hi + lo, cp.async K/V tiles",
+                            "into bf16 hi + mid + lo, the scale after the "
+                            "row max, cp.async K/V tiles",
                 "float32": "CUDA cores: f32 FMA"}
 #: (rtol, atol) of K5 against its plain version: f32 sums in another order;
 #: in bf16 that may flip the output's rounding by one ulp (2^-7 relative)
@@ -431,7 +470,20 @@ HYBRID_TRAIN_LAYERS, RECURRENT_TRAIN_STEPS = 12, 3
 SERVE_CLI = (("qwen1.5-0.5b", ("--flash-attention",)),
              ("deepseek-v2-236b", ("--flash-attention",)),
              ("zamba2-7b", ("--flash-attention",)),
-             ("xlstm-125m", ()))
+             ("xlstm-125m", ()),
+             ("whisper-base", ("--flash-attention",)),
+             ("internvl2-2b", ("--flash-attention",)))
+#: serve_audio: whisper-base's requests (1,500 stub frames each), prompt
+#: and new tokens (prompt + new stay under its 448-token decoder context);
+#: serve_vlm: internvl2-2b's, their 256-patch prefix ahead of the prompt
+#: (2,048 positions)
+AUDIO_SERVE = (16, 128, 64)
+VLM_SERVE = (8, 1792, 32)
+#: lm_train_audio and lm_train_vlm: (batch, tokens) a step; whisper's 448
+#: tokens its decoder context, the VLM's 3,840 + its 256-patch prefix the
+#: train_4k sequence
+AUDIO_TRAIN = (8, 448)
+VLM_TRAIN = (2, 3840)
 
 
 #: what one phase leaves for a later one: the durability phase's trace,
@@ -1718,29 +1770,36 @@ def check_ring_add(dev):
                               "bound_ms": s_b}}
 
 
-def _visible_pairs(S: int, window: int) -> int:
-    """(query, key) pairs a causal (windowed) attention over S tokens
-    computes: sum over q of min(q + 1, window)."""
+def _visible_pairs(S: int, window: int, causal: bool = True,
+                   Sk: int = None) -> int:
+    """(query, key) pairs an attention of S queries computes: causal
+    (windowed) over S tokens, sum over q of min(q + 1, window); non-causal
+    without a window, every query with each of Sk (default S) keys."""
+    if not causal and not window:
+        return S * (Sk or S)
     if not window or window >= S:
         return S * (S + 1) // 2
     return window * (window + 1) // 2 + (S - window) * window
 
 
-def _flash_case(dev, gen, name, B, S, H, K, Dk, Dv, window, dt, q_scale):
-    """K5 at one shape, causal, q multiplied by ``q_scale``: checked against
-    its plain version, then timed beside the plain version, SDPA on the
-    same inputs and the bound."""
+def _flash_case(dev, gen, name, B, S, H, K, Dk, Dv, window, dt, q_scale,
+                causal=True, Sk=None):
+    """K5 at one shape (S queries over Sk keys, default S), q multiplied by
+    ``q_scale``: checked against its plain version, then timed beside the
+    plain version, SDPA on the same inputs and the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
     dtype = getattr(torch, dt)
-    q, k, v = (torch.randn((B * n, S, d), generator=gen, device=dev)
-               .to(dtype) for n, d in ((H, Dk), (K, Dk), (K, Dv)))
+    Sk = Sk or S
+    q, k, v = (torch.randn((B * n, L, d), generator=gen, device=dev)
+               .to(dtype) for n, L, d in ((H, S, Dk), (K, Sk, Dk),
+                                          (K, Sk, Dv)))
     q = (q.float() * q_scale).to(dtype)
-    kw = dict(causal=True, window=window, n_q_heads=H, n_kv_heads=K)
-    sliced = B * H * S * S * 4 > FLASH_PLAIN_WHOLE_BYTES
+    kw = dict(causal=causal, window=window, n_q_heads=H, n_kv_heads=K)
+    sliced = B * H * S * Sk * 4 > FLASH_PLAIN_WHOLE_BYTES
 
     def plain():
         if not sliced:
@@ -1764,27 +1823,29 @@ def _flash_case(dev, gen, name, B, S, H, K, Dk, Dv, window, dt, q_scale):
     ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), iters=20,
                  warmup=3)
     plain_ms = time_ms(plain, iters=5, warmup=1)
-    qs, ks, vs = (x.view(B, -1, S, x.shape[-1]) for x in (q, k, v))
+    qs, ks, vs = (x.view(B, -1, x.shape[1], x.shape[-1]) for x in (q, k, v))
     sdpa = dict(enable_gqa=K != H)
     if window:
         i = torch.arange(S, device=dev)
         sdpa["attn_mask"] = (i[None] <= i[:, None]) & (
             i[None] > i[:, None] - window)
     else:
-        sdpa["is_causal"] = True
+        sdpa["is_causal"] = causal
     sdpa_call = lambda: F.scaled_dot_product_attention(qs, ks, vs, **sdpa)
     library = time_ms(sdpa_call, iters=20, warmup=3)
     kernels = _kernel_names(sdpa_call)
     backend = next((b for sub, b in SDPA_BACKENDS
                     if kernels and sub in kernels[0].lower()),
                    "math" if kernels else "not measured")
-    ops = 2 * B * H * _visible_pairs(S, window) * (Dk + Dv)
+    ops = 2 * B * H * _visible_pairs(S, window, causal, Sk) * (Dk + Dv)
     nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()
                                  + got.numel())
     b_ms, b_by = bound_ms(nbytes, ops, BF16_OPS_PER_S
                           if dtype == torch.bfloat16 else F32_OPS_PER_S)
-    print(f"flash_attention {name} (B {B}, S {S}, H {H}, K {K}, Dk {Dk}, "
-          f"Dv {Dv}, window {window}, {dt}, q x {q_scale}): max abs err "
+    keys = f", Sk {Sk}" if Sk != S else ""
+    print(f"flash_attention {name} (B {B}, S {S}{keys}, H {H}, K {K}, Dk "
+          f"{Dk}, Dv {Dv}, {'causal' if causal else 'non-causal'}, window "
+          f"{window}, {dt}, q x {q_scale}): max abs err "
           f"{max_err:.3e} (rtol {rtol}, atol {atol}); kernel "
           f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us"
           f"{' (one request at a time)' if sliced else ''}, sdpa "
@@ -1792,7 +1853,8 @@ def _flash_case(dev, gen, name, B, S, H, K, Dk, Dv, window, dt, q_scale):
           f"{kernels[0][:60] if kernels else 'no kernel recorded'}), bound "
           f"{b_ms * 1e3:.1f} us ({b_by}: {ops / 1e9:.1f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB)", flush=True)
-    return {"shape": [B, S, H, K, Dk, Dv], "window": window, "dtype": dt,
+    return {"shape": [B, S, H, K, Dk, Dv], "Sk": Sk, "causal": causal,
+            "window": window, "dtype": dt,
             "q_scale": q_scale, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "plain_per_request": sliced,
             "library_ms": library, "library_backend": backend,
@@ -1978,10 +2040,11 @@ def check_smoothed_xent(dev):
 
 
 def run_lm_train(dev, name="lm_train", cfg=None, steps=LM_STEPS,
-                 evals=1):
+                 evals=1, batch=LM_BATCH, seq=LM_SEQ):
     """A full-width LM (qwen1.5-0.5b unless ``cfg``) trained through the
     port's entry points, as ``python -m repro.launch.train --arch ...``
-    drives the JAX package (here at full width, batch 2 x seq 4096):
+    drives the JAX package (here at full width, by default batch 2 x seq
+    4096; whisper's and the VLM's batches carry their stub frames):
     ``steps`` steps, then ``evals`` evals (0 or 1) at the end."""
     import torch
     from repro_torch.configs import get_config
@@ -2005,8 +2068,8 @@ def run_lm_train(dev, name="lm_train", cfg=None, steps=LM_STEPS,
                                          decay="poly2"))
     opt = lars.OptConfig(kind="lars", weight_decay=5e-5, use_kernel=True)
     train_step = make_train_step(model, opt, sched, smoothing=0.1)
-    batch_fn = make_batch_fn(cfg, InputShape("train_4k", "train", LM_SEQ,
-                                             LM_BATCH), device=dev)
+    batch_fn = make_batch_fn(cfg, InputShape("train_4k", "train", seq,
+                                             batch), device=dev)
     torch.cuda.empty_cache()
     state0 = init_state(model, seed=0, device=dev)
     times = []
@@ -2053,13 +2116,13 @@ def run_lm_train(dev, name="lm_train", cfg=None, steps=LM_STEPS,
           f"{f'; eval loss {evs[0]:.4f}' if evs else ''}", flush=True)
     print(f"{name}: step times ms {[round(t * 1e3, 2) for t in times]}; "
           f"median {med * 1e3:.2f} ms (p25 {q1 * 1e3:.2f}, p75 "
-          f"{q3 * 1e3:.2f}), {LM_BATCH * LM_SEQ / med:.0f} tokens/s, peak "
+          f"{q3 * 1e3:.2f}), {batch * seq / med:.0f} tokens/s, peak "
           f"memory {peak / 2 ** 30:.2f} GiB; launches K4 forward {fwd}, "
           f"backward {bwd}, K1 {k1}", flush=True)
     result = {"arch": cfg.arch_id, "layers": cfg.n_layers,
               "step_ms": {"p25": q1 * 1e3, "median": med * 1e3,
                           "p75": q3 * 1e3},
-              "tokens_per_s": LM_BATCH * LM_SEQ / med,
+              "tokens_per_s": batch * seq / med, "batch": [batch, seq],
               "peak_gib": peak / 2 ** 30, "losses": losses, "aux": aux}
     return model, state0, batch_fn(0), counts, result
 
@@ -2094,6 +2157,22 @@ def run_lm_train_recurrent(dev, name, arch, layers=None):
                                       steps=RECURRENT_TRAIN_STEPS, evals=0)
     if depth is not None:
         result["depth_cut"] = [layers, depth]
+    return counts, result
+
+
+def run_lm_train_frames(dev, name, arch, batch, seq):
+    """``arch`` (whisper-base or internvl2-2b) at full width and depth,
+    batch x seq tokens with their stub frames, trained with lm_train's
+    recipe (remat) for ``RECURRENT_TRAIN_STEPS`` steps, no eval: K4 and K1
+    on the path, as in lm_train; the VLM's loss takes no label over its
+    image prefix."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    print(f"{name}: {arch} at full width and depth, {batch} x ({seq} "
+          f"tokens + {cfg.encoder.n_frames} stub frames)", flush=True)
+    *_, counts, result = run_lm_train(dev, name, cfg,
+                                      steps=RECURRENT_TRAIN_STEPS, evals=0,
+                                      batch=batch, seq=seq)
     return counts, result
 
 
@@ -3090,18 +3169,34 @@ def run_lm_resume(dev, ckpt_dir, lm_ring):
     return {"load_ms": load_ms, "loss": loss, "launches": counts}
 
 
-def run_serve(dev, name="serve", cfg=None, k5=None):
+def _serve_cache(cfg, batch, new=SERVE_NEW) -> int:
+    """The serving cache's rows: the prompt, the VLM's image prefix, the
+    new tokens and 8 more."""
+    from repro_torch.serve.decode import prefix_len
+    return batch["tokens"].shape[1] + prefix_len(cfg) + new + 8
+
+
+def _prompt_pos(cfg, batch) -> int:
+    """The first new token's position (the VLM's counts its prefix)."""
+    from repro_torch.serve.decode import prefix_len
+    return batch["tokens"].shape[1] + prefix_len(cfg)
+
+
+def run_serve(dev, name="serve", cfg=None, k5=None,
+              sizes=(SERVE_BATCH, SERVE_PROMPT, SERVE_NEW)):
     """A full-width LM (qwen1.5-0.5b unless ``cfg``) served through
     serve.decode.generate with the flash kernel in the prefill, as
     examples/serve_decode.py drives the JAX package (at full width here),
     on bf16 weights made leaf by leaf from pinit, as the serving CLI holds
-    them. K5 must launch ``k5`` times (by default once a layer), in the
-    prefill, and no other kernel."""
+    them: ``sizes`` (requests, prompt tokens, new tokens), whisper's and
+    the VLM's requests with their stub frames. K5 must launch ``k5`` times
+    (by default once a layer), in the prefill, and no other kernel."""
     import dataclasses
 
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import pinit
+    from repro_torch.data.synthetic import stub_frames
     from repro_torch.models.registry import build_model
     from repro_torch.serve.decode import generate
     from repro_torch.tree import tree_leaves
@@ -3116,37 +3211,44 @@ def run_serve(dev, name="serve", cfg=None, k5=None):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
     n_params = sum(x.numel() for x in tree_leaves(params))
+    n_req, n_prompt, n_new = sizes
     gen = torch.Generator().manual_seed(0)
-    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+    tokens = torch.randint(0, cfg.vocab_size, (n_req, n_prompt),
                            generator=gen, dtype=torch.int32).to(dev)
     batch = {"tokens": tokens}
+    if cfg.encoder is not None:
+        batch["frames"] = stub_frames(cfg, batch=n_req, step=0, device=dev)
+    cache_len = _serve_cache(cfg, batch, n_new)
     # warm-up (cuBLAS handles, first launches); not timed, not counted
-    generate(model, params, batch, max_new=2, cache_len=SERVE_CACHE)
+    generate(model, params, batch, max_new=2, cache_len=cache_len)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     timings = {}
     _zero(*_counters().values())
-    out = generate(model, params, batch, max_new=SERVE_NEW,
-                   cache_len=SERVE_CACHE, timings=timings)
+    out = generate(model, params, batch, max_new=n_new,
+                   cache_len=cache_len, timings=timings)
     torch.cuda.synchronize()
     # K5 once a layer (or as the caller says), in the prefill; no other
     # kernel
     counts = _read_path(name, {"k5": cfg.n_layers if k5 is None else k5})
     launches = counts["k5"]
     peak = torch.cuda.max_memory_allocated(dev)
-    if tuple(out.shape) != (SERVE_BATCH, SERVE_NEW):
+    if tuple(out.shape) != (n_req, n_new):
         fail(f"{name}: generated shape {tuple(out.shape)}")
     if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
         fail(f"{name}: a token outside the vocabulary")
     dec = timings["decode_ms"]
     q1, med, q3 = statistics.quantiles(dec, n=4)
+    frames = (f" + {cfg.encoder.n_frames} stub frames"
+              if cfg.encoder is not None else "")
     print(f"{name}: {cfg.arch_id}, {cfg.n_layers} layers, "
           f"{n_params / 1e6:.1f} M params (bf16), pinit {init_s:.2f} s; "
-          f"prefill {timings['prefill_ms']:.2f} ms "
-          f"({SERVE_BATCH * SERVE_PROMPT / timings['prefill_ms'] * 1e3:.0f}"
+          f"{n_req} requests of {n_prompt} tokens{frames}, {n_new} new, "
+          f"cache {cache_len} rows; prefill {timings['prefill_ms']:.2f} ms "
+          f"({n_req * n_prompt / timings['prefill_ms'] * 1e3:.0f}"
           f" prompt tokens/s); decode ms a token median {med:.3f} "
           f"(p25 {q1:.3f}, p75 {q3:.3f}, {len(dec)} steps), "
-          f"{SERVE_BATCH * 1e3 / med:.1f} tokens/s; peak memory "
+          f"{n_req * 1e3 / med:.1f} tokens/s; peak memory "
           f"{peak / 2 ** 30:.2f} GiB; flash_attention launches {launches}",
           flush=True)
     print(f"{name}: first request's tokens {out[0].tolist()}", flush=True)
@@ -3154,8 +3256,9 @@ def run_serve(dev, name="serve", cfg=None, k5=None):
               "params": n_params, "pinit_s": init_s,
               "prefill_ms": timings["prefill_ms"],
               "decode_ms": {"p25": q1, "median": med, "p75": q3},
-              "tokens_per_s": SERVE_BATCH * 1e3 / med,
-              "peak_gib": peak / 2 ** 30}
+              "tokens_per_s": n_req * 1e3 / med,
+              "peak_gib": peak / 2 ** 30, "sizes": list(sizes),
+              "cache_len": cache_len}
     return model, params, batch, out, counts, result
 
 
@@ -3265,9 +3368,10 @@ def check_serve_in_context(dev, model, params, batch, out, name="serve",
     moe = cfg.moe is not None
     plain = build_model(dataclasses.replace(cfg, flash_attention=False))
     p16 = cast_to_compute(params)
+    cache_len, pos = _serve_cache(cfg, batch), _prompt_pos(cfg, batch)
     pin = _RoutingPin()
     with pin.record() if moe else contextlib.nullcontext():
-        k5_last, cache = model.forward_prefill(p16, batch, SERVE_CACHE)
+        k5_last, cache = model.forward_prefill(p16, batch, cache_len)
     if not bool(torch.isfinite(k5_last).all()):
         fail(f"{name} context: non-finite prefill logits")
     if not torch.equal(k5_last[:, -1].argmax(-1).int(), out[:, 0]):
@@ -3275,12 +3379,12 @@ def check_serve_in_context(dev, model, params, batch, out, name="serve",
              f"first token")
     free = {}
     if moe:
-        ch_last, _ = plain.forward_prefill(p16, batch, SERVE_CACHE)
+        ch_last, _ = plain.forward_prefill(p16, batch, cache_len)
         free["prefill"] = _rel(k5_last, ch_last)
         del ch_last, cache
         replay = _RoutingPin()
         with replay.replay(pin.ids):
-            ch_last, _ = plain.forward_prefill(p16, batch, SERVE_CACHE)
+            ch_last, _ = plain.forward_prefill(p16, batch, cache_len)
         # the decode check's model: no token over capacity
         B, S = batch["tokens"].shape
         least = decode_cf is None
@@ -3292,7 +3396,7 @@ def check_serve_in_context(dev, model, params, batch, out, name="serve",
             model = build_model(cfg)
             pin = _RoutingPin()
             with pin.record():
-                _, cache = model.forward_prefill(p16, batch, SERVE_CACHE)
+                _, cache = model.forward_prefill(p16, batch, cache_len)
             need = _least_cf(cfg.moe, pin.ids, B, S)
             if not least or need <= decode_cf:
                 break
@@ -3303,17 +3407,17 @@ def check_serve_in_context(dev, model, params, batch, out, name="serve",
                  f"settle ({decode_cf:.4f}, then {need:.4f})")
         plain = build_model(dataclasses.replace(cfg, flash_attention=False))
     else:
-        ch_last, _ = plain.forward_prefill(p16, batch, SERVE_CACHE)
+        ch_last, _ = plain.forward_prefill(p16, batch, cache_len)
     d_prefill = _rel(k5_last, ch_last)
     del ch_last
     tok = out[:, :1]
     n_prefill = len(pin.ids)
     with pin.record() if moe else contextlib.nullcontext():
-        dl, _ = model.forward_decode(p16, cache, tok, SERVE_PROMPT)
+        dl, _ = model.forward_decode(p16, cache, tok, pos)
     del cache
     if not bool(torch.isfinite(dl).all()):
         fail(f"{name} context: non-finite decode logits")
-    full_batch = {"tokens": torch.cat([batch["tokens"], tok], dim=1)}
+    full_batch = dict(batch, tokens=torch.cat([batch["tokens"], tok], dim=1))
     if moe:
         (full, _), _ = plain.forward_train(p16, full_batch)
         free["decode"] = _rel(dl[:, 0], full[:, -1])
@@ -3485,19 +3589,19 @@ def check_serve_f32(model, params, batch, out, name, k5):
     cfg = model.cfg
     plain = dataclasses.replace(cfg, flash_attention=False)
     p32 = tree_map(lambda t: t.float(), params)
-    toks = batch["tokens"][:SERVE_F32_REQUESTS]
+    sub = {k: v[:SERVE_F32_REQUESTS] for k, v in batch.items()}
+    toks = sub["tokens"]
     tok = out[:SERVE_F32_REQUESTS, :1]
+    cache_len, pos = _serve_cache(cfg, sub), _prompt_pos(cfg, sub)
     torch.backends.cuda.matmul.allow_tf32 = False
     before = fa.flash_attention.launches
     with torch.no_grad(), precision.f32_compute():
-        k5_last, cache = tf.forward_prefill(p32, cfg, {"tokens": toks},
-                                            SERVE_CACHE)
+        k5_last, cache = tf.forward_prefill(p32, cfg, sub, cache_len)
         launched = fa.flash_attention.launches - before
-        ch_last, _ = tf.forward_prefill(p32, plain, {"tokens": toks},
-                                        SERVE_CACHE)
-        dl, _ = tf.forward_decode(p32, cfg, cache, tok, SERVE_PROMPT)
-        full, _ = tf.forward_train(p32, plain, {"tokens": torch.cat(
-            [toks, tok], dim=1)})
+        ch_last, _ = tf.forward_prefill(p32, plain, sub, cache_len)
+        dl, _ = tf.forward_decode(p32, cfg, cache, tok, pos)
+        full, _ = tf.forward_train(p32, plain, dict(sub, tokens=torch.cat(
+            [toks, tok], dim=1)))
     d_prefill, d_decode = _rel(k5_last, ch_last), _rel(dl[:, 0], full[:, -1])
     del p32, cache, full
     print(f"{name} context f32: K5 (f32 route, {launched} launches) prefill "
@@ -3528,6 +3632,50 @@ def run_serve_xlstm(dev):
     phase("serve_xlstm context")
     result["context"] = check_serve_in_context(dev, model, params, batch,
                                                out, "serve_xlstm")
+    return counts, result
+
+
+def run_serve_audio(dev):
+    """whisper-base at full width and depth (6 encoder layers over 1,500
+    stub frames, 6 decoder layers with cross-attention; 8 heads of 64)
+    served at AUDIO_SERVE's sizes: K5 18 times a prefill (each encoder
+    layer's self-attention, non-causal 1,500 x 1,500; each decoder layer's
+    causal self-attention and its cross-attention, 128 queries over the
+    1,500 encoder states), nothing else; then its context checks."""
+    from repro_torch.configs import get_config
+    cfg = get_config("whisper-base")
+    k5 = cfg.encoder.n_layers + 2 * cfg.n_layers
+    model, params, batch, out, counts, result = run_serve(
+        dev, "serve_audio", cfg, k5=k5, sizes=AUDIO_SERVE)
+    pd = model.cache_pd(AUDIO_SERVE[0], result["cache_len"])
+    self_b, cross_b = _cache_bytes(pd["self"]), _cache_bytes(pd["cross"])
+    print(f"serve_audio: cache: self k and v {self_b / 1e6:.1f} MB "
+          f"({cfg.n_layers} layers x {AUDIO_SERVE[0]} x "
+          f"{result['cache_len']} rows), cross k and v {cross_b / 1e6:.1f} "
+          f"MB ({cfg.encoder.n_frames} encoder rows, bf16)", flush=True)
+    result.update(self_cache_bytes=self_b, cross_cache_bytes=cross_b)
+    phase("serve_audio context")
+    result["context"] = check_serve_in_context(dev, model, params, batch,
+                                               out, "serve_audio")
+    return counts, result
+
+
+def run_serve_vlm(dev):
+    """internvl2-2b at full width and depth (24 layers, 16 query heads on 8
+    kv heads of 128; 256 stub patch embeddings through the stub projector
+    ahead of each prompt) served at VLM_SERVE's sizes: K5 24 times a
+    prefill (causal over 2,048 positions), nothing else; then its context
+    checks."""
+    from repro_torch.configs import get_config
+    model, params, batch, out, counts, result = run_serve(
+        dev, "serve_vlm", get_config("internvl2-2b"), sizes=VLM_SERVE)
+    result["cache_bytes"] = _cache_bytes(model.cache_pd(
+        VLM_SERVE[0], result["cache_len"]))
+    print(f"serve_vlm: cache {result['cache_bytes'] / 1e6:.1f} MB (the "
+          f"image prefix's rows first)", flush=True)
+    phase("serve_vlm context")
+    result["context"] = check_serve_in_context(dev, model, params, batch,
+                                               out, "serve_vlm")
     return counts, result
 
 
@@ -3902,6 +4050,14 @@ def main():
     by_path["serve_xlstm"], k5["serve_xlstm"] = run_serve_xlstm(dev)
     gc.collect()
 
+    phase("serve_audio")
+    by_path["serve_audio"], k5["serve_audio"] = run_serve_audio(dev)
+    gc.collect()
+
+    phase("serve_vlm")
+    by_path["serve_vlm"], k5["serve_vlm"] = run_serve_vlm(dev)
+    gc.collect()
+
     phase("lm_train_moe")
     by_path["lm_train_moe"], k4["lm_train_moe"] = run_lm_train_moe(dev)
     gc.collect()
@@ -3915,6 +4071,16 @@ def main():
     phase("lm_train_xlstm")
     by_path["lm_train_xlstm"], k4["lm_train_xlstm"] = \
         run_lm_train_recurrent(dev, "lm_train_xlstm", "xlstm-125m")
+    gc.collect()
+
+    phase("lm_train_audio")
+    by_path["lm_train_audio"], k4["lm_train_audio"] = run_lm_train_frames(
+        dev, "lm_train_audio", "whisper-base", *AUDIO_TRAIN)
+    gc.collect()
+
+    phase("lm_train_vlm")
+    by_path["lm_train_vlm"], k4["lm_train_vlm"] = run_lm_train_frames(
+        dev, "lm_train_vlm", "internvl2-2b", *VLM_TRAIN)
     gc.collect()
 
     phase("lm_train")

@@ -1,12 +1,12 @@
-"""Config registry of the port: the architectures ported so far.
+"""Config registry of the port: the JAX package's eleven architectures.
 
-The JAX package registers eleven architectures; the port lists only those
-whose model it runs: ResNet-50 (training), the dense GQA LMs qwen1.5-0.5b,
-qwen1.5-32b, qwen3-14b (``qk_norm``) and mistral-nemo-12b (sliding
-window), the MoE LM qwen2-moe-a2.7b (serving and training) and the MLA
-MoE LM deepseek-v2-236b (serving; training on the CPU), the hybrid
-zamba2-7b (Mamba2 layers and a shared attention block) and the xLSTM
-xlstm-125m. Whisper and the VLM are ROADMAP §1 item 10.6.
+ResNet-50 (training), the dense GQA LMs qwen1.5-0.5b, qwen1.5-32b,
+qwen3-14b (``qk_norm``) and mistral-nemo-12b (sliding window), the MoE LM
+qwen2-moe-a2.7b (serving and training) and the MLA MoE LM
+deepseek-v2-236b (serving; training on the CPU), the hybrid zamba2-7b
+(Mamba2 layers and a shared attention block), the xLSTM xlstm-125m, the
+encoder-decoder whisper-base (stub audio frames) and the prefix VLM
+internvl2-2b (stub patch embeddings).
 """
 from __future__ import annotations
 
@@ -25,15 +25,15 @@ _REGISTRY = {
     "deepseek-v2-236b": "deepseek_v2_236b",   # MLA + MoE
     "zamba2-7b": "zamba2_7b",                 # hybrid: Mamba2 + shared attn
     "xlstm-125m": "xlstm_125m",               # mLSTM + sLSTM
+    "whisper-base": "whisper_base",           # audio enc-dec
+    "internvl2-2b": "internvl2_2b",           # vlm: image prefix
 }
 
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in _REGISTRY:
-        raise KeyError(
-            f"arch {arch_id!r} is not ported yet (ported: "
-            f"{sorted(_REGISTRY)}); whisper and the VLM are ROADMAP §1 "
-            f"item 10.6")
+        raise KeyError(f"unknown arch {arch_id!r} (known: "
+                       f"{sorted(_REGISTRY)})")
     mod = importlib.import_module(
         f"repro_torch.configs.{_REGISTRY[arch_id]}")
     return mod.CONFIG

@@ -7,6 +7,9 @@ Two token distributions for the LMs (``token_batch``):
   * ``lcg``     — learnable: next = (5·prev + 7) mod V with 5% of the
                   positions replaced uniformly, so a loss can fall.
 
+Whisper's and the VLM's batches also carry ``frames``, the stub audio
+frames or image patch embeddings (``stub_frames``).
+
 ``prototype_imagenet`` is the ImageNet stand-in of the paper's own arch:
 class-conditional Gaussian prototypes + noise + random flips. The draws
 differ from the JAX package's threefry draws; the parity tests carry the
@@ -62,14 +65,20 @@ def _lcg_coeffs(V: int, n: int, device: torch.device):
     return torch.tensor(rows, dtype=torch.int64, device=device).T
 
 
+def stub_frames(cfg, *, batch: int, step: int, seed: int = 0, device):
+    """The stub frontend's output for whisper and the VLM: (B, n_frames,
+    d_model) f32 ``0.02 · N(0, 1)``, from a generator of its own for
+    (seed, step), as the JAX package folds 99 into the batch's key."""
+    gen = _generator(device, (seed * 2 ** 32 + int(step)) * 128 + 99)
+    return 0.02 * torch.randn((batch, cfg.encoder.n_frames, cfg.d_model),
+                              generator=gen, device=device)
+
+
 def token_batch(cfg, *, batch: int, seq: int, step: int, seed: int = 0,
                 kind: str = "lcg", device):
     """{'tokens': (B,S) int32, 'labels': (B,S) int32} on ``device``:
-    labels[t] = tokens[t+1], the last column IGNORE."""
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"the {cfg.family} frames are not ported to repro_torch yet "
-            f"(ROADMAP §1 item 10)")
+    labels[t] = tokens[t+1], the last column IGNORE; whisper and the VLM
+    add ``frames`` (``stub_frames``)."""
     device = torch.device(device)
     V = cfg.vocab_size
     gen = _generator(device, seed * 2 ** 32 + int(step))
@@ -88,8 +97,12 @@ def token_batch(cfg, *, batch: int, seq: int, step: int, seed: int = 0,
     labels = torch.cat([stream[:, 1:seq],
                         torch.full((batch, 1), IGNORE, dtype=stream.dtype,
                                    device=device)], dim=1)
-    return {"tokens": stream[:, :seq].to(torch.int32),
-            "labels": labels.to(torch.int32)}
+    out = {"tokens": stream[:, :seq].to(torch.int32),
+           "labels": labels.to(torch.int32)}
+    if cfg.family in ("vlm", "audio"):
+        out["frames"] = stub_frames(cfg, batch=batch, step=step, seed=seed,
+                                    device=device)
+    return out
 
 
 def make_batch_fn(cfg, shape, *, seed: int = 0, kind: str = "lcg", device,

@@ -3,8 +3,9 @@ the KV cache. The torch twin of ``examples/serve_decode.py``, for the
 architectures the port serves (the dense GQA family: qwen1.5-0.5b,
 qwen1.5-32b, qwen3-14b, mistral-nemo-12b; the MoE qwen2-moe-a2.7b; the
 MLA MoE deepseek-v2-236b, whose cache is the latent; the hybrid zamba2-7b
-and the xLSTM xlstm-125m, whose caches hold recurrent states); whisper and
-the VLM raise ``NotImplementedError`` (ROADMAP §1 item 10.6).
+and the xLSTM xlstm-125m, whose caches hold recurrent states; whisper-base
+and internvl2-2b, whose requests carry stub frames, as the reference's
+do).
 
   PYTHONPATH=src python -m repro_torch.examples.serve_decode \\
       [--arch qwen1.5-0.5b] [--device cpu]
@@ -19,32 +20,30 @@ from repro_torch.configs import get_config
 from repro_torch.core import pinit
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models.registry import build_model
-from repro_torch.serve.decode import generate
+from repro_torch.serve.decode import generate, prefix_len
 
 
 def setup(arch: str = "qwen1.5-0.5b", batch: int = 4, prompt_len: int = 32,
           max_new: int = 16, device=None):
     """The run's pieces: cfg, model, params (pinit, seed 0), the prompt
-    batch (tokens from a ``torch.Generator`` seeded 0) and cache_len."""
+    batch (tokens from a ``torch.Generator`` seeded 0; whisper's and the
+    VLM's stub frames, 0.02 · N(0, 1), from the same generator, as the
+    reference's example draws them) and cache_len (room for the VLM's
+    image prefix too)."""
     dev = resolve_device(device)
-    try:
-        cfg = get_config(arch).reduced()
-    except KeyError:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported to repro_torch yet (ROADMAP §1 "
-            f"item 10)") from None
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            "the vlm/audio frames are not ported to repro_torch yet "
-            "(ROADMAP §1 item 10.6)")
+    cfg = get_config(arch).reduced()
     model = build_model(cfg)
     params = pinit.materialize(model.param_pd, 0, dev)
     gen = torch.Generator(dev).manual_seed(0)
-    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
-                           generator=gen, device=dev)
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                                      generator=gen, device=dev)}
+    if cfg.family in ("vlm", "audio"):
+        prompt["frames"] = 0.02 * torch.randn(
+            (batch, cfg.encoder.n_frames, cfg.d_model), generator=gen,
+            device=dev)
     return SimpleNamespace(cfg=cfg, device=dev, model=model, params=params,
-                           batch={"tokens": tokens},
-                           cache_len=prompt_len + max_new + 8)
+                           batch=prompt, cache_len=prompt_len
+                           + prefix_len(cfg) + max_new + 8)
 
 
 def main(argv=None):

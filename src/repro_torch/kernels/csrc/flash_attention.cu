@@ -30,26 +30,35 @@
 // cp.async copies, zero-filled past Sk: the next tile's copy runs under
 // this tile's MMAs. S = Q K^T is mma.sync m16n8k16 bf16 -> f32 (bf16 x
 // bf16 products are exact in f32, so S differs from the plain version only
-// in the order of the sums), scaled by Dk^-0.5 * log2(e) after the dot and
-// masked; the online softmax runs on the accumulator fragments in the
-// exp2 domain, a row's max reduced over the quad of threads that holds it
-// with two xor shuffles; l is summed from the f32 P.
+// in the order of the sums) and masked; the online softmax runs on the
+// accumulator fragments, a row's max reduced over the quad of threads that
+// holds it with two xor shuffles, and P = exp2((S - max) * Dk^-0.5 *
+// log2(e)): the scale is applied after the max is taken off, so no score is
+// rounded at its own size (~35 in log2 units with q x 8) before the
+// difference that P depends on; l is summed from the f32 P.
 //
-// PV splits P into two bf16 halves, P_hi = bf16(P) and P_lo = bf16(P -
-// P_hi), and accumulates P_hi V + P_lo V in f32. Both go straight from the
-// S accumulator's register layout into the A fragments of the next MMA; V's
-// B fragments come through ldmatrix.trans. The split is what keeps the
-// kernel within the tolerance of the f32 plain version (rtol 1e-2, atol
-// 1e-5 in bf16): P rounded once to bf16, the textbook tensor-core design,
-// put 3-8% of the output elements outside it in a tile-by-tile emulation on
-// the CPU (44,106 of 524,288 at H 4, S 2048, 64/64 causal; 22,163 of
-// 262,144 at 192/128; 42,872 of 512,000 at 128/128, window 256; 8,798 of
-// 524,288 with q x 8; 1,861 of 64,000 at 32/16, window 37, q x 4), and
-// the split none (tests/test_torch_flash_tiles.py holds the emulation and
-// its no-P_lo guard). V is bf16 already, so both products are exact bf16
-// MMAs; the split costs one more PV MMA, 1.5x the tensor-core operations
-// of a plain bf16 kernel. A design that drops P_lo has to meet the same
-// tolerance.
+// PV splits P into three bf16 terms, P_hi = bf16(P), P_mid = bf16(P -
+// P_hi) and P_lo = bf16(P - P_hi - P_mid), which carry P to f32's
+// precision, and accumulates P_lo V + P_mid V + P_hi V in f32. Each goes
+// straight from the S accumulator's register layout into the A fragments
+// of the next MMA; V's B fragments come through ldmatrix.trans. The split
+// is what keeps the kernel within the tolerance of the f32 plain version
+// (rtol 1e-2, atol 1e-5 in bf16): P rounded once to bf16, the textbook
+// tensor-core design, put 3-8% of the output elements outside it in a
+// tile-by-tile emulation on the CPU (44,106 of 524,288 at H 4, S 2048,
+// 64/64 causal; 22,163 of 262,144 at 192/128; 42,872 of 512,000 at
+// 128/128, window 256; 8,798 of 524,288 with q x 8; 1,861 of 64,000 at
+// 32/16, window 37, q x 4; tests/test_torch_flash_tiles.py holds the
+// emulation and its one-term guard). Two terms (P_hi + P_lo) still left
+// P 2^-16 short; with q x 8 a row whose output cancels to ~5e-4 from O(1)
+// terms then missed atol in 1 of 1.8 M elements, its error split between
+// the plain version's f32 scores and this kernel's two-term split and
+// log2-domain rounding (ROADMAP §3, fault 3.5; tools/k5_peaked_dump.py
+// splits it against f64). With three terms and the scale after the max,
+// the kernel's worst error against the f64 value is the bf16 output's own
+// rounding. V is bf16 already, so each product is an exact bf16 MMA; the
+// split costs two more PV MMAs, 2x the tensor-core operations of a plain
+// bf16 kernel (the bound below counts the function's work, not these).
 //
 // f32 (no path of the port): the CUDA cores, as the TPU kernel's body casts
 // q, k, v to f32 (tf32 tensor cores would break agreement with the f32
@@ -62,7 +71,7 @@
 // bf16, causal) the visible half of QK^T and PV is 68.7 GFLOP, 69.5 us at
 // the H100's bf16 tensor-core peak (989 TFLOP/s), against ~40 us for its
 // 134 MB of q, k, v and o: operations bound. That is the work the function
-// needs; the split's extra PV MMA (103 GFLOP of MMAs in all) is this
+// needs; the split's two extra PV MMAs (137 GFLOP of MMAs in all) are this
 // kernel's own cost. mma.sync reaches only part of the peak that wgmma
 // does; what is left for later: wgmma with TMA-fed K/V tiles, warp
 // specialisation (a producer warp for the copies), and 128-row blocks that
@@ -304,13 +313,19 @@ __device__ __forceinline__ uint32_t pack(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
-// (x, y) -> hi = bf16(x, y), lo = bf16((x, y) - hi); x in the low half
+// (x, y) -> hi = bf16(x, y), mid = bf16((x, y) - hi), lo = bf16((x, y) -
+// hi - mid): three bf16 terms that carry (x, y) to f32's precision; x in
+// the low half
 __device__ __forceinline__ void split(float x, float y, uint32_t& hi,
-                                      uint32_t& lo) {
+                                      uint32_t& mid, uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
   const float2 hf = __bfloat1622float2(h);
+  const float rx = x - hf.x, ry = y - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(rx, ry);
+  const float2 mf = __bfloat1622float2(m);
   hi = pack(h);
-  lo = pack(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+  mid = pack(m);
+  lo = pack(__floats2bfloat162_rn(rx - mf.x, ry - mf.y));
 }
 
 // Copy rows [0, rows) of a row-major (64, D) global tile into shared
@@ -436,6 +451,7 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // scale, then mask where some key of the tile is hidden from some row
+    // (the scale is applied after the row max is taken off, below)
     const bool full = k0 + kKeys <= Sk &&
                       (!causal || k0 + kKeys - 1 <= q0) &&
                       (window <= 0 || k0 > q0 + kRows - 1 - window);
@@ -443,7 +459,7 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int nb = 0; nb < 8; ++nb) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[nb][e] * scale_log2;
+        float x = s[nb][e];
         if (!full) {
           const int kpos = k0 + nb * 8 + 2 * t + (e & 1);
           const int qpos = e < 2 ? qpos0 : qpos1;
@@ -467,14 +483,14 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 0; i < 2; ++i) {
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      corr[i] = exp2f(m[i] - mx[i]);
+      corr[i] = exp2f((m[i] - mx[i]) * scale_log2);
       m[i] = mx[i];
     }
 #pragma unroll
     for (int nb = 0; nb < 8; ++nb) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[nb][e] = exp2f(s[nb][e] - m[e / 2]);
+        s[nb][e] = exp2f((s[nb][e] - m[e / 2]) * scale_log2);
         rs[e / 2] += s[nb][e];
       }
     }
@@ -488,24 +504,26 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
       oacc[j][3] *= corr[1];
     }
 
-    // O += P_hi V + P_lo V, 16 keys a step: S's blocks 2kk and 2kk + 1 are
-    // the A fragment of keys [16kk, 16kk + 16)
+    // O += P_lo V + P_mid V + P_hi V, 16 keys a step: S's blocks 2kk and
+    // 2kk + 1 are the A fragment of keys [16kk, 16kk + 16)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      uint32_t hi[4], lo[4];
-      split(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
-      split(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
-      split(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
-      split(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
+      uint32_t hi[4], mid[4], lo[4];
+      split(s[2 * kk][0], s[2 * kk][1], hi[0], mid[0], lo[0]);
+      split(s[2 * kk][2], s[2 * kk][3], hi[1], mid[1], lo[1]);
+      split(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], mid[2], lo[2]);
+      split(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], mid[3], lo[3]);
 #pragma unroll
       for (int np = 0; np < NV / 2; ++np) {   // two 8-column blocks of O
         uint32_t b[4];
         ldsm_x4_trans(b, smem_addr(vt + (kk * 16 + r + (mi % 2) * 8) * SV +
                                    np * 16 + (mi / 2) * 8));
-        mma(oacc[2 * np], hi, b[0], b[1]);
         mma(oacc[2 * np], lo, b[0], b[1]);
-        mma(oacc[2 * np + 1], hi, b[2], b[3]);
+        mma(oacc[2 * np], mid, b[0], b[1]);
+        mma(oacc[2 * np], hi, b[0], b[1]);
         mma(oacc[2 * np + 1], lo, b[2], b[3]);
+        mma(oacc[2 * np + 1], mid, b[2], b[3]);
+        mma(oacc[2 * np + 1], hi, b[2], b[3]);
       }
     }
     __syncthreads();   // every warp is done with this buffer

@@ -5,7 +5,7 @@ Replaces the Pallas kernel ``repro/kernels/flash_attention.py::
 flash_attention`` with the hand-written CUDA kernel
 ``csrc/flash_attention.cu``: one block per (b·h, 64 query rows) walking
 64-key tiles. bf16 inputs run on the tensor cores (mma.sync bf16 MMAs,
-P split into two bf16 halves for PV, K/V tiles double-buffered with
+P split into three bf16 terms for PV, K/V tiles double-buffered with
 cp.async); f32 inputs on the CUDA cores. The source says why and what
 bounds it.
 

@@ -1,9 +1,11 @@
 """Where serving's time goes, on the card.
 
 Drives ``serve.decode.generate`` (full-width qwen1.5-0.5b by default, or
-any ``--arch`` the port serves, zamba2-7b and xlstm-125m among them: 8
-prompts of 2048 tokens, 32 greedy
-tokens; ``--flash-attention`` for the flash kernel in the prefill;
+any ``--arch`` the port serves, zamba2-7b, xlstm-125m, whisper-base and
+internvl2-2b among them: 8 prompts of 2048 tokens, 32 greedy tokens;
+whisper's and the VLM's with their stub frames (``--prompt-len`` counts
+the tokens; the VLM's image prefix comes on top);
+``--flash-attention`` for the flash kernel in the prefill;
 ``--layers N`` cuts the depth to N layers, printed, as ``chip_smoke.py``'s
 serve phases cut qwen3-14b and deepseek-v2-236b) on bf16 weights and
 prints one JSON object:
@@ -16,7 +18,10 @@ prints one JSON object:
   decode einsums and softmax; with MLA the whole block, ``mla_parallel``
   and ``mla_decode``: projections, rope, the latent cache and the absorbed
   decode), ``mlp`` (SwiGLU; a MoE layer's shared
-  experts; the hybrid's shared block's), ``moe`` (routing, dispatch, the
+  experts; the hybrid's shared block's; whisper's GELU MLP), ``encoder``
+  (whisper's encoder, whole: its attention and MLPs are not counted
+  again), ``cross`` (whisper's cross-attention blocks, whole: projections,
+  K5 or the decode's einsums, the cross cache), ``moe`` (routing, dispatch, the
   experts and the combine of a MoE layer), ``mamba`` (a Mamba2 block:
   ``mamba_parallel``, ``mamba_decode``), ``mlstm`` and ``slstm`` (the
   xLSTM blocks, parallel form and decode), ``logits`` (final norm and the
@@ -31,6 +36,9 @@ prints one JSON object:
       deepseek-v2-236b --layers 4 --flash-attention
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch \\
       zamba2-7b --flash-attention      # also --arch xlstm-125m
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch \\
+      whisper-base --batch 16 --prompt-len 128 --max-new 64 \\
+      --flash-attention                # also --arch internvl2-2b
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --reduced \\
       --device cpu --prompt-len 64 --max-new 4   # rehearsal: host clock,
                                                  # no profile
@@ -47,6 +55,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core import pinit
 from repro_torch.core.precision import cast_to_compute
+from repro_torch.data.synthetic import stub_frames
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
@@ -57,7 +66,7 @@ from repro_torch.models import xlstm as xl
 from repro_torch.models.registry import build_model
 from repro_torch.launch.profile_step import device_profile, quartiles
 from repro_torch.serve.decode import DeviceClock, generate, \
-    make_prefill_step, make_serve_step
+    make_prefill_step, make_serve_step, prefix_len
 
 #: kernel-name substrings -> group, first match wins
 GROUPS = (("flash_attention", ("flash_fwd",)),
@@ -69,16 +78,21 @@ GROUPS = (("flash_attention", ("flash_fwd",)),
           ("copy/cast/index", ("copy", "cat", "memset", "fill", "index")))
 
 #: (module, function name, phase) timed by ``_Phases``; a call inside a
-#: timed call of the same phase (MLA's ``_attend``) is not timed again
-PARTS = ((tf, "_embed", "embed"), (attn, "_attend", "attention"),
+#: timed call of the same phase (MLA's ``_attend``), or of an ``OUTER``
+#: one, is not timed again
+PARTS = ((tf, "_embed", "embed"), (tf, "_whisper_encode", "encoder"),
+         (tf, "_cross_attention", "cross"), (attn, "_attend", "attention"),
          (attn, "decode_attention", "attention"),
          (attn, "mla_parallel", "attention"),
          (attn, "mla_decode", "attention"),
-         (mlpm, "swiglu_apply", "mlp"), (moem, "moe_apply", "moe"),
+         (mlpm, "swiglu_apply", "mlp"), (mlpm, "gelu_mlp_apply", "mlp"),
+         (moem, "moe_apply", "moe"),
          (mb, "mamba_parallel", "mamba"), (mb, "mamba_decode", "mamba"),
          (xl, "mlstm_parallel", "mlstm"), (xl, "mlstm_decode", "mlstm"),
          (xl, "slstm_parallel", "slstm"), (xl, "slstm_decode", "slstm"),
          (tf, "_logits", "logits"))
+#: phases timed whole: nothing inside them is timed again
+OUTER = frozenset({"encoder", "cross"})
 
 
 class _Phases:
@@ -103,7 +117,7 @@ class _Phases:
 
     def _timed(self, fn, phase):
         def run(*args, **kw):
-            if phase in self.open:
+            if phase in self.open or self.open & OUTER:
                 return fn(*args, **kw)
             self.open.add(phase)
             a = self.clock.mark()
@@ -133,7 +147,7 @@ def _phases(model, params, batch, cache_len, clock):
         (logits, cache), prefill = ph.split(
             lambda: model.forward_prefill(params, batch, cache_len))
     tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
-    pos = batch["tokens"].shape[1]
+    pos = batch["tokens"].shape[1] + prefix_len(model.cfg)
     with _Phases(clock) as ph:
         _, decode = ph.split(
             lambda: model.forward_decode(params, cache, tok, pos))
@@ -183,7 +197,11 @@ def main(argv=None):
     batch = {"tokens": torch.randint(
         0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen,
         dtype=torch.int32).to(dev)}
-    cache_len = args.prompt_len + args.max_new + 8
+    if cfg.encoder is not None:
+        batch["frames"] = stub_frames(cfg, batch=args.batch, step=0,
+                                      seed=args.seed, device=dev)
+    start = args.prompt_len + prefix_len(cfg)     # the first new token's
+    cache_len = start + args.max_new + 8
     run = lambda **kw: generate(model, params, batch, max_new=args.max_new,
                                 cache_len=cache_len, **kw)
     run()                                    # warm-up
@@ -215,7 +233,7 @@ def main(argv=None):
         def decode_steps():
             t = tok
             for i in range(n):
-                t, _, _ = step(p16, cache, t, args.prompt_len + i)
+                t, _, _ = step(p16, cache, t, start + i)
 
         out["profile"] = {
             "prefill": device_profile(lambda: model.forward_prefill(

@@ -8,6 +8,8 @@ Example:
       --reduced --batch 8 --steps 2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
       --reduced --seq 128 --batch 8 --steps 3 --device cpu   # LM, lcg tokens
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base \
+      --reduced --seq 32 --batch 4 --steps 2 --device cpu  # + stub frames
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
       --arch resnet50 --reduced --batch 8 --steps 2 --comm ring \\
       --sharding zero1 --device cpu        # ZeRO-1 on two gloo ranks

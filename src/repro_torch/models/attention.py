@@ -1,4 +1,5 @@
-"""Attention: GQA (+QKV bias, ``qk_norm``, sliding window), MLA, KV caches.
+"""Attention: GQA (+QKV bias, ``qk_norm``, sliding window), cross-attention
+(whisper: keys and values from the encoder's states), MLA, KV caches.
 
 Train/prefill attention runs either the flash kernel (``cfg.flash_attention``:
 ``kernels/ops.flash_attention_bshd``, K5) or the chunked online-softmax
@@ -6,9 +7,8 @@ path below, which keeps the JAX package's chunking, block skipping and
 bf16 roundings so both packages compute the same numbers. Decode is one
 token against a (B, S_max, K, Dh) cache that the port updates in place.
 MLA (DeepSeek-V2) decodes in the *absorbed* form against a cache of only
-the 512-d latent and the shared rope key.
-
-Not ported yet (ROADMAP §1 item 10.6): cross-attention.
+the 512-d latent and the shared rope key. Cross-attention decodes one
+token against a read-only cache of the encoder's keys and values.
 """
 from __future__ import annotations
 
@@ -19,8 +19,6 @@ import torch
 from repro_torch.kernels.ref import NEG
 from repro_torch.models.common import PD, attention_mask, dense_pd, \
     rms_norm, rope
-
-NOT_PORTED = "is not ported to repro_torch yet (ROADMAP §1 item 10)"
 
 
 def _scale(dh: int, dtype: torch.dtype) -> float:
@@ -182,43 +180,52 @@ def _split_heads(x, n, hd):
     return x.reshape(*x.shape[:-1], n, hd)
 
 
-def _qkv(p, x, cfg):
-    """Heads of q, k, v: projected, biased and, with ``qk_norm``, each
-    head RMS-normed (before rope, as the JAX package does)."""
-    hd = cfg.resolved_head_dim
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+def _head(p, x, cfg, w: str, n: int):
+    """x's heads through projection ``w`` ("q", "k" or "v"): projected,
+    biased and, with ``qk_norm``, q's and k's heads RMS-normed (before
+    rope, as the JAX package does)."""
+    y = x @ p[f"w{w}"]
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = _split_heads(q, cfg.n_heads, hd)
-    k = _split_heads(k, cfg.n_kv_heads, hd)
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.rms_eps)
-        k = rms_norm(k, p["k_norm"], cfg.rms_eps)
-    return q, k, _split_heads(v, cfg.n_kv_heads, hd)
+        y = y + p[f"b{w}"]
+    y = _split_heads(y, n, cfg.resolved_head_dim)
+    if cfg.qk_norm and w != "v":
+        y = rms_norm(y, p[f"{w}_norm"], cfg.rms_eps)
+    return y
+
+
+def _qkv(p, x, cfg, kv_src=None):
+    """Heads of q (from x), k and v (from ``kv_src``, default x)."""
+    kv_src = x if kv_src is None else kv_src
+    return (_head(p, x, cfg, "q", cfg.n_heads),
+            _head(p, kv_src, cfg, "k", cfg.n_kv_heads),
+            _head(p, kv_src, cfg, "v", cfg.n_kv_heads))
 
 
 def gqa_parallel(p, x, positions, cfg, *, cache_len: int = 0,
                  cross_x=None):
     """Train/prefill attention. Returns (out, cache|None); the cache holds
     k/v written into zero (B, cache_len, K, Dh) buffers when
-    cache_len > 0."""
-    if cross_x is not None:
-        raise NotImplementedError(f"cross-attention {NOT_PORTED}")
+    cache_len > 0. ``cross_x`` (B, Sk, d): the encoder's states, the source
+    of the keys and values of a non-causal attention without rope (the
+    whisper encoder passes its own input, the decoder the encoder's
+    output)."""
     B, S = x.shape[:2]
-    q, k, v = _qkv(p, x, cfg)
-    if cfg.rope_theta:
+    q, k, v = _qkv(p, x, cfg, kv_src=cross_x)
+    if cfg.rope_theta and cross_x is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    o = _attend(q, k, v, cfg, causal=True, window=cfg.sliding_window)
+    o = _attend(q, k, v, cfg, causal=cross_x is None,
+                window=cfg.sliding_window)
     out = o.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim) @ p["wo"]
     cache = None
     if cache_len:
-        if cache_len < S:
-            raise ValueError(f"cache_len {cache_len} < prompt length {S}")
+        Sk = k.shape[1]
+        if cache_len < Sk:
+            raise ValueError(f"cache_len {cache_len} < length {Sk}")
         kc = k.new_zeros((B, cache_len, *k.shape[2:]))
         vc = v.new_zeros((B, cache_len, *v.shape[2:]))
-        kc[:, :S] = k
-        vc[:, :S] = v
+        kc[:, :Sk] = k
+        vc[:, :Sk] = v
         cache = {"k": kc, "v": vc}
     return out, cache
 
@@ -248,10 +255,15 @@ def _gqa_decode_rows(p, x, pos: int, cfg, kc, vc):
 def gqa_decode(p, x, pos: int, cfg, cache, *, cross: bool = False):
     """One-token decode. x: (B,1,d); pos: the token's index (Python int);
     cache: {'k','v'} (B,Smax,K,Dh), updated IN PLACE at row ``pos`` (the
-    JAX package returns an updated copy) and returned."""
-    if cross:
-        raise NotImplementedError(f"cross-attention {NOT_PORTED}")
-    return _gqa_decode_rows(p, x, pos, cfg, cache["k"], cache["v"]), cache
+    JAX package returns an updated copy) and returned. ``cross``: the
+    cache holds the encoder's keys and values, read only; the token
+    attends over all of its rows."""
+    if not cross:
+        return _gqa_decode_rows(p, x, pos, cfg, cache["k"],
+                                cache["v"]), cache
+    q = _head(p, x, cfg, "q", cfg.n_heads)
+    o = decode_attention(q, cache["k"], cache["v"], cache["k"].shape[1] - 1)
+    return o @ p["wo"], cache
 
 
 def gqa_decode_inplace(p, x, pos: int, cfg, ck_all, cv_all, layer: int):

@@ -50,6 +50,18 @@ def rms_norm(x, scale, eps: float = 1e-6):
     return (x * scale.float()).to(dt)
 
 
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    """LayerNorm as the JAX package computes it: in f32, the mean and then
+    the variance of the centred values (two passes), ``rsqrt(var + eps)``,
+    scale and bias in f32, back to x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
 def softplus(x):
     """log(1 + e^x) as ``jax.nn.softplus`` computes it, ``logaddexp(x,
     0)``: max(x, 0) + log1p(exp(-|x|)), one rounding to x's dtype after

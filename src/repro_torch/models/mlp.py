@@ -1,12 +1,12 @@
-"""Dense FFN block: SwiGLU (LLaMA family), and the activations the LM
-blocks share. The GELU MLP (whisper) is ROADMAP §1 item 10.6."""
+"""Dense FFN blocks: SwiGLU (LLaMA family) and GELU (whisper), and the
+activations the LM blocks share."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-from repro_torch.models.common import dense_pd
+from repro_torch.models.common import PD, dense_pd
 
 
 def swiglu_pd(cfg, d_ff=None):
@@ -40,3 +40,21 @@ def gelu(x):
 
 def swiglu_apply(p, x):
     return (silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+def gelu_mlp_pd(cfg, d_ff=None):
+    d = cfg.d_model
+    f = d_ff or cfg.d_ff
+    return {
+        "w_in": dense_pd(d, f),
+        "b_in": PD((f,), init="zeros"),
+        "w_out": dense_pd(f, d, scale=f ** -0.5
+                          / math.sqrt(2 * max(cfg.n_layers, 1))),
+        "b_out": PD((d,), init="zeros"),
+    }
+
+
+def gelu_mlp_apply(p, x):
+    """``gelu(x W_in + b_in) W_out + b_out``, each bias added in x's dtype
+    after its matmul's rounding, as the JAX package adds them."""
+    return gelu(x @ p["w_in"] + p["b_in"]) @ p["w_out"] + p["b_out"]

@@ -3,9 +3,10 @@
 The port builds the conv family (ResNet-50: training) and the LM families
 through one branch: dense and MoE, with GQA (QKV bias, ``qk_norm``,
 sliding window) or MLA attention, the hybrid (Mamba2 layers and a shared
-attention block) and the xLSTM stack, each with training, prefill and
-one-token decode. Whisper and the VLM raise ``NotImplementedError``:
-ROADMAP §1 item 10.6.
+attention block), the xLSTM stack, whisper's encoder-decoder and the
+prefix VLM, each with training, prefill and one-token decode. The batch
+goes to the model whole: whisper's and the VLM's carry their stub
+``frames`` beside the tokens.
 """
 from __future__ import annotations
 
@@ -57,7 +58,7 @@ def build_model(cfg: ModelConfig) -> Model:
         return Model(cfg=cfg, param_pd=params_pd, bn_state_pd=state_pd,
                      train_fn=train_fn)
 
-    pd = tf.lm_pd(cfg)   # raises for the families not ported yet
+    pd = tf.lm_pd(cfg)
 
     # Each call casts the f32 masters to bf16, as the JAX package's do;
     # leaves already in bf16 pass through, so a caller that casts once

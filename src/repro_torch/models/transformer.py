@@ -1,6 +1,9 @@
 """Language-model composition: the decoder family (dense and MoE, with
-GQA or MLA attention), the hybrid (zamba2: Mamba2 layers with a shared
-attention block) and the xLSTM stack.
+GQA or MLA attention; the prefix VLM, internvl2, whose stub patch
+embeddings go through a stub projector ahead of the tokens), the hybrid
+(zamba2: Mamba2 layers with a shared attention block), the xLSTM stack
+and the encoder-decoder (whisper: stub audio frames through an encoder,
+cross-attended by the decoder).
 
 Layer parameters are stacked along a leading layer axis, as in the JAX
 package, so one descriptor tree and one set of weights mean the same model
@@ -15,8 +18,6 @@ logits and the MoE aux loss summed over the layers, differentiable; with
 as the JAX package wraps its layer scans in ``jax.checkpoint``),
 ``forward_prefill`` (logits of the last position + a filled cache) and
 ``forward_decode`` (one token against the cache, updated in place).
-
-Not ported yet (ROADMAP §1 item 10.6): the whisper and VLM families.
 """
 from __future__ import annotations
 
@@ -31,15 +32,11 @@ from repro_torch.models import mamba as mb
 from repro_torch.models import mlp as mlpm
 from repro_torch.models import moe as moem
 from repro_torch.models import xlstm as xl
-from repro_torch.models.common import PD, dense_pd, pd_stack, rms_norm
-from repro_torch.tree import tree_map
+from repro_torch.models.common import PD, dense_pd, layer_norm, pd_stack, \
+    rms_norm
+from repro_torch.tree import tree_flatten, tree_map
 
-
-def _check_ported(cfg):
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} (arch {cfg.arch_id}) is not ported to "
-            f"repro_torch yet (ROADMAP §1 item 10.6)")
+MAX_POS = 32_768   # learned-position table size (whisper-style decoders)
 
 
 # ---------------------------------------------------------------------------
@@ -64,16 +61,30 @@ def _dense_layer_pd(cfg):
     return p
 
 
+def _whisper_layer_pd(cfg, cross: bool):
+    d = cfg.d_model
+    p = {"ln1": PD((d,), init="ones"), "ln1b": PD((d,), init="zeros"),
+         "attn": attn.gqa_pd(cfg),
+         "ln2": PD((d,), init="ones"), "ln2b": PD((d,), init="zeros"),
+         "mlp": mlpm.gelu_mlp_pd(cfg)}
+    if cross:
+        p["lnx"] = PD((d,), init="ones")
+        p["lnxb"] = PD((d,), init="zeros")
+        p["cross"] = attn.gqa_pd(cfg)
+    return p
+
+
 def lm_pd(cfg) -> Dict[str, Any]:
-    _check_ported(cfg)
     d, V = cfg.d_model, cfg.vocab_size
     tree: Dict[str, Any] = {"final_norm": PD((d,), init="ones"),
                             "embed": PD((V, d), scale=0.02)}
     if not cfg.tie_embeddings:
         tree["lm_head"] = dense_pd(d, V, scale=d ** -0.5)
     fam = cfg.family
-    if fam in ("dense", "moe"):
+    if fam in ("dense", "moe", "vlm"):
         tree["layers"] = pd_stack(_dense_layer_pd(cfg), cfg.n_layers)
+        if fam == "vlm":
+            tree["proj"] = dense_pd(d, d)   # stub projector
     elif fam == "ssm" and cfg.xlstm is not None:
         for i in range(cfg.n_layers):
             blk = (xl.mlstm_pd(cfg) if xl.block_kind(cfg, i) == "m"
@@ -87,6 +98,17 @@ def lm_pd(cfg) -> Dict[str, Any]:
         tree["shared_attn"] = {
             "ln1": PD((d,), init="ones"), "attn": attn.gqa_pd(cfg),
             "ln2": PD((d,), init="ones"), "mlp": mlpm.swiglu_pd(cfg)}
+    elif fam == "audio":
+        enc = cfg.encoder
+        tree["enc_pos"] = PD((enc.n_frames, d), scale=0.02)
+        tree["enc_layers"] = pd_stack(_whisper_layer_pd(cfg, cross=False),
+                                      enc.n_layers)
+        tree["enc_norm"] = PD((d,), init="ones")
+        tree["enc_norm_b"] = PD((d,), init="zeros")
+        tree["dec_pos"] = PD((MAX_POS, d), scale=0.02)
+        tree["layers"] = pd_stack(_whisper_layer_pd(cfg, cross=True),
+                                  cfg.n_layers)
+        tree["final_norm_b"] = PD((d,), init="zeros")
     else:
         raise ValueError(fam)
     return tree
@@ -101,8 +123,9 @@ def cache_pd(cfg, batch: int, max_seq: int):
     (n_groups, batch, max_seq, K, Dh), and ``mamba``, the Mamba layers'
     conv windows (bf16) and states (f32) stacked over the layers. The
     xLSTM stack: a ``layer_XX`` tree a layer, mLSTM's C, n, m or sLSTM's
-    c, n, h, m, all f32."""
-    _check_ported(cfg)
+    c, n, h, m, all f32. The VLM's rows hold its image prefix first, so
+    max_seq counts it. Whisper: ``self``, the decoder's k and v, and
+    ``cross``, the encoder output's (L, batch, n_frames, K, Dh), bf16."""
     zeros = lambda *shape: PD(shape, init="zeros", dtype=torch.bfloat16)
     if cfg.family == "ssm":
         return {f"layer_{i:02d}": (xl.mlstm_cache_pd(cfg, batch)
@@ -114,8 +137,12 @@ def cache_pd(cfg, batch: int, max_seq: int):
         return pd_stack({"ckv": zeros(batch, max_seq, m.kv_lora_rank),
                          "krope": zeros(batch, max_seq, m.rope_head_dim)},
                         cfg.n_layers)
-    shape = (batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
-    kv = {"k": zeros(*shape), "v": zeros(*shape)}
+    kv_of = lambda rows: {n: zeros(batch, rows, cfg.n_kv_heads,
+                                    cfg.resolved_head_dim) for n in "kv"}
+    if cfg.family == "audio":
+        return pd_stack({"self": kv_of(max_seq),
+                         "cross": kv_of(cfg.encoder.n_frames)}, cfg.n_layers)
+    kv = kv_of(max_seq)
     if cfg.family == "hybrid":
         return {"attn": pd_stack(kv, len(_hybrid_groups(cfg))),
                 "mamba": pd_stack(mb.mamba_cache_pd(cfg, batch),
@@ -131,8 +158,22 @@ def _embed(params, cfg, tokens):
     return params["embed"][tokens].to(compute_dtype())
 
 
+def _inputs(params, cfg, batch):
+    """The decoder stack's input (B, S, d): the token embeddings, after
+    the VLM's image prefix (its patch embeddings through the stub
+    projector, in the compute dtype, as the JAX package rounds them)."""
+    x = _embed(params, cfg, batch["tokens"])
+    if cfg.family == "vlm":
+        dt = compute_dtype()
+        x = torch.cat([batch["frames"].to(dt) @ params["proj"].to(dt), x],
+                      dim=1)
+    return x
+
+
 def _logits(params, cfg, x):
-    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    x = (layer_norm(x, params["final_norm"], params["final_norm_b"])
+         if cfg.family == "audio"
+         else rms_norm(x, params["final_norm"], cfg.rms_eps))
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return (x @ w.to(x.dtype)).float()
 
@@ -143,13 +184,37 @@ def _layer(layers, i: int):
 
 
 def _put(stacked, n: int, i: int, cache):
-    """Layer i's flat cache dict written into ``stacked``, whose leaves
-    (n, ...) are allocated at the first write. Returns ``stacked``."""
+    """Layer i's cache tree written into ``stacked``, whose leaves (n, ...)
+    are allocated at the first write. Returns ``stacked``."""
     if stacked is None:
-        stacked = {k: t.new_empty((n, *t.shape)) for k, t in cache.items()}
-    for k, t in cache.items():
-        stacked[k][i] = t
+        stacked = tree_map(lambda t: t.new_empty((n, *t.shape)), cache)
+    for (_, dst), (_, t) in zip(tree_flatten(stacked), tree_flatten(cache)):
+        dst[i] = t
     return stacked
+
+
+def _run(fn, remat: bool, *args):
+    """``fn(*args)``, recomputed in the backward when ``remat``: a layer
+    draws no random numbers, so no RNG state needs keeping."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
+def _walk(layer, layers, n: int, x, cfg, *args, train: bool):
+    """x through ``layer(p, x, cfg, *args) -> x`` for each of the n
+    stacked layers; in training each is recomputed in the backward under
+    ``cfg.remat`` (the JAX package's checkpointed layer scan). The stacked
+    leaves are unbound once: their backward is one stack of the n layer
+    gradients, not a zero-filled full-size gradient a layer as slicing
+    each layer out would give."""
+    unbound = tree_map(lambda a: a.unbind(0), layers)
+    remat = train and cfg.remat and torch.is_grad_enabled()
+    for i in range(n):
+        x = _run(layer, remat, tree_map(lambda t: t[i], unbound), x, cfg,
+                 *args)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -201,21 +266,13 @@ def _dense_forward(params, cfg, x, positions, *, mode, cache=None, pos=None,
     L = cfg.n_layers
     aux = None
     if mode == "train":
-        # the stacked leaves unbound once: their backward is one stack of
-        # the L layer gradients, not a zero-filled full-size gradient per
-        # layer as slicing each layer out would give
+        # unbound once, as in _walk
         unbound = tree_map(lambda a: a.unbind(0), params["layers"])
         remat = cfg.remat and torch.is_grad_enabled()
         for i in range(L):
-            p = tree_map(lambda t: t[i], unbound)
-            if remat:
-                # recomputed in the backward; a layer draws no random
-                # numbers, so no RNG state needs keeping
-                x, a = checkpoint(_train_block, p, x, positions, cfg,
-                                  use_reentrant=False,
-                                  preserve_rng_state=False)
-            else:
-                x, a = _train_block(p, x, positions, cfg)
+            x, a = _run(_train_block, remat, tree_map(lambda t: t[i],
+                                                      unbound),
+                        x, positions, cfg)
             aux = _add(aux, a)
         return x, aux, None
     if mode == "prefill":
@@ -274,7 +331,7 @@ def _hybrid_forward(params, cfg, x, positions, *, mode, cache=None,
     layers, shared = params["layers"], params["shared_attn"]
     groups = _hybrid_groups(cfg)
     if mode == "train":
-        # unbound once, as in _dense_forward
+        # unbound once, as in _walk
         unbound = tree_map(lambda a: a.unbind(0), layers)
         remat = cfg.remat and torch.is_grad_enabled()
     elif mode == "prefill":
@@ -291,10 +348,8 @@ def _hybrid_forward(params, cfg, x, positions, *, mode, cache=None,
                 cache["attn"] = _put(cache["attn"], len(groups), g, c)
         for i in range(lo, hi):
             if mode == "train":
-                p = tree_map(lambda t: t[i], unbound)
-                x = (checkpoint(_mamba_layer, p, x, cfg, use_reentrant=False,
-                                preserve_rng_state=False) if remat
-                     else _mamba_layer(p, x, cfg))
+                x = _run(_mamba_layer, remat,
+                         tree_map(lambda t: t[i], unbound), x, cfg)
                 continue
             p = _layer(layers, i)
             h = rms_norm(x, p["ln"], cfg.rms_eps)
@@ -337,6 +392,100 @@ def _xlstm_forward(params, cfg, x, positions, *, mode, cache=None, pos=None,
     return x, None, (None if mode == "train" else cache)
 
 
+# ---------------------------------------------------------------------------
+# whisper: encoder over the stub frames, decoder with cross-attention
+
+
+def _enc_layer(p, x, cfg):
+    """One encoder layer: non-causal self-attention without rope (the
+    JAX package's ``gqa_parallel(..., cross_x=h)``) and the GELU MLP,
+    each after a LayerNorm."""
+    h = layer_norm(x, p["ln1"], p["ln1b"])
+    a, _ = attn.gqa_parallel(p["attn"], h, None, cfg, cross_x=h)
+    x = x + a
+    h = layer_norm(x, p["ln2"], p["ln2b"])
+    return x + mlpm.gelu_mlp_apply(p["mlp"], h)
+
+
+def _whisper_layer(p, x, positions, cfg, enc_out, *, decode=False,
+                   cache=None, pos=None, cache_len=0):
+    """One decoder layer: causal self-attention, cross-attention over the
+    encoder's output and the GELU MLP, each after a LayerNorm. Returns (x,
+    cache|None); the prefill's cache holds ``self`` (cache_len rows) and
+    ``cross`` (the encoder output's k and v); decode writes its token's
+    row of ``self`` in place and reads ``cross``."""
+    h = layer_norm(x, p["ln1"], p["ln1b"])
+    if decode:
+        a, sc = attn.gqa_decode(p["attn"], h, pos, cfg, cache["self"])
+    else:
+        a, sc = attn.gqa_parallel(p["attn"], h, positions, cfg,
+                                  cache_len=cache_len)
+    x = x + a
+    a, xc = _cross_attention(p, layer_norm(x, p["lnx"], p["lnxb"]), cfg,
+                             enc_out, decode=decode, cache=cache, pos=pos,
+                             cache_len=cache_len)
+    x = x + a
+    h = layer_norm(x, p["ln2"], p["ln2b"])
+    x = x + mlpm.gelu_mlp_apply(p["mlp"], h)
+    return x, ({"self": sc, "cross": xc} if cache_len or decode else None)
+
+
+def _cross_attention(p, h, cfg, enc_out, *, decode, cache, pos, cache_len):
+    """The decoder layer's cross-attention over the encoder's output: its
+    k and v cached (``cross``) when the prefill keeps a cache; decode reads
+    that cache."""
+    if decode:
+        return attn.gqa_decode(p["cross"], h, pos, cfg, cache["cross"],
+                               cross=True)
+    return attn.gqa_parallel(p["cross"], h, None, cfg, cross_x=enc_out,
+                             cache_len=enc_out.shape[1] if cache_len else 0)
+
+
+def _dec_train_layer(p, x, cfg, positions, enc_out):
+    return _whisper_layer(p, x, positions, cfg, enc_out)[0]
+
+
+def _whisper_encode(params, cfg, frames, train: bool):
+    """frames: the stub (B, n_frames, d) embeddings; with the learned
+    positions, in the compute dtype, through the encoder layers and the
+    final LayerNorm."""
+    dt = compute_dtype()
+    x = frames.to(dt) + params["enc_pos"].to(dt)
+    x = _walk(_enc_layer, params["enc_layers"], cfg.encoder.n_layers, x,
+              cfg, train=train)
+    return layer_norm(x, params["enc_norm"], params["enc_norm_b"])
+
+
+def _whisper_forward(params, cfg, tokens, frames, *, mode, cache=None,
+                     pos=None, cache_len=0):
+    """The encoder over ``frames`` (train, prefill) and the decoder over
+    ``tokens`` with learned positions. Returns (x, cache): the prefill's
+    stacked ``self`` and ``cross`` caches, allocated at the first write;
+    decode's the given one, updated in place."""
+    dt = compute_dtype()
+    layers, L = params["layers"], cfg.n_layers
+    if mode == "decode":
+        x = _embed(params, cfg, tokens) + params["dec_pos"][pos].to(dt)
+        for i in range(L):
+            x, _ = _whisper_layer(_layer(layers, i), x, None, cfg, None,
+                                  decode=True, cache=_layer(cache, i),
+                                  pos=pos)
+        return x, cache
+    enc_out = _whisper_encode(params, cfg, frames, train=mode == "train")
+    S = tokens.shape[1]
+    x = _embed(params, cfg, tokens) + params["dec_pos"][:S].to(dt)
+    positions = torch.arange(S, device=x.device)[None]
+    if mode == "train":
+        return _walk(_dec_train_layer, layers, L, x, cfg, positions,
+                     enc_out, train=True), None
+    stacked = None
+    for i in range(L):
+        x, c = _whisper_layer(_layer(layers, i), x, positions, cfg, enc_out,
+                              cache_len=cache_len)
+        stacked = _put(stacked, L, i, c)
+    return x, stacked
+
+
 def _forward(cfg):
     """The family's stack: (params, cfg, x, positions, mode=..., ...) ->
     (x, aux, cache)."""
@@ -349,13 +498,18 @@ def _forward(cfg):
 
 
 def forward_train(params, cfg, batch):
-    """batch: {'tokens': (B,S)}. Returns (logits (B,S,V) f32, aux 0-d f32:
-    the MoE load-balance loss summed over the layers, 0 for a dense
-    stack)."""
-    _check_ported(cfg)
-    x = _embed(params, cfg, batch["tokens"])
-    positions = torch.arange(x.shape[1], device=x.device)[None]
-    x, aux, _ = _forward(cfg)(params, cfg, x, positions, mode="train")
+    """batch: {'tokens': (B,S)[, 'frames': (B,P,d)]}. Returns (logits
+    (B,S',V) f32, aux 0-d f32: the MoE load-balance loss summed over the
+    layers, 0 for a dense stack); S' = P + S for the VLM, whose image
+    prefix takes P positions, else S."""
+    if cfg.family == "audio":
+        x, _ = _whisper_forward(params, cfg, batch["tokens"],
+                                batch["frames"], mode="train")
+        aux = None
+    else:
+        x = _inputs(params, cfg, batch)
+        positions = torch.arange(x.shape[1], device=x.device)[None]
+        x, aux, _ = _forward(cfg)(params, cfg, x, positions, mode="train")
     if aux is None:
         aux = torch.zeros((), device=x.device)
     return _logits(params, cfg, x), aux
@@ -363,19 +517,27 @@ def forward_train(params, cfg, batch):
 
 def forward_prefill(params, cfg, batch, cache_len: int):
     """Returns (last-position logits (B,1,V) f32, cache)."""
-    _check_ported(cfg)
-    x = _embed(params, cfg, batch["tokens"])
-    positions = torch.arange(x.shape[1], device=x.device)[None]
-    x, _, cache = _forward(cfg)(params, cfg, x, positions, mode="prefill",
-                                cache_len=cache_len)
+    if cfg.family == "audio":
+        x, cache = _whisper_forward(params, cfg, batch["tokens"],
+                                    batch["frames"], mode="prefill",
+                                    cache_len=cache_len)
+    else:
+        x = _inputs(params, cfg, batch)
+        positions = torch.arange(x.shape[1], device=x.device)[None]
+        x, _, cache = _forward(cfg)(params, cfg, x, positions,
+                                    mode="prefill", cache_len=cache_len)
     return _logits(params, cfg, x[:, -1:]), cache
 
 
 def forward_decode(params, cfg, cache, token, pos: int):
-    """token: (B,1) integers; pos: its index (Python int). Returns (logits
-    (B,1,V) f32, cache); the cache is updated in place."""
-    _check_ported(cfg)
-    x = _embed(params, cfg, token)
-    x, _, cache = _forward(cfg)(params, cfg, x, None, mode="decode",
-                                cache=cache, pos=pos)
+    """token: (B,1) integers; pos: its index (Python int; the VLM's counts
+    its image prefix). Returns (logits (B,1,V) f32, cache); the cache is
+    updated in place."""
+    if cfg.family == "audio":
+        x, cache = _whisper_forward(params, cfg, token, None, mode="decode",
+                                    cache=cache, pos=pos)
+    else:
+        x = _embed(params, cfg, token)
+        x, _, cache = _forward(cfg)(params, cfg, x, None, mode="decode",
+                                    cache=cache, pos=pos)
     return _logits(params, cfg, x), cache

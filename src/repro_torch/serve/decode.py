@@ -14,9 +14,15 @@ generation loop (a port of ``repro.serve.decode``), with a CLI that mirrors
       --reduced --flash-attention --device cpu    # hybrid: Mamba2 states
   PYTHONPATH=src python -m repro_torch.serve.decode --arch xlstm-125m \\
       --reduced --device cpu      # xLSTM: the recurrent states are the cache
+  PYTHONPATH=src python -m repro_torch.serve.decode --arch whisper-base \\
+      --reduced --flash-attention --device cpu  # stub audio frames, encoder
+  PYTHONPATH=src python -m repro_torch.serve.decode --arch internvl2-2b \\
+      --reduced --device cpu      # stub patch embeddings ahead of the prompt
 
-Whisper and the VLM are not ported (ROADMAP §1 item 10.6); their
-``--arch`` raises.
+Whisper's and the VLM's requests carry stub ``frames`` (``data.synthetic.
+stub_frames``): whisper's encoder reads them and its decoder
+cross-attends to the encoder's output; the VLM's image prefix takes the
+first ``n_frames`` positions of the cache.
 
 The JAX package jits the prefill and the decode step; the port runs them
 eagerly, casts f32 masters to bf16 once per ``generate`` call (bf16
@@ -77,13 +83,20 @@ class DeviceClock:
         return a.elapsed_time(b)
 
 
+def prefix_len(cfg) -> int:
+    """Positions a request takes ahead of its tokens: the VLM's image
+    prefix (``n_frames``), else 0."""
+    return cfg.encoder.n_frames if cfg.family == "vlm" else 0
+
+
 def generate(model, params, batch, *, max_new: int, cache_len: int,
              timings: dict = None):
     """Batched greedy generation: (B, max_new) int32 tokens. ``timings``,
     if given, receives ``prefill_ms`` and ``decode_ms`` (one per decode
-    step) on the device's clock."""
+    step) on the device's clock. The cache must hold the prompt, the
+    VLM's image prefix and the new tokens."""
     tokens = batch["tokens"]
-    prompt_len = tokens.shape[1]
+    prompt_len = tokens.shape[1] + prefix_len(model.cfg)
     if cache_len < prompt_len + max_new:
         # the JAX package's dynamic_update_slice would clamp the write and
         # overwrite the cache's last row; the port refuses instead
@@ -112,6 +125,7 @@ def generate(model, params, batch, *, max_new: int, cache_len: int,
 def main(argv=None):
     from repro_torch.configs import get_config
     from repro_torch.core import pinit
+    from repro_torch.data.synthetic import stub_frames
     from repro_torch.kernels.backend import resolve_device
     from repro_torch.models.registry import build_model
 
@@ -140,11 +154,15 @@ def main(argv=None):
     params = pinit.materialize(model.param_pd, seed=args.seed, device=dev,
                                dtype=torch.bfloat16)
     gen = torch.Generator().manual_seed(args.seed)
-    tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                           generator=gen, dtype=torch.int32).to(dev)
-    cache_len = args.prompt_len + args.max_new + 8
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen,
+        dtype=torch.int32).to(dev)}
+    if cfg.encoder is not None:
+        batch["frames"] = stub_frames(cfg, batch=args.batch, step=0,
+                                      seed=args.seed, device=dev)
+    cache_len = args.prompt_len + prefix_len(cfg) + args.max_new + 8
     timings = {}
-    out = generate(model, params, {"tokens": tokens}, max_new=args.max_new,
+    out = generate(model, params, batch, max_new=args.max_new,
                    cache_len=cache_len, timings=timings)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     line = (f"arch={args.arch}{' (reduced)' if args.reduced else ''} on "

@@ -72,11 +72,13 @@ from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 def _lm_loss(logits, labels, *, smoothing):
     """The reference's LM loss: ``smoothed_xent`` with its per-row NLL from
     the K4 wrapper (labels clamped to 0 where IGNORE), then the masked mean.
-    Returns (mean loss, n_valid)."""
-    if labels.shape != logits.shape[:-1]:
-        raise NotImplementedError(
-            "labels narrower than the logits (the VLM image prefix) are not "
-            "ported to repro_torch yet (ROADMAP §1 item 10)")
+    Labels narrower than the logits (the VLM: its image prefix's positions
+    carry none) are left-padded with IGNORE. Returns (mean loss,
+    n_valid)."""
+    pad = logits.shape[1] - labels.shape[1]
+    if pad:
+        labels = torch.cat([labels.new_full((labels.shape[0], pad), IGNORE),
+                            labels], dim=1)
     valid = labels != IGNORE
     safe = torch.where(valid, labels, 0)
     nll = ops.smoothed_xent_rows(logits.reshape(-1, logits.shape[-1]),
@@ -94,7 +96,12 @@ def make_loss_fn(model, *, smoothing: float = 0.1, aux_coef: float = 0.01):
         (logits, aux), new_bn = model.forward_train(params, batch, bn_state)
         loss, _ = xent(logits, batch["labels"], smoothing=smoothing)
         total = loss + aux_coef * aux
-        acc = top1_accuracy(logits.detach(), batch["labels"])
+        # the VLM's labels are narrower than its logits; the JAX package
+        # then counts no label at all, so its accuracy reads 0 (ROADMAP §3)
+        labels = batch["labels"]
+        if labels.shape != logits.shape[:-1]:
+            labels = labels.new_full(logits.shape[:-1], IGNORE)
+        acc = top1_accuracy(logits.detach(), labels)
         metrics = {"loss": loss.detach(), "aux": aux.detach(), "acc": acc}
         return total, (metrics, new_bn)
 

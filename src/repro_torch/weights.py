@@ -67,8 +67,9 @@ def state_from_jax(jax_state, cfg, device) -> TrainState:
 
 
 def lm_params_from_jax(np_tree, cfg, device) -> dict:
-    """Reference LM params (numpy leaves, stacked (L, ...) layers) -> the
-    port's tree, checked path by path and shape by shape against
+    """Reference LM params (numpy leaves, stacked (L, ...) layers; whisper's
+    encoder stack and position tables, the VLM's projector among them) ->
+    the port's tree, checked path by path and shape by shape against
     ``transformer.lm_pd``."""
     return _to_torch(np_tree, transformer.lm_pd(cfg), device, "params")
 
@@ -93,8 +94,10 @@ def lm_state_from_jax(jax_state, cfg, device) -> TrainState:
 
 
 def cache_from_jax(np_tree, cfg, batch: int, max_seq: int, device) -> dict:
-    """A reference KV cache (numpy leaves, bf16 as f32) of ``batch``
-    requests and ``max_seq`` rows -> the port's stacked bf16 cache."""
+    """A reference cache (numpy leaves, bf16 as f32) of ``batch`` requests
+    and ``max_seq`` rows -> the port's (``transformer.cache_pd``): stacked
+    bf16 k and v (whisper's ``self`` and ``cross`` subtrees; the VLM's
+    rows counting its image prefix), MLA's latent, the recurrent states."""
     return _to_torch(np_tree, transformer.cache_pd(cfg, batch, max_seq),
                      device, "cache")
 

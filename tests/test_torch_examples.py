@@ -114,8 +114,15 @@ def test_serve_setup_and_refusals():
     again = serve_decode.setup(batch=2, prompt_len=8, max_new=3,
                                device="cpu")
     assert torch.equal(run.batch["tokens"], again.batch["tokens"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        serve_decode.setup("whisper-base", device="cpu")
+    # whisper and the VLM (item 10.6) carry stub frames, as the reference's
+    # example draws them; the VLM's cache has room for its image prefix
+    for arch, room in (("whisper-base", 0), ("internvl2-2b", 16)):
+        run = serve_decode.setup(arch, batch=2, prompt_len=8, max_new=3,
+                                 device="cpu")
+        assert tuple(run.batch["frames"].shape) == (2, 16, 256)
+        assert run.cache_len == 8 + room + 3 + 8
+    with pytest.raises(KeyError, match="unknown arch"):
+        serve_decode.setup("whisper-large", device="cpu")
 
 
 def _last_line(capsys) -> str:
@@ -142,9 +149,11 @@ def test_quickstart_main_runs_on_the_cpu(monkeypatch, capsys):
     assert _last_line(capsys).startswith("loss ")
 
 
-def test_serve_main_runs_on_the_cpu(capsys):
-    out = serve_decode.main(["--batch", "1", "--prompt-len", "8",
-                             "--max-new", "2", "--device", "cpu"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "whisper-base",
+                                  "internvl2-2b"])
+def test_serve_main_runs_on_the_cpu(arch, capsys):
+    out = serve_decode.main(["--arch", arch, "--batch", "1", "--prompt-len",
+                             "8", "--max-new", "2", "--device", "cpu"])
     assert tuple(out.shape) == (1, 2)
     assert _last_line(capsys).startswith("first request's tokens: [")
 

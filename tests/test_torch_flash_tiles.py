@@ -6,11 +6,14 @@ any card runs it:
 - 64-key tiles, walked in order from the first visible one, with the f32
   online state (m, l, acc) carried between them;
 - S = q·kᵀ from bf16 products summed in f32 (exact products, as the
-  m16n8k16 MMA forms them), the scale Dk^-0.5·log2(e) applied to S after
-  the dot, masked scores -1e30;
-- P = exp2(S - m) in f32, l summed from that f32 P;
-- P split into ``P_hi = bf16(P)`` and ``P_lo = bf16(P - P_hi)``, and
-  ``acc += P_hi·V + P_lo·V`` in f32 (two exact bf16 MMAs);
+  m16n8k16 MMA forms them), masked scores -1e30, the row max m taken over
+  the unscaled S;
+- P = exp2((S - m)·Dk^-0.5·log2(e)) in f32 (the scale applied after the
+  max is taken off, so no score is rounded at its own size in the log2
+  domain), l summed from that f32 P;
+- P split into three bf16 terms, ``P_hi = bf16(P)``, ``P_mid = bf16(P -
+  P_hi)`` and ``P_lo = bf16(P - P_hi - P_mid)``, and ``acc += P_lo·V +
+  P_mid·V + P_hi·V`` in f32 (three exact bf16 MMAs: P to f32's precision);
 - output ``acc / max(l, 1e-30)`` rounded to bf16.
 
 It is held against the Pallas kernel in interpret mode at
@@ -18,7 +21,11 @@ It is held against the Pallas kernel in interpret mode at
 48, Dv 32), and against the plain version (``kernels/ref.flash_attention``)
 at an S 1024 GQA shape with a window, at the card tests' bf16 tolerance
 (rtol 1e-2, atol 1e-5). A guard case shows why the split is there: the same emulation with P rounded once to
-bf16 puts elements outside that tolerance."""
+bf16 puts elements outside that tolerance. (The third term, and the scale
+after the max, are fault 3.5's repair: on the card, with q x 8, the
+two-term split and the log2-domain rounding were the kernel's own share of
+an error that the plain version's f32 scores push past atol;
+``tools/k5_peaked_dump.py`` measures it against f64.)"""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,9 +43,11 @@ LOG2E = 1.4426950408889634
 RTOL, ATOL = 1e-2, 1e-5
 
 
-def emulate(q, k, v, *, causal, window, n_q_heads, n_kv_heads, split=True):
+def emulate(q, k, v, *, causal, window, n_q_heads, n_kv_heads, terms=3):
     """q (B·H, Sq, Dk), k (B·K, Sk, Dk), v (B·K, Sk, Dv), all bf16; the
-    kernel's arithmetic, tile by tile, returning bf16 (B·H, Sq, Dv)."""
+    kernel's arithmetic, tile by tile, returning bf16 (B·H, Sq, Dv);
+    ``terms``: the bf16 terms P is split into (the kernel's 3; 1 is P
+    rounded once)."""
     BH, Sq, Dk = q.shape
     Sk = k.shape[1]
     H, K = n_q_heads, n_kv_heads
@@ -46,7 +55,8 @@ def emulate(q, k, v, *, causal, window, n_q_heads, n_kv_heads, split=True):
     kv = (bh // H) * K + (bh % H) // (H // K)
     qf, kf, vf = q.float(), k.float()[kv], v.float()[kv]
     qpos = torch.arange(Sq)[:, None]
-    scale = Dk ** -0.5 * LOG2E          # exp(x) = exp2(x·log2(e))
+    scale = torch.tensor(Dk ** -0.5, dtype=torch.float32) \
+        * torch.tensor(LOG2E, dtype=torch.float32)   # exp = exp2(·log2 e)
     m = torch.full((BH, Sq, 1), NEG)
     l = torch.zeros((BH, Sq, 1))
     acc = torch.zeros((BH, Sq, v.shape[2]))
@@ -61,17 +71,17 @@ def emulate(q, k, v, *, causal, window, n_q_heads, n_kv_heads, split=True):
             continue
         # bf16 x bf16 is exact in f32; the f32 sums run in another order
         # than the MMA's, which only the tolerance sees
-        s = torch.einsum("bqd,bkd->bqk", qf, kf[:, k0:k0 + TILE]) * scale
+        s = torch.einsum("bqd,bkd->bqk", qf, kf[:, k0:k0 + TILE])
         s = s.masked_fill(~ok, NEG)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        corr = torch.exp2(m - m_new)
-        p = torch.exp2(s - m_new)
+        corr = torch.exp2((m - m_new) * scale)
+        p = torch.exp2((s - m_new) * scale)
         l = l * corr + p.sum(-1, keepdim=True)
         vt = vf[:, k0:k0 + TILE]
-        p_hi = p.bfloat16().float()
-        pv = p_hi @ vt
-        if split:
-            pv = pv + (p - p_hi).bfloat16().float() @ vt
+        pv, rest = 0.0, p
+        for _ in range(terms):
+            part = rest.bfloat16().float()
+            pv, rest = pv + part @ vt, rest - part
         acc = acc * corr + pv
         m = m_new
     return (acc / l.clamp_min(1e-30)).bfloat16()
@@ -152,15 +162,16 @@ def test_tile_emulation_without_p_lo_fails_the_tolerance(dims):
     kw = dict(causal=True, window=LONG["window"], n_q_heads=LONG["H"],
               n_kv_heads=LONG["K"])
     want = ref.flash_attention(q.float(), k.float(), v.float(), **kw)
-    assert _outside(emulate(q, k, v, split=False, **kw), want) > 0
+    assert _outside(emulate(q, k, v, terms=1, **kw), want) > 0
     assert _outside(emulate(q, k, v, **kw), want) == 0
 
 
 def test_tile_emulation_holds_the_peaked_112_case():
     """``test_torch_gpu.py``'s peaked (112, 112) case (32 heads, S 512,
-    causal, q x 8) in the emulation, on the CPU's draws: the split holds
-    it, so the card's one element past atol there (ROADMAP §3, fault 3.5)
-    does not come from P's bf16 split as emulated here."""
+    causal, q x 8) in the emulation, on the CPU's draws: the three-term
+    split holds it. (The card's element past atol there, fault 3.5, needed
+    the card's own draws: the plain version's f32 scores carry most of
+    that error, ROADMAP §3.)"""
     rng = np.random.default_rng(0)
     H, S, D = 32, 512, 112
     q = _bf16(rng, H, S, D, scale=8.0)

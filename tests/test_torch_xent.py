@@ -111,11 +111,25 @@ def test_lm_loss_matches_reference_smoothed_xent(smoothing):
 
 
 def test_lm_loss_refuses_prefix_labels():
-    """The VLM image prefix (labels narrower than the logits) waits with
-    the VLM family."""
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
-        _lm_loss(torch.zeros(2, 8, 16), torch.zeros(2, 5, dtype=torch.int32),
-                 smoothing=0.1)
+    """The VLM image prefix (labels narrower than the logits; ported with
+    the VLM family): the labels are left-padded with IGNORE over the
+    prefix, as the reference's ``train.step._lm_loss`` pads them, so the
+    loss and its count equal the reference's and the loss with the labels
+    padded by hand."""
+    from repro.train.step import _lm_loss as j_lm_loss
+    rng = np.random.default_rng(7)
+    logits = (4.0 * rng.standard_normal((2, 8, 16))).astype(np.float32)
+    labels = rng.integers(0, 16, (2, 5)).astype(np.int32)
+    labels[:, -1] = IGNORE
+    loss, n = _lm_loss(torch.from_numpy(logits), torch.from_numpy(labels),
+                       smoothing=0.1)
+    want, want_n = j_lm_loss(jnp.asarray(logits), jnp.asarray(labels),
+                             smoothing=0.1)
+    assert int(n) == int(want_n) == 8
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-6)
+    padded = np.concatenate([np.full((2, 3), IGNORE, np.int32), labels], 1)
+    assert float(_lm_loss(torch.from_numpy(logits), torch.from_numpy(padded),
+                          smoothing=0.1)[0]) == float(loss)
 
 
 def test_backward_formula_matches_autograd_of_plain():

@@ -22,6 +22,8 @@ to an ``.npz`` of ``kind/path`` keys.
   python tests/torch_reference.py lm_variant_cases OUT.npz
   python tests/torch_reference.py mamba_cases OUT.npz
   python tests/torch_reference.py xlstm_cases OUT.npz
+  python tests/torch_reference.py whisper_cases OUT.npz
+  python tests/torch_reference.py vlm_cases OUT.npz
   python tests/torch_reference.py guard_zero1_run OUT.npz
   python tests/torch_reference.py traced_zero1_step OUT.npz
 
@@ -682,7 +684,7 @@ def lm_cases():
 
 
 def _lm_run(model, params, toks, *, prompt=LM_PROMPT, cache_len=LM_CACHE,
-            mesh=None, via_generate=True, decode=None):
+            mesh=None, via_generate=True, decode=None, frames=None):
     """The full forward over ``toks`` (prompt + 1 tokens; with its aux),
     the prefill of the prompt, one decode step of the last token from that
     cache, and ``generate``'s LM_NEW greedy tokens; with ``via_generate``
@@ -690,27 +692,33 @@ def _lm_run(model, params, toks, *, prompt=LM_PROMPT, cache_len=LM_CACHE,
     compiled here (``generate``'s loop: the argmax of the last logits fed
     back), which saves ``generate`` compiling both again, and ``decode``,
     given, is a jitted ``forward_decode(p, c, t, i)`` of another run to
-    reuse (the decode takes no flash kernel)."""
+    reuse (the decode takes no flash kernel). ``frames``: whisper's and
+    the VLM's stub frames, in every batch (the VLM's image prefix moves
+    the decode positions by its length)."""
     import jax
     import jax.numpy as jnp
     from repro.serve.decode import generate
 
+    extra = {} if frames is None else {"frames": frames}
+    start = prompt + (model.cfg.encoder.n_frames
+                      if model.cfg.family == "vlm" else 0)
     (logits, aux), _ = jax.jit(lambda p, t: model.forward_train(
-        p, {"tokens": t}, mesh))(params, toks)
+        p, {"tokens": t, **extra}, mesh))(params, toks)
     last, cache = jax.jit(lambda p, t: model.forward_prefill(
-        p, {"tokens": t}, cache_len, mesh))(params, toks[:, :prompt])
+        p, {"tokens": t, **extra}, cache_len, mesh))(params,
+                                                    toks[:, :prompt])
     decode = decode or jax.jit(lambda p, c, t, i: model.forward_decode(
         p, c, t, i, mesh))
-    dl, cache2 = decode(params, cache, toks[:, prompt:], jnp.int32(prompt))
+    dl, cache2 = decode(params, cache, toks[:, prompt:], jnp.int32(start))
     if via_generate:
-        gen = generate(model, params, {"tokens": toks[:, :prompt]},
+        gen = generate(model, params, {"tokens": toks[:, :prompt], **extra},
                        max_new=LM_NEW, cache_len=cache_len, mesh=mesh)
     else:
         pick = lambda lg: jnp.argmax(lg[:, -1], axis=-1).astype(
             jnp.int32)[:, None]
         out, c = [pick(last)], cache
         for i in range(LM_NEW - 1):
-            lg, c = decode(params, c, out[-1], jnp.int32(prompt + i))
+            lg, c = decode(params, c, out[-1], jnp.int32(start + i))
             out.append(pick(lg))
         gen = jnp.concatenate(out, axis=1)
     return {"train_logits": logits, "train_aux": aux,
@@ -719,7 +727,7 @@ def _lm_run(model, params, toks, *, prompt=LM_PROMPT, cache_len=LM_CACHE,
 
 
 def check_greedy_tokens(model, params, toks, want, got, cache_len, *,
-                        rel_margin=None):
+                        rel_margin=None, frames=None):
     """The port's greedy tokens ``got`` against the reference's ``want``
     (both (B, LM_NEW)) from the prompt ``toks``. The logits are bf16
     values (the head's bf16 matmul), so two can tie, and where the two
@@ -731,11 +739,15 @@ def check_greedy_tokens(model, params, toks, want, got, cache_len, *,
     each other (all of them where there is none). A model whose logits
     are held to the reference's only within ``rel_margin`` of their max
     takes that margin (of the step's largest |logit|) in place of the
-    ulp. Returns the number of such tied steps a request."""
+    ulp. ``frames``: whisper's and the VLM's stub frames. Returns the
+    number of such tied steps a request."""
     import torch
-    prompt = toks.shape[1]
-    logits, cache = model.forward_prefill(params, {"tokens": toks},
-                                          cache_len)
+    from repro_torch.serve.decode import prefix_len
+    prompt = toks.shape[1] + prefix_len(model.cfg)
+    batch = {"tokens": toks}
+    if frames is not None:
+        batch["frames"] = frames
+    logits, cache = model.forward_prefill(params, batch, cache_len)
     tied = np.zeros(want.shape, bool)
     for i in range(want.shape[1]):
         lg = logits[:, -1].float()
@@ -863,10 +875,12 @@ def lm_f32_errors(base, r):
     flat = dict(tree_flatten(params))
     for t in flat.values():
         t.requires_grad_()
+    batch = {"tokens": torch.from_numpy(lm_tokens(base))}
+    if "frames" in r:
+        batch["frames"] = torch.from_numpy(r["frames"])
     with precision.f32_compute():
         logits, _ = transformer.forward_train(
-            tree_unflatten(list(flat), list(flat.values())), base,
-            {"tokens": torch.from_numpy(lm_tokens(base))})
+            tree_unflatten(list(flat), list(flat.values())), base, batch)
     (logits * torch.from_numpy(r["f32"]["ct"])).sum().backward()
     want = dict(tree_flatten(r["f32"]["grads"]))
     assert set(want) == set(flat)
@@ -1345,21 +1359,39 @@ def lm_variant_cases():
     return out
 
 
+class _F32Numpy:
+    """``jax.numpy`` with ``bfloat16`` read as ``float32``: set as
+    ``repro.models.transformer.jnp`` by ``_jax_f32_compute``, it turns
+    the casts to bf16 written in that module (whisper's frames and
+    position tables, the VLM's projected prefix) into f32 ones."""
+
+    def __init__(self, jnp):
+        self._jnp = jnp
+        self.bfloat16 = jnp.float32
+
+    def __getattr__(self, name):
+        return getattr(self._jnp, name)
+
+
 @contextlib.contextmanager
 def _jax_f32_compute():
     """The reference's LM wholly in f32 on f32 params while tracing (the
     counterpart of the port's ``precision.f32_compute``): the model's
     ``cast_to_compute`` (registry) and ``transformer._embed`` round to
     bf16, and are replaced in this process only by the identity and the
-    lookup alone."""
+    lookup alone; the module's other casts to bf16 by f32 ones
+    (``_F32Numpy``)."""
     from repro.models import registry, transformer
-    cast, embed = registry.cast_to_compute, transformer._embed
+    cast, embed, jnp = (registry.cast_to_compute, transformer._embed,
+                        transformer.jnp)
     registry.cast_to_compute = lambda params: params
     transformer._embed = lambda p, cfg, tokens: p["embed"][tokens]
+    transformer.jnp = _F32Numpy(jnp)
     try:
         yield
     finally:
         registry.cast_to_compute, transformer._embed = cast, embed
+        transformer.jnp = jnp
 
 
 def _train_steps(base, params, out, *, f32=False):
@@ -1467,23 +1499,28 @@ def _recurrent_module_cases(name, pd, fn, decode, cfg, seed, out, *,
         _flat(f"{name}/{dt}/decode", {"out": o, "cache": c}, out)
 
 
-def _lm_f32_case(base, params, toks, out):
+def _lm_f32_case(base, params, toks, out, frames=None):
     """The LM wholly in f32: ``forward_train`` on the f32 params under
     ``_jax_f32_compute``, and the gradients of ``sum(logits ·
     ct)`` for an N(0, 1) cotangent: ``f32/{logits,ct,grads/...}``. With
     every matmul in f32 the two packages differ only by the order of f32
     sums, so this holds the whole LM's forward and backward tightly where
-    the bf16 runs differ by amplified bf16 roundings."""
+    the bf16 runs differ by amplified bf16 roundings. ``frames``: whisper's
+    and the VLM's stub frames (the VLM's logits cover its prefix too)."""
     import jax
     import jax.numpy as jnp
     from repro.models import transformer
 
+    batch = {"tokens": toks}
+    if frames is not None:
+        batch["frames"] = frames
+    rows = toks.shape[1] + (base.encoder.n_frames if base.family == "vlm"
+                            else 0)
     ct = np.random.default_rng(80).standard_normal(
-        (*toks.shape, base.vocab_size)).astype(np.float32)
+        (toks.shape[0], rows, base.vocab_size)).astype(np.float32)
 
     def loss(p):
-        logits, _ = transformer.forward_train(p, base, None,
-                                              {"tokens": toks})
+        logits, _ = transformer.forward_train(p, base, None, batch)
         return jnp.sum(logits * ct), logits
     with _jax_f32_compute():
         (_, logits), grads = jax.jit(jax.value_and_grad(
@@ -1559,6 +1596,134 @@ def xlstm_cases():
     return out
 
 
+#: whisper-base reduced (d 256, 4 heads of 64, 2 decoder and 2 encoder
+#: layers, 16 frames, d_ff 512, vocab 512) and internvl2-2b reduced (d 256,
+#: 4 query heads on 2 kv heads of 64, 2 layers, an image prefix of 16
+#: patch embeddings): the stub frames 0.02 · N(0, 1), as
+#: ``data/synthetic`` draws them
+WHISPER_ARCH, VLM_ARCH = "whisper-base", "internvl2-2b"
+
+
+def lm_frames(cfg, seed=2):
+    rng = np.random.default_rng(seed)
+    return (0.02 * rng.standard_normal(
+        (LM_BATCH, cfg.encoder.n_frames, cfg.d_model))).astype(np.float32)
+
+
+def _whisper_module_cases(base, out):
+    """The reference's whisper pieces, jitted, in f32 and bf16 on numpy
+    draws: ``layer_norm`` (``ln/``), ``gelu_mlp_apply`` (``mlp/``) and the
+    cross-attention, ``gqa_parallel(..., cross_x=enc, cache_len=Sk)``
+    with ``flash_attention`` False and True (the Pallas kernel in
+    interpret mode: non-causal, Sq 33 != Sk 16) and ``gqa_decode(...,
+    cross=True)`` of one token from that cache (``cross/``)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from repro.models import attention, common, mlp
+
+    rng = np.random.default_rng(90)
+    d, S, F = base.d_model, LM_PROMPT + 1, base.encoder.n_frames
+    x = rng.standard_normal((LM_BATCH, S, d)).astype(np.float32)
+    enc = rng.standard_normal((LM_BATCH, F, d)).astype(np.float32)
+    xd = rng.standard_normal((LM_BATCH, 1, d)).astype(np.float32)
+    ln = {"scale": (1 + 0.1 * rng.standard_normal(d)).astype(np.float32),
+          "bias": (0.1 * rng.standard_normal(d)).astype(np.float32)}
+    mp = draw_params(mlp.gelu_mlp_pd(base), 91)
+    ap = draw_params(attention.gqa_pd(base), 92)
+    for name, v in (("x", x), ("enc", enc), ("x_dec", xd)):
+        out[f"inputs/{name}"] = v
+    _flat("ln/params", ln, out)
+    _flat("mlp/params", mp, out)
+    _flat("cross/params", ap, out)
+    for dt in ("float32", "bfloat16"):
+        c = lambda t, dt=dt: jax.tree.map(lambda a: jnp.asarray(a, dt), t)
+        out[f"ln/{dt}"] = np.asarray(jax.jit(common.layer_norm)(
+            c(x), c(ln["scale"]), c(ln["bias"])), np.float32)
+        out[f"mlp/{dt}"] = np.asarray(jax.jit(mlp.gelu_mlp_apply)(
+            c(mp), c(x)), np.float32)
+        for flash in (0, 1):
+            cfg = dataclasses.replace(base, flash_attention=bool(flash))
+            o, cache = jax.jit(lambda p, h, e, cfg=cfg: attention.gqa_parallel(
+                p, h, None, cfg, cross_x=e, cache_len=F))(c(ap), c(x),
+                                                         c(enc))
+            _flat(f"cross/{dt}/f{flash}", {"out": o, "cache": cache}, out)
+        od, _ = jax.jit(lambda p, h, cc: attention.gqa_decode(
+            p, h, 0, base, cc, cross=True))(c(ap), c(xd), cache)
+        out[f"cross/{dt}/decode"] = np.asarray(od, np.float32)
+
+
+def _frames_lm_cases(base, out, *, cache_len):
+    """The LM with its stub frames, ``mesh=None``: params
+    (``params/...``), the frames (``frames``), ``_lm_run`` with
+    ``flash_attention`` False and True (one decode program for both;
+    ``f{flash}/...``), ``_lm_f32_case`` (``f32/...``) and ``_train_steps``
+    (``train/...``: the reference's own token batches, frames and all)."""
+    import dataclasses
+
+    import jax
+    from repro.models.registry import build_model
+
+    params = lm_params(base)
+    toks = lm_tokens(base)
+    frames = lm_frames(base)
+    _flat("params", params, out)
+    out["frames"] = frames
+    decode = jax.jit(lambda p, c, t, i: build_model(base).forward_decode(
+        p, c, t, i, None))
+    for flash in (0, 1):
+        model = build_model(dataclasses.replace(base,
+                                                flash_attention=bool(flash)))
+        _flat(f"f{flash}", jax.device_get(_lm_run(
+            model, params, toks, cache_len=cache_len, via_generate=False,
+            decode=decode, frames=frames)), out)
+    _lm_f32_case(base, params, toks, out, frames=frames)
+    _train_steps(base, params, out)
+
+
+def whisper_cases():
+    """The reduced whisper-base: ``_whisper_module_cases`` and
+    ``_frames_lm_cases``."""
+    from repro.configs import get_config
+
+    out = {}
+    base = get_config(WHISPER_ARCH).reduced()
+    _whisper_module_cases(base, out)
+    _frames_lm_cases(base, out, cache_len=LM_CACHE)
+    return out
+
+
+def vlm_cases():
+    """The reduced internvl2-2b: ``_frames_lm_cases``, its cache holding
+    the image prefix too; and the reference's ``_lm_loss`` and
+    ``make_loss_fn`` metrics on the first training step's logits
+    (``loss/...``: the labels left-padded with IGNORE over the prefix, the
+    accuracy over all-IGNORE labels)."""
+    import jax
+    from repro.configs import get_config
+    from repro.core.label_smoothing import top1_accuracy
+    from repro.core.label_smoothing import IGNORE
+    from repro.train.step import _lm_loss
+
+    out = {}
+    base = get_config(VLM_ARCH).reduced()
+    _frames_lm_cases(base, out, cache_len=base.encoder.n_frames + LM_CACHE)
+    rng = np.random.default_rng(95)
+    logits = rng.standard_normal((LM_BATCH, base.encoder.n_frames
+                                  + LM_PROMPT, base.vocab_size)).astype(
+                                      np.float32)
+    labels = rng.integers(0, base.vocab_size, (LM_BATCH, LM_PROMPT)) \
+        .astype(np.int32)
+    labels[:, -1] = IGNORE
+    loss, n = jax.jit(lambda lg, lb: _lm_loss(lg, lb, smoothing=0.1))(
+        logits, labels)
+    acc = top1_accuracy(logits, np.full(logits.shape[:-1], IGNORE))
+    _flat("loss", {"logits": logits, "labels": labels, "loss": loss,
+                   "n": n, "acc": acc}, out)
+    return out
+
+
 if __name__ == "__main__":
     what, dest = sys.argv[1], sys.argv[2]
     np.savez(dest, **{"resnet_grads": resnet_grads,
@@ -1575,5 +1740,7 @@ if __name__ == "__main__":
                       "lm_variant_cases": lm_variant_cases,
                       "mamba_cases": mamba_cases,
                       "xlstm_cases": xlstm_cases,
+                      "whisper_cases": whisper_cases,
+                      "vlm_cases": vlm_cases,
                       "guard_zero1_run": guard_zero1_run,
                       "traced_zero1_step": traced_zero1_step}[what]())
