@@ -253,10 +253,40 @@ Phases, in order; any failure exits non-zero and prints no result:
               card (elastic.load_resharded, 4 -> 1 shards over the LM's
               split-leaf plan): masters bit-equal to the gathered rows
               (sha256), then one step with a finite loss (K1, K2, K4)
+ 39. lm_ring_families  on four cards (this script under
+              torch.distributed.run with --lm-ring-families-rank, one rank
+              a card, NCCL): the families added since qwen1.5-0.5b on the
+              explicit ladder at full width, lm_ring's recipe and 4 MB
+              buckets, LM_FAMILY_STEPS steps each through make_train_step
+              + loop.train from init_state (the first step the warm-up):
+              xlstm-125m whole under psum (2 x 4,096 a rank; traced: its
+              ar spans must begin in the order the backward reaches their
+              groups, the first before the backward's midpoint: its
+              per-layer leaves reduce inside the backward), whisper-base
+              (8 x (1,500 frames + 448 tokens)) and internvl2-2b (2 x (256
+              + 3,840)) whole under psum and ring zero1, zamba2-7b at
+              HYBRID_TRAIN_LAYERS layers under psum and ring zero3
+              (per_group), then at all 81 under ring zero3 at
+              HYBRID_RING_BATCH a rank (its state made leaf by leaf, no
+              full tree on a card). Each run: finite losses, K1-K4 against
+              _lm_ring_want's counts for its buckets, every rank's masters
+              sha256 equal, step ms, tokens/s over the cards, peak memory
+              a rank; a second configuration's masters within 5e-2 of its
+              psum anchor's largest update. Then the CLI on four ranks:
+              python -m torch.distributed.run --nproc-per-node 4 -m
+              repro_torch.launch.train --arch whisper-base --comm ring
+              --sharding zero1 --steps 3 must exit 0 with its run_stop
+              line. Every run is traced: its last step's forward,
+              backward and update spans and its collectives' spans by
+              kind are printed, with the allocator's peak reserved bytes
+              and retries. Alone: python3 chip_smoke.py
+              --lm-ring-families [ARCH ...] (only those archs' runs, no
+              CLI)
 On one card the ring phases print that they need two or more cards and
 were not run, and K3's launches_by_path has "ring": null; with fewer than
-four, lm_ring and its resume are not run and every kernel's
-launches_by_path has "lm_ring" and "lm_resume" null. The kernels
+four, lm_ring, its resume and lm_ring_families are not run and every
+kernel's launches_by_path has "lm_ring", "lm_resume" and
+"lm_ring_families" null. The kernels
 phase also holds K1's multi-buffer form (the sharded step's one call)
 against its plain version at the 4 MB and 0.25 MB plans' shards, K2's
 (the sharded step's one update call) against its plain version and, bit
@@ -484,6 +514,33 @@ VLM_SERVE = (8, 1792, 32)
 #: train_4k sequence
 AUDIO_TRAIN = (8, 448)
 VLM_TRAIN = (2, 3840)
+
+#: the four-card LM families phase (lm_ring_families), in order: (arch,
+#: layers or None for the whole depth, (batch, tokens) a rank, its
+#: configurations, the first of two the psum anchor); each run
+#: LM_FAMILY_STEPS steps, the first the warm-up. zamba2-7b at its full
+#: depth takes HYBRID_RING_BATCH sequences of 4,096 tokens a rank, the
+#: larger of 2 and 1 that fits: a rank of four holds 13.5 GB of master and
+#: momentum shards, and at the backward's end the 13.5 GB bf16 tree it
+#: gathered again, ~13 GB of the stacked leaves' bf16 gradients, 6.75 GB
+#: of fp32 gradient shards and ~6 GB of the activations the model's remat
+#: keeps at 2 sequences: ~55-65 GB (the reckoning in PERF.md §6)
+HYBRID_RING_BATCH = 2
+LM_FAMILY_RUNS = (
+    ("xlstm-125m", None, (LM_BATCH, LM_SEQ), (("psum", "replicated", None),)),
+    ("whisper-base", None, AUDIO_TRAIN, (("psum", "replicated", None),
+                                         ("ring", "zero1", None))),
+    ("internvl2-2b", None, VLM_TRAIN, (("psum", "replicated", None),
+                                       ("ring", "zero1", None))),
+    ("zamba2-7b", HYBRID_TRAIN_LAYERS, (HYBRID_RING_BATCH, LM_SEQ),
+     (("psum", "replicated", None), ("ring", "zero3", "per_group"))),
+    ("zamba2-7b", None, (HYBRID_RING_BATCH, LM_SEQ),
+     (("ring", "zero3", "per_group"),)))
+LM_FAMILY_STEPS = 3
+LM_FAMILY_TIMEOUT_S = 900
+#: the phase's CLI run on four ranks, after the configurations
+LM_FAMILY_CLI = ("--arch", "whisper-base", "--comm", "ring", "--sharding",
+                 "zero1", "--steps", "3")
 
 
 #: what one phase leaves for a later one: the durability phase's trace,
@@ -1546,23 +1603,24 @@ def _overlap_order(model, plan, batch):
             for gi in u]
 
 
-def _overlap_gate(spans, order, what: str) -> dict:
-    """Where one traced step's in-backward reduce-scatters begin: fails
-    unless the ``rs[b<i>]`` begins are non-decreasing in the order the
+def _overlap_gate(spans, order, what: str, kind: str = "rs") -> dict:
+    """Where one traced step's in-backward collectives begin: fails
+    unless the ``{kind}[b<i>]`` begins (``rs``: the reduce-scatters,
+    ``ar``: the all-reduces) are non-decreasing in the order the
     backward reaches the groups (``order``, from ``_overlap_order``) and
     the first of them begins before the backward span's midpoint. Returns
     the begins (ms after the backward span's begin) and the span's
     length."""
     bwd = next(sp for sp in spans if sp.name == "backward")
     begin = {int(sp.name[4:-1]): (sp.t0 - bwd.t0) * 1e3 for sp in spans
-             if sp.name.startswith("rs[b")}
+             if sp.name.startswith(f"{kind}[b")}
     if sorted(begin) != sorted(order):
-        fail(f"{what}: rs spans of groups {sorted(begin)}, want "
+        fail(f"{what}: {kind} spans of groups {sorted(begin)}, want "
              f"{sorted(order)}")
     seq = [begin[gi] for gi in order]
     bwd_ms = (bwd.t1 - bwd.t0) * 1e3
     if any(b < a for a, b in zip(seq, seq[1:])) or not seq[0] < bwd_ms / 2:
-        fail(f"{what}: rs begins {[round(x, 2) for x in seq]} ms in the "
+        fail(f"{what}: {kind} begins {[round(x, 2) for x in seq]} ms in the "
              f"order {order} into a {bwd_ms:.2f} ms backward span; they "
              f"must be non-decreasing, the first before the midpoint")
     starts = sorted(seq)
@@ -3103,6 +3161,319 @@ def run_lm_ring(ckpt_dir):
     return result
 
 
+def _sha_masters(step, state) -> str:
+    """sha256 of the masters a rank reads: the params on the replicated
+    rung; on a sharded one the packed global buffers, gathered and hashed
+    a bucket at a time (zamba2-7b's unpacked fp32 tree would take 27 GB
+    beside its state)."""
+    import hashlib
+
+    from repro_torch.core import bucketing
+    from repro_torch.train.state import gather_rows
+    if step.sharding == "replicated":
+        return _sha(state.params)
+    axis = step.mesh.axis(step.shard_axis)
+    h = hashlib.sha256()
+    for b, shard in enumerate(state.shards):
+        full = bucketing.unrotate_shards(gather_rows(shard, axis),
+                                         step.n_shards)
+        h.update(full[:step.bucket_plan.bucket_sizes[b]].cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def _span_ms(spans) -> dict:
+    """One traced step's spans (step, forward, backward, update; ms) and
+    its in-backward collectives' spans by kind (ar, rs): [count, summed
+    ms]. The gathers are left out: zero3's run twice a step, and the
+    tracer merges a name's stamps into one span."""
+    out = {}
+    for sp in spans:
+        ms = (sp.t1 - sp.t0) * 1e3
+        if sp.cat in ("compute", "step"):
+            out[sp.name] = ms
+        elif sp.name[:2] in ("ar", "rs"):
+            n, total = out.get(sp.name[:2], (0, 0.0))
+            out[sp.name[:2]] = (n + 1, total + ms)
+    return out
+
+
+def _family_run(model, mesh, comm, sharding, gather, batch_fn, tokens, say,
+                what, *, keep, gate):
+    """One configuration of the lm_ring_families phase: LM_FAMILY_STEPS
+    steps through loop.train from init_state (seed 0), the first the
+    warm-up, under a tracer. Checks the launches (over every step), the
+    losses, run_stop and that every rank reads the same masters; prints
+    the last step's spans (``_span_ms``), the allocator's retries and its
+    peak reserved bytes; ``gate``: the last step's ar spans must begin in
+    the order the backward reaches their groups (``_overlap_gate``).
+    Returns (row, the masters where ``keep``, the initial params where
+    ``keep`` on the replicated rung: None elsewhere)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import CommConfig
+    from repro_torch.core import lars
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.train import loop
+    from repro_torch.train.state import init_state, sharded_state_kwargs
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_map
+
+    dev, n = mesh.device, mesh.size
+    ring = comm == "ring"
+    tracer = Tracer()
+    step = make_train_step(
+        model, lars.OptConfig(kind="lars", weight_decay=5e-5,
+                              use_kernel=True), _lm_sched(), smoothing=0.1,
+        mesh=mesh, comm=CommConfig(strategy=comm, sharding=sharding,
+                                   gather=gather, use_kernel=ring,
+                                   update_kernel=sharding != "replicated",
+                                   bucket_mb=4), tracer=tracer)
+    plan = step.bucket_plan
+    if step.sharding != sharding:
+        fail(f"lm_ring_families {what}: sharding {step.sharding!r}")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    state = init_state(model, 0, device=dev, **sharded_state_kwargs(step))
+    init_s = time.perf_counter() - t
+    resident = torch.cuda.memory_allocated(dev)
+    p0 = (tree_map(torch.clone, state.params)
+          if keep and sharding == "replicated" else None)
+    times = []
+
+    def timed_step(s, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(s, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    retries = torch.cuda.memory_stats(dev).get("num_alloc_retries", 0)
+    sink = obs_metrics.MemorySink()
+    _zero(*_counters().values())
+    with obs_metrics.default_registry().use_sink(sink):
+        state, history = loop.train(state, timed_step, batch_fn,
+                                    steps=LM_FAMILY_STEPS, log_every=1,
+                                    seed=0, tracer=tracer)
+    counts = _read_path(f"lm_ring_families {what}", _lm_ring_want(
+        comm, sharding, plan.n_buckets, LM_FAMILY_STEPS))
+    peak = torch.cuda.max_memory_allocated(dev)
+    reserved = torch.cuda.max_memory_reserved(dev)
+    retries = torch.cuda.memory_stats(dev).get("num_alloc_retries",
+                                               0) - retries
+    peaks, shas = [None] * n, [None] * n
+    dist.all_gather_object(peaks, peak)
+    losses = [h["loss"] for h in history]
+    if len(losses) != LM_FAMILY_STEPS or not all(math.isfinite(v)
+                                                 for v in losses):
+        fail(f"lm_ring_families {what}: losses not all finite: {losses}")
+    if not sink.find("run_stop"):
+        fail(f"lm_ring_families {what}: loop.train did not reach run_stop")
+    dist.all_gather_object(shas, _sha_masters(step, state))
+    if len(set(shas)) != 1:
+        fail(f"lm_ring_families {what}: the ranks read different masters "
+             f"(sha256 {shas})")
+    med = statistics.median(times[1:])
+    row = {"comm": comm, "sharding": sharding, "gather": gather,
+           "buckets": plan.n_buckets, "step_ms": [x * 1e3 for x in times],
+           "median_ms": med * 1e3, "tokens_per_s": tokens / med,
+           "peak_gib": [p / 2 ** 30 for p in peaks],
+           "resident_gib": resident / 2 ** 30, "init_s": init_s,
+           "peak_reserved_gib": reserved / 2 ** 30, "alloc_retries": retries,
+           "launches": counts, "losses": losses, "masters_sha256": shas[0]}
+    spans = tracer.steps[-1][1]
+    row["spans_ms"] = _span_ms(spans)
+    if gate:
+        meta = {"tokens": torch.zeros((1, 64), dtype=torch.int32),
+                "labels": torch.zeros((1, 64), dtype=torch.int32)}
+        row["overlap"] = _overlap_gate(spans, _overlap_order(
+            model, plan, meta), f"lm_ring_families {what}", kind="ar")
+    say(f"lm_ring_families: {what} ({plan.n_buckets} buckets): losses "
+        f"{[round(v, 4) for v in losses]}; step times ms "
+        f"{[round(x * 1e3, 2) for x in times]}, median after the first "
+        f"{med * 1e3:.2f} ms, {tokens / med:.0f} tokens/s on {n} cards; "
+        f"peak memory a rank GiB {[round(p / 2 ** 30, 2) for p in peaks]} "
+        f"(resident after init_state {resident / 2 ** 30:.2f} GiB, made in "
+        f"{init_s:.1f} s); "
+        f"launches K3 {counts['k3']}, K1 {counts['k1']}, K2 {counts['k2']}, "
+        f"K4 {counts['k4']} + {counts['k4_bwd']} over {LM_FAMILY_STEPS} "
+        f"steps; every rank's masters sha256 {shas[0][:16]}; rank 0's last "
+        f"step: " + ", ".join(
+            f"{k} {v:.1f} ms" if not isinstance(v, tuple) else
+            f"{v[0]} {k} spans {v[1]:.1f} ms" for k, v in
+            row["spans_ms"].items())
+        + f"; peak reserved {reserved / 2 ** 30:.2f} GiB, {retries} "
+          f"allocator retries"
+        + ("" if not gate else
+           f"; ar spans begin {row['overlap']['first_ms']:.1f} / "
+           f"{row['overlap']['median_ms']:.1f} / "
+           f"{row['overlap']['last_ms']:.1f} ms (first / median / last) "
+           f"into a {row['overlap']['backward_ms']:.1f} ms backward span, "
+           f"in the order the backward reaches their groups"))
+    masters = loop.make_params_reader(step)(state) if keep else None
+    del state
+    return row, masters, p0
+
+
+def lm_ring_families_rank(archs=()):
+    """One rank of the lm_ring_families phase (``chip_smoke.py
+    --lm-ring-families-rank [ARCH ...]`` under torch.distributed.run, one
+    card each): LM_FAMILY_RUNS in order (those of ``archs`` where given),
+    the second configuration of a pair held against its psum anchor's
+    masters. Rank 0 prints the lines and, last, ``lm-ring-families-json:
+    {...}``."""
+    import dataclasses
+
+    import torch
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.tree import tree_flatten
+
+    mesh = make_local_mesh()
+    n, dev = mesh.size, mesh.device
+    say = (lambda msg: print(msg, flush=True)) if mesh.rank == 0 else \
+        (lambda msg: None)
+    rows = []
+    for arch, layers, (batch, seq), configs in LM_FAMILY_RUNS:
+        if archs and arch not in archs:
+            continue
+        cfg = get_config(arch)
+        depth = cfg.n_layers
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        if not cfg.remat or cfg.flash_attention:
+            fail(f"lm_ring_families: {arch} must train with remat and "
+                 f"without the flash kernel")
+        model = build_model(cfg)
+        batch_fn = make_batch_fn(cfg, InputShape("train_4k", "train", seq,
+                                                 batch * n), device=dev,
+                                 mesh=mesh)
+        frames = ("" if cfg.encoder is None else
+                  f" + {cfg.encoder.n_frames} stub frames")
+        cut = (f"its depth cut to {layers} of {depth} layers"
+               if layers is not None else f"all {depth} layers")
+        if arch == "zamba2-7b" and layers is None:
+            cut += ("; the batch a rank not cut" if batch == 2 else
+                    f"; the batch a rank cut from 2 to {batch}")
+        say(f"lm_ring_families: {arch} at full width, {cut}; {batch} x "
+            f"({seq} tokens{frames}) a rank")
+        anchor = None
+        for comm, sharding, gather in configs:
+            what = (f"{arch} {cfg.n_layers} layers {comm} {sharding}"
+                    + (f"/{gather}" if gather else ""))
+            row, masters, p0 = _family_run(
+                model, mesh, comm, sharding, gather, batch_fn,
+                batch * seq * n, say, what, keep=len(configs) > 1,
+                gate=arch == "xlstm-125m")
+            row.update(arch=arch, layers=[cfg.n_layers, depth],
+                       batch=[batch, seq])
+            if masters is not None and anchor is None:
+                anchor = [(p, x, (x - a).abs().max().item()) for (p, x), (
+                    _, a) in zip(tree_flatten(masters), tree_flatten(p0))]
+                if min(upd for _, _, upd in anchor) <= 0.0:
+                    fail(f"lm_ring_families {what}: the psum anchor left a "
+                         f"tensor unchanged")
+            elif masters is not None:
+                d = max(((p, (x - want).abs().max().item() / max(upd, 1e-30))
+                         for (_, x), (p, want, upd) in
+                         zip(tree_flatten(masters), anchor)),
+                        key=lambda t: t[1])
+                row["masters_of_update"] = list(d)
+                say(f"lm_ring_families: {what}: masters within {d[1]:.3e} "
+                    f"of the largest update of the psum anchor's ({d[0]}; "
+                    f"limit {LM_UPDATE_TOL})")
+                if not d[1] <= LM_UPDATE_TOL:
+                    fail(f"lm_ring_families {what}: masters {d[1]:.3e} of "
+                         f"the anchor's largest update off ({d[0]}; limit "
+                         f"{LM_UPDATE_TOL})")
+            rows.append(row)
+            del masters, p0
+            torch.cuda.empty_cache()
+        del anchor, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    say("lm-ring-families-json: " + json.dumps({"cards": n, "runs": rows}))
+    mesh.destroy()
+
+
+def _family_cli() -> dict:
+    """The phase's CLI run: ``python -m torch.distributed.run
+    --nproc-per-node 4 -m repro_torch.launch.train`` + LM_FAMILY_CLI,
+    which must exit 0 with its run_stop line. Returns its seconds."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+           "4", "--master-addr", "127.0.0.1", "--master-port", str(port),
+           "-m", "repro_torch.launch.train", *LM_FAMILY_CLI]
+    t = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ, PYTHONPATH=str(SRC),
+                                               OMP_NUM_THREADS="4"))
+    secs = time.perf_counter() - t
+    if out.returncode != 0 or "run_stop" not in out.stdout:
+        print(out.stdout[-1500:], end="", flush=True)
+        fail(f"lm_ring_families CLI {' '.join(LM_FAMILY_CLI)} on 4 ranks "
+             f"exited {out.returncode}: {out.stderr[-3000:]}")
+    stop = [ln for ln in out.stdout.splitlines() if "run_stop" in ln]
+    print(f"lm_ring_families: CLI on 4 ranks ({' '.join(LM_FAMILY_CLI)}) "
+          f"exited 0 in {secs:.1f} s: {stop[0].strip()}", flush=True)
+    return {"args": list(LM_FAMILY_CLI), "seconds": secs}
+
+
+def run_lm_ring_families(archs=()):
+    """The lm_ring_families phase on four cards, one rank each over NCCL
+    (``torch.distributed.run`` starts this script with
+    ``--lm-ring-families-rank``), then its CLI run; ``archs``, given, runs
+    only their configurations and no CLI. None with fewer than four
+    cards."""
+    import torch
+    n = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    if n < 4:
+        print(f"lm_ring_families: not run: {n} card(s); the phase needs 4",
+              flush=True)
+        return None
+    out = _launch_ranks(["--lm-ring-families-rank", *archs], 4,
+                        LM_FAMILY_TIMEOUT_S, "the lm_ring_families phase")
+    result = None
+    for line in out.splitlines():
+        if line.startswith("lm-ring-families-json: "):
+            result = json.loads(line[len("lm-ring-families-json: "):])
+        elif line.startswith("lm_ring_families"):
+            print(line, flush=True)
+    if result is None:
+        fail("the lm_ring_families phase printed no result")
+    if not archs:
+        result["cli"] = _family_cli()
+    return result
+
+
+def lm_ring_families_main(archs):
+    """``python3 chip_smoke.py --lm-ring-families [ARCH ...]``: the card
+    check, the build and the lm_ring_families phase alone (on four cards;
+    only ``archs``' configurations where given), its JSON last."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this check needs a card")
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import backend
+    backend.build()
+    result = run_lm_ring_families(archs)
+    if result is None:
+        sys.exit(1)
+    print(json.dumps({"lm_ring_families": result}), flush=True)
+
+
 def run_lm_resume(dev, ckpt_dir, lm_ring):
     """The four-card ring zero1 LM's checkpoint resumed on this one card
     (``elastic.load_resharded``, 4 -> 1 shards over the LM's split-leaf
@@ -4108,6 +4479,9 @@ def main():
         if lm_ring is not None:
             phase("lm_ring resume")
             lm_resume = run_lm_resume(dev, Path(tmp), lm_ring)
+
+    phase("lm_ring_families")
+    families = run_lm_ring_families()
     entries = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k4_bwd": k4_bwd,
                "k5": k5}
     # rank 0's counts, summed over the ring's configurations; null where
@@ -4125,10 +4499,18 @@ def main():
                           for key in entries}
     by_path["lm_resume"] = {key: None if lm_resume is None else
                             lm_resume["launches"][key] for key in entries}
+    # lm_ring_families: rank 0's counts over its runs; null with fewer
+    # than four cards
+    by_path["lm_ring_families"] = {
+        key: None if families is None else
+        sum(r["launches"][key] for r in families["runs"])
+        for key in entries}
     if ring is not None:
         k3["ring"] = ring
     if lm_ring is not None:
         k3["lm_ring"] = dict(lm_ring, resume=lm_resume)
+    if families is not None:
+        k3["lm_ring_families"] = families
     for key, entry in entries.items():
         entry["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
         entry["launches"] = sum(c[key] for c in by_path.values()
@@ -4147,12 +4529,17 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--example"]:
         example_main(sys.argv[2], sys.argv[3:])
-    elif sys.argv[1:2] in (["--ring-rank"], ["--lm-ring-rank"]):
+    elif sys.argv[1:2] == ["--lm-ring-families"]:
+        lm_ring_families_main(tuple(sys.argv[2:]))
+    elif sys.argv[1:2] in (["--ring-rank"], ["--lm-ring-rank"],
+                           ["--lm-ring-families-rank"]):
         # a rank that fails must not wait at exit on collectives the
         # others will never join: leave at once, the launcher stops them
         try:
             if sys.argv[1] == "--ring-rank":
                 ring_rank()
+            elif sys.argv[1] == "--lm-ring-families-rank":
+                lm_ring_families_rank(tuple(sys.argv[2:]))
             else:
                 lm_ring_rank(sys.argv[2])
         except SystemExit as e:

@@ -286,7 +286,7 @@ def _zero3_live_elems(plan, *, streaming_spans: bool = True):
     stack resident.
 
     ``streaming_spans=False`` prices the assembled-tensor consumer
-    (``ddp.jit_gather_params`` concatenates span pieces into the full
+    (``ddp.jit_gather_params`` assembles span pieces into the full
     leaf before the layer reads it): when bucket b's group materializes,
     a split tensor continuing into b has its higher-bucket spans already
     gathered — the forward walks groups in reverse packing order — and

@@ -104,13 +104,14 @@ class _BucketIdentity(torch.autograd.Function):
         buf = bucketing.pack_group(gs, slots, dtype=spec["comm_dtype"])
         if spec["sink"]:
             # reduce-scatter: the reduced-mean fp32 local shard is the
-            # sink's gradient; a leaf's cotangent is zeroed only in the
-            # group of its FINAL span (earlier groups of a split tensor
-            # still need the raw gradient to pack their own span)
+            # sink's gradient; a leaf's cotangent ends (None: no zero-filled
+            # copy of a stacked leaf) only in the group of its FINAL span
+            # (earlier groups of a split tensor still need the raw gradient
+            # to pack their own span)
             shard = spec["fn"](buf, axes, use_kernel=spec["use_kernel"])
             shard = shard.float() / n
             mark(tracer, name, "E", [shard], bucket=gi)
-            outs = tuple(torch.zeros_like(g) if fin else g
+            outs = tuple(None if fin else g
                          for g, fin in zip(gs, spec["finals"]))
             return (None,) + outs + (shard,)
         buf = spec["fn"](buf, axes, use_kernel=spec["use_kernel"])
@@ -326,30 +327,34 @@ def gather_ahead_params(shards, plan: "bucketing.BucketPlan", *,
 
 
 def jit_gather_params(shards, plan: "bucketing.BucketPlan", *, shard_axis,
-                      wire_dtype=torch.bfloat16, tracer=None):
-    """ZeRO-3's gather: the forward's fp32 param tree rebuilt from the
-    master shards group by group (one ring all-gather a bucket group, each
+                      wire_dtype=torch.bfloat16, dtype=torch.float32,
+                      tracer=None):
+    """ZeRO-3's gather: the forward's param tree rebuilt from the master
+    shards group by group (one ring all-gather a bucket group, each
     unpacked into its own leaves at once), called INSIDE the step's
     differentiated function, so that no full replica lives in the state.
-    Split tensors are reassembled from their span pieces."""
-    vals = []
+    Leaves in ``dtype`` (fp32, as the reference's; the step passes the
+    compute dtype where the wire carries exactly it). A split tensor's
+    spans are copied into one buffer of the whole leaf as they arrive."""
+    n = plan.n_tensors
+    tid = {id(s): t for t, s in zip(plan.slot_tensor_ids, plan.slots)}
+    leaves = [None] * n
     for gi, group in enumerate(plan.groups):
         wire = shards[gi].to(wire_dtype, copy=True)
         mark(tracer, f"ag[g{gi}]", "B", [wire], bucket=gi)
         buf = prim.ring_all_gather(wire, shard_axis, plan.bucket_sizes[gi])
         mark(tracer, f"ag[g{gi}]", "E", [buf], bucket=gi)
-        vals.extend(bucketing.unpack_group(buf, group, dtype=torch.float32))
-    # the groups concatenate back to plan.slots order
-    leaves, pieces = [], []
-    for slot, fin, v in zip(plan.slots, plan.slot_is_final_span, vals):
-        if slot.elem_offset == 0 and fin:      # unsplit: already reshaped
-            leaves.append(v)
-            continue
-        pieces.append(v)
-        if fin:
-            leaves.append(torch.cat(pieces).reshape(slot.shape))
-            pieces = []
-    return tree_unflatten(plan.paths, leaves[::-1])
+        for slot, v in zip(group, bucketing.unpack_group(buf, group,
+                                                         dtype=dtype)):
+            j = n - 1 - tid[id(slot)]     # packing walks reverse flatten
+            if v.shape == slot.shape:     # unsplit: already reshaped
+                leaves[j] = v
+                continue
+            if leaves[j] is None:
+                leaves[j] = v.new_empty(slot.shape)
+            leaves[j].view(-1)[slot.elem_offset:
+                               slot.elem_offset + slot.size] = v
+    return tree_unflatten(plan.paths, leaves)
 
 
 # --------------------------------------------------------------------------

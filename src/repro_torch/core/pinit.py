@@ -74,11 +74,13 @@ def _host_free_bytes() -> int:
         return 0
 
 
-def materialize(tree, seed: int, device, dtype=None) -> dict:
+def materialize(tree, seed: int, device, dtype=None, sink=None):
     """Initialize every leaf of a ``PD`` tree on ``device``. ``dtype``
     (serving: bf16) makes the f32 leaves in that dtype, one leaf at a time,
     so the f32 tree never exists; the values equal its cast bit for
-    bit."""
+    bit. ``sink(path, leaf)``, given, takes each leaf as it is made (from
+    the drawing threads, a leaf once) and nothing is kept: returns
+    None."""
     flat = tree_flatten(tree)
     nbytes = [4 * torch.Size(pd.shape).numel() if pd.init == "normal" else 0
               for _, pd in flat]
@@ -92,7 +94,11 @@ def materialize(tree, seed: int, device, dtype=None) -> dict:
             free[0] -= nbytes[i]
         try:
             path, pd = flat[i]
-            leaves[i] = _init_leaf(pd, leaf_seed(seed, path), device, dtype)
+            leaf = _init_leaf(pd, leaf_seed(seed, path), device, dtype)
+            if sink is None:
+                leaves[i] = leaf
+            else:
+                sink(path, leaf)
         finally:
             with cv:
                 free[0] += nbytes[i]
@@ -102,4 +108,5 @@ def materialize(tree, seed: int, device, dtype=None) -> dict:
     with ThreadPoolExecutor(max_workers=WORKERS) as ex:
         for f in [ex.submit(make, i) for i in order]:
             f.result()
-    return tree_unflatten([p for p, _ in flat], leaves)
+    if sink is None:
+        return tree_unflatten([p for p, _ in flat], leaves)

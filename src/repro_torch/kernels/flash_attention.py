@@ -69,9 +69,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise NotImplementedError(
-            "flash_attention has no backward: training with "
-            "flash_attention=True waits for the K5 backward kernel "
-            "(ROADMAP §2, K5 backward); train with flash_attention=False")
+            "flash_attention has no backward: neither the JAX package nor "
+            "the port has a K5 backward kernel (ROADMAP §2, K5 backward), "
+            "so training uses flash_attention=False")
     H, K = _heads(q, k, v, n_q_heads, n_kv_heads)
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, window=window,

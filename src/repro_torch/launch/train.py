@@ -24,7 +24,12 @@ An explicit schedule (``--comm naive|psum|bucketed|ring|hierarchical|
 2d_torus|dbtree``) runs over the ``(data, model=1)`` mesh of every rank of
 the job (``launch.mesh``: NCCL on the card, gloo on the CPU; one process
 without ``torchrun``); ``--sharding zero1|zero2|zero3`` picks the rung.
-As in the reference, there is no flag for the ``(pod, data)`` mesh.
+Every ``--arch`` takes it but the MoE ones (qwen2-moe-a2.7b,
+deepseek-v2-236b), which it refuses, naming ROADMAP item 6.3. As in the
+reference, there is no flag for the ``(pod, data)`` mesh. On four cards:
+  python -m torch.distributed.run --nproc-per-node 4 -m \
+      repro_torch.launch.train --arch whisper-base --comm ring \
+      --sharding zero1 --steps 3
 
 Durability and observability (the reference's flags and defaults):
 checkpoints (``--ckpt-dir``, ``--ckpt-every``, ``--keep-last-k``),
@@ -233,6 +238,11 @@ def main(argv=None):
                  f"unsynchronised replica. Use an explicit schedule such as "
                  f"--comm psum; the reference's GSPMD --comm xla over every "
                  f"rank comes with the model axis (ROADMAP §1 item 6)")
+    if args.comm != "xla" and get_config(args.arch).moe is not None:
+        ap.error(f"--comm {args.comm} with {args.arch}: the explicit "
+                 f"schedules run the model without a mesh, and the MoE "
+                 f"layer's experts need a mesh's model axis (ROADMAP §1 item "
+                 f"6.3); train it with --comm xla")
     if args.grad_accum > 1 and args.comm != "xla":
         ap.error(f"--grad-accum {args.grad_accum} is a --comm xla option: "
                  f"the explicit schedules do not accumulate. The reference's "

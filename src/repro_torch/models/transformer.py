@@ -15,7 +15,8 @@ stacked leaves, and writes the stacked caches in place.
 Three entry points, as the JAX package has them: ``forward_train`` (full
 logits and the MoE aux loss summed over the layers, differentiable; with
 ``cfg.remat`` each decoder or Mamba layer is recomputed in the backward,
-as the JAX package wraps its layer scans in ``jax.checkpoint``),
+as the JAX package wraps its layer scans in ``jax.checkpoint``, and each
+application of the hybrid's shared block too),
 ``forward_prefill`` (logits of the last position + a filled cache) and
 ``forward_decode`` (one token against the cache, updated in place).
 """
@@ -321,18 +322,28 @@ def _mamba_layer(p, x, cfg):
     return x + o
 
 
+def _shared_train_block(p, x, positions, cfg):
+    return _shared_attn_block(p, x, positions, cfg)[0]
+
+
 def _hybrid_forward(params, cfg, x, positions, *, mode, cache=None,
                     pos=None, cache_len=0):
     """As ``_dense_forward``, for the hybrid: each group of ``attn_every``
-    Mamba layers follows an application of the shared block; only the
-    Mamba layers are recomputed in the backward under ``cfg.remat``, as
-    in the JAX package. The prefill's cache is allocated at its first
-    write; decode's is updated in place."""
+    Mamba layers follows an application of the shared block. Under
+    ``cfg.remat`` the Mamba layers are recomputed in the backward, as in
+    the JAX package, and so is each application of the shared block,
+    which the JAX package keeps: the same values, and at zamba2-7b's full
+    width an application keeps ~4.7 GB for its backward at one 4,096-token
+    sequence (mostly attention probabilities), ~66 GB over the 14 of its
+    full depth. The prefill's cache is allocated at its first write;
+    decode's is updated in place."""
     layers, shared = params["layers"], params["shared_attn"]
     groups = _hybrid_groups(cfg)
     if mode == "train":
-        # unbound once, as in _walk
+        # unbound once, as in _walk; the shared leaves read once, here,
+        # not inside a recomputed application
         unbound = tree_map(lambda a: a.unbind(0), layers)
+        shared = tree_map(lambda a: a, shared)
         remat = cfg.remat and torch.is_grad_enabled()
     elif mode == "prefill":
         cache = {"attn": None, "mamba": None}
@@ -341,11 +352,12 @@ def _hybrid_forward(params, cfg, x, positions, *, mode, cache=None,
             x, _ = _shared_attn_block(shared, x, None, cfg, decode=True,
                                       cache=_layer(cache["attn"], g),
                                       pos=pos)
+        elif mode == "train":
+            x = _run(_shared_train_block, remat, shared, x, positions, cfg)
         else:
             x, c = _shared_attn_block(shared, x, positions, cfg,
                                       cache_len=cache_len)
-            if mode == "prefill":
-                cache["attn"] = _put(cache["attn"], len(groups), g, c)
+            cache["attn"] = _put(cache["attn"], len(groups), g, c)
         for i in range(lo, hi):
             if mode == "train":
                 x = _run(_mamba_layer, remat,

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.core import bucketing, lars, pinit
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.tree import tree_flatten
 
 
 class TrainState(NamedTuple):
@@ -93,6 +94,34 @@ def restore_snapshot(snapshot: TrainState) -> TrainState:
     return host_snapshot(snapshot)
 
 
+def _local_shard_writer(plan, n_shards: int, index: int, device):
+    """Rank ``index``'s rows of ``init_packed_shards`` built leaf by leaf,
+    with no global buffer: (the zero shards, ``write(path, leaf)``, which
+    copies the leaf's elements that fall in this rank's row of each of its
+    buckets). Row ``index`` holds chunk ``(index + 1) % n_shards`` of the
+    padded bucket (``bucketing.rotate_to_shards``). Leaves write disjoint
+    elements, so ``write`` may run from several threads."""
+    sizes = bucketing.shard_sizes(plan, n_shards)
+    shards = tuple(torch.zeros(c, dtype=torch.float32, device=device)
+                   for c in sizes)
+    k = (index + 1) % n_shards
+    slots = {}
+    for slot in plan.slots:
+        slots.setdefault(slot.path, []).append(slot)
+
+    def write(path, leaf):
+        flat = leaf.reshape(-1)
+        for slot in slots[path]:
+            c = sizes[slot.bucket]
+            lo = max(slot.offset, k * c)
+            hi = min(slot.offset + slot.size, (k + 1) * c)
+            if lo < hi:
+                at = slot.elem_offset - slot.offset
+                shards[slot.bucket][lo - k * c:hi - k * c].copy_(
+                    flat[at + lo:at + hi])
+    return shards, write
+
+
 def gather_rows(buf: torch.Tensor, axis) -> torch.Tensor:
     """This rank's row of a sharded buffer -> the global ``(n * c,)``
     buffer, rows in the order of ``axis`` (``launch.mesh.Axis``, the shard
@@ -118,31 +147,33 @@ def init_state(model, seed: int = 0, *, device=None, opt_kind: str = "lars",
     once the shards are packed; ``shard_params=False`` (the ZeRO-2 state)
     keeps the replicated params as the masters and packs only the
     momentum. ``sharded_state_kwargs(train_step)`` gives what a step
-    needs."""
+    needs. The shards and momentum are this rank's rows alone, made
+    without the global buffers; the ZeRO-3 state draws each leaf on the
+    host and keeps only its rows (``_local_shard_writer``), so no full
+    fp32 tree is ever on the device: zamba2-7b's is 27 GB."""
     device = resolve_device(device)
-    params = pinit.materialize(model.param_pd, seed, device)
+    if not materialize_params and (sharded_plan is None or not shard_params):
+        raise ValueError("materialize_params=False (ZeRO-3) needs a "
+                         "sharded_plan with shard_params=True")
     shards = None
     if sharded_plan is not None:
         index = 0
         if mesh is not None:
             from repro_torch.comm.schedules import shard_axis
             index = shard_axis(mesh.axes).index
-        mom = local_shards(init_packed_momentum(sharded_plan, n_shards,
-                                                device=device),
-                           n_shards, index)
+        mom = tuple(torch.zeros(c, dtype=torch.float32, device=device)
+                    for c in bucketing.shard_sizes(sharded_plan, n_shards))
         if shard_params:
-            shards = local_shards(init_packed_shards(params, sharded_plan,
-                                                     n_shards), n_shards,
-                                  index)
+            shards, write = _local_shard_writer(sharded_plan, n_shards,
+                                                index, device)
             if not materialize_params:
-                params = None
-        elif not materialize_params:
-            raise ValueError("shard_params=False (ZeRO-2) keeps the "
-                             "replicated masters")
-    else:
-        if not materialize_params:
-            raise ValueError("materialize_params=False needs a sharded_plan "
-                             "(ZeRO-3)")
+                pinit.materialize(model.param_pd, seed, "cpu", sink=write)
+    params = (pinit.materialize(model.param_pd, seed, device)
+              if materialize_params else None)
+    if shards is not None and params is not None:
+        for path, leaf in tree_flatten(params):
+            write(path, leaf)
+    if sharded_plan is None:
         mom = lars.init_momentum(params, opt_kind)
     bn = None
     if model.bn_state_pd is not None:

@@ -35,12 +35,23 @@ distribution paths:
 the alpha-beta cost model of the mesh (the card's constants,
 ``launch/hw.py``), from the FLOPs model of the backward or, with
 ``backward_profile='measured'`` and a ``profile_batch``, from one profiled
-warm-up backward (``_measure_profile``). The LM families run every
-explicit schedule and rung as the conv family does: their stacked leaves
-(one ``(L, ...)`` tensor per weight kind) split across buckets by the
-dozen, and their gradients, like the tied embedding's, are whole only
-when the backward ends, so nearly every collective fires after it (as in
-the reference, whose ``lax.scan`` does the same).
+warm-up backward (``_measure_profile``). Every LM family but the MoE
+runs every explicit schedule and rung as the conv family does, as the
+reference's explicit step runs them (the model without a mesh): the
+dense decoders (qwen1.5-0.5b and its variants), the hybrid (zamba2-7b),
+the xLSTM (xlstm-125m), whisper (frames split with the batch) and the
+prefix VLM (internvl2-2b; each rank's loss is the masked mean over its own
+labels, and the step means the ranks' means, as the reference's pmean
+does: the global mean where the ranks hold equal label counts, as the
+token batches give them). Their stacked leaves (one ``(L, ...)`` tensor
+per weight kind) split across buckets by the dozen, and their gradients,
+like the tied embedding's, are whole only when the backward ends, so
+those collectives fire after it (as in the reference, whose ``lax.scan``
+does the same), and so do the hybrid's shared block's, whose gradient
+sums over every application, the first of them at the forward's start;
+the xLSTM's per-layer leaves reduce inside the backward, a layer at a
+time. The MoE family (qwen2-moe-a2.7b, deepseek-v2-236b) is refused: its
+layer needs a mesh's model axis (ROADMAP §1 item 6.3).
 
 ``guard=True`` arms the numerical-integrity sentinel (``train/guard.py``)
 on every path: the step takes ``(state, batch, guard_in)`` and, before it
@@ -60,7 +71,7 @@ from repro_torch.configs.base import CommConfig
 from repro_torch.core import bucketing, ddp, lars
 from repro_torch.core.label_smoothing import IGNORE, smoothed_xent, \
     top1_accuracy
-from repro_torch.core.precision import cast_to_compute
+from repro_torch.core.precision import cast_to_compute, compute_dtype
 from repro_torch.kernels import ops
 from repro_torch.models.resnet import resnet_forward
 from repro_torch.obs.trace import mark
@@ -108,7 +119,7 @@ def make_loss_fn(model, *, smoothing: float = 0.1, aux_coef: float = 0.01):
     return loss_fn
 
 
-def _not_ported(what: str, item: int):
+def _not_ported(what: str, item):
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP §1 item {item})")
 
@@ -157,7 +168,7 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
             # and its MoE layer needs one with a 'model' axis
             raise _not_ported(
                 f"comm={comm_cfg.strategy!r} with a MoE config (the experts "
-                f"run over a mesh's model axis)", 6)
+                f"run over a mesh's model axis)", "6.3")
         return _guarded(_explicit_step(model, opt_cfg, schedule, loss_fn,
                                        comm_cfg, mesh, grad_accum, tracer,
                                        profile_batch, smoothing), guard)
@@ -462,12 +473,17 @@ def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
         # is checkpointed, so the backward gathers again instead of
         # keeping the forward's copies ('ahead' keeps them). Post-backward
         # the gathered tree is a step transient (per_group then keeps it,
-        # as in the reference)
+        # as in the reference). Where the wire carries the compute dtype
+        # the tree is gathered in it: the fp32 copy the reference unpacks
+        # would only be cast back, value for value, and would double the
+        # gathered bytes (zamba2-7b: 27 GB)
         need_shards(state)
+        dt = wire if wire == compute_dtype() else torch.float32
         g_shards, metrics, new_bn = scatter(
             lambda: ddp.jit_gather_params(state.shards, plan,
                                           shard_axis=sh_axis,
-                                          wire_dtype=wire, tracer=tracer),
+                                          wire_dtype=wire, dtype=dt,
+                                          tracer=tracer),
             batch, state.bn_state, _loss_for(loss_fn, guard_in),
             remat=gather_mode == "per_group")
         metrics, new_bn, lr = finish(state, metrics, new_bn, guard_in)

@@ -396,19 +396,122 @@ def lm_zero1(mesh):
             "masters_sha": np.frombuffer(h.digest(), np.uint8)}
 
 
+#: lm_family_dp's runs over the mesh: (schedule, sharding, gather)
+#: by case, as ``torch_reference.LM_DP_CASES`` names them
+FAMILY_DP_CASES = {"psum": ("psum", "replicated", None),
+                   "zero1": ("ring", "zero1", None),
+                   "zero3": ("ring", "zero3", "per_group")}
+
+
+def lm_family_dp(mesh, arch):
+    """``lm_zero1`` for a family added since the dense LM's
+    (``torch_reference.family_config(arch)``): for each of the family's
+    cases in ``torch_reference.LM_FAMILY_DP`` (psum replicated, ring zero1
+    and, for the hybrid, ring zero3 with ``gather='per_group'``; K3 and K2
+    flags on; f32 wire, 0.5 MB buckets), two steps over the mesh, each rank on its rows of
+    the global batch (whisper's and the VLM's frames too), against two
+    one-rank psum steps on the whole batch; the hybrid and the xLSTM
+    wholly in f32 (``precision.f32_compute``), as their parity steps run.
+    Per case ``{case}/...``:
+    ``masters_of_update``, ``loss_rel`` and ``masters_sha`` as
+    ``lm_zero1`` has them (a tensor whose update is zero up to f32
+    rounding held against the tree's largest update); ``labels``: this
+    rank's count of labels over both steps."""
+    import contextlib
+    import hashlib
+
+    import torch_reference
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import CommConfig
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import lars, precision
+    from repro_torch.core.label_smoothing import IGNORE
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.launch.mesh import Axis, Mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.loop import make_params_reader
+    from repro_torch.train.state import init_state, sharded_state_kwargs
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_flatten
+    cfg = torch_reference.family_config(get_config, arch)
+    model = build_model(cfg)
+    sched = make_schedule(ScheduleConfig(base_lr=0.5, warmup_steps=1,
+                                         total_steps=3, decay="poly2"))
+    # 0.5 MB: the wide leaves still split (whisper's dec_pos into 64
+    # spans) at a fifth of 0.1 MB's buckets, which the parity tests take
+    comm = dict(bucket_mb=0.5, wire_dtype="f32")
+    one = Mesh((Axis("data", 1, 0, (mesh.rank,), None),), mesh.device)
+    step1 = make_train_step(model, lars.OptConfig(), sched, mesh=one,
+                            comm=CommConfig(strategy="psum", **comm))
+    shape = InputShape("t", "train", 32, 8)
+    part = make_batch_fn(cfg, shape, seed=3, device=mesh.device, mesh=mesh)
+    full = make_batch_fn(cfg, shape, seed=3, device=mesh.device)
+    compute = (precision.f32_compute if arch in torch_reference.LM_FAMILY_F32
+               else contextlib.nullcontext)
+    s1 = init_state(model, 0, device=mesh.device)
+    p0 = [x.clone() for _, x in tree_flatten(s1.params)]
+    losses1 = []
+    for i in range(2):
+        with compute():
+            s1, m1 = step1(s1, full(i))
+        losses1.append(float(m1["loss"]))
+    out = {}
+    for case in torch_reference.LM_FAMILY_DP[arch]:
+        strategy, sharding, gather = FAMILY_DP_CASES[case]
+        ring = strategy == "ring"
+        step = make_train_step(
+            model, lars.OptConfig(), sched, mesh=mesh,
+            comm=CommConfig(strategy=strategy, sharding=sharding,
+                            gather=gather, use_kernel=ring,
+                            update_kernel=sharding != "replicated", **comm))
+        s = init_state(model, 0, device=mesh.device,
+                       **sharded_state_kwargs(step))
+        labels = 0
+        for i in range(2):
+            batch = part(i)
+            labels += int((batch["labels"] != IGNORE).sum())
+            with compute():
+                s, m = step(s, batch)
+        got = make_params_reader(step)(s)
+        pairs = [(float((a - b).abs().max()), float((b - c).abs().max()))
+                 for (_, a), (_, b), c in zip(tree_flatten(got),
+                                              tree_flatten(s1.params), p0)]
+        # a tensor whose update is zero up to f32 rounding (the sLSTM's
+        # b_i, whose gradient vanishes: torch_reference.F32_ZERO) against
+        # the tree's largest update
+        top = max(u for _, u in pairs)
+        of_upd = max(d / (u if u > torch_reference.F32_ZERO * top else top)
+                     for d, u in pairs)
+        h = hashlib.sha256()
+        for _, x in tree_flatten(got):
+            h.update(x.contiguous().numpy().tobytes())
+        out.update({f"{case}/masters_of_update": np.float64(of_upd),
+                    f"{case}/loss_rel": np.float64(
+                        abs(float(m["loss"]) - losses1[-1])
+                        / abs(losses1[-1])),
+                    f"{case}/masters_sha": np.frombuffer(h.digest(),
+                                                         np.uint8),
+                    f"{case}/labels": np.int64(labels)})
+    return out
+
+
 SCENARIOS = {"schedules": schedules, "zero1_step": zero1_step,
              "zero23_step": zero23_step, "ckpt_zero1": ckpt_zero1,
-             "lm_zero1": lm_zero1}
+             "lm_zero1": lm_zero1, "lm_family_dp": lm_family_dp}
 
 
 def main(scenario: str, out_dir: str, device: str = "cpu"):
+    """``scenario`` names a SCENARIOS entry, with ``:ARG`` for one that
+    takes an argument (``lm_family_dp:zamba2-7b``)."""
     import torch
     from repro_torch.launch.mesh import make_local_mesh
     # the same graph must give the same numbers in both steps compared
     torch.backends.cudnn.deterministic = True
     mesh = make_local_mesh(device="cpu" if device == "cpu" else None)
+    name, _, arg = scenario.partition(":")
     try:
-        out = SCENARIOS[scenario](mesh)
+        out = SCENARIOS[name](mesh, *([arg] if arg else []))
         np.savez(os.path.join(out_dir, f"rank{mesh.rank}.npz"), **out)
     finally:
         mesh.destroy()

@@ -17,6 +17,7 @@ to an ``.npz`` of ``kind/path`` keys.
   python tests/torch_reference.py lm_cases OUT.npz
   python tests/torch_reference.py lm_train_steps OUT.npz
   python tests/torch_reference.py lm_dp_steps OUT.npz
+  python tests/torch_reference.py lm_family_dp_steps:ARCH[,ARCH] OUT.npz
   python tests/torch_reference.py moe_cases OUT.npz
   python tests/torch_reference.py mla_cases OUT.npz
   python tests/torch_reference.py lm_variant_cases OUT.npz
@@ -31,8 +32,9 @@ The reference's explicit data-parallel steps fail under jax 0.9.0 before
 they compute anything: ``repro/core/compat.py`` passes ``check_rep=`` to
 ``jax.shard_map``, which now takes ``check_vma=``, and ``jax.make_mesh``
 now makes Explicit axes, which the step's sharding constraints reject.
-``zero1_steps``, ``zero23_steps``, ``lm_dp_steps``, ``guard_zero1_run``
-and ``traced_zero1_step`` route around both without touching
+``zero1_steps``, ``zero23_steps``, ``lm_dp_steps``,
+``lm_family_dp_steps``, ``guard_zero1_run`` and ``traced_zero1_step``
+route around both without touching
 ``src/repro``: each replaces ``compat.shard_map`` in its own process with
 a shim that calls ``jax.shard_map(..., check_vma=False)``, builds an
 Auto-axis mesh, and feeds numpy batches (no mesh-bound batch function).
@@ -45,6 +47,7 @@ import contextlib
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -1724,8 +1727,265 @@ def vlm_cases():
     return out
 
 
+#: the explicit-DP setting of the families added since the dense LM's: each
+#: family's parity config (``family_config``) at LM_DP_BUCKET_MB, the cases
+#: of ``LM_DP_CASES`` named here (zero3 with ``gather='per_group'``), LARS
+#: poly2, the lcg batches of ``lm_train_steps`` (whisper's and the VLM's
+#: with their threefry frames); the hybrid and the xLSTM wholly in f32 (f32
+#: wire, ``_jax_f32_compute``), as their two-step training tests hold them
+LM_FAMILY_DP = {HYBRID_ARCH: ("psum", "zero1", "zero3"),
+                XLSTM_ARCH: ("psum", "zero1"),
+                WHISPER_ARCH: ("psum", "zero1"),
+                VLM_ARCH: ("psum", "zero1")}
+LM_FAMILY_F32 = (HYBRID_ARCH, XLSTM_ARCH)
+
+
+def family_config(get_config, arch):
+    """The family's explicit-DP config, from either package's
+    ``get_config``: the reduced config; the xLSTM's two layers an mLSTM
+    and an sLSTM block (pattern ``("m", "s")``; the reduced config's
+    pattern makes both mLSTM)."""
+    import dataclasses
+    cfg = get_config(arch).reduced()
+    if arch == XLSTM_ARCH:
+        cfg = dataclasses.replace(cfg, xlstm=dataclasses.replace(
+            cfg.xlstm, pattern=("m", "s")))
+    return cfg
+
+
+def lm_family_dp_steps(archs):
+    """``lm_dp_steps`` for each family of ``archs`` (a comma-separated
+    subset of LM_FAMILY_DP): the reference's explicit step under the
+    shard_map shim on a (1, 1) Auto-axis mesh, for each of the family's
+    cases, two jitted steps along its own trajectory from ``lm_params``
+    (``{arch}/params/...``), zero momentum and, on a sharded rung, the
+    params packed into master shards. Per step the batch
+    (``{arch}/s{k}/batch/...``) and, as ``{arch}/{case}/s{k}/...``, the
+    metrics and the output state (step 0's input is the next step's: not
+    saved): the params on the replicated rung, the packed master shards
+    and momentum as ``{shards,mom}/{bucket}`` on a sharded one."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+    from repro.configs import get_config
+    from repro.configs.base import CommConfig
+    from repro.core import lars
+    from repro.core.schedule import ScheduleConfig, make_schedule
+    from repro.data.synthetic import token_batch
+    from repro.models.registry import build_model
+    from repro.train import state as st
+    from repro.train.step import make_train_step
+
+    _shard_map_shim()
+    sched = make_schedule(ScheduleConfig(**LR))
+    mesh = _mesh11()
+    out, runs = {}, []
+    # XLA compiles outside the interpreter lock: each program compiles in
+    # a thread while the next one is traced
+    pool = ThreadPoolExecutor(8)
+    for arch in archs.split(","):
+        base = family_config(get_config, arch)
+        model = build_model(base)
+        params = lm_params(base)
+        _flat(f"{arch}/params", params, out)
+        f32 = arch in LM_FAMILY_F32
+        batches = [jax.device_get(token_batch(
+            base, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, step=k,
+            kind="lcg")) for k in range(LM_TRAIN_STEPS)]
+        for k, batch in enumerate(batches):
+            _flat(f"{arch}/s{k}/batch", batch, out)
+        for case in LM_FAMILY_DP[arch]:
+            strategy, sharding, gather = LM_DP_CASES[case]
+            step = make_train_step(
+                model, lars.OptConfig(kind="lars"), sched, mesh=mesh,
+                comm=CommConfig(strategy=strategy, sharding=sharding,
+                                gather=gather, bucket_mb=LM_DP_BUCKET_MB,
+                                wire_dtype="f32" if f32 else "bf16"))
+            plan = step.bucket_plan
+            if sharding == "replicated":
+                s = st.TrainState(jnp.zeros((), jnp.int32), params,
+                                  jax.tree.map(np.zeros_like, params))
+            else:
+                s = st.TrainState(
+                    jnp.zeros((), jnp.int32),
+                    None if sharding == "zero3" else params,
+                    st.init_packed_momentum(plan, 1), None,
+                    st.init_packed_shards(params, plan, 1))
+            s = jax.device_put(s, NamedSharding(mesh, P()))
+            with _jax_f32_compute() if f32 else contextlib.nullcontext():
+                lowered = jax.jit(step).lower(s, batches[0])
+            runs.append((f"{arch}/{case}", sharding, s, batches,
+                         pool.submit(lowered.compile)))
+    compiled = [r[-1].result() for r in runs]
+    pool.shutdown()
+    for (key, sharding, s, batches, _), jstep in zip(runs, compiled):
+        for k, batch in enumerate(batches):
+            s, m = jstep(s, batch)
+            pre = f"{key}/s{k}"
+            x = jax.device_get(s)
+            out[f"{pre}/out/step"] = np.asarray(x.step)
+            if sharding == "replicated":
+                _flat(f"{pre}/out/params", x.params, out)
+                _flat(f"{pre}/out/mom", x.mom, out)
+            else:
+                for name in ("shards", "mom"):
+                    for b, buf in enumerate(getattr(x, name)):
+                        out[f"{pre}/out/{name}/{b}"] = np.asarray(buf)
+            _flat(f"{pre}/metrics", jax.device_get(m), out)
+    return out
+
+
+def check_family_plan(arch, mesh):
+    """``arch``'s explicit-DP config at LM_DP_BUCKET_MB in its wire dtype:
+    the split leaves are exactly those wider than a bucket, each leaf's
+    spans cover it in order, and its gradient lands where the plan says:
+    the in-backward reduce-scatter of one rank (the sinks' shards, each
+    group's identity firing once its leaves' cotangents are whole) equals
+    the post-backward gradients packed into the plan, bit for bit. Returns
+    the split leaves' paths."""
+    import contextlib
+    import math
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import bucketing, ddp, pinit, precision
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.step import make_loss_fn
+    from repro_torch.tree import tree_flatten, tree_unflatten
+
+    base = family_config(get_config, arch)
+    model = build_model(base)
+    f32 = arch in LM_FAMILY_F32
+    wire = torch.float32 if f32 else torch.bfloat16
+    nbytes = 4 if f32 else 2
+    plan = bucketing.make_plan(model.param_pd, bucket_mb=LM_DP_BUCKET_MB,
+                               dtype_bytes=nbytes)
+    flat = tree_flatten(model.param_pd)
+    budget = int(LM_DP_BUCKET_MB * 2 ** 20 / nbytes)
+    wide = {p for p, pd in flat
+            if -(-math.prod(pd.shape) // bucketing.CHUNK) * bucketing.CHUNK
+            > budget}
+    split = {t[0].path for t in plan.tensor_slots if len(t) > 1}
+    assert split == wide
+    for spans in plan.tensor_slots:
+        at = 0
+        for s in spans:
+            assert s.elem_offset == at
+            at += s.size
+        assert at == math.prod(spans[0].shape)
+    params = pinit.materialize(model.param_pd, 0, "cpu")
+    batch = token_batch(base, batch=2, seq=LM_TRAIN_SEQ, step=0,
+                        device="cpu")
+    loss = make_loss_fn(model)
+    paths = [p for p, _ in tree_flatten(params)]
+    with precision.f32_compute() if f32 else contextlib.nullcontext():
+        sinks = ddp.make_shard_sinks(plan, 1)
+        got = torch.autograd.grad(loss(ddp.wrap_params_for_overlap(
+            params, plan, strategy="psum", axes=mesh.axes, comm_dtype=wire,
+            shard_sinks=sinks), batch)[0], sinks)
+        leaves = [x.detach().requires_grad_() for _, x in
+                  tree_flatten(params)]
+        raw = torch.autograd.grad(loss(tree_unflatten(paths, leaves),
+                                       batch)[0], leaves)
+    want = bucketing.pack(tree_unflatten(paths, raw), plan, dtype=wire)
+    assert len(got) == len(want) == plan.n_buckets
+    for b, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w.float()), b
+    return split
+
+
+def check_family_dp_step(r, arch, case, k, mesh, *, loss_rtol, update_tol):
+    """The port's one-rank explicit step of ``case`` (LM_DP_CASES) on
+    ``arch``'s explicit-DP config, from the reference's state before step
+    ``k`` of ``lm_family_dp_steps`` (``r``) on its batch, against its
+    output: the loss within ``loss_rtol`` relative, each tensor's new
+    masters within ``update_tol`` of the reference's largest update
+    element of that tensor, its momentum within ``update_tol`` of the
+    reference's largest momentum element; the hybrid and the xLSTM wholly
+    in f32 (``precision.f32_compute``, f32 wire), as the reference ran.
+    Returns (loss relative difference, the worst masters figure, the worst
+    momentum figure)."""
+    import contextlib
+    import types
+
+    import torch
+    from repro_torch import weights
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import CommConfig
+    from repro_torch.core import lars, precision
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import state as st
+    from repro_torch.train.loop import make_params_reader
+    from repro_torch.tree import tree_flatten, tree_map
+    from repro_torch.train.step import make_train_step
+
+    base = family_config(get_config, arch)
+    f32 = arch in LM_FAMILY_F32
+    strategy, sharding, gather = LM_DP_CASES[case]
+    step = make_train_step(
+        build_model(base), lars.OptConfig(kind="lars"),
+        make_schedule(ScheduleConfig(**LR)), mesh=mesh,
+        comm=CommConfig(strategy=strategy, sharding=sharding, gather=gather,
+                        bucket_mb=LM_DP_BUCKET_MB,
+                        wire_dtype="f32" if f32 else "bf16"))
+    assert step.sharding == sharding and step.n_shards == 1
+    plan = step.bucket_plan
+    bufs = lambda t: [torch.from_numpy(t[str(b)]) for b in range(len(t))]
+
+    def to_state(x):
+        if sharding == "replicated":
+            return weights.lm_state_from_jax(types.SimpleNamespace(
+                step=x["step"], params=x["params"], mom=x["mom"]), base,
+                "cpu")
+        return st.TrainState(int(x["step"]), None, bufs(x["mom"]), None,
+                             bufs(x["shards"]))
+
+    if k == 0:
+        p0 = weights.lm_params_from_jax(r["params"], base, "cpu")
+        state_in = (st.TrainState(0, p0, tree_map(torch.zeros_like, p0))
+                    if sharding == "replicated" else st.TrainState(
+                        0, None, st.init_packed_momentum(plan, 1), None,
+                        st.init_packed_shards(p0, plan, 1)))
+    else:
+        state_in = to_state(r[case][f"s{k - 1}"]["out"])
+    want_r = r[case][f"s{k}"]
+    read = make_params_reader(step)
+    tree = lambda t: dict(tree_flatten(weights.to_numpy(t)))
+    p_in = tree(read(state_in))
+    batch = {n: torch.from_numpy(v) for n, v in r[f"s{k}"]["batch"].items()}
+    with precision.f32_compute() if f32 else contextlib.nullcontext():
+        state, metrics = step(state_in, batch)
+    want = to_state(want_r["out"])
+    assert state.step == want.step == k + 1
+    assert (state.params is None) == (sharding == "zero3")
+    assert float(metrics["lr"]) == float(want_r["metrics"]["lr"])
+    d_loss = abs(float(metrics["loss"]) - float(want_r["metrics"]["loss"])) \
+        / abs(float(want_r["metrics"]["loss"]))
+    mom = (lambda s: s.mom) if sharding == "replicated" else \
+        (lambda s: st.full_params_from_shards(s.mom, plan))
+    got_p, want_p = tree(read(state)), tree(read(want))
+    got_m, want_m = tree(mom(state)), tree(mom(want))
+    assert set(got_p) == set(want_p) == set(p_in) == set(got_m)
+    of_upd = max((np.abs(got_p[n] - want_p[n]).max()
+                  / max(np.abs(want_p[n] - p_in[n]).max(), 1e-30), n)
+                 for n in want_p)
+    of_mom = max((np.abs(got_m[n] - want_m[n]).max()
+                  / max(np.abs(want_m[n]).max(), 1e-30), n) for n in want_m)
+    assert d_loss <= loss_rtol, d_loss
+    assert of_upd[0] <= update_tol, of_upd
+    assert of_mom[0] <= update_tol, of_mom
+    return d_loss, of_upd, of_mom
+
+
 if __name__ == "__main__":
     what, dest = sys.argv[1], sys.argv[2]
+    what, _, arg = what.partition(":")
+    if what == "lm_family_dp_steps":
+        np.savez(dest, **lm_family_dp_steps(arg))
+        sys.exit()
     np.savez(dest, **{"resnet_grads": resnet_grads,
                       "train_steps": train_steps,
                       "zero1_steps": zero1_steps,
