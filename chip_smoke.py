@@ -12,8 +12,9 @@ Phases, in order; any failure exits non-zero and prints no result:
               source, all started together; sm_90a)
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the shapes the training and serving paths give it (K5 also at
-              a GQA, a windowed, an MLA and a peaked-softmax shape, and at
-              whisper's non-causal encoder and cross shapes); times
+              a GQA, a windowed, an MLA and a peaked-softmax shape, at
+              whisper's non-causal encoder and cross shapes, and at a
+              rank's 10 heads of 128 in serve_tp's prefill); times
               the kernel, the plain version and a library yardstick beside
               the bound (K5: SDPA, the backend it picks named by its
               kernel; K5's plain version one request at a time where its
@@ -252,7 +253,8 @@ Phases, in order; any failure exits non-zero and prints no result:
  38. lm_ring resume  the four-card ring zero1 checkpoint resumed on one
               card (elastic.load_resharded, 4 -> 1 shards over the LM's
               split-leaf plan): masters bit-equal to the gathered rows
-              (sha256), then one step with a finite loss (K1, K2, K4)
+              (sha256), then one step with a finite loss (K1, K2, K4).
+              Phases 35-38 alone: python3 chip_smoke.py --ring
  39. lm_ring_families  on four cards (this script under
               torch.distributed.run with --lm-ring-families-rank, one rank
               a card, NCCL): the families added since qwen1.5-0.5b on the
@@ -282,11 +284,37 @@ Phases, in order; any failure exits non-zero and prints no result:
               and retries. Alone: python3 chip_smoke.py
               --lm-ring-families [ARCH ...] (only those archs' runs, no
               CLI)
+ 40. serve_tp, lm_train_tp  the model axis (ROADMAP §1 item 6.2) on four
+              cards (this script under torch.distributed.run with
+              --tp-rank, one rank a card, NCCL). serve_tp: qwen1.5-32b at
+              full width and depth (64 layers, d 5,120, 40 heads of 128,
+              d_ff 27,392, vocab 152,064, QKV bias: 35.2 B params, no one
+              card holds them) over the (data 1, model 4) mesh, each
+              rank's bf16 shards made by pinit (each split leaf drawn once,
+              on its owner's host, and scattered), flash_attention=True,
+              generate(mesh=) on 8 prompts of 2,048 tokens, 32 greedy
+              tokens: K5 64 times a rank (once a layer, on its 10 heads),
+              nothing else; 2 all-reduces a layer a prefill; finite
+              logits, every rank's tokens equal; prints pinit s, prefill
+              ms, decode ms a token, tokens/s, peak memory a rank; then at
+              4 of its 64 layers, model 4 against model 1 on rank 0's card
+              (the shards gathered): prefill logits within 3e-2 of their
+              max and 8 greedy tokens within the tests' greedy rule at that
+              margin. lm_train_tp: qwen1.5-0.5b at full width and depth
+              over the (data 2, model 2) mesh (its tied embedding splits
+              the vocabulary), comm='xla', remat, LARS with K1, 1 x 4,096
+              tokens a data rank, 3 steps: K4 1 + 1 and K1 2 a step;
+              against the one-card comm='xla' step at the global batch of
+              2 x 4,096 from the same values: losses within 4e-4
+              relative, masters within 5e-2 of each tensor's largest
+              update. Then the CLI on four ranks (--model-parallel 2
+              --comm xla) must exit 0 with its run_stop line. Alone:
+              python3 chip_smoke.py --tp (with K5 at serve_tp's shape)
 On one card the ring phases print that they need two or more cards and
 were not run, and K3's launches_by_path has "ring": null; with fewer than
-four, lm_ring, its resume and lm_ring_families are not run and every
-kernel's launches_by_path has "lm_ring", "lm_resume" and
-"lm_ring_families" null. The kernels
+four, lm_ring, its resume, lm_ring_families, serve_tp and lm_train_tp are
+not run and every kernel's launches_by_path has "lm_ring", "lm_resume",
+"lm_ring_families", "serve_tp" and "lm_train_tp" null. The kernels
 phase also holds K1's multi-buffer form (the sharded step's one call)
 against its plain version at the 4 MB and 0.25 MB plans' shards, K2's
 (the sharded step's one update call) against its plain version and, bit
@@ -360,7 +388,8 @@ BATCH, STEPS = 64, 6
 #: prefill (serve_audio: the encoder's non-causal 1,500 x 1,500 and the
 #: cross-attention's 128 queries over 1,500 keys, 8 heads of 64) and
 #: internvl2-2b's (serve_vlm: 16 heads on 8 kv heads of 128 over 2,048
-#: positions)
+#: positions); then a rank's launch in qwen1.5-32b's prefill at model 4
+#: (serve_tp: 10 of its 40 heads of 128)
 FLASH_SHAPES = (("path", 8, 2048, 16, 16, 64, 64, 0, "bfloat16", 1),
                 ("serve_moe", 8, 2048, 16, 16, 128, 128, 0, "bfloat16", 1),
                 ("serve_qk", 8, 2048, 40, 8, 128, 128, 0, "bfloat16", 1),
@@ -376,7 +405,8 @@ FLASH_SHAPES = (("path", 8, 2048, 16, 16, 64, 64, 0, "bfloat16", 1),
                  1, False),
                 ("serve_audio_cross", 16, 128, 8, 8, 64, 64, 0, "bfloat16",
                  1, False, 1500),
-                ("serve_vlm", 8, 2048, 16, 8, 128, 128, 0, "bfloat16", 1))
+                ("serve_vlm", 8, 2048, 16, 8, 128, 128, 0, "bfloat16", 1),
+                ("serve_tp", 8, 2048, 10, 10, 128, 128, 0, "bfloat16", 1))
 #: K5's route for each input dtype
 FLASH_ROUTES = {"bfloat16": "tensor cores: mma.sync m16n8k16 bf16, P split "
                             "into bf16 hi + mid + lo, the scale after the "
@@ -2617,6 +2647,437 @@ def ring_rank():
     base.destroy()
 
 
+#: the four-card model-axis phases (ROADMAP §1 item 6.2), one rank a card
+#: over NCCL. serve_tp: qwen1.5-32b at full width and depth (35.2 B
+#: params, ~70.4 GB in bf16: no one card holds it) at model 4, K5 on a
+#: rank's 10 of its 40 heads once a layer, TP_SERVE (requests, prompt
+#: tokens, new tokens); its context check at TP_CONTEXT_LAYERS of the 64
+#: layers, model 4 against model 1 on rank 0's card, TP_CONTEXT_NEW
+#: greedy tokens. lm_train_tp: qwen1.5-0.5b at full width and depth on the
+#: (data 2, model 2) mesh (its tied embedding splits the vocabulary),
+#: TP_TRAIN (sequences, tokens) a data rank, TP_TRAIN_STEPS comm='xla'
+#: steps, held against the one-card step at the same global batch: the
+#: masters within LM_UPDATE_TOL of each tensor's largest update, the
+#: losses within TP_LOSS_TOL relative (the bf16 step's loss bound of
+#: tests/test_torch_tp.py)
+TP_SERVE = (8, 2048, 32)
+TP_CONTEXT_LAYERS, TP_CONTEXT_NEW = 4, 8
+TP_TRAIN, TP_TRAIN_STEPS = (1, 4096), 3
+TP_LOSS_TOL = 4e-4
+TP_TIMEOUT_S = 900
+#: the phase's CLI run on four ranks: --model-parallel 2 --comm xla
+TP_CLI = ("--arch", "qwen1.5-0.5b", "--model-parallel", "2", "--comm",
+          "xla", "--steps", "3", "--batch", "4", "--seq", "1024")
+
+
+def _collectives():
+    """A context that counts ``torch.distributed``'s all_reduce and
+    all_gather calls (``{'all_reduce': n, 'all_gather': n}``)."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    @contextlib.contextmanager
+    def counting():
+        calls = {"all_reduce": 0, "all_gather": 0}
+        real = {name: getattr(dist, name) for name in calls}
+
+        def wrap(name):
+            def fn(*a, **kw):
+                calls[name] += 1
+                return real[name](*a, **kw)
+            return fn
+        for name in calls:
+            setattr(dist, name, wrap(name))
+        try:
+            yield calls
+        finally:
+            for name, fn in real.items():
+                setattr(dist, name, fn)
+    return counting()
+
+
+def _greedy_rule(model, params, batch, want, got, cache_len, margin):
+    """``tests/torch_reference.py``'s greedy-token rule on one card:
+    along the tokens ``want`` (teacher-forced through ``model``'s prefill
+    and decode), each is within ``margin`` of the step's largest |logit|
+    of ``model``'s largest logit, and each request's ``got`` equals
+    ``want`` up to its first step whose two largest logits lie within that
+    margin of each other. Returns the tied steps a request, or fails."""
+    import torch
+    logits, cache = model.forward_prefill(params, batch, cache_len)
+    pos = batch["tokens"].shape[1]
+    n = want.shape[1]
+    tied = torch.zeros(want.shape, dtype=torch.bool)
+    for i in range(n):
+        lg = logits[:, -1].float()
+        top = torch.topk(lg, 2).values
+        m = margin * lg.abs().amax(dim=-1)
+        picked = lg.gather(1, want[:, i:i + 1].long())[:, 0]
+        if not bool((top[:, 0] - picked <= m).all()):
+            fail(f"serve_tp context: step {i}'s model-4 token is not within "
+                 f"{margin} of the one-card model's largest logit")
+        tied[:, i] = (top[:, 0] - top[:, 1] <= m).cpu()
+        if i + 1 < n:
+            logits, cache = model.forward_decode(params, cache,
+                                                 want[:, i:i + 1], pos + i)
+    for b in range(want.shape[0]):
+        first = int(tied[b].int().argmax()) if tied[b].any() else n
+        if not torch.equal(got[b, :first].cpu(), want[b, :first].cpu()):
+            fail(f"serve_tp context: request {b}'s tokens part before its "
+                 f"first tie")
+    return tied.sum(1).tolist()
+
+
+def _serve_tp(mesh, say) -> dict:
+    """serve_tp on this rank (TP_SERVE at model 4), then its context
+    check. Rank 0's row."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import weights
+    from repro_torch.configs import get_config
+    from repro_torch.core import pinit
+    from repro_torch.core.precision import cast_to_compute
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.decode import generate
+    from repro_torch.tree import tree_leaves
+
+    dev, n = mesh.device, mesh.size
+    cfg = dataclasses.replace(get_config("qwen1.5-32b"), flash_attention=True)
+    model = build_model(cfg)
+    n_req, n_prompt, n_new = TP_SERVE
+    torch.cuda.synchronize()
+    dist.barrier()
+    t = time.perf_counter()
+    params = pinit.materialize(model.param_pd, seed=0, device=dev,
+                               dtype=torch.bfloat16, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    dist.barrier()
+    all_init_s = time.perf_counter() - t
+    n_local = sum(x.numel() for x in tree_leaves(params))
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (n_req, n_prompt),
+                           generator=gen, dtype=torch.int32).to(dev)
+    batch = {"tokens": tokens}
+    cache_len = _serve_cache(cfg, batch, n_new)
+    generate(model, params, batch, max_new=2, cache_len=cache_len,
+             mesh=mesh)                    # warm-up: not timed, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    timings = {}
+    _zero(*_counters().values())
+    out = generate(model, params, batch, max_new=n_new, cache_len=cache_len,
+                   timings=timings, mesh=mesh)
+    torch.cuda.synchronize()
+    counts = _read_path("serve_tp", {"k5": cfg.n_layers})
+    peak = torch.cuda.max_memory_allocated(dev)
+    with torch.no_grad(), _collectives() as calls:
+        last, _ = model.forward_prefill(cast_to_compute(params), batch,
+                                        cache_len, mesh)
+    if calls["all_reduce"] != 2 * cfg.n_layers:
+        fail(f"serve_tp: {calls['all_reduce']} all-reduces a prefill; the "
+             f"model axis makes 2 a layer ({2 * cfg.n_layers})")
+    if not bool(torch.isfinite(last).all()):
+        fail("serve_tp: non-finite prefill logits")
+    outs, peaks, inits = ([None] * n for _ in range(3))
+    dist.all_gather_object(outs, out.cpu())
+    dist.all_gather_object(peaks, peak)
+    dist.all_gather_object(inits, init_s)
+    if tuple(out.shape) != (n_req, n_new) or not all(
+            torch.equal(o, outs[0]) for o in outs):
+        fail(f"serve_tp: the ranks' tokens differ or have shape "
+             f"{tuple(out.shape)}")
+    if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        fail("serve_tp: a token outside the vocabulary")
+    dec = timings["decode_ms"]
+    q1, med, q3 = statistics.quantiles(dec, n=4)
+    rate = n_req * n_prompt / timings["prefill_ms"] * 1e3
+    say(f"serve_tp: {cfg.arch_id}, {cfg.n_layers} layers at full width, "
+        f"model {n}: {n_local / 1e9:.3f} B params a rank (bf16), pinit "
+        f"{all_init_s:.2f} s (the ranks' own: "
+        f"{[round(s, 2) for s in inits]}); {n_req} requests of {n_prompt} "
+        f"tokens, {n_new} new, cache {cache_len} rows; prefill "
+        f"{timings['prefill_ms']:.2f} ms ({rate:.0f} prompt tokens/s); "
+        f"decode ms a token median {med:.3f} (p25 "
+        f"{q1:.3f}, p75 {q3:.3f}, {len(dec)} steps), {n_req * 1e3 / med:.1f}"
+        f" tokens/s; peak memory a rank GiB "
+        f"{[round(p / 2 ** 30, 2) for p in peaks]}; a prefill: "
+        f"{calls['all_reduce']} all-reduces, {calls['all_gather']} "
+        f"all-gathers, flash_attention {counts['k5']} launches a rank; "
+        f"every rank's tokens equal")
+    say(f"serve_tp: first request's tokens {out[0].tolist()}")
+    row = {"arch": cfg.arch_id, "layers": cfg.n_layers, "model": n,
+           "params_a_rank": n_local, "pinit_s": all_init_s,
+           "pinit_rank_s": inits, "prefill_ms": timings["prefill_ms"],
+           "decode_ms": {"p25": q1, "median": med, "p75": q3},
+           "tokens_per_s": n_req * 1e3 / med,
+           "peak_gib": [p / 2 ** 30 for p in peaks], "sizes": list(TP_SERVE),
+           "cache_len": cache_len, "collectives_a_prefill": calls,
+           "launches": counts}
+    del params, out, last
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # context: TP_CONTEXT_LAYERS layers at full width, model 4 against
+    # model 1 on rank 0's card (the same values: the shards gathered)
+    cfg4 = dataclasses.replace(cfg, n_layers=TP_CONTEXT_LAYERS)
+    model4 = build_model(cfg4)
+    p4 = pinit.materialize(model4.param_pd, seed=0, device=dev,
+                           dtype=torch.bfloat16, mesh=mesh)
+    with torch.no_grad():
+        last4, _ = model4.forward_prefill(p4, batch, cache_len, mesh)
+    tp_tokens = generate(model4, p4, batch, max_new=TP_CONTEXT_NEW,
+                         cache_len=cache_len, mesh=mesh)
+    whole = weights.gather_tree(p4, model4.param_pd, mesh)
+    del p4
+    if mesh.rank == 0:
+        with torch.no_grad():
+            last1, _ = model4.forward_prefill(whole, batch, cache_len)
+            d = _rel(last4.float(), last1.float())
+            one_tokens = generate(model4, whole, batch,
+                                  max_new=TP_CONTEXT_NEW, cache_len=cache_len)
+            ties = _greedy_rule(model4, whole, batch, tp_tokens, one_tokens,
+                                cache_len, SERVE_TOL)
+        say(f"serve_tp context: {cfg.arch_id} at {TP_CONTEXT_LAYERS} of its "
+            f"{cfg.n_layers} layers (full width), model {n} against model 1 "
+            f"on one card: prefill logits differ by {d:.3e} of their max "
+            f"(limit {SERVE_TOL}); {TP_CONTEXT_NEW} greedy tokens within the "
+            f"rule (margin {SERVE_TOL} of the max), tied steps a request "
+            f"{ties}")
+        if not d <= SERVE_TOL:
+            fail("serve_tp context: model 4's prefill disagrees with model "
+                 "1's")
+        row["context"] = {"layers": TP_CONTEXT_LAYERS, "prefill_vs_one": d,
+                          "ties": ties}
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return row
+
+
+def _lm_train_tp(say) -> dict:
+    """lm_train_tp on this rank: TP_TRAIN_STEPS comm='xla' steps on the
+    (data 2, model 2) mesh, then rank 0 runs the one-card step over the
+    same global batches from the same initial values and holds the
+    masters and losses against it. Rank 0's row."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import weights
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import lars
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.common import dp_axes
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.state import init_state, sharded_state_kwargs
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_flatten
+
+    mesh = make_local_mesh(2)
+    dev = mesh.device
+    cfg = get_config("qwen1.5-0.5b")
+    if not cfg.remat or cfg.flash_attention:
+        fail("lm_train_tp: the config must train with remat and without "
+             "the flash kernel")
+    model = build_model(cfg)
+    sched = make_schedule(ScheduleConfig(base_lr=LM_LR, warmup_steps=1,
+                                         total_steps=TP_TRAIN_STEPS,
+                                         decay="poly2"))
+    opt = lars.OptConfig(kind="lars", weight_decay=5e-5, use_kernel=True)
+    rows_a_rank, seq = TP_TRAIN
+    n_data = mesh.axis("data").size
+    shape = InputShape("train_4k", "train", seq, rows_a_rank * n_data)
+    step = make_train_step(model, opt, sched, smoothing=0.1, mesh=mesh,
+                           comm="xla")
+    part = make_batch_fn(cfg, shape, device=dev, mesh=mesh,
+                         axes=dp_axes(mesh))
+    torch.cuda.empty_cache()
+    state = init_state(model, 0, device=dev, **sharded_state_kwargs(step))
+    p0 = dict(tree_flatten(weights.gather_tree(state.params, model.param_pd,
+                                               mesh)))
+    times, losses = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero(*_counters().values())
+    for i in range(TP_TRAIN_STEPS):
+        batch = part(i)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(float(metrics["loss"]))
+    counts = _read_path("lm_train_tp", {"k4": TP_TRAIN_STEPS,
+                                        "k4_bwd": TP_TRAIN_STEPS,
+                                        "k1": 2 * TP_TRAIN_STEPS})
+    peak = torch.cuda.max_memory_allocated(dev)
+    peaks = [None] * mesh.size
+    dist.all_gather_object(peaks, peak)
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"lm_train_tp: losses not all finite: {losses}")
+    got = dict(tree_flatten(weights.gather_tree(state.params,
+                                                model.param_pd, mesh)))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = None
+    if mesh.rank == 0:
+        one = make_train_step(model, opt, sched, smoothing=0.1, comm="xla")
+        full = make_batch_fn(cfg, shape, device=dev)
+        s1 = init_state(model, 0, device=dev)
+        init_same = all(torch.equal(x, p0[p])
+                        for p, x in tree_flatten(s1.params))
+        ones = []
+        for i in range(TP_TRAIN_STEPS):
+            s1, m1 = one(s1, full(i))
+            ones.append(float(m1["loss"]))
+        want = dict(tree_flatten(s1.params))
+        d_loss = max(abs(a - b) / abs(b) for a, b in zip(losses, ones))
+        worst = max(((got[p] - want[p]).abs().max().item()
+                     / max((want[p] - p0[p]).abs().max().item(), 1e-30), p)
+                    for p in want)
+        med = statistics.median(times[1:])
+        tokens = rows_a_rank * seq * n_data
+        say(f"lm_train_tp: {cfg.arch_id}, {cfg.n_layers} layers at full "
+            f"width, (data {n_data}, model {mesh.axis('model').size}), "
+            f"comm='xla', remat, LARS with K1, {rows_a_rank} x {seq} tokens "
+            f"a data rank: losses {[round(v, 4) for v in losses]} (one card "
+            f"at the global batch {[round(v, 4) for v in ones]}: within "
+            f"{d_loss:.3e} relative, limit {TP_LOSS_TOL}); masters within "
+            f"{worst[0]:.3e} of the one-card step's largest update of their "
+            f"tensor ({worst[1]}; limit {LM_UPDATE_TOL}); initial values "
+            f"{'equal' if init_same else 'DIFFERENT'}; step times ms "
+            f"{[round(x * 1e3, 2) for x in times]}, median after the first "
+            f"{med * 1e3:.2f} ms, {tokens / med:.0f} tokens/s on "
+            f"{mesh.size} cards; peak memory a rank GiB "
+            f"{[round(p / 2 ** 30, 2) for p in peaks]}; launches K4 "
+            f"{counts['k4']} + {counts['k4_bwd']}, K1 {counts['k1']}")
+        if not init_same:
+            fail("lm_train_tp: the shards' initial values are not the "
+                 "one-card state's")
+        if not d_loss <= TP_LOSS_TOL:
+            fail(f"lm_train_tp: losses {d_loss:.3e} off the one-card step")
+        if not worst[0] <= LM_UPDATE_TOL:
+            fail(f"lm_train_tp: masters {worst[0]:.3e} of the update off the "
+                 f"one-card step ({worst[1]})")
+        row = {"arch": cfg.arch_id, "mesh": [n_data, 2],
+               "batch": [rows_a_rank, seq], "losses": losses,
+               "one_card_losses": ones, "loss_rel": d_loss,
+               "masters_of_update": list(worst),
+               "step_ms": [x * 1e3 for x in times], "median_ms": med * 1e3,
+               "tokens_per_s": tokens / med,
+               "peak_gib": [p / 2 ** 30 for p in peaks], "launches": counts}
+        del s1
+    dist.barrier()
+    mesh.destroy()
+    return row
+
+
+def tp_rank():
+    """One rank of the model-axis phases (``chip_smoke.py --tp-rank``
+    under torch.distributed.run, one card each): serve_tp on the (data 1,
+    model 4) mesh, then lm_train_tp on the (data 2, model 2) one. Rank 0
+    prints the lines and, last, ``tp-json: {...}``."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(4)
+    say = (lambda msg: print(msg, flush=True)) if mesh.rank == 0 else \
+        (lambda msg: None)
+    t = time.perf_counter()
+    serve = _serve_tp(mesh, say)
+    serve_s = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    train = _lm_train_tp(say)
+    train_s = time.perf_counter() - t
+    say(f"tp: serve_tp {serve_s:.1f} s, lm_train_tp {train_s:.1f} s")
+    say("tp-json: " + json.dumps({"cards": mesh.size, "serve_tp": serve,
+                                  "lm_train_tp": train,
+                                  "seconds": [serve_s, train_s]}))
+    mesh.destroy()
+
+
+def _tp_cli() -> dict:
+    """The phase's CLI run: ``python -m torch.distributed.run
+    --nproc-per-node 4 -m repro_torch.launch.train`` + TP_CLI, which must
+    exit 0 with its run_stop line. Returns its seconds."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+           "4", "--master-addr", "127.0.0.1", "--master-port", str(port),
+           "-m", "repro_torch.launch.train", *TP_CLI]
+    t = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ, PYTHONPATH=str(SRC),
+                                               OMP_NUM_THREADS="4"))
+    secs = time.perf_counter() - t
+    if out.returncode != 0 or "run_stop" not in out.stdout:
+        print(out.stdout[-1500:], end="", flush=True)
+        fail(f"tp CLI {' '.join(TP_CLI)} on 4 ranks exited "
+             f"{out.returncode}: {out.stderr[-3000:]}")
+    stop = [ln for ln in out.stdout.splitlines() if "run_stop" in ln]
+    print(f"tp: CLI on 4 ranks ({' '.join(TP_CLI)}) exited 0 in {secs:.1f} "
+          f"s: {stop[0].strip()}", flush=True)
+    return {"args": list(TP_CLI), "seconds": secs}
+
+
+def run_tp():
+    """The model-axis phases on four cards, one rank each over NCCL
+    (``torch.distributed.run`` starts this script with ``--tp-rank``),
+    then their CLI run. None with fewer than four cards."""
+    import torch
+    n = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    if n < 4:
+        print(f"serve_tp, lm_train_tp: not run: {n} card(s); the phases "
+              f"need 4", flush=True)
+        return None
+    out = _launch_ranks(["--tp-rank"], 4, TP_TIMEOUT_S,
+                        "the model-axis phases")
+    result = None
+    for line in out.splitlines():
+        if line.startswith("tp-json: "):
+            result = json.loads(line[len("tp-json: "):])
+        elif line.startswith(("serve_tp", "lm_train_tp", "tp")):
+            print(line, flush=True)
+    if result is None:
+        fail("the model-axis phases printed no result")
+    result["cli"] = _tp_cli()
+    return result
+
+
+def tp_main():
+    """``python3 chip_smoke.py --tp``: the card check, the build, K5 at
+    serve_tp's shape and the model-axis phases alone (on four cards), the
+    kernels' launches on their paths and the phases' JSON last."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this check needs a card")
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import backend
+    t = time.time()
+    built = backend.build()
+    print(f"built {sorted(built) or 'nothing (current)'} in "
+          f"{time.time() - t:.1f} s", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    k5 = _flash_case(backend.resolve_device(None), gen,
+                     *next(c for c in FLASH_SHAPES if c[0] == "serve_tp"))
+    result = run_tp()
+    if result is None:
+        sys.exit(1)
+    result["k5_serve_tp"] = k5
+    print(json.dumps({"tp": result}), flush=True)
+
+
 def _launch_ranks(args, n: int, timeout_s: float, what: str) -> str:
     """This script under ``torch.distributed.run`` on ``n`` cards, one
     rank each, with ``args``; rank 0's standard output. Fails if a rank
@@ -3472,6 +3933,33 @@ def lm_ring_families_main(archs):
     if result is None:
         sys.exit(1)
     print(json.dumps({"lm_ring_families": result}), flush=True)
+
+
+def ring_main():
+    """``python3 chip_smoke.py --ring``: the card check, the build and the
+    four-card ring phases alone (ring and its context, lm_ring and its
+    one-card resume), their seconds, and their JSON last."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this check needs a card")
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import backend
+    phase("build")
+    backend.build()
+    phase("ring, ring context")
+    ring = run_ring()
+    phase("lm_ring")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        lm_ring = run_lm_ring(Path(tmp))
+        if ring is None or lm_ring is None:
+            sys.exit(1)
+        phase("lm_ring resume")
+        lm_ring["resume"] = run_lm_resume(backend.resolve_device(None),
+                                          Path(tmp), lm_ring)
+    phase()
+    print(f"phase seconds: {json.dumps(_PHASE_S)}", flush=True)
+    print(json.dumps({"ring": ring, "lm_ring": lm_ring}), flush=True)
 
 
 def run_lm_resume(dev, ckpt_dir, lm_ring):
@@ -4482,6 +4970,9 @@ def main():
 
     phase("lm_ring_families")
     families = run_lm_ring_families()
+
+    phase("serve_tp, lm_train_tp")
+    tp = run_tp()
     entries = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k4_bwd": k4_bwd,
                "k5": k5}
     # rank 0's counts, summed over the ring's configurations; null where
@@ -4505,6 +4996,13 @@ def main():
         key: None if families is None else
         sum(r["launches"][key] for r in families["runs"])
         for key in entries}
+    # serve_tp and lm_train_tp: rank 0's counts; null with fewer than four
+    # cards
+    for path in ("serve_tp", "lm_train_tp"):
+        by_path[path] = {key: None if tp is None else
+                         tp[path]["launches"][key] for key in entries}
+    if tp is not None:
+        k5["tp"] = tp
     if ring is not None:
         k3["ring"] = ring
     if lm_ring is not None:
@@ -4531,8 +5029,12 @@ if __name__ == "__main__":
         example_main(sys.argv[2], sys.argv[3:])
     elif sys.argv[1:2] == ["--lm-ring-families"]:
         lm_ring_families_main(tuple(sys.argv[2:]))
+    elif sys.argv[1:2] == ["--tp"]:
+        tp_main()
+    elif sys.argv[1:2] == ["--ring"]:
+        ring_main()
     elif sys.argv[1:2] in (["--ring-rank"], ["--lm-ring-rank"],
-                           ["--lm-ring-families-rank"]):
+                           ["--lm-ring-families-rank"], ["--tp-rank"]):
         # a rank that fails must not wait at exit on collectives the
         # others will never join: leave at once, the launcher stops them
         try:
@@ -4540,6 +5042,8 @@ if __name__ == "__main__":
                 ring_rank()
             elif sys.argv[1] == "--lm-ring-families-rank":
                 lm_ring_families_rank(tuple(sys.argv[2:]))
+            elif sys.argv[1] == "--tp-rank":
+                tp_rank()
             else:
                 lm_ring_rank(sys.argv[2])
         except SystemExit as e:

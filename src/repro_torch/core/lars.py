@@ -12,12 +12,18 @@ classifier head's ``head/w`` included (the reference's ``_is_scaled``);
 
 Per-tensor norms are computed either one tensor at a time or, with
 ``OptConfig.use_kernel``, by the batched-norm kernel over the bucket-packed
-buffer (``kernels/ops.tree_norms``). The ZeRO-1 sharded update
+buffer (``kernels/ops.tree_sumsq``). The ZeRO-1 sharded update
 (``sharded_update_from_shards``) works on this rank's packed bucket shards:
 its trust norms always go through the batched-norm wrapper (the kernel on
 the card, once a step), and ``update_kernel=True`` runs the fused packed
 update once a step over every bucket's shards
 (``kernels.lars_update.lars_packed_update_multi``: one launch on the card).
+
+Over a mesh's model axis (ROADMAP §1 item 6.2) the norms are whole-tensor
+norms, as the reference's GSPMD program takes them: each rank sums the
+squares of its shards (K1's one launch a tree under ``use_kernel``), and
+the sums of the leaves split over the axis are all-reduced over it in one
+call; a replicated leaf's sums are the rank's own.
 """
 from __future__ import annotations
 
@@ -26,8 +32,9 @@ import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,18 +71,41 @@ def tensor_norms(tree):
                     tree)
 
 
-def _batched_norms(params, grads, cfg):
-    """All per-tensor norms in one pass (kernel) or one per tensor."""
+def _batched_norms(params, grads, cfg, model_axis=None, split=()):
+    """All per-tensor norms from their sums of squares, in one pass
+    (kernel) or one per tensor; over ``model_axis`` the sums of the leaves
+    at the paths ``split`` are summed over it first (one all-reduce)."""
     if cfg.use_kernel:
         from repro_torch.kernels import ops
-        return ops.tree_norms(params), ops.tree_norms(grads)
-    return tensor_norms(params), tensor_norms(grads)
+        sq = [ops.tree_sumsq(params), ops.tree_sumsq(grads)]
+    else:
+        sq = [tree_map(lambda x: torch.sum(torch.square(x.float())), t)
+              for t in (params, grads)]
+    flats = [tree_flatten(t) for t in sq]
+    idx = [i for i, (path, _) in enumerate(flats[0]) if path in split]
+    if model_axis is not None and idx:
+        v = torch.stack([f[i][1] for f in flats for i in idx])
+        dist.all_reduce(v, group=model_axis.group)
+        v = v.unbind()
+        for n, f in enumerate(flats):
+            for j, i in enumerate(idx):
+                f[i] = (f[i][0], v[n * len(idx) + j])
+    return tuple(tree_unflatten([p for p, _ in f],
+                                [torch.sqrt(x) for _, x in f])
+                 for f in flats)
 
 
 @torch.no_grad()
-def update(params, grads, mom, lr, cfg: OptConfig):
+def update(params, grads, mom, lr, cfg: OptConfig, *, model_axis=None,
+           split=()):
     """One optimizer step on fp32 masters; ``grads`` may be bf16 and ``lr``
-    a float or 0-d f32 tensor. Returns (new_params, new_mom) as new trees."""
+    a float or 0-d f32 tensor. Returns (new_params, new_mom) as new trees.
+    ``model_axis`` / ``split``: the leaves are a rank's shards over that
+    axis, those at the paths ``split`` split over it (LARS takes
+    whole-tensor norms)."""
+    if model_axis is not None and cfg.kind == "lamb":
+        from repro_torch.models.common import not_ported
+        raise not_ported("LAMB over a model axis", "6.2b")
     lr = float(lr)
     if cfg.kind == "sgdm":
         def upd(p, g, v):
@@ -85,7 +115,7 @@ def update(params, grads, mom, lr, cfg: OptConfig):
             return p - step, v2
         out = tree_map(upd, params, grads, mom)
     elif cfg.kind == "lars":
-        wn, gn = _batched_norms(params, grads, cfg)
+        wn, gn = _batched_norms(params, grads, cfg, model_axis, split)
 
         def upd(p, g, v, pw, gw):
             g = g.float()

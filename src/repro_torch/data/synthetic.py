@@ -106,18 +106,21 @@ def token_batch(cfg, *, batch: int, seq: int, step: int, seed: int = 0,
 
 
 def make_batch_fn(cfg, shape, *, seed: int = 0, kind: str = "lcg", device,
-                  mesh=None):
+                  mesh=None, axes=None):
     """step -> batch function for the training loop: prototype-ImageNet
     images for the conv family, ``token_batch`` (``kind``) for the LMs.
     With a ``mesh`` (``launch.mesh``) each rank gets rows
     ``[r·B/n, (r+1)·B/n)`` of the global batch, r its position over the
-    mesh's axes in order: the split the reference's ``P(axes)`` batch
-    sharding gives."""
+    mesh's ``axes`` (names; default all of them) in order: the split the
+    reference's ``P(axes)`` batch sharding gives (its ``comm='xla'`` step's
+    batch lies over every axis but ``model``, its explicit steps' over
+    every axis)."""
     B = shape.global_batch
     r, n = 0, 1
     if mesh is not None:
         for a in mesh.axes:
-            r, n = r * a.size + a.index, n * a.size
+            if axes is None or a.name in axes:
+                r, n = r * a.size + a.index, n * a.size
     if B % n:
         raise ValueError(f"global batch {B} does not split over {n} ranks")
     lo, hi = r * B // n, (r + 1) * B // n

@@ -16,7 +16,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.lars_update import lars_packed_update  # noqa: F401
 from repro_torch.kernels.smoothed_xent import smoothed_xent_rows  # noqa: F401
 from repro_torch.models.common import PD
-from repro_torch.tree import tree_flatten, tree_unflatten
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 
 @functools.lru_cache(maxsize=16)
@@ -31,19 +31,24 @@ def _plan_for(signature) -> bucketing.BucketPlan:
     return bucketing.make_plan(tree_unflatten(paths, [PD(s) for s in shapes]))
 
 
-def tree_norms(tree, *, plan=None):
-    """Per-tensor L2 norms of a tree through ONE batched-norm launch
-    (paper §III-B.2). Returns a tree of 0-d f32 tensors matching ``tree``.
-    Without a ``plan`` the JAX package's default plan is used (4 MB
-    buckets), built once per tree signature."""
+def tree_sumsq(tree, *, plan=None):
+    """Per-tensor sums of squares of a tree through ONE batched-norm
+    launch (paper §III-B.2). Returns a tree of 0-d f32 tensors matching
+    ``tree``. Without a ``plan`` the JAX package's default plan is used
+    (4 MB buckets), built once per tree signature."""
     if plan is None:
         plan = _plan_for(tuple((p, tuple(x.shape))
                                for p, x in tree_flatten(tree)))
     flat = bucketing.pack_flat(tree, plan, dtype=torch.float32)
     seg = _segment_ids(plan, flat.device)
-    norms = torch.sqrt(batched_sumsq(flat, seg, plan.n_tensors))
+    sq = batched_sumsq(flat, seg, plan.n_tensors)
     # packing order is the reverse flatten order
-    return tree_unflatten(plan.paths, list(norms.unbind())[::-1])
+    return tree_unflatten(plan.paths, list(sq.unbind())[::-1])
+
+
+def tree_norms(tree, *, plan=None):
+    """Per-tensor L2 norms of a tree: ``tree_sumsq``'s square roots."""
+    return tree_map(torch.sqrt, tree_sumsq(tree, plan=plan))
 
 
 def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0):

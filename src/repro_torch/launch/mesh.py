@@ -1,4 +1,4 @@
-"""The data-parallel "mesh" of the port: named axes over
+"""The "mesh" of the port: named axes over
 ``torch.distributed`` process groups (a port of ``repro.launch.mesh`` and
 of the ``jax.make_mesh`` calls the reference's tests make).
 
@@ -8,8 +8,8 @@ and an :class:`Axis` carries what a collective along it needs: its size,
 this rank's index on it, the global ranks of its members and the process
 group. ``make_mesh(shape, names)`` lays the ranks out row-major, the last
 axis fastest (on ``(pod, data)``: rank = pod·D + data), as
-``jax.make_mesh`` orders CPU devices; ``make_local_mesh`` is the
-reference's ``(data=world, model=1)`` mesh.
+``jax.make_mesh`` orders CPU devices; ``make_local_mesh(M)`` is the
+reference's ``(data=world/M, model=M)`` mesh.
 
 The default process group is built from ``RANK`` / ``WORLD_SIZE``
 (``torchrun``, with ``MASTER_ADDR`` / ``MASTER_PORT``) or, with neither
@@ -151,14 +151,17 @@ def make_mesh(shape, axis_names, *, device: Optional[str] = None) -> Mesh:
 
 def make_local_mesh(model_parallel: int = 1, *,
                     device: Optional[str] = None) -> Mesh:
-    """Mesh over every rank of the job: ``(data=world, model=1)``. Each
-    rank takes the card ``LOCAL_RANK`` (default 0) unless ``device`` is
-    given; ``device='cpu'`` runs on the CPU over gloo."""
-    if model_parallel != 1:
-        raise NotImplementedError(
-            "model parallelism is not ported to repro_torch yet (ROADMAP §1 "
-            "item 6)")
+    """Mesh over every rank of the job: ``(data=world/M, model=M)`` for
+    ``model_parallel`` M, rank ``d·M + m`` at ``(d, m)`` (the last axis
+    fastest, as ``jax.make_mesh`` lays devices out), with a ``model``
+    group a data row over gloo or NCCL. Each rank takes the card
+    ``LOCAL_RANK`` (default 0) unless ``device`` is given; ``device='cpu'``
+    runs on the CPU over gloo."""
     world = int(os.environ.get("WORLD_SIZE", 1))
     if dist.is_initialized():
         world = dist.get_world_size()
-    return make_mesh((world, 1), ("data", "model"), device=device)
+    m = int(model_parallel)
+    if m < 1 or world % m:
+        raise ValueError(f"model_parallel={model_parallel} does not divide "
+                         f"the job's {world} rank(s)")
+    return make_mesh((world // m, m), ("data", "model"), device=device)

@@ -31,6 +31,14 @@ prints one JSON object:
   decode steps, device time by kernel group and the device's idle share
   (1 - the union of kernel intervals over the window's span).
 
+``--model-parallel M`` under ``torch.distributed.run`` (one rank a card)
+serves the dense decoder over the ``(data=world/M, model=M)`` mesh
+(ROADMAP §1 item 6.2): each rank's bf16 shards from ``pinit``, each
+data row's requests ``--batch`` (every model rank the same), the model
+axis's collectives in the ``nccl`` group; rank 0 prints the JSON, with
+``allreduce_us``: one all-reduce over ``model`` of a decode step's (batch,
+1, d) bf16 activations, on CUDA events over 100 calls.
+
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --flash-attention
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch \\
       deepseek-v2-236b --layers 4 --flash-attention
@@ -42,6 +50,9 @@ prints one JSON object:
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --reduced \\
       --device cpu --prompt-len 64 --max-new 4   # rehearsal: host clock,
                                                  # no profile
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 -m \\
+      repro_torch.launch.profile_serve --arch qwen1.5-32b --layers 16 \\
+      --model-parallel 4 --flash-attention
 """
 from __future__ import annotations
 
@@ -69,7 +80,7 @@ from repro_torch.serve.decode import DeviceClock, generate, \
     make_prefill_step, make_serve_step, prefix_len
 
 #: kernel-name substrings -> group, first match wins
-GROUPS = (("flash_attention", ("flash_fwd",)),
+GROUPS = (("nccl", ("nccl",)), ("flash_attention", ("flash_fwd",)),
           ("gemm", ("gemm", "nvjet", "cutlass", "sm90_", "xmma", "cublas",
                     "gemv")),
           ("softmax", ("softmax",)),
@@ -141,17 +152,32 @@ class _Phases:
         return out, dict(res, total=total, rest=total - sum(res.values()))
 
 
-def _phases(model, params, batch, cache_len, clock):
+def _phases(model, params, batch, cache_len, clock, mesh=None):
     """Phase split of one prefill and of one decode step after it."""
     with _Phases(clock) as ph:
         (logits, cache), prefill = ph.split(
-            lambda: model.forward_prefill(params, batch, cache_len))
+            lambda: model.forward_prefill(params, batch, cache_len, mesh))
     tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
     pos = batch["tokens"].shape[1] + prefix_len(model.cfg)
     with _Phases(clock) as ph:
         _, decode = ph.split(
-            lambda: model.forward_decode(params, cache, tok, pos))
+            lambda: model.forward_decode(params, cache, tok, pos, mesh))
     return {"prefill": prefill, "decode_step": decode}
+
+
+def _allreduce_us(x, axis) -> float:
+    """One all-reduce of ``x`` over ``axis``, on CUDA events over 100
+    calls after 10."""
+    import torch.distributed as dist
+    for _ in range(10):
+        dist.all_reduce(x, group=axis.group)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(100):
+        dist.all_reduce(x, group=axis.group)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) * 10.0
 
 
 def cut_depth(cfg, layers):
@@ -180,9 +206,16 @@ def main(argv=None):
                          "option: the full width on fewer layers)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--model-parallel", type=int, default=None, metavar="M",
+                    help="serve over the (data, model=M) mesh of every "
+                         "rank of the job (torch.distributed.run)")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    mesh = None
+    if args.model_parallel is not None:
+        from repro_torch.launch.mesh import make_local_mesh
+        mesh = make_local_mesh(args.model_parallel, device=args.device)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -192,7 +225,7 @@ def main(argv=None):
     model = build_model(cfg)
     # bf16 weights, each leaf cast as it is made (serve.decode's CLI)
     params = pinit.materialize(model.param_pd, seed=args.seed, device=dev,
-                               dtype=torch.bfloat16)
+                               dtype=torch.bfloat16, mesh=mesh)
     gen = torch.Generator().manual_seed(args.seed)
     batch = {"tokens": torch.randint(
         0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen,
@@ -203,7 +236,7 @@ def main(argv=None):
     start = args.prompt_len + prefix_len(cfg)     # the first new token's
     cache_len = start + args.max_new + 8
     run = lambda **kw: generate(model, params, batch, max_new=args.max_new,
-                                cache_len=cache_len, **kw)
+                                cache_len=cache_len, mesh=mesh, **kw)
     run()                                    # warm-up
     cuda = dev.type == "cuda"
     if cuda:
@@ -225,10 +258,18 @@ def main(argv=None):
                             if cuda else None)}
     p16 = cast_to_compute(params)
     out["phase_ms"] = _phases(model, p16, batch, cache_len,
-                              DeviceClock(dev))
+                              DeviceClock(dev), mesh)
+    if mesh is not None:
+        out["mesh"] = dict(zip(mesh.axis_names,
+                               (a.size for a in mesh.axes)))
+        tp = tf.tp_axis(cfg, mesh)
+        if cuda and tp is not None:
+            out["allreduce_us"] = _allreduce_us(torch.zeros(
+                (args.batch, 1, cfg.d_model), dtype=torch.bfloat16,
+                device=dev), tp)
     if cuda:
-        tok, cache = make_prefill_step(model, cache_len)(p16, batch)
-        step, n = make_serve_step(model), args.max_new - 1
+        tok, cache = make_prefill_step(model, cache_len, mesh)(p16, batch)
+        step, n = make_serve_step(model, mesh), args.max_new - 1
 
         def decode_steps():
             t = tok
@@ -237,9 +278,12 @@ def main(argv=None):
 
         out["profile"] = {
             "prefill": device_profile(lambda: model.forward_prefill(
-                p16, batch, cache_len), dev, 1, GROUPS),
+                p16, batch, cache_len, mesh), dev, 1, GROUPS),
             "decode": device_profile(decode_steps, dev, n, GROUPS)}
-    print(json.dumps(out), flush=True)
+    if mesh is None or mesh.rank == 0:
+        print(json.dumps(out), flush=True)
+    if mesh is not None:
+        mesh.destroy()
     return out
 
 

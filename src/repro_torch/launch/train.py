@@ -13,6 +13,9 @@ Example:
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
       --arch resnet50 --reduced --batch 8 --steps 2 --comm ring \\
       --sharding zero1 --device cpu        # ZeRO-1 on two gloo ranks
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch qwen1.5-0.5b --reduced --model-parallel 2 --comm xla \\
+      --device cpu             # the (data 2, model 2) mesh on gloo
   PYTHONPATH=src python -m repro_torch.launch.train --arch resnet50 \\
       --reduced --batch 8 --steps 6 --device cpu --comm psum \\
       --sharding zero1 --ckpt-dir /tmp/ck --ckpt-every 1 --guard \\
@@ -26,7 +29,16 @@ the job (``launch.mesh``: NCCL on the card, gloo on the CPU; one process
 without ``torchrun``); ``--sharding zero1|zero2|zero3`` picks the rung.
 Every ``--arch`` takes it but the MoE ones (qwen2-moe-a2.7b,
 deepseek-v2-236b), which it refuses, naming ROADMAP item 6.3. As in the
-reference, there is no flag for the ``(pod, data)`` mesh. On four cards:
+reference, there is no flag for the ``(pod, data)`` mesh. ``--comm xla``
+(the default) is the reference's GSPMD step: on one process the
+single-device step, under a multi-rank launch the ``(data=world/M,
+model=M)`` mesh of ``--model-parallel M`` (ROADMAP §1 item 6.2: the dense
+decoder's leaves split over ``model``; at M = 1 pure data parallelism),
+each rank on the rows of its data index. An explicit schedule treats every
+axis of that mesh as data parallel, as the reference's does. At M > 1 the
+CLI refuses checkpoints, ``--resume-elastic`` and ``--guard`` (item
+6.2b), and ``make_train_step`` the families and sizes the model axis does
+not split yet. On four cards:
   python -m torch.distributed.run --nproc-per-node 4 -m \
       repro_torch.launch.train --arch whisper-base --comm ring \
       --sharding zero1 --steps 3
@@ -48,9 +60,6 @@ timeline (``obs.drift``: ``obs.drift.span`` rows and the
 instead of the FLOPs model. The deprecated ``--shard-update`` and
 ``--no-gather-ahead`` map onto ``--sharding zero1`` and ``--gather
 at_end``, as in the reference.
-
-The reference's flags for parts not ported yet are accepted by name and
-exit with the ROADMAP item that will bring them.
 """
 from __future__ import annotations
 
@@ -66,6 +75,7 @@ from repro_torch.core.schedule import ScheduleConfig, linear_scaled_lr, \
     make_schedule
 from repro_torch.data.synthetic import make_batch_fn
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.models.common import dp_axes
 from repro_torch.models.registry import build_model
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -82,9 +92,6 @@ SCHEDULES = ("naive", "bucketed", "psum", "ring", "hierarchical",
              "2d_torus", "dbtree")
 
 WHERE = "repro_torch/launch/train.py"
-
-#: reference flag -> ROADMAP §1 item that ports it
-_NOT_PORTED = {"--model-parallel": 6}
 
 
 def _bucket_mb(v: str):
@@ -107,8 +114,11 @@ def main(argv=None):
     ap.add_argument("--grad-accum", type=int, default=1,
                     help="micro-batches a step; --comm xla only")
     ap.add_argument("--comm", default="xla", choices=["xla", *SCHEDULES],
-                    help="'xla': the replicated single-device step; else "
-                         "an explicit-DP schedule over every rank")
+                    help="'xla': the GSPMD step (one device, or the "
+                         "(data, model) mesh of every rank); else an "
+                         "explicit-DP schedule over every rank")
+    ap.add_argument("--model-parallel", type=int, default=1, metavar="M",
+                    help="the mesh's model axis: (data=world/M, model=M)")
     ap.add_argument("--bucket-mb", default=4.0, type=_bucket_mb,
                     help="bucket size in MB, or 'auto' (the autotuner)")
     ap.add_argument("--backward-profile", default="model",
@@ -195,14 +205,7 @@ def main(argv=None):
     ap.add_argument("--metrics", default=None, metavar="OUT.jsonl",
                     help="mirror every metrics event (the MLPerf tag "
                          "stream + obs.* rows) to a JSONL file")
-    for flag in _NOT_PORTED:
-        ap.add_argument(flag, nargs="?", const=True, default=None,
-                        help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            ap.error(f"{flag} is not ported to repro_torch yet "
-                     f"(ROADMAP §1 item {item})")
     # the deprecated boolean flags: noted and mapped onto the policy enum,
     # as the reference does; the notes go out once the sinks are attached
     args.notes = []
@@ -232,13 +235,36 @@ def main(argv=None):
                  f"(--comm {{bucketed,psum,ring,hierarchical,2d_torus,"
                  f"dbtree}}), not {args.comm!r}")
     world = int(os.environ.get("WORLD_SIZE", 1))
-    if args.comm == "xla" and world > 1:
-        ap.error(f"--comm xla is the single-device step: under a "
-                 f"{world}-rank launch every rank would train its own "
-                 f"unsynchronised replica. Use an explicit schedule such as "
-                 f"--comm psum; the reference's GSPMD --comm xla over every "
-                 f"rank comes with the model axis (ROADMAP §1 item 6)")
-    if args.comm != "xla" and get_config(args.arch).moe is not None:
+    m = args.model_parallel
+    arch = get_config(args.arch)
+    if m > 1:
+        if arch.moe is not None:
+            ap.error(f"--model-parallel {m} with {args.arch}: the MoE layer "
+                     f"over a model axis is not ported to repro_torch yet "
+                     f"(ROADMAP §1 item 6.3)")
+        if arch.family != "dense" or arch.mla is not None:
+            ap.error(f"--model-parallel {m} with {args.arch}: the "
+                     f"{arch.family} family over a model axis is not "
+                     f"ported to repro_torch yet (ROADMAP §1 item 6.2b)")
+        for flag, on in (("--ckpt-dir", args.ckpt_dir),
+                         ("--resume-elastic", args.resume_elastic),
+                         ("--guard", args.guard)):
+            if on:
+                ap.error(f"{flag} with --model-parallel {m} is not ported "
+                         f"to repro_torch yet (ROADMAP §1 item 6.2b)")
+    if m < 1 or world % m:
+        ap.error(f"--model-parallel {m} does not divide the job's {world} "
+                 f"rank(s)")
+    if args.comm == "xla" and world > 1 and arch.family == "conv":
+        ap.error(f"--comm xla over a {world}-rank launch with the conv "
+                 f"family: GSPMD's BatchNorm statistics span every rank's "
+                 f"rows, the port's are per process; use an explicit "
+                 f"schedule such as --comm psum (ROADMAP §1 item 6.2b)")
+    if args.comm == "xla" and world > 1 and arch.moe is not None:
+        ap.error(f"--comm xla over a {world}-rank launch with {args.arch}: "
+                 f"the MoE layer over a mesh is not ported to repro_torch "
+                 f"yet (ROADMAP §1 item 6.3)")
+    if args.comm != "xla" and arch.moe is not None:
         ap.error(f"--comm {args.comm} with {args.arch}: the explicit "
                  f"schedules run the model without a mesh, and the MoE "
                  f"layer's experts need a mesh's model axis (ROADMAP §1 item "
@@ -276,9 +302,11 @@ def _run(args):
     try:
         schedule = saved_plan.schedule if saved_plan is not None \
             else args.comm
-        if schedule != "xla":
+        m = getattr(args, "model_parallel", 1)
+        if schedule != "xla" or m > 1 \
+                or int(os.environ.get("WORLD_SIZE", 1)) > 1:
             from repro_torch.launch.mesh import make_local_mesh
-            mesh = make_local_mesh(device=args.device)
+            mesh = make_local_mesh(m, device=args.device)
         return _train(args, mesh, reg, saved_plan)
     finally:
         if mesh is not None:
@@ -302,8 +330,13 @@ def _train(args, mesh, reg, saved_plan):
     opt = lars.OptConfig(kind=args.optimizer, momentum=args.momentum,
                          weight_decay=args.weight_decay)
     shape = InputShape("cli", "train", args.seq, args.batch)
-    batch_fn = make_batch_fn(cfg, shape, seed=args.seed, kind=args.data,
-                             device=device, mesh=mesh)
+    # the GSPMD step's batch lies over the data axes, an explicit step's
+    # over every axis
+    xla = (saved_plan.schedule if saved_plan is not None
+           else args.comm) == "xla"
+    batch_fn = make_batch_fn(
+        cfg, shape, seed=args.seed, kind=args.data, device=device,
+        mesh=mesh, axes=dp_axes(mesh) if xla and mesh is not None else None)
     comm = CommConfig(strategy=args.comm, bucket_mb=args.bucket_mb,
                       overlap=not args.no_overlap,
                       update_kernel=args.update_kernel,
@@ -343,7 +376,8 @@ def _train(args, mesh, reg, saved_plan):
                   f"autotuned bucket plan: {t.bucket_mb:g}MB x "
                   f"{t.n_buckets} buckets ({t.sim.mode}), predicted overlap "
                   f"eff {t.sim.overlap_eff:.2f}", where=WHERE)
-    eval_step = make_eval_step(model) if args.eval_every else None
+    eval_step = (make_eval_step(model, mesh=mesh if xla else None)
+                 if args.eval_every else None)
     state = init_state(model, args.seed, device=device,
                        opt_kind=args.optimizer,
                        **sharded_state_kwargs(train_step))

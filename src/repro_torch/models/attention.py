@@ -9,6 +9,16 @@ token against a (B, S_max, K, Dh) cache that the port updates in place.
 MLA (DeepSeek-V2) decodes in the *absorbed* form against a cache of only
 the 512-d latent and the shared rope key. Cross-attention decodes one
 token against a read-only cache of the encoder's keys and values.
+
+Under a mesh's model axis (``tp``, a ``launch.mesh.Axis``; ROADMAP §1 item
+6.2) a rank holds H/M query heads and K/M kv heads, the columns of
+``wq``/``wk``/``wv`` and their biases and the rows of ``wo`` that belong
+to them, as the reference's specs place them: its q heads ``[r·H/M, …)``
+read its own kv heads ``[r·K/M, …)`` (G = H/K), so attention, K5 and the
+cache stay local, and ``wo``'s partial output is all-reduced
+(``common.reduce_out``). The replicated ``qk_norm`` scales act on the
+local heads only, so their gradients are summed over the axis
+(``common.copy_in``).
 """
 from __future__ import annotations
 
@@ -17,8 +27,8 @@ import math
 import torch
 
 from repro_torch.kernels.ref import NEG
-from repro_torch.models.common import PD, attention_mask, dense_pd, \
-    rms_norm, rope
+from repro_torch.models.common import PD, attention_mask, copy_in, \
+    dense_pd, reduce_out, rms_norm, rope
 
 
 def _scale(dh: int, dtype: torch.dtype) -> float:
@@ -45,17 +55,19 @@ def _attend(q, k, v, cfg, *, causal: bool, window: int = 0):
 def gqa_pd(cfg):
     d, hd = cfg.d_model, cfg.resolved_head_dim
     H, K = cfg.n_heads, cfg.n_kv_heads
+    dp = "data" if cfg.fsdp else None
     p = {
-        "wq": dense_pd(d, H * hd),
-        "wk": dense_pd(d, K * hd),
-        "wv": dense_pd(d, K * hd),
-        "wo": dense_pd(H * hd, d, scale=(H * hd) ** -0.5
+        "wq": dense_pd(d, H * hd, spec=(dp, "model")),
+        "wk": dense_pd(d, K * hd, spec=(dp, "model")),
+        "wv": dense_pd(d, K * hd, spec=(dp, "model")),
+        "wo": dense_pd(H * hd, d, spec=("model", dp),
+                       scale=(H * hd) ** -0.5
                        / math.sqrt(2 * max(cfg.n_layers, 1))),
     }
     if cfg.qkv_bias:
-        p["bq"] = PD((H * hd,), init="zeros")
-        p["bk"] = PD((K * hd,), init="zeros")
-        p["bv"] = PD((K * hd,), init="zeros")
+        p["bq"] = PD((H * hd,), spec=("model",), init="zeros")
+        p["bk"] = PD((K * hd,), spec=("model",), init="zeros")
+        p["bv"] = PD((K * hd,), spec=("model",), init="zeros")
     if cfg.qk_norm:
         p["q_norm"] = PD((hd,), init="ones")
         p["k_norm"] = PD((hd,), init="ones")
@@ -180,43 +192,53 @@ def _split_heads(x, n, hd):
     return x.reshape(*x.shape[:-1], n, hd)
 
 
-def _head(p, x, cfg, w: str, n: int):
+def local_heads(cfg, tp=None):
+    """(query heads, kv heads) a rank holds over the model axis ``tp``."""
+    m = 1 if tp is None else tp.size
+    return cfg.n_heads // m, cfg.n_kv_heads // m
+
+
+def _head(p, x, cfg, w: str, n: int, tp=None):
     """x's heads through projection ``w`` ("q", "k" or "v"): projected,
     biased and, with ``qk_norm``, q's and k's heads RMS-normed (before
-    rope, as the JAX package does)."""
+    rope, as the JAX package does). ``n``: the heads this rank holds."""
     y = x @ p[f"w{w}"]
     if cfg.qkv_bias:
         y = y + p[f"b{w}"]
     y = _split_heads(y, n, cfg.resolved_head_dim)
     if cfg.qk_norm and w != "v":
-        y = rms_norm(y, p[f"{w}_norm"], cfg.rms_eps)
+        y = rms_norm(y, copy_in(p[f"{w}_norm"], tp), cfg.rms_eps)
     return y
 
 
-def _qkv(p, x, cfg, kv_src=None):
-    """Heads of q (from x), k and v (from ``kv_src``, default x)."""
-    kv_src = x if kv_src is None else kv_src
-    return (_head(p, x, cfg, "q", cfg.n_heads),
-            _head(p, kv_src, cfg, "k", cfg.n_kv_heads),
-            _head(p, kv_src, cfg, "v", cfg.n_kv_heads))
+def _qkv(p, x, cfg, kv_src=None, tp=None):
+    """Heads of q (from x), k and v (from ``kv_src``, default x): the
+    rank's own over the model axis ``tp``, the inputs read through
+    ``copy_in``."""
+    x = copy_in(x, tp)
+    kv_src = x if kv_src is None else copy_in(kv_src, tp)
+    H, K = local_heads(cfg, tp)
+    return (_head(p, x, cfg, "q", H, tp), _head(p, kv_src, cfg, "k", K, tp),
+            _head(p, kv_src, cfg, "v", K, tp))
 
 
 def gqa_parallel(p, x, positions, cfg, *, cache_len: int = 0,
-                 cross_x=None):
+                 cross_x=None, tp=None):
     """Train/prefill attention. Returns (out, cache|None); the cache holds
     k/v written into zero (B, cache_len, K, Dh) buffers when
-    cache_len > 0. ``cross_x`` (B, Sk, d): the encoder's states, the source
-    of the keys and values of a non-causal attention without rope (the
-    whisper encoder passes its own input, the decoder the encoder's
-    output)."""
+    cache_len > 0 (K/M of them over the model axis ``tp``). ``cross_x``
+    (B, Sk, d): the encoder's states, the source of the keys and values of
+    a non-causal attention without rope (the whisper encoder passes its
+    own input, the decoder the encoder's output)."""
     B, S = x.shape[:2]
-    q, k, v = _qkv(p, x, cfg, kv_src=cross_x)
+    q, k, v = _qkv(p, x, cfg, kv_src=cross_x, tp=tp)
     if cfg.rope_theta and cross_x is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     o = _attend(q, k, v, cfg, causal=cross_x is None,
                 window=cfg.sliding_window)
-    out = o.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim) @ p["wo"]
+    out = reduce_out(o.reshape(B, S, q.shape[2] * cfg.resolved_head_dim)
+                     @ p["wo"], tp)
     cache = None
     if cache_len:
         Sk = k.shape[1]
@@ -236,12 +258,13 @@ def _check_pos(pos: int, cache_rows: int):
                          f"(length {cache_rows})")
 
 
-def _gqa_decode_rows(p, x, pos: int, cfg, kc, vc):
-    """One token against one layer's (B, Smax, K, Dh) caches, its k and v
-    written into row ``pos`` in place. Returns the block's output."""
+def _gqa_decode_rows(p, x, pos: int, cfg, kc, vc, tp=None):
+    """One token against one layer's (B, Smax, K, Dh) caches (the rank's
+    K/M heads over the model axis ``tp``), its k and v written into row
+    ``pos`` in place. Returns the block's output."""
     _check_pos(pos, kc.shape[1])
     B = x.shape[0]
-    q, k, v = _qkv(p, x, cfg)
+    q, k, v = _qkv(p, x, cfg, tp=tp)
     if cfg.rope_theta:
         pp = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
         q = rope(q, pp, cfg.rope_theta)
@@ -249,29 +272,32 @@ def _gqa_decode_rows(p, x, pos: int, cfg, kc, vc):
     kc[:, pos] = k[:, 0]
     vc[:, pos] = v[:, 0]
     o = decode_attention(q, kc, vc, pos, window=cfg.sliding_window)
-    return o @ p["wo"]
+    return reduce_out(o @ p["wo"], tp)
 
 
-def gqa_decode(p, x, pos: int, cfg, cache, *, cross: bool = False):
+def gqa_decode(p, x, pos: int, cfg, cache, *, cross: bool = False,
+               tp=None):
     """One-token decode. x: (B,1,d); pos: the token's index (Python int);
     cache: {'k','v'} (B,Smax,K,Dh), updated IN PLACE at row ``pos`` (the
     JAX package returns an updated copy) and returned. ``cross``: the
     cache holds the encoder's keys and values, read only; the token
-    attends over all of its rows."""
+    attends over all of its rows. ``tp``: the model axis."""
     if not cross:
         return _gqa_decode_rows(p, x, pos, cfg, cache["k"],
-                                cache["v"]), cache
-    q = _head(p, x, cfg, "q", cfg.n_heads)
+                                cache["v"], tp), cache
+    q = _head(p, copy_in(x, tp), cfg, "q", local_heads(cfg, tp)[0], tp)
     o = decode_attention(q, cache["k"], cache["v"], cache["k"].shape[1] - 1)
-    return o @ p["wo"], cache
+    return reduce_out(o @ p["wo"], tp), cache
 
 
-def gqa_decode_inplace(p, x, pos: int, cfg, ck_all, cv_all, layer: int):
+def gqa_decode_inplace(p, x, pos: int, cfg, ck_all, cv_all, layer: int,
+                       tp=None):
     """Unrolled-serving decode: ck_all/cv_all are the stacked
     (L,B,Smax,K,Dh) caches; writes the one new token of layer ``layer`` in
     place and attends over that layer's slice. Returns (out, ck_all,
     cv_all), the caches being the given ones."""
-    out = _gqa_decode_rows(p, x, pos, cfg, ck_all[layer], cv_all[layer])
+    out = _gqa_decode_rows(p, x, pos, cfg, ck_all[layer], cv_all[layer],
+                           tp)
     return out, ck_all, cv_all
 
 

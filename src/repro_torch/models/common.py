@@ -1,18 +1,38 @@
 """Parameter descriptors and the LM's shared numerics.
 
 Parameters are described abstractly first (``PD``: shape, dtype,
-initializer) and materialized by ``repro_torch.core.pinit`` — the basis of
-the paper's §III-B.1 broadcast-free initialization: every process derives
-the same per-leaf seed from the tree path and a shared seed. The JAX
-package's descriptor also carries a PartitionSpec; the port's single-device
-slice has no use for one.
+initializer, placement) and materialized by ``repro_torch.core.pinit`` —
+the basis of the paper's §III-B.1 broadcast-free initialization: every
+process derives the same per-leaf seed from the tree path and a shared
+seed.
+
+A descriptor's ``spec`` is the JAX package's PartitionSpec written as a
+tuple: per dim an axis name, a tuple of names or None, missing trailing
+dims None. The port splits a leaf over the mesh's ``model`` axis only
+(ROADMAP §1 item 6.2): a ``P(dp, "model")`` column split, a ``P("model",
+dp)`` row split. A rank ``(d, m)`` of a ``(data, model)`` mesh holds the
+m-th of M equal slices of each split leaf (``local_slice``) and every
+replicated leaf whole.
+
+Under a model axis the dense blocks run Megatron-style, as the reference's
+GSPMD program computes them on that placement: a column-split matmul
+reads its input through ``copy_in`` (forward identity, backward
+all-reduce over ``model``), a row-split one's partial output goes through
+``reduce_out`` (forward all-reduce, backward identity), and an output that
+every model rank needs whole (the d-split embedding, the vocab-split
+logits) is gathered by ``gather_out``, whose backward keeps the rank's
+own slice: every model rank computes the same loss from the gathered
+tensor, so its gradient there is the same on each, and summing it (as
+``torch.distributed.nn``'s gather would, by a reduce-scatter) would
+multiply it by M.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.tree import tree_map
 
@@ -21,6 +41,7 @@ from repro_torch.tree import tree_map
 class PD:
     """Abstract parameter descriptor (a tree leaf)."""
     shape: Tuple[int, ...]
+    spec: Tuple[Any, ...] = ()       # the PartitionSpec, as a tuple
     init: str = "normal"             # normal | zeros | ones | const
     scale: float = 0.02
     dtype: torch.dtype = torch.float32
@@ -28,15 +49,138 @@ class PD:
 
 def pd_stack(tree, n: int):
     """Add a leading layer dim of size n to every descriptor (the stacked
-    layers of an LM, which the port walks with a Python loop)."""
-    return tree_map(lambda pd: dataclasses.replace(pd, shape=(n, *pd.shape)),
-                    tree)
+    layers of an LM, which the port walks with a Python loop); the new dim
+    is not split."""
+    return tree_map(lambda pd: dataclasses.replace(
+        pd, shape=(n, *pd.shape), spec=(None, *pd.spec)), tree)
 
 
-def dense_pd(d_in: int, d_out: int, *, scale: Optional[float] = None) -> PD:
+def dense_pd(d_in: int, d_out: int, *, spec=(),
+             scale: Optional[float] = None) -> PD:
     if scale is None:
         scale = d_in ** -0.5
-    return PD((d_in, d_out), init="normal", scale=scale)
+    return PD((d_in, d_out), spec=tuple(spec), init="normal", scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# the model axis (ROADMAP §1 item 6.2)
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error of a part the port refuses, naming its ROADMAP item."""
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP §1 item {item})")
+
+
+def dp_axes(mesh) -> tuple:
+    """The names of every mesh axis that carries the batch (all but
+    'model')."""
+    return tuple(a for a in mesh.axis_names if a != "model")
+
+
+def model_axis(mesh):
+    """The mesh's ``model`` axis (a ``launch.mesh.Axis``) where it spans
+    more than one rank, else None (no mesh, no such axis, or size 1)."""
+    if mesh is None or "model" not in mesh.axis_names:
+        return None
+    a = mesh.axis("model")
+    return a if a.size > 1 else None
+
+
+def local_slice(pd: PD, axis) -> Tuple[Optional[int], int, int]:
+    """(dim, start, length) of this rank's slice of a leaf split over the
+    model ``axis`` (the dim whose spec entry names ``model``); (None, 0, 0)
+    for a replicated leaf or no axis."""
+    d = next((d for d, e in enumerate(pd.spec)
+              if "model" in (e if isinstance(e, tuple) else (e,))), None)
+    if axis is None or d is None:
+        return None, 0, 0
+    n = pd.shape[d]
+    if n % axis.size:
+        raise not_ported(f"a dim of {n} over model={axis.size} (an uneven "
+                         f"split)", "6.2b")
+    k = n // axis.size
+    return d, axis.index * k, k
+
+
+def local_shape(pd: PD, axis) -> Tuple[int, ...]:
+    """A rank's shape of the leaf ``pd`` over the model ``axis``."""
+    d, _, k = local_slice(pd, axis)
+    return tuple(pd.shape) if d is None else \
+        (*pd.shape[:d], k, *pd.shape[d + 1:])
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size, index):
+        ctx.index, ctx.width = index, x.shape[-1]
+        return _gather_last(x, group, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(-1, ctx.index * ctx.width, ctx.width).contiguous(),
+                None, None, None)
+
+
+def _gather_last(x, group, size):
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=-1)
+
+
+def copy_in(x, axis):
+    """x, replicated over the model ``axis``, into a column-split region:
+    the identity forward, the partial gradients all-reduced backward."""
+    if axis is None or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _CopyIn.apply(x, axis.group)
+
+
+def reduce_out(x, axis):
+    """A row-split matmul's partial output summed over the model
+    ``axis`` (backward: the identity). Without autograd the sum is taken
+    in place."""
+    if axis is None:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ReduceOut.apply(x, axis.group)
+    dist.all_reduce(x, group=axis.group)
+    return x
+
+
+def gather_out(x, axis):
+    """The model ``axis``'s slices of x's last dim, concatenated in rank
+    order; backward: the rank's own slice of the gradient."""
+    if axis is None:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherOut.apply(x, axis.group, axis.size, axis.index)
+    return _gather_last(x, axis.group, axis.size)
 
 
 # ---------------------------------------------------------------------------

@@ -6,17 +6,18 @@ import math
 
 import torch
 
-from repro_torch.models.common import PD, dense_pd
+from repro_torch.models.common import PD, copy_in, dense_pd, reduce_out
 
 
 def swiglu_pd(cfg, d_ff=None):
     d = cfg.d_model
     f = d_ff or cfg.d_ff
+    dp = "data" if cfg.fsdp else None
     down_scale = f ** -0.5 / math.sqrt(2 * max(cfg.n_layers, 1))
     return {
-        "w_gate": dense_pd(d, f),
-        "w_up": dense_pd(d, f),
-        "w_down": dense_pd(f, d, scale=down_scale),
+        "w_gate": dense_pd(d, f, spec=(dp, "model")),
+        "w_up": dense_pd(d, f, spec=(dp, "model")),
+        "w_down": dense_pd(f, d, spec=("model", dp), scale=down_scale),
     }
 
 
@@ -38,17 +39,23 @@ def gelu(x):
     return x * (0.5 * (1.0 + torch.tanh(k * (x + a * (x * x * x)))))
 
 
-def swiglu_apply(p, x):
-    return (silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+def swiglu_apply(p, x, tp=None):
+    """The SwiGLU MLP; over the model axis ``tp`` the rank holds d_ff/M
+    columns of ``w_gate``/``w_up`` and rows of ``w_down``, whose partial
+    output is all-reduced."""
+    x = copy_in(x, tp)
+    return reduce_out((silu(x @ p["w_gate"]) * (x @ p["w_up"]))
+                      @ p["w_down"], tp)
 
 
 def gelu_mlp_pd(cfg, d_ff=None):
     d = cfg.d_model
     f = d_ff or cfg.d_ff
+    dp = "data" if cfg.fsdp else None
     return {
-        "w_in": dense_pd(d, f),
-        "b_in": PD((f,), init="zeros"),
-        "w_out": dense_pd(f, d, scale=f ** -0.5
+        "w_in": dense_pd(d, f, spec=(dp, "model")),
+        "b_in": PD((f,), spec=("model",), init="zeros"),
+        "w_out": dense_pd(f, d, spec=("model", dp), scale=f ** -0.5
                           / math.sqrt(2 * max(cfg.n_layers, 1))),
         "b_out": PD((d,), init="zeros"),
     }

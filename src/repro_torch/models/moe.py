@@ -4,7 +4,8 @@ The JAX package runs both paths inside ``shard_map`` over the mesh's
 ``model`` axis: in train/prefill a pair of ``all_to_all`` collectives moves
 each token to the device that holds its expert and back; in decode every
 device runs its shard of the experts on all tokens and a ``psum`` combines
-them. The port has no model axis yet (ROADMAP §1 item 6), so it computes
+them. The port's model axis covers the dense decoder only (the MoE
+layer's is ROADMAP §1 item 6.3), so it computes
 the per-device bodies at model-axis size 1, where those collectives are
 identities:
 

@@ -19,6 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import cast_to_compute
 from repro_torch.models import resnet as rn
 from repro_torch.models import transformer as tf
+from repro_torch.models.common import not_ported
 
 
 @dataclass(frozen=True)
@@ -31,14 +32,17 @@ class Model:
     decode_fn: Callable = None
     cache_pd_fn: Callable = None
 
-    def forward_train(self, params, batch, bn_state=None):
-        return self.train_fn(params, batch, bn_state)
+    # ``mesh``: the dense LMs split their leaves over its model axis
+    # (``transformer.tp_axis``); params are then a rank's shards and the
+    # batch its data index's rows
+    def forward_train(self, params, batch, bn_state=None, mesh=None):
+        return self.train_fn(params, batch, bn_state, mesh)
 
-    def forward_prefill(self, params, batch, cache_len):
-        return self.prefill_fn(params, batch, cache_len)
+    def forward_prefill(self, params, batch, cache_len, mesh=None):
+        return self.prefill_fn(params, batch, cache_len, mesh)
 
-    def forward_decode(self, params, cache, token, pos):
-        return self.decode_fn(params, cache, token, pos)
+    def forward_decode(self, params, cache, token, pos, mesh=None):
+        return self.decode_fn(params, cache, token, pos, mesh)
 
     def cache_pd(self, batch: int, max_seq: int):
         return self.cache_pd_fn(batch, max_seq)
@@ -48,7 +52,12 @@ def build_model(cfg: ModelConfig) -> Model:
     if cfg.family == "conv":
         params_pd, state_pd = rn.resnet_pd(cfg)
 
-        def train_fn(params, batch, bn_state):
+        def train_fn(params, batch, bn_state, mesh=None):
+            if mesh is not None and mesh.size > 1:
+                raise not_ported(
+                    "the conv family over a multi-rank mesh in one forward "
+                    "(GSPMD's BatchNorm statistics span every rank's rows; "
+                    "train it with an explicit schedule)", "6.2b")
             logits, new_state = rn.resnet_forward(
                 cast_to_compute(params), bn_state, cfg, batch["images"],
                 train=True)
@@ -63,17 +72,18 @@ def build_model(cfg: ModelConfig) -> Model:
     # Each call casts the f32 masters to bf16, as the JAX package's do;
     # leaves already in bf16 pass through, so a caller that casts once
     # (serve.decode.generate) pays the cast once.
-    def train_fn(params, batch, bn_state=None):
-        logits, aux = tf.forward_train(cast_to_compute(params), cfg, batch)
+    def train_fn(params, batch, bn_state=None, mesh=None):
+        logits, aux = tf.forward_train(cast_to_compute(params), cfg, batch,
+                                       mesh)
         return (logits, aux), None
 
-    def prefill_fn(params, batch, cache_len):
+    def prefill_fn(params, batch, cache_len, mesh=None):
         return tf.forward_prefill(cast_to_compute(params), cfg, batch,
-                                  cache_len)
+                                  cache_len, mesh)
 
-    def decode_fn(params, cache, token, pos):
+    def decode_fn(params, cache, token, pos, mesh=None):
         return tf.forward_decode(cast_to_compute(params), cfg, cache, token,
-                                 pos)
+                                 pos, mesh)
 
     def cache_pd_fn(batch, max_seq):
         return tf.cache_pd(cfg, batch, max_seq)

@@ -19,9 +19,22 @@ as the JAX package wraps its layer scans in ``jax.checkpoint``, and each
 application of the hybrid's shared block too),
 ``forward_prefill`` (logits of the last position + a filled cache) and
 ``forward_decode`` (one token against the cache, updated in place).
+
+Each entry point takes ``mesh`` (a ``launch.mesh`` mesh, as the
+reference's take a ``jax.sharding.Mesh``). Over its ``model`` axis
+(ROADMAP §1 item 6.2: the dense decoder only, ``tp_axis`` refuses the
+rest) the params are a rank's shards by their specs, the batch is the
+rows of the rank's data index (the same on every model rank of a data
+row), and the logits come back whole over the vocabulary on every model
+rank: the vocab-split logits (an untied ``lm_head``'s columns, a tied
+``embed``'s rows) are gathered, as K4 and the greedy argmax read whole
+rows. The tied embedding's lookup zeroes the rows outside the rank's
+vocabulary slice and sums over the axis; the untied one's (d split)
+gathers its columns.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
@@ -33,8 +46,8 @@ from repro_torch.models import mamba as mb
 from repro_torch.models import mlp as mlpm
 from repro_torch.models import moe as moem
 from repro_torch.models import xlstm as xl
-from repro_torch.models.common import PD, dense_pd, layer_norm, pd_stack, \
-    rms_norm
+from repro_torch.models.common import PD, copy_in, dense_pd, gather_out, \
+    layer_norm, model_axis, not_ported, pd_stack, reduce_out, rms_norm
 from repro_torch.tree import tree_flatten, tree_map
 
 MAX_POS = 32_768   # learned-position table size (whisper-style decoders)
@@ -77,10 +90,16 @@ def _whisper_layer_pd(cfg, cross: bool):
 
 def lm_pd(cfg) -> Dict[str, Any]:
     d, V = cfg.d_model, cfg.vocab_size
-    tree: Dict[str, Any] = {"final_norm": PD((d,), init="ones"),
-                            "embed": PD((V, d), scale=0.02)}
+    dp = "data" if cfg.fsdp else None
+    # tied: the vocabulary splits (it is also the head's columns); untied:
+    # d splits, and the head's vocabulary
+    tree: Dict[str, Any] = {
+        "final_norm": PD((d,), init="ones"),
+        "embed": PD((V, d), spec=("model", dp) if cfg.tie_embeddings
+                    else (dp, "model"), scale=0.02)}
     if not cfg.tie_embeddings:
-        tree["lm_head"] = dense_pd(d, V, scale=d ** -0.5)
+        tree["lm_head"] = dense_pd(d, V, spec=(dp, "model"),
+                                   scale=d ** -0.5)
     fam = cfg.family
     if fam in ("dense", "moe", "vlm"):
         tree["layers"] = pd_stack(_dense_layer_pd(cfg), cfg.n_layers)
@@ -126,8 +145,12 @@ def cache_pd(cfg, batch: int, max_seq: int):
     xLSTM stack: a ``layer_XX`` tree a layer, mLSTM's C, n, m or sLSTM's
     c, n, h, m, all f32. The VLM's rows hold its image prefix first, so
     max_seq counts it. Whisper: ``self``, the decoder's k and v, and
-    ``cross``, the encoder output's (L, batch, n_frames, K, Dh), bf16."""
+    ``cross``, the encoder output's (L, batch, n_frames, K, Dh), bf16.
+    The k and v caches split their heads over ``model`` (the reference's
+    ``P(dp, None, "model", None)``); their batch is a rank's own rows."""
     zeros = lambda *shape: PD(shape, init="zeros", dtype=torch.bfloat16)
+    heads = lambda *shape: PD(shape, spec=("data", None, "model", None),
+                              init="zeros", dtype=torch.bfloat16)
     if cfg.family == "ssm":
         return {f"layer_{i:02d}": (xl.mlstm_cache_pd(cfg, batch)
                                    if xl.block_kind(cfg, i) == "m"
@@ -138,7 +161,7 @@ def cache_pd(cfg, batch: int, max_seq: int):
         return pd_stack({"ckv": zeros(batch, max_seq, m.kv_lora_rank),
                          "krope": zeros(batch, max_seq, m.rope_head_dim)},
                         cfg.n_layers)
-    kv_of = lambda rows: {n: zeros(batch, rows, cfg.n_kv_heads,
+    kv_of = lambda rows: {n: heads(batch, rows, cfg.n_kv_heads,
                                     cfg.resolved_head_dim) for n in "kv"}
     if cfg.family == "audio":
         return pd_stack({"self": kv_of(max_seq),
@@ -155,15 +178,58 @@ def cache_pd(cfg, batch: int, max_seq: int):
 # shared pieces
 
 
-def _embed(params, cfg, tokens):
-    return params["embed"][tokens].to(compute_dtype())
+def tp_axis(cfg, mesh):
+    """The model axis (``launch.mesh.Axis``) the forward over ``mesh``
+    splits ``cfg``'s leaves over, None where it spans one rank. Refuses
+    what the port does not split yet: the MoE layer and ``fsdp`` over more
+    than one data rank (item 6.3); the other families, MLA and head, FFN
+    or vocabulary counts that M does not divide (item 6.2b). Nothing falls
+    back."""
+    tp = model_axis(mesh)
+    if tp is None:
+        return None
+    m, name = tp.size, cfg.arch_id
+    if cfg.moe is not None:
+        raise not_ported(f"{name}: the MoE layer over a model axis", "6.3")
+    if cfg.family != "dense" or cfg.mla is not None:
+        raise not_ported(f"{name}: the {cfg.family} family"
+                         + (" with MLA" if cfg.mla is not None else "")
+                         + " over a model axis", "6.2b")
+    if cfg.fsdp and any(a.size > 1 for a in mesh.axes if a.name != "model"):
+        raise not_ported(f"{name}: fsdp (the masters split over data) "
+                         f"with more than one data rank", "6.3")
+    for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+                    ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
+        if n % m:
+            raise not_ported(
+                f"{name}: {what}={n} over model={m} (the reference lets "
+                f"GSPMD replicate what does not divide)", "6.2b")
+    return tp
 
 
-def _inputs(params, cfg, batch):
+def _embed(params, cfg, tokens, tp=None):
+    """The token embeddings in the compute dtype; over the model axis
+    ``tp``, the rank's vocabulary rows (tied: out-of-slice tokens give
+    zero rows, then the sum over the axis) or d columns (untied: gathered
+    over the axis)."""
+    dt = compute_dtype()
+    e = params["embed"]
+    if tp is None:
+        return e[tokens].to(dt)
+    if not cfg.tie_embeddings:
+        return gather_out(e[tokens].to(dt), tp)
+    rows = e.shape[0]
+    local = tokens - tp.index * rows
+    ok = (local >= 0) & (local < rows)
+    x = e[torch.where(ok, local, 0)].to(dt)
+    return reduce_out(torch.where(ok[..., None], x, x.new_zeros(())), tp)
+
+
+def _inputs(params, cfg, batch, tp=None):
     """The decoder stack's input (B, S, d): the token embeddings, after
     the VLM's image prefix (its patch embeddings through the stub
     projector, in the compute dtype, as the JAX package rounds them)."""
-    x = _embed(params, cfg, batch["tokens"])
+    x = _embed(params, cfg, batch["tokens"], tp)
     if cfg.family == "vlm":
         dt = compute_dtype()
         x = torch.cat([batch["frames"].to(dt) @ params["proj"].to(dt), x],
@@ -171,12 +237,14 @@ def _inputs(params, cfg, batch):
     return x
 
 
-def _logits(params, cfg, x):
+def _logits(params, cfg, x, tp=None):
+    """f32 logits over the whole vocabulary; over the model axis ``tp``
+    the rank's vocabulary slice, gathered."""
     x = (layer_norm(x, params["final_norm"], params["final_norm_b"])
          if cfg.family == "audio"
          else rms_norm(x, params["final_norm"], cfg.rms_eps))
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (x @ w.to(x.dtype)).float()
+    return gather_out(copy_in(x, tp) @ w.to(x.dtype), tp).float()
 
 
 def _layer(layers, i: int):
@@ -223,9 +291,10 @@ def _walk(layer, layers, n: int, x, cfg, *args, train: bool):
 
 
 def _dense_block(p, x, positions, cfg, *, decode=False, cache=None,
-                 pos=None, cache_len=0):
+                 pos=None, cache_len=0, tp=None):
     """One decoder layer. Returns (x, aux, new_cache); aux is the MoE
-    layer's load-balance loss, None for a dense layer."""
+    layer's load-balance loss, None for a dense layer. ``tp``: the model
+    axis (the dense GQA layer only: ``tp_axis``)."""
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
     if cfg.mla is not None:
         if decode:
@@ -234,10 +303,10 @@ def _dense_block(p, x, positions, cfg, *, decode=False, cache=None,
             a, new_cache = attn.mla_parallel(p["attn"], h, positions, cfg,
                                              cache_len=cache_len)
     elif decode:
-        a, new_cache = attn.gqa_decode(p["attn"], h, pos, cfg, cache)
+        a, new_cache = attn.gqa_decode(p["attn"], h, pos, cfg, cache, tp=tp)
     else:
         a, new_cache = attn.gqa_parallel(p["attn"], h, positions, cfg,
-                                         cache_len=cache_len)
+                                         cache_len=cache_len, tp=tp)
     x = x + a
     h = rms_norm(x, p["ln2"], cfg.rms_eps)
     aux = None
@@ -246,12 +315,12 @@ def _dense_block(p, x, positions, cfg, *, decode=False, cache=None,
         if cfg.moe.n_shared:
             m = m + mlpm.swiglu_apply(p["shared"], h)
     else:
-        m = mlpm.swiglu_apply(p["mlp"], h)
+        m = mlpm.swiglu_apply(p["mlp"], h, tp)
     return x + m, aux, new_cache
 
 
-def _train_block(p, x, positions, cfg):
-    return _dense_block(p, x, positions, cfg)[:2]
+def _train_block(p, x, positions, cfg, tp):
+    return _dense_block(p, x, positions, cfg, tp=tp)[:2]
 
 
 def _add(total, a):
@@ -260,10 +329,11 @@ def _add(total, a):
 
 
 def _dense_forward(params, cfg, x, positions, *, mode, cache=None, pos=None,
-                   cache_len=0):
+                   cache_len=0, tp=None):
     """mode: train | prefill | decode. x: embedded inputs (B,S,d). Returns
     (x, aux, cache): aux summed over the layers (None for a dense stack);
-    the decode cache is the given one, updated in place."""
+    the decode cache is the given one, updated in place. ``tp``: the
+    model axis (``tp_axis``)."""
     L = cfg.n_layers
     aux = None
     if mode == "train":
@@ -273,20 +343,21 @@ def _dense_forward(params, cfg, x, positions, *, mode, cache=None, pos=None,
         for i in range(L):
             x, a = _run(_train_block, remat, tree_map(lambda t: t[i],
                                                       unbound),
-                        x, positions, cfg)
+                        x, positions, cfg, tp)
             aux = _add(aux, a)
         return x, aux, None
     if mode == "prefill":
         stacked = None
         for i in range(L):
             x, a, c = _dense_block(_layer(params["layers"], i), x,
-                                   positions, cfg, cache_len=cache_len)
+                                   positions, cfg, cache_len=cache_len, tp=tp)
             aux = _add(aux, a)
             stacked = _put(stacked, L, i, c)
         return x, aux, stacked
     for i in range(L):
         x, a, _ = _dense_block(_layer(params["layers"], i), x, None, cfg,
-                               decode=True, cache=_layer(cache, i), pos=pos)
+                               decode=True, cache=_layer(cache, i), pos=pos,
+                               tp=tp)
         aux = _add(aux, a)
     return x, aux, cache
 
@@ -498,58 +569,64 @@ def _whisper_forward(params, cfg, tokens, frames, *, mode, cache=None,
     return x, stacked
 
 
-def _forward(cfg):
+def _forward(cfg, tp=None):
     """The family's stack: (params, cfg, x, positions, mode=..., ...) ->
-    (x, aux, cache)."""
-    return {"hybrid": _hybrid_forward,
-            "ssm": _xlstm_forward}.get(cfg.family, _dense_forward)
+    (x, aux, cache); ``tp``, the model axis, reaches only the decoder's
+    (``tp_axis`` refuses the others)."""
+    return {"hybrid": _hybrid_forward, "ssm": _xlstm_forward}.get(
+        cfg.family, functools.partial(_dense_forward, tp=tp))
 
 
 # ---------------------------------------------------------------------------
 # public entry points
 
 
-def forward_train(params, cfg, batch):
+def forward_train(params, cfg, batch, mesh=None):
     """batch: {'tokens': (B,S)[, 'frames': (B,P,d)]}. Returns (logits
     (B,S',V) f32, aux 0-d f32: the MoE load-balance loss summed over the
     layers, 0 for a dense stack); S' = P + S for the VLM, whose image
-    prefix takes P positions, else S."""
+    prefix takes P positions, else S. ``mesh``: see the module's
+    docstring."""
+    tp = tp_axis(cfg, mesh)
     if cfg.family == "audio":
         x, _ = _whisper_forward(params, cfg, batch["tokens"],
                                 batch["frames"], mode="train")
         aux = None
     else:
-        x = _inputs(params, cfg, batch)
+        x = _inputs(params, cfg, batch, tp)
         positions = torch.arange(x.shape[1], device=x.device)[None]
-        x, aux, _ = _forward(cfg)(params, cfg, x, positions, mode="train")
+        x, aux, _ = _forward(cfg, tp)(params, cfg, x, positions,
+                                      mode="train")
     if aux is None:
         aux = torch.zeros((), device=x.device)
-    return _logits(params, cfg, x), aux
+    return _logits(params, cfg, x, tp), aux
 
 
-def forward_prefill(params, cfg, batch, cache_len: int):
+def forward_prefill(params, cfg, batch, cache_len: int, mesh=None):
     """Returns (last-position logits (B,1,V) f32, cache)."""
+    tp = tp_axis(cfg, mesh)
     if cfg.family == "audio":
         x, cache = _whisper_forward(params, cfg, batch["tokens"],
                                     batch["frames"], mode="prefill",
                                     cache_len=cache_len)
     else:
-        x = _inputs(params, cfg, batch)
+        x = _inputs(params, cfg, batch, tp)
         positions = torch.arange(x.shape[1], device=x.device)[None]
-        x, _, cache = _forward(cfg)(params, cfg, x, positions,
-                                    mode="prefill", cache_len=cache_len)
-    return _logits(params, cfg, x[:, -1:]), cache
+        x, _, cache = _forward(cfg, tp)(params, cfg, x, positions,
+                                        mode="prefill", cache_len=cache_len)
+    return _logits(params, cfg, x[:, -1:], tp), cache
 
 
-def forward_decode(params, cfg, cache, token, pos: int):
+def forward_decode(params, cfg, cache, token, pos: int, mesh=None):
     """token: (B,1) integers; pos: its index (Python int; the VLM's counts
     its image prefix). Returns (logits (B,1,V) f32, cache); the cache is
     updated in place."""
+    tp = tp_axis(cfg, mesh)
     if cfg.family == "audio":
         x, cache = _whisper_forward(params, cfg, token, None, mode="decode",
                                     cache=cache, pos=pos)
     else:
-        x = _embed(params, cfg, token)
-        x, _, cache = _forward(cfg)(params, cfg, x, None, mode="decode",
-                                    cache=cache, pos=pos)
-    return _logits(params, cfg, x), cache
+        x = _embed(params, cfg, token, tp)
+        x, _, cache = _forward(cfg, tp)(params, cfg, x, None, mode="decode",
+                                        cache=cache, pos=pos)
+    return _logits(params, cfg, x, tp), cache

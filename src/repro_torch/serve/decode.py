@@ -31,6 +31,13 @@ and conv windows) in place. The CLI holds
 bf16 weights, as the JAX package's inference does: each leaf is cast as
 ``pinit`` makes it, so the f32 tree never exists (qwen2-moe-a2.7b's
 would take 60.6 GB).
+
+With ``mesh`` (a ``launch.mesh`` mesh, ROADMAP §1 item 6.2) the dense
+decoder serves over its model axis: ``params`` are a rank's shards
+(``pinit.materialize(..., mesh=)``), the batch is the rows of the rank's
+data index, each rank keeps the cache of its own kv heads and launches K5
+on its own heads, and every model rank reads the whole vocabulary's
+logits, so all of them pick the same tokens.
 """
 from __future__ import annotations
 
@@ -44,19 +51,19 @@ import torch
 from repro_torch.core.precision import cast_to_compute
 
 
-def make_prefill_step(model, cache_len: int):
+def make_prefill_step(model, cache_len: int, mesh=None):
     def prefill_step(params, batch):
-        logits, cache = model.forward_prefill(params, batch, cache_len)
+        logits, cache = model.forward_prefill(params, batch, cache_len, mesh)
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_tok[:, None], cache
     return prefill_step
 
 
-def make_serve_step(model):
+def make_serve_step(model, mesh=None):
     """serve_step(params, cache, token, pos) -> (next_token, logits, cache);
     the cache is updated in place."""
     def serve_step(params, cache, token, pos: int):
-        logits, cache = model.forward_decode(params, cache, token, pos)
+        logits, cache = model.forward_decode(params, cache, token, pos, mesh)
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_tok[:, None], logits, cache
     return serve_step
@@ -90,11 +97,12 @@ def prefix_len(cfg) -> int:
 
 
 def generate(model, params, batch, *, max_new: int, cache_len: int,
-             timings: dict = None):
+             timings: dict = None, mesh=None):
     """Batched greedy generation: (B, max_new) int32 tokens. ``timings``,
     if given, receives ``prefill_ms`` and ``decode_ms`` (one per decode
     step) on the device's clock. The cache must hold the prompt, the
-    VLM's image prefix and the new tokens."""
+    VLM's image prefix and the new tokens. ``mesh``: serve over its model
+    axis (the module's docstring); B is then the rank's rows."""
     tokens = batch["tokens"]
     prompt_len = tokens.shape[1] + prefix_len(model.cfg)
     if cache_len < prompt_len + max_new:
@@ -103,8 +111,8 @@ def generate(model, params, batch, *, max_new: int, cache_len: int,
         raise ValueError(f"cache_len {cache_len} < prompt length "
                          f"{prompt_len} + max_new {max_new}")
     params = cast_to_compute(params)
-    prefill = make_prefill_step(model, cache_len)
-    step = make_serve_step(model)
+    prefill = make_prefill_step(model, cache_len, mesh)
+    step = make_serve_step(model, mesh)
     clock = DeviceClock(tokens.device)
     marks = [clock.mark()]
     tok, cache = prefill(params, batch)

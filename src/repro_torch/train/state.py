@@ -150,7 +150,10 @@ def init_state(model, seed: int = 0, *, device=None, opt_kind: str = "lars",
     needs. The shards and momentum are this rank's rows alone, made
     without the global buffers; the ZeRO-3 state draws each leaf on the
     host and keeps only its rows (``_local_shard_writer``), so no full
-    fp32 tree is ever on the device: zamba2-7b's is 27 GB."""
+    fp32 tree is ever on the device: zamba2-7b's is 27 GB. Without a
+    ``sharded_plan``, a ``mesh`` with a model axis makes the params and
+    momentum of the ``comm='xla'`` step over it: a rank's shards by the
+    leaves' specs (``pinit.materialize(..., mesh=)``)."""
     device = resolve_device(device)
     if not materialize_params and (sharded_plan is None or not shard_params):
         raise ValueError("materialize_params=False (ZeRO-3) needs a "
@@ -168,7 +171,8 @@ def init_state(model, seed: int = 0, *, device=None, opt_kind: str = "lars",
                                                 index, device)
             if not materialize_params:
                 pinit.materialize(model.param_pd, seed, "cpu", sink=write)
-    params = (pinit.materialize(model.param_pd, seed, device)
+    params = (pinit.materialize(model.param_pd, seed, device,
+                                mesh=mesh if sharded_plan is None else None)
               if materialize_params else None)
     if shards is not None and params is not None:
         for path, leaf in tree_flatten(params):
@@ -187,7 +191,10 @@ def sharded_state_kwargs(train_step) -> dict:
     sharded rung, no params for zero3, no master shards for zero2."""
     sharding = getattr(train_step, "sharding", "replicated")
     if sharding == "replicated":
-        return {}
+        # the comm='xla' step over a mesh: a rank's shards by spec
+        mesh = getattr(train_step, "mesh", None)
+        return ({"mesh": mesh} if mesh is not None
+                and getattr(train_step, "comm", None) == "xla" else {})
     return dict(sharded_plan=train_step.bucket_plan,
                 n_shards=train_step.n_shards, mesh=train_step.mesh,
                 materialize_params=sharding != "zero3",

@@ -7,11 +7,22 @@ smoothed cross-entropy kernel (``kernels/ops.smoothed_xent_rows``, K4,
 forward and backward) and the masked mean stays outside it. Two
 distribution paths:
 
-* ``comm='xla'``: the replicated single-device step. Gradients are taken
+* ``comm='xla'``: the reference's GSPMD step. Gradients are taken
   with respect to the bf16 compute copy of the weights, as in the
   reference: each bf16 copy is an autograd leaf of its own, not a cast of
   the master that autograd follows, so the gradients arrive in bf16 and
-  the optimizer upcasts them.
+  the optimizer upcasts them. Without a mesh it runs on one device. Over
+  a ``(data, model)`` mesh (``launch.mesh.make_local_mesh(M)``; ROADMAP §1
+  item 6.2) the dense decoder's leaves split over ``model`` by their
+  specs (the state holds a rank's shards: ``init_state(...,
+  **sharded_state_kwargs(step))``), each rank takes the rows of its data
+  index, the forward and backward run the model axis's collectives
+  (``models/common.py``), the gradients are meaned over the data axes only
+  (in f32) and LARS takes whole-tensor norms (the split leaves' squares
+  summed over ``model``). At M = 1 it is GSPMD's pure data parallelism.
+  As the reference's loss is the global masked mean, the port's is the
+  data ranks' mean of their masked means: the same where the ranks hold
+  equal label counts, as every token batch gives them.
 * an explicit data-parallel schedule (``naive``, ``psum``, ``bucketed``,
   ``ring``, ``hierarchical``, ``2d_torus``, ``dbtree``; paper §III-C)
   over a ``launch.mesh`` mesh: the gradients of the fp32 params are packed
@@ -67,12 +78,14 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.comm import primitives as prim
 from repro_torch.configs.base import CommConfig
 from repro_torch.core import bucketing, ddp, lars
 from repro_torch.core.label_smoothing import IGNORE, smoothed_xent, \
     top1_accuracy
 from repro_torch.core.precision import cast_to_compute, compute_dtype
 from repro_torch.kernels import ops
+from repro_torch.models.common import local_slice, not_ported
 from repro_torch.models.resnet import resnet_forward
 from repro_torch.obs.trace import mark
 from repro_torch.train import guard as guard_lib
@@ -100,11 +113,13 @@ def _lm_loss(logits, labels, *, smoothing):
     return loss, n_valid
 
 
-def make_loss_fn(model, *, smoothing: float = 0.1, aux_coef: float = 0.01):
+def make_loss_fn(model, *, smoothing: float = 0.1, aux_coef: float = 0.01,
+                 mesh=None):
     xent = smoothed_xent if model.cfg.family == "conv" else _lm_loss
 
     def loss_fn(params, batch, bn_state=None):
-        (logits, aux), new_bn = model.forward_train(params, batch, bn_state)
+        (logits, aux), new_bn = model.forward_train(params, batch, bn_state,
+                                                    mesh)
         loss, _ = xent(logits, batch["labels"], smoothing=smoothing)
         total = loss + aux_coef * aux
         # the VLM's labels are narrower than its logits; the JAX package
@@ -119,11 +134,6 @@ def make_loss_fn(model, *, smoothing: float = 0.1, aux_coef: float = 0.01):
     return loss_fn
 
 
-def _not_ported(what: str, item):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP §1 item {item})")
-
-
 def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
                     smoothing: float = 0.1, mesh=None, comm="xla",
                     bucket_mb: float = 4.0, comm_dtype: str = "bf16",
@@ -133,7 +143,8 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
 
     ``comm`` is a strategy name ('xla', 'naive', 'psum', 'bucketed',
     'ring', 'hierarchical', '2d_torus', 'dbtree') or a full
-    ``CommConfig``. 'xla' runs on one device (``mesh`` None);
+    ``CommConfig``. 'xla' runs on one device (``mesh`` None) or over a
+    ``(data, model)`` mesh (the module's docstring);
     ``comm_dtype='bf16'`` then differentiates the bf16 compute copy, 'f32'
     the fp32 masters, and ``grad_accum`` splits the batch into that many
     microbatches, chains the BN statistics through them and means the f32
@@ -161,12 +172,12 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
         strategy=comm, bucket_mb=bucket_mb, wire_dtype=comm_dtype)
     if comm_cfg.wire_dtype not in ("bf16", "f32"):
         raise ValueError(comm_cfg.wire_dtype)
-    loss_fn = make_loss_fn(model, smoothing=smoothing)
     if comm_cfg.strategy != "xla":
+        loss_fn = make_loss_fn(model, smoothing=smoothing)
         if model.cfg.moe is not None:
             # the reference's explicit step runs the model without a mesh,
             # and its MoE layer needs one with a 'model' axis
-            raise _not_ported(
+            raise not_ported(
                 f"comm={comm_cfg.strategy!r} with a MoE config (the experts "
                 f"run over a mesh's model axis)", "6.3")
         return _guarded(_explicit_step(model, opt_cfg, schedule, loss_fn,
@@ -176,8 +187,8 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
         raise ValueError(
             f"sharding={comm_cfg.sharding!r} needs an explicit-DP schedule "
             f"(comm='psum', 'ring', ...), not comm='xla'")
-    if mesh is not None:
-        raise _not_ported("comm='xla' over a multi-device mesh", 6)
+    tp, dp, split = _xla_mesh(model, mesh, guard)
+    loss_fn = make_loss_fn(model, smoothing=smoothing, mesh=mesh)
     bf16 = comm_cfg.wire_dtype == "bf16"
 
     def grads_of(p_in, batch, bn_state, lfn):
@@ -207,18 +218,50 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
             grads = tree_map(lambda g: g / grad_accum, grads)
             metrics = {k: torch.stack([m[k] for m in ms]).mean()
                        for k in ms[0]}
+        if dp:
+            # the whole batch's gradient: the data ranks' mean, in f32
+            grads = prim.pmean_tree(tree_map(lambda g: g.float(), grads), dp)
+            metrics = prim.pmean_tree(metrics, dp)
         lr = _lr(schedule, state, guard_in)
         if guard_in is not None:
             ok, metrics = guard_lib.check(metrics, grads)
             if not ok:
                 return state, dict(metrics, lr=lr)
         params, mom = lars.update(state.params, grads, state.mom, lr,
-                                  opt_cfg)
+                                  opt_cfg, model_axis=tp, split=split)
         metrics = dict(metrics, lr=lr)
         return TrainState(state.step + 1, params, mom, new_bn), metrics
 
+    train_step.comm = "xla"
+    train_step.mesh = mesh
     train_step.sharding = "replicated"
     return _guarded(train_step, guard)
+
+
+def _xla_mesh(model, mesh, guard: bool):
+    """The ``comm='xla'`` step's view of ``mesh``: (the model axis or
+    None, the data axes a gradient is meaned over, the paths of the leaves
+    split over the model axis). Refuses what is not ported over a
+    multi-rank mesh, naming its ROADMAP item."""
+    from repro_torch.models import transformer
+    if mesh is None or mesh.size == 1:
+        return None, (), frozenset()
+    cfg = model.cfg
+    if cfg.family == "conv":
+        raise not_ported(
+            "comm='xla' for the conv family over a multi-rank mesh (GSPMD's "
+            "BatchNorm statistics span every rank's rows; train it with an "
+            "explicit schedule)", "6.2b")
+    if cfg.moe is not None:
+        raise not_ported("comm='xla' with a MoE config over a multi-rank "
+                         "mesh", "6.3")
+    tp = transformer.tp_axis(cfg, mesh)
+    if tp is not None and guard:
+        raise not_ported("the numerical guard over a model axis", "6.2b")
+    dp = tuple(a for a in mesh.axes if a.name != "model" and a.size > 1)
+    split = frozenset(path for path, pd in tree_flatten(model.param_pd)
+                      if local_slice(pd, tp)[0] is not None)
+    return tp, dp, split
 
 
 def _loss_for(loss_fn, guard_in):
@@ -257,7 +300,6 @@ def _explicit_step(model, opt_cfg, schedule, loss_fn, comm_cfg, mesh,
     the sharded rungs, over ``mesh``'s axes (every axis is data
     parallel). Takes ``guard_in`` (None: unguarded)."""
     from repro_torch.comm import get_schedule, plan_for
-    from repro_torch.comm import primitives as prim
     from repro_torch.comm.schedules import shard_axis
     comm = comm_cfg.strategy
     if comm != "naive":
@@ -562,17 +604,18 @@ def _measure_profile(model, batch, *, smoothing: float, mesh):
     return prof
 
 
-def make_eval_step(model):
+def make_eval_step(model, mesh=None):
     """eval_step(params, batch, bn_state) -> {'loss', 'acc'}, no
     smoothing: the conv family with the running BN statistics; the LMs
     through ``_lm_loss`` (K4 on the card) with ``acc`` 0, as the reference
-    returns it."""
+    returns it. ``mesh``: the LM over its model axis, on the shard tree
+    the ``comm='xla'`` step's state holds (each rank its own rows)."""
     cfg = model.cfg
 
     @torch.no_grad()
     def eval_step(params, batch, bn_state=None):
         if cfg.family != "conv":
-            (logits, _), _ = model.forward_train(params, batch)
+            (logits, _), _ = model.forward_train(params, batch, mesh=mesh)
             loss, _ = _lm_loss(logits, batch["labels"], smoothing=0.0)
             return {"loss": loss,
                     "acc": torch.zeros((), device=loss.device)}

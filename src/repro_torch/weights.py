@@ -4,14 +4,18 @@ The JAX package draws its parameters and data from threefry and the port
 from ``torch.Generator``s, so the two never draw the same numbers. To hold
 the port against the reference, the tests feed both the reference's own
 values: numpy trees at the reference's paths and shapes (HWIO weights stay
-HWIO), checked here against the port's descriptor trees.
+HWIO), checked here against the port's descriptor trees. Over a mesh's
+model axis ``shard_tree`` cuts a whole tree into a rank's shards by the
+descriptors' specs and ``gather_tree`` puts them back together.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.models import resnet, transformer
+from repro_torch.models.common import local_slice, model_axis
 from repro_torch.train.state import TrainState
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -66,12 +70,50 @@ def state_from_jax(jax_state, cfg, device) -> TrainState:
                       shards)
 
 
-def lm_params_from_jax(np_tree, cfg, device) -> dict:
+def lm_params_from_jax(np_tree, cfg, device, mesh=None) -> dict:
     """Reference LM params (numpy leaves, stacked (L, ...) layers; whisper's
     encoder stack and position tables, the VLM's projector among them) ->
     the port's tree, checked path by path and shape by shape against
-    ``transformer.lm_pd``."""
-    return _to_torch(np_tree, transformer.lm_pd(cfg), device, "params")
+    ``transformer.lm_pd``; with a ``mesh``, this rank's shards of it."""
+    pd = transformer.lm_pd(cfg)
+    return shard_tree(_to_torch(np_tree, pd, device, "params"), pd, mesh)
+
+
+def shard_tree(tree, pd_tree, mesh):
+    """A tree of whole leaves -> this rank's shards over ``mesh``'s model
+    axis by the specs of ``pd_tree`` (copies of the slices; replicated
+    leaves as they are). No model axis: ``tree`` itself."""
+    tp = model_axis(mesh)
+    if tp is None:
+        return tree
+    pds = dict(tree_flatten(pd_tree))
+
+    def cut(path, x):
+        d, start, k = local_slice(pds[path], tp)
+        return x if d is None else x.narrow(d, start, k).clone()
+    flat = tree_flatten(tree)
+    return tree_unflatten([p for p, _ in flat], [cut(p, x) for p, x in flat])
+
+
+def gather_tree(tree, pd_tree, mesh):
+    """The inverse of ``shard_tree``: every rank's shards of each split
+    leaf gathered over the model axis (a collective every rank of the
+    mesh must join)."""
+    tp = model_axis(mesh)
+    if tp is None:
+        return tree
+    pds = dict(tree_flatten(pd_tree))
+
+    def whole(path, x):
+        d = local_slice(pds[path], tp)[0]
+        if d is None:
+            return x
+        parts = [torch.empty_like(x) for _ in range(tp.size)]
+        dist.all_gather(parts, x.contiguous(), group=tp.group)
+        return torch.cat(parts, dim=d)
+    flat = tree_flatten(tree)
+    return tree_unflatten([p for p, _ in flat],
+                          [whole(p, x) for p, x in flat])
 
 
 def lm_state_from_jax(jax_state, cfg, device) -> TrainState:

@@ -599,6 +599,15 @@ def test_flash_attention_bf16_peaked_softmax(case):
     _flash_matches_plain(case, torch.bfloat16, q_scale=8.0)
 
 
+#: serve_tp's K5 launch: qwen1.5-32b at model 4, a rank's 10 of its 40
+#: heads of 128 (40 kv heads: G 1), 8 prompts of 2,048 tokens, causal
+SERVE_TP_FLASH = (8, 2048, 10, 10, 128, 128, True, 0)
+
+
+def test_flash_attention_kernel_at_serve_tp_shape():
+    _flash_matches_plain(SERVE_TP_FLASH, torch.bfloat16)
+
+
 #: whisper-base's K5 launches, non-causal on 8 heads of 64: the encoder's
 #: self-attention over its 1,500 frames and the decoder's cross-attention,
 #: 128 queries over the 1,500 encoder states (Sq != Sk)

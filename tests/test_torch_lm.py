@@ -217,11 +217,13 @@ def test_serve_entry_points_raise_without_card(monkeypatch):
             main(["--reduced"])
 
 
-def test_unported_lm_parts_name_roadmap(base):
+def test_unported_lm_parts_name_roadmap(base, capsys):
     """Item 10.6 is ported: whisper's and the VLM's configs resolve and
     their families build (``test_torch_whisper.py``, ``test_torch_vlm.py``
     hold them against the reference); an unknown arch names the known
-    ones; what stays refused names its item: the model axis (item 6)."""
+    ones; the CLI has every flag of the reference's, ``--model-parallel``
+    since item 6.2 (the dense decoder, ``test_torch_tp.py``), and what the
+    model axis does not split yet names its item."""
     from repro_torch.configs import _REGISTRY
     from repro_torch.launch import train as cli
     for arch, fam in (("whisper-base", "audio"), ("internvl2-2b", "vlm")):
@@ -239,4 +241,7 @@ def test_unported_lm_parts_name_roadmap(base):
                         comm="psum")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("whisper-large")
-    assert cli._NOT_PORTED == {"--model-parallel": 6}
+    with pytest.raises(SystemExit):
+        cli.main(["--arch", "zamba2-7b", "--model-parallel", "2",
+                  "--device", "cpu"])
+    assert "ROADMAP §1 item 6.2b" in capsys.readouterr().err

@@ -165,9 +165,11 @@ def test_cli_flag_not_ported_names_roadmap(capsys):
 
 
 def test_cli_refuses_comm_xla_under_multi_rank_launch(capsys, monkeypatch):
-    """Under a launcher that sets WORLD_SIZE > 1, the single-device
-    '--comm xla' step would train one unsynchronised replica a rank: the
-    CLI refuses it before building anything, naming the way out."""
+    """Under a launcher that sets WORLD_SIZE > 1, '--comm xla' is the
+    reference's GSPMD step over every rank, whose BatchNorm statistics
+    span the global batch; the port's conv family keeps them per process,
+    so the CLI refuses it before building anything, naming the way out
+    (the dense LMs take it: ``test_torch_tp.py``)."""
     from repro_torch.launch import train as launch
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setattr(launch, "_run", lambda args: pytest.fail("ran"))

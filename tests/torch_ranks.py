@@ -496,14 +496,385 @@ def lm_family_dp(mesh, arch):
     return out
 
 
+#: ``lm_xla_dp``'s CLI run: a frames family (its rows and frames split
+#: over the data ranks) through ``--comm xla`` at model 1
+XLA_DP_CLI = ("--arch", "whisper-base", "--reduced", "--comm", "xla",
+              "--device", "cpu", "--steps", "2", "--batch", "4", "--seq",
+              "16")
+
+
+def lm_xla_dp(mesh):
+    """``comm='xla'`` over the ranks at model 1 (``make_local_mesh()``: a
+    (world, 1) mesh, GSPMD's pure data parallelism): for the dense decoder
+    and each family of ``torch_reference.LM_FAMILY_DP``
+    (``xla_dp_archs``), two steps, each rank on its rows of the global
+    batch (the frames too), against two one-rank ``comm='xla'`` steps on
+    the whole batch; the hybrid and the xLSTM wholly in f32, the others
+    differentiating the bf16 compute copy. Per arch ``{arch}/...`` as
+    ``lm_family_dp`` has them (``masters_of_update``, ``loss_rel``,
+    ``masters_sha``, ``labels``); ``cli``: ``XLA_DP_CLI`` reached
+    run_stop."""
+    import contextlib
+    import hashlib
+    import io
+
+    import torch_reference
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import lars, precision
+    from repro_torch.core.label_smoothing import IGNORE
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.launch import train as cli
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_flatten
+    sched = make_schedule(ScheduleConfig(base_lr=0.5, warmup_steps=1,
+                                         total_steps=3, decay="poly2"))
+    shape = InputShape("t", "train", 32, 8)
+    out = {}
+    for arch in xla_dp_archs():
+        cfg = torch_reference.family_config(get_config, arch)
+        model = build_model(cfg)
+        f32 = arch in torch_reference.LM_FAMILY_F32
+        compute = precision.f32_compute if f32 else contextlib.nullcontext
+        steps = [make_train_step(model, lars.OptConfig(), sched, mesh=m,
+                                 comm="xla",
+                                 comm_dtype="f32" if f32 else "bf16")
+                 for m in (None, mesh)]
+        batches = [make_batch_fn(cfg, shape, seed=3, device=mesh.device,
+                                 mesh=m, axes=("data",))
+                   for m in (None, mesh)]
+        s1, s = (init_state(model, 0, device=mesh.device) for _ in range(2))
+        p0 = [x.clone() for _, x in tree_flatten(s1.params)]
+        labels = 0
+        for i in range(2):
+            batch = batches[1](i)
+            labels += int((batch["labels"] != IGNORE).sum())
+            with compute():
+                s1, m1 = steps[0](s1, batches[0](i))
+                s, m = steps[1](s, batch)
+        pairs = [(float((a - b).abs().max()), float((b - c).abs().max()))
+                 for (_, a), (_, b), c in zip(tree_flatten(s.params),
+                                              tree_flatten(s1.params), p0)]
+        top = max(u for _, u in pairs)
+        of_upd = max(d / (u if u > torch_reference.F32_ZERO * top else top)
+                     for d, u in pairs)
+        h = hashlib.sha256()
+        for _, x in tree_flatten(s.params):
+            h.update(x.contiguous().numpy().tobytes())
+        out.update({f"{arch}/masters_of_update": np.float64(of_upd),
+                    f"{arch}/loss_rel": np.float64(
+                        abs(float(m["loss"]) - float(m1["loss"]))
+                        / abs(float(m1["loss"]))),
+                    f"{arch}/masters_sha": np.frombuffer(h.digest(),
+                                                         np.uint8),
+                    f"{arch}/labels": np.int64(labels)})
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        history = cli.main(list(XLA_DP_CLI))
+    steps = [h["loss"] for h in history if "loss" in h]
+    out["cli"] = np.bool_(len(steps) == 2 and np.isfinite(steps).all()
+                          and "run_stop" in buf.getvalue())
+    return out
+
+
+def xla_dp_archs():
+    """``lm_xla_dp``'s archs: the dense decoder and the families of the
+    explicit data-parallel ladder's tests."""
+    import torch_reference
+    return ("qwen1.5-0.5b",) + tuple(torch_reference.LM_FAMILY_DP)
+
+
+#: the within-port variants of ``lm_tp``: the reduced qwen1.5-0.5b as it
+#: is, and with ``qk_norm`` and a 16-token sliding window set
+TP_VARIANTS = {"base": {}, "qkw": {"qk_norm": True, "sliding_window": 16}}
+#: ``lm_tp``'s CLI run (ROADMAP §1 item 6.2 under ``torchrun``)
+TP_CLI = ("--arch", "qwen1.5-0.5b", "--reduced", "--model-parallel", "2",
+          "--comm", "xla", "--device", "cpu", "--steps", "2", "--batch",
+          "4", "--seq", "32", "--eval-every", "2")
+
+
+def _rows(x, axis, dim=0):
+    """Every data rank's rows of ``x`` along ``dim``, in rank order."""
+    import torch
+    import torch.distributed as dist
+    parts = [torch.empty_like(x) for _ in range(axis.size)]
+    dist.all_gather(parts, x.contiguous(), group=axis.group)
+    return torch.cat(parts, dim=dim)
+
+
+def _rel(got, want) -> float:
+    """Largest difference over the reference's largest magnitude."""
+    got = got.detach().float().numpy() if hasattr(got, "detach") else got
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _tp_run(model, params, toks, tpm, cache_len, new):
+    """The port over ``tpm`` (a rank's shards ``params``, its data row
+    of ``toks``): the forward over all of ``toks``, the prefill of all but
+    the last token, one decode step of the last and ``generate``'s ``new``
+    greedy tokens, each gathered over the mesh (the cache over ``model``
+    by its spec, then every output over ``data``), as numpy."""
+    import torch
+    from repro_torch import weights
+    from repro_torch.models import transformer
+    from repro_torch.serve.decode import generate
+    d = tpm.axis("data")
+    n = toks.shape[0] // d.size
+    mine = torch.from_numpy(toks[d.index * n:(d.index + 1) * n])
+    P = toks.shape[1] - 1
+    with torch.no_grad():
+        (logits, _), _ = model.forward_train(params, {"tokens": mine},
+                                             mesh=tpm)
+        last, cache = model.forward_prefill(params, {"tokens": mine[:, :P]},
+                                            cache_len, tpm)
+        pd = transformer.cache_pd(model.cfg, toks.shape[0], cache_len)
+        whole = lambda c: {k: _rows(v, d, 1) for k, v in weights.gather_tree(
+            c, pd, tpm).items()}
+        out = {"train_logits": _rows(logits, d), "prefill_logits": _rows(
+            last, d), "cache": whole(cache)}
+        dl, cache = model.forward_decode(params, cache, mine[:, P:], P, tpm)
+        out.update(decode_logits=_rows(dl, d), decode_cache=whole(cache))
+        gen = generate(model, params, {"tokens": mine[:, :P]}, max_new=new,
+                       cache_len=cache_len, mesh=tpm)
+    out["generate"] = _rows(gen, d)
+    out["mine"] = (mine, gen)
+    return out
+
+
+def _tp_step_errors(base, r, tpm, f32: bool, kind: str = "lars"):
+    """The port's ``comm='xla'`` step (optimizer ``kind``) over ``tpm``
+    from each of the reference's step inputs ``r['s{k}']['in']`` (sharded
+    by spec) on the rows of the rank's data index of its batch, against
+    its output:
+    (the loss's relative difference, the masters' worst difference over
+    their tensor's largest update, the momentum's over its tensor's
+    largest element), each the worst over the steps."""
+    import contextlib
+    import types
+
+    import torch
+    from repro_torch import weights
+    from repro_torch.core import lars, precision
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.state import TrainState
+    from repro_torch.tree import tree_flatten
+    import torch_reference as R
+    model = build_model(base)
+    step = make_train_step(model, lars.OptConfig(kind=kind),
+                           make_schedule(ScheduleConfig(**R.LR)), mesh=tpm,
+                           comm="xla", comm_dtype="f32" if f32 else "bf16")
+    d = tpm.axis("data")
+    worst = [0.0, 0.0, 0.0]
+    for k in range(R.LM_TRAIN_STEPS):
+        rk = r[f"s{k}"]
+        full = weights.lm_state_from_jax(types.SimpleNamespace(**rk["in"]),
+                                         base, "cpu")
+        state = TrainState(full.step, *(
+            weights.shard_tree(t, model.param_pd, tpm)
+            for t in (full.params, full.mom)))
+        n = R.LM_TRAIN_BATCH // d.size
+        batch = {name: torch.from_numpy(v[d.index * n:(d.index + 1) * n])
+                 for name, v in rk["batch"].items()}
+        with precision.f32_compute() if f32 else contextlib.nullcontext():
+            state, metrics = step(state, batch)
+        got = [dict(tree_flatten(weights.to_numpy(weights.gather_tree(
+            t, model.param_pd, tpm)))) for t in (state.params, state.mom)]
+        p_in = dict(tree_flatten(rk["in"]["params"]))
+        want = [dict(tree_flatten(rk["out"][x])) for x in ("params", "mom")]
+        loss = float(rk["metrics"]["loss"])
+        worst[0] = max(worst[0], abs(float(metrics["loss"]) - loss)
+                       / abs(loss))
+        worst[1] = max([worst[1]] + [
+            np.abs(got[0][p] - want[0][p]).max()
+            / max(np.abs(want[0][p] - p_in[p]).max(), 1e-30)
+            for p in want[0]])
+        worst[2] = max([worst[2]] + [
+            np.abs(got[1][p] - want[1][p]).max()
+            / max(np.abs(want[1][p]).max(), 1e-30) for p in want[1]])
+    return worst
+
+
+def _sha(tensors) -> np.ndarray:
+    import hashlib
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.detach().contiguous().numpy().tobytes())
+    return np.frombuffer(h.digest(), np.uint8)
+
+
+def lm_tp(mesh, ref_path):
+    """The model axis (ROADMAP §1 item 6.2) on four ranks as a (data 2,
+    model 2) mesh (``launch.mesh.make_local_mesh(2)``), against the
+    reference's GSPMD run on its (2, 2) mesh (``torch_reference.py
+    tp_cases``, read from ``ref_path``) and against the port at model 1.
+    Per arch of ``torch_reference.TP_ARCHS`` and dtype (``f0`` bf16,
+    ``f1`` wholly in f32, ``precision.f32_compute``), as
+    ``{arch}/f{f32}/...``: ``_tp_run``'s outputs' worst differences over
+    the reference's max (``prefill``, ``train``, ``decode``, ``cache``,
+    ``decode_cache``), ``ties`` (``check_greedy_tokens`` on the rank's
+    rows; bf16 at the serving margin 3e-2) and ``step`` (loss, masters,
+    momentum: ``_tp_step_errors``), ``{arch}/sgdm/step`` the same for
+    the f32 sgdm steps; ``flash/...`` the same for the flash path. Within
+    the port, in f32 (``TP_VARIANTS``): ``self/{v}/logits`` (the forward,
+    prefill and decode at model 2 against the full tree without a mesh,
+    over the logit max), ``self/{v}/masters`` and ``mom`` (two steps
+    against the no-mesh step on the whole batch, over the largest update
+    and the largest momentum element), ``self/{v}/sha_rep`` and
+    ``sha_all`` (this rank's replicated masters and all its shards);
+    ``pinit`` (its shards equal the whole leaves' slices, f32 and bf16,
+    for both archs); ``cli`` (``launch.train.main`` reached run_stop)."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+    import torch_reference as R
+    from repro_torch import weights
+    from repro_torch.configs import get_config
+    from repro_torch.core import lars, pinit, precision
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.launch import train as cli
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.common import local_slice, model_axis
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.state import init_state, sharded_state_kwargs
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_flatten
+
+    tpm = make_local_mesh(2, device="cpu")
+    d = tpm.axis("data")
+    ref = R.load(ref_path)
+    P, C, NEW = R.LM_PROMPT, R.LM_CACHE, R.LM_NEW
+    out = {}
+
+    def held(prefix, model, params, r, toks, f32):
+        compute = precision.f32_compute if f32 else contextlib.nullcontext
+        with compute():
+            got = _tp_run(model, params, toks, tpm, C, NEW)
+        for name in ("train_logits", "prefill_logits", "decode_logits"):
+            out[f"{prefix}/{name}"] = _rel(got[name], r[name])
+        for name in ("cache", "decode_cache"):
+            out[f"{prefix}/{name}"] = max(_rel(got[name][k], r[name][k])
+                                          for k in "kv")
+        mine, gen = got["mine"]
+        n = toks.shape[0] // d.size
+        with compute(), torch.no_grad():
+            ties = R.check_greedy_tokens(
+                model, params, mine[:, :P],
+                r["generate"][d.index * n:(d.index + 1) * n],
+                gen.numpy(), C, rel_margin=None if f32 else 3e-2, mesh=tpm)
+        out[f"{prefix}/ties"] = np.int64(ties.sum())
+
+    for arch in R.TP_ARCHS:
+        base = get_config(arch).reduced()
+        model = build_model(base)
+        toks = R.lm_tokens(base)
+        params = weights.lm_params_from_jax(ref[arch]["params"], base, "cpu",
+                                            mesh=tpm)
+        for f32 in (0, 1):
+            r = ref[arch][f"f{f32}"]
+            held(f"{arch}/f{f32}", model, params, r["run"], toks, f32)
+            out[f"{arch}/f{f32}/step"] = np.array(
+                _tp_step_errors(base, r["train"], tpm, bool(f32)))
+        out[f"{arch}/sgdm/step"] = np.array(_tp_step_errors(
+            base, ref[arch]["sgdm"]["train"], tpm, True, "sgdm"))
+    base = dataclasses.replace(get_config(R.TP_ARCHS[0]).reduced(),
+                               flash_attention=True)
+    held("flash", build_model(base), weights.lm_params_from_jax(
+        ref[R.TP_ARCHS[0]]["params"], base, "cpu", mesh=tpm),
+        ref["flash"]["run"], R.lm_tokens(base), False)
+
+    # within the port, in f32: model 2 against model 1
+    sched = make_schedule(ScheduleConfig(**R.LR))
+    tp = model_axis(tpm)
+    for name, kw in TP_VARIANTS.items():
+        cfg = dataclasses.replace(get_config(R.TP_ARCHS[0]).reduced(), **kw)
+        model = build_model(cfg)
+        toks = R.lm_tokens(cfg)
+        full = pinit.materialize(model.param_pd, 5, "cpu")
+        with precision.f32_compute():
+            got = _tp_run(model, weights.shard_tree(full, model.param_pd,
+                                                    tpm), toks, tpm, C, NEW)
+            with torch.no_grad():
+                t = torch.from_numpy(toks)
+                (lg, _), _ = model.forward_train(full, {"tokens": t})
+                last, cache = model.forward_prefill(full, {"tokens": t[:, :P]},
+                                                    C)
+                dl, _ = model.forward_decode(full, cache, t[:, P:], P)
+        out[f"self/{name}/logits"] = max(
+            _rel(got["train_logits"], lg.numpy()),
+            _rel(got["prefill_logits"], last.numpy()),
+            _rel(got["decode_logits"], dl.numpy()))
+        one = make_train_step(model, lars.OptConfig(kind="lars"), sched,
+                              comm="xla", comm_dtype="f32")
+        two = make_train_step(model, lars.OptConfig(kind="lars"), sched,
+                              mesh=tpm, comm="xla", comm_dtype="f32")
+        s1 = init_state(model, 5, device="cpu")
+        s2 = init_state(model, 5, device="cpu", **sharded_state_kwargs(two))
+        p0 = dict(tree_flatten(s1.params))
+        n = R.LM_TRAIN_BATCH // d.size
+        for k in range(R.LM_TRAIN_STEPS):
+            from repro_torch.data.synthetic import token_batch
+            batch = token_batch(cfg, batch=R.LM_TRAIN_BATCH,
+                                seq=R.LM_TRAIN_SEQ, step=k, kind="lcg",
+                                device="cpu")
+            with precision.f32_compute():
+                s1, _ = one(s1, batch)
+                s2, _ = two(s2, {x: v[d.index * n:(d.index + 1) * n]
+                                 for x, v in batch.items()})
+        got, got_m = (dict(tree_flatten(weights.gather_tree(
+            t, model.param_pd, tpm))) for t in (s2.params, s2.mom))
+        want, want_m = dict(tree_flatten(s1.params)), dict(tree_flatten(
+            s1.mom))
+        upd = max(float((want[p] - p0[p]).abs().max()) for p in want)
+        out[f"self/{name}/masters"] = max(
+            float((got[p] - want[p]).abs().max()) for p in want) / upd
+        out[f"self/{name}/mom"] = max(
+            float((got_m[p] - want_m[p]).abs().max()) for p in want_m) \
+            / max(float(m.abs().max()) for m in want_m.values())
+        pds = dict(tree_flatten(model.param_pd))
+        shards = tree_flatten(s2.params) + tree_flatten(s2.mom)
+        out[f"self/{name}/sha_rep"] = _sha(
+            x for p, x in shards if local_slice(pds[p], tp)[0] is None)
+        out[f"self/{name}/sha_all"] = _sha(x for _, x in shards)
+
+    same = True
+    for arch in R.TP_ARCHS:
+        pd = build_model(get_config(arch).reduced()).param_pd
+        for dt in (None, torch.bfloat16):
+            mine = pinit.materialize(pd, 7, "cpu", dtype=dt, mesh=tpm)
+            cut = weights.shard_tree(pinit.materialize(pd, 7, "cpu",
+                                                       dtype=dt), pd, tpm)
+            same &= all(a.dtype == b.dtype and torch.equal(a, b)
+                        for (_, a), (_, b) in zip(tree_flatten(mine),
+                                                  tree_flatten(cut)))
+    out["pinit"] = np.bool_(same)
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        history = cli.main(list(TP_CLI))
+    steps = [h["loss"] for h in history if "loss" in h]
+    out["cli"] = np.bool_(len(steps) == 2 and np.isfinite(steps).all()
+                          and any("eval_loss" in h for h in history)
+                          and "run_stop" in buf.getvalue())
+    tpm.destroy()
+    return out
+
+
 SCENARIOS = {"schedules": schedules, "zero1_step": zero1_step,
              "zero23_step": zero23_step, "ckpt_zero1": ckpt_zero1,
-             "lm_zero1": lm_zero1, "lm_family_dp": lm_family_dp}
+             "lm_zero1": lm_zero1, "lm_family_dp": lm_family_dp,
+             "lm_tp": lm_tp, "lm_xla_dp": lm_xla_dp}
 
 
 def main(scenario: str, out_dir: str, device: str = "cpu"):
     """``scenario`` names a SCENARIOS entry, with ``:ARG`` for one that
-    takes an argument (``lm_family_dp:zamba2-7b``)."""
+    takes an argument (``lm_family_dp:zamba2-7b``, ``lm_tp:REF.npz``)."""
     import torch
     from repro_torch.launch.mesh import make_local_mesh
     # the same graph must give the same numbers in both steps compared

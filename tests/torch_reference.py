@@ -27,6 +27,7 @@ to an ``.npz`` of ``kind/path`` keys.
   python tests/torch_reference.py vlm_cases OUT.npz
   python tests/torch_reference.py guard_zero1_run OUT.npz
   python tests/torch_reference.py traced_zero1_step OUT.npz
+  python tests/torch_reference.py tp_cases OUT.npz      (4 host devices)
 
 The reference's explicit data-parallel steps fail under jax 0.9.0 before
 they compute anything: ``repro/core/compat.py`` passes ``check_rep=`` to
@@ -41,7 +42,11 @@ Auto-axis mesh, and feeds numpy batches (no mesh-bound batch function).
 The reference's MoE layer runs only inside ``shard_map`` on a mesh with a
 ``model`` axis, and ``repro/models/moe.py`` binds ``shard_map`` at import:
 ``moe_cases`` and ``mla_cases`` set the shim there too and run on a
-(1, 1) Auto-axis ``("data", "model")`` mesh.
+(1, 1) Auto-axis ``("data", "model")`` mesh. ``repro/models/attention.py``
+binds it at import too (its flash path under a model axis runs K5 in
+``shard_map``), and the shim sets it there, whatever was imported first:
+``tp_cases`` runs the reference's GSPMD program on a (2, 2) Auto-axis
+mesh.
 """
 import contextlib
 import os
@@ -75,6 +80,11 @@ def run(what: str, out: str, *, devices: int = 1) -> dict:
                PYTHONPATH=os.path.join(ROOT, "src"), XLA_FLAGS=flags.strip())
     subprocess.run([sys.executable, os.path.abspath(__file__), what, out],
                    env=env, check=True, timeout=600, cwd=ROOT)
+    return load(out)
+
+
+def load(out: str) -> dict:
+    """A saved ``.npz`` of ``kind/path`` keys as nested dicts."""
     tree: dict = {}
     with np.load(out) as z:
         for key in z.files:
@@ -219,17 +229,19 @@ ZERO1_CASES = ((1, 1), (0, 0))
 
 def _shard_map_shim():
     """``repro.core.compat.shard_map`` for jax >= 0.7 (see the module
-    docstring), and the name ``repro.models.moe`` bound from it at import;
-    replaced in this process only."""
+    docstring), and the names ``repro.models.moe`` and
+    ``repro.models.attention`` bound from it at import; replaced in this
+    process only."""
     import jax
     from repro.core import compat
-    from repro.models import moe
+    from repro.models import attention, moe
 
     def shard_map(f, *, mesh, in_specs, out_specs, check_rep=False):
         return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
                              out_specs=out_specs, check_vma=False)
     compat.shard_map = shard_map
     moe.shard_map = shard_map
+    attention.shard_map = shard_map
 
 
 def _mesh11():
@@ -730,7 +742,7 @@ def _lm_run(model, params, toks, *, prompt=LM_PROMPT, cache_len=LM_CACHE,
 
 
 def check_greedy_tokens(model, params, toks, want, got, cache_len, *,
-                        rel_margin=None, frames=None):
+                        rel_margin=None, frames=None, mesh=None):
     """The port's greedy tokens ``got`` against the reference's ``want``
     (both (B, LM_NEW)) from the prompt ``toks``. The logits are bf16
     values (the head's bf16 matmul), so two can tie, and where the two
@@ -742,15 +754,16 @@ def check_greedy_tokens(model, params, toks, want, got, cache_len, *,
     each other (all of them where there is none). A model whose logits
     are held to the reference's only within ``rel_margin`` of their max
     takes that margin (of the step's largest |logit|) in place of the
-    ulp. ``frames``: whisper's and the VLM's stub frames. Returns the
-    number of such tied steps a request."""
+    ulp. ``frames``: whisper's and the VLM's stub frames. ``mesh``: the
+    port over that mesh's model axis (``params`` a rank's shards, the rows
+    its own). Returns the number of such tied steps a request."""
     import torch
     from repro_torch.serve.decode import prefix_len
     prompt = toks.shape[1] + prefix_len(model.cfg)
     batch = {"tokens": toks}
     if frames is not None:
         batch["frames"] = frames
-    logits, cache = model.forward_prefill(params, batch, cache_len)
+    logits, cache = model.forward_prefill(params, batch, cache_len, mesh)
     tied = np.zeros(want.shape, bool)
     for i in range(want.shape[1]):
         lg = logits[:, -1].float()
@@ -765,7 +778,7 @@ def check_greedy_tokens(model, params, toks, want, got, cache_len, *,
         if i + 1 < want.shape[1]:
             logits, cache = model.forward_decode(
                 params, cache, torch.from_numpy(want[:, i:i + 1]),
-                prompt + i)
+                prompt + i, mesh)
     for b in range(want.shape[0]):
         first = int(np.argmax(tied[b])) if tied[b].any() else want.shape[1]
         np.testing.assert_array_equal(got[b, :first], want[b, :first])
@@ -1397,13 +1410,16 @@ def _jax_f32_compute():
         transformer.jnp = jnp
 
 
-def _train_steps(base, params, out, *, f32=False):
-    """``make_train_step(comm='xla', mesh=None)``, jitted, LM_TRAIN_STEPS
-    steps along its own trajectory from ``params``, LARS poly2 (``LR``),
+def _train_steps(base, params, out, *, f32=False, mesh=None,
+                 prefix="train", kind="lars"):
+    """``make_train_step(comm='xla', mesh=mesh)``, jitted, LM_TRAIN_STEPS
+    steps along its own trajectory from ``params``, ``kind`` (LARS; or
+    sgdm, whose update scales with the gradient) poly2 (``LR``),
     the lcg batches of ``lm_train_steps``: each step's input and output
-    states, batch and metrics (``train/s{k}/...``); with ``f32`` the step
-    differentiates the f32 masters (``comm_dtype='f32'``) and the LM runs
-    wholly in f32 (``_jax_f32_compute``)."""
+    states, batch and metrics (``{prefix}/s{k}/...``); with ``f32`` the
+    step differentiates the f32 masters (``comm_dtype='f32'``) and the LM
+    runs wholly in f32 (``_jax_f32_compute``). With a ``mesh`` the params
+    and momentum are placed by their specs (``_place``)."""
     import jax
     import jax.numpy as jnp
     from repro.core import lars
@@ -1413,20 +1429,23 @@ def _train_steps(base, params, out, *, f32=False):
     from repro.train.state import TrainState
     from repro.train.step import make_train_step
 
-    step = jax.jit(make_train_step(build_model(base),
-                                   lars.OptConfig(kind="lars"),
+    model = build_model(base)
+    step = jax.jit(make_train_step(model, lars.OptConfig(kind=kind),
                                    make_schedule(ScheduleConfig(**LR)),
-                                   mesh=None, comm="xla",
+                                   mesh=mesh, comm="xla",
                                    comm_dtype="f32" if f32 else "bf16"))
-    s = TrainState(jnp.zeros((), jnp.int32), params,
-                   jax.tree.map(np.zeros_like, params))
+    mom = jax.tree.map(np.zeros_like, params)
+    if mesh is not None:
+        params, mom = (_place(t, model.param_pd, mesh)
+                       for t in (params, mom))
+    s = TrainState(jnp.zeros((), jnp.int32), params, mom)
     for k in range(LM_TRAIN_STEPS):
         batch = jax.device_get(token_batch(
             base, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, step=k,
             kind="lcg"))
         with _jax_f32_compute() if f32 else contextlib.nullcontext():
             s2, m = step(s, batch)
-        pre = f"train/s{k}"
+        pre = f"{prefix}/s{k}"
         for io, x in (("in", s), ("out", s2)):
             x = jax.device_get(x)
             out[f"{pre}/{io}/step"] = np.asarray(x.step)
@@ -1980,6 +1999,87 @@ def check_family_dp_step(r, arch, case, k, mesh, *, loss_rtol, update_tol):
     return d_loss, of_upd, of_mom
 
 
+#: the model-axis parity setting (ROADMAP §1 item 6.2): an Auto-axis
+#: (data 2, model 2) mesh of four host devices; the reduced qwen1.5-0.5b
+#: (tied: its embedding splits the vocabulary) and qwen1.5-32b (untied,
+#: QKV bias: its embedding splits d, its head the vocabulary)
+TP_ARCHS = ("qwen1.5-0.5b", "qwen1.5-32b")
+TP_MESH = (2, 2)
+
+
+def _mesh_tp():
+    import jax
+    from jax.sharding import AxisType
+    return jax.make_mesh(TP_MESH, ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+
+
+def _place(tree, pd_tree, mesh):
+    """A numpy tree placed on ``mesh`` by the reference's descriptors'
+    specs, as its ``pinit`` places params."""
+    import jax
+    from jax.sharding import NamedSharding
+    return jax.tree.map(
+        lambda x, pd: jax.device_put(x, NamedSharding(mesh, pd.spec)),
+        tree, pd_tree)
+
+
+def tp_cases():
+    """The reference's GSPMD program on the (2, 2) mesh (``_mesh_tp``),
+    its params placed by their specs, for each of ``TP_ARCHS``, in bf16
+    (``f0``) and wholly in f32 (``f1``, ``_jax_f32_compute``): ``_lm_run``
+    (greedy tokens from its own programs) and ``_train_steps`` (two
+    ``comm='xla'`` steps; f32: ``comm_dtype='f32'``), as
+    ``{arch}/f{f32}/{run,train}/...``, in f32 also two sgdm steps (a
+    gradient scaled by a constant shows in their update, which LARS's
+    trust ratio cancels), ``{arch}/sgdm/train/...``, the params as
+    ``{arch}/params``;
+    and once with ``flash_attention`` (the first arch in bf16: the Pallas
+    kernel in interpret mode inside ``shard_map`` on each device's heads),
+    ``flash/run/...``."""
+    import dataclasses
+
+    import jax
+    from repro.configs import get_config
+    from repro.models.registry import build_model
+
+    _shard_map_shim()
+    mesh = _mesh_tp()
+    out = {}
+
+    def case(arch, f32, key=None):
+        base = get_config(arch).reduced()
+        if key == "flash":
+            base = dataclasses.replace(base, flash_attention=True)
+        params = lm_params(base)
+        model = build_model(base)
+        mine = {}
+        run = _lm_run(model, _place(params, model.param_pd, mesh),
+                      lm_tokens(base), mesh=mesh, via_generate=False)
+        _flat(f"{key or f'{arch}/f{f32}'}/run", jax.device_get(run), mine)
+        if key is None:
+            _flat(f"{arch}/params", params, mine)
+            _train_steps(base, params, mine, f32=bool(f32), mesh=mesh,
+                         prefix=f"{arch}/f{f32}/train")
+            if f32:
+                _train_steps(base, params, mine, f32=True, mesh=mesh,
+                             prefix=f"{arch}/sgdm/train", kind="sgdm")
+        return mine
+
+    # the cases of one dtype in threads (XLA compiles outside the
+    # interpreter lock); the f32 ones under one _jax_f32_compute, which
+    # patches the module globals their tracing reads
+    for f32 in (0, 1):
+        jobs = [(arch, f32) for arch in TP_ARCHS]
+        if not f32:
+            jobs.append((TP_ARCHS[0], 0, "flash"))
+        with _jax_f32_compute() if f32 else contextlib.nullcontext(), \
+                ThreadPoolExecutor(len(jobs)) as pool:
+            for done in [pool.submit(case, *job) for job in jobs]:
+                out.update(done.result())
+    return out
+
+
 if __name__ == "__main__":
     what, dest = sys.argv[1], sys.argv[2]
     what, _, arg = what.partition(":")
@@ -2003,4 +2103,5 @@ if __name__ == "__main__":
                       "whisper_cases": whisper_cases,
                       "vlm_cases": vlm_cases,
                       "guard_zero1_run": guard_zero1_run,
-                      "traced_zero1_step": traced_zero1_step}[what]())
+                      "traced_zero1_step": traced_zero1_step,
+                      "tp_cases": tp_cases}[what]())
