@@ -13,8 +13,9 @@ Phases, in order; any failure exits non-zero and prints no result:
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the shapes the training and serving paths give it (K5 also at
               a GQA, a windowed, an MLA and a peaked-softmax shape, at
-              whisper's non-causal encoder and cross shapes, and at a
-              rank's 10 heads of 128 in serve_tp's prefill); times
+              whisper's non-causal encoder and cross shapes, at a rank's
+              10 heads of 128 in serve_tp's prefill and at its 8 heads of
+              112 in serve_tp_hybrid's); times
               the kernel, the plain version and a library yardstick beside
               the bound (K5: SDPA, the backend it picks named by its
               kernel; K5's plain version one request at a time where its
@@ -307,14 +308,49 @@ Phases, in order; any failure exits non-zero and prints no result:
               against the one-card comm='xla' step at the global batch of
               2 x 4,096 from the same values: losses within 4e-4
               relative, masters within 5e-2 of each tensor's largest
-              update. Then the CLI on four ranks (--model-parallel 2
-              --comm xla) must exit 0 with its run_stop line. Alone:
-              python3 chip_smoke.py --tp (with K5 at serve_tp's shape)
+              update.
+ 41. serve_tp_hybrid, lm_train_tp_xlstm, resnet_xla  ROADMAP §1 item
+              6.2b on the same four ranks. serve_tp_hybrid: zamba2-7b at
+              full width and depth (81 Mamba2 layers, the shared block 14
+              times: 6.75 B params) at model 4 (a rank: 28 of 112 SSM
+              heads, 8 of 32 attention heads of 112), bf16, flash, 8
+              prompts of 2,048 tokens, 32 new: K5 14 times a rank, 190
+              all-reduces and 2 all-gathers a prefill, every rank's tokens
+              equal; then model 4 against model 1 on rank 0's card: in f32
+              at 12 layers (2 applications) on 2 requests within 1e-4 of
+              the logit max (the gate; K5's f32 route 2 launches) and at
+              full depth in bf16 within 0.25 (a sanity bound), prefill and
+              one decode step. lm_train_tp_xlstm: xlstm-125m whole at
+              (data 2, model 2), wholly in f32, LARS with K1, 1 x 1,024
+              tokens a data rank, 2 steps: K4 1 + 1 and K1 2 a step;
+              each step against the one-card step from the same input
+              state on the same global batch: losses within 1e-5
+              relative, masters within 5e-4 of each tensor's largest
+              update (the one card's own trajectory printed beside).
+              resnet_xla: ResNet-50 at full width under comm='xla' on
+              (data 4, model 1), LARS with K1, 64 images a rank, 3 steps,
+              in each sync_bn form, its residual branches damped (the last
+              BN scale 0.1): every rank's masters, momentum and BN state
+              the same bits; step 1 against the one-card step on the same
+              256 images: loss within 1e-3 relative, new BN statistics
+              within 2e-3 of their max, the median tensor's update within
+              0.5 relative L2 (a sanity bound: chaotic bf16); one step
+              from pinit's undamped state and the four ranks on the same
+              64 images printed beside; the median step time beside the
+              ring's. Then the CLI's
+              main() in each rank's process: --model-parallel 2 --comm
+              xla with qwen1.5-0.5b and with zamba2-7b --reduced, and
+              --arch resnet50 --comm xla: run_stop on every rank. Alone:
+              python3 chip_smoke.py --tp [PHASE ...] (with K5 at
+              serve_tp's and serve_tp_hybrid's shapes; the phases of
+              serve_tp, lm_train_tp, serve_tp_hybrid, lm_train_tp_xlstm,
+              resnet_xla and cli named, all by default)
 On one card the ring phases print that they need two or more cards and
 were not run, and K3's launches_by_path has "ring": null; with fewer than
-four, lm_ring, its resume, lm_ring_families, serve_tp and lm_train_tp are
-not run and every kernel's launches_by_path has "lm_ring", "lm_resume",
-"lm_ring_families", "serve_tp" and "lm_train_tp" null. The kernels
+four, lm_ring, its resume, lm_ring_families and the model-axis phases
+are not run and every kernel's launches_by_path has "lm_ring",
+"lm_resume", "lm_ring_families", "serve_tp", "lm_train_tp",
+"serve_tp_hybrid", "lm_train_tp_xlstm" and "resnet_xla" null. The kernels
 phase also holds K1's multi-buffer form (the sharded step's one call)
 against its plain version at the 4 MB and 0.25 MB plans' shards, K2's
 (the sharded step's one update call) against its plain version and, bit
@@ -389,7 +425,8 @@ BATCH, STEPS = 64, 6
 #: cross-attention's 128 queries over 1,500 keys, 8 heads of 64) and
 #: internvl2-2b's (serve_vlm: 16 heads on 8 kv heads of 128 over 2,048
 #: positions); then a rank's launch in qwen1.5-32b's prefill at model 4
-#: (serve_tp: 10 of its 40 heads of 128)
+#: (serve_tp: 10 of its 40 heads of 128) and in zamba2-7b's at model 4
+#: (serve_tp_hybrid: 8 of its 32 heads of 112)
 FLASH_SHAPES = (("path", 8, 2048, 16, 16, 64, 64, 0, "bfloat16", 1),
                 ("serve_moe", 8, 2048, 16, 16, 128, 128, 0, "bfloat16", 1),
                 ("serve_qk", 8, 2048, 40, 8, 128, 128, 0, "bfloat16", 1),
@@ -406,7 +443,9 @@ FLASH_SHAPES = (("path", 8, 2048, 16, 16, 64, 64, 0, "bfloat16", 1),
                 ("serve_audio_cross", 16, 128, 8, 8, 64, 64, 0, "bfloat16",
                  1, False, 1500),
                 ("serve_vlm", 8, 2048, 16, 8, 128, 128, 0, "bfloat16", 1),
-                ("serve_tp", 8, 2048, 10, 10, 128, 128, 0, "bfloat16", 1))
+                ("serve_tp", 8, 2048, 10, 10, 128, 128, 0, "bfloat16", 1),
+                ("serve_tp_hybrid", 8, 2048, 8, 8, 112, 112, 0, "bfloat16",
+                 1))
 #: K5's route for each input dtype
 FLASH_ROUTES = {"bfloat16": "tensor cores: mma.sync m16n8k16 bf16, P split "
                             "into bf16 hi + mid + lo, the scale after the "
@@ -2665,9 +2704,65 @@ TP_CONTEXT_LAYERS, TP_CONTEXT_NEW = 4, 8
 TP_TRAIN, TP_TRAIN_STEPS = (1, 4096), 3
 TP_LOSS_TOL = 4e-4
 TP_TIMEOUT_S = 900
-#: the phase's CLI run on four ranks: --model-parallel 2 --comm xla
+#: the phase's CLI runs on four ranks, each main() called in the ranks'
+#: own processes: --model-parallel 2 --comm xla with the dense decoder and
+#: with the hybrid (reduced), and ResNet-50 under --comm xla
 TP_CLI = ("--arch", "qwen1.5-0.5b", "--model-parallel", "2", "--comm",
           "xla", "--steps", "3", "--batch", "4", "--seq", "1024")
+TP_CLI_RUNS = (TP_CLI,
+               ("--arch", "resnet50", "--comm", "xla", "--steps", "3",
+                "--batch", "256"),
+               ("--arch", "zamba2-7b", "--reduced", "--model-parallel", "2",
+                "--comm", "xla", "--steps", "3", "--batch", "4", "--seq",
+                "256"))
+#: the slice-18 four-card phases (ROADMAP §1 item 6.2b). serve_tp_hybrid:
+#: zamba2-7b at full width and depth at model 4 (a rank: 28 of its 112 SSM
+#: heads, 8 of its 32 attention heads of 112, 3,584 of its 14,336 FFN
+#: columns, 8,000 of its 32,000 vocabulary rows), flash_attention, at
+#: serve_hybrid's sizes; its context on rank 0's card, model 4 against
+#: model 1: in f32 at TP_HYBRID_F32_LAYERS layers (two shared-block
+#: applications) on SERVE_F32_REQUESTS requests within SERVE_F32_TOL (the
+#: gate), and at full depth in bf16 within HYBRID_SERVE_TOL (a sanity
+#: bound: 95 blocks add the two bf16 paths' roundings up)
+TP_HYBRID_F32_LAYERS = 12
+#: lm_train_tp_xlstm: xlstm-125m whole at (data 2, model 2), wholly in f32,
+#: TP_XLSTM_TRAIN (sequences, tokens) a data rank, TP_XLSTM_STEPS LARS
+#: steps against the one-card step on the same global batch: losses
+#: within TP_XLSTM_LOSS_TOL relative, masters within TP_XLSTM_UPDATE_TOL
+#: of each tensor's largest update (the sLSTM's input-gate biases, whose
+#: gradient vanishes, of the tree's largest update)
+TP_XLSTM_TRAIN, TP_XLSTM_STEPS = (1, 1024), 2
+TP_XLSTM_LOSS_TOL, TP_XLSTM_UPDATE_TOL = 1e-5, 5e-4
+#: resnet_xla: ResNet-50 at full width under comm='xla' on (data 4, model
+#: 1), LARS with K1, bf16 compute, RESNET_XLA_BATCH images a rank,
+#: RESNET_XLA_STEPS steps in each sync_bn form. The gates: every rank's
+#: masters, momentum and BN state the same bits (the statistics are
+#: global: per-process ones would part the ranks), and step 1 against the
+#: one-card step on the same global batch from the same state, (loss
+#: relative, every new BN running statistic relative to its tensor's max,
+#: the median tensor's update relative L2) within RESNET_XLA_TOL; the
+#: later steps printed, and the four ranks on the same RESNET_XLA_BATCH
+#: images against the one card's step on them over a one-rank mesh (the
+#: data axis's sums then 4 x the rank's). The one-card comparison is a
+#: sanity bound: bf16 ResNet-50 at random init is chaotic at full width
+#: as at reduced size (ROADMAP §3). The statistics' last-bit differences
+#: (f32 sums in another order, cuDNN's algorithms at 64 images and at
+#: 256) flip bf16 roundings that grow through the blocks: from pinit's
+#: state a median tensor's update parts from the one card's by 1.0
+#: relative L2, the loss within 1e-4; with each residual branch's last BN
+#: scale damped to RESNET_XLA_BN3_SCALE (as the CPU parity tests damp it,
+#: tests/torch_reference.py BN3_SCALE) by 0.15, the statistics within
+#: 1.9e-4 (my chip runs, PR 29). So the gated runs start damped, and one
+#: step from pinit's state is printed beside them
+RESNET_XLA_BATCH, RESNET_XLA_STEPS = 64, 3
+RESNET_XLA_TOL = (1e-3, 2e-3, 0.5)
+RESNET_XLA_BN3_SCALE = 0.1
+#: ResNet-50's ring replicated step on four cards (PR 27's run r1), printed
+#: beside resnet_xla's median
+RING_REPLICATED_MS = 143.59
+#: the phases of ``--tp``, in order
+TP_PHASES = ("serve_tp", "lm_train_tp", "serve_tp_hybrid",
+             "lm_train_tp_xlstm", "resnet_xla", "cli")
 
 
 def _collectives():
@@ -2979,89 +3074,674 @@ def _lm_train_tp(say) -> dict:
     return row
 
 
-def tp_rank():
-    """One rank of the model-axis phases (``chip_smoke.py --tp-rank``
-    under torch.distributed.run, one card each): serve_tp on the (data 1,
-    model 4) mesh, then lm_train_tp on the (data 2, model 2) one. Rank 0
-    prints the lines and, last, ``tp-json: {...}``."""
+def _hybrid_collectives(cfg) -> dict:
+    """The collectives of zamba2's prefill at a model axis: per Mamba
+    layer the norm's sum of squares and the row-split ``out``, per
+    shared-block application the attention's and the FFN's row-split
+    products (all-reduces); the untied embedding's columns and the
+    vocab-split logits (all-gathers)."""
+    groups = -(-cfg.n_layers // cfg.attn_every)
+    return {"all_reduce": 2 * cfg.n_layers + 2 * groups,
+            "all_gather": 1 + (not cfg.tie_embeddings)}
+
+
+def _serve_tp_hybrid(mesh, say) -> dict:
+    """serve_tp_hybrid on this rank: zamba2-7b at full width and depth at
+    model 4, at serve_hybrid's sizes, then its context checks on rank 0's
+    card (model 4 against model 1: in f32 at TP_HYBRID_F32_LAYERS layers,
+    the gate, and at full depth in bf16). Rank 0's row."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import weights
+    from repro_torch.configs import get_config
+    from repro_torch.core import pinit, precision
+    from repro_torch.core.precision import cast_to_compute
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.decode import generate
+    from repro_torch.tree import tree_leaves
+
+    dev, n = mesh.device, mesh.size
+    cfg = dataclasses.replace(get_config("zamba2-7b"), flash_attention=True)
+    groups = -(-cfg.n_layers // cfg.attn_every)
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t = time.perf_counter()
+    params = pinit.materialize(model.param_pd, seed=0, device=dev,
+                               dtype=torch.bfloat16, mesh=mesh)
+    torch.cuda.synchronize()
+    dist.barrier()
+    init_s = time.perf_counter() - t
+    n_local = sum(x.numel() for x in tree_leaves(params))
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=gen, dtype=torch.int32).to(dev)
+    batch = {"tokens": tokens}
+    cache_len = _serve_cache(cfg, batch)
+    generate(model, params, batch, max_new=2, cache_len=cache_len,
+             mesh=mesh)                    # warm-up: not timed, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    timings = {}
+    _zero(*_counters().values())
+    out = generate(model, params, batch, max_new=SERVE_NEW,
+                   cache_len=cache_len, timings=timings, mesh=mesh)
+    torch.cuda.synchronize()
+    counts = _read_path("serve_tp_hybrid", {"k5": groups})
+    peak = torch.cuda.max_memory_allocated(dev)
+    with torch.no_grad(), _collectives() as calls:
+        last4, cache4 = model.forward_prefill(cast_to_compute(params), batch,
+                                              cache_len, mesh)
+    if calls != _hybrid_collectives(cfg):
+        fail(f"serve_tp_hybrid: a prefill made {calls}; the model axis "
+             f"makes {_hybrid_collectives(cfg)}")
+    if not bool(torch.isfinite(last4).all()):
+        fail("serve_tp_hybrid: non-finite prefill logits")
+    with torch.no_grad():
+        dec4, _ = model.forward_decode(cast_to_compute(params), cache4,
+                                       out[:, :1], SERVE_PROMPT, mesh)
+    del cache4
+    outs, peaks = [None] * n, [None] * n
+    dist.all_gather_object(outs, out.cpu())
+    dist.all_gather_object(peaks, peak)
+    if tuple(out.shape) != (SERVE_BATCH, SERVE_NEW) or not all(
+            torch.equal(o, outs[0]) for o in outs):
+        fail(f"serve_tp_hybrid: the ranks' tokens differ or have shape "
+             f"{tuple(out.shape)}")
+    if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        fail("serve_tp_hybrid: a token outside the vocabulary")
+    dec = timings["decode_ms"]
+    q1, med, q3 = statistics.quantiles(dec, n=4)
+    say(f"serve_tp_hybrid: {cfg.arch_id}, {cfg.n_layers} Mamba layers and "
+        f"{groups} shared-block applications at full width, model {n}: "
+        f"{n_local / 1e9:.3f} B params a rank (bf16), pinit {init_s:.2f} s; "
+        f"{SERVE_BATCH} requests of {SERVE_PROMPT} tokens, {SERVE_NEW} new, "
+        f"cache {cache_len} rows; prefill {timings['prefill_ms']:.2f} ms "
+        f"({SERVE_BATCH * SERVE_PROMPT / timings['prefill_ms'] * 1e3:.0f} "
+        f"prompt tokens/s); decode ms a token median {med:.3f} (p25 "
+        f"{q1:.3f}, p75 {q3:.3f}, {len(dec)} steps), "
+        f"{SERVE_BATCH * 1e3 / med:.1f} tokens/s; peak memory a rank GiB "
+        f"{[round(p / 2 ** 30, 2) for p in peaks]}; a prefill: "
+        f"{calls['all_reduce']} all-reduces, {calls['all_gather']} "
+        f"all-gathers, flash_attention {counts['k5']} launches a rank; "
+        f"every rank's tokens equal")
+    say(f"serve_tp_hybrid: first request's tokens {out[0].tolist()}")
+    row = {"arch": cfg.arch_id, "layers": cfg.n_layers, "model": n,
+           "params_a_rank": n_local, "pinit_s": init_s,
+           "prefill_ms": timings["prefill_ms"],
+           "decode_ms": {"p25": q1, "median": med, "p75": q3},
+           "tokens_per_s": SERVE_BATCH * 1e3 / med,
+           "peak_gib": [p / 2 ** 30 for p in peaks],
+           "sizes": [SERVE_BATCH, SERVE_PROMPT, SERVE_NEW],
+           "cache_len": cache_len, "collectives_a_prefill": calls,
+           "launches": counts}
+
+    # context, bf16 at full depth: the shards gathered, model 1 on rank 0
+    whole = weights.gather_tree(params, model.param_pd, mesh)
+    del params
+    if mesh.rank == 0:
+        with torch.no_grad():
+            last1, cache1 = model.forward_prefill(whole, batch, cache_len)
+            dec1, _ = model.forward_decode(whole, cache1, out[:, :1],
+                                           SERVE_PROMPT)
+        del cache1
+        d16 = (_rel(last4.float(), last1.float()),
+               _rel(dec4.float(), dec1.float()))
+    del whole, last4, dec4
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # context, f32 at TP_HYBRID_F32_LAYERS layers: the gate
+    cfg12 = dataclasses.replace(cfg, n_layers=TP_HYBRID_F32_LAYERS)
+    model12 = build_model(cfg12)
+    p4 = pinit.materialize(model12.param_pd, seed=0, device=dev, mesh=mesh)
+    sub = {"tokens": tokens[:SERVE_F32_REQUESTS]}
+    tok = out[:SERVE_F32_REQUESTS, :1]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = _counters()["k5"].launches
+    with torch.no_grad(), precision.f32_compute():
+        f4, c4 = model12.forward_prefill(p4, sub, cache_len, mesh)
+        g4, _ = model12.forward_decode(p4, c4, tok, SERVE_PROMPT, mesh)
+    k5_f32 = _counters()["k5"].launches - before
+    del c4
+    whole = weights.gather_tree(p4, model12.param_pd, mesh)
+    del p4
+    if mesh.rank == 0:
+        with torch.no_grad(), precision.f32_compute():
+            f1, c1 = model12.forward_prefill(whole, sub, cache_len)
+            g1, _ = model12.forward_decode(whole, c1, tok, SERVE_PROMPT)
+        d32 = (_rel(f4, f1), _rel(g4, g1))
+        apps = -(-TP_HYBRID_F32_LAYERS // cfg.attn_every)
+        say(f"serve_tp_hybrid context: model {n} against model 1 on one "
+            f"card. f32 (the gate) at {TP_HYBRID_F32_LAYERS} of its "
+            f"{cfg.n_layers} layers ({apps} shared-block applications), "
+            f"{SERVE_F32_REQUESTS} requests, K5's f32 route {k5_f32} "
+            f"launches a rank: prefill logits {d32[0]:.3e}, one decode "
+            f"step {d32[1]:.3e} of their max (limit {SERVE_F32_TOL}); bf16 "
+            f"at all {cfg.n_layers} layers: prefill {d16[0]:.3e}, decode "
+            f"{d16[1]:.3e} (limit {HYBRID_SERVE_TOL})")
+        if k5_f32 != apps:
+            fail(f"serve_tp_hybrid context: the f32 prefill launched K5 "
+                 f"{k5_f32} times")
+        if not max(d32) <= SERVE_F32_TOL:
+            fail("serve_tp_hybrid context: model 4 disagrees with model 1 "
+                 "in f32")
+        if not max(d16) <= HYBRID_SERVE_TOL:
+            fail("serve_tp_hybrid context: model 4 disagrees with model 1 "
+                 "in bf16")
+        row["context"] = {"f32_layers": TP_HYBRID_F32_LAYERS,
+                          "f32_prefill_vs_one": d32[0],
+                          "f32_decode_vs_one": d32[1],
+                          "bf16_prefill_vs_one": d16[0],
+                          "bf16_decode_vs_one": d16[1]}
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return row
+
+
+def _zero_grad_paths(cfg) -> tuple:
+    """The xLSTM's sLSTM input-gate biases: their gradient vanishes (a
+    shift of that gate scales c and n alike, and h = o · c / n), so
+    their update is their weight decay and rounding noise."""
+    pat = cfg.xlstm.pattern
+    return tuple(f"layer_{i:02d}/blk/b_i" for i in range(cfg.n_layers)
+                 if pat[i % len(pat)] == "s")
+
+
+def _lm_train_tp_xlstm(say) -> dict:
+    """lm_train_tp_xlstm on this rank: xlstm-125m whole at (data 2, model
+    2), wholly in f32, TP_XLSTM_STEPS comm='xla' LARS steps; rank 0 then
+    runs the one-card step over the same global batches from the same
+    values and holds the losses and, after each step, the masters against
+    it (and its first step run again, beside: the one card's own
+    run-to-run spread). Rank 0's row."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import weights
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import lars, precision
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.common import dp_axes
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.state import init_state, sharded_state_kwargs
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_flatten
+
+    mesh = make_local_mesh(2)
+    dev = mesh.device
+    cfg = get_config("xlstm-125m")
+    model = build_model(cfg)
+    sched = make_schedule(ScheduleConfig(base_lr=LM_LR, warmup_steps=1,
+                                         total_steps=TP_XLSTM_STEPS,
+                                         decay="poly2"))
+    opt = lars.OptConfig(kind="lars", weight_decay=5e-5, use_kernel=True)
+    rows_a_rank, seq = TP_XLSTM_TRAIN
+    n_data = mesh.axis("data").size
+    shape = InputShape("train_xlstm", "train", seq, rows_a_rank * n_data)
+    step = make_train_step(model, opt, sched, smoothing=0.1, mesh=mesh,
+                           comm="xla", comm_dtype="f32")
+    part = make_batch_fn(cfg, shape, device=dev, mesh=mesh,
+                         axes=dp_axes(mesh))
+    torch.cuda.empty_cache()
+    state = init_state(model, 0, device=dev, **sharded_state_kwargs(step))
+    whole = lambda t: dict(tree_flatten(weights.gather_tree(  # noqa: E731
+        t, model.param_pd, mesh)))
+    p0 = whole(state.params)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    times, losses, got, inputs = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero(*_counters().values())
+    for i in range(TP_XLSTM_STEPS):
+        # each step's input state, whole (the gathers launch no kernel)
+        inputs.append((whole(state.params), whole(state.mom)))
+        batch = part(i)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with precision.f32_compute():
+            state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(float(metrics["loss"]))
+        got.append(whole(state.params))
+    counts = _read_path("lm_train_tp_xlstm", {
+        "k4": TP_XLSTM_STEPS, "k4_bwd": TP_XLSTM_STEPS,
+        "k1": 2 * TP_XLSTM_STEPS})
+    peak = torch.cuda.max_memory_allocated(dev)
+    peaks = [None] * mesh.size
+    dist.all_gather_object(peaks, peak)
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"lm_train_tp_xlstm: losses not all finite: {losses}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = None
+    if mesh.rank == 0:
+        one = make_train_step(model, opt, sched, smoothing=0.1, comm="xla",
+                              comm_dtype="f32")
+        full = make_batch_fn(cfg, shape, device=dev)
+        s1 = init_state(model, 0, device=dev)
+        init_same = all(torch.equal(x, p0[p])
+                        for p, x in tree_flatten(s1.params))
+        zero = _zero_grad_paths(cfg)
+
+        def of_update(a, b, before):
+            """Each tensor's difference over its largest update (the
+            vanishing-gradient biases' over the tree's largest), the worst
+            four."""
+            upd = {p: (b[p] - before[p]).abs().max().item() for p in b}
+            top = max(upd.values())
+            return sorted(((a[p] - b[p]).abs().max().item()
+                           / max(top if p in zero else upd[p], 1e-30), p)
+                          for p in b)[::-1][:4]
+
+        from repro_torch.train.state import TrainState
+        from repro_torch.tree import tree_unflatten
+        tree = lambda flat: tree_unflatten(list(flat), list(  # noqa: E731
+            flat.values()))
+        # the gate: each step against the one card's from the same input
+        # state (the model-2 run's, gathered); then the one card's own
+        # trajectory, printed: a step's gradient is sensitive enough that
+        # two trajectories parted by rounding after step 1 part further
+        ones, one_times, worst, free, before = [], [], [], [], p0
+        for i in range(TP_XLSTM_STEPS):
+            params_in, mom_in = inputs[i]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with precision.f32_compute():
+                s_next, m1 = one(TrainState(i, tree(params_in),
+                                            tree(mom_in)), full(i))
+            torch.cuda.synchronize()
+            one_times.append(time.perf_counter() - t)
+            ones.append(float(m1["loss"]))
+            worst.append(of_update(got[i], dict(tree_flatten(
+                s_next.params)), params_in))
+            with precision.f32_compute():
+                s1, _ = one(s1, full(i))
+            want = dict(tree_flatten(s1.params))
+            free.append(of_update(got[i], want, before))
+            if i == 0:
+                with precision.f32_compute():
+                    again, _ = one(TrainState(0, tree(params_in),
+                                              tree(mom_in)), full(0))
+                spread = of_update(dict(tree_flatten(again.params)), want,
+                                   before)
+                del again
+            before = want
+            del s_next
+        d_loss = max(abs(a - b) / abs(b) for a, b in zip(losses, ones))
+        tokens = rows_a_rank * seq * n_data
+        fmt = lambda w: [(f"{e:.3e}", p) for e, p in w]  # noqa: E731
+        say(f"lm_train_tp_xlstm: {cfg.arch_id}, {cfg.n_layers} layers at "
+            f"full width, (data {n_data}, model {mesh.axis('model').size}), "
+            f"comm='xla' wholly in f32, LARS with K1, {rows_a_rank} x {seq} "
+            f"tokens a data rank: losses {[round(v, 6) for v in losses]} "
+            f"(one card at the global batch {[round(v, 6) for v in ones]}: "
+            f"within {d_loss:.3e} relative, limit {TP_XLSTM_LOSS_TOL}); "
+            f"masters after each step against the one card's step from the "
+            f"same input state, each tensor's difference over its largest "
+            f"update, the worst four (the sLSTM input-gate biases "
+            f"{list(zero)} over the tree's; limit {TP_XLSTM_UPDATE_TOL}): "
+            f"{[fmt(w) for w in worst]}; against the one card's own "
+            f"trajectory (not gated): {[fmt(w) for w in free]}; the one "
+            f"card's first step again: {fmt(spread)}; initial values "
+            f"{'equal' if init_same else 'DIFFERENT'}; step times ms "
+            f"{[round(x * 1e3, 2) for x in times]} (one card "
+            f"{[round(x * 1e3, 2) for x in one_times]}); peak memory a rank "
+            f"GiB {[round(p / 2 ** 30, 2) for p in peaks]}; launches K4 "
+            f"{counts['k4']} + {counts['k4_bwd']}, K1 {counts['k1']}; "
+            f"{tokens / statistics.median(times):.0f} tokens/s on "
+            f"{mesh.size} cards")
+        if not init_same:
+            fail("lm_train_tp_xlstm: the shards' initial values are not the "
+                 "one-card state's")
+        if not d_loss <= TP_XLSTM_LOSS_TOL:
+            fail(f"lm_train_tp_xlstm: losses {d_loss:.3e} off the one-card "
+                 f"step")
+        bad = max(w[0] for w in worst)
+        if not bad[0] <= TP_XLSTM_UPDATE_TOL:
+            fail(f"lm_train_tp_xlstm: masters {bad[0]:.3e} of the update "
+                 f"off the one-card step ({bad[1]})")
+        row = {"arch": cfg.arch_id, "mesh": [n_data, 2],
+               "batch": [rows_a_rank, seq], "losses": losses,
+               "one_card_losses": ones, "loss_rel": d_loss,
+               "masters_of_update": worst, "free_running": free,
+               "one_card_spread": spread,
+               "step_ms": [x * 1e3 for x in times],
+               "one_card_step_ms": [x * 1e3 for x in one_times],
+               "peak_gib": [p / 2 ** 30 for p in peaks], "launches": counts}
+        del s1
+    dist.barrier()
+    mesh.destroy()
+    return row
+
+
+def _damped(state, scale: float):
+    """``state`` with each residual branch's last BN scale set to
+    ``scale`` (``RESNET_XLA_BN3_SCALE``), in place."""
+    for blk in state.params.values():
+        if "bn3" in blk:
+            blk["bn3"]["scale"].fill_(scale)
+    return state
+
+
+def _step1_against_one_card(first, s0, s1, loss, one_loss) -> dict:
+    """Step 1 of the four ranks (``first``, from ``s0``; its loss
+    ``loss``) against the one card's (``s1``; ``one_loss``): the loss
+    relative; the new BN statistics of their max (the stem's, the median
+    tensor's, the worst); the update's relative L2 error (median tensor,
+    worst); the masters' worst element over its tensor's largest
+    update."""
+    from repro_torch.tree import tree_flatten
+    bn = {p: _rel(a, b) for (p, a), (_, b) in zip(
+        tree_flatten(first.bn_state), tree_flatten(s1.bn_state))}
+    want, p0 = dict(tree_flatten(s1.params)), dict(tree_flatten(s0.params))
+    got = dict(tree_flatten(first.params))
+    l2 = {p: ((got[p] - want[p]).norm()
+              / (want[p] - p0[p]).norm().clamp_min(1e-30)).item()
+          for p in want}
+    return {"loss_rel": abs(loss - one_loss) / abs(one_loss),
+            "bn_stem": max(v for p, v in bn.items() if p.startswith("stem/")),
+            "bn_median": statistics.median(bn.values()),
+            "bn_worst": max((v, p) for p, v in bn.items()),
+            "update_l2_median": statistics.median(l2.values()),
+            "update_l2_worst": max((v, p) for p, v in l2.items()),
+            "masters_of_update": max(
+                ((got[p] - want[p]).abs().max().item()
+                 / max((want[p] - p0[p]).abs().max().item(), 1e-30), p)
+                for p in want if want[p].dim() >= 2),
+            "masters_of_update_1d": max(
+                ((got[p] - want[p]).abs().max().item()
+                 / max((want[p] - p0[p]).abs().max().item(), 1e-30), p)
+                for p in want if want[p].dim() < 2)}
+
+
+def _fmt_step1(d: dict) -> str:
+    return (f"loss {d['loss_rel']:.3e} relative; new BN statistics of "
+            f"their max: the stem's {d['bn_stem']:.3e}, the median "
+            f"tensor's {d['bn_median']:.3e}, the worst "
+            f"{d['bn_worst'][0]:.3e} ({d['bn_worst'][1]}); the update's "
+            f"relative L2 error: median tensor {d['update_l2_median']:.3e}, "
+            f"worst {d['update_l2_worst'][0]:.3e} "
+            f"({d['update_l2_worst'][1]}); masters' worst element of its "
+            f"tensor's largest update: the weights' (2-D and up) "
+            f"{d['masters_of_update'][0]:.3e} ({d['masters_of_update'][1]}),"
+            f" the BN scales' and biases' {d['masters_of_update_1d'][0]:.3e}"
+            f" ({d['masters_of_update_1d'][1]})")
+
+
+def _resnet_xla(say) -> dict:
+    """resnet_xla on this rank: ResNet-50 at full width under comm='xla' on
+    (data 4, model 1), in each sync_bn form: first one step from pinit's
+    state, held against the one card's (printed, not gated: chaotic),
+    then RESNET_XLA_STEPS steps from that state with its residual
+    branches damped; every rank's masters, momentum and BN state must be
+    the same bits; rank 0 holds the damped run's step 1 against the
+    one-card comm='xla' step on the same global batch from the same
+    state. Rank 0's row."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import lars
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.launch.mesh import Axis, Mesh, make_local_mesh
+    from repro_torch.models.common import dp_axes
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_train_step
+
+    mesh = make_local_mesh(1)
+    dev, n = mesh.device, mesh.size
+    sched = make_schedule(ScheduleConfig(base_lr=0.1 * n * RESNET_XLA_BATCH
+                                         / 256, warmup_steps=1,
+                                         total_steps=RESNET_XLA_STEPS,
+                                         decay="poly2"))
+    opt = lars.OptConfig(kind="lars", use_kernel=True)
+    shape = InputShape("resnet_xla", "train", 0, RESNET_XLA_BATCH * n)
+    rows = {}
+    for sync in (False, True):
+        name = f"resnet_xla sync_bn={int(sync)}"
+        cfg = dataclasses.replace(get_config("resnet50"), sync_bn=sync)
+        model = build_model(cfg)
+        step = make_train_step(model, opt, sched, mesh=mesh, comm="xla")
+        one = make_train_step(model, opt, sched, comm="xla")
+        part = make_batch_fn(cfg, shape, device=dev, mesh=mesh,
+                             axes=dp_axes(mesh))
+        full = make_batch_fn(cfg, shape, device=dev)
+
+        # pinit's state: step 1 against one card, printed only
+        s_in = init_state(model, 0, device=dev)
+        first, m = step(s_in, part(0))
+        if mesh.rank == 0:
+            s1, m1 = one(s_in, full(0))
+            undamped = _step1_against_one_card(
+                first, s_in, s1, float(m["loss"]), float(m1["loss"]))
+            say(f"{name} at pinit's init (not gated: bf16 ResNet-50 at "
+                f"random init is chaotic): step 1 against the one card: "
+                f"{_fmt_step1(undamped)}")
+            del s1
+        del s_in, first
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+
+        state = _damped(init_state(model, 0, device=dev),
+                        RESNET_XLA_BN3_SCALE)
+        times, losses = [], []
+        torch.cuda.synchronize()
+        _zero(*_counters().values())
+        for i in range(RESNET_XLA_STEPS):
+            batch = part(i)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(float(metrics["loss"]))
+            if i == 0:
+                first = state
+        counts = _read_path(name, {"k1": 2 * RESNET_XLA_STEPS})
+        # the same RESNET_XLA_BATCH images on every rank: the global
+        # statistics' sums are then 4 x the rank's, exactly, and the step
+        # must be the one card's on those images bit for bit
+        same = {k: v[:RESNET_XLA_BATCH] for k, v in full(0).items()}
+        s_in = _damped(init_state(model, 0, device=dev),
+                       RESNET_XLA_BN3_SCALE)
+        replicated, _ = step(s_in, same)
+        shas = [None] * n
+        dist.all_gather_object(shas, _sha({"params": state.params,
+                                           "mom": state.mom,
+                                           "bn": state.bn_state}))
+        if len(set(shas)) != 1:
+            fail(f"{name}: the ranks' masters, momentum or BN state differ")
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"{name}: losses not all finite: {losses}")
+        row = {"losses": losses, "step_ms": [x * 1e3 for x in times],
+               "median_ms": statistics.median(times[1:]) * 1e3,
+               "launches": counts, "ranks_bit_equal": True}
+        if mesh.rank == 0:
+            s0 = _damped(init_state(model, 0, device=dev),
+                         RESNET_XLA_BN3_SCALE)
+            # the one card over a one-rank mesh: the same BatchNorm form
+            # (with sync_bn the cross-replica one), so the same sums
+            lone = Mesh(tuple(Axis(a.name, 1, 0, (0,), None)
+                              for a in mesh.axes), dev)
+            alone, _ = make_train_step(model, opt, sched, mesh=lone,
+                                       comm="xla")(s_in, same)
+            rep_equal = all(_bit_equal(getattr(replicated, k),
+                                       getattr(alone, k))
+                            for k in ("params", "mom", "bn_state"))
+            rep_worst = _worst_rel(
+                _tensors(replicated.params) + _tensors(replicated.bn_state),
+                _tensors(alone.params) + _tensors(alone.bn_state))
+            del alone
+            s1, m1 = one(s0, full(0))
+            ones = [float(m1["loss"])]
+            d = _step1_against_one_card(first, s0, s1, losses[0], ones[0])
+            # the one card's step 1 again, from the same state and batch:
+            # the card's own run-to-run spread
+            again, m2 = one(s0, full(0))
+            spread = _step1_against_one_card(again, s0, s1,
+                                             float(m2["loss"]), ones[0])
+            del again
+            for i in range(1, RESNET_XLA_STEPS):
+                s1, m1 = one(s1, full(i))
+                ones.append(float(m1["loss"]))
+            say(f"{name}: ResNet-50 at full width, comm='xla' on (data {n}, "
+                f"model 1), LARS with K1, {RESNET_XLA_BATCH} images a rank, "
+                f"the residual branches' last BN scale "
+                f"{RESNET_XLA_BN3_SCALE}: losses "
+                f"{[round(v, 5) for v in losses]} (one card on the "
+                f"{RESNET_XLA_BATCH * n} images: "
+                f"{[round(v, 5) for v in ones]}); step 1 against the one "
+                f"card: {_fmt_step1(d)}; the one card's step 1 again "
+                f"against itself: {_fmt_step1(spread)}; limits (loss, every "
+                f"BN tensor, the median update) {RESNET_XLA_TOL}; the four "
+                f"ranks on the "
+                f"same {RESNET_XLA_BATCH} images against the one card on "
+                f"them: {'bit-equal' if rep_equal else 'NOT bit-equal'} "
+                f"(worst {rep_worst:.3e} of a tensor's max); steps 2-"
+                f"{RESNET_XLA_STEPS} "
+                f"printed, not gated; the {n} ranks' masters, momentum and "
+                f"BN state bit-equal; step ms "
+                f"{[round(x * 1e3, 2) for x in times]}, median after the "
+                f"first {row['median_ms']:.2f} (ring replicated "
+                f"{RING_REPLICATED_MS}, PR 27's r1; not a gate); K1 "
+                f"{counts['k1']}")
+            if not (d["loss_rel"] <= RESNET_XLA_TOL[0]
+                    and d["bn_worst"][0] <= RESNET_XLA_TOL[1]
+                    and d["update_l2_median"] <= RESNET_XLA_TOL[2]):
+                fail(f"{name}: step 1 disagrees with the one-card step")
+            row.update(one_card_losses=ones, step1=d,
+                       one_card_spread=spread, undamped_step1=undamped,
+                       replicated_bit_equal=rep_equal,
+                       replicated_worst=rep_worst)
+            del s0, s1
+        rows[f"sync_bn={int(sync)}"] = row
+        del state, first, s_in, replicated
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+    mesh.destroy()
+    return rows
+
+
+def _tp_cli_in_process(say) -> dict:
+    """The CLI runs of TP_CLI_RUNS, ``launch.train.main`` called in each
+    rank's own process (the job's process group is the CLI's); each must
+    reach run_stop on every rank. Rank 0's row: each run's seconds."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import train as cli
+    row = {}
+    for args in TP_CLI_RUNS:
+        torch.cuda.empty_cache()
+        dist.barrier()
+        t = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            history = cli.main(list(args))
+        secs = time.perf_counter() - t
+        stops = [ln for ln in buf.getvalue().splitlines() if "run_stop" in ln]
+        ok = bool(stops) and all(math.isfinite(h["loss"]) for h in history
+                                 if "loss" in h)
+        oks = [None] * dist.get_world_size()
+        dist.all_gather_object(oks, ok)
+        if not all(oks):
+            fail(f"tp CLI {' '.join(args)}: no run_stop or a non-finite "
+                 f"loss on ranks {[r for r, o in enumerate(oks) if not o]}")
+        say(f"tp: CLI on 4 ranks ({' '.join(args)}) reached run_stop on "
+            f"every rank in {secs:.1f} s: {stops[0].strip()}")
+        row[" ".join(args)] = secs
+    return row
+
+
+def tp_rank(phases=TP_PHASES):
+    """One rank of the model-axis phases (``chip_smoke.py --tp-rank
+    [PHASE ...]`` under torch.distributed.run, one card each), those of
+    TP_PHASES named in ``phases`` in its order: serve_tp and
+    serve_tp_hybrid on the (data 1, model 4) mesh, lm_train_tp and
+    lm_train_tp_xlstm on the (data 2, model 2) one, resnet_xla on (data 4,
+    model 1), then the CLI runs in process. Rank 0 prints the lines and,
+    last, ``tp-json: {...}``."""
     import torch
     sys.path.insert(0, str(SRC))
     from repro_torch.launch.mesh import make_local_mesh
     mesh = make_local_mesh(4)
     say = (lambda msg: print(msg, flush=True)) if mesh.rank == 0 else \
         (lambda msg: None)
-    t = time.perf_counter()
-    serve = _serve_tp(mesh, say)
-    serve_s = time.perf_counter() - t
-    torch.cuda.empty_cache()
-    t = time.perf_counter()
-    train = _lm_train_tp(say)
-    train_s = time.perf_counter() - t
-    say(f"tp: serve_tp {serve_s:.1f} s, lm_train_tp {train_s:.1f} s")
-    say("tp-json: " + json.dumps({"cards": mesh.size, "serve_tp": serve,
-                                  "lm_train_tp": train,
-                                  "seconds": [serve_s, train_s]}))
+    runs = {"serve_tp": lambda: _serve_tp(mesh, say),
+            "lm_train_tp": lambda: _lm_train_tp(say),
+            "serve_tp_hybrid": lambda: _serve_tp_hybrid(mesh, say),
+            "lm_train_tp_xlstm": lambda: _lm_train_tp_xlstm(say),
+            "resnet_xla": lambda: _resnet_xla(say),
+            "cli": lambda: _tp_cli_in_process(say)}
+    out, seconds = {"cards": mesh.size}, {}
+    for name in TP_PHASES:
+        if name not in phases:
+            continue
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        out[name] = runs[name]()
+        seconds[name] = time.perf_counter() - t
+    say("tp: phase seconds " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in seconds.items()))
+    out["seconds"] = seconds
+    say("tp-json: " + json.dumps(out))
     mesh.destroy()
 
 
-def _tp_cli() -> dict:
-    """The phase's CLI run: ``python -m torch.distributed.run
-    --nproc-per-node 4 -m repro_torch.launch.train`` + TP_CLI, which must
-    exit 0 with its run_stop line. Returns its seconds."""
-    import socket
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
-           "4", "--master-addr", "127.0.0.1", "--master-port", str(port),
-           "-m", "repro_torch.launch.train", *TP_CLI]
-    t = time.perf_counter()
-    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                         timeout=600, env=dict(os.environ, PYTHONPATH=str(SRC),
-                                               OMP_NUM_THREADS="4"))
-    secs = time.perf_counter() - t
-    if out.returncode != 0 or "run_stop" not in out.stdout:
-        print(out.stdout[-1500:], end="", flush=True)
-        fail(f"tp CLI {' '.join(TP_CLI)} on 4 ranks exited "
-             f"{out.returncode}: {out.stderr[-3000:]}")
-    stop = [ln for ln in out.stdout.splitlines() if "run_stop" in ln]
-    print(f"tp: CLI on 4 ranks ({' '.join(TP_CLI)}) exited 0 in {secs:.1f} "
-          f"s: {stop[0].strip()}", flush=True)
-    return {"args": list(TP_CLI), "seconds": secs}
-
-
-def run_tp():
+def run_tp(phases=TP_PHASES):
     """The model-axis phases on four cards, one rank each over NCCL
-    (``torch.distributed.run`` starts this script with ``--tp-rank``),
-    then their CLI run. None with fewer than four cards."""
+    (``torch.distributed.run`` starts this script with ``--tp-rank``), the
+    CLI runs among them. None with fewer than four cards."""
     import torch
     n = torch.cuda.device_count()
     torch.cuda.empty_cache()
     if n < 4:
-        print(f"serve_tp, lm_train_tp: not run: {n} card(s); the phases "
+        print(f"{', '.join(TP_PHASES)}: not run: {n} card(s); the phases "
               f"need 4", flush=True)
         return None
-    out = _launch_ranks(["--tp-rank"], 4, TP_TIMEOUT_S,
+    out = _launch_ranks(["--tp-rank", *phases], 4, TP_TIMEOUT_S,
                         "the model-axis phases")
     result = None
     for line in out.splitlines():
         if line.startswith("tp-json: "):
             result = json.loads(line[len("tp-json: "):])
-        elif line.startswith(("serve_tp", "lm_train_tp", "tp")):
+        elif line.startswith(("serve_tp", "lm_train_tp", "resnet_xla",
+                              "tp")):
             print(line, flush=True)
     if result is None:
         fail("the model-axis phases printed no result")
-    result["cli"] = _tp_cli()
     return result
 
 
-def tp_main():
-    """``python3 chip_smoke.py --tp``: the card check, the build, K5 at
-    serve_tp's shape and the model-axis phases alone (on four cards), the
-    kernels' launches on their paths and the phases' JSON last."""
+def tp_main(phases=()):
+    """``python3 chip_smoke.py --tp [PHASE ...]``: the card check, the
+    build, K5 at serve_tp's and serve_tp_hybrid's shapes and the
+    model-axis phases alone (on four cards; those of TP_PHASES named, all
+    by default), the kernels' launches on their paths and the phases'
+    JSON last."""
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a card")
+    unknown = set(phases) - set(TP_PHASES)
+    if unknown:
+        fail(f"--tp: unknown phases {sorted(unknown)}; of {TP_PHASES}")
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import backend
     t = time.time()
@@ -3069,12 +3749,14 @@ def tp_main():
     print(f"built {sorted(built) or 'nothing (current)'} in "
           f"{time.time() - t:.1f} s", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    k5 = _flash_case(backend.resolve_device(None), gen,
-                     *next(c for c in FLASH_SHAPES if c[0] == "serve_tp"))
-    result = run_tp()
+    dev = backend.resolve_device(None)
+    k5 = {name: _flash_case(dev, gen, *next(c for c in FLASH_SHAPES
+                                            if c[0] == name))
+          for name in ("serve_tp", "serve_tp_hybrid")}
+    result = run_tp(tuple(phases) or TP_PHASES)
     if result is None:
         sys.exit(1)
-    result["k5_serve_tp"] = k5
+    result["k5"] = k5
     print(json.dumps({"tp": result}), flush=True)
 
 
@@ -4971,7 +5653,8 @@ def main():
     phase("lm_ring_families")
     families = run_lm_ring_families()
 
-    phase("serve_tp, lm_train_tp")
+    phase("serve_tp, lm_train_tp, serve_tp_hybrid, lm_train_tp_xlstm, "
+          "resnet_xla")
     tp = run_tp()
     entries = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k4_bwd": k4_bwd,
                "k5": k5}
@@ -4996,11 +5679,15 @@ def main():
         key: None if families is None else
         sum(r["launches"][key] for r in families["runs"])
         for key in entries}
-    # serve_tp and lm_train_tp: rank 0's counts; null with fewer than four
-    # cards
-    for path in ("serve_tp", "lm_train_tp"):
+    # the model-axis paths: rank 0's counts (resnet_xla's summed over its
+    # two sync_bn forms); null with fewer than four cards
+    for path in ("serve_tp", "lm_train_tp", "serve_tp_hybrid",
+                 "lm_train_tp_xlstm"):
         by_path[path] = {key: None if tp is None else
                          tp[path]["launches"][key] for key in entries}
+    by_path["resnet_xla"] = {key: None if tp is None else sum(
+        r["launches"][key] for r in tp["resnet_xla"].values())
+        for key in entries}
     if tp is not None:
         k5["tp"] = tp
     if ring is not None:
@@ -5030,7 +5717,7 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--lm-ring-families"]:
         lm_ring_families_main(tuple(sys.argv[2:]))
     elif sys.argv[1:2] == ["--tp"]:
-        tp_main()
+        tp_main(tuple(sys.argv[2:]))
     elif sys.argv[1:2] == ["--ring"]:
         ring_main()
     elif sys.argv[1:2] in (["--ring-rank"], ["--lm-ring-rank"],
@@ -5043,7 +5730,7 @@ if __name__ == "__main__":
             elif sys.argv[1] == "--lm-ring-families-rank":
                 lm_ring_families_rank(tuple(sys.argv[2:]))
             elif sys.argv[1] == "--tp-rank":
-                tp_rank()
+                tp_rank(tuple(sys.argv[2:]))
             else:
                 lm_ring_rank(sys.argv[2])
         except SystemExit as e:

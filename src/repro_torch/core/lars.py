@@ -19,11 +19,12 @@ the card, once a step), and ``update_kernel=True`` runs the fused packed
 update once a step over every bucket's shards
 (``kernels.lars_update.lars_packed_update_multi``: one launch on the card).
 
-Over a mesh's model axis (ROADMAP §1 item 6.2) the norms are whole-tensor
-norms, as the reference's GSPMD program takes them: each rank sums the
-squares of its shards (K1's one launch a tree under ``use_kernel``), and
-the sums of the leaves split over the axis are all-reduced over it in one
-call; a replicated leaf's sums are the rank's own.
+Over a mesh's model axis (ROADMAP §1 items 6.2 and 6.2b) the norms are
+whole-tensor norms, as the reference's GSPMD program takes them: each rank
+sums the squares of its shards (LARS: K1's one launch a tree under
+``use_kernel``; LAMB: of each tensor and its update), and the sums of the
+leaves split over the axis are all-reduced over it in one call; a
+replicated leaf's sums are the rank's own.
 """
 from __future__ import annotations
 
@@ -101,11 +102,8 @@ def update(params, grads, mom, lr, cfg: OptConfig, *, model_axis=None,
     """One optimizer step on fp32 masters; ``grads`` may be bf16 and ``lr``
     a float or 0-d f32 tensor. Returns (new_params, new_mom) as new trees.
     ``model_axis`` / ``split``: the leaves are a rank's shards over that
-    axis, those at the paths ``split`` split over it (LARS takes
+    axis, those at the paths ``split`` split over it (LARS and LAMB take
     whole-tensor norms)."""
-    if model_axis is not None and cfg.kind == "lamb":
-        from repro_torch.models.common import not_ported
-        raise not_ported("LAMB over a model axis", "6.2b")
     lr = float(lr)
     if cfg.kind == "sgdm":
         def upd(p, g, v):
@@ -142,18 +140,29 @@ def update(params, grads, mom, lr, cfg: OptConfig, *, model_axis=None,
         c1 = float(1 - torch.pow(f32(b1), f32(t)))
         c2 = float(1 - torch.pow(f32(b2), f32(t)))
 
-        def upd(p, m, v):
-            u = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
-            u = u + cfg.weight_decay * p
-            if _is_scaled(p):
-                wn = torch.sqrt(torch.sum(torch.square(p)))
-                un = torch.sqrt(torch.sum(torch.square(u)))
+        flat = tree_flatten(params)
+        us = [(m / c1) / (torch.sqrt(v / c2) + cfg.eps) + cfg.weight_decay
+              * p for (_, p), (_, m), (_, v) in zip(
+                  flat, tree_flatten(new_m), tree_flatten(new_v))]
+        # ||w||² and ||u||² of each scaled tensor; over ``model_axis`` the
+        # split leaves' sums are summed over it first (one all-reduce)
+        sq = {i: torch.stack([torch.sum(torch.square(p)),
+                              torch.sum(torch.square(u))])
+              for i, ((_, p), u) in enumerate(zip(flat, us))
+              if _is_scaled(p)}
+        idx = [i for i in sq if flat[i][0] in split]
+        if model_axis is not None and idx:
+            v = torch.stack([sq[i] for i in idx])
+            dist.all_reduce(v, group=model_axis.group)
+            sq.update(zip(idx, v.unbind()))
+        new_leaves = []
+        for i, ((_, p), u) in enumerate(zip(flat, us)):
+            ratio = 1.0
+            if i in sq:
+                wn, un = torch.sqrt(sq[i]).unbind()
                 ratio = torch.where((wn > 0) & (un > 0), wn / un, 1.0)
-            else:
-                ratio = 1.0
-            return p - lr * ratio * u
-
-        new_params = tree_map(upd, params, new_m, new_v)
+            new_leaves.append(p - lr * ratio * u)
+        new_params = tree_unflatten([p for p, _ in flat], new_leaves)
         return new_params, {"m": new_m, "v": new_v, "count": t}
     else:
         raise ValueError(cfg.kind)

@@ -32,13 +32,16 @@ deepseek-v2-236b), which it refuses, naming ROADMAP item 6.3. As in the
 reference, there is no flag for the ``(pod, data)`` mesh. ``--comm xla``
 (the default) is the reference's GSPMD step: on one process the
 single-device step, under a multi-rank launch the ``(data=world/M,
-model=M)`` mesh of ``--model-parallel M`` (ROADMAP §1 item 6.2: the dense
-decoder's leaves split over ``model``; at M = 1 pure data parallelism),
-each rank on the rows of its data index. An explicit schedule treats every
-axis of that mesh as data parallel, as the reference's does. At M > 1 the
-CLI refuses checkpoints, ``--resume-elastic`` and ``--guard`` (item
-6.2b), and ``make_train_step`` the families and sizes the model axis does
-not split yet. On four cards:
+model=M)`` mesh of ``--model-parallel M`` (ROADMAP §1 items 6.2 and
+6.2b: the leaves of the dense decoder, the hybrid and the xLSTM split
+over ``model``, LAMB and ``--guard`` over it too; ResNet-50 splits none
+and takes its BatchNorm statistics over the data axes; at M = 1 pure
+data parallelism), each rank on the rows of its data index. An explicit
+schedule treats every axis of that mesh as data parallel, as the
+reference's does. At M > 1 the CLI refuses the MoE and MLA configs (item
+6.3), whisper, the VLM, checkpoints and ``--resume-elastic`` (item 6.2c),
+and ``make_train_step`` the sizes the model axis does not split. On four
+cards:
   python -m torch.distributed.run --nproc-per-node 4 -m \
       repro_torch.launch.train --arch whisper-base --comm ring \
       --sharding zero1 --steps 3
@@ -238,28 +241,23 @@ def main(argv=None):
     m = args.model_parallel
     arch = get_config(args.arch)
     if m > 1:
-        if arch.moe is not None:
-            ap.error(f"--model-parallel {m} with {args.arch}: the MoE layer "
+        if arch.moe is not None or arch.mla is not None:
+            ap.error(f"--model-parallel {m} with {args.arch}: the "
+                     f"{'MoE layer' if arch.moe is not None else 'MLA'} "
                      f"over a model axis is not ported to repro_torch yet "
                      f"(ROADMAP §1 item 6.3)")
-        if arch.family != "dense" or arch.mla is not None:
+        if arch.family not in ("dense", "hybrid", "ssm", "conv"):
             ap.error(f"--model-parallel {m} with {args.arch}: the "
                      f"{arch.family} family over a model axis is not "
-                     f"ported to repro_torch yet (ROADMAP §1 item 6.2b)")
+                     f"ported to repro_torch yet (ROADMAP §1 item 6.2c)")
         for flag, on in (("--ckpt-dir", args.ckpt_dir),
-                         ("--resume-elastic", args.resume_elastic),
-                         ("--guard", args.guard)):
+                         ("--resume-elastic", args.resume_elastic)):
             if on:
                 ap.error(f"{flag} with --model-parallel {m} is not ported "
-                         f"to repro_torch yet (ROADMAP §1 item 6.2b)")
+                         f"to repro_torch yet (ROADMAP §1 item 6.2c)")
     if m < 1 or world % m:
         ap.error(f"--model-parallel {m} does not divide the job's {world} "
                  f"rank(s)")
-    if args.comm == "xla" and world > 1 and arch.family == "conv":
-        ap.error(f"--comm xla over a {world}-rank launch with the conv "
-                 f"family: GSPMD's BatchNorm statistics span every rank's "
-                 f"rows, the port's are per process; use an explicit "
-                 f"schedule such as --comm psum (ROADMAP §1 item 6.2b)")
     if args.comm == "xla" and world > 1 and arch.moe is not None:
         ap.error(f"--comm xla over a {world}-rank launch with {args.arch}: "
                  f"the MoE layer over a mesh is not ported to repro_torch "

@@ -24,7 +24,10 @@ logits) is gathered by ``gather_out``, whose backward keeps the rank's
 own slice: every model rank computes the same loss from the gathered
 tensor, so its gradient there is the same on each, and summing it (as
 ``torch.distributed.nn``'s gather would, by a reduce-scatter) would
-multiply it by M.
+multiply it by M. A sum that every rank of an axis needs whole and
+whose every term feeds each rank's loss (the norm over a split d_inner,
+the BatchNorm statistics over the data axes) goes through ``all_sum``,
+whose backward sums the cotangents over the same ranks.
 """
 from __future__ import annotations
 
@@ -72,6 +75,17 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to repro_torch yet (ROADMAP §1 item {item})")
 
 
+def uneven_split(what: str, m: int) -> NotImplementedError:
+    """The error of a split leaf whose dim ``m`` model ranks do not
+    divide: the reference cannot place such a leaf either (its
+    ``pinit.materialize`` raises jax's ValueError that the dimension
+    should be divisible by ``m``), so no port item covers it."""
+    return NotImplementedError(
+        f"{what} over model={m}: an uneven split of a leaf, which the "
+        f"reference cannot place either (its pinit.materialize raises "
+        f"ValueError: the dimension should be divisible by {m})")
+
+
 def dp_axes(mesh) -> tuple:
     """The names of every mesh axis that carries the batch (all but
     'model')."""
@@ -97,8 +111,7 @@ def local_slice(pd: PD, axis) -> Tuple[Optional[int], int, int]:
         return None, 0, 0
     n = pd.shape[d]
     if n % axis.size:
-        raise not_ported(f"a dim of {n} over model={axis.size} (an uneven "
-                         f"split)", "6.2b")
+        raise uneven_split(f"a dim of {n}", axis.size)
     k = n // axis.size
     return d, axis.index * k, k
 
@@ -147,10 +160,44 @@ class _GatherOut(torch.autograd.Function):
                 None, None, None)
 
 
-def _gather_last(x, group, size):
+def _gather_last(x, group, size, dim=-1):
     parts = [torch.empty_like(x) for _ in range(size)]
     dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=-1)
+    return torch.cat(parts, dim=dim)
+
+
+class _AllSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        y = x.clone(memory_format=torch.contiguous_format)
+        for g in groups:
+            dist.all_reduce(y, group=g)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        for group in ctx.groups:
+            dist.all_reduce(g, group=group)
+        return g, None
+
+
+def all_sum(x, axes):
+    """x summed over every rank of ``axes`` (``launch.mesh.Axis``es; those
+    no group spans are skipped), the result the same on each; backward: the
+    cotangents summed over the same ranks, since each rank's loss reads
+    the sum. Without autograd the sum is taken in a copy."""
+    groups = tuple(a.group for a in axes if a is not None
+                   and a.group is not None)
+    if not groups:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllSum.apply(x, groups)
+    y = x.clone(memory_format=torch.contiguous_format)
+    for g in groups:
+        dist.all_reduce(y, group=g)
+    return y
 
 
 def copy_in(x, axis):
@@ -173,24 +220,33 @@ def reduce_out(x, axis):
     return x
 
 
-def gather_out(x, axis):
+def gather_out(x, axis, dim: int = -1):
     """The model ``axis``'s slices of x's last dim, concatenated in rank
-    order; backward: the rank's own slice of the gradient."""
+    order; backward: the rank's own slice of the gradient. ``dim``: another
+    dim, without autograd (a cache's heads)."""
     if axis is None:
         return x
-    if torch.is_grad_enabled() and x.requires_grad:
+    if dim == -1 and torch.is_grad_enabled() and x.requires_grad:
         return _GatherOut.apply(x, axis.group, axis.size, axis.index)
-    return _gather_last(x, axis.group, axis.size)
+    return _gather_last(x, axis.group, axis.size, dim)
 
 
 # ---------------------------------------------------------------------------
 # numerics (the JAX package's rounding: f32 inside, back to x's dtype)
 
 
-def rms_norm(x, scale, eps: float = 1e-6):
+def rms_norm(x, scale, eps: float = 1e-6, tp=None):
+    """RMSNorm over the last dim in f32. ``tp``: that dim (and ``scale``)
+    is split over this model axis: the rank's sum of squares is summed
+    over it (``all_sum``) before the mean over the whole dim."""
     dt = x.dtype
     x = x.float()
-    x = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
+    if tp is None:
+        ms = x.square().mean(dim=-1, keepdim=True)
+    else:
+        ms = all_sum(x.square().sum(dim=-1, keepdim=True), (tp,)) \
+            / (x.shape[-1] * tp.size)
+    x = x * torch.rsqrt(ms + eps)
     return (x * scale.float()).to(dt)
 
 

@@ -19,7 +19,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import cast_to_compute
 from repro_torch.models import resnet as rn
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import not_ported
 
 
 @dataclass(frozen=True)
@@ -32,9 +31,10 @@ class Model:
     decode_fn: Callable = None
     cache_pd_fn: Callable = None
 
-    # ``mesh``: the dense LMs split their leaves over its model axis
+    # ``mesh``: the LMs split their leaves over its model axis
     # (``transformer.tp_axis``); params are then a rank's shards and the
-    # batch its data index's rows
+    # batch its data index's rows. The conv family takes its BatchNorm
+    # statistics over the mesh's data axes (``resnet.resnet_forward``)
     def forward_train(self, params, batch, bn_state=None, mesh=None):
         return self.train_fn(params, batch, bn_state, mesh)
 
@@ -53,14 +53,9 @@ def build_model(cfg: ModelConfig) -> Model:
         params_pd, state_pd = rn.resnet_pd(cfg)
 
         def train_fn(params, batch, bn_state, mesh=None):
-            if mesh is not None and mesh.size > 1:
-                raise not_ported(
-                    "the conv family over a multi-rank mesh in one forward "
-                    "(GSPMD's BatchNorm statistics span every rank's rows; "
-                    "train it with an explicit schedule)", "6.2b")
             logits, new_state = rn.resnet_forward(
                 cast_to_compute(params), bn_state, cfg, batch["images"],
-                train=True)
+                train=True, mesh=mesh)
             return (logits, torch.zeros((), device=logits.device)), \
                 new_state
 

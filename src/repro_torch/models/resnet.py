@@ -14,17 +14,32 @@ from the bf16 activations with the *biased* batch variance, and update the
 running stats as ``m·old + (1−m)·batch`` with that same biased variance
 (``nn.BatchNorm2d`` keeps the unbiased one).
 
+``resnet_forward(..., mesh=)`` is the reference's forward over a mesh, as
+its ``comm='xla'`` step runs it (ROADMAP §1 item 6.2b): each rank holds
+the rows of its data index, and the statistics span the data axes' global
+batch. With ``cfg.sync_bn`` they take the reference's cross-replica form
+(per-rank mean m and variance v, then the data axes' mean of m and of
+v + m·m, less the square of the first), on a one-rank mesh too; without
+it, GSPMD's (the global mean, then the global mean of the squared
+deviations). Either way the sums are ``all_sum``s, whose backward sums
+the cotangents over the same ranks, and the new running statistics are
+the same on every rank. Without a mesh (the explicit schedules, as the
+reference passes none there) they are the process's own, whatever
+``sync_bn`` says.
+
 Convolutions pad "SAME" as XLA does, which is asymmetric for strided
 convolutions: the stem's 7×7/2 pads (2, 3), a 3×3/2 pads (0, 1).
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import PD
+from repro_torch.models.common import PD, all_sum
 
 STAGES = ((3, 64), (4, 128), (6, 256), (3, 512))  # (blocks, base width)
 
@@ -105,15 +120,32 @@ def _conv(x, w, stride=1):
     return F.conv2d(x, w, stride=stride, padding=pad)
 
 
-def _bn(x, p, st, *, train: bool, momentum: float, eps=1e-5):
-    """x: (B,C,H,W). Returns (y in x's dtype, new running stats)."""
+def _bn(x, p, st, *, train: bool, momentum: float, eps=1e-5, dp=None,
+        sync: bool = False):
+    """x: (B,C,H,W). Returns (y in x's dtype, new running stats). ``dp``:
+    the data axes (``launch.mesh.Axis``) the batch is split over, None
+    without a mesh; ``sync``: the cross-replica form (module docstring)."""
     xf = x.float()
     dims, c = (0, 2, 3), (1, -1, 1, 1)
     if train:
         # two passes, as jnp.var: mean, then the mean of squared deviations
-        mean = xf.mean(dims)
-        d = xf - mean.view(c)
-        var = (d * d).mean(dims)
+        if dp is None:
+            mean = xf.mean(dims)
+            d = xf - mean.view(c)
+            var = (d * d).mean(dims)
+        elif sync:
+            m = xf.mean(dims)
+            dl = xf - m.view(c)
+            v = (dl * dl).mean(dims)
+            both = all_sum(torch.stack([m, v + m * m]), dp) \
+                / math.prod(a.size for a in dp)
+            mean, var = both[0], both[1] - both[0] * both[0]
+            d = xf - mean.view(c)
+        else:
+            n = xf.numel() // xf.shape[1] * math.prod(a.size for a in dp)
+            mean = all_sum(xf.sum(dims), dp) / n
+            d = xf - mean.view(c)
+            var = all_sum((d * d).sum(dims), dp) / n
         with torch.no_grad():
             new_st = {
                 "mean": momentum * st["mean"] + (1 - momentum) * mean,
@@ -135,19 +167,25 @@ def _maxpool(x):
     return F.max_pool2d(x, 3, 2)
 
 
-def resnet_forward(params, bn_state, cfg, images, *, train: bool):
-    """images: (B,H,W,3). Returns (logits f32, new_bn_state)."""
+def resnet_forward(params, bn_state, cfg, images, *, train: bool,
+                   mesh=None):
+    """images: (B,H,W,3), the rank's rows over ``mesh``'s data axes.
+    Returns (logits f32, new_bn_state); ``mesh``: the module's
+    docstring."""
     # f32 products and convolutions run in full f32, as in the JAX package;
     # TF32 (PyTorch's default for cuDNN convolutions) keeps ~3 digits
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mom = cfg.bn_momentum
+    bn = functools.partial(
+        _bn, train=train, momentum=mom, sync=cfg.sync_bn,
+        dp=None if mesh is None else
+        [a for a in mesh.axes if a.name != "model"])
     x = to_nchw(images.to(torch.bfloat16))
     new_state = {}
 
     x = _conv(x, params["stem"]["conv"], stride=2)
-    x, st = _bn(x, params["stem"]["bn"], bn_state["stem"]["bn"], train=train,
-                momentum=mom)
+    x, st = bn(x, params["stem"]["bn"], bn_state["stem"]["bn"])
     new_state["stem"] = {"bn": st}
     x = _maxpool(F.relu(x))
 
@@ -158,18 +196,14 @@ def resnet_forward(params, bn_state, cfg, images, *, train: bool):
             stride = 2 if (bi == 0 and si > 0) else 1
             sts = {}
             h = _conv(x, p["conv1"])
-            h, sts["bn1"] = _bn(h, p["bn1"], st_in["bn1"], train=train,
-                                momentum=mom)
+            h, sts["bn1"] = bn(h, p["bn1"], st_in["bn1"])
             h = _conv(F.relu(h), p["conv2"], stride=stride)
-            h, sts["bn2"] = _bn(h, p["bn2"], st_in["bn2"], train=train,
-                                momentum=mom)
+            h, sts["bn2"] = bn(h, p["bn2"], st_in["bn2"])
             h = _conv(F.relu(h), p["conv3"])
-            h, sts["bn3"] = _bn(h, p["bn3"], st_in["bn3"], train=train,
-                                momentum=mom)
+            h, sts["bn3"] = bn(h, p["bn3"], st_in["bn3"])
             if "proj" in p:
                 sc = _conv(x, p["proj"], stride=stride)
-                sc, sts["bn_proj"] = _bn(sc, p["bn_proj"], st_in["bn_proj"],
-                                         train=train, momentum=mom)
+                sc, sts["bn_proj"] = bn(sc, p["bn_proj"], st_in["bn_proj"])
             else:
                 sc = x
             x = F.relu(h + sc)

@@ -22,11 +22,11 @@ application of the hybrid's shared block too),
 
 Each entry point takes ``mesh`` (a ``launch.mesh`` mesh, as the
 reference's take a ``jax.sharding.Mesh``). Over its ``model`` axis
-(ROADMAP §1 item 6.2: the dense decoder only, ``tp_axis`` refuses the
-rest) the params are a rank's shards by their specs, the batch is the
-rows of the rank's data index (the same on every model rank of a data
-row), and the logits come back whole over the vocabulary on every model
-rank: the vocab-split logits (an untied ``lm_head``'s columns, a tied
+(ROADMAP §1 items 6.2 and 6.2b: the dense decoder, the hybrid and the
+xLSTM stack; ``tp_axis`` refuses the rest) the params are a rank's
+shards by their specs, the batch is the rows of the rank's data index
+(the same on every model rank of a data row), and the logits come back
+whole over the vocabulary on every model rank: the vocab-split logits (an untied ``lm_head``'s columns, a tied
 ``embed``'s rows) are gathered, as K4 and the greedy argmax read whole
 rows. The tied embedding's lookup zeroes the rows outside the rank's
 vocabulary slice and sums over the axis; the untied one's (d split)
@@ -35,6 +35,7 @@ gathers its columns.
 from __future__ import annotations
 
 import functools
+import types
 from typing import Any, Dict
 
 import torch
@@ -47,7 +48,8 @@ from repro_torch.models import mlp as mlpm
 from repro_torch.models import moe as moem
 from repro_torch.models import xlstm as xl
 from repro_torch.models.common import PD, copy_in, dense_pd, gather_out, \
-    layer_norm, model_axis, not_ported, pd_stack, reduce_out, rms_norm
+    layer_norm, local_slice, model_axis, not_ported, pd_stack, reduce_out, \
+    rms_norm, uneven_split
 from repro_torch.tree import tree_flatten, tree_map
 
 MAX_POS = 32_768   # learned-position table size (whisper-style decoders)
@@ -146,8 +148,10 @@ def cache_pd(cfg, batch: int, max_seq: int):
     c, n, h, m, all f32. The VLM's rows hold its image prefix first, so
     max_seq counts it. Whisper: ``self``, the decoder's k and v, and
     ``cross``, the encoder output's (L, batch, n_frames, K, Dh), bf16.
-    The k and v caches split their heads over ``model`` (the reference's
-    ``P(dp, None, "model", None)``); their batch is a rank's own rows."""
+    Every leaf's spec is the reference's: the k and v caches split their
+    heads over ``model`` (``P(dp, None, "model", None)``), and so do the
+    Mamba layers' ``conv_x`` and ``state``; the xLSTM's states are whole
+    on every model rank. The batch is a rank's own rows."""
     zeros = lambda *shape: PD(shape, init="zeros", dtype=torch.bfloat16)
     heads = lambda *shape: PD(shape, spec=("data", None, "model", None),
                               init="zeros", dtype=torch.bfloat16)
@@ -178,12 +182,18 @@ def cache_pd(cfg, batch: int, max_seq: int):
 # shared pieces
 
 
+#: the families the model axis splits (ROADMAP §1 items 6.2 and 6.2b)
+TP_FAMILIES = ("dense", "hybrid", "ssm")
+
+
 def tp_axis(cfg, mesh):
     """The model axis (``launch.mesh.Axis``) the forward over ``mesh``
     splits ``cfg``'s leaves over, None where it spans one rank. Refuses
-    what the port does not split yet: the MoE layer and ``fsdp`` over more
-    than one data rank (item 6.3); the other families, MLA and head, FFN
-    or vocabulary counts that M does not divide (item 6.2b). Nothing falls
+    what the port does not split yet: the MoE layer, MLA and ``fsdp`` over
+    more than one data rank (item 6.3); whisper and the VLM, and head
+    counts that M does not divide where the leaves do, KV heads fewer than
+    M among them (item 6.2c); and a leaf that M does not divide, which the
+    reference cannot place either (``common.uneven_split``). Nothing falls
     back."""
     tp = model_axis(mesh)
     if tp is None:
@@ -191,20 +201,35 @@ def tp_axis(cfg, mesh):
     m, name = tp.size, cfg.arch_id
     if cfg.moe is not None:
         raise not_ported(f"{name}: the MoE layer over a model axis", "6.3")
-    if cfg.family != "dense" or cfg.mla is not None:
-        raise not_ported(f"{name}: the {cfg.family} family"
-                         + (" with MLA" if cfg.mla is not None else "")
-                         + " over a model axis", "6.2b")
+    if cfg.mla is not None:
+        raise not_ported(f"{name}: MLA over a model axis", "6.3")
+    if cfg.family not in TP_FAMILIES:
+        raise not_ported(f"{name}: the {cfg.family} family over a model "
+                         f"axis", "6.2c")
     if cfg.fsdp and any(a.size > 1 for a in mesh.axes if a.name != "model"):
         raise not_ported(f"{name}: fsdp (the masters split over data) "
                          f"with more than one data rank", "6.3")
-    for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
-                    ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
-        if n % m:
-            raise not_ported(
-                f"{name}: {what}={n} over model={m} (the reference lets "
-                f"GSPMD replicate what does not divide)", "6.2b")
+    _check_splits(cfg, m)
     return tp
+
+
+@functools.lru_cache(maxsize=64)
+def _check_splits(cfg, m: int):
+    """Every split leaf of ``cfg`` divides over ``m`` model ranks (else
+    ``uneven_split``), and so does every head count a rank's slice must
+    hold whole (else item 6.2c)."""
+    axis = types.SimpleNamespace(size=m, index=0)
+    for path, pd in tree_flatten(lm_pd(cfg)):
+        try:
+            local_slice(pd, axis)
+        except NotImplementedError:
+            raise uneven_split(f"{cfg.arch_id}: {path} {tuple(pd.shape)}",
+                               m) from None
+    for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads)):
+        if n % m:
+            raise not_ported(f"{cfg.arch_id}: {what}={n} over model={m} (a "
+                             f"head split across ranks, or KV heads fewer "
+                             f"than M)", "6.2c")
 
 
 def _embed(params, cfg, tokens, tp=None):
@@ -368,16 +393,16 @@ def _dense_forward(params, cfg, x, positions, *, mode, cache=None, pos=None,
 
 
 def _shared_attn_block(p, x, positions, cfg, *, decode=False, cache=None,
-                       pos=None, cache_len=0):
+                       pos=None, cache_len=0, tp=None):
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
     if decode:
-        a, c = attn.gqa_decode(p["attn"], h, pos, cfg, cache)
+        a, c = attn.gqa_decode(p["attn"], h, pos, cfg, cache, tp=tp)
     else:
         a, c = attn.gqa_parallel(p["attn"], h, positions, cfg,
-                                 cache_len=cache_len)
+                                 cache_len=cache_len, tp=tp)
     x = x + a
     h = rms_norm(x, p["ln2"], cfg.rms_eps)
-    return x + mlpm.swiglu_apply(p["mlp"], h), c
+    return x + mlpm.swiglu_apply(p["mlp"], h, tp), c
 
 
 def _hybrid_groups(cfg):
@@ -386,19 +411,19 @@ def _hybrid_groups(cfg):
     return [(g * k, min((g + 1) * k, n)) for g in range(-(-n // k))]
 
 
-def _mamba_layer(p, x, cfg):
+def _mamba_layer(p, x, cfg, tp):
     """One Mamba layer of the training forward, with its residual."""
     o, _ = mb.mamba_parallel(p["mamba"], rms_norm(x, p["ln"], cfg.rms_eps),
-                             cfg)
+                             cfg, tp=tp)
     return x + o
 
 
-def _shared_train_block(p, x, positions, cfg):
-    return _shared_attn_block(p, x, positions, cfg)[0]
+def _shared_train_block(p, x, positions, cfg, tp):
+    return _shared_attn_block(p, x, positions, cfg, tp=tp)[0]
 
 
 def _hybrid_forward(params, cfg, x, positions, *, mode, cache=None,
-                    pos=None, cache_len=0):
+                    pos=None, cache_len=0, tp=None):
     """As ``_dense_forward``, for the hybrid: each group of ``attn_every``
     Mamba layers follows an application of the shared block. Under
     ``cfg.remat`` the Mamba layers are recomputed in the backward, as in
@@ -407,7 +432,8 @@ def _hybrid_forward(params, cfg, x, positions, *, mode, cache=None,
     width an application keeps ~4.7 GB for its backward at one 4,096-token
     sequence (mostly attention probabilities), ~66 GB over the 14 of its
     full depth. The prefill's cache is allocated at its first write;
-    decode's is updated in place."""
+    decode's is updated in place. ``tp``: the model axis (the shared
+    block's heads and FFN, the Mamba layers' SSM heads)."""
     layers, shared = params["layers"], params["shared_attn"]
     groups = _hybrid_groups(cfg)
     if mode == "train":
@@ -422,27 +448,28 @@ def _hybrid_forward(params, cfg, x, positions, *, mode, cache=None,
         if mode == "decode":
             x, _ = _shared_attn_block(shared, x, None, cfg, decode=True,
                                       cache=_layer(cache["attn"], g),
-                                      pos=pos)
+                                      pos=pos, tp=tp)
         elif mode == "train":
-            x = _run(_shared_train_block, remat, shared, x, positions, cfg)
+            x = _run(_shared_train_block, remat, shared, x, positions, cfg,
+                     tp)
         else:
             x, c = _shared_attn_block(shared, x, positions, cfg,
-                                      cache_len=cache_len)
+                                      cache_len=cache_len, tp=tp)
             cache["attn"] = _put(cache["attn"], len(groups), g, c)
         for i in range(lo, hi):
             if mode == "train":
                 x = _run(_mamba_layer, remat,
-                         tree_map(lambda t: t[i], unbound), x, cfg)
+                         tree_map(lambda t: t[i], unbound), x, cfg, tp)
                 continue
             p = _layer(layers, i)
             h = rms_norm(x, p["ln"], cfg.rms_eps)
             if mode == "prefill":
                 o, c = mb.mamba_parallel(p["mamba"], h, cfg,
-                                         return_cache=True)
+                                         return_cache=True, tp=tp)
                 cache["mamba"] = _put(cache["mamba"], cfg.n_layers, i, c)
             else:
                 o, _ = mb.mamba_decode(p["mamba"], h, cfg,
-                                       _layer(cache["mamba"], i))
+                                       _layer(cache["mamba"], i), tp)
             x = x + o
     return x, None, (None if mode == "train" else cache)
 
@@ -452,10 +479,11 @@ def _hybrid_forward(params, cfg, x, positions, *, mode, cache=None,
 
 
 def _xlstm_forward(params, cfg, x, positions, *, mode, cache=None, pos=None,
-                   cache_len=0):
+                   cache_len=0, tp=None):
     """As ``_dense_forward``, for the xLSTM stack (no positions: the
     recurrences carry them); the prefill's cache is a ``layer_XX`` tree of
-    the blocks' final states, decode's updated in place."""
+    the blocks' final states, decode's updated in place. ``tp``: the
+    model axis (``models/xlstm.py``)."""
     if mode == "prefill":
         cache = {}
     for i in range(cfg.n_layers):
@@ -465,10 +493,11 @@ def _xlstm_forward(params, cfg, x, positions, *, mode, cache=None, pos=None,
         h = rms_norm(x, p["ln"], cfg.rms_eps)
         if mode == "decode":
             fn = xl.mlstm_decode if m else xl.slstm_decode
-            o, _ = fn(p["blk"], h, cfg, cache[key])
+            o, _ = fn(p["blk"], h, cfg, cache[key], tp)
         else:
             fn = xl.mlstm_parallel if m else xl.slstm_parallel
-            o, c = fn(p["blk"], h, cfg, return_cache=mode == "prefill")
+            o, c = fn(p["blk"], h, cfg, return_cache=mode == "prefill",
+                      tp=tp)
             if mode == "prefill":
                 cache[key] = c
         x = x + o
@@ -571,10 +600,10 @@ def _whisper_forward(params, cfg, tokens, frames, *, mode, cache=None,
 
 def _forward(cfg, tp=None):
     """The family's stack: (params, cfg, x, positions, mode=..., ...) ->
-    (x, aux, cache); ``tp``, the model axis, reaches only the decoder's
-    (``tp_axis`` refuses the others)."""
-    return {"hybrid": _hybrid_forward, "ssm": _xlstm_forward}.get(
-        cfg.family, functools.partial(_dense_forward, tp=tp))
+    (x, aux, cache), over the model axis ``tp``."""
+    fn = {"hybrid": _hybrid_forward, "ssm": _xlstm_forward}.get(
+        cfg.family, _dense_forward)
+    return functools.partial(fn, tp=tp)
 
 
 # ---------------------------------------------------------------------------

@@ -97,18 +97,35 @@ def scale_loss(loss_fn: Callable, scale) -> Callable:
     return scaled
 
 
-def check(metrics, grads, *, axes=None):
+def check(metrics, grads, *, axes=None, model_axis=None, split=()):
     """The sentinel and skip decision, taken before the guarded step
     writes anything. ``grads`` is what the step differentiated into: the
     rank's reduced gradient shards on the sharded rungs (pass ``axes``,
     the shard axis, so the count and the norm add up over its ranks, as
     the reference's ``psum_axis``), or the full reduced gradient tree on
-    the replicated paths (the same on every rank: no ``axes``).
-    ``metrics['loss']`` must already be the ranks' mean. Returns ``(ok,
-    metrics)``: the metrics gain ``gnorm``, ``nonfinite`` and ``skipped``
-    (0-d f32 CPU tensors). One host sync."""
-    bad = nonfinite_count(grads).double()
-    sq = sq_sum(grads)
+    the replicated paths (the same on every rank: no ``axes``). The
+    ``comm='xla'`` step over a model axis passes it as ``model_axis`` with
+    the paths ``split`` of the leaves split over it: their counts and
+    squares are summed over its ranks (one all-reduce), the replicated
+    leaves' taken once, so every rank decides on the whole tree, as the
+    reference's one program does. ``metrics['loss']`` must already be the
+    ranks' mean. Returns ``(ok, metrics)``: the metrics gain ``gnorm``,
+    ``nonfinite`` and ``skipped`` (0-d f32 CPU tensors). One host sync."""
+    if model_axis is not None and split:
+        from repro_torch.tree import tree_flatten
+        flat = tree_flatten(grads)
+        parts = [[x for p, x in flat if (p in split) == s]
+                 for s in (True, False)]
+        both = torch.stack([nonfinite_count(parts[0]).double(),
+                            sq_sum(parts[0]).double()])
+        dist.all_reduce(both, group=model_axis.group)
+        bad, sq = both[0], both[1].float()
+        if parts[1]:
+            bad = bad + nonfinite_count(parts[1]).double()
+            sq = sq + sq_sum(parts[1])
+    else:
+        bad = nonfinite_count(grads).double()
+        sq = sq_sum(grads)
     if axes:
         both = torch.stack([bad, sq.double()])
         for a in axes:

@@ -13,16 +13,21 @@ distribution paths:
   the master that autograd follows, so the gradients arrive in bf16 and
   the optimizer upcasts them. Without a mesh it runs on one device. Over
   a ``(data, model)`` mesh (``launch.mesh.make_local_mesh(M)``; ROADMAP §1
-  item 6.2) the dense decoder's leaves split over ``model`` by their
-  specs (the state holds a rank's shards: ``init_state(...,
-  **sharded_state_kwargs(step))``), each rank takes the rows of its data
-  index, the forward and backward run the model axis's collectives
-  (``models/common.py``), the gradients are meaned over the data axes only
-  (in f32) and LARS takes whole-tensor norms (the split leaves' squares
-  summed over ``model``). At M = 1 it is GSPMD's pure data parallelism.
-  As the reference's loss is the global masked mean, the port's is the
-  data ranks' mean of their masked means: the same where the ranks hold
-  equal label counts, as every token batch gives them.
+  items 6.2 and 6.2b) the leaves of the dense decoder, the hybrid and the
+  xLSTM split over ``model`` by their specs (the state holds a rank's
+  shards: ``init_state(..., **sharded_state_kwargs(step))``), each rank
+  takes the rows of its data index, the forward and backward run the
+  model axis's collectives (``models/common.py``), the gradients are
+  meaned over the data axes only (in f32), LARS and LAMB take
+  whole-tensor norms (the split leaves' squares summed over ``model``)
+  and the guard counts and sums every rank's shards once. At M = 1 it is
+  GSPMD's pure data parallelism. As the reference's loss is the global
+  masked mean, the port's is the data ranks' mean of their masked means:
+  the same where the ranks hold equal label counts, as every token batch
+  gives them. The conv family splits no leaf (at M > 1 every model rank
+  of a data row computes the same step) and takes its BatchNorm
+  statistics over the data axes' global batch (``models/resnet.py``), so
+  its new running statistics are the same on every rank.
 * an explicit data-parallel schedule (``naive``, ``psum``, ``bucketed``,
   ``ring``, ``hierarchical``, ``2d_torus``, ``dbtree``; paper §III-C)
   over a ``launch.mesh`` mesh: the gradients of the fp32 params are packed
@@ -187,7 +192,7 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
         raise ValueError(
             f"sharding={comm_cfg.sharding!r} needs an explicit-DP schedule "
             f"(comm='psum', 'ring', ...), not comm='xla'")
-    tp, dp, split = _xla_mesh(model, mesh, guard)
+    tp, dp, split = _xla_mesh(model, mesh)
     loss_fn = make_loss_fn(model, smoothing=smoothing, mesh=mesh)
     bf16 = comm_cfg.wire_dtype == "bf16"
 
@@ -224,7 +229,8 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
             metrics = prim.pmean_tree(metrics, dp)
         lr = _lr(schedule, state, guard_in)
         if guard_in is not None:
-            ok, metrics = guard_lib.check(metrics, grads)
+            ok, metrics = guard_lib.check(metrics, grads, model_axis=tp,
+                                          split=split)
             if not ok:
                 return state, dict(metrics, lr=lr)
         params, mom = lars.update(state.params, grads, state.mom, lr,
@@ -238,7 +244,7 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
     return _guarded(train_step, guard)
 
 
-def _xla_mesh(model, mesh, guard: bool):
+def _xla_mesh(model, mesh):
     """The ``comm='xla'`` step's view of ``mesh``: (the model axis or
     None, the data axes a gradient is meaned over, the paths of the leaves
     split over the model axis). Refuses what is not ported over a
@@ -247,17 +253,12 @@ def _xla_mesh(model, mesh, guard: bool):
     if mesh is None or mesh.size == 1:
         return None, (), frozenset()
     cfg = model.cfg
-    if cfg.family == "conv":
-        raise not_ported(
-            "comm='xla' for the conv family over a multi-rank mesh (GSPMD's "
-            "BatchNorm statistics span every rank's rows; train it with an "
-            "explicit schedule)", "6.2b")
     if cfg.moe is not None:
         raise not_ported("comm='xla' with a MoE config over a multi-rank "
                          "mesh", "6.3")
-    tp = transformer.tp_axis(cfg, mesh)
-    if tp is not None and guard:
-        raise not_ported("the numerical guard over a model axis", "6.2b")
+    # the conv family splits no leaf: every leaf replicated over 'model',
+    # its batch over the data axes alone, as GSPMD places it
+    tp = None if cfg.family == "conv" else transformer.tp_axis(cfg, mesh)
     dp = tuple(a for a in mesh.axes if a.name != "model" and a.size > 1)
     split = frozenset(path for path, pd in tree_flatten(model.param_pd)
                       if local_slice(pd, tp)[0] is not None)

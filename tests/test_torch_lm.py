@@ -222,8 +222,10 @@ def test_unported_lm_parts_name_roadmap(base, capsys):
     their families build (``test_torch_whisper.py``, ``test_torch_vlm.py``
     hold them against the reference); an unknown arch names the known
     ones; the CLI has every flag of the reference's, ``--model-parallel``
-    since item 6.2 (the dense decoder, ``test_torch_tp.py``), and what the
-    model axis does not split yet names its item."""
+    since item 6.2 (the dense decoder, ``test_torch_tp.py``; the hybrid
+    and the xLSTM since item 6.2b, ``test_torch_tp_recurrent.py``), and
+    what the model axis does not split yet names its item (whisper:
+    6.2c)."""
     from repro_torch.configs import _REGISTRY
     from repro_torch.launch import train as cli
     for arch, fam in (("whisper-base", "audio"), ("internvl2-2b", "vlm")):
@@ -242,6 +244,6 @@ def test_unported_lm_parts_name_roadmap(base, capsys):
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("whisper-large")
     with pytest.raises(SystemExit):
-        cli.main(["--arch", "zamba2-7b", "--model-parallel", "2",
+        cli.main(["--arch", "whisper-base", "--model-parallel", "2",
                   "--device", "cpu"])
-    assert "ROADMAP §1 item 6.2b" in capsys.readouterr().err
+    assert "ROADMAP §1 item 6.2c" in capsys.readouterr().err

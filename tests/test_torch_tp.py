@@ -38,7 +38,8 @@ equal the whole leaves' slices bit for bit, f32 and bf16. The CLI
 
 Without ranks: every leaf's spec is the reference's, sharding by it and
 gathering back is the identity, and what the port does not split yet is
-refused, naming its item (6.2b, 6.3)."""
+refused, naming its item (6.2c, 6.3), or, for a leaf that M does not
+divide, saying that the reference cannot place it either."""
 import dataclasses
 
 import numpy as np
@@ -146,9 +147,15 @@ def test_shard_and_gather_by_spec_is_the_identity(arch, m):
     assert split == 9 - cfg.tie_embeddings + 3 * cfg.qkv_bias
 
 
+#: the refusal of a leaf the model axis does not divide, which the
+#: reference cannot place either (``common.uneven_split``)
+UNEVEN = "uneven"
+
+
 def _refused(fn, item):
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP §1 item {item}\)"):
+    match = (r"the reference cannot place either" if item == UNEVEN
+             else rf"ROADMAP §1 item {item}\)")
+    with pytest.raises(NotImplementedError, match=match):
         fn()
 
 
@@ -156,69 +163,96 @@ def _refused(fn, item):
 @pytest.mark.parametrize("arch,kw,mesh,item", [
     ("qwen2-moe-a2.7b", {}, (1, 2), "6.3"),
     ("deepseek-v2-236b", {}, (1, 2), "6.3"),
-    ("zamba2-7b", {}, (1, 2), "6.2b"),
-    ("xlstm-125m", {}, (1, 2), "6.2b"),
-    ("whisper-base", {}, (1, 2), "6.2b"),
-    ("internvl2-2b", {}, (1, 2), "6.2b"),
-    ("qwen1.5-0.5b", {}, (1, 3), "6.2b"),           # 4 heads over 3
-    ("qwen1.5-0.5b", {"d_ff": 511}, (1, 2), "6.2b"),
-    ("qwen1.5-0.5b", {"vocab_size": 511}, (1, 2), "6.2b"),
-    ("qwen1.5-0.5b", {"n_kv_heads": 1}, (1, 2), "6.2b"),
+    ("deepseek-v2-236b", {"moe": None}, (1, 2), "6.3"),     # MLA alone
+    ("zamba2-7b", {}, (1, 2), None),                # ported: item 6.2b
+    ("xlstm-125m", {"d_model": 192}, (1, 2), None),
+    ("xlstm-125m", {"n_layers": 7}, (1, 2), UNEVEN),  # sLSTM FFN 341
+    ("zamba2-7b", {"vocab_size": 511}, (1, 2), UNEVEN),
+    ("xlstm-125m", {"d_model": 192, "n_heads": 2, "n_kv_heads": 2}, (1, 4),
+     "6.2c"),                                       # 2 heads over 4
+    ("whisper-base", {}, (1, 2), "6.2c"),
+    ("internvl2-2b", {}, (1, 2), "6.2c"),
+    ("qwen1.5-0.5b", {}, (1, 3), UNEVEN),           # 4 heads over 3
+    ("qwen1.5-0.5b", {"d_ff": 511}, (1, 2), UNEVEN),
+    ("qwen1.5-0.5b", {"vocab_size": 511}, (1, 2), UNEVEN),
+    ("qwen1.5-0.5b", {"n_kv_heads": 1}, (1, 2), "6.2c"),
     ("qwen1.5-32b", {"fsdp": True}, (2, 2), "6.3"),
 ])
 def test_model_axis_refuses_what_it_does_not_split(arch, kw, mesh, item):
-    """Each configuration outside the slice raises with its ROADMAP item,
-    in the forward and in ``make_train_step(comm='xla')``, before any
-    collective: nothing falls back."""
+    """Each configuration outside the slice raises with its ROADMAP item
+    (a leaf that M does not divide: that the reference cannot place it
+    either), in the forward and in ``make_train_step(comm='xla')``,
+    before any collective: nothing falls back. The rows whose item is
+    None are ported (the hybrid and the xLSTM, item 6.2b): both build."""
     cfg = dataclasses.replace(get_config(arch).reduced(), **kw)
     m = _mesh(*mesh)
     model = build_model(cfg)
-    _refused(lambda: transformer.tp_axis(cfg, m), item)
-    _refused(lambda: make_train_step(
+    build = lambda: make_train_step(  # noqa: E731
         model, lars.OptConfig(), make_schedule(ScheduleConfig(
-            base_lr=0.1, total_steps=2)), mesh=m, comm="xla"), item)
+            base_lr=0.1, total_steps=2)), mesh=m, comm="xla")
+    if item is None:
+        assert transformer.tp_axis(cfg, m).size == mesh[1]
+        assert build().mesh is m
+        return
+    _refused(lambda: transformer.tp_axis(cfg, m), item)
+    _refused(build, item)
 
 
 @pytest.mark.tier1
 def test_xla_step_refusals_over_a_multi_rank_mesh():
-    """The conv family under comm='xla' over several ranks (GSPMD's BN
-    statistics span the global batch) and the guard and LAMB over a model
-    axis are not ported: each names item 6.2b; a one-rank mesh passes."""
+    """What item 6.2b lifted builds: the conv family under comm='xla'
+    over several ranks (its BatchNorm statistics over the data axes), the
+    guard over a model axis, and LAMB over it (its norms the rank's own
+    where no leaf is split: the no-axis update). A MoE config over a
+    multi-rank mesh still names item 6.3."""
     sched = make_schedule(ScheduleConfig(base_lr=0.1, total_steps=2))
     resnet = build_model(get_config("resnet50").reduced())
-    _refused(lambda: make_train_step(resnet, lars.OptConfig(), sched,
-                                     mesh=_mesh(2, 1), comm="xla"), "6.2b")
-    make_train_step(resnet, lars.OptConfig(), sched, mesh=_mesh(1, 1),
-                    comm="xla")
+    for mesh in ((2, 1), (1, 1), (2, 2)):
+        make_train_step(resnet, lars.OptConfig(), sched, mesh=_mesh(*mesh),
+                        comm="xla")
     lm = build_model(get_config("qwen1.5-0.5b").reduced())
-    _refused(lambda: make_train_step(lm, lars.OptConfig(), sched,
-                                     mesh=_mesh(1, 2), comm="xla",
-                                     guard=True), "6.2b")
+    assert make_train_step(lm, lars.OptConfig(), sched, mesh=_mesh(1, 2),
+                           comm="xla", guard=True).guarded
     p = {"w": torch.ones(2, 2)}
-    _refused(lambda: lars.update(p, p, lars.init_momentum(p, "lamb"), 0.1,
-                                 lars.OptConfig(kind="lamb"),
-                                 model_axis=model_axis(_mesh(1, 2))), "6.2b")
+    args = (p, p, lars.init_momentum(p, "lamb"), 0.1,
+            lars.OptConfig(kind="lamb"))
+    got = lars.update(*args, model_axis=model_axis(_mesh(1, 2)))
+    assert torch.equal(got[0]["w"], lars.update(*args)[0]["w"])
+    moe = build_model(get_config("qwen2-moe-a2.7b").reduced())
+    _refused(lambda: make_train_step(moe, lars.OptConfig(), sched,
+                                     mesh=_mesh(2, 1), comm="xla"), "6.3")
 
 
 @pytest.mark.tier1
 @pytest.mark.parametrize("argv,item", [
     (["--arch", "qwen2-moe-a2.7b"], "6.3"),
-    (["--arch", "zamba2-7b"], "6.2b"),
-    (["--arch", "resnet50"], "6.2b"),
-    (["--arch", "qwen1.5-0.5b", "--ckpt-dir", "ck"], "6.2b"),
+    (["--arch", "deepseek-v2-236b"], "6.3"),
+    (["--arch", "zamba2-7b"], None),
+    (["--arch", "resnet50"], None),
+    (["--arch", "whisper-base"], "6.2c"),
+    (["--arch", "internvl2-2b"], "6.2c"),
+    (["--arch", "qwen1.5-0.5b", "--ckpt-dir", "ck"], "6.2c"),
     (["--arch", "qwen1.5-0.5b", "--ckpt-dir", "ck", "--resume-elastic"],
-     "6.2b"),
-    (["--arch", "qwen1.5-0.5b", "--guard"], "6.2b"),
+     "6.2c"),
+    (["--arch", "qwen1.5-0.5b", "--guard"], None),
 ])
 def test_cli_model_parallel_refusals(argv, item, capsys, monkeypatch):
     """``--model-parallel 2`` under a two-rank launch: what the slice does
-    not cover exits before anything is built, naming its item."""
+    not cover exits before anything is built, naming its item; what it
+    covers (item None: the hybrid, ResNet-50, the guard) reaches the
+    run."""
     from repro_torch.launch import train as cli
     monkeypatch.setenv("WORLD_SIZE", "2")
-    monkeypatch.setattr(cli, "_run", lambda args: pytest.fail("ran"))
+    ran = []
+    monkeypatch.setattr(cli, "_run", ran.append if item is None
+                        else (lambda args: pytest.fail("ran")))
+    argv = [*argv, "--reduced", "--model-parallel", "2", "--device", "cpu"]
+    if item is None:
+        cli.main(argv)
+        assert len(ran) == 1 and ran[0].model_parallel == 2
+        return
     with pytest.raises(SystemExit) as exit_info:
-        cli.main([*argv, "--reduced", "--model-parallel", "2", "--device",
-                  "cpu"])
+        cli.main(argv)
     assert exit_info.value.code != 0
     assert f"ROADMAP §1 item {item})" in capsys.readouterr().err
 

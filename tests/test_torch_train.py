@@ -156,34 +156,37 @@ def test_cli_on_cpu_reaches_run_stop(capsys):
 
 
 def test_cli_flag_not_ported_names_roadmap(capsys):
+    """A flag's use the port has not reached names its ROADMAP item:
+    ``--model-parallel`` with whisper (item 6.2c; ResNet-50 takes it
+    since item 6.2b)."""
     from repro_torch.launch import train as launch
     with pytest.raises(SystemExit) as exit_info:
-        launch.main(["--arch", "resnet50", "--reduced", "--device", "cpu",
-                     "--comm", "ring", "--model-parallel", "2"])
+        launch.main(["--arch", "whisper-base", "--reduced", "--device",
+                     "cpu", "--comm", "ring", "--model-parallel", "2"])
     assert exit_info.value.code != 0
     assert "ROADMAP §1 item 6" in capsys.readouterr().err
 
 
 def test_cli_refuses_comm_xla_under_multi_rank_launch(capsys, monkeypatch):
     """Under a launcher that sets WORLD_SIZE > 1, '--comm xla' is the
-    reference's GSPMD step over every rank, whose BatchNorm statistics
-    span the global batch; the port's conv family keeps them per process,
-    so the CLI refuses it before building anything, naming the way out
-    (the dense LMs take it: ``test_torch_tp.py``)."""
+    reference's GSPMD step over every rank. The conv family takes it since
+    item 6.2b (its BatchNorm statistics over the data axes:
+    ``test_torch_xla_conv.py``), so ResNet-50 reaches the run; a MoE
+    config is still refused before anything is built, naming item 6.3."""
     from repro_torch.launch import train as launch
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setattr(launch, "_run", lambda args: pytest.fail("ran"))
     with pytest.raises(SystemExit) as exit_info:
-        launch.main(["--arch", "resnet50", "--reduced", "--steps", "1",
-                     "--device", "cpu"])
+        launch.main(["--arch", "qwen2-moe-a2.7b", "--reduced", "--steps",
+                     "1", "--device", "cpu"])
     assert exit_info.value.code != 0
-    err = capsys.readouterr().err
-    assert "--comm psum" in err and "ROADMAP §1 item 6" in err
-    monkeypatch.setenv("WORLD_SIZE", "1")
-    ran = []
-    monkeypatch.setattr(launch, "_run", ran.append)
-    launch.main(["--arch", "resnet50", "--reduced", "--device", "cpu"])
-    assert len(ran) == 1 and ran[0].comm == "xla"
+    assert "ROADMAP §1 item 6.3" in capsys.readouterr().err
+    for world in ("2", "1"):
+        monkeypatch.setenv("WORLD_SIZE", world)
+        ran = []
+        monkeypatch.setattr(launch, "_run", ran.append)
+        launch.main(["--arch", "resnet50", "--reduced", "--device", "cpu"])
+        assert len(ran) == 1 and ran[0].comm == "xla"
 
 
 @pytest.mark.parametrize("comm", ["naive", "psum", "ring"])

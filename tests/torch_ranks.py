@@ -616,11 +616,13 @@ def _tp_run(model, params, toks, tpm, cache_len, new):
     of ``toks``): the forward over all of ``toks``, the prefill of all but
     the last token, one decode step of the last and ``generate``'s ``new``
     greedy tokens, each gathered over the mesh (the cache over ``model``
-    by its spec, then every output over ``data``), as numpy."""
+    by its spec, then every output over ``data``; the caches as
+    ``{path: leaf}``), as numpy."""
     import torch
     from repro_torch import weights
     from repro_torch.models import transformer
     from repro_torch.serve.decode import generate
+    from repro_torch.tree import tree_flatten
     d = tpm.axis("data")
     n = toks.shape[0] // d.size
     mine = torch.from_numpy(toks[d.index * n:(d.index + 1) * n])
@@ -631,8 +633,10 @@ def _tp_run(model, params, toks, tpm, cache_len, new):
         last, cache = model.forward_prefill(params, {"tokens": mine[:, :P]},
                                             cache_len, tpm)
         pd = transformer.cache_pd(model.cfg, toks.shape[0], cache_len)
-        whole = lambda c: {k: _rows(v, d, 1) for k, v in weights.gather_tree(
-            c, pd, tpm).items()}
+        rows_dim = {p: list(x.spec).index("data")
+                    for p, x in tree_flatten(pd)}
+        whole = lambda c: {p: _rows(v, d, rows_dim[p]) for p, v in
+                           tree_flatten(weights.gather_tree(c, pd, tpm))}
         out = {"train_logits": _rows(logits, d), "prefill_logits": _rows(
             last, d), "cache": whole(cache)}
         dl, cache = model.forward_decode(params, cache, mine[:, P:], P, tpm)
@@ -644,14 +648,18 @@ def _tp_run(model, params, toks, tpm, cache_len, new):
     return out
 
 
-def _tp_step_errors(base, r, tpm, f32: bool, kind: str = "lars"):
+def _tp_step_errors(base, r, tpm, f32: bool, kind: str = "lars",
+                    zero=()):
     """The port's ``comm='xla'`` step (optimizer ``kind``) over ``tpm``
     from each of the reference's step inputs ``r['s{k}']['in']`` (sharded
     by spec) on the rows of the rank's data index of its batch, against
     its output:
     (the loss's relative difference, the masters' worst difference over
     their tensor's largest update, the momentum's over its tensor's
-    largest element), each the worst over the steps."""
+    largest element), each the worst over the steps. The leaves at the
+    paths ``zero`` (whose reference gradient vanishes up to f32 rounding:
+    their update is their weight decay and noise) are left out of the two
+    and reported after them, the same two figures over those leaves."""
     import contextlib
     import types
 
@@ -669,7 +677,7 @@ def _tp_step_errors(base, r, tpm, f32: bool, kind: str = "lars"):
                            make_schedule(ScheduleConfig(**R.LR)), mesh=tpm,
                            comm="xla", comm_dtype="f32" if f32 else "bf16")
     d = tpm.axis("data")
-    worst = [0.0, 0.0, 0.0]
+    worst = [0.0] * (5 if zero else 3)
     for k in range(R.LM_TRAIN_STEPS):
         rk = r[f"s{k}"]
         full = weights.lm_state_from_jax(types.SimpleNamespace(**rk["in"]),
@@ -689,13 +697,17 @@ def _tp_step_errors(base, r, tpm, f32: bool, kind: str = "lars"):
         loss = float(rk["metrics"]["loss"])
         worst[0] = max(worst[0], abs(float(metrics["loss"]) - loss)
                        / abs(loss))
-        worst[1] = max([worst[1]] + [
-            np.abs(got[0][p] - want[0][p]).max()
-            / max(np.abs(want[0][p] - p_in[p]).max(), 1e-30)
-            for p in want[0]])
-        worst[2] = max([worst[2]] + [
-            np.abs(got[1][p] - want[1][p]).max()
-            / max(np.abs(want[1][p]).max(), 1e-30) for p in want[1]])
+        for j, paths in ((1, [p for p in want[0] if p not in zero]),
+                         (3, list(zero))):
+            if j >= len(worst):
+                continue
+            worst[j] = max([worst[j]] + [
+                np.abs(got[0][p] - want[0][p]).max()
+                / max(np.abs(want[0][p] - p_in[p]).max(), 1e-30)
+                for p in paths])
+            worst[j + 1] = max([worst[j + 1]] + [
+                np.abs(got[1][p] - want[1][p]).max()
+                / max(np.abs(want[1][p]).max(), 1e-30) for p in paths])
     return worst
 
 
@@ -705,6 +717,107 @@ def _sha(tensors) -> np.ndarray:
     for x in tensors:
         h.update(x.detach().contiguous().numpy().tobytes())
     return np.frombuffer(h.digest(), np.uint8)
+
+
+def _tp_held(out, tpm, prefix, model, params, r, toks, f32):
+    """``_tp_run`` over ``tpm`` against the reference's ``_lm_run``
+    outputs ``r``: each output's worst difference over the reference's max
+    as ``{prefix}/{name}`` (the caches over every leaf), and
+    ``{prefix}/ties`` (``check_greedy_tokens`` on the rank's rows; bf16 at
+    the serving margin 3e-2)."""
+    import contextlib
+
+    import torch
+    import torch_reference as R
+    from repro_torch.core import precision
+    from repro_torch.tree import tree_flatten
+    P, C, NEW = R.LM_PROMPT, R.LM_CACHE, R.LM_NEW
+    d = tpm.axis("data")
+    compute = precision.f32_compute if f32 else contextlib.nullcontext
+    with compute():
+        got = _tp_run(model, params, toks, tpm, C, NEW)
+    for name in ("train_logits", "prefill_logits", "decode_logits"):
+        out[f"{prefix}/{name}"] = _rel(got[name], r[name])
+    for name in ("cache", "decode_cache"):
+        out[f"{prefix}/{name}"] = max(_rel(got[name][k], v)
+                                      for k, v in tree_flatten(r[name]))
+    mine, gen = got["mine"]
+    n = toks.shape[0] // d.size
+    with compute(), torch.no_grad():
+        ties = R.check_greedy_tokens(
+            model, params, mine[:, :P],
+            r["generate"][d.index * n:(d.index + 1) * n],
+            gen.numpy(), C, rel_margin=None if f32 else 3e-2, mesh=tpm)
+    out[f"{prefix}/ties"] = np.int64(ties.sum())
+
+
+def _tp_self(cfg, tpm, prefix, out, seed=5):
+    """``cfg`` over ``tpm`` against the port with no mesh, wholly in f32
+    (``precision.f32_compute``), from ``pinit``'s params at ``seed``:
+    ``{prefix}/logits`` (the forward, prefill and decode, over the logit
+    max), ``{prefix}/masters`` and ``mom`` (two LARS steps against the
+    no-mesh step on the whole batch, over the largest update and the
+    largest momentum element), ``{prefix}/sha_rep`` and ``sha_all`` (this
+    rank's replicated masters and momentum, and all its shards)."""
+    import torch
+    import torch_reference as R
+    from repro_torch import weights
+    from repro_torch.core import lars, pinit, precision
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models.common import local_slice, model_axis
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.state import init_state, sharded_state_kwargs
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_flatten
+    P, C, NEW = R.LM_PROMPT, R.LM_CACHE, R.LM_NEW
+    d, tp = tpm.axis("data"), model_axis(tpm)
+    sched = make_schedule(ScheduleConfig(**R.LR))
+    model = build_model(cfg)
+    toks = R.lm_tokens(cfg)
+    full = pinit.materialize(model.param_pd, seed, "cpu")
+    with precision.f32_compute():
+        got = _tp_run(model, weights.shard_tree(full, model.param_pd, tpm),
+                      toks, tpm, C, NEW)
+        with torch.no_grad():
+            t = torch.from_numpy(toks)
+            (lg, _), _ = model.forward_train(full, {"tokens": t})
+            last, cache = model.forward_prefill(full, {"tokens": t[:, :P]},
+                                                C)
+            dl, _ = model.forward_decode(full, cache, t[:, P:], P)
+    out[f"{prefix}/logits"] = max(
+        _rel(got["train_logits"], lg.numpy()),
+        _rel(got["prefill_logits"], last.numpy()),
+        _rel(got["decode_logits"], dl.numpy()))
+    one = make_train_step(model, lars.OptConfig(kind="lars"), sched,
+                          comm="xla", comm_dtype="f32")
+    two = make_train_step(model, lars.OptConfig(kind="lars"), sched,
+                          mesh=tpm, comm="xla", comm_dtype="f32")
+    s1 = init_state(model, seed, device="cpu")
+    s2 = init_state(model, seed, device="cpu", **sharded_state_kwargs(two))
+    p0 = dict(tree_flatten(s1.params))
+    n = R.LM_TRAIN_BATCH // d.size
+    for k in range(R.LM_TRAIN_STEPS):
+        batch = token_batch(cfg, batch=R.LM_TRAIN_BATCH, seq=R.LM_TRAIN_SEQ,
+                            step=k, kind="lcg", device="cpu")
+        with precision.f32_compute():
+            s1, _ = one(s1, batch)
+            s2, _ = two(s2, {x: v[d.index * n:(d.index + 1) * n]
+                             for x, v in batch.items()})
+    got, got_m = (dict(tree_flatten(weights.gather_tree(
+        t, model.param_pd, tpm))) for t in (s2.params, s2.mom))
+    want, want_m = dict(tree_flatten(s1.params)), dict(tree_flatten(s1.mom))
+    upd = max(float((want[p] - p0[p]).abs().max()) for p in want)
+    out[f"{prefix}/masters"] = max(
+        float((got[p] - want[p]).abs().max()) for p in want) / upd
+    out[f"{prefix}/mom"] = max(
+        float((got_m[p] - want_m[p]).abs().max()) for p in want_m) \
+        / max(float(m.abs().max()) for m in want_m.values())
+    pds = dict(tree_flatten(model.param_pd))
+    shards = tree_flatten(s2.params) + tree_flatten(s2.mom)
+    out[f"{prefix}/sha_rep"] = _sha(
+        x for p, x in shards if local_slice(pds[p], tp)[0] is None)
+    out[f"{prefix}/sha_all"] = _sha(x for _, x in shards)
 
 
 def lm_tp(mesh, ref_path):
@@ -736,39 +849,18 @@ def lm_tp(mesh, ref_path):
     import torch_reference as R
     from repro_torch import weights
     from repro_torch.configs import get_config
-    from repro_torch.core import lars, pinit, precision
-    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.core import pinit
     from repro_torch.launch import train as cli
     from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.models.common import local_slice, model_axis
     from repro_torch.models.registry import build_model
-    from repro_torch.train.state import init_state, sharded_state_kwargs
-    from repro_torch.train.step import make_train_step
     from repro_torch.tree import tree_flatten
 
     tpm = make_local_mesh(2, device="cpu")
-    d = tpm.axis("data")
     ref = R.load(ref_path)
-    P, C, NEW = R.LM_PROMPT, R.LM_CACHE, R.LM_NEW
     out = {}
 
-    def held(prefix, model, params, r, toks, f32):
-        compute = precision.f32_compute if f32 else contextlib.nullcontext
-        with compute():
-            got = _tp_run(model, params, toks, tpm, C, NEW)
-        for name in ("train_logits", "prefill_logits", "decode_logits"):
-            out[f"{prefix}/{name}"] = _rel(got[name], r[name])
-        for name in ("cache", "decode_cache"):
-            out[f"{prefix}/{name}"] = max(_rel(got[name][k], r[name][k])
-                                          for k in "kv")
-        mine, gen = got["mine"]
-        n = toks.shape[0] // d.size
-        with compute(), torch.no_grad():
-            ties = R.check_greedy_tokens(
-                model, params, mine[:, :P],
-                r["generate"][d.index * n:(d.index + 1) * n],
-                gen.numpy(), C, rel_margin=None if f32 else 3e-2, mesh=tpm)
-        out[f"{prefix}/ties"] = np.int64(ties.sum())
+    def held(*args):
+        _tp_held(out, tpm, *args)
 
     for arch in R.TP_ARCHS:
         base = get_config(arch).reduced()
@@ -790,58 +882,9 @@ def lm_tp(mesh, ref_path):
         ref["flash"]["run"], R.lm_tokens(base), False)
 
     # within the port, in f32: model 2 against model 1
-    sched = make_schedule(ScheduleConfig(**R.LR))
-    tp = model_axis(tpm)
     for name, kw in TP_VARIANTS.items():
         cfg = dataclasses.replace(get_config(R.TP_ARCHS[0]).reduced(), **kw)
-        model = build_model(cfg)
-        toks = R.lm_tokens(cfg)
-        full = pinit.materialize(model.param_pd, 5, "cpu")
-        with precision.f32_compute():
-            got = _tp_run(model, weights.shard_tree(full, model.param_pd,
-                                                    tpm), toks, tpm, C, NEW)
-            with torch.no_grad():
-                t = torch.from_numpy(toks)
-                (lg, _), _ = model.forward_train(full, {"tokens": t})
-                last, cache = model.forward_prefill(full, {"tokens": t[:, :P]},
-                                                    C)
-                dl, _ = model.forward_decode(full, cache, t[:, P:], P)
-        out[f"self/{name}/logits"] = max(
-            _rel(got["train_logits"], lg.numpy()),
-            _rel(got["prefill_logits"], last.numpy()),
-            _rel(got["decode_logits"], dl.numpy()))
-        one = make_train_step(model, lars.OptConfig(kind="lars"), sched,
-                              comm="xla", comm_dtype="f32")
-        two = make_train_step(model, lars.OptConfig(kind="lars"), sched,
-                              mesh=tpm, comm="xla", comm_dtype="f32")
-        s1 = init_state(model, 5, device="cpu")
-        s2 = init_state(model, 5, device="cpu", **sharded_state_kwargs(two))
-        p0 = dict(tree_flatten(s1.params))
-        n = R.LM_TRAIN_BATCH // d.size
-        for k in range(R.LM_TRAIN_STEPS):
-            from repro_torch.data.synthetic import token_batch
-            batch = token_batch(cfg, batch=R.LM_TRAIN_BATCH,
-                                seq=R.LM_TRAIN_SEQ, step=k, kind="lcg",
-                                device="cpu")
-            with precision.f32_compute():
-                s1, _ = one(s1, batch)
-                s2, _ = two(s2, {x: v[d.index * n:(d.index + 1) * n]
-                                 for x, v in batch.items()})
-        got, got_m = (dict(tree_flatten(weights.gather_tree(
-            t, model.param_pd, tpm))) for t in (s2.params, s2.mom))
-        want, want_m = dict(tree_flatten(s1.params)), dict(tree_flatten(
-            s1.mom))
-        upd = max(float((want[p] - p0[p]).abs().max()) for p in want)
-        out[f"self/{name}/masters"] = max(
-            float((got[p] - want[p]).abs().max()) for p in want) / upd
-        out[f"self/{name}/mom"] = max(
-            float((got_m[p] - want_m[p]).abs().max()) for p in want_m) \
-            / max(float(m.abs().max()) for m in want_m.values())
-        pds = dict(tree_flatten(model.param_pd))
-        shards = tree_flatten(s2.params) + tree_flatten(s2.mom)
-        out[f"self/{name}/sha_rep"] = _sha(
-            x for p, x in shards if local_slice(pds[p], tp)[0] is None)
-        out[f"self/{name}/sha_all"] = _sha(x for _, x in shards)
+        _tp_self(cfg, tpm, f"self/{name}", out)
 
     same = True
     for arch in R.TP_ARCHS:
@@ -866,10 +909,315 @@ def lm_tp(mesh, ref_path):
     return out
 
 
+#: ``lm_tp_recurrent``'s CLI run: the hybrid at --model-parallel 2 with
+#: the guard on (ROADMAP §1 item 6.2b under ``torchrun``)
+TP_RECURRENT_CLI = ("--arch", "zamba2-7b", "--reduced", "--model-parallel",
+                    "2", "--comm", "xla", "--device", "cpu", "--steps", "2",
+                    "--batch", "4", "--seq", "32", "--guard")
+
+
+def _tp_from_ref(tree, base, tpm):
+    """A reference tree at the params' paths -> this rank's shards."""
+    from repro_torch import weights
+    return weights.lm_params_from_jax(tree, base, "cpu", mesh=tpm)
+
+
+def _tp_one_step(base, rk, tpm, kind, guard_in=None):
+    """The port's f32 ``comm='xla'`` step (optimizer ``kind``; guarded
+    where ``guard_in`` is given) over ``tpm`` from the reference's step
+    input ``rk['in']`` on the rank's rows of its batch. Returns (the input
+    state, the output state, its metrics)."""
+    import torch
+    import torch_reference as R
+    from repro_torch.core import lars, precision
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.state import TrainState
+    from repro_torch.train.step import make_train_step
+    step = make_train_step(build_model(base), lars.OptConfig(kind=kind),
+                           make_schedule(ScheduleConfig(**R.LR)), mesh=tpm,
+                           comm="xla", comm_dtype="f32",
+                           guard=guard_in is not None)
+    mom = rk["in"]["mom"]
+    mom = ({"m": _tp_from_ref(mom["m"], base, tpm),
+            "v": _tp_from_ref(mom["v"], base, tpm),
+            "count": int(mom["count"])} if kind == "lamb"
+           else _tp_from_ref(mom, base, tpm))
+    state = TrainState(int(rk["in"]["step"]),
+                       _tp_from_ref(rk["in"]["params"], base, tpm), mom)
+    d = tpm.axis("data")
+    n = R.LM_TRAIN_BATCH // d.size
+    batch = {name: torch.from_numpy(v[d.index * n:(d.index + 1) * n])
+             for name, v in rk["batch"].items()}
+    with precision.f32_compute():
+        out = step(state, batch, *([guard_in] if guard_in else []))
+    return (state, *out)
+
+
+def _tp_whole(tree, base, tpm):
+    """A rank's shard tree gathered over ``tpm``'s model axis, as a flat
+    ``{path: numpy}``."""
+    from repro_torch import weights
+    from repro_torch.models.registry import build_model
+    from repro_torch.tree import tree_flatten
+    return dict(tree_flatten(weights.to_numpy(weights.gather_tree(
+        tree, build_model(base).param_pd, tpm))))
+
+
+def _of_update(got, want, before):
+    """The worst tensor's difference over its largest update."""
+    return max(np.abs(got[p] - want[p]).max()
+               / max(np.abs(want[p] - before[p]).max(), 1e-30) for p in want)
+
+
+def _of_max(got, want):
+    """The worst tensor's difference over its largest element."""
+    return max(np.abs(got[p] - want[p]).max()
+               / max(np.abs(want[p]).max(), 1e-30) for p in want)
+
+
+def lm_tp_recurrent(mesh, ref_path):
+    """The model axis (ROADMAP §1 item 6.2b) for the hybrid and the xLSTM
+    on four ranks as a (data 2, model 2) mesh, against the reference's
+    GSPMD run on its (2, 2) mesh (``torch_reference.py
+    tp_recurrent_cases``, read from ``ref_path``), wholly in f32 (the
+    recurrent families' gate), and against the port at model 1. Per arch
+    of ``torch_reference.TP_RECURRENT_ARCHS`` (at ``tp_config``):
+    ``_tp_held``'s ``{arch}/...`` (logits, caches, ties), ``{arch}/step``
+    and ``{arch}/sgdm/step`` (``_tp_step_errors``: two LARS and two sgdm
+    steps; the xLSTM's sLSTM input-gate biases, whose gradient vanishes,
+    apart), ``self/{arch}/...`` (``_tp_self``). The hybrid's LAMB step:
+    ``{arch}/lamb`` (loss, masters of the update, m and v over their
+    largest); its guarded step: ``{arch}/guard/ok`` (loss, masters,
+    momentum, gnorm relative, |skipped - the reference's|) and
+    ``{arch}/guard/bad`` (skipped, nonfinite > 0, the state returned
+    untouched: 1 each where so); ``cli``: TP_RECURRENT_CLI reached run_stop
+    on every step."""
+    import contextlib
+    import io
+
+    import torch
+    import torch_reference as R
+    from repro_torch import weights
+    from repro_torch.configs import get_config
+    from repro_torch.core import pinit
+    from repro_torch.launch import train as cli
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import guard as guard_lib
+    from repro_torch.tree import tree_flatten
+
+    tpm = make_local_mesh(2, device="cpu")
+    ref = R.load(ref_path)
+    out = {}
+    for arch in R.TP_RECURRENT_ARCHS:
+        base = R.tp_config(get_config, arch)
+        model = build_model(base)
+        r = ref[arch]
+        _tp_held(out, tpm, arch, model, _tp_from_ref(r["params"], base, tpm),
+                 r["run"], R.lm_tokens(base), 1)
+        zero = R.zero_grad_leaves(base)
+        out[f"{arch}/step"] = np.array(_tp_step_errors(
+            base, r["train"], tpm, True, zero=zero))
+        out[f"{arch}/sgdm/step"] = np.array(_tp_step_errors(
+            base, r["sgdm"], tpm, True, "sgdm", zero=zero))
+        _tp_self(base, tpm, f"self/{arch}", out)
+        if arch != R.HYBRID_ARCH:
+            continue
+        rk = r["lamb"]
+        _, state, metrics = _tp_one_step(base, rk, tpm, "lamb")
+        flat = lambda t: dict(tree_flatten(t))  # noqa: E731
+        before = flat(rk["in"]["params"])
+        out[f"{arch}/lamb"] = np.array([
+            abs(float(metrics["loss"]) - float(rk["metrics"]["loss"]))
+            / abs(float(rk["metrics"]["loss"])),
+            _of_update(_tp_whole(state.params, base, tpm),
+                       flat(rk["out"]["params"]), before),
+            _of_max(_tp_whole(state.mom["m"], base, tpm),
+                    flat(rk["out"]["mom"]["m"])),
+            _of_max(_tp_whole(state.mom["v"], base, tpm),
+                    flat(rk["out"]["mom"]["v"]))])
+        for name, scale in (("ok", 1.0), ("bad", np.inf)):
+            rk = r["guard"][name]
+            state_in, state, m = _tp_one_step(
+                base, rk, tpm, "lars", dict(guard_lib.neutral_inputs(),
+                                            loss_scale=np.float32(scale)))
+            want = rk["metrics"]
+            if name == "ok":
+                out[f"{arch}/guard/ok"] = np.array([
+                    abs(float(m["loss"]) - float(want["loss"]))
+                    / abs(float(want["loss"])),
+                    _of_update(_tp_whole(state.params, base, tpm),
+                               flat(rk["out"]["params"]),
+                               flat(rk["in"]["params"])),
+                    _of_max(_tp_whole(state.mom, base, tpm),
+                            flat(rk["out"]["mom"])),
+                    abs(float(m["gnorm"]) - float(want["gnorm"]))
+                    / float(want["gnorm"]),
+                    abs(float(m["skipped"]) - float(want["skipped"]))])
+            else:
+                out[f"{arch}/guard/bad"] = np.array([
+                    float(m["skipped"]) == float(want["skipped"]) == 1.0,
+                    float(m["nonfinite"]) > 0 and float(
+                        want["nonfinite"]) > 0,
+                    state is state_in
+                    and int(state.step) == int(rk["out"]["step"])])
+    same = True
+    for arch in R.TP_RECURRENT_ARCHS:
+        pd = build_model(R.tp_config(get_config, arch)).param_pd
+        for dt in (None, torch.bfloat16):
+            mine = pinit.materialize(pd, 7, "cpu", dtype=dt, mesh=tpm)
+            cut = weights.shard_tree(pinit.materialize(pd, 7, "cpu",
+                                                       dtype=dt), pd, tpm)
+            same &= all(a.dtype == b.dtype and torch.equal(a, b)
+                        for (_, a), (_, b) in zip(tree_flatten(mine),
+                                                  tree_flatten(cut)))
+    out["pinit"] = np.bool_(same)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        history = cli.main(list(TP_RECURRENT_CLI))
+    steps = [h["loss"] for h in history if "loss" in h]
+    out["cli"] = np.bool_(len(steps) == 2 and np.isfinite(steps).all()
+                          and "run_stop" in buf.getvalue())
+    tpm.destroy()
+    return out
+
+
+#: ``xla_conv``'s CLI run: ResNet-50 under --comm xla over the ranks
+XLA_CONV_CLI = ("--arch", "resnet50", "--reduced", "--comm", "xla",
+                "--device", "cpu", "--steps", "2", "--batch", "8")
+
+
+def _relnorm(a, b) -> float:
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def xla_conv(mesh, ref_path):
+    """ResNet-50 under ``comm='xla'`` over the ranks at model 1 (ROADMAP
+    §1 item 6.2b), each rank on its rows, against the reference's GSPMD
+    run on its (2, 1) mesh (``torch_reference.py xla_conv_cases``, read
+    from ``ref_path``), for each ``sync_bn`` form (``s{sync}/...``):
+    ``fwd`` (the logits' largest difference, gathered over the ranks; the
+    new BN statistics' worst over their tensor's max; the gradients'
+    (meaned over the ranks) worst and median relative L2 error per
+    tensor), ``s{k}`` for each reference step from its own input state
+    (the loss's relative difference; the update's and the momentum's
+    worst and median relative L2 per tensor; the masters' worst; the BN
+    state's worst over its max), ``one`` (step 0 at one rank on the whole
+    batch against the two ranks: the same figures), ``sha`` (this rank's
+    masters, momentum and BN state after the last step). ``cli``:
+    XLA_CONV_CLI reached run_stop."""
+    import contextlib
+    import dataclasses
+    import io
+    import types
+
+    import torch
+    import torch_reference as R
+    from repro_torch import weights
+    from repro_torch.comm import primitives as prim
+    from repro_torch.configs import get_config
+    from repro_torch.core import lars
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.launch import train as cli
+    from repro_torch.models.registry import build_model
+    from repro_torch.core.label_smoothing import smoothed_xent
+    from repro_torch.core.precision import cast_to_compute
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+
+    ref = R.load(ref_path)
+    d = mesh.axis("data")
+    n = R.BATCH // d.size
+    mine = lambda v: torch.from_numpy(np.ascontiguousarray(  # noqa: E731
+        v[d.index * n:(d.index + 1) * n]))
+    flat = lambda t: dict(tree_flatten(weights.to_numpy(t)))  # noqa: E731
+    sched = make_schedule(ScheduleConfig(**R.LR))
+    base = get_config("resnet50").reduced()
+    out = {}
+
+    def step_errors(state_in, state, metrics, want):
+        p_in = flat(state_in.params)
+        got_p, got_m, got_b = (flat(t) for t in (state.params, state.mom,
+                                                  state.bn_state))
+        want_p, want_m, want_b = (dict(tree_flatten(want["out"][k]))
+                                  for k in ("params", "mom", "bn_state"))
+        upd = [_relnorm(got_p[p] - p_in[p], want_p[p] - p_in[p])
+               for p in want_p]
+        mom = [_relnorm(got_m[p], want_m[p]) for p in want_m]
+        return np.array([
+            abs(float(metrics["loss"]) - float(want["metrics"]["loss"]))
+            / abs(float(want["metrics"]["loss"])),
+            max(upd), np.median(upd), max(mom), np.median(mom),
+            max(_relnorm(got_p[p], want_p[p]) for p in want_p),
+            _of_max(got_b, want_b)])
+
+    for sync in (0, 1):
+        cfg = dataclasses.replace(base, sync_bn=bool(sync))
+        model = build_model(cfg)
+        r = ref[f"s{sync}"]
+        pre = f"s{sync}"
+        # the forward over the mesh and the gradients, meaned over the ranks
+        params = weights.params_from_jax(ref["params"], cfg, "cpu")
+        bn = weights.bn_state_from_jax(ref["bn"], cfg, "cpu")
+        b0 = r["s0"]["batch"]
+        p_in = tree_map(lambda x: x.detach().requires_grad_(),
+                        cast_to_compute(params))
+        leaves = tree_flatten(p_in)
+        (logits, _), new_bn = model.forward_train(
+            p_in, {"images": mine(b0["images"])}, bn, mesh)
+        loss, _ = smoothed_xent(logits, mine(b0["labels"]))
+        grads = torch.autograd.grad(loss, [x for _, x in leaves])
+        grads = prim.pmean_tree(tree_unflatten(
+            [p for p, _ in leaves], [g.float() for g in grads]), (d,))
+        want = r["fwd"]
+        want_g = dict(tree_flatten(want["grads"]))
+        errs = [_relnorm(g, want_g[p]) for p, g in flat(grads).items()]
+        out[f"{pre}/fwd"] = np.array([
+            float(np.abs(_rows(logits.detach(), d).numpy()
+                         - want["logits"]).max()),
+            _of_max(flat(new_bn), dict(tree_flatten(want["new_bn"]))),
+            max(errs), np.median(errs)])
+        # the steps, each from the reference's input state
+        step = make_train_step(model, lars.OptConfig(), sched, mesh=mesh,
+                               comm="xla")
+        for k in range(R.XLA_CONV_STEPS):
+            rk = r[f"s{k}"]
+            state_in = weights.state_from_jax(types.SimpleNamespace(
+                **rk["in"], shards=None), cfg, "cpu")
+            state, metrics = step(state_in, {x: mine(v) for x, v in
+                                             rk["batch"].items()})
+            out[f"{pre}/s{k}"] = step_errors(state_in, state, metrics, rk)
+        out[f"{pre}/sha"] = _sha([x for t in (state.params, state.mom,
+                                              state.bn_state)
+                                  for _, x in tree_flatten(t)])
+        # one rank on the whole batch against the two ranks
+        rk = r["s0"]
+        state_in = weights.state_from_jax(types.SimpleNamespace(
+            **rk["in"], shards=None), cfg, "cpu")
+        two, m2 = step(state_in, {x: mine(v) for x, v in rk["batch"].items()})
+        one, m1 = make_train_step(model, lars.OptConfig(), sched,
+                                  comm="xla")(
+            state_in, {x: torch.from_numpy(v) for x, v in
+                       rk["batch"].items()})
+        as_ref = {"out": {"params": flat(one.params), "mom": flat(one.mom),
+                          "bn_state": flat(one.bn_state)},
+                  "metrics": {"loss": m1["loss"]}}
+        out[f"{pre}/one"] = step_errors(state_in, two, m2, as_ref)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        history = cli.main(list(XLA_CONV_CLI))
+    steps = [h["loss"] for h in history if "loss" in h]
+    out["cli"] = np.bool_(len(steps) == 2 and np.isfinite(steps).all()
+                          and "run_stop" in buf.getvalue())
+    return out
+
+
 SCENARIOS = {"schedules": schedules, "zero1_step": zero1_step,
              "zero23_step": zero23_step, "ckpt_zero1": ckpt_zero1,
              "lm_zero1": lm_zero1, "lm_family_dp": lm_family_dp,
-             "lm_tp": lm_tp, "lm_xla_dp": lm_xla_dp}
+             "lm_tp": lm_tp, "lm_xla_dp": lm_xla_dp,
+             "lm_tp_recurrent": lm_tp_recurrent, "xla_conv": xla_conv}
 
 
 def main(scenario: str, out_dir: str, device: str = "cpu"):

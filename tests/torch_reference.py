@@ -28,6 +28,8 @@ to an ``.npz`` of ``kind/path`` keys.
   python tests/torch_reference.py guard_zero1_run OUT.npz
   python tests/torch_reference.py traced_zero1_step OUT.npz
   python tests/torch_reference.py tp_cases OUT.npz      (4 host devices)
+  python tests/torch_reference.py tp_recurrent_cases OUT.npz   (4 devices)
+  python tests/torch_reference.py xla_conv_cases OUT.npz       (2 devices)
 
 The reference's explicit data-parallel steps fail under jax 0.9.0 before
 they compute anything: ``repro/core/compat.py`` passes ``check_rep=`` to
@@ -44,9 +46,11 @@ The reference's MoE layer runs only inside ``shard_map`` on a mesh with a
 ``moe_cases`` and ``mla_cases`` set the shim there too and run on a
 (1, 1) Auto-axis ``("data", "model")`` mesh. ``repro/models/attention.py``
 binds it at import too (its flash path under a model axis runs K5 in
-``shard_map``), and the shim sets it there, whatever was imported first:
-``tp_cases`` runs the reference's GSPMD program on a (2, 2) Auto-axis
-mesh.
+``shard_map``), and so does ``repro/models/resnet.py`` (its ``sync_bn``
+statistics are a ``pmean`` in ``shard_map``); the shim sets it in all
+three, whatever was imported first: ``tp_cases`` and
+``tp_recurrent_cases`` run the reference's GSPMD program on a (2, 2)
+Auto-axis mesh, ``xla_conv_cases`` its ResNet step on a (2, 1) one.
 """
 import contextlib
 import os
@@ -229,12 +233,13 @@ ZERO1_CASES = ((1, 1), (0, 0))
 
 def _shard_map_shim():
     """``repro.core.compat.shard_map`` for jax >= 0.7 (see the module
-    docstring), and the names ``repro.models.moe`` and
-    ``repro.models.attention`` bound from it at import; replaced in this
+    docstring), and the names ``repro.models.moe``,
+    ``repro.models.attention`` and ``repro.models.resnet`` (its
+    ``sync_bn`` statistics) bound from it at import; replaced in this
     process only."""
     import jax
     from repro.core import compat
-    from repro.models import attention, moe
+    from repro.models import attention, moe, resnet
 
     def shard_map(f, *, mesh, in_specs, out_specs, check_rep=False):
         return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
@@ -242,6 +247,7 @@ def _shard_map_shim():
     compat.shard_map = shard_map
     moe.shard_map = shard_map
     attention.shard_map = shard_map
+    resnet.shard_map = shard_map
 
 
 def _mesh11():
@@ -836,6 +842,16 @@ def check_train_step(r, base, *, loss_rtol, update_tol, f32=False):
 #: at every step scales c and n alike and cancels in h = o · c / n), and
 #: both sides hold rounding noise there
 F32_ZERO = 2.0 ** -23
+
+
+def zero_grad_leaves(cfg):
+    """The paths of ``cfg``'s LM whose gradient vanishes up to f32
+    rounding (``F32_ZERO``): each sLSTM block's input-gate bias."""
+    if cfg.xlstm is None:
+        return ()
+    pat = cfg.xlstm.pattern
+    return tuple(f"layer_{i:02d}/blk/b_i" for i in range(cfg.n_layers)
+                 if pat[i % len(pat)] == "s")
 
 
 def leaf_grad_errors(pairs):
@@ -1453,7 +1469,20 @@ def _train_steps(base, params, out, *, f32=False, mesh=None,
             _flat(f"{pre}/{io}/mom", x.mom, out)
         _flat(f"{pre}/batch", batch, out)
         _flat(f"{pre}/metrics", jax.device_get(m), out)
-        s = s2
+        s = s2 if mesh is None else _replaced(s2, model, mesh)
+
+
+def _replaced(s, model, mesh):
+    """A step's output state placed as its input was (the step counter
+    uncommitted, the params and momentum by their specs), so that the
+    next step reuses the compiled program: its outputs carry the
+    shardings XLA chose, and other input shardings compile it again."""
+    import jax
+    import jax.numpy as jnp
+    from repro.train.state import TrainState
+    s = jax.device_get(s)
+    return TrainState(jnp.asarray(s.step), *(
+        _place(t, model.param_pd, mesh) for t in (s.params, s.mom)))
 
 
 #: the recurrent families' module inputs: N(0, 1) (LM_BATCH, S, d) at each
@@ -2080,6 +2109,235 @@ def tp_cases():
     return out
 
 
+#: the model axis for the recurrent families (ROADMAP §1 item 6.2b): the
+#: reduced zamba2-7b and the xLSTM (``tp_config``) on ``_mesh_tp``, wholly
+#: in f32
+TP_RECURRENT_ARCHS = (HYBRID_ARCH, XLSTM_ARCH)
+#: the xLSTM's width over the model axis: at the reduced d 256 its sLSTM
+#: FFN is int(4/3 · 256) = 341 wide, which model 2 does not divide (and
+#: the reference cannot place, as the port refuses it); 192 gives 256 (the
+#: full 768 gives 1,024), with the reduced config's 4 heads
+TP_XLSTM_D = 192
+#: the second moment the LAMB step starts from: from zero moments its first
+#: update is g / (|g| + eps), the sign of each gradient element, which
+#: rounding flips where a gradient cancels to noise; from v0 > 0 it is
+#: proportional to the gradient, as every later step's is
+LAMB_V0 = 1e-4
+
+
+def tp_config(get_config, arch):
+    """The model-axis parity config of a recurrent family, from either
+    package's ``get_config``: ``family_config`` (the xLSTM's mLSTM and
+    sLSTM block), the xLSTM at d ``TP_XLSTM_D``."""
+    import dataclasses
+    cfg = family_config(get_config, arch)
+    if arch == XLSTM_ARCH:
+        cfg = dataclasses.replace(cfg, d_model=TP_XLSTM_D)
+    return cfg
+
+
+def _step_io(step, s, batch, pre, out, *args):
+    """One jitted step from ``s`` on ``batch``: its input and output
+    states, batch and metrics as ``{pre}/{in,out,batch,metrics}/...``.
+    Returns the output state."""
+    import jax
+    s2, m = step(s, batch, *args)
+    for io, x in (("in", s), ("out", s2)):
+        x = jax.device_get(x)
+        out[f"{pre}/{io}/step"] = np.asarray(x.step)
+        _flat(f"{pre}/{io}/params", x.params, out)
+        _flat(f"{pre}/{io}/mom", x.mom, out)
+    _flat(f"{pre}/batch", batch, out)
+    _flat(f"{pre}/metrics", jax.device_get(m), out)
+    return s2
+
+
+def tp_recurrent_cases():
+    """The reference's GSPMD program on the (2, 2) mesh (``_mesh_tp``) for
+    each of ``TP_RECURRENT_ARCHS``, wholly in f32 (``_jax_f32_compute``),
+    its params placed by their specs: ``_lm_run`` (greedy tokens from its
+    own programs), two LARS and two sgdm ``comm='xla'`` steps
+    (``_train_steps``, f32 wire), as ``{arch}/{run,train,sgdm}/...``, the
+    params as ``{arch}/params``; for the hybrid also one LAMB step
+    (``{arch}/lamb``, from m = 0 and v = LAMB_V0, placed by the params'
+    specs) and the
+    guarded LARS step (``guard=True``) from the same input twice, with
+    ``neutral_inputs()`` (``{arch}/guard/ok``) and with an infinite
+    ``loss_scale`` (``{arch}/guard/bad``: the step it skips). Each of
+    these programs runs in a thread of its own."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config
+    from repro.core import lars
+    from repro.core.schedule import ScheduleConfig, make_schedule
+    from repro.data.synthetic import token_batch
+    from repro.models.registry import build_model
+    from repro.train import guard as guard_lib
+    from repro.train.state import TrainState
+    from repro.train.step import make_train_step
+
+    _shard_map_shim()
+    mesh = _mesh_tp()
+
+    def case(arch, what):
+        base = tp_config(get_config, arch)
+        params = lm_params(base)
+        model = build_model(base)
+        mine = {}
+        placed = _place(params, model.param_pd, mesh)
+        if what == "run":
+            _flat(f"{arch}/params", params, mine)
+            _flat(f"{arch}/run", jax.device_get(_lm_run(
+                model, placed, lm_tokens(base), mesh=mesh,
+                via_generate=False)), mine)
+        elif what in ("lars", "sgdm"):
+            _train_steps(base, params, mine, f32=True, mesh=mesh,
+                         prefix=f"{arch}/{'train' if what == 'lars' else what}",
+                         kind=what)
+        sched = make_schedule(ScheduleConfig(**LR))
+        batch = jax.device_get(token_batch(
+            base, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, step=0,
+            kind="lcg"))
+        step0 = jnp.zeros((), jnp.int32)
+        if what == "lamb":
+            mom = lars.init_momentum(params, "lamb")
+            mom = {"m": _place(jax.device_get(mom["m"]), model.param_pd,
+                               mesh),
+                   "v": _place(jax.tree.map(
+                       lambda p: np.full_like(p, LAMB_V0), params),
+                       model.param_pd, mesh),
+                   "count": mom["count"]}
+            lamb = jax.jit(make_train_step(
+                model, lars.OptConfig(kind="lamb"), sched, mesh=mesh,
+                comm="xla", comm_dtype="f32"))
+            _step_io(lamb, TrainState(step0, placed, mom), batch,
+                     f"{arch}/lamb", mine)
+        elif what == "guard":
+            guarded = jax.jit(make_train_step(
+                model, lars.OptConfig(kind="lars"), sched, mesh=mesh,
+                comm="xla", comm_dtype="f32", guard=True))
+            s = TrainState(step0, placed, _place(
+                jax.tree.map(np.zeros_like, params), model.param_pd, mesh))
+            for name, scale in (("ok", 1.0), ("bad", np.inf)):
+                _step_io(guarded, s, batch, f"{arch}/guard/{name}", mine,
+                         dict(guard_lib.neutral_inputs(),
+                              loss_scale=np.float32(scale)))
+        return mine
+
+    jobs = [(arch, what) for arch in TP_RECURRENT_ARCHS
+            for what in ("run", "lars", "sgdm")
+            + (("lamb", "guard") if arch == HYBRID_ARCH else ())]
+    out = {}
+    # XLA compiles outside the interpreter lock: a thread a program
+    with _jax_f32_compute(), ThreadPoolExecutor(len(jobs)) as pool:
+        for done in [pool.submit(case, *job) for job in jobs]:
+            out.update(done.result())
+    return out
+
+
+#: ResNet-50 under ``comm='xla'`` over several ranks (ROADMAP §1 item
+#: 6.2b): the reduced config on an Auto-axis (data 2, model 1) mesh of two
+#: host devices, each ``sync_bn`` form, XLA_CONV_STEPS steps
+XLA_CONV_STEPS = 2
+
+
+def xla_conv_cases():
+    """The reduced ResNet-50 (``_init``'s damped params) on the (2, 1)
+    mesh, its batches (``_batch``) placed over ``data``, for ``sync_bn``
+    0 and 1 (``s{sync}/...``): the bf16 forward over the mesh with its
+    gradients w.r.t. the bf16 copy (``fwd/{logits,new_bn,grads}``; step
+    0's batch), and XLA_CONV_STEPS jitted ``comm='xla'`` LARS steps along
+    the reference's own trajectory (``s{k}/...``: ``_state``'s input and
+    output states, batch and metrics). The params and BN state as
+    ``params`` and ``bn``. Each program compiles in a thread of its
+    own. ``bn/...``: one BatchNorm with ``sync_bn`` on a one-device
+    (1, 1) mesh (its input ``x`` (4, 5, 5, 8) f32, params and running
+    state; ``y`` and ``st`` out)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import AxisType, NamedSharding
+    from jax.sharding import PartitionSpec as P
+    from repro.configs import get_config
+    from repro.core import lars
+    from repro.core.label_smoothing import smoothed_xent
+    from repro.core.precision import cast_to_compute
+    from repro.core.schedule import ScheduleConfig, make_schedule
+    from repro.models import resnet
+    from repro.models.registry import build_model
+    from repro.train.state import TrainState
+    from repro.train.step import make_train_step
+
+    _shard_map_shim()
+    mesh = jax.make_mesh((2, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    rows = NamedSharding(mesh, P("data"))
+    base = get_config("resnet50").reduced()
+    params, bn = _init(base)
+    out = {}
+    _flat("params", params, out)
+    _flat("bn", bn, out)
+
+    def case(sync, what):
+        cfg = dataclasses.replace(base, sync_bn=bool(sync))
+        mine = {}
+
+        def loss(p, imgs, labels):
+            logits, new_bn = resnet.resnet_forward(p, bn, cfg, imgs,
+                                                   train=True, mesh=mesh)
+            return smoothed_xent(logits, labels)[0], (logits, new_bn)
+
+        if what == "fwd":
+            b0 = _batch(cfg, 0)
+            (_, (logits, new_bn)), grads = jax.jit(jax.value_and_grad(
+                loss, has_aux=True))(cast_to_compute(params),
+                                     jax.device_put(b0["images"], rows),
+                                     jax.device_put(b0["labels"], rows))
+            _flat(f"s{sync}/fwd", jax.device_get(
+                {"logits": logits, "new_bn": new_bn, "grads": grads}), mine)
+            return mine
+        step = jax.jit(make_train_step(
+            build_model(cfg), lars.OptConfig(),
+            make_schedule(ScheduleConfig(**LR)), mesh=mesh, comm="xla"))
+        s = TrainState(jnp.zeros((), jnp.int32), params,
+                       jax.tree.map(np.zeros_like, params), bn)
+        for k in range(XLA_CONV_STEPS):
+            batch = _batch(cfg, k)
+            s2, m = step(s, {n: jax.device_put(v, rows)
+                             for n, v in batch.items()})
+            pre = f"s{sync}/s{k}"
+            _state(f"{pre}/in", jax.device_get(s), mine)
+            _flat(f"{pre}/batch", batch, mine)
+            _state(f"{pre}/out", jax.device_get(s2), mine)
+            _flat(f"{pre}/metrics", jax.device_get(m), mine)
+            # placed as step 0's input was, so the program is reused
+            s = jax.device_get(s2)
+            s = TrainState(jnp.asarray(s.step), s.params, s.mom, s.bn_state)
+        return mine
+
+    # XLA compiles outside the interpreter lock: a thread a program
+    jobs = [(sync, what) for sync in (0, 1) for what in ("fwd", "steps")]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        for done in [pool.submit(case, *job) for job in jobs]:
+            out.update(done.result())
+
+    one = jax.make_mesh((1, 1), ("data", "model"),
+                        axis_types=(AxisType.Auto,) * 2,
+                        devices=jax.devices()[:1])
+    rng = np.random.default_rng(90)
+    x = rng.standard_normal((4, 5, 5, 8)).astype(np.float32)
+    p = {"scale": 1 + 0.1 * rng.standard_normal(8).astype(np.float32),
+         "bias": 0.1 * rng.standard_normal(8).astype(np.float32)}
+    st = {"mean": 0.1 * rng.standard_normal(8).astype(np.float32),
+          "var": 1 + 0.1 * rng.random(8).astype(np.float32)}
+    y, st2 = jax.jit(lambda x: resnet._bn(x, p, st, train=True,
+                                          momentum=0.9, mesh=one,
+                                          sync=True))(x)
+    _flat("bn1", {"x": x, "p": p, "st": st, "y": y, "st_out": st2}, out)
+    return out
+
+
 if __name__ == "__main__":
     what, dest = sys.argv[1], sys.argv[2]
     what, _, arg = what.partition(":")
@@ -2104,4 +2362,6 @@ if __name__ == "__main__":
                       "vlm_cases": vlm_cases,
                       "guard_zero1_run": guard_zero1_run,
                       "traced_zero1_step": traced_zero1_step,
-                      "tp_cases": tp_cases}[what]())
+                      "tp_cases": tp_cases,
+                      "tp_recurrent_cases": tp_recurrent_cases,
+                      "xla_conv_cases": xla_conv_cases}[what]())
