@@ -14,8 +14,10 @@ Phases, in order; any failure exits non-zero and prints no result:
               the shapes the training and serving paths give it (K5 also at
               a GQA, a windowed, an MLA and a peaked-softmax shape, at
               whisper's non-causal encoder and cross shapes, at a rank's
-              10 heads of 128 in serve_tp's prefill and at its 8 heads of
-              112 in serve_tp_hybrid's); times
+              10 heads of 128 in serve_tp's prefill, at its 8 heads of
+              112 in serve_tp_hybrid's, at its 2 heads of 64 in
+              serve_tp_audio's encoder and cross and at its 4 on 2 heads
+              of 128 in serve_tp_vlm's); times
               the kernel, the plain version and a library yardstick beside
               the bound (K5: SDPA, the backend it picks named by its
               kernel; K5's plain version one request at a time where its
@@ -340,17 +342,47 @@ Phases, in order; any failure exits non-zero and prints no result:
               ring's. Then the CLI's
               main() in each rank's process: --model-parallel 2 --comm
               xla with qwen1.5-0.5b and with zamba2-7b --reduced, and
-              --arch resnet50 --comm xla: run_stop on every rank. Alone:
-              python3 chip_smoke.py --tp [PHASE ...] (with K5 at
-              serve_tp's and serve_tp_hybrid's shapes; the phases of
-              serve_tp, lm_train_tp, serve_tp_hybrid, lm_train_tp_xlstm,
-              resnet_xla and cli named, all by default)
+              --arch resnet50 --comm xla: run_stop on every rank.
+ 42. ckpt_tp, serve_tp_audio, serve_tp_vlm, lm_train_tp_frames  ROADMAP
+              §1 item 6.2c (and fault 3.7's repair) on the same four ranks.
+              ckpt_tp: lm_train_tp's model and recipe at (data 2, model 2),
+              2 steps through loop.train with a checkpoint a step: every
+              leaf of the committed file whole, its per-key sha256 the
+              state's gathered whole on rank 0; a resume at (2, 2) for
+              step 3 bit-equal to an uninterrupted run under
+              torch.use_deterministic_algorithms (1e-5 of the max where an
+              op has no deterministic form, named); the file loaded at (1,
+              4) and (4, 1), gathered bit-equal to it, and a finite step on
+              each; payload MB, save and load ms. serve_tp_audio:
+              whisper-base at full width and depth, its vocabulary alone
+              cut to 51,864 (an odd V cannot be split over model > 1, in
+              either package; printed), model 4, 16 x (1,500 frames + 128
+              tokens), 64 new: K5 18 a rank, 30 all-reduces and 2
+              all-gathers a prefill, 18 and 2 a decode step, every rank's
+              tokens equal; then model 4 against model 1 on rank 0's card:
+              prefill logits within 3e-2 of their max and 8 greedy tokens
+              by the tests' rule at that margin. serve_tp_vlm: internvl2-2b
+              (V cut to 92,552), 8 x (256 + 1,792), 32 new: K5 24 a rank,
+              48 and 2 a prefill and a decode step, the same checks (the
+              decode at position 2,048). lm_train_tp_frames: whisper-base
+              (4 x (1,500 + 448) a data rank) and internvl2-2b (1 x (256 +
+              3,840)), each cut as above, at (data 2, model 2) as
+              lm_train_tp (K4 3 + 3, K1 6 a run; against the one-card
+              step: losses 4e-4, masters 5e-2). The cli phase then also
+              runs --model-parallel 2 --ckpt-dir --ckpt-every 1 with
+              qwen1.5-0.5b, its --resume-elastic at --model-parallel 4
+              (restored step 2, run_stop on every rank) and whisper-base
+              --reduced at --model-parallel 2. Alone: python3 chip_smoke.py
+              --tp [PHASE ...] (with K5 at TP_K5_SHAPES; the phases of
+              TP_PHASES named, all by default; its last lines the card's
+              and the ok line)
 On one card the ring phases print that they need two or more cards and
 were not run, and K3's launches_by_path has "ring": null; with fewer than
 four, lm_ring, its resume, lm_ring_families and the model-axis phases
 are not run and every kernel's launches_by_path has "lm_ring",
 "lm_resume", "lm_ring_families", "serve_tp", "lm_train_tp",
-"serve_tp_hybrid", "lm_train_tp_xlstm" and "resnet_xla" null. The kernels
+"serve_tp_hybrid", "lm_train_tp_xlstm", "resnet_xla", "ckpt_tp",
+"serve_tp_audio", "serve_tp_vlm" and "lm_train_tp_frames" null. The kernels
 phase also holds K1's multi-buffer form (the sharded step's one call)
 against its plain version at the 4 MB and 0.25 MB plans' shards, K2's
 (the sharded step's one update call) against its plain version and, bit
@@ -425,8 +457,10 @@ BATCH, STEPS = 64, 6
 #: cross-attention's 128 queries over 1,500 keys, 8 heads of 64) and
 #: internvl2-2b's (serve_vlm: 16 heads on 8 kv heads of 128 over 2,048
 #: positions); then a rank's launch in qwen1.5-32b's prefill at model 4
-#: (serve_tp: 10 of its 40 heads of 128) and in zamba2-7b's at model 4
-#: (serve_tp_hybrid: 8 of its 32 heads of 112)
+#: (serve_tp: 10 of its 40 heads of 128), in zamba2-7b's at model 4
+#: (serve_tp_hybrid: 8 of its 32 heads of 112), in whisper-base's at model
+#: 4 (serve_tp_audio: 2 of its 8 heads of 64, encoder and cross) and in
+#: internvl2-2b's (serve_tp_vlm: 4 query heads on 2 kv heads of 128)
 FLASH_SHAPES = (("path", 8, 2048, 16, 16, 64, 64, 0, "bfloat16", 1),
                 ("serve_moe", 8, 2048, 16, 16, 128, 128, 0, "bfloat16", 1),
                 ("serve_qk", 8, 2048, 40, 8, 128, 128, 0, "bfloat16", 1),
@@ -445,7 +479,12 @@ FLASH_SHAPES = (("path", 8, 2048, 16, 16, 64, 64, 0, "bfloat16", 1),
                 ("serve_vlm", 8, 2048, 16, 8, 128, 128, 0, "bfloat16", 1),
                 ("serve_tp", 8, 2048, 10, 10, 128, 128, 0, "bfloat16", 1),
                 ("serve_tp_hybrid", 8, 2048, 8, 8, 112, 112, 0, "bfloat16",
-                 1))
+                 1),
+                ("serve_tp_audio_enc", 16, 1500, 2, 2, 64, 64, 0,
+                 "bfloat16", 1, False),
+                ("serve_tp_audio_cross", 16, 128, 2, 2, 64, 64, 0,
+                 "bfloat16", 1, False, 1500),
+                ("serve_tp_vlm", 8, 2048, 4, 2, 128, 128, 0, "bfloat16", 1))
 #: K5's route for each input dtype
 FLASH_ROUTES = {"bfloat16": "tensor cores: mma.sync m16n8k16 bf16, P split "
                             "into bf16 hi + mid + lo, the scale after the "
@@ -2706,15 +2745,30 @@ TP_LOSS_TOL = 4e-4
 TP_TIMEOUT_S = 900
 #: the phase's CLI runs on four ranks, each main() called in the ranks'
 #: own processes: --model-parallel 2 --comm xla with the dense decoder and
-#: with the hybrid (reduced), and ResNet-50 under --comm xla
+#: with the hybrid (reduced), ResNet-50 under --comm xla; since item 6.2c
+#: the dense decoder's checkpoints at --model-parallel 2 ({ckpt}: a
+#: directory the ranks share) resumed by --resume-elastic at
+#: --model-parallel 4 (it must report step TP_CLI_RESUMED_AT restored),
+#: and whisper (reduced) at --model-parallel 2
 TP_CLI = ("--arch", "qwen1.5-0.5b", "--model-parallel", "2", "--comm",
           "xla", "--steps", "3", "--batch", "4", "--seq", "1024")
+TP_CLI_CKPT = ("--arch", "qwen1.5-0.5b", "--comm", "xla", "--batch", "4",
+               "--seq", "1024", "--ckpt-dir", "{ckpt}")
+TP_CLI_RESUMED_AT = 2
 TP_CLI_RUNS = (TP_CLI,
                ("--arch", "resnet50", "--comm", "xla", "--steps", "3",
                 "--batch", "256"),
                ("--arch", "zamba2-7b", "--reduced", "--model-parallel", "2",
                 "--comm", "xla", "--steps", "3", "--batch", "4", "--seq",
-                "256"))
+                "256"),
+               (*TP_CLI_CKPT, "--model-parallel", "2", "--steps",
+                str(TP_CLI_RESUMED_AT), "--ckpt-every", "1",
+                "--keep-last-k", "1"),
+               (*TP_CLI_CKPT, "--model-parallel", "4", "--steps",
+                str(TP_CLI_RESUMED_AT + 1), "--resume-elastic"),
+               ("--arch", "whisper-base", "--reduced", "--model-parallel",
+                "2", "--comm", "xla", "--steps", "3", "--batch", "4",
+                "--seq", "64"))
 #: the slice-18 four-card phases (ROADMAP §1 item 6.2b). serve_tp_hybrid:
 #: zamba2-7b at full width and depth at model 4 (a rank: 28 of its 112 SSM
 #: heads, 8 of its 32 attention heads of 112, 3,584 of its 14,336 FFN
@@ -2760,9 +2814,26 @@ RESNET_XLA_BN3_SCALE = 0.1
 #: ResNet-50's ring replicated step on four cards (PR 27's run r1), printed
 #: beside resnet_xla's median
 RING_REPLICATED_MS = 143.59
+#: the slice-19 four-card phases (ROADMAP §1 item 6.2c). whisper-base's
+#: and internvl2-2b's published vocabularies (51,865 and 92,553) are odd:
+#: the untied lm_head splits by vocabulary columns over the model axis, and
+#: neither package can place an odd V over model > 1
+#: (models/common.py uneven_split), so over the axis they run with only
+#: the vocabulary cut, to the multiple of TP_VOCAB_MULTIPLE below it
+#: (printed), their model-1 yardsticks on the same cut config
+TP_VOCAB_MULTIPLE = 4
+#: ckpt_tp: lm_train_tp's model and recipe at (data 2, model 2),
+#: TP_CKPT_STEPS steps through loop.train with a checkpoint a step, then a
+#: resume for one more
+TP_CKPT_STEPS = 2
+#: lm_train_tp_frames: (arch, (sequences, tokens) a data rank), each
+#: sequence with its stub frames, TP_TRAIN_STEPS steps at (data 2, model
+#: 2) against the one-card step at the global batch (lm_train_tp's bounds)
+TP_FRAMES_TRAIN = (("whisper-base", (4, 448)), ("internvl2-2b", (1, 3840)))
 #: the phases of ``--tp``, in order
 TP_PHASES = ("serve_tp", "lm_train_tp", "serve_tp_hybrid",
-             "lm_train_tp_xlstm", "resnet_xla", "cli")
+             "lm_train_tp_xlstm", "resnet_xla", "ckpt_tp", "serve_tp_audio",
+             "serve_tp_vlm", "lm_train_tp_frames", "cli")
 
 
 def _collectives():
@@ -2792,16 +2863,18 @@ def _collectives():
     return counting()
 
 
-def _greedy_rule(model, params, batch, want, got, cache_len, margin):
+def _greedy_rule(model, params, batch, want, got, cache_len, margin,
+                 name="serve_tp"):
     """``tests/torch_reference.py``'s greedy-token rule on one card:
     along the tokens ``want`` (teacher-forced through ``model``'s prefill
     and decode), each is within ``margin`` of the step's largest |logit|
     of ``model``'s largest logit, and each request's ``got`` equals
     ``want`` up to its first step whose two largest logits lie within that
-    margin of each other. Returns the tied steps a request, or fails."""
+    margin of each other. Returns the tied steps a request, or fails
+    (naming the phase ``name``)."""
     import torch
     logits, cache = model.forward_prefill(params, batch, cache_len)
-    pos = batch["tokens"].shape[1]
+    pos = _prompt_pos(model.cfg, batch)
     n = want.shape[1]
     tied = torch.zeros(want.shape, dtype=torch.bool)
     for i in range(n):
@@ -2810,7 +2883,7 @@ def _greedy_rule(model, params, batch, want, got, cache_len, margin):
         m = margin * lg.abs().amax(dim=-1)
         picked = lg.gather(1, want[:, i:i + 1].long())[:, 0]
         if not bool((top[:, 0] - picked <= m).all()):
-            fail(f"serve_tp context: step {i}'s model-4 token is not within "
+            fail(f"{name} context: step {i}'s model-4 token is not within "
                  f"{margin} of the one-card model's largest logit")
         tied[:, i] = (top[:, 0] - top[:, 1] <= m).cpu()
         if i + 1 < n:
@@ -2819,7 +2892,7 @@ def _greedy_rule(model, params, batch, want, got, cache_len, margin):
     for b in range(want.shape[0]):
         first = int(tied[b].int().argmax()) if tied[b].any() else n
         if not torch.equal(got[b, :first].cpu(), want[b, :first].cpu()):
-            fail(f"serve_tp context: request {b}'s tokens part before its "
+            fail(f"{name} context: request {b}'s tokens part before its "
                  f"first tie")
     return tied.sum(1).tolist()
 
@@ -2954,11 +3027,14 @@ def _serve_tp(mesh, say) -> dict:
     return row
 
 
-def _lm_train_tp(say) -> dict:
+def _lm_train_tp(say, name="lm_train_tp", cfg=None,
+                 rows_seq=TP_TRAIN) -> dict:
     """lm_train_tp on this rank: TP_TRAIN_STEPS comm='xla' steps on the
     (data 2, model 2) mesh, then rank 0 runs the one-card step over the
     same global batches from the same initial values and holds the
-    masters and losses against it. Rank 0's row."""
+    masters and losses against it. ``cfg`` (default qwen1.5-0.5b) and
+    ``rows_seq`` (sequences, tokens a data rank; whisper's and the VLM's
+    with their stub frames): lm_train_tp_frames' runs. Rank 0's row."""
     import torch
     import torch.distributed as dist
     from repro_torch import weights
@@ -2976,16 +3052,16 @@ def _lm_train_tp(say) -> dict:
 
     mesh = make_local_mesh(2)
     dev = mesh.device
-    cfg = get_config("qwen1.5-0.5b")
+    cfg = cfg or get_config("qwen1.5-0.5b")
     if not cfg.remat or cfg.flash_attention:
-        fail("lm_train_tp: the config must train with remat and without "
-             "the flash kernel")
+        fail(f"{name}: the config must train with remat and without the "
+             f"flash kernel")
     model = build_model(cfg)
     sched = make_schedule(ScheduleConfig(base_lr=LM_LR, warmup_steps=1,
                                          total_steps=TP_TRAIN_STEPS,
                                          decay="poly2"))
     opt = lars.OptConfig(kind="lars", weight_decay=5e-5, use_kernel=True)
-    rows_a_rank, seq = TP_TRAIN
+    rows_a_rank, seq = rows_seq
     n_data = mesh.axis("data").size
     shape = InputShape("train_4k", "train", seq, rows_a_rank * n_data)
     step = make_train_step(model, opt, sched, smoothing=0.1, mesh=mesh,
@@ -3008,14 +3084,14 @@ def _lm_train_tp(say) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
         losses.append(float(metrics["loss"]))
-    counts = _read_path("lm_train_tp", {"k4": TP_TRAIN_STEPS,
+    counts = _read_path(name, {"k4": TP_TRAIN_STEPS,
                                         "k4_bwd": TP_TRAIN_STEPS,
                                         "k1": 2 * TP_TRAIN_STEPS})
     peak = torch.cuda.max_memory_allocated(dev)
     peaks = [None] * mesh.size
     dist.all_gather_object(peaks, peak)
     if not all(math.isfinite(v) for v in losses):
-        fail(f"lm_train_tp: losses not all finite: {losses}")
+        fail(f"{name}: losses not all finite: {losses}")
     got = dict(tree_flatten(weights.gather_tree(state.params,
                                                 model.param_pd, mesh)))
     del state
@@ -3039,10 +3115,12 @@ def _lm_train_tp(say) -> dict:
                     for p in want)
         med = statistics.median(times[1:])
         tokens = rows_a_rank * seq * n_data
-        say(f"lm_train_tp: {cfg.arch_id}, {cfg.n_layers} layers at full "
+        frames = (f" + {cfg.encoder.n_frames} stub frames"
+                  if cfg.encoder is not None else "")
+        say(f"{name}: {cfg.arch_id}, {cfg.n_layers} layers at full "
             f"width, (data {n_data}, model {mesh.axis('model').size}), "
-            f"comm='xla', remat, LARS with K1, {rows_a_rank} x {seq} tokens "
-            f"a data rank: losses {[round(v, 4) for v in losses]} (one card "
+            f"comm='xla', remat, LARS with K1, {rows_a_rank} x ({seq} tokens"
+            f"{frames}) a data rank: losses {[round(v, 4) for v in losses]} (one card "
             f"at the global batch {[round(v, 4) for v in ones]}: within "
             f"{d_loss:.3e} relative, limit {TP_LOSS_TOL}); masters within "
             f"{worst[0]:.3e} of the one-card step's largest update of their "
@@ -3054,14 +3132,15 @@ def _lm_train_tp(say) -> dict:
             f"{[round(p / 2 ** 30, 2) for p in peaks]}; launches K4 "
             f"{counts['k4']} + {counts['k4_bwd']}, K1 {counts['k1']}")
         if not init_same:
-            fail("lm_train_tp: the shards' initial values are not the "
-                 "one-card state's")
+            fail(f"{name}: the shards' initial values are not the "
+                 f"one-card state's")
         if not d_loss <= TP_LOSS_TOL:
-            fail(f"lm_train_tp: losses {d_loss:.3e} off the one-card step")
+            fail(f"{name}: losses {d_loss:.3e} off the one-card step")
         if not worst[0] <= LM_UPDATE_TOL:
-            fail(f"lm_train_tp: masters {worst[0]:.3e} of the update off the "
+            fail(f"{name}: masters {worst[0]:.3e} of the update off the "
                  f"one-card step ({worst[1]})")
-        row = {"arch": cfg.arch_id, "mesh": [n_data, 2],
+        row = {"arch": cfg.arch_id, "vocab": cfg.vocab_size,
+               "mesh": [n_data, 2],
                "batch": [rows_a_rank, seq], "losses": losses,
                "one_card_losses": ones, "loss_rel": d_loss,
                "masters_of_update": list(worst),
@@ -3637,10 +3716,11 @@ def _resnet_xla(say) -> dict:
     return rows
 
 
-def _tp_cli_in_process(say) -> dict:
+def _tp_cli_in_process(mesh, say) -> dict:
     """The CLI runs of TP_CLI_RUNS, ``launch.train.main`` called in each
     rank's own process (the job's process group is the CLI's); each must
-    reach run_stop on every rank. Rank 0's row: each run's seconds."""
+    reach run_stop on every rank, a --resume-elastic run from step
+    TP_CLI_RESUMED_AT. Rank 0's row: each run's seconds."""
     import contextlib
     import io
 
@@ -3648,7 +3728,9 @@ def _tp_cli_in_process(say) -> dict:
     import torch.distributed as dist
     from repro_torch.launch import train as cli
     row = {}
+    d = _shared_dir(mesh, "tp_cli_")
     for args in TP_CLI_RUNS:
+        args = [a.replace("{ckpt}", d) for a in args]
         torch.cuda.empty_cache()
         dist.barrier()
         t = time.perf_counter()
@@ -3659,6 +3741,8 @@ def _tp_cli_in_process(say) -> dict:
         stops = [ln for ln in buf.getvalue().splitlines() if "run_stop" in ln]
         ok = bool(stops) and all(math.isfinite(h["loss"]) for h in history
                                  if "loss" in h)
+        if "--resume-elastic" in args:
+            ok = ok and f"restored step {TP_CLI_RESUMED_AT}" in buf.getvalue()
         oks = [None] * dist.get_world_size()
         dist.all_gather_object(oks, ok)
         if not all(oks):
@@ -3667,17 +3751,436 @@ def _tp_cli_in_process(say) -> dict:
         say(f"tp: CLI on 4 ranks ({' '.join(args)}) reached run_stop on "
             f"every rank in {secs:.1f} s: {stops[0].strip()}")
         row[" ".join(args)] = secs
+    dist.barrier()
+    if mesh.rank == 0:
+        shutil.rmtree(d, ignore_errors=True)
+    return row
+
+
+def _vocab_cut(arch):
+    """``arch``'s config with only its vocabulary cut to the multiple of
+    TP_VOCAB_MULTIPLE below it, and its published vocabulary: the model
+    axis splits the untied ``lm_head`` by vocabulary columns, and neither
+    package can place an odd V over model > 1."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    V = cfg.vocab_size
+    return dataclasses.replace(cfg, vocab_size=V - V % TP_VOCAB_MULTIPLE), V
+
+
+def _frames_collectives(cfg, m: int) -> tuple:
+    """The collectives of whisper's or the VLM's prefill and of a decode
+    step at model ``m``: a row-split product's all-reduce per attention
+    and per FFN (whisper's decoder layers add the cross-attention's), so 2
+    a layer (whisper: 2 an encoder layer, 3 a decoder layer; its decode
+    step 3 a decoder layer); the untied embedding's columns and the
+    vocab-split logits gathered (all-gathers), and q's, k's and v's where
+    m cuts a head (``attention.HeadSplit``: none at whisper-base's 8 heads
+    and internvl2-2b's 16 on 8 over 4)."""
+    import types
+
+    from repro_torch.models import attention
+    hs = attention.head_split(cfg, types.SimpleNamespace(size=m, index=0))
+    qkv = hs.q_whole + 2 * hs.kv_whole
+    gathers = 1 + (not cfg.tie_embeddings)
+    L = cfg.n_layers
+    if cfg.family == "audio":
+        attn = cfg.encoder.n_layers + 2 * L
+        prefill = 2 * cfg.encoder.n_layers + 3 * L
+        decode, dec_gathers = 3 * L, L * qkv + L * hs.q_whole
+    else:
+        attn, prefill = L, 2 * L
+        decode, dec_gathers = 2 * L, L * qkv
+    return ({"all_reduce": prefill, "all_gather": gathers + attn * qkv},
+            {"all_reduce": decode, "all_gather": gathers + dec_gathers})
+
+
+def _serve_tp_frames(mesh, say, name, arch, sizes) -> dict:
+    """serve_tp_audio or serve_tp_vlm on this rank: ``arch`` (whisper-base
+    or internvl2-2b) at full width and depth, only its vocabulary cut
+    (``_vocab_cut``), at model 4, bf16, flash, ``sizes`` (requests, prompt
+    tokens, new tokens) with their stub frames; then, on rank 0's card,
+    model 4 against model 1 (the shards gathered): prefill logits and the
+    greedy rule. Rank 0's row."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import weights
+    from repro_torch.core import pinit
+    from repro_torch.data.synthetic import stub_frames
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.decode import generate
+    from repro_torch.tree import tree_leaves
+
+    dev, n = mesh.device, mesh.size
+    cfg, V = _vocab_cut(arch)
+    cfg = dataclasses.replace(cfg, flash_attention=True)
+    audio = cfg.family == "audio"
+    k5 = (cfg.encoder.n_layers + 2 * cfg.n_layers) if audio else cfg.n_layers
+    want_prefill, want_decode = _frames_collectives(cfg, n)
+    model = build_model(cfg)
+    n_req, n_prompt, n_new = sizes
+    torch.cuda.synchronize()
+    dist.barrier()
+    t = time.perf_counter()
+    params = pinit.materialize(model.param_pd, seed=0, device=dev,
+                               dtype=torch.bfloat16, mesh=mesh)
+    torch.cuda.synchronize()
+    dist.barrier()
+    init_s = time.perf_counter() - t
+    n_local = sum(x.numel() for x in tree_leaves(params))
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (n_req, n_prompt),
+                           generator=gen, dtype=torch.int32).to(dev)
+    batch = {"tokens": tokens,
+             "frames": stub_frames(cfg, batch=n_req, step=0, device=dev)}
+    cache_len = _serve_cache(cfg, batch, n_new)
+    generate(model, params, batch, max_new=2, cache_len=cache_len,
+             mesh=mesh)                    # warm-up: not timed, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    timings = {}
+    _zero(*_counters().values())
+    out = generate(model, params, batch, max_new=n_new, cache_len=cache_len,
+                   timings=timings, mesh=mesh)
+    torch.cuda.synchronize()
+    counts = _read_path(name, {"k5": k5})
+    peak = torch.cuda.max_memory_allocated(dev)
+    pos = _prompt_pos(cfg, batch)
+    with torch.no_grad():
+        with _collectives() as calls:
+            last4, cache4 = model.forward_prefill(params, batch, cache_len,
+                                                  mesh)
+        with _collectives() as dcalls:
+            model.forward_decode(params, cache4, out[:, :1], pos, mesh)
+    del cache4
+    if calls != want_prefill or dcalls != want_decode:
+        fail(f"{name}: a prefill made {calls} and a decode step {dcalls}; "
+             f"the model axis makes {want_prefill} and {want_decode}")
+    if not bool(torch.isfinite(last4).all()):
+        fail(f"{name}: non-finite prefill logits")
+    outs, peaks = [None] * n, [None] * n
+    dist.all_gather_object(outs, out.cpu())
+    dist.all_gather_object(peaks, peak)
+    if tuple(out.shape) != (n_req, n_new) or not all(
+            torch.equal(o, outs[0]) for o in outs):
+        fail(f"{name}: the ranks' tokens differ or have shape "
+             f"{tuple(out.shape)}")
+    if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        fail(f"{name}: a token outside the vocabulary")
+    dec = timings["decode_ms"]
+    q1, med, q3 = statistics.quantiles(dec, n=4)
+    layers = (f"{cfg.encoder.n_layers} encoder and {cfg.n_layers} decoder "
+              f"layers" if audio else f"{cfg.n_layers} layers")
+    say(f"{name}: {cfg.arch_id}, {layers} at full width, vocabulary cut "
+        f"from {V:,} to {cfg.vocab_size:,} (the model axis cannot place an "
+        f"odd V), model {n}: {n_local / 1e6:.1f} M params a rank (bf16), "
+        f"pinit {init_s:.2f} s; {n_req} requests of {n_prompt} tokens + "
+        f"{cfg.encoder.n_frames} stub frames, {n_new} new, cache "
+        f"{cache_len} rows; prefill {timings['prefill_ms']:.2f} ms; decode "
+        f"ms a token median {med:.3f} (p25 {q1:.3f}, p75 {q3:.3f}, "
+        f"{len(dec)} steps), {n_req * 1e3 / med:.1f} tokens/s; peak memory "
+        f"a rank GiB {[round(p / 2 ** 30, 2) for p in peaks]}; a prefill: "
+        f"{calls['all_reduce']} all-reduces, {calls['all_gather']} "
+        f"all-gathers; a decode step: {dcalls['all_reduce']} and "
+        f"{dcalls['all_gather']}; flash_attention {counts['k5']} launches a "
+        f"rank; every rank's tokens equal")
+    say(f"{name}: first request's tokens {out[0].tolist()}")
+    row = {"arch": cfg.arch_id, "vocab": cfg.vocab_size, "published_vocab": V,
+           "layers": cfg.n_layers, "model": n, "params_a_rank": n_local,
+           "pinit_s": init_s, "prefill_ms": timings["prefill_ms"],
+           "decode_ms": {"p25": q1, "median": med, "p75": q3},
+           "tokens_per_s": n_req * 1e3 / med,
+           "peak_gib": [p / 2 ** 30 for p in peaks], "sizes": list(sizes),
+           "cache_len": cache_len, "collectives_a_prefill": calls,
+           "collectives_a_decode_step": dcalls, "launches": counts}
+
+    # context: model 4 against model 1 on rank 0's card, the same values
+    whole = weights.gather_tree(params, model.param_pd, mesh)
+    del params
+    if mesh.rank == 0:
+        with torch.no_grad():
+            last1, _ = model.forward_prefill(whole, batch, cache_len)
+            d = _rel(last4.float(), last1.float())
+            one = generate(model, whole, batch, max_new=TP_CONTEXT_NEW,
+                           cache_len=cache_len)
+            ties = _greedy_rule(model, whole, batch, out[:, :TP_CONTEXT_NEW],
+                                one, cache_len, SERVE_TOL, name)
+        say(f"{name} context: model {n} against model 1 on one card: "
+            f"prefill logits differ by {d:.3e} of their max (limit "
+            f"{SERVE_TOL}); {TP_CONTEXT_NEW} greedy tokens within the rule "
+            f"(margin {SERVE_TOL} of the max; the first decode at position "
+            f"{pos}), tied steps a request {ties}")
+        if not d <= SERVE_TOL:
+            fail(f"{name} context: model 4's prefill disagrees with model "
+                 f"1's")
+        row["context"] = {"prefill_vs_one": d, "ties": ties}
+    del whole, last4
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return row
+
+
+def _lm_train_tp_frames(say) -> dict:
+    """lm_train_tp_frames on this rank: lm_train_tp's run for each of
+    TP_FRAMES_TRAIN (the vocabulary cut, ``_vocab_cut``). Rank 0's rows
+    by arch, and the launches summed over both runs."""
+    rows, launches = {}, {}
+    for arch, rows_seq in TP_FRAMES_TRAIN:
+        cfg, _ = _vocab_cut(arch)
+        row = _lm_train_tp(say, "lm_train_tp_frames", cfg, rows_seq)
+        if row is not None:
+            rows[arch] = row
+            for key, v in row["launches"].items():
+                launches[key] = launches.get(key, 0) + v
+    return dict(rows, launches=launches) if rows else None
+
+
+def _shared_dir(mesh, prefix: str) -> str:
+    """A fresh directory under build/ that every rank of the job names
+    (rank 0 makes it)."""
+    import tempfile
+
+    import torch.distributed as dist
+    names = [None]
+    if mesh.rank == 0:
+        (ROOT / "build").mkdir(exist_ok=True)
+        names[0] = tempfile.mkdtemp(dir=ROOT / "build", prefix=prefix)
+    dist.broadcast_object_list(names, src=0)
+    return names[0]
+
+
+def _ckpt_tp(mesh4, say) -> dict:
+    """ckpt_tp on this rank: lm_train_tp's model and recipe at (data 2,
+    model 2), TP_CKPT_STEPS steps through loop.train with a checkpoint a
+    step (the counts read just after); the committed file's leaves whole
+    and its per-key sha256 the state's gathered whole; a resume at (2, 2)
+    for one more step against an uninterrupted run, bit for bit under
+    torch.use_deterministic_algorithms (else within DUR_TOL of the max,
+    the op named); the file loaded at (1, 4) and (4, 1), gathered
+    bit-equal to it, and a finite step on each. Rank 0's row."""
+    import hashlib
+    import warnings
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import lars
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.common import dp_axes, local_shape, model_axis
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import elastic, loop
+    from repro_torch.train.state import TrainState, init_state, \
+        sharded_state_kwargs
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_flatten, tree_unflatten
+
+    cfg = get_config("qwen1.5-0.5b")
+    model = build_model(cfg)
+    pd = model.param_pd
+    total = TP_CKPT_STEPS + 1
+    sched = make_schedule(ScheduleConfig(base_lr=LM_LR, warmup_steps=1,
+                                         total_steps=total, decay="poly2"))
+    opt = lars.OptConfig(kind="lars", weight_decay=5e-5, use_kernel=True)
+    rows_a_rank, seq = TP_TRAIN
+
+    def setup(m):
+        mesh = make_local_mesh(m)
+        n_data = mesh.axis("data").size
+        step = make_train_step(model, opt, sched, smoothing=0.1, mesh=mesh,
+                               comm="xla")
+        part = make_batch_fn(cfg, InputShape("train_4k", "train", seq,
+                                             rows_a_rank * n_data),
+                             device=mesh.device, mesh=mesh,
+                             axes=dp_axes(mesh))
+        return mesh, step, part
+
+    def template(mesh):
+        """A state of ``mesh``'s shapes to load into (not initialised)."""
+        tp = model_axis(mesh)
+        flat = tree_flatten(pd)
+        leaves = lambda: tree_unflatten(  # noqa: E731
+            [p for p, _ in flat],
+            [torch.empty(local_shape(x, tp), device=mesh.device)
+             for _, x in flat])
+        return TrainState(0, leaves(), leaves())
+
+    def whole(state, mesh):
+        """{checkpoint key: numpy} of the state gathered whole (every rank
+        joins; rank 0 keeps the arrays)."""
+        out = {}
+        for f in ("params", "mom"):
+            for k, v in ckpt._flatten(ckpt._whole(getattr(state, f), pd,
+                                                  mesh)).items():
+                if mesh.rank == 0:
+                    out[f"{f}|{k}"] = v.cpu().numpy()
+        return out
+
+    def leaves(state):
+        return [x for f in (state.params, state.mom)
+                for _, x in tree_flatten(f)]
+
+    def timed(fn, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t
+
+    sha = lambda a: hashlib.sha256(  # noqa: E731
+        np.ascontiguousarray(a).tobytes()).hexdigest()
+    mesh, step, part = setup(2)
+    dev = mesh.device
+    d = _shared_dir(mesh4, "ckpt_tp_")
+    saves, real_save = [], ckpt.save
+
+    def timed_save(*a, **kw):
+        r, secs = timed(real_save, *a, **kw)
+        saves.append(secs)
+        return r
+
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.empty_cache()
+            state0 = init_state(model, 0, device=dev,
+                                **sharded_state_kwargs(step))
+            _zero(*_counters().values())
+            ckpt.save = timed_save
+            try:
+                state, _ = loop.train(state0, step, part,
+                                      steps=TP_CKPT_STEPS, ckpt_dir=d,
+                                      ckpt_every=1, keep_last_k=1,
+                                      log_every=0)
+            finally:
+                ckpt.save = real_save
+            counts = _read_path("ckpt_tp", {"k4": TP_CKPT_STEPS,
+                                            "k4_bwd": TP_CKPT_STEPS,
+                                            "k1": 2 * TP_CKPT_STEPS})
+            del state0
+            got = whole(state, mesh)
+            tag = ckpt.latest_tag(d)
+            path = os.path.join(d, f"ckpt_{tag}.npz")
+            data, bad_shape, bad_sha = {}, [], []
+            if mesh.rank == 0:
+                with np.load(path, allow_pickle=False) as z:
+                    data = {k: z[k] for k in z.files}
+                for f in ("params", "mom"):
+                    for k, x in ckpt._flatten(pd).items():
+                        if data[f"{f}|{k}"].shape != tuple(x.shape):
+                            bad_shape.append(f"{f}|{k}")
+                bad_sha = [k for k, v in got.items()
+                           if sha(v) != sha(data[k])]
+                if bad_shape or bad_sha or set(got) != set(data):
+                    fail(f"ckpt_tp: the committed file's leaves "
+                         f"{bad_shape[:3]} are not whole, or its keys "
+                         f"{bad_sha[:3]} differ from the state gathered "
+                         f"whole")
+            del got
+            resumed, load_s = timed(ckpt.load, template(mesh), d, mesh=mesh,
+                                    param_pd=pd)
+            resumed, _ = loop.train(resumed, step, part, steps=total,
+                                    log_every=0)
+            straight, _ = loop.train(
+                init_state(model, 0, device=dev,
+                           **sharded_state_kwargs(step)),
+                step, part, steps=total, log_every=0)
+            same = resumed.step == straight.step == total and all(
+                torch.equal(a, b) for a, b in zip(leaves(resumed),
+                                                  leaves(straight)))
+            worst = max(((a - b).abs().max()
+                         / b.abs().max().clamp_min(1e-30)).item()
+                        for a, b in zip(leaves(resumed), leaves(straight)))
+            del resumed, straight, state
+        nondet = sorted({str(w.message).splitlines()[0] for w in caught
+                         if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(before)
+    sames = [None] * mesh.size
+    dist.all_gather_object(sames, (same, worst))
+    if nondet:
+        how = (f"{max(w for _, w in sames):.3e} of the max (limit {DUR_TOL}: "
+               f"no deterministic form for {nondet[0]})")
+        if not all(w <= DUR_TOL for _, w in sames):
+            fail(f"ckpt_tp: the resumed run's masters part from the "
+                 f"uninterrupted run's: {how}")
+    else:
+        how = "bit for bit (torch.use_deterministic_algorithms)"
+        if not all(s for s, _ in sames):
+            fail("ckpt_tp: the resumed run's masters and momentum are not "
+                 "the uninterrupted run's bit for bit")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same file onto (data 1, model 4) and (data 4, model 1)
+    other = {}
+    for m in (4, 1):
+        em, estep, epart = setup(m)
+        s, secs = timed(elastic.load_resharded, d, template(em), None, 1,
+                        mesh=em, param_pd=pd)
+        got = whole(s, em)
+        if em.rank == 0 and not (
+                set(got) == set(data) and all(
+                    got[k].dtype == data[k].dtype
+                    and got[k].tobytes() == data[k].tobytes() for k in got)):
+            fail(f"ckpt_tp: the file loaded at (data {4 // m}, model {m}) "
+                 f"and gathered is not the file bit for bit")
+        del got
+        s, metrics = estep(s, epart(s.step))
+        loss = float(metrics["loss"])
+        if not math.isfinite(loss):
+            fail(f"ckpt_tp: a non-finite step at (data {4 // m}, model {m})")
+        other[f"{4 // m}x{m}"] = {"load_s": secs, "loss": loss}
+        del s
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    row = None
+    if mesh.rank == 0:
+        mb = os.path.getsize(path) / 1e6
+        say(f"ckpt_tp: {cfg.arch_id} at full width and depth, (data 2, "
+            f"model 2), lm_train_tp's recipe, {TP_CKPT_STEPS} steps through "
+            f"loop.train with a checkpoint a step: payload {mb:.1f} MB (f32 "
+            f"masters and momentum, every leaf whole; per-key sha256 the "
+            f"state's gathered whole), saves ms "
+            f"{[round(x * 1e3, 1) for x in saves]}, load at (2, 2) "
+            f"{load_s * 1e3:.1f} ms; resumed for step {total}: {how}; "
+            f"loaded at (1, 4) in {other['1x4']['load_s'] * 1e3:.1f} ms and "
+            f"(4, 1) in {other['4x1']['load_s'] * 1e3:.1f} ms, each gathered "
+            f"bit-equal to the file, a step from each: losses "
+            f"{other['1x4']['loss']:.4f}, {other['4x1']['loss']:.4f}; "
+            f"launches K4 {counts['k4']} + {counts['k4_bwd']}, K1 "
+            f"{counts['k1']}")
+        row = {"arch": cfg.arch_id, "payload_mb": mb, "save_ms":
+               [x * 1e3 for x in saves], "load_ms": load_s * 1e3,
+               "resume": how, "other_meshes": other, "launches": counts}
+        shutil.rmtree(d, ignore_errors=True)
+    del data
+    gc.collect()
+    dist.barrier()
     return row
 
 
 def tp_rank(phases=TP_PHASES):
     """One rank of the model-axis phases (``chip_smoke.py --tp-rank
     [PHASE ...]`` under torch.distributed.run, one card each), those of
-    TP_PHASES named in ``phases`` in its order: serve_tp and
-    serve_tp_hybrid on the (data 1, model 4) mesh, lm_train_tp and
-    lm_train_tp_xlstm on the (data 2, model 2) one, resnet_xla on (data 4,
-    model 1), then the CLI runs in process. Rank 0 prints the lines and,
-    last, ``tp-json: {...}``."""
+    TP_PHASES named in ``phases`` in its order: serve_tp, serve_tp_hybrid,
+    serve_tp_audio and serve_tp_vlm on the (data 1, model 4) mesh,
+    lm_train_tp, lm_train_tp_xlstm, ckpt_tp (which also loads onto (1, 4)
+    and (4, 1)) and lm_train_tp_frames on the (data 2, model 2) one,
+    resnet_xla on (data 4, model 1), then the CLI runs in process. Rank 0
+    prints the lines and, last, ``tp-json: {...}``."""
     import torch
     sys.path.insert(0, str(SRC))
     from repro_torch.launch.mesh import make_local_mesh
@@ -3689,7 +4192,13 @@ def tp_rank(phases=TP_PHASES):
             "serve_tp_hybrid": lambda: _serve_tp_hybrid(mesh, say),
             "lm_train_tp_xlstm": lambda: _lm_train_tp_xlstm(say),
             "resnet_xla": lambda: _resnet_xla(say),
-            "cli": lambda: _tp_cli_in_process(say)}
+            "ckpt_tp": lambda: _ckpt_tp(mesh, say),
+            "serve_tp_audio": lambda: _serve_tp_frames(
+                mesh, say, "serve_tp_audio", "whisper-base", AUDIO_SERVE),
+            "serve_tp_vlm": lambda: _serve_tp_frames(
+                mesh, say, "serve_tp_vlm", "internvl2-2b", VLM_SERVE),
+            "lm_train_tp_frames": lambda: _lm_train_tp_frames(say),
+            "cli": lambda: _tp_cli_in_process(mesh, say)}
     out, seconds = {"cards": mesh.size}, {}
     for name in TP_PHASES:
         if name not in phases:
@@ -3723,22 +4232,39 @@ def run_tp(phases=TP_PHASES):
         if line.startswith("tp-json: "):
             result = json.loads(line[len("tp-json: "):])
         elif line.startswith(("serve_tp", "lm_train_tp", "resnet_xla",
-                              "tp")):
+                              "ckpt_tp", "tp")):
             print(line, flush=True)
     if result is None:
         fail("the model-axis phases printed no result")
     return result
 
 
+def _card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+#: K5's shapes the ``--tp`` call holds against the plain version: a rank's
+#: launches in the model-axis prefills
+TP_K5_SHAPES = ("serve_tp", "serve_tp_hybrid", "serve_tp_audio_enc",
+                "serve_tp_audio_cross", "serve_tp_vlm")
+
+
 def tp_main(phases=()):
     """``python3 chip_smoke.py --tp [PHASE ...]``: the card check, the
-    build, K5 at serve_tp's and serve_tp_hybrid's shapes and the
-    model-axis phases alone (on four cards; those of TP_PHASES named, all
-    by default), the kernels' launches on their paths and the phases'
-    JSON last."""
+    build, K5 at TP_K5_SHAPES and the model-axis phases alone (on four
+    cards; those of TP_PHASES named, all by default), then the phases'
+    JSON (with their kernels' launches), the card's name and power limit
+    and, last, the ``{"ok": true, ...}`` line."""
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a card")
+    card = _card_line()
     unknown = set(phases) - set(TP_PHASES)
     if unknown:
         fail(f"--tp: unknown phases {sorted(unknown)}; of {TP_PHASES}")
@@ -3752,12 +4278,16 @@ def tp_main(phases=()):
     dev = backend.resolve_device(None)
     k5 = {name: _flash_case(dev, gen, *next(c for c in FLASH_SHAPES
                                             if c[0] == name))
-          for name in ("serve_tp", "serve_tp_hybrid")}
+          for name in TP_K5_SHAPES}
     result = run_tp(tuple(phases) or TP_PHASES)
     if result is None:
         sys.exit(1)
     result["k5"] = k5
     print(json.dumps({"tp": result}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
 
 
 def _launch_ranks(args, n: int, timeout_s: float, what: str) -> str:
@@ -5501,12 +6031,7 @@ def main():
     except ImportError as e:
         fail(f"the port is not beside this script ({e})")
     dev = backend.resolve_device(None)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = _card_line()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
@@ -5653,8 +6178,7 @@ def main():
     phase("lm_ring_families")
     families = run_lm_ring_families()
 
-    phase("serve_tp, lm_train_tp, serve_tp_hybrid, lm_train_tp_xlstm, "
-          "resnet_xla")
+    phase(", ".join(TP_PHASES))
     tp = run_tp()
     entries = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k4_bwd": k4_bwd,
                "k5": k5}
@@ -5682,7 +6206,8 @@ def main():
     # the model-axis paths: rank 0's counts (resnet_xla's summed over its
     # two sync_bn forms); null with fewer than four cards
     for path in ("serve_tp", "lm_train_tp", "serve_tp_hybrid",
-                 "lm_train_tp_xlstm"):
+                 "lm_train_tp_xlstm", "ckpt_tp", "serve_tp_audio",
+                 "serve_tp_vlm", "lm_train_tp_frames"):
         by_path[path] = {key: None if tp is None else
                          tp[path]["launches"][key] for key in entries}
     by_path["resnet_xla"] = {key: None if tp is None else sum(

@@ -32,16 +32,22 @@ deepseek-v2-236b), which it refuses, naming ROADMAP item 6.3. As in the
 reference, there is no flag for the ``(pod, data)`` mesh. ``--comm xla``
 (the default) is the reference's GSPMD step: on one process the
 single-device step, under a multi-rank launch the ``(data=world/M,
-model=M)`` mesh of ``--model-parallel M`` (ROADMAP §1 items 6.2 and
-6.2b: the leaves of the dense decoder, the hybrid and the xLSTM split
-over ``model``, LAMB and ``--guard`` over it too; ResNet-50 splits none
-and takes its BatchNorm statistics over the data axes; at M = 1 pure
-data parallelism), each rank on the rows of its data index. An explicit
-schedule treats every axis of that mesh as data parallel, as the
+model=M)`` mesh of ``--model-parallel M`` (ROADMAP §1 items 6.2, 6.2b
+and 6.2c: the leaves of the dense decoder, the hybrid, the xLSTM,
+whisper and the VLM split over ``model``, LAMB and ``--guard`` over it
+too; ResNet-50 splits none and takes its BatchNorm statistics over the
+data axes; at M = 1 pure data parallelism), each rank on the rows of its
+data index. ``--ckpt-dir`` saves the reference's whole arrays there too
+(the split leaves gathered), and ``--resume-elastic`` resumes them onto
+this launch's ``(data, model)`` shape, which may differ from the saving
+run's in M and in the data size, as the reference's global arrays do. An
+explicit schedule treats every axis of that mesh as data parallel, as the
 reference's does. At M > 1 the CLI refuses the MoE and MLA configs (item
-6.3), whisper, the VLM, checkpoints and ``--resume-elastic`` (item 6.2c),
-and ``make_train_step`` the sizes the model axis does not split. On four
-cards:
+6.3), and ``make_train_step`` what the model axis does not split: the
+xLSTM's heads that M does not divide (item 6.2d), ``fsdp`` over more than
+one data rank (item 6.3) and a leaf that M does not divide, which the
+reference cannot place either (whisper-base's and internvl2-2b's
+published vocabularies over model > 1, say). On four cards:
   python -m torch.distributed.run --nproc-per-node 4 -m \
       repro_torch.launch.train --arch whisper-base --comm ring \
       --sharding zero1 --steps 3
@@ -246,15 +252,6 @@ def main(argv=None):
                      f"{'MoE layer' if arch.moe is not None else 'MLA'} "
                      f"over a model axis is not ported to repro_torch yet "
                      f"(ROADMAP §1 item 6.3)")
-        if arch.family not in ("dense", "hybrid", "ssm", "conv"):
-            ap.error(f"--model-parallel {m} with {args.arch}: the "
-                     f"{arch.family} family over a model axis is not "
-                     f"ported to repro_torch yet (ROADMAP §1 item 6.2c)")
-        for flag, on in (("--ckpt-dir", args.ckpt_dir),
-                         ("--resume-elastic", args.resume_elastic)):
-            if on:
-                ap.error(f"{flag} with --model-parallel {m} is not ported "
-                         f"to repro_torch yet (ROADMAP §1 item 6.2c)")
     if m < 1 or world % m:
         ap.error(f"--model-parallel {m} does not divide the job's {world} "
                  f"rank(s)")
@@ -385,7 +382,8 @@ def _train(args, mesh, reg, saved_plan):
             if train_step.sharding != "replicated" else 1
         state = elastic.load_resharded(
             args.ckpt_dir, state, getattr(train_step, "bucket_plan", None),
-            new_n, old_comm_plan=saved_plan, mesh=mesh)
+            new_n, old_comm_plan=saved_plan, mesh=mesh,
+            param_pd=getattr(train_step, "param_pd", None))
         old_n = saved_plan.n_shards if saved_plan is not None else 1
         reg.event("elastic_resume",
                   f"elastic resume: restored step {int(state.step)}, "

@@ -18,17 +18,23 @@ read its own kv heads ``[r·K/M, …)`` (G = H/K), so attention, K5 and the
 cache stay local, and ``wo``'s partial output is all-reduced
 (``common.reduce_out``). The replicated ``qk_norm`` scales act on the
 local heads only, so their gradients are summed over the axis
-(``common.copy_in``).
+(``common.copy_in``). Where the columns cut a head (K < M, or H % M != 0:
+ROADMAP §1 item 6.2c, the reference's ``pin`` false case, which it leaves
+to GSPMD) the cut activations are gathered whole and each rank attends
+the heads its columns need (``HeadSplit``).
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.ref import NEG
 from repro_torch.models.common import PD, attention_mask, copy_in, \
-    dense_pd, reduce_out, rms_norm, rope
+    dense_pd, gather_in, reduce_out, rms_norm, rope
 
 
 def _scale(dh: int, dtype: torch.dtype) -> float:
@@ -192,53 +198,125 @@ def _split_heads(x, n, hd):
     return x.reshape(*x.shape[:-1], n, hd)
 
 
-def local_heads(cfg, tp=None):
-    """(query heads, kv heads) a rank holds over the model axis ``tp``."""
-    m = 1 if tp is None else tp.size
-    return cfg.n_heads // m, cfg.n_kv_heads // m
+@dataclasses.dataclass(frozen=True)
+class HeadSplit:
+    """How the model axis cuts a GQA layer's heads, seen from one rank.
+    The rank holds ``w = H·Dh/M`` columns of ``wq`` (and rows of ``wo``)
+    and ``K·Dh/M`` of ``wk``/``wv``. Where those hold whole heads (M
+    divides H and K) the rank attends its own heads and nothing moves.
+    Where they cut a head (the reference's ``pin`` false case: K < M, or
+    H % M != 0) q (``q_whole``), or k and v (``kv_whole``), are gathered
+    whole over the axis (``common.gather_in``), the rank attends the query
+    heads ``[q_lo, q_hi)`` its columns of o fall in, against the kv heads
+    they read (``kv_lo``, ``kv_hi``; ``expand``: one kv head a query head,
+    where the grouping does not survive the cut), and keeps its ``w``
+    columns of o from ``col`` on for the row-split ``wo``. With
+    ``kv_whole`` the k and v caches hold every kv head on every rank."""
+    q_whole: bool
+    kv_whole: bool
+    q_lo: int
+    q_hi: int
+    kv_lo: int
+    kv_hi: int
+    expand: Optional[Tuple[int, ...]]
+    col: int
+    w: int
 
 
-def _head(p, x, cfg, w: str, n: int, tp=None):
-    """x's heads through projection ``w`` ("q", "k" or "v"): projected,
-    biased and, with ``qk_norm``, q's and k's heads RMS-normed (before
-    rope, as the JAX package does). ``n``: the heads this rank holds."""
+@functools.lru_cache(maxsize=256)
+def _head_split(H: int, K: int, hd: int, m: int, r: int) -> HeadSplit:
+    if H % m == 0 and K % m == 0:
+        return HeadSplit(False, False, r * H // m, (r + 1) * H // m,
+                         r * K // m, (r + 1) * K // m, None, 0, H * hd // m)
+    w = H * hd // m
+    q_lo, q_hi = r * w // hd, -(-(r + 1) * w // hd)
+    G = H // K
+    kv_lo, kv_hi = q_lo // G, (q_hi - 1) // G + 1
+    n = q_hi - q_lo
+    grouped = q_lo % G == 0 and (n % G == 0 or n < G)
+    expand = None if grouped else tuple(h // G - kv_lo
+                                        for h in range(q_lo, q_hi))
+    return HeadSplit(H % m != 0, True, q_lo, q_hi, kv_lo, kv_hi, expand,
+                     r * w - q_lo * hd, w)
+
+
+def head_split(cfg, tp=None) -> HeadSplit:
+    """The ``HeadSplit`` of ``cfg``'s attention over the model axis ``tp``
+    (no axis: every head, nothing gathered)."""
+    m, r = (1, 0) if tp is None else (tp.size, tp.index)
+    return _head_split(cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                       m, r)
+
+
+def _head(p, x, cfg, w: str, tp, whole: bool, lo: int, hi: int):
+    """x's heads ``[lo, hi)`` through projection ``w`` ("q", "k" or "v"):
+    projected, biased, gathered whole over the model axis ``tp`` where
+    ``whole`` (the rank's columns cut a head) and, with ``qk_norm``, q's
+    and k's heads RMS-normed (before rope, as the JAX package does)."""
+    hd = cfg.resolved_head_dim
     y = x @ p[f"w{w}"]
     if cfg.qkv_bias:
         y = y + p[f"b{w}"]
-    y = _split_heads(y, n, cfg.resolved_head_dim)
+    if whole:
+        y = _split_heads(gather_in(y, tp), -1, hd)[..., lo:hi, :]
+    else:
+        y = _split_heads(y, hi - lo, hd)
     if cfg.qk_norm and w != "v":
         y = rms_norm(y, copy_in(p[f"{w}_norm"], tp), cfg.rms_eps)
     return y
 
 
 def _qkv(p, x, cfg, kv_src=None, tp=None):
-    """Heads of q (from x), k and v (from ``kv_src``, default x): the
-    rank's own over the model axis ``tp``, the inputs read through
-    ``copy_in``."""
+    """Heads of q (from x), k and v (from ``kv_src``, default x) over the
+    model axis ``tp`` (``head_split``): q's the rank attends, k's and v's
+    its own or, where its columns cut a head, all K; the inputs read
+    through ``copy_in`` (once where ``kv_src`` is x itself)."""
+    hs = head_split(cfg, tp)
+    same = kv_src is None or kv_src is x
     x = copy_in(x, tp)
-    kv_src = x if kv_src is None else copy_in(kv_src, tp)
-    H, K = local_heads(cfg, tp)
-    return (_head(p, x, cfg, "q", H, tp), _head(p, kv_src, cfg, "k", K, tp),
-            _head(p, kv_src, cfg, "v", K, tp))
+    kv_src = x if same else copy_in(kv_src, tp)
+    kv = (0, cfg.n_kv_heads) if hs.kv_whole else (hs.kv_lo, hs.kv_hi)
+    return (_head(p, x, cfg, "q", tp, hs.q_whole, hs.q_lo, hs.q_hi),
+            _head(p, kv_src, cfg, "k", tp, hs.kv_whole, *kv),
+            _head(p, kv_src, cfg, "v", tp, hs.kv_whole, *kv))
+
+
+def _kv_heads(t, hs: HeadSplit):
+    """The kv heads the rank's query heads read, of k, v or a cache
+    ``t`` (..., K', Dh): itself where it holds the rank's own heads."""
+    if not hs.kv_whole:
+        return t
+    t = t[..., hs.kv_lo:hs.kv_hi, :]
+    return t if hs.expand is None else t[..., list(hs.expand), :]
+
+
+def _out(o, p, hs: HeadSplit, tp):
+    """The attended heads' output o (..., heads·Dh) through the rank's
+    rows of ``wo``: its own columns of o, the partial sums all-reduced."""
+    if hs.q_whole:
+        o = o[..., hs.col:hs.col + hs.w]
+    return reduce_out(o @ p["wo"], tp)
 
 
 def gqa_parallel(p, x, positions, cfg, *, cache_len: int = 0,
                  cross_x=None, tp=None):
     """Train/prefill attention. Returns (out, cache|None); the cache holds
     k/v written into zero (B, cache_len, K, Dh) buffers when
-    cache_len > 0 (K/M of them over the model axis ``tp``). ``cross_x``
+    cache_len > 0 (over the model axis ``tp`` the rank's K/M, or all K
+    where its columns cut a head: ``head_split``). ``cross_x``
     (B, Sk, d): the encoder's states, the source of the keys and values of
     a non-causal attention without rope (the whisper encoder passes its
     own input, the decoder the encoder's output)."""
     B, S = x.shape[:2]
+    hs = head_split(cfg, tp)
     q, k, v = _qkv(p, x, cfg, kv_src=cross_x, tp=tp)
     if cfg.rope_theta and cross_x is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    o = _attend(q, k, v, cfg, causal=cross_x is None,
-                window=cfg.sliding_window)
-    out = reduce_out(o.reshape(B, S, q.shape[2] * cfg.resolved_head_dim)
-                     @ p["wo"], tp)
+    o = _attend(q, _kv_heads(k, hs), _kv_heads(v, hs), cfg,
+                causal=cross_x is None, window=cfg.sliding_window)
+    out = _out(o.reshape(B, S, q.shape[2] * cfg.resolved_head_dim), p, hs,
+               tp)
     cache = None
     if cache_len:
         Sk = k.shape[1]
@@ -264,6 +342,7 @@ def _gqa_decode_rows(p, x, pos: int, cfg, kc, vc, tp=None):
     ``pos`` in place. Returns the block's output."""
     _check_pos(pos, kc.shape[1])
     B = x.shape[0]
+    hs = head_split(cfg, tp)
     q, k, v = _qkv(p, x, cfg, tp=tp)
     if cfg.rope_theta:
         pp = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
@@ -271,8 +350,10 @@ def _gqa_decode_rows(p, x, pos: int, cfg, kc, vc, tp=None):
         k = rope(k, pp, cfg.rope_theta)
     kc[:, pos] = k[:, 0]
     vc[:, pos] = v[:, 0]
-    o = decode_attention(q, kc, vc, pos, window=cfg.sliding_window)
-    return reduce_out(o @ p["wo"], tp)
+    o = decode_attention(q, _kv_heads(kc[:, :pos + 1], hs),
+                         _kv_heads(vc[:, :pos + 1], hs), pos,
+                         window=cfg.sliding_window)
+    return _out(o, p, hs, tp)
 
 
 def gqa_decode(p, x, pos: int, cfg, cache, *, cross: bool = False,
@@ -285,9 +366,11 @@ def gqa_decode(p, x, pos: int, cfg, cache, *, cross: bool = False,
     if not cross:
         return _gqa_decode_rows(p, x, pos, cfg, cache["k"],
                                 cache["v"], tp), cache
-    q = _head(p, copy_in(x, tp), cfg, "q", local_heads(cfg, tp)[0], tp)
-    o = decode_attention(q, cache["k"], cache["v"], cache["k"].shape[1] - 1)
-    return reduce_out(o @ p["wo"], tp), cache
+    hs = head_split(cfg, tp)
+    q = _head(p, copy_in(x, tp), cfg, "q", tp, hs.q_whole, hs.q_lo, hs.q_hi)
+    o = decode_attention(q, _kv_heads(cache["k"], hs),
+                         _kv_heads(cache["v"], hs), cache["k"].shape[1] - 1)
+    return _out(o, p, hs, tp), cache
 
 
 def gqa_decode_inplace(p, x, pos: int, cfg, ck_all, cv_all, layer: int,

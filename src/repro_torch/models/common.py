@@ -24,8 +24,11 @@ logits) is gathered by ``gather_out``, whose backward keeps the rank's
 own slice: every model rank computes the same loss from the gathered
 tensor, so its gradient there is the same on each, and summing it (as
 ``torch.distributed.nn``'s gather would, by a reduce-scatter) would
-multiply it by M. A sum that every rank of an axis needs whole and
-whose every term feeds each rank's loss (the norm over a split d_inner,
+multiply it by M; an activation gathered whole into computation that
+differs between the ranks (attention heads a rank's columns cut) goes
+through ``gather_in``, whose backward does sum. A sum that every rank
+of an axis needs whole and whose every term feeds each rank's loss (the
+norm over a split d_inner,
 the BatchNorm statistics over the data axes) goes through ``all_sum``,
 whose backward sums the cotangents over the same ranks.
 """
@@ -160,6 +163,20 @@ class _GatherOut(torch.autograd.Function):
                 None, None, None)
 
 
+class _GatherIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size, index):
+        ctx.group, ctx.index, ctx.width = group, index, x.shape[-1]
+        return _gather_last(x, group, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return (g.narrow(-1, ctx.index * ctx.width, ctx.width).contiguous(),
+                None, None, None)
+
+
 def _gather_last(x, group, size, dim=-1):
     parts = [torch.empty_like(x) for _ in range(size)]
     dist.all_gather(parts, x.contiguous(), group=group)
@@ -229,6 +246,19 @@ def gather_out(x, axis, dim: int = -1):
     if dim == -1 and torch.is_grad_enabled() and x.requires_grad:
         return _GatherOut.apply(x, axis.group, axis.size, axis.index)
     return _gather_last(x, axis.group, axis.size, dim)
+
+
+def gather_in(x, axis):
+    """The model ``axis``'s slices of x's last dim, concatenated in rank
+    order, into computation that differs between the ranks (attention on
+    the heads a rank's columns need, where its column slice of q, k or v
+    cuts a head); backward: the cotangents summed over the axis, then the
+    rank's own slice (every rank's loss term may read every slice)."""
+    if axis is None:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherIn.apply(x, axis.group, axis.size, axis.index)
+    return _gather_last(x, axis.group, axis.size)
 
 
 # ---------------------------------------------------------------------------

@@ -61,7 +61,12 @@ def gelu_mlp_pd(cfg, d_ff=None):
     }
 
 
-def gelu_mlp_apply(p, x):
+def gelu_mlp_apply(p, x, tp=None):
     """``gelu(x W_in + b_in) W_out + b_out``, each bias added in x's dtype
-    after its matmul's rounding, as the JAX package adds them."""
-    return gelu(x @ p["w_in"] + p["b_in"]) @ p["w_out"] + p["b_out"]
+    after its matmul's rounding, as the JAX package adds them. Over the
+    model axis ``tp`` the rank holds d_ff/M columns of ``w_in`` and
+    ``b_in`` and rows of ``w_out``; the partial ``h W_out`` is all-reduced
+    and the replicated ``b_out`` added once, after the sum (before it, the
+    sum would add it M times), so its gradient is every rank's alike."""
+    h = gelu(copy_in(x, tp) @ p["w_in"] + p["b_in"])
+    return reduce_out(h @ p["w_out"], tp) + p["b_out"]

@@ -22,15 +22,20 @@ application of the hybrid's shared block too),
 
 Each entry point takes ``mesh`` (a ``launch.mesh`` mesh, as the
 reference's take a ``jax.sharding.Mesh``). Over its ``model`` axis
-(ROADMAP §1 items 6.2 and 6.2b: the dense decoder, the hybrid and the
-xLSTM stack; ``tp_axis`` refuses the rest) the params are a rank's
+(ROADMAP §1 items 6.2, 6.2b and 6.2c: the dense decoder, the hybrid, the
+xLSTM stack, whisper and the VLM; ``tp_axis`` refuses the rest) the
+params are a rank's
 shards by their specs, the batch is the rows of the rank's data index
 (the same on every model rank of a data row), and the logits come back
 whole over the vocabulary on every model rank: the vocab-split logits (an untied ``lm_head``'s columns, a tied
 ``embed``'s rows) are gathered, as K4 and the greedy argmax read whole
 rows. The tied embedding's lookup zeroes the rows outside the rank's
 vocabulary slice and sums over the axis; the untied one's (d split)
-gathers its columns.
+gathers its columns. Whisper's encoder runs on every model rank alike
+(its heads and FFN columns split as the decoder's), its replicated output
+entering each cross-attention through ``copy_in``, so the encoder's
+gradient sums over the axis; the LayerNorms, the learned positions and the
+VLM's stub projector are replicated.
 """
 from __future__ import annotations
 
@@ -136,7 +141,7 @@ def lm_pd(cfg) -> Dict[str, Any]:
     return tree
 
 
-def cache_pd(cfg, batch: int, max_seq: int):
+def cache_pd(cfg, batch: int, max_seq: int, m: int = 1):
     """Descriptor tree of what forward_prefill produces: stacked bf16
     (L, batch, max_seq, K, Dh) k and v (the MoE family's too); with MLA,
     the stacked bf16 latent ``ckv`` (L, batch, max_seq, kv_lora_rank) and
@@ -151,9 +156,13 @@ def cache_pd(cfg, batch: int, max_seq: int):
     Every leaf's spec is the reference's: the k and v caches split their
     heads over ``model`` (``P(dp, None, "model", None)``), and so do the
     Mamba layers' ``conv_x`` and ``state``; the xLSTM's states are whole
-    on every model rank. The batch is a rank's own rows."""
+    on every model rank, and so are the k and v caches at ``m`` model
+    ranks where m does not divide the kv heads (``attention.HeadSplit``;
+    the reference's spec holds at the default m = 1). The batch is a
+    rank's own rows."""
     zeros = lambda *shape: PD(shape, init="zeros", dtype=torch.bfloat16)
-    heads = lambda *shape: PD(shape, spec=("data", None, "model", None),
+    split = "model" if cfg.n_kv_heads % m == 0 else None
+    heads = lambda *shape: PD(shape, spec=("data", None, split, None),
                               init="zeros", dtype=torch.bfloat16)
     if cfg.family == "ssm":
         return {f"layer_{i:02d}": (xl.mlstm_cache_pd(cfg, batch)
@@ -182,19 +191,20 @@ def cache_pd(cfg, batch: int, max_seq: int):
 # shared pieces
 
 
-#: the families the model axis splits (ROADMAP §1 items 6.2 and 6.2b)
-TP_FAMILIES = ("dense", "hybrid", "ssm")
+#: the families the model axis splits (ROADMAP §1 items 6.2, 6.2b, 6.2c)
+TP_FAMILIES = ("dense", "hybrid", "ssm", "audio", "vlm")
 
 
 def tp_axis(cfg, mesh):
     """The model axis (``launch.mesh.Axis``) the forward over ``mesh``
     splits ``cfg``'s leaves over, None where it spans one rank. Refuses
     what the port does not split yet: the MoE layer, MLA and ``fsdp`` over
-    more than one data rank (item 6.3); whisper and the VLM, and head
-    counts that M does not divide where the leaves do, KV heads fewer than
-    M among them (item 6.2c); and a leaf that M does not divide, which the
-    reference cannot place either (``common.uneven_split``). Nothing falls
-    back."""
+    more than one data rank (item 6.3); the xLSTM's heads that M does not
+    divide (item 6.2d: the sLSTM's block-diagonal recurrence would split
+    inside a head); and a leaf that M does not divide, which the reference
+    cannot place either (``common.uneven_split``). Attention heads that M
+    does not divide where the leaves do (K < M among them) are gathered
+    (``attention.HeadSplit``). Nothing falls back."""
     tp = model_axis(mesh)
     if tp is None:
         return None
@@ -216,8 +226,7 @@ def tp_axis(cfg, mesh):
 @functools.lru_cache(maxsize=64)
 def _check_splits(cfg, m: int):
     """Every split leaf of ``cfg`` divides over ``m`` model ranks (else
-    ``uneven_split``), and so does every head count a rank's slice must
-    hold whole (else item 6.2c)."""
+    ``uneven_split``), and so do the xLSTM's heads (else item 6.2d)."""
     axis = types.SimpleNamespace(size=m, index=0)
     for path, pd in tree_flatten(lm_pd(cfg)):
         try:
@@ -225,11 +234,10 @@ def _check_splits(cfg, m: int):
         except NotImplementedError:
             raise uneven_split(f"{cfg.arch_id}: {path} {tuple(pd.shape)}",
                                m) from None
-    for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads)):
-        if n % m:
-            raise not_ported(f"{cfg.arch_id}: {what}={n} over model={m} (a "
-                             f"head split across ranks, or KV heads fewer "
-                             f"than M)", "6.2c")
+    if cfg.xlstm is not None and cfg.n_heads % m:
+        raise not_ported(f"{cfg.arch_id}: the xLSTM's n_heads={cfg.n_heads} "
+                         f"over model={m} (the sLSTM's block-diagonal "
+                         f"recurrence split inside a head)", "6.2d")
 
 
 def _embed(params, cfg, tokens, tp=None):
@@ -253,7 +261,9 @@ def _embed(params, cfg, tokens, tp=None):
 def _inputs(params, cfg, batch, tp=None):
     """The decoder stack's input (B, S, d): the token embeddings, after
     the VLM's image prefix (its patch embeddings through the stub
-    projector, in the compute dtype, as the JAX package rounds them)."""
+    projector, in the compute dtype, as the JAX package rounds them). The
+    projector is replicated over the model axis ``tp`` and reads the
+    replicated frames: its gradient is every rank's alike, not summed."""
     x = _embed(params, cfg, batch["tokens"], tp)
     if cfg.family == "vlm":
         dt = compute_dtype()
@@ -508,92 +518,98 @@ def _xlstm_forward(params, cfg, x, positions, *, mode, cache=None, pos=None,
 # whisper: encoder over the stub frames, decoder with cross-attention
 
 
-def _enc_layer(p, x, cfg):
+def _enc_layer(p, x, cfg, tp=None):
     """One encoder layer: non-causal self-attention without rope (the
     JAX package's ``gqa_parallel(..., cross_x=h)``) and the GELU MLP,
-    each after a LayerNorm."""
+    each after a LayerNorm; over the model axis ``tp`` on the rank's heads
+    and FFN columns."""
     h = layer_norm(x, p["ln1"], p["ln1b"])
-    a, _ = attn.gqa_parallel(p["attn"], h, None, cfg, cross_x=h)
+    a, _ = attn.gqa_parallel(p["attn"], h, None, cfg, cross_x=h, tp=tp)
     x = x + a
     h = layer_norm(x, p["ln2"], p["ln2b"])
-    return x + mlpm.gelu_mlp_apply(p["mlp"], h)
+    return x + mlpm.gelu_mlp_apply(p["mlp"], h, tp)
 
 
 def _whisper_layer(p, x, positions, cfg, enc_out, *, decode=False,
-                   cache=None, pos=None, cache_len=0):
+                   cache=None, pos=None, cache_len=0, tp=None):
     """One decoder layer: causal self-attention, cross-attention over the
     encoder's output and the GELU MLP, each after a LayerNorm. Returns (x,
     cache|None); the prefill's cache holds ``self`` (cache_len rows) and
     ``cross`` (the encoder output's k and v); decode writes its token's
-    row of ``self`` in place and reads ``cross``."""
+    row of ``self`` in place and reads ``cross``. ``tp``: the model
+    axis."""
     h = layer_norm(x, p["ln1"], p["ln1b"])
     if decode:
-        a, sc = attn.gqa_decode(p["attn"], h, pos, cfg, cache["self"])
+        a, sc = attn.gqa_decode(p["attn"], h, pos, cfg, cache["self"],
+                                tp=tp)
     else:
         a, sc = attn.gqa_parallel(p["attn"], h, positions, cfg,
-                                  cache_len=cache_len)
+                                  cache_len=cache_len, tp=tp)
     x = x + a
     a, xc = _cross_attention(p, layer_norm(x, p["lnx"], p["lnxb"]), cfg,
                              enc_out, decode=decode, cache=cache, pos=pos,
-                             cache_len=cache_len)
+                             cache_len=cache_len, tp=tp)
     x = x + a
     h = layer_norm(x, p["ln2"], p["ln2b"])
-    x = x + mlpm.gelu_mlp_apply(p["mlp"], h)
+    x = x + mlpm.gelu_mlp_apply(p["mlp"], h, tp)
     return x, ({"self": sc, "cross": xc} if cache_len or decode else None)
 
 
-def _cross_attention(p, h, cfg, enc_out, *, decode, cache, pos, cache_len):
+def _cross_attention(p, h, cfg, enc_out, *, decode, cache, pos, cache_len,
+                     tp=None):
     """The decoder layer's cross-attention over the encoder's output: its
     k and v cached (``cross``) when the prefill keeps a cache; decode reads
-    that cache."""
+    that cache. Over the model axis ``tp`` the replicated ``enc_out``
+    enters through ``copy_in`` (``attention._qkv``)."""
     if decode:
         return attn.gqa_decode(p["cross"], h, pos, cfg, cache["cross"],
-                               cross=True)
+                               cross=True, tp=tp)
     return attn.gqa_parallel(p["cross"], h, None, cfg, cross_x=enc_out,
-                             cache_len=enc_out.shape[1] if cache_len else 0)
+                             cache_len=enc_out.shape[1] if cache_len else 0,
+                             tp=tp)
 
 
-def _dec_train_layer(p, x, cfg, positions, enc_out):
-    return _whisper_layer(p, x, positions, cfg, enc_out)[0]
+def _dec_train_layer(p, x, cfg, positions, enc_out, tp):
+    return _whisper_layer(p, x, positions, cfg, enc_out, tp=tp)[0]
 
 
-def _whisper_encode(params, cfg, frames, train: bool):
+def _whisper_encode(params, cfg, frames, train: bool, tp=None):
     """frames: the stub (B, n_frames, d) embeddings; with the learned
     positions, in the compute dtype, through the encoder layers and the
-    final LayerNorm."""
+    final LayerNorm (every model rank of ``tp`` alike)."""
     dt = compute_dtype()
     x = frames.to(dt) + params["enc_pos"].to(dt)
     x = _walk(_enc_layer, params["enc_layers"], cfg.encoder.n_layers, x,
-              cfg, train=train)
+              cfg, tp, train=train)
     return layer_norm(x, params["enc_norm"], params["enc_norm_b"])
 
 
 def _whisper_forward(params, cfg, tokens, frames, *, mode, cache=None,
-                     pos=None, cache_len=0):
+                     pos=None, cache_len=0, tp=None):
     """The encoder over ``frames`` (train, prefill) and the decoder over
     ``tokens`` with learned positions. Returns (x, cache): the prefill's
     stacked ``self`` and ``cross`` caches, allocated at the first write;
-    decode's the given one, updated in place."""
+    decode's the given one, updated in place. ``tp``: the model axis."""
     dt = compute_dtype()
     layers, L = params["layers"], cfg.n_layers
     if mode == "decode":
-        x = _embed(params, cfg, tokens) + params["dec_pos"][pos].to(dt)
+        x = _embed(params, cfg, tokens, tp) + params["dec_pos"][pos].to(dt)
         for i in range(L):
             x, _ = _whisper_layer(_layer(layers, i), x, None, cfg, None,
                                   decode=True, cache=_layer(cache, i),
-                                  pos=pos)
+                                  pos=pos, tp=tp)
         return x, cache
-    enc_out = _whisper_encode(params, cfg, frames, train=mode == "train")
+    enc_out = _whisper_encode(params, cfg, frames, mode == "train", tp)
     S = tokens.shape[1]
-    x = _embed(params, cfg, tokens) + params["dec_pos"][:S].to(dt)
+    x = _embed(params, cfg, tokens, tp) + params["dec_pos"][:S].to(dt)
     positions = torch.arange(S, device=x.device)[None]
     if mode == "train":
         return _walk(_dec_train_layer, layers, L, x, cfg, positions,
-                     enc_out, train=True), None
+                     enc_out, tp, train=True), None
     stacked = None
     for i in range(L):
         x, c = _whisper_layer(_layer(layers, i), x, positions, cfg, enc_out,
-                              cache_len=cache_len)
+                              cache_len=cache_len, tp=tp)
         stacked = _put(stacked, L, i, c)
     return x, stacked
 
@@ -619,7 +635,7 @@ def forward_train(params, cfg, batch, mesh=None):
     tp = tp_axis(cfg, mesh)
     if cfg.family == "audio":
         x, _ = _whisper_forward(params, cfg, batch["tokens"],
-                                batch["frames"], mode="train")
+                                batch["frames"], mode="train", tp=tp)
         aux = None
     else:
         x = _inputs(params, cfg, batch, tp)
@@ -637,7 +653,7 @@ def forward_prefill(params, cfg, batch, cache_len: int, mesh=None):
     if cfg.family == "audio":
         x, cache = _whisper_forward(params, cfg, batch["tokens"],
                                     batch["frames"], mode="prefill",
-                                    cache_len=cache_len)
+                                    cache_len=cache_len, tp=tp)
     else:
         x = _inputs(params, cfg, batch, tp)
         positions = torch.arange(x.shape[1], device=x.device)[None]
@@ -653,7 +669,7 @@ def forward_decode(params, cfg, cache, token, pos: int, mesh=None):
     tp = tp_axis(cfg, mesh)
     if cfg.family == "audio":
         x, cache = _whisper_forward(params, cfg, token, None, mode="decode",
-                                    cache=cache, pos=pos)
+                                    cache=cache, pos=pos, tp=tp)
     else:
         x = _embed(params, cfg, token, tp)
         x, _, cache = _forward(cfg, tp)(params, cfg, x, None, mode="decode",

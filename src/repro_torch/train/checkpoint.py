@@ -22,6 +22,19 @@ the same on-disk format, so either package loads the other's).
   and every rank waits for the commit; ``load`` reads the global buffer
   and gives each rank its row. Without ``mesh`` the state's buffers are
   taken as the global ones (a one-process view).
+* **The model axis.** Under a mesh's ``model`` axis (the ``comm='xla'``
+  step over ``(data, model)``: ROADMAP §1 item 6.2c) a rank's ``params``
+  and momentum (LAMB's two moments) hold its slices of the split leaves.
+  The file holds the reference's whole arrays all the same: ``save``
+  gathers each split leaf whole over ``model`` by the descriptors of
+  ``param_pd`` (the ``comm='xla'`` step's ``param_pd``, the model's: an
+  explicit schedule's state, whole over every axis, has none), so a file
+  written at ``(2, 2)`` holds the bytes one written at model 1 from the
+  same state would, and ``load`` reads the whole arrays and keeps this rank's
+  slices (``weights.shard_tree``'s cut), on any ``(data, model)`` shape.
+  A split leaf whose saved shape is not the whole one raises
+  :class:`CheckpointMismatchError` naming it (a file of one rank's
+  slices, as saves before this repair wrote them, ROADMAP §3 fault 3.7).
 * **Fresh tensors.** ``load`` returns new tensors on the template's
   device and never writes into the template: the sharded step updates its
   state in place, and the watchdog's abandoned step may still hold one.
@@ -42,6 +55,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.comm import plan as comm_plan_mod
+from repro_torch.models.common import local_shape, local_slice, model_axis
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.train.state import TrainState, gather_rows
 
@@ -154,10 +168,43 @@ def _packed(state: TrainState, field: str) -> bool:
     return isinstance(getattr(state, field), (tuple, list))
 
 
-def _payload(state: TrainState, mesh=None) -> Dict[str, np.ndarray]:
+def _split_pds(tree, param_pd):
+    """The descriptor tree of a params-shaped field ``tree``: ``param_pd``
+    itself, or LAMB's ``{'m', 'v'}`` moments' (its ``count`` is a host
+    integer, never split)."""
+    if isinstance(tree, dict) and "count" in tree:
+        return {"m": param_pd, "v": param_pd}
+    return param_pd
+
+
+def _tp_of(state: TrainState, mesh, param_pd):
+    """The model axis the state's params and momentum are split over (a
+    ``launch.mesh.Axis``) by ``param_pd``, or None: no model axis, no
+    descriptors (an explicit schedule's state, whose leaves are whole
+    over every axis), or a packed (sharded rung) state."""
+    tp = model_axis(mesh)
+    if tp is None or param_pd is None or _packed(state, "mom"):
+        return None
+    return tp
+
+
+def _whole(tree, param_pd, mesh):
+    """A params-shaped field with each split leaf gathered whole over the
+    model axis (collective over its group)."""
+    from repro_torch.weights import gather_tree
+    if isinstance(tree, dict) and "count" in tree:
+        return dict(tree, m=gather_tree(tree["m"], param_pd, mesh),
+                    v=gather_tree(tree["v"], param_pd, mesh))
+    return gather_tree(tree, param_pd, mesh)
+
+
+def _payload(state: TrainState, mesh=None,
+             param_pd=None) -> Dict[str, np.ndarray]:
     """The npz entries; a sharded field's rows gathered along the shard
+    axis, the split leaves of ``params`` and ``mom`` whole over the model
     axis (collective: every rank calls it)."""
     axis = _shard_axis(mesh)
+    tp = _tp_of(state, mesh, param_pd)
     fields = (("params", "params"), ("mom", "mom"), ("bn", "bn_state"),
               ("shards", "shards"))
     payload = {}
@@ -165,20 +212,26 @@ def _payload(state: TrainState, mesh=None) -> Dict[str, np.ndarray]:
         tree = getattr(state, field)
         if _packed(state, field):
             tree = tuple(gather_rows(b, axis) for b in tree)
+        elif tp is not None and field in ("params", "mom") \
+                and tree is not None:
+            tree = _whole(tree, param_pd, mesh)
         payload.update({f"{prefix}{_SEP}{k}": _to_numpy(v)
                         for k, v in _flatten(tree).items()})
     return payload
 
 
 def save(state: TrainState, ckpt_dir: str, *, tag: str = "last",
-         comm_plan=None, keep_last_k: int = 0, mesh=None) -> str:
+         comm_plan=None, keep_last_k: int = 0, mesh=None,
+         param_pd=None) -> str:
     """Atomically commit ``state`` under ``tag``. ``comm_plan`` (a
     ``comm.plan.CommPlan``) is written beside it so that an elastic resume
     can rebuild the packing layout. ``keep_last_k > 0`` prunes older
     step-tagged checkpoints beyond k. With ``mesh``, every rank calls
-    this: sharded rows are gathered, rank 0 writes, all return once the
-    manifest is committed. Returns the payload's path."""
-    payload = _payload(state, mesh)
+    this: sharded rows are gathered, and over a model axis the split
+    leaves by ``param_pd`` (the model's descriptors, the ``comm='xla'``
+    step's ``param_pd``), rank 0 writes, all return once the manifest is
+    committed. Returns the payload's path."""
+    payload = _payload(state, mesh, param_pd)
     fname = f"ckpt_{tag}.npz"
     if is_writer():
         os.makedirs(ckpt_dir, exist_ok=True)
@@ -350,10 +403,30 @@ def _leaf(arr: np.ndarray, like):
                                               dtype=like.dtype)
 
 
-def _restore(prefix: str, tree, data, rows=None):
+def _cut(arr: np.ndarray, key: str, pd, tp) -> np.ndarray:
+    """This rank's slice over the model axis ``tp`` of the whole array
+    ``arr`` saved for the leaf ``pd`` (itself for a replicated leaf)."""
+    d, start, k = local_slice(pd, tp)
+    if d is None:
+        return arr
+    if tuple(arr.shape) != tuple(pd.shape):
+        what = ("one rank's slice (a save from before the repair of "
+                "ROADMAP §3 fault 3.7)"
+                if tuple(arr.shape) == local_shape(pd, tp) else
+                "neither the whole leaf nor a slice of it")
+        raise CheckpointMismatchError(
+            f"{key}: the checkpoint holds {tuple(arr.shape)}, {what}; a "
+            f"leaf split over the model axis is saved whole, "
+            f"{tuple(pd.shape)}")
+    return np.take(arr, range(start, start + k), axis=d)
+
+
+def _restore(prefix: str, tree, data, rows=None, pds=None, tp=None):
     """The tree of ``prefix`` entries in ``tree``'s structure. ``rows``
     (index, n): each entry is a global sharded buffer of which this rank
-    takes row ``index`` of ``n``."""
+    takes row ``index`` of ``n``. ``pds`` (the field's descriptor tree)
+    and ``tp``: each split leaf's entry is the whole array, of which this
+    rank takes its slice over the model axis ``tp``."""
     if tree is None:
         return None
     flat = _flatten(tree)
@@ -365,11 +438,14 @@ def _restore(prefix: str, tree, data, rows=None):
             f"(first: {missing[:3]}) — wrong model/optimizer/shard layout "
             f"for this checkpoint")
     got = {}
+    pd_of = _flatten(pds) if tp is not None else {}
     for k, like in flat.items():
         arr = data[f"{prefix}{_SEP}{k}"]
         want = tuple(like.shape) if isinstance(like, torch.Tensor) else ()
         if rows is not None and arr.ndim == 1 and arr.size % rows[1] == 0:
             arr = arr.reshape(rows[1], -1)[rows[0]]
+        if k in pd_of:
+            arr = _cut(arr, f"{prefix}{_SEP}{k}", pd_of[k], tp)
         if tuple(arr.shape) != want:
             raise CheckpointMismatchError(
                 f"shape mismatch restoring {prefix}{_SEP}{k}: checkpoint "
@@ -396,12 +472,14 @@ def _rebuild(tree, got, prefix: str = ""):
 
 
 def load(template: TrainState, ckpt_dir: str, *, tag: Optional[str] = None,
-         mesh=None) -> TrainState:
+         mesh=None, param_pd=None) -> TrainState:
     """Restore into the structure of ``template``, in new tensors on its
     device (shapes must match: for an n→m device-count change use
     ``train.elastic.load_resharded``). ``tag=None`` picks the newest
     checkpoint that passes checksum verification. With ``mesh``, each
-    rank takes its row of every sharded buffer."""
+    rank takes its row of every sharded buffer, and over a model axis its
+    slices of the whole split leaves by ``param_pd`` (as ``save``), on
+    whatever ``(data, model)`` shape the file was written."""
     meta, data, _ = load_arrays(ckpt_dir, tag=tag)
     if template.shards is not None and not meta.get("sharded"):
         raise CheckpointMismatchError(
@@ -416,8 +494,11 @@ def load(template: TrainState, ckpt_dir: str, *, tag: Optional[str] = None,
     axis = _shard_axis(mesh)
     rows = (axis.index, axis.size) if axis is not None else None
     mom_rows = rows if _packed(template, "mom") else None
+    tp = _tp_of(template, mesh, param_pd)
     return TrainState(
-        int(meta["step"]), _restore("params", template.params, data),
-        _restore("mom", template.mom, data, mom_rows),
+        int(meta["step"]),
+        _restore("params", template.params, data, pds=param_pd, tp=tp),
+        _restore("mom", template.mom, data, mom_rows,
+                 pds=_split_pds(template.mom, param_pd), tp=tp),
         _restore("bn", template.bn_state, data),
         _restore("shards", template.shards, data, rows))

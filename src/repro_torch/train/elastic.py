@@ -17,6 +17,12 @@ two plans need not share bucket boundaries.
 
 The relayout works on the GLOBAL buffers (as the checkpoint holds them);
 with a ``mesh``, each rank then keeps its row of the result.
+
+A non-sharded checkpoint of the ``comm='xla'`` step holds whole arrays
+(``checkpoint.save`` gathers the leaves split over a model axis), so it
+resumes onto any ``(data, model)`` shape: each rank keeps its slices of
+them (``checkpoint.load(..., param_pd=)``), bit-exact, as the reference's
+global arrays do.
 """
 from __future__ import annotations
 
@@ -71,7 +77,7 @@ def reshard_buffers(bufs: Sequence, old_plan: bucketing.BucketPlan,
 def load_resharded(ckpt_dir: str, template: TrainState,
                    new_plan: bucketing.BucketPlan, new_n_shards: int, *,
                    tag: Optional[str] = None, old_comm_plan=None,
-                   mesh=None) -> TrainState:
+                   mesh=None, param_pd=None) -> TrainState:
     """Restore a sharded checkpoint onto a different shard count (and
     possibly different bucket boundaries), in new tensors on the
     template's device.
@@ -83,7 +89,8 @@ def load_resharded(ckpt_dir: str, template: TrainState,
     rebuilding the OLD plan from the committed CommPlan. fp32 masters and
     momentum restore bit-exact; the ``params`` forward copy is rebuilt from
     the masters. A non-sharded checkpoint falls back to a plain
-    ``checkpoint.load``."""
+    ``checkpoint.load`` (over a model axis, of any ``(data, model)`` shape,
+    with ``param_pd``: the model's descriptors)."""
     meta, data, saved_plan = ckpt.load_arrays(ckpt_dir, tag=tag)
     if not meta.get("sharded"):
         if template.shards is not None:
@@ -91,7 +98,8 @@ def load_resharded(ckpt_dir: str, template: TrainState,
                 "checkpoint is non-sharded but the resume template carries "
                 "ZeRO shards — resume with sharding='replicated', or "
                 "re-checkpoint from a sharded run")
-        return ckpt.load(template, ckpt_dir, tag=tag, mesh=mesh)
+        return ckpt.load(template, ckpt_dir, tag=tag, mesh=mesh,
+                         param_pd=param_pd)
     if template.shards is None:
         raise ElasticResumeError(
             "sharded checkpoint needs a sharded resume template: "

@@ -16,7 +16,9 @@ fault-tolerance machinery of ``repro.train.loop``:
 * **checkpoints** (``ckpt_dir``): step-tagged saves every ``ckpt_every``
   steps with the CommPlan, ``keep_last_k`` retention, a baseline save
   under the watchdog and a final save at run_stop. On a mesh every rank
-  takes part (``checkpoint.save(mesh=...)``).
+  takes part (``checkpoint.save(mesh=...)``); over a model axis the saves
+  and restores gather and cut the split leaves by the step's
+  ``param_pd``.
 * **fault hooks** (``faults``): a ``train.faults.FaultInjector`` or its
   spec string.
 * **numerical-integrity guard** (``guard``; a step built with
@@ -154,6 +156,7 @@ def train(state: TrainState, train_step: Callable, batch_fn: Callable, *,
                 else FaultInjector(parse_faults(faults)))
     read_params = make_params_reader(train_step)
     mesh = getattr(train_step, "mesh", None)
+    param_pd = getattr(train_step, "param_pd", None)
     history = []
     t0 = time.time()
     watchdog = bool(step_timeout_s and step_timeout_s > 0)
@@ -183,7 +186,7 @@ def train(state: TrainState, train_step: Callable, batch_fn: Callable, *,
         with span:
             path = ckpt.save(s, ckpt_dir, tag=ckpt.step_tag(gstep),
                              comm_plan=comm_plan, keep_last_k=keep_last_k,
-                             mesh=mesh)
+                             mesh=mesh, param_pd=param_pd)
         last_saved_step = gstep
         mlperf_log("checkpoint_saved",
                    {"step": gstep, "tag": ckpt.step_tag(gstep)})
@@ -191,7 +194,8 @@ def train(state: TrainState, train_step: Callable, batch_fn: Callable, *,
             injector.on_saved(path, gstep)
 
     def restore(s: TrainState) -> TrainState:
-        return ckpt.load(s, ckpt_dir, tag=None, mesh=mesh)
+        return ckpt.load(s, ckpt_dir, tag=None, mesh=mesh,
+                         param_pd=param_pd)
 
     preempted = threading.Event()
 

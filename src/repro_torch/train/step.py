@@ -13,8 +13,9 @@ distribution paths:
   the master that autograd follows, so the gradients arrive in bf16 and
   the optimizer upcasts them. Without a mesh it runs on one device. Over
   a ``(data, model)`` mesh (``launch.mesh.make_local_mesh(M)``; ROADMAP §1
-  items 6.2 and 6.2b) the leaves of the dense decoder, the hybrid and the
-  xLSTM split over ``model`` by their specs (the state holds a rank's
+  items 6.2, 6.2b and 6.2c) the leaves of the dense decoder, the hybrid,
+  the xLSTM, whisper and the VLM split over ``model`` by their specs (the
+  VLM's labels IGNORE-padded over its image prefix; the state holds a rank's
   shards: ``init_state(..., **sharded_state_kwargs(step))``), each rank
   takes the rows of its data index, the forward and backward run the
   model axis's collectives (``models/common.py``), the gradients are
@@ -241,6 +242,8 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
     train_step.comm = "xla"
     train_step.mesh = mesh
     train_step.sharding = "replicated"
+    # what a checkpoint gathers and cuts the split leaves by
+    train_step.param_pd = model.param_pd
     return _guarded(train_step, guard)
 
 

@@ -217,15 +217,17 @@ def test_serve_entry_points_raise_without_card(monkeypatch):
             main(["--reduced"])
 
 
-def test_unported_lm_parts_name_roadmap(base, capsys):
+def test_unported_lm_parts_name_roadmap(base, capsys, monkeypatch):
     """Item 10.6 is ported: whisper's and the VLM's configs resolve and
     their families build (``test_torch_whisper.py``, ``test_torch_vlm.py``
     hold them against the reference); an unknown arch names the known
     ones; the CLI has every flag of the reference's, ``--model-parallel``
     since item 6.2 (the dense decoder, ``test_torch_tp.py``; the hybrid
-    and the xLSTM since item 6.2b, ``test_torch_tp_recurrent.py``), and
-    what the model axis does not split yet names its item (whisper:
-    6.2c)."""
+    and the xLSTM since item 6.2b, ``test_torch_tp_recurrent.py``;
+    whisper and the VLM since item 6.2c, ``test_torch_tp_frames.py``):
+    whisper at ``--model-parallel 2`` under a two-rank launch reaches the
+    run, and what the model axis does not split yet names its item (the
+    MoE layer: 6.3)."""
     from repro_torch.configs import _REGISTRY
     from repro_torch.launch import train as cli
     for arch, fam in (("whisper-base", "audio"), ("internvl2-2b", "vlm")):
@@ -243,7 +245,13 @@ def test_unported_lm_parts_name_roadmap(base, capsys):
                         comm="psum")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("whisper-large")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    ran = []
+    monkeypatch.setattr(cli, "_run", ran.append)
+    cli.main(["--arch", "whisper-base", "--model-parallel", "2",
+              "--device", "cpu"])
+    assert len(ran) == 1 and ran[0].model_parallel == 2
     with pytest.raises(SystemExit):
-        cli.main(["--arch", "whisper-base", "--model-parallel", "2",
+        cli.main(["--arch", "qwen2-moe-a2.7b", "--model-parallel", "2",
                   "--device", "cpu"])
-    assert "ROADMAP §1 item 6.2c" in capsys.readouterr().err
+    assert "ROADMAP §1 item 6.3" in capsys.readouterr().err

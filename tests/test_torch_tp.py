@@ -38,8 +38,11 @@ equal the whole leaves' slices bit for bit, f32 and bf16. The CLI
 
 Without ranks: every leaf's spec is the reference's, sharding by it and
 gathering back is the identity, and what the port does not split yet is
-refused, naming its item (6.2c, 6.3), or, for a leaf that M does not
-divide, saying that the reference cannot place it either."""
+refused, naming its item (6.2d, 6.3), or, for a leaf that M does not
+divide, saying that the reference cannot place it either; what item 6.2c
+lifted (whisper, the VLM, heads that M does not divide, checkpoints and
+``--resume-elastic`` under ``--model-parallel``) builds
+(``test_torch_tp_frames.py`` and ``test_torch_tp_ckpt.py`` hold it)."""
 import dataclasses
 
 import numpy as np
@@ -169,13 +172,13 @@ def _refused(fn, item):
     ("xlstm-125m", {"n_layers": 7}, (1, 2), UNEVEN),  # sLSTM FFN 341
     ("zamba2-7b", {"vocab_size": 511}, (1, 2), UNEVEN),
     ("xlstm-125m", {"d_model": 192, "n_heads": 2, "n_kv_heads": 2}, (1, 4),
-     "6.2c"),                                       # 2 heads over 4
-    ("whisper-base", {}, (1, 2), "6.2c"),
-    ("internvl2-2b", {}, (1, 2), "6.2c"),
+     "6.2d"),                                       # 2 heads over 4
+    ("whisper-base", {}, (1, 2), None),             # ported: item 6.2c
+    ("internvl2-2b", {}, (1, 2), None),
     ("qwen1.5-0.5b", {}, (1, 3), UNEVEN),           # 4 heads over 3
     ("qwen1.5-0.5b", {"d_ff": 511}, (1, 2), UNEVEN),
     ("qwen1.5-0.5b", {"vocab_size": 511}, (1, 2), UNEVEN),
-    ("qwen1.5-0.5b", {"n_kv_heads": 1}, (1, 2), "6.2c"),
+    ("qwen1.5-0.5b", {"n_kv_heads": 1}, (1, 2), None),   # MQA: gathered
     ("qwen1.5-32b", {"fsdp": True}, (2, 2), "6.3"),
 ])
 def test_model_axis_refuses_what_it_does_not_split(arch, kw, mesh, item):
@@ -183,7 +186,8 @@ def test_model_axis_refuses_what_it_does_not_split(arch, kw, mesh, item):
     (a leaf that M does not divide: that the reference cannot place it
     either), in the forward and in ``make_train_step(comm='xla')``,
     before any collective: nothing falls back. The rows whose item is
-    None are ported (the hybrid and the xLSTM, item 6.2b): both build."""
+    None are ported (the hybrid and the xLSTM, item 6.2b; whisper, the VLM
+    and a kv head fewer than M, item 6.2c): each builds."""
     cfg = dataclasses.replace(get_config(arch).reduced(), **kw)
     m = _mesh(*mesh)
     model = build_model(cfg)
@@ -229,18 +233,18 @@ def test_xla_step_refusals_over_a_multi_rank_mesh():
     (["--arch", "deepseek-v2-236b"], "6.3"),
     (["--arch", "zamba2-7b"], None),
     (["--arch", "resnet50"], None),
-    (["--arch", "whisper-base"], "6.2c"),
-    (["--arch", "internvl2-2b"], "6.2c"),
-    (["--arch", "qwen1.5-0.5b", "--ckpt-dir", "ck"], "6.2c"),
+    (["--arch", "whisper-base"], None),
+    (["--arch", "internvl2-2b"], None),
+    (["--arch", "qwen1.5-0.5b", "--ckpt-dir", "ck"], None),
     (["--arch", "qwen1.5-0.5b", "--ckpt-dir", "ck", "--resume-elastic"],
-     "6.2c"),
+     None),
     (["--arch", "qwen1.5-0.5b", "--guard"], None),
 ])
 def test_cli_model_parallel_refusals(argv, item, capsys, monkeypatch):
     """``--model-parallel 2`` under a two-rank launch: what the slice does
     not cover exits before anything is built, naming its item; what it
-    covers (item None: the hybrid, ResNet-50, the guard) reaches the
-    run."""
+    covers (item None: the hybrid, ResNet-50, the guard, whisper, the VLM,
+    checkpoints and ``--resume-elastic``) reaches the run."""
     from repro_torch.launch import train as cli
     monkeypatch.setenv("WORLD_SIZE", "2")
     ran = []

@@ -157,14 +157,14 @@ def test_cli_on_cpu_reaches_run_stop(capsys):
 
 def test_cli_flag_not_ported_names_roadmap(capsys):
     """A flag's use the port has not reached names its ROADMAP item:
-    ``--model-parallel`` with whisper (item 6.2c; ResNet-50 takes it
-    since item 6.2b)."""
+    ``--model-parallel`` with a MoE config (item 6.3; ResNet-50 takes it
+    since item 6.2b, whisper since item 6.2c)."""
     from repro_torch.launch import train as launch
     with pytest.raises(SystemExit) as exit_info:
-        launch.main(["--arch", "whisper-base", "--reduced", "--device",
+        launch.main(["--arch", "qwen2-moe-a2.7b", "--reduced", "--device",
                      "cpu", "--comm", "ring", "--model-parallel", "2"])
     assert exit_info.value.code != 0
-    assert "ROADMAP §1 item 6" in capsys.readouterr().err
+    assert "ROADMAP §1 item 6.3" in capsys.readouterr().err
 
 
 def test_cli_refuses_comm_xla_under_multi_rank_launch(capsys, monkeypatch):

@@ -600,6 +600,8 @@ def _rows(x, axis, dim=0):
     """Every data rank's rows of ``x`` along ``dim``, in rank order."""
     import torch
     import torch.distributed as dist
+    if axis.size == 1:
+        return x.clone()             # a copy, as the gather's is
     parts = [torch.empty_like(x) for _ in range(axis.size)]
     dist.all_gather(parts, x.contiguous(), group=axis.group)
     return torch.cat(parts, dim=dim)
@@ -611,40 +613,48 @@ def _rel(got, want) -> float:
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
 
-def _tp_run(model, params, toks, tpm, cache_len, new):
+def _tp_run(model, params, toks, tpm, cache_len, new, frames=None):
     """The port over ``tpm`` (a rank's shards ``params``, its data row
-    of ``toks``): the forward over all of ``toks``, the prefill of all but
-    the last token, one decode step of the last and ``generate``'s ``new``
-    greedy tokens, each gathered over the mesh (the cache over ``model``
-    by its spec, then every output over ``data``; the caches as
-    ``{path: leaf}``), as numpy."""
+    of ``toks`` and of whisper's or the VLM's stub ``frames``): the
+    forward over all of ``toks``, the prefill of all but the last token,
+    one decode step of the last and ``generate``'s ``new`` greedy tokens,
+    each gathered over the mesh (the cache over ``model`` by its spec,
+    then every output over ``data``; the caches as ``{path: leaf}``), as
+    numpy."""
     import torch
     from repro_torch import weights
     from repro_torch.models import transformer
-    from repro_torch.serve.decode import generate
+    from repro_torch.models.common import model_axis
+    from repro_torch.serve.decode import generate, prefix_len
     from repro_torch.tree import tree_flatten
     d = tpm.axis("data")
     n = toks.shape[0] // d.size
     mine = torch.from_numpy(toks[d.index * n:(d.index + 1) * n])
+    extra = ({} if frames is None else
+             {"frames": torch.from_numpy(frames[d.index * n:
+                                                (d.index + 1) * n])})
     P = toks.shape[1] - 1
+    m = model_axis(tpm)
     with torch.no_grad():
-        (logits, _), _ = model.forward_train(params, {"tokens": mine},
-                                             mesh=tpm)
-        last, cache = model.forward_prefill(params, {"tokens": mine[:, :P]},
-                                            cache_len, tpm)
-        pd = transformer.cache_pd(model.cfg, toks.shape[0], cache_len)
+        (logits, _), _ = model.forward_train(params, {"tokens": mine,
+                                                      **extra}, mesh=tpm)
+        last, cache = model.forward_prefill(
+            params, {"tokens": mine[:, :P], **extra}, cache_len, tpm)
+        pd = transformer.cache_pd(model.cfg, toks.shape[0], cache_len,
+                                  1 if m is None else m.size)
         rows_dim = {p: list(x.spec).index("data")
                     for p, x in tree_flatten(pd)}
         whole = lambda c: {p: _rows(v, d, rows_dim[p]) for p, v in
                            tree_flatten(weights.gather_tree(c, pd, tpm))}
         out = {"train_logits": _rows(logits, d), "prefill_logits": _rows(
             last, d), "cache": whole(cache)}
-        dl, cache = model.forward_decode(params, cache, mine[:, P:], P, tpm)
+        dl, cache = model.forward_decode(params, cache, mine[:, P:],
+                                         P + prefix_len(model.cfg), tpm)
         out.update(decode_logits=_rows(dl, d), decode_cache=whole(cache))
-        gen = generate(model, params, {"tokens": mine[:, :P]}, max_new=new,
-                       cache_len=cache_len, mesh=tpm)
+        gen = generate(model, params, {"tokens": mine[:, :P], **extra},
+                       max_new=new, cache_len=cache_len, mesh=tpm)
     out["generate"] = _rows(gen, d)
-    out["mine"] = (mine, gen)
+    out["mine"] = (mine, gen, extra.get("frames"))
     return out
 
 
@@ -719,35 +729,36 @@ def _sha(tensors) -> np.ndarray:
     return np.frombuffer(h.digest(), np.uint8)
 
 
-def _tp_held(out, tpm, prefix, model, params, r, toks, f32):
+def _tp_held(out, tpm, prefix, model, params, r, toks, f32, frames=None):
     """``_tp_run`` over ``tpm`` against the reference's ``_lm_run``
     outputs ``r``: each output's worst difference over the reference's max
     as ``{prefix}/{name}`` (the caches over every leaf), and
     ``{prefix}/ties`` (``check_greedy_tokens`` on the rank's rows; bf16 at
-    the serving margin 3e-2)."""
+    the serving margin 3e-2). ``frames``: whisper's and the VLM's."""
     import contextlib
 
     import torch
     import torch_reference as R
     from repro_torch.core import precision
     from repro_torch.tree import tree_flatten
-    P, C, NEW = R.LM_PROMPT, R.LM_CACHE, R.LM_NEW
+    P, C, NEW = R.LM_PROMPT, R.tp_case_cache(model.cfg), R.LM_NEW
     d = tpm.axis("data")
     compute = precision.f32_compute if f32 else contextlib.nullcontext
     with compute():
-        got = _tp_run(model, params, toks, tpm, C, NEW)
+        got = _tp_run(model, params, toks, tpm, C, NEW, frames)
     for name in ("train_logits", "prefill_logits", "decode_logits"):
         out[f"{prefix}/{name}"] = _rel(got[name], r[name])
     for name in ("cache", "decode_cache"):
         out[f"{prefix}/{name}"] = max(_rel(got[name][k], v)
                                       for k, v in tree_flatten(r[name]))
-    mine, gen = got["mine"]
+    mine, gen, my_frames = got["mine"]
     n = toks.shape[0] // d.size
     with compute(), torch.no_grad():
         ties = R.check_greedy_tokens(
             model, params, mine[:, :P],
             r["generate"][d.index * n:(d.index + 1) * n],
-            gen.numpy(), C, rel_margin=None if f32 else 3e-2, mesh=tpm)
+            gen.numpy(), C, rel_margin=None if f32 else 3e-2, mesh=tpm,
+            frames=my_frames)
     out[f"{prefix}/ties"] = np.int64(ties.sum())
 
 
@@ -755,10 +766,11 @@ def _tp_self(cfg, tpm, prefix, out, seed=5):
     """``cfg`` over ``tpm`` against the port with no mesh, wholly in f32
     (``precision.f32_compute``), from ``pinit``'s params at ``seed``:
     ``{prefix}/logits`` (the forward, prefill and decode, over the logit
-    max), ``{prefix}/masters`` and ``mom`` (two LARS steps against the
-    no-mesh step on the whole batch, over the largest update and the
-    largest momentum element), ``{prefix}/sha_rep`` and ``sha_all`` (this
-    rank's replicated masters and momentum, and all its shards)."""
+    max; whisper's and the VLM's with their stub frames), ``{prefix}/
+    masters`` and ``mom`` (two LARS steps against the no-mesh step on the
+    whole batch, over the largest update and the largest momentum
+    element), ``{prefix}/sha_rep`` and ``sha_all`` (this rank's replicated
+    masters and momentum, and all its shards)."""
     import torch
     import torch_reference as R
     from repro_torch import weights
@@ -767,24 +779,28 @@ def _tp_self(cfg, tpm, prefix, out, seed=5):
     from repro_torch.data.synthetic import token_batch
     from repro_torch.models.common import local_slice, model_axis
     from repro_torch.models.registry import build_model
+    from repro_torch.serve.decode import prefix_len
     from repro_torch.train.state import init_state, sharded_state_kwargs
     from repro_torch.train.step import make_train_step
     from repro_torch.tree import tree_flatten
-    P, C, NEW = R.LM_PROMPT, R.LM_CACHE, R.LM_NEW
+    P, C, NEW = R.LM_PROMPT, R.tp_case_cache(cfg), R.LM_NEW
     d, tp = tpm.axis("data"), model_axis(tpm)
     sched = make_schedule(ScheduleConfig(**R.LR))
     model = build_model(cfg)
     toks = R.lm_tokens(cfg)
+    frames = R.lm_frames(cfg) if cfg.encoder is not None else None
+    extra = {} if frames is None else {"frames": torch.from_numpy(frames)}
     full = pinit.materialize(model.param_pd, seed, "cpu")
     with precision.f32_compute():
         got = _tp_run(model, weights.shard_tree(full, model.param_pd, tpm),
-                      toks, tpm, C, NEW)
+                      toks, tpm, C, NEW, frames)
         with torch.no_grad():
             t = torch.from_numpy(toks)
-            (lg, _), _ = model.forward_train(full, {"tokens": t})
-            last, cache = model.forward_prefill(full, {"tokens": t[:, :P]},
-                                                C)
-            dl, _ = model.forward_decode(full, cache, t[:, P:], P)
+            (lg, _), _ = model.forward_train(full, {"tokens": t, **extra})
+            last, cache = model.forward_prefill(
+                full, {"tokens": t[:, :P], **extra}, C)
+            dl, _ = model.forward_decode(full, cache, t[:, P:],
+                                         P + prefix_len(cfg))
     out[f"{prefix}/logits"] = max(
         _rel(got["train_logits"], lg.numpy()),
         _rel(got["prefill_logits"], last.numpy()),
@@ -1213,11 +1229,316 @@ def xla_conv(mesh, ref_path):
     return out
 
 
+#: ``lm_tp_frames``'s CLI run: whisper over the model axis (ROADMAP §1
+#: item 6.2c under ``torchrun``)
+TP_FRAMES_CLI = ("--arch", "whisper-base", "--reduced", "--model-parallel",
+                 "2", "--comm", "xla", "--device", "cpu", "--steps", "2",
+                 "--batch", "4", "--seq", "16")
+
+
+def _cli_ok(argv, steps: int) -> bool:
+    """``launch.train.main(argv)`` in this rank's process: ``steps``
+    finite losses logged and run_stop."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        history = cli.main(list(argv))
+    losses = [h["loss"] for h in history if "loss" in h]
+    return bool(len(losses) == steps and np.isfinite(losses).all()
+                and "run_stop" in buf.getvalue())
+
+
+def lm_tp_frames(mesh, ref_path):
+    """The model axis (ROADMAP §1 item 6.2c) on four ranks, against the
+    reference's GSPMD runs (``torch_reference.py tp_frames_cases``, read
+    from ``ref_path``): whisper and the VLM at (data 2, model 2) in bf16
+    and f32 (``{arch}/f{f32}/...``), and the heads the axis does not
+    divide in f32 (``torch_reference.TP_HEAD_CASES``: MQA at (2, 2), two
+    heads over model 4 at (1, 4); ``{case}/f1/...``): ``_tp_held``'s
+    outputs and ties, ``step`` (``_tp_step_errors``: loss, masters,
+    momentum). Within the port, in f32, at (2, 2): ``self/{name}/...``
+    (``_tp_self``: model 2 against the port with no mesh); ``pinit``: its
+    shards of whisper's and the VLM's trees equal the whole leaves'
+    slices, f32 and bf16. ``cli``: ``TP_FRAMES_CLI`` reached run_stop."""
+    import torch
+    import torch_reference as R
+    from repro_torch import weights
+    from repro_torch.configs import get_config
+    from repro_torch.core import pinit
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.tree import tree_flatten
+
+    meshes = {R.TP_MESH: make_local_mesh(2, device="cpu"),
+              (1, 4): make_local_mesh(4, device="cpu")}
+    ref = R.load(ref_path)
+    out = {}
+    cases = [(a, (0, 1)) for a in R.TP_FRAMES_ARCHS] + \
+        [(c, (1,)) for c in R.TP_HEAD_CASES]
+    for name, dtypes in cases:
+        base = R.tp_case_config(get_config, name)
+        tpm = meshes[R.TP_HEAD_CASES[name][0] if name in R.TP_HEAD_CASES
+                     else R.TP_MESH]
+        model = build_model(base)
+        toks = R.lm_tokens(base)
+        frames = R.lm_frames(base) if base.encoder is not None else None
+        params = weights.lm_params_from_jax(ref[name]["params"], base,
+                                            "cpu", mesh=tpm)
+        for f32 in dtypes:
+            r = ref[name][f"f{f32}"]
+            _tp_held(out, tpm, f"{name}/f{f32}", model, params, r["run"],
+                     toks, f32, frames)
+            out[f"{name}/f{f32}/step"] = np.array(
+                _tp_step_errors(base, r["train"], tpm, bool(f32)))
+        if tpm is meshes[R.TP_MESH]:
+            _tp_self(base, tpm, f"self/{name}", out)
+    same = True
+    for arch in R.TP_FRAMES_ARCHS:
+        pd = build_model(get_config(arch).reduced()).param_pd
+        for dt in (None, torch.bfloat16):
+            mine = pinit.materialize(pd, 7, "cpu", dtype=dt,
+                                     mesh=meshes[R.TP_MESH])
+            cut = weights.shard_tree(pinit.materialize(pd, 7, "cpu",
+                                                       dtype=dt), pd,
+                                     meshes[R.TP_MESH])
+            same &= all(a.dtype == b.dtype and torch.equal(a, b)
+                        for (_, a), (_, b) in zip(tree_flatten(mine),
+                                                  tree_flatten(cut)))
+    out["pinit"] = np.bool_(same)
+    out["cli"] = np.bool_(_cli_ok(TP_FRAMES_CLI, 2))
+    for m in meshes.values():
+        m.destroy()
+    return out
+
+
+#: ``lm_tp_ckpt``'s run: the reduced qwen1.5-0.5b under ``comm='xla'``,
+#: TP_CKPT_BATCH sequences of TP_CKPT_SEQ tokens a step
+TP_CKPT_BATCH, TP_CKPT_SEQ = 4, 32
+#: ``lm_tp_ckpt``'s CLI runs: two steps at --model-parallel 2 with a
+#: checkpoint a step, then a resume at --model-parallel 4 to step 3
+TP_CKPT_CLI = ("--arch", "qwen1.5-0.5b", "--reduced", "--comm", "xla",
+               "--device", "cpu", "--batch", str(TP_CKPT_BATCH), "--seq",
+               str(TP_CKPT_SEQ))
+
+
+def _npz(path):
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _ckpt_file(d):
+    """The newest committed payload of the checkpoint directory ``d``."""
+    from repro_torch.train import checkpoint as ckpt
+    return _npz(os.path.join(d, f"ckpt_{ckpt.latest_tag(d)}.npz"))
+
+
+def _ckpt_whole(state, pd, tpm):
+    """A state's params and momentum gathered whole over ``tpm``'s model
+    axis, keyed as the checkpoint keys them (``params|…``, ``mom|…``;
+    LAMB's ``count`` aside)."""
+    from repro_torch.train import checkpoint as ckpt
+    out = {}
+    for field in ("params", "mom"):
+        tree = ckpt._whole(getattr(state, field), pd, tpm)
+        out.update({f"{field}|{k}": v.detach().numpy()
+                    for k, v in ckpt._flatten(tree).items()
+                    if hasattr(v, "detach")})
+    return out
+
+
+def _equal_arrays(a: dict, b: dict) -> bool:
+    """The keys of ``a`` all in ``b``, the same bytes, shape and dtype."""
+    return all(k in b and a[k].dtype == b[k].dtype
+               and a[k].shape == b[k].shape
+               and a[k].tobytes() == b[k].tobytes() for k in a)
+
+
+def lm_tp_ckpt(mesh, ref_dir):
+    """Checkpoints under the model axis (ROADMAP §3 fault 3.7, §1 item
+    6.2c) on four ranks: the reduced qwen1.5-0.5b under ``comm='xla'`` at
+    (data 2, model 2), one step through ``loop.train(ckpt_dir=...)``.
+
+    ``whole``: every split leaf of the committed file has the reference's
+    whole shape; ``own``: ``checkpoint.load`` gives this rank its own
+    slices (the state's, bit for bit), ``own_sha`` their digest; ``bytes``
+    (rank 0): each key's bytes equal those of the file written at model 1
+    from the same state gathered whole; ``whole/{key}`` (rank 0): the
+    file's arrays; ``ref``: the file the reference saved (``ref_dir``)
+    loaded at (2, 2) and gathered is its arrays, bit for bit;
+    ``elastic/{m}``: the file resumed at (data 4 / m, model m) for m in 4,
+    1 (``elastic.load_resharded``) gathered is the file, bit for bit,
+    ``elastic/{m}/finite``: one step from it; ``resume``: a 2-step run
+    resumed from the step-1 file at (2, 2) ends on the masters and
+    momentum of an uninterrupted one, bit for bit; ``lamb/whole``,
+    ``lamb/own``: the same two checks for a LAMB state (its two moments);
+    ``explicit``: an explicit schedule's state over the same mesh (whole
+    leaves on every rank) saved as it is and loaded back, bit for bit;
+    ``cli``: ``TP_CKPT_CLI`` at --model-parallel 2 with --ckpt-dir, then
+    --resume-elastic at --model-parallel 4 resumed at step 2 and reached
+    run_stop."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import lars
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.launch import train as cli
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.common import dp_axes, local_slice
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import elastic, loop
+    from repro_torch.train.state import TrainState, init_state, \
+        sharded_state_kwargs
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_flatten
+
+    root = sys.argv[2]
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    model = build_model(cfg)
+    pd = model.param_pd
+    sched = make_schedule(ScheduleConfig(base_lr=0.5, warmup_steps=1,
+                                         total_steps=3, decay="poly2"))
+    shape = InputShape("t", "train", TP_CKPT_SEQ, TP_CKPT_BATCH)
+    tpm = make_local_mesh(2, device="cpu")
+
+    def setup(m, kind="lars"):
+        step = make_train_step(model, lars.OptConfig(kind=kind), sched,
+                               mesh=m, comm="xla")
+        batch_fn = make_batch_fn(cfg, shape, seed=3, device="cpu", mesh=m,
+                                 axes=dp_axes(m))
+        return step, batch_fn
+
+    def fresh(step, seed=0, kind="lars"):
+        return init_state(model, seed, device="cpu", opt_kind=kind,
+                          **sharded_state_kwargs(step))
+
+    def run(step, batch_fn, state, steps, d):
+        return loop.train(state, step, batch_fn, steps=steps, ckpt_dir=d,
+                          ckpt_every=1, log_every=0)[0]
+
+    def leaves(state):
+        return [x for f in (state.params, state.mom)
+                for _, x in tree_flatten(f)]
+
+    split = {k for k, v in ckpt._flatten(pd).items()
+             if local_slice(v, tpm.axis("model"))[0] is not None}
+    out = {}
+    step, batch_fn = setup(tpm)
+    d1 = os.path.join(root, "tp")
+    state = run(step, batch_fn, fresh(step), 1, d1)
+    data = _ckpt_file(d1)
+    whole_shape = {k: tuple(v.shape) for k, v in ckpt._flatten(pd).items()}
+    out["whole"] = np.bool_(all(
+        data[f"{f}|{k}"].shape == whole_shape[k]
+        for f in ("params", "mom") for k in split))
+    back = ckpt.load(fresh(step, seed=1), d1, mesh=tpm, param_pd=pd)
+    out["own"] = np.bool_(back.step == 1 and all(
+        torch.equal(a, b) for a, b in zip(leaves(back), leaves(state))))
+    out["own_sha"] = _sha(leaves(back))
+    gathered = _ckpt_whole(state, pd, tpm)
+    # the model-1 file: the same state gathered whole, written by rank 0
+    w_params = ckpt._whole(state.params, pd, tpm)
+    w_mom = ckpt._whole(state.mom, pd, tpm)
+    d2 = os.path.join(root, "one")
+    if mesh.rank == 0:
+        ckpt.save(TrainState(state.step, w_params, w_mom), d2,
+                  tag=ckpt.step_tag(1))
+        one = _npz(os.path.join(d2, f"ckpt_{ckpt.step_tag(1)}.npz"))
+        out["bytes"] = np.bool_(set(one) == set(data)
+                                and _equal_arrays(one, data))
+        out["file_is_state"] = np.bool_(_equal_arrays(gathered, data))
+        for k, v in data.items():
+            out[f"whole/{k}"] = v
+
+    # the file the reference saved, loaded at (2, 2)
+    got = ckpt.load(fresh(step, seed=2), ref_dir, mesh=tpm, param_pd=pd)
+    out["ref"] = np.bool_(_equal_arrays(_ckpt_whole(got, pd, tpm),
+                                        _ckpt_file(ref_dir)))
+
+    # elastic: (2, 2) -> (1, 4) and (4, 1)
+    for m in (4, 1):
+        em = make_local_mesh(m, device="cpu")
+        estep, ebatch = setup(em)
+        s = elastic.load_resharded(d1, fresh(estep, seed=3), None, 1,
+                                   mesh=em, param_pd=pd)
+        out[f"elastic/{m}"] = np.bool_(
+            s.step == 1 and _equal_arrays(_ckpt_whole(s, pd, em), data))
+        s, metrics = estep(s, ebatch(s.step))
+        out[f"elastic/{m}/finite"] = np.bool_(
+            np.isfinite(float(metrics["loss"])))
+        em.destroy()
+
+    # a resumed run against an uninterrupted one
+    d3 = os.path.join(root, "straight")
+    straight = run(step, batch_fn, fresh(step), 2, d3)
+    resumed = run(step, batch_fn, ckpt.load(fresh(step, seed=4), d1,
+                                            mesh=tpm, param_pd=pd), 2, d1)
+    out["resume"] = np.bool_(resumed.step == straight.step == 2 and all(
+        torch.equal(a, b) for a, b in zip(leaves(resumed),
+                                          leaves(straight))))
+
+    # LAMB: its two moments gathered and cut alike
+    lstep, lbatch = setup(tpm, "lamb")
+    d4 = os.path.join(root, "lamb")
+    lstate = run(lstep, lbatch, fresh(lstep, kind="lamb"), 1, d4)
+    ldata = _ckpt_file(d4)
+    out["lamb/whole"] = np.bool_(all(
+        ldata[f"mom|{x}|{k}"].shape == whole_shape[k]
+        for x in "mv" for k in split))
+    lback = ckpt.load(fresh(lstep, seed=1, kind="lamb"), d4, mesh=tpm,
+                      param_pd=pd)
+    out["lamb/own"] = np.bool_(
+        lback.mom["count"] == lstate.mom["count"] and all(
+            torch.equal(a, b) for f in ("m", "v") for a, b in zip(
+                [x for _, x in tree_flatten(lback.mom[f])],
+                [x for _, x in tree_flatten(lstate.mom[f])])))
+
+    # an explicit schedule over the same mesh: every leaf whole on every
+    # rank, saved and loaded as it is
+    xstep = make_train_step(model, lars.OptConfig(), sched, mesh=tpm,
+                            comm="psum")
+    xbatch = make_batch_fn(cfg, shape, seed=3, device="cpu", mesh=tpm)
+    d6 = os.path.join(root, "explicit")
+    xstate = run(xstep, xbatch, fresh(xstep), 1, d6)
+    xback = ckpt.load(fresh(xstep, seed=1), d6, mesh=tpm)
+    out["explicit"] = np.bool_(
+        _equal_arrays({f"{f}|{k}": v.numpy() for f in ("params", "mom")
+                       for k, v in ckpt._flatten(getattr(xstate, f)).items()},
+                      _ckpt_file(d6))
+        and all(torch.equal(a, b) for a, b in zip(leaves(xback),
+                                                  leaves(xstate))))
+
+    # the CLI: --ckpt-dir at model 2, --resume-elastic at model 4
+    d5 = os.path.join(root, "cli")
+    first = _cli_ok([*TP_CKPT_CLI, "--model-parallel", "2", "--steps", "2",
+                     "--ckpt-dir", d5, "--ckpt-every", "1"], 2)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        history = cli.main([*TP_CKPT_CLI, "--model-parallel", "4",
+                            "--steps", "3", "--resume-elastic",
+                            "--ckpt-dir", d5])
+    losses = [h for h in history if "loss" in h]
+    out["cli"] = np.bool_(
+        first and "restored step 2" in buf.getvalue()
+        and "run_stop" in buf.getvalue() and len(losses) == 1
+        and losses[0]["step"] == 2 and np.isfinite(losses[0]["loss"]))
+    tpm.destroy()
+    return out
+
+
 SCENARIOS = {"schedules": schedules, "zero1_step": zero1_step,
              "zero23_step": zero23_step, "ckpt_zero1": ckpt_zero1,
              "lm_zero1": lm_zero1, "lm_family_dp": lm_family_dp,
              "lm_tp": lm_tp, "lm_xla_dp": lm_xla_dp,
-             "lm_tp_recurrent": lm_tp_recurrent, "xla_conv": xla_conv}
+             "lm_tp_recurrent": lm_tp_recurrent, "xla_conv": xla_conv,
+             "lm_tp_frames": lm_tp_frames, "lm_tp_ckpt": lm_tp_ckpt}
 
 
 def main(scenario: str, out_dir: str, device: str = "cpu"):

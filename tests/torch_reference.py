@@ -29,6 +29,7 @@ to an ``.npz`` of ``kind/path`` keys.
   python tests/torch_reference.py traced_zero1_step OUT.npz
   python tests/torch_reference.py tp_cases OUT.npz      (4 host devices)
   python tests/torch_reference.py tp_recurrent_cases OUT.npz   (4 devices)
+  python tests/torch_reference.py tp_frames_cases OUT.npz      (4 devices)
   python tests/torch_reference.py xla_conv_cases OUT.npz       (2 devices)
 
 The reference's explicit data-parallel steps fail under jax 0.9.0 before
@@ -2109,6 +2110,80 @@ def tp_cases():
     return out
 
 
+#: the model axis for whisper and the VLM (ROADMAP §1 item 6.2c): their
+#: reduced configs on ``_mesh_tp``, in bf16 and wholly in f32
+TP_FRAMES_ARCHS = (WHISPER_ARCH, VLM_ARCH)
+#: attention heads that the model axis does not divide (item 6.2c, the
+#: reference's ``pin`` false case), the reduced qwen1.5-0.5b wholly in f32:
+#: MQA (one kv head over model 2) on ``_mesh_tp``, and two heads over
+#: model 4 (half a head a rank) on a (1, 4) mesh
+TP_HEAD_CASES = {"mqa": ((2, 2), {"n_kv_heads": 1}),
+                 "h2m4": ((1, 4), {"n_heads": 2, "n_kv_heads": 2})}
+
+
+def tp_case_config(get_config, name):
+    """The config of a ``tp_frames_cases`` case, from either package's
+    ``get_config``: a frames arch reduced, or a ``TP_HEAD_CASES`` one."""
+    import dataclasses
+    if name in TP_HEAD_CASES:
+        return dataclasses.replace(get_config(LM_ARCH).reduced(),
+                                   **TP_HEAD_CASES[name][1])
+    return get_config(name).reduced()
+
+
+def tp_case_cache(cfg) -> int:
+    """``_lm_run``'s cache rows for ``cfg``: the VLM's count its prefix."""
+    return LM_CACHE + (cfg.encoder.n_frames if cfg.family == "vlm" else 0)
+
+
+def tp_frames_cases():
+    """The reference's GSPMD program, its params placed by their specs:
+    each of ``TP_FRAMES_ARCHS`` on ``_mesh_tp`` in bf16 (``f0``) and
+    wholly in f32 (``f1``), and each of ``TP_HEAD_CASES`` on its mesh in
+    f32: ``_lm_run`` with the stub frames (``lm_frames``; greedy tokens
+    from its own programs) and two LARS ``comm='xla'`` steps
+    (``_train_steps``; the reference's token batches carry the frames), as
+    ``{name}/f{f32}/{run,train}/...``, the params as ``{name}/params``.
+    Each program runs in a thread of its own."""
+    import jax
+    from jax.sharding import AxisType
+    from repro.configs import get_config
+    from repro.models.registry import build_model
+
+    _shard_map_shim()
+    meshes = {TP_MESH: _mesh_tp(),
+              (1, 4): jax.make_mesh((1, 4), ("data", "model"),
+                                    axis_types=(AxisType.Auto,) * 2)}
+
+    def case(name, f32):
+        base = tp_case_config(get_config, name)
+        mesh = meshes[TP_HEAD_CASES[name][0] if name in TP_HEAD_CASES
+                      else TP_MESH]
+        params = lm_params(base)
+        model = build_model(base)
+        frames = lm_frames(base) if base.encoder is not None else None
+        mine = {}
+        run = _lm_run(model, _place(params, model.param_pd, mesh),
+                      lm_tokens(base), mesh=mesh, via_generate=False,
+                      frames=frames, cache_len=tp_case_cache(base))
+        _flat(f"{name}/f{f32}/run", jax.device_get(run), mine)
+        _flat(f"{name}/params", params, mine)
+        _train_steps(base, params, mine, f32=bool(f32), mesh=mesh,
+                     prefix=f"{name}/f{f32}/train")
+        return mine
+
+    out = {}
+    for f32 in (0, 1):
+        jobs = [(a, f32) for a in TP_FRAMES_ARCHS]
+        if f32:
+            jobs += [(c, 1) for c in TP_HEAD_CASES]
+        with _jax_f32_compute() if f32 else contextlib.nullcontext(), \
+                ThreadPoolExecutor(len(jobs)) as pool:
+            for done in [pool.submit(case, *job) for job in jobs]:
+                out.update(done.result())
+    return out
+
+
 #: the model axis for the recurrent families (ROADMAP §1 item 6.2b): the
 #: reduced zamba2-7b and the xLSTM (``tp_config``) on ``_mesh_tp``, wholly
 #: in f32
@@ -2364,4 +2439,5 @@ if __name__ == "__main__":
                       "traced_zero1_step": traced_zero1_step,
                       "tp_cases": tp_cases,
                       "tp_recurrent_cases": tp_recurrent_cases,
+                      "tp_frames_cases": tp_frames_cases,
                       "xla_conv_cases": xla_conv_cases}[what]())
