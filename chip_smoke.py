@@ -413,6 +413,7 @@ Then each phase's seconds, one JSON line with every kernel's numbers, the
 card's name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``.
 """
+import contextlib
 import gc
 import json
 import math
@@ -459,8 +460,9 @@ BATCH, STEPS = 64, 6
 #: positions); then a rank's launch in qwen1.5-32b's prefill at model 4
 #: (serve_tp: 10 of its 40 heads of 128), in zamba2-7b's at model 4
 #: (serve_tp_hybrid: 8 of its 32 heads of 112), in whisper-base's at model
-#: 4 (serve_tp_audio: 2 of its 8 heads of 64, encoder and cross) and in
-#: internvl2-2b's (serve_tp_vlm: 4 query heads on 2 kv heads of 128)
+#: 4 (serve_tp_audio: 2 of its 8 heads of 64, encoder and cross), in
+#: internvl2-2b's (serve_tp_vlm: 4 query heads on 2 kv heads of 128) and
+#: in qwen2-moe-a2.7b's (serve_tp_moe: 4 of its 16 heads of 128)
 FLASH_SHAPES = (("path", 8, 2048, 16, 16, 64, 64, 0, "bfloat16", 1),
                 ("serve_moe", 8, 2048, 16, 16, 128, 128, 0, "bfloat16", 1),
                 ("serve_qk", 8, 2048, 40, 8, 128, 128, 0, "bfloat16", 1),
@@ -484,7 +486,8 @@ FLASH_SHAPES = (("path", 8, 2048, 16, 16, 64, 64, 0, "bfloat16", 1),
                  "bfloat16", 1, False),
                 ("serve_tp_audio_cross", 16, 128, 2, 2, 64, 64, 0,
                  "bfloat16", 1, False, 1500),
-                ("serve_tp_vlm", 8, 2048, 4, 2, 128, 128, 0, "bfloat16", 1))
+                ("serve_tp_vlm", 8, 2048, 4, 2, 128, 128, 0, "bfloat16", 1),
+                ("serve_tp_moe", 8, 2048, 4, 4, 128, 128, 0, "bfloat16", 1))
 #: K5's route for each input dtype
 FLASH_ROUTES = {"bfloat16": "tensor cores: mma.sync m16n8k16 bf16, P split "
                             "into bf16 hi + mid + lo, the scale after the "
@@ -2749,7 +2752,9 @@ TP_TIMEOUT_S = 900
 #: the dense decoder's checkpoints at --model-parallel 2 ({ckpt}: a
 #: directory the ranks share) resumed by --resume-elastic at
 #: --model-parallel 4 (it must report step TP_CLI_RESUMED_AT restored),
-#: and whisper (reduced) at --model-parallel 2
+#: and whisper (reduced) at --model-parallel 2; since item 6.3's experts
+#: the reduced qwen2-moe-a2.7b at --model-parallel 2 and at model 1 over
+#: the four ranks
 TP_CLI = ("--arch", "qwen1.5-0.5b", "--model-parallel", "2", "--comm",
           "xla", "--steps", "3", "--batch", "4", "--seq", "1024")
 TP_CLI_CKPT = ("--arch", "qwen1.5-0.5b", "--comm", "xla", "--batch", "4",
@@ -2768,7 +2773,11 @@ TP_CLI_RUNS = (TP_CLI,
                 str(TP_CLI_RESUMED_AT + 1), "--resume-elastic"),
                ("--arch", "whisper-base", "--reduced", "--model-parallel",
                 "2", "--comm", "xla", "--steps", "3", "--batch", "4",
-                "--seq", "64"))
+                "--seq", "64"),
+               ("--arch", "qwen2-moe-a2.7b", "--reduced", "--model-parallel",
+                "2", "--comm", "xla", "--steps", "3"),
+               ("--arch", "qwen2-moe-a2.7b", "--reduced", "--comm", "xla",
+                "--steps", "3"))
 #: the slice-18 four-card phases (ROADMAP §1 item 6.2b). serve_tp_hybrid:
 #: zamba2-7b at full width and depth at model 4 (a rank: 28 of its 112 SSM
 #: heads, 8 of its 32 attention heads of 112, 3,584 of its 14,336 FFN
@@ -2830,37 +2839,46 @@ TP_CKPT_STEPS = 2
 #: sequence with its stub frames, TP_TRAIN_STEPS steps at (data 2, model
 #: 2) against the one-card step at the global batch (lm_train_tp's bounds)
 TP_FRAMES_TRAIN = (("whisper-base", (4, 448)), ("internvl2-2b", (1, 3840)))
+#: the slice-20 four-card phases (ROADMAP §1 item 6.3's experts).
+#: serve_tp_moe: qwen2-moe-a2.7b whole at model 4 (a rank: 16 of the 64
+#: experts its 60 pad to, 4 of 16 heads of 128, 1,408 of the shared
+#: experts' 5,632 columns, 37,984 of 151,936 vocabulary columns),
+#: flash_attention, at TP_SERVE; its context at TP_CONTEXT_LAYERS layers
+#: against one card's run of the same params with the MoE layer chunked as
+#: model 4 chunks it (``_moe_chunked(1, 4)``: each 512-token chunk routed
+#: with its own capacity), then at SERVE_MOE_CF against one card's
+#: unchunked layer (no choice dropped on either side: the capacity passes
+#: a chunk's tokens, so the chunking changes nothing there)
+#: lm_train_tp_moe: (a) lm_train_tp's recipe at its MOE_TRAIN_LAYERS at
+#: (data 2, model 2) against one card at the global batch with the layer
+#: chunked as (2, 2) chunks it; (b) TP_MOE_DEEP_LAYERS layers at (data 1,
+#: model 4), TP_TRAIN a rank, TP_TRAIN_STEPS steps, remat: finite losses,
+#: the replicated masters the same bits on every rank, the step's time,
+#: tokens/s and peak memory (PERF.md §6 reckons its memory)
+TP_MOE_DEEP_LAYERS = 24
+#: serve_moe's prefill on one H100 (ms; PERF.md §5), printed beside
+#: serve_tp_moe's
+SERVE_MOE_ONE_CARD_MS = 345.46
+#: the model-axis MoE phases' one-card yardsticks replay the ranks' expert
+#: choices (``_RoutingPin.hold``): the card's own top-k may part from them
+#: only at near-ties, by at most ROUTE_GAP_TOL in probability (1.7 times
+#: the largest reading on H100s, 2.948e-3) and in at most ROUTE_FLIP_SHARE
+#: of the token-layers (read: 3.6% and 5.5%; PERF.md §6)
+ROUTE_GAP_TOL = 5e-3
+ROUTE_FLIP_SHARE = 0.1
 #: the phases of ``--tp``, in order
 TP_PHASES = ("serve_tp", "lm_train_tp", "serve_tp_hybrid",
              "lm_train_tp_xlstm", "resnet_xla", "ckpt_tp", "serve_tp_audio",
-             "serve_tp_vlm", "lm_train_tp_frames", "cli")
+             "serve_tp_vlm", "lm_train_tp_frames", "serve_tp_moe",
+             "lm_train_tp_moe", "cli")
 
 
 def _collectives():
-    """A context that counts ``torch.distributed``'s all_reduce and
-    all_gather calls (``{'all_reduce': n, 'all_gather': n}``)."""
-    import contextlib
-
-    import torch.distributed as dist
-
-    @contextlib.contextmanager
-    def counting():
-        calls = {"all_reduce": 0, "all_gather": 0}
-        real = {name: getattr(dist, name) for name in calls}
-
-        def wrap(name):
-            def fn(*a, **kw):
-                calls[name] += 1
-                return real[name](*a, **kw)
-            return fn
-        for name in calls:
-            setattr(dist, name, wrap(name))
-        try:
-            yield calls
-        finally:
-            for name, fn in real.items():
-                setattr(dist, name, fn)
-    return counting()
+    """A context that counts ``torch.distributed``'s all_reduce,
+    all_gather and all_to_all_single calls (``{'all_reduce': n, ...}``:
+    ``launch.profile_serve.counting_collectives``)."""
+    from repro_torch.launch.profile_serve import counting_collectives
+    return counting_collectives()
 
 
 def _greedy_rule(model, params, batch, want, got, cache_len, margin,
@@ -3028,13 +3046,22 @@ def _serve_tp(mesh, say) -> dict:
 
 
 def _lm_train_tp(say, name="lm_train_tp", cfg=None,
-                 rows_seq=TP_TRAIN) -> dict:
+                 rows_seq=TP_TRAIN, moe_chunks=None) -> dict:
     """lm_train_tp on this rank: TP_TRAIN_STEPS comm='xla' steps on the
     (data 2, model 2) mesh, then rank 0 runs the one-card step over the
     same global batches from the same initial values and holds the
     masters and losses against it. ``cfg`` (default qwen1.5-0.5b) and
     ``rows_seq`` (sequences, tokens a data rank; whisper's and the VLM's
-    with their stub frames): lm_train_tp_frames' runs. Rank 0's row."""
+    with their stub frames): lm_train_tp_frames' runs. ``moe_chunks``
+    (lm_train_tp_moe): the one-card step's MoE layer chunked as the mesh
+    chunks it (``_moe_chunked``), each chunk taking the expert choices its
+    rank made (``_RoutingPin``: among 60 experts two bf16 paths part at
+    near-ties, and a flipped choice moves the router's update by far more
+    than rounding; the choices that differ are printed), and the
+    replicated masters (the router, the norms) must be the same bits on
+    every rank. Rank 0's row."""
+    import contextlib
+
     import torch
     import torch.distributed as dist
     from repro_torch import weights
@@ -3073,6 +3100,7 @@ def _lm_train_tp(say, name="lm_train_tp", cfg=None,
     p0 = dict(tree_flatten(weights.gather_tree(state.params, model.param_pd,
                                                mesh)))
     times, losses = [], []
+    pin = _RoutingPin() if moe_chunks is not None else None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     _zero(*_counters().values())
@@ -3080,13 +3108,23 @@ def _lm_train_tp(say, name="lm_train_tp", cfg=None,
         batch = part(i)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        state, metrics = step(state, batch)
+        with pin.record() if pin else contextlib.nullcontext():
+            state, metrics = step(state, batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
         losses.append(float(metrics["loss"]))
     counts = _read_path(name, {"k4": TP_TRAIN_STEPS,
                                         "k4_bwd": TP_TRAIN_STEPS,
                                         "k1": 2 * TP_TRAIN_STEPS})
+    routes = rep_same = None
+    if pin is not None:
+        # each rank's choices, call by call (the remat recompute's too);
+        # the chunked one-card layer routes the chunks rank by rank
+        routes = [None] * mesh.size
+        dist.all_gather_object(routes, [x.cpu() for x in pin.ids])
+        routes = [r[i].to(dev) for i in range(len(routes[0]))
+                  for r in routes]
+        rep_same = _replicated_same(state, model, mesh)
     peak = torch.cuda.max_memory_allocated(dev)
     peaks = [None] * mesh.size
     dist.all_gather_object(peaks, peak)
@@ -3105,9 +3143,16 @@ def _lm_train_tp(say, name="lm_train_tp", cfg=None,
         init_same = all(torch.equal(x, p0[p])
                         for p, x in tree_flatten(s1.params))
         ones = []
-        for i in range(TP_TRAIN_STEPS):
-            s1, m1 = one(s1, full(i))
-            ones.append(float(m1["loss"]))
+        pinned = contextlib.nullcontext()
+        if moe_chunks is not None:
+            replay = _RoutingPin()
+            pinned = contextlib.ExitStack()
+            pinned.enter_context(_moe_chunked(*moe_chunks))
+            pinned.enter_context(replay.replay(routes))
+        with pinned:
+            for i in range(TP_TRAIN_STEPS):
+                s1, m1 = one(s1, full(i))
+                ones.append(float(m1["loss"]))
         want = dict(tree_flatten(s1.params))
         d_loss = max(abs(a - b) / abs(b) for a, b in zip(losses, ones))
         worst = max(((got[p] - want[p]).abs().max().item()
@@ -3130,7 +3175,20 @@ def _lm_train_tp(say, name="lm_train_tp", cfg=None,
             f"{med * 1e3:.2f} ms, {tokens / med:.0f} tokens/s on "
             f"{mesh.size} cards; peak memory a rank GiB "
             f"{[round(p / 2 ** 30, 2) for p in peaks]}; launches K4 "
-            f"{counts['k4']} + {counts['k4_bwd']}, K1 {counts['k1']}")
+            f"{counts['k4']} + {counts['k4_bwd']}, K1 {counts['k1']}"
+            + ("" if rep_same is None else
+               f"; the one card's MoE layer chunked as (data "
+               f"{moe_chunks[0]}, model {moe_chunks[1]}) chunks it, each "
+               f"chunk on its rank's expert choices (its own top-"
+               f"{cfg.moe.top_k} differs in {replay.flips} of "
+               f"{replay.choices} token-layers, by at most "
+               f"{replay.gap:.3e} in probability; limits "
+               f"{ROUTE_FLIP_SHARE} of them and {ROUTE_GAP_TOL}); "
+               f"replicated masters and "
+               f"momentum "
+               f"{'the same bits on every rank' if rep_same else 'DIFFER'}"))
+        if rep_same is False:
+            fail(f"{name}: the replicated masters differ between ranks")
         if not init_same:
             fail(f"{name}: the shards' initial values are not the "
                  f"one-card state's")
@@ -3139,6 +3197,8 @@ def _lm_train_tp(say, name="lm_train_tp", cfg=None,
         if not worst[0] <= LM_UPDATE_TOL:
             fail(f"{name}: masters {worst[0]:.3e} of the update off the "
                  f"one-card step ({worst[1]})")
+        if moe_chunks is not None:
+            replay.hold(name)
         row = {"arch": cfg.arch_id, "vocab": cfg.vocab_size,
                "mesh": [n_data, 2],
                "batch": [rows_a_rank, seq], "losses": losses,
@@ -3147,10 +3207,29 @@ def _lm_train_tp(say, name="lm_train_tp", cfg=None,
                "step_ms": [x * 1e3 for x in times], "median_ms": med * 1e3,
                "tokens_per_s": tokens / med,
                "peak_gib": [p / 2 ** 30 for p in peaks], "launches": counts}
+        if rep_same is not None:
+            row.update(replicated_same=rep_same, flips=replay.flips,
+                       choices=replay.choices, max_gap=replay.gap)
         del s1
     dist.barrier()
     mesh.destroy()
     return row
+
+
+def _replicated_same(state, model, mesh) -> bool:
+    """Whether this job's ranks hold the same bits in every replicated
+    master and momentum leaf (a collective every rank joins)."""
+    import torch.distributed as dist
+    from repro_torch.models.common import local_slice, model_axis
+    from repro_torch.tree import tree_flatten
+    pds = dict(tree_flatten(model.param_pd))
+    tp = model_axis(mesh)
+    rep = {f"{f}/{p}": x for f in ("params", "mom")
+           for p, x in tree_flatten(getattr(state, f))
+           if local_slice(pds[p], tp)[0] is None}
+    digests = [None] * dist.get_world_size()
+    dist.all_gather_object(digests, _sha(rep))
+    return len(set(digests)) == 1
 
 
 def _hybrid_collectives(cfg) -> dict:
@@ -3158,10 +3237,11 @@ def _hybrid_collectives(cfg) -> dict:
     layer the norm's sum of squares and the row-split ``out``, per
     shared-block application the attention's and the FFN's row-split
     products (all-reduces); the untied embedding's columns and the
-    vocab-split logits (all-gathers)."""
+    vocab-split logits (all-gathers); no all_to_all (no MoE layer)."""
     groups = -(-cfg.n_layers // cfg.attn_every)
     return {"all_reduce": 2 * cfg.n_layers + 2 * groups,
-            "all_gather": 1 + (not cfg.tie_embeddings)}
+            "all_gather": 1 + (not cfg.tie_embeddings),
+            "all_to_all_single": 0}
 
 
 def _serve_tp_hybrid(mesh, say) -> dict:
@@ -3720,7 +3800,8 @@ def _tp_cli_in_process(mesh, say) -> dict:
     """The CLI runs of TP_CLI_RUNS, ``launch.train.main`` called in each
     rank's own process (the job's process group is the CLI's); each must
     reach run_stop on every rank, a --resume-elastic run from step
-    TP_CLI_RESUMED_AT. Rank 0's row: each run's seconds."""
+    TP_CLI_RESUMED_AT. Rank 0's row: each run's seconds and its kernels'
+    launches on rank 0."""
     import contextlib
     import io
 
@@ -3735,9 +3816,11 @@ def _tp_cli_in_process(mesh, say) -> dict:
         dist.barrier()
         t = time.perf_counter()
         buf = io.StringIO()
+        _zero(*_counters().values())
         with contextlib.redirect_stdout(buf):
             history = cli.main(list(args))
         secs = time.perf_counter() - t
+        launches = {k: w.launches for k, w in _counters().items()}
         stops = [ln for ln in buf.getvalue().splitlines() if "run_stop" in ln]
         ok = bool(stops) and all(math.isfinite(h["loss"]) for h in history
                                  if "loss" in h)
@@ -3749,8 +3832,9 @@ def _tp_cli_in_process(mesh, say) -> dict:
             fail(f"tp CLI {' '.join(args)}: no run_stop or a non-finite "
                  f"loss on ranks {[r for r, o in enumerate(oks) if not o]}")
         say(f"tp: CLI on 4 ranks ({' '.join(args)}) reached run_stop on "
-            f"every rank in {secs:.1f} s: {stops[0].strip()}")
-        row[" ".join(args)] = secs
+            f"every rank in {secs:.1f} s, launches {launches}: "
+            f"{stops[0].strip()}")
+        row[" ".join(args)] = {"s": secs, "launches": launches}
     dist.barrier()
     if mesh.rank == 0:
         shutil.rmtree(d, ignore_errors=True)
@@ -3778,7 +3862,7 @@ def _frames_collectives(cfg, m: int) -> tuple:
     step 3 a decoder layer); the untied embedding's columns and the
     vocab-split logits gathered (all-gathers), and q's, k's and v's where
     m cuts a head (``attention.HeadSplit``: none at whisper-base's 8 heads
-    and internvl2-2b's 16 on 8 over 4)."""
+    and internvl2-2b's 16 on 8 over 4); no all_to_all (no MoE layer)."""
     import types
 
     from repro_torch.models import attention
@@ -3793,8 +3877,10 @@ def _frames_collectives(cfg, m: int) -> tuple:
     else:
         attn, prefill = L, 2 * L
         decode, dec_gathers = 2 * L, L * qkv
-    return ({"all_reduce": prefill, "all_gather": gathers + attn * qkv},
-            {"all_reduce": decode, "all_gather": gathers + dec_gathers})
+    return ({"all_reduce": prefill, "all_gather": gathers + attn * qkv,
+             "all_to_all_single": 0},
+            {"all_reduce": decode, "all_gather": gathers + dec_gathers,
+             "all_to_all_single": 0})
 
 
 def _serve_tp_frames(mesh, say, name, arch, sizes) -> dict:
@@ -3938,6 +4024,347 @@ def _lm_train_tp_frames(say) -> dict:
             for key, v in row["launches"].items():
                 launches[key] = launches.get(key, 0) + v
     return dict(rows, launches=launches) if rows else None
+
+
+def _moe_collectives(cfg) -> tuple:
+    """The collectives of a MoE decoder's prefill and decode step at a
+    model axis: a layer's attention and shared-expert row-split products
+    (all-reduces); in the prefill the MoE layer's two all_to_alls, its
+    sequence chunks' gather and its aux's all-reduce, in decode its local
+    experts' psum; the untied embedding's columns and the vocab-split
+    logits gathered once each."""
+    L = cfg.n_layers
+    return ({"all_reduce": 3 * L, "all_gather": L + 2,
+             "all_to_all_single": 2 * L},
+            {"all_reduce": 3 * L, "all_gather": 2, "all_to_all_single": 0})
+
+
+def _moe_context(model, mesh, params, batch, cache_len, say, cf=None):
+    """serve_tp_moe's context on this rank: ``model`` (at
+    ``capacity_factor`` ``cf`` where given) prefilled and decoding
+    TP_CONTEXT_NEW tokens at model 4, then on rank 0's card the same
+    params gathered whole, the MoE layer chunked as model 4 chunks it
+    (``cf`` None) or whole (no choice drops at ``cf``), every MoE layer on
+    the ranks' expert choices (``_RoutingPin``: two bf16 paths part at
+    near-ties among 60 experts, and a flipped choice moves a token by far
+    more than rounding; unpinned, the prefill's difference and the choices
+    that differ are printed): the prefill's logits within SERVE_TOL of
+    their max, and the tokens by the greedy rule. Rank 0's figures."""
+    import contextlib
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import weights
+    from repro_torch.models import moe
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.decode import generate
+    cfg = model.cfg
+    if cf is not None:
+        model = build_model(dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf)))
+    recorded = []
+    for run in (lambda: model.forward_prefill(params, batch, cache_len,
+                                              mesh),
+                lambda: generate(model, params, batch,
+                                 max_new=TP_CONTEXT_NEW,
+                                 cache_len=cache_len, mesh=mesh)):
+        pin = _RoutingPin()
+        with torch.no_grad(), pin.record():
+            recorded.append(run())
+        calls = [None] * mesh.size
+        dist.all_gather_object(calls, [x.cpu() for x in pin.ids])
+        recorded.append(calls)
+    (last4, _), prefill_calls, tp_tokens, gen_calls = recorded
+    whole = weights.gather_tree(params, model.param_pd, mesh)
+    out = None
+    if mesh.rank == 0:
+        m, L = mesh.axis("model").size, cfg.n_layers
+        B, S = batch["tokens"].shape
+
+        def pinned(calls):
+            """The one card's choices, call by call: a prefill's chunk by
+            chunk (chunked) or its chunks' tokens in order (whole); a
+            decode step's (every rank routes every token alike)."""
+            if cf is None:
+                ids = [r[i] for i in range(L) for r in calls]
+            else:
+                ids = [torch.cat([r[i].view(B, S // m, -1) for r in calls],
+                                 1).view(B * S, -1) for i in range(L)]
+            return [x.to(mesh.device) for x in ids + calls[0][L:]]
+
+        one = (contextlib.nullcontext() if cf is not None
+               else _moe_chunked(1, m))
+        replay = _RoutingPin()
+        with torch.no_grad(), one:
+            free, _ = model.forward_prefill(whole, batch, cache_len)
+            with replay.replay(pinned(prefill_calls)):
+                last1, _ = model.forward_prefill(whole, batch, cache_len)
+            d, d_free = (_rel(last4.float(), x.float()) for x in (last1, free))
+            with _RoutingPin().replay(pinned(gen_calls)):
+                one_tokens = generate(model, whole, batch,
+                                      max_new=TP_CONTEXT_NEW,
+                                      cache_len=cache_len)
+            with _RoutingPin().replay(pinned(gen_calls)):
+                ties = _greedy_rule(model, whole, batch, tp_tokens,
+                                    one_tokens, cache_len, SERVE_TOL,
+                                    "serve_tp_moe")
+        what = (f"one card's MoE layer chunked as model {m} chunks it"
+                if cf is None else f"one card's whole layer, capacity_factor "
+                                   f"{cf} (no choice dropped)")
+        say(f"serve_tp_moe context: {cfg.arch_id} at {cfg.n_layers} of its "
+            f"layers (full width), model {m} against {what}, on the ranks' "
+            f"expert choices: prefill logits differ by {d:.3e} of their max "
+            f"(limit {SERVE_TOL}; unpinned {d_free:.3e}, its own top-"
+            f"{cfg.moe.top_k} differing in {replay.flips} of "
+            f"{replay.choices} token-layers, by at most {replay.gap:.3e} in "
+            f"probability; limits {ROUTE_FLIP_SHARE} of them and "
+            f"{ROUTE_GAP_TOL}); {TP_CONTEXT_NEW} greedy tokens within the rule "
+            f"(margin {SERVE_TOL} of the max), tied steps a request {ties}")
+        if not d <= SERVE_TOL:
+            fail(f"serve_tp_moe context: model {m}'s prefill disagrees with "
+                 f"one card's ({what})")
+        replay.hold("serve_tp_moe context")
+        out = {"prefill_vs_one": d, "unpinned": d_free, "ties": ties,
+               "flips": replay.flips, "choices": replay.choices,
+               "max_gap": replay.gap, "capacity_factor": cf}
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_tp_moe(mesh, say) -> dict:
+    """serve_tp_moe on this rank: qwen2-moe-a2.7b whole at model 4, then
+    its two context checks. Rank 0's row."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import pinit
+    from repro_torch.models.common import local_shape, model_axis
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.decode import generate
+    from repro_torch.tree import tree_flatten, tree_leaves
+
+    dev, n = mesh.device, mesh.size
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"),
+                              flash_attention=True)
+    model = build_model(cfg)
+    tp = model_axis(mesh)
+    pds = [pd for _, pd in tree_flatten(model.param_pd)]
+    reckoned = sum(math.prod(local_shape(pd, tp)) for pd in pds)
+    n_whole = sum(math.prod(pd.shape) for pd in pds)
+    n_req, n_prompt, n_new = TP_SERVE
+    torch.cuda.synchronize()
+    dist.barrier()
+    t = time.perf_counter()
+    params = pinit.materialize(model.param_pd, seed=0, device=dev,
+                               dtype=torch.bfloat16, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    dist.barrier()
+    all_init_s = time.perf_counter() - t
+    n_local = sum(x.numel() for x in tree_leaves(params))
+    if n_local != reckoned:
+        fail(f"serve_tp_moe: {n_local} params a rank, the specs give "
+             f"{reckoned}")
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (n_req, n_prompt),
+                           generator=gen, dtype=torch.int32).to(dev)
+    batch = {"tokens": tokens}
+    cache_len = _serve_cache(cfg, batch, n_new)
+    generate(model, params, batch, max_new=2, cache_len=cache_len,
+             mesh=mesh)                    # warm-up: not timed, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    timings = {}
+    _zero(*_counters().values())
+    out = generate(model, params, batch, max_new=n_new, cache_len=cache_len,
+                   timings=timings, mesh=mesh)
+    torch.cuda.synchronize()
+    counts = _read_path("serve_tp_moe", {"k5": cfg.n_layers})
+    peak = torch.cuda.max_memory_allocated(dev)
+    with torch.no_grad(), _collectives() as pre:
+        last, cache = model.forward_prefill(params, batch, cache_len, mesh)
+    with torch.no_grad(), _collectives() as dec:
+        dl, _ = model.forward_decode(params, cache, out[:, :1],
+                                     _prompt_pos(cfg, batch), mesh)
+    del cache
+    for what, got, want in zip(("prefill", "decode step"), (pre, dec),
+                               _moe_collectives(cfg)):
+        if got != want:
+            fail(f"serve_tp_moe: a {what} calls {got}; the model axis "
+                 f"makes {want}")
+    if not (bool(torch.isfinite(last).all())
+            and bool(torch.isfinite(dl).all())):
+        fail("serve_tp_moe: non-finite logits")
+    outs, peaks, inits = ([None] * n for _ in range(3))
+    dist.all_gather_object(outs, out.cpu())
+    dist.all_gather_object(peaks, peak)
+    dist.all_gather_object(inits, init_s)
+    if tuple(out.shape) != (n_req, n_new) or not all(
+            torch.equal(o, outs[0]) for o in outs):
+        fail(f"serve_tp_moe: the ranks' tokens differ or have shape "
+             f"{tuple(out.shape)}")
+    if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        fail("serve_tp_moe: a token outside the vocabulary")
+    q1, med, q3 = statistics.quantiles(timings["decode_ms"], n=4)
+    rate = n_req * n_prompt / timings["prefill_ms"] * 1e3
+    say(f"serve_tp_moe: {cfg.arch_id}, {cfg.n_layers} layers at full width, "
+        f"model {n}: {n_local / 1e9:.3f} B params a rank of "
+        f"{n_whole / 1e9:.3f} B (the specs' reckoning, bf16; 16 of the 64 "
+        f"padded experts a rank), pinit {all_init_s:.2f} s (the ranks' own: "
+        f"{[round(s, 2) for s in inits]}); {n_req} requests of {n_prompt} "
+        f"tokens, {n_new} new, cache {cache_len} rows; prefill "
+        f"{timings['prefill_ms']:.2f} ms ({rate:.0f} prompt tokens/s; one "
+        f"card {SERVE_MOE_ONE_CARD_MS} ms, serve_moe); decode ms a token median "
+        f"{med:.3f} (p25 {q1:.3f}, p75 {q3:.3f}), {n_req * 1e3 / med:.1f} "
+        f"tokens/s; peak memory a rank GiB "
+        f"{[round(p / 2 ** 30, 2) for p in peaks]}; a prefill {pre}, a "
+        f"decode step {dec}; flash_attention {counts['k5']} launches a "
+        f"rank; every rank's tokens equal")
+    say(f"serve_tp_moe: first request's tokens {out[0].tolist()}")
+    row = {"arch": cfg.arch_id, "layers": cfg.n_layers, "model": n,
+           "params_a_rank": n_local, "params": n_whole,
+           "pinit_s": all_init_s, "pinit_rank_s": inits,
+           "prefill_ms": timings["prefill_ms"],
+           "decode_ms": {"p25": q1, "median": med, "p75": q3},
+           "tokens_per_s": n_req * 1e3 / med,
+           "peak_gib": [p / 2 ** 30 for p in peaks], "sizes": list(TP_SERVE),
+           "cache_len": cache_len,
+           "collectives": {"prefill": pre, "decode_step": dec},
+           "launches": counts}
+    del params, out, last, dl
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # context: TP_CONTEXT_LAYERS layers at full width, model 4 against one
+    # card, chunked alike, then at SERVE_MOE_CF against the whole layer
+    cfg4 = dataclasses.replace(cfg, n_layers=TP_CONTEXT_LAYERS)
+    model4 = build_model(cfg4)
+    p4 = pinit.materialize(model4.param_pd, seed=0, device=dev,
+                           dtype=torch.bfloat16, mesh=mesh)
+    row["context"] = _moe_context(model4, mesh, p4, batch, cache_len, say)
+    row["context_cf"] = _moe_context(model4, mesh, p4, batch, cache_len,
+                                     say, cf=SERVE_MOE_CF)
+    del p4
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return row
+
+
+def _lm_train_tp_moe(mesh4, say) -> dict:
+    """lm_train_tp_moe on this rank: (a) lm_train_tp's run of
+    qwen2-moe-a2.7b at MOE_TRAIN_LAYERS against one card chunked alike;
+    (b) TP_MOE_DEEP_LAYERS layers at (data 1, model 4) (``mesh4``):
+    TP_TRAIN_STEPS steps, finite losses, the replicated masters the same
+    bits on every rank, K4 and K1 on the path. Rank 0's rows."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import lars
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.models.common import dp_axes
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.state import init_state, sharded_state_kwargs
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    full = get_config("qwen2-moe-a2.7b")
+    say(f"lm_train_tp_moe: {full.arch_id}'s depth cut to {MOE_TRAIN_LAYERS} "
+        f"of its {full.n_layers} layers (full width), as lm_train_moe")
+    row = {"two": _lm_train_tp(say, "lm_train_tp_moe", dataclasses.replace(
+        full, n_layers=MOE_TRAIN_LAYERS), TP_TRAIN, moe_chunks=(2, 2))}
+
+    # (b) the deep run at (data 1, model 4)
+    cfg = dataclasses.replace(full, n_layers=TP_MOE_DEEP_LAYERS)
+    dev = mesh4.device
+    model = build_model(cfg)
+    sched = make_schedule(ScheduleConfig(base_lr=LM_LR, warmup_steps=1,
+                                         total_steps=TP_TRAIN_STEPS,
+                                         decay="poly2"))
+    opt = lars.OptConfig(kind="lars", weight_decay=5e-5, use_kernel=True)
+    rows_a_rank, seq = TP_TRAIN
+    shape = InputShape("train_4k", "train", seq, rows_a_rank)
+    # the state donated, as the CLI's loop does: the update writes the
+    # masters and momentum in place (a second copy of them, 28 GiB a
+    # rank, does not fit beside the gradients and K1's packs)
+    step = make_train_step(model, opt, sched, smoothing=0.1, mesh=mesh4,
+                           comm="xla", donate=True)
+    part = make_batch_fn(cfg, shape, device=dev, mesh=mesh4,
+                         axes=dp_axes(mesh4))
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    t = time.perf_counter()
+    state = init_state(model, 0, device=dev, **sharded_state_kwargs(step))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_local = sum(x.numel() for x in tree_leaves(state.params))
+    times, losses = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero(*_counters().values())
+    for i in range(TP_TRAIN_STEPS):
+        batch = part(i)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(float(metrics["loss"]))
+    counts = _read_path("lm_train_tp_moe", {"k4": TP_TRAIN_STEPS,
+                                            "k4_bwd": TP_TRAIN_STEPS,
+                                            "k1": 2 * TP_TRAIN_STEPS})
+    peak = torch.cuda.max_memory_allocated(dev)
+    peaks = [None] * mesh4.size
+    dist.all_gather_object(peaks, peak)
+    rep_same = _replicated_same(state, model, mesh4)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"lm_train_tp_moe: deep losses not all finite: {losses}")
+    if not rep_same:
+        fail("lm_train_tp_moe: the deep run's replicated masters differ "
+             "between ranks")
+    med = statistics.median(times[1:])
+    tokens = rows_a_rank * seq
+    cut = ("" if cfg.n_layers == full.n_layers else
+           f", its depth cut to {cfg.n_layers} of {full.n_layers} (the "
+           f"deepest that fits: PERF.md §4)")
+    say(f"lm_train_tp_moe: {cfg.arch_id}, {cfg.n_layers} layers at full "
+        f"width{cut}, (data 1, model {mesh4.size}), comm='xla', remat, LARS "
+        f"with K1, {rows_a_rank} x {seq} tokens: {n_local / 1e9:.3f} B "
+        f"params a rank, init_state {init_s:.2f} s; losses "
+        f"{[round(v, 4) for v in losses]} (finite); replicated masters and "
+        f"momentum the same bits on every rank; step times ms "
+        f"{[round(x * 1e3, 2) for x in times]}, median after the first "
+        f"{med * 1e3:.2f} ms, {tokens / med:.0f} tokens/s on {mesh4.size} "
+        f"cards; peak memory a rank GiB "
+        f"{[round(p / 2 ** 30, 2) for p in peaks]}; launches K4 "
+        f"{counts['k4']} + {counts['k4_bwd']}, K1 {counts['k1']}")
+    row["deep"] = {"layers": [cfg.n_layers, full.n_layers],
+                   "mesh": [1, mesh4.size], "batch": [rows_a_rank, seq],
+                   "params_a_rank": n_local, "init_s": init_s,
+                   "losses": losses, "step_ms": [x * 1e3 for x in times],
+                   "median_ms": med * 1e3, "tokens_per_s": tokens / med,
+                   "peak_gib": [p / 2 ** 30 for p in peaks],
+                   "replicated_same": rep_same, "launches": counts}
+    launches = dict(counts)
+    if row["two"] is not None:
+        for key, v in row["two"]["launches"].items():
+            launches[key] = launches.get(key, 0) + v
+    row["launches"] = launches
+    dist.barrier()
+    return row if mesh4.rank == 0 else None
 
 
 def _shared_dir(mesh, prefix: str) -> str:
@@ -4176,11 +4603,12 @@ def tp_rank(phases=TP_PHASES):
     """One rank of the model-axis phases (``chip_smoke.py --tp-rank
     [PHASE ...]`` under torch.distributed.run, one card each), those of
     TP_PHASES named in ``phases`` in its order: serve_tp, serve_tp_hybrid,
-    serve_tp_audio and serve_tp_vlm on the (data 1, model 4) mesh,
-    lm_train_tp, lm_train_tp_xlstm, ckpt_tp (which also loads onto (1, 4)
-    and (4, 1)) and lm_train_tp_frames on the (data 2, model 2) one,
-    resnet_xla on (data 4, model 1), then the CLI runs in process. Rank 0
-    prints the lines and, last, ``tp-json: {...}``."""
+    serve_tp_audio, serve_tp_vlm and serve_tp_moe on the (data 1, model 4)
+    mesh, lm_train_tp, lm_train_tp_xlstm, ckpt_tp (which also loads onto
+    (1, 4) and (4, 1)) and lm_train_tp_frames on the (data 2, model 2) one,
+    lm_train_tp_moe on both, resnet_xla on (data 4, model 1), then the CLI
+    runs in process. Rank 0 prints the lines and, last, ``tp-json:
+    {...}``."""
     import torch
     sys.path.insert(0, str(SRC))
     from repro_torch.launch.mesh import make_local_mesh
@@ -4198,6 +4626,8 @@ def tp_rank(phases=TP_PHASES):
             "serve_tp_vlm": lambda: _serve_tp_frames(
                 mesh, say, "serve_tp_vlm", "internvl2-2b", VLM_SERVE),
             "lm_train_tp_frames": lambda: _lm_train_tp_frames(say),
+            "serve_tp_moe": lambda: _serve_tp_moe(mesh, say),
+            "lm_train_tp_moe": lambda: _lm_train_tp_moe(mesh, say),
             "cli": lambda: _tp_cli_in_process(mesh, say)}
     out, seconds = {"cards": mesh.size}, {}
     for name in TP_PHASES:
@@ -4252,7 +4682,7 @@ def _card_line() -> str:
 #: K5's shapes the ``--tp`` call holds against the plain version: a rank's
 #: launches in the model-axis prefills
 TP_K5_SHAPES = ("serve_tp", "serve_tp_hybrid", "serve_tp_audio_enc",
-                "serve_tp_audio_cross", "serve_tp_vlm")
+                "serve_tp_audio_cross", "serve_tp_vlm", "serve_tp_moe")
 
 
 def tp_main(phases=()):
@@ -5337,6 +5767,25 @@ def _rel(a, b) -> float:
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
+@contextlib.contextmanager
+def _moe_chunked(data: int = 1, model: int = 1):
+    """Within: the MoE layer as ``moe.moe_apply_chunked`` at (data,
+    model), the mesh's answer on one card (the transformer calls
+    ``moe.moe_apply`` by name; the stand-in takes ``tp`` and ignores
+    it)."""
+    from repro_torch.models import moe
+    real = moe.moe_apply
+
+    def chunked(p, x, cfg, *, decode, tp=None):
+        return moe.moe_apply_chunked(p, x, cfg, decode=decode, data=data,
+                                     model=model)
+    moe.moe_apply = chunked
+    try:
+        yield
+    finally:
+        moe.moe_apply = real
+
+
 class _RoutingPin:
     """Pins a MoE model's expert choices across two runs: ``record()``
     keeps each MoE layer's top-k ids, ``replay(ids)`` makes each layer
@@ -5353,6 +5802,17 @@ class _RoutingPin:
     def __init__(self):
         self.ids, self.flips, self.choices, self.gap = [], 0, 0, 0.0
         self._replay = None
+
+    def hold(self, name: str):
+        """Fails unless the replayed choices parted from the run's own
+        only at near-ties: by at most ROUTE_GAP_TOL in probability, in at
+        most ROUTE_FLIP_SHARE of the token-layers."""
+        if not (self.choices and self.gap <= ROUTE_GAP_TOL
+                and self.flips <= ROUTE_FLIP_SHARE * self.choices):
+            fail(f"{name}: the pinned expert choices part from the one "
+                 f"card's own in {self.flips} of {self.choices} "
+                 f"token-layers, by up to {self.gap:.3e} in probability "
+                 f"(limits {ROUTE_FLIP_SHARE} of them and {ROUTE_GAP_TOL})")
 
     def record(self):
         return self._patch(None)

@@ -25,6 +25,13 @@ sums the squares of its shards (LARS: K1's one launch a tree under
 ``use_kernel``; LAMB: of each tensor and its update), and the sums of the
 leaves split over the axis are all-reduced over it in one call; a
 replicated leaf's sums are the rank's own.
+
+``update(..., inplace=True)`` writes the new masters and momentum into
+the given trees (LARS and momentum-SGD), a slice of a leaf's rows at a
+time, so that the update allocates no leaf-sized buffer: the same
+elementwise operations on each element, so the same bits as the new
+trees. A step that consumes its input state takes it
+(``train.step.make_train_step(..., donate=True)``).
 """
 from __future__ import annotations
 
@@ -35,7 +42,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
+    tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +56,24 @@ class OptConfig:
     eps: float = 1e-9
     nesterov: bool = False
     use_kernel: bool = False      # batched-norm kernel for the norms
+
+
+#: the elements of a leaf an in-place update computes at a time (at least
+#: one row of its first dim): its f32 temporaries stay this size
+INPLACE_CHUNK = 1 << 24
+
+
+def _write_in_place(upd, p, g, v, *norms):
+    """``upd``'s new (p, v) of one leaf written into ``p`` and ``v``, a
+    slice of rows of the first dim at a time."""
+    if p.dim() == 0:
+        spans = [Ellipsis]
+    else:
+        rows = max(1, INPLACE_CHUNK // max(1, p[0].numel()))
+        spans = [slice(i, i + rows) for i in range(0, p.shape[0], rows)]
+    for s in spans:
+        new_p, new_v = upd(p[s], g[s], v[s], *norms)
+        p[s], v[s] = new_p, new_v
 
 
 def init_momentum(params, kind: str = "lars"):
@@ -98,12 +124,14 @@ def _batched_norms(params, grads, cfg, model_axis=None, split=()):
 
 @torch.no_grad()
 def update(params, grads, mom, lr, cfg: OptConfig, *, model_axis=None,
-           split=()):
+           split=(), inplace: bool = False):
     """One optimizer step on fp32 masters; ``grads`` may be bf16 and ``lr``
-    a float or 0-d f32 tensor. Returns (new_params, new_mom) as new trees.
-    ``model_axis`` / ``split``: the leaves are a rank's shards over that
-    axis, those at the paths ``split`` split over it (LARS and LAMB take
-    whole-tensor norms)."""
+    a float or 0-d f32 tensor. Returns (new_params, new_mom) as new trees;
+    with ``inplace`` LARS and momentum-SGD write them into ``params`` and
+    ``mom`` and return those (the module's docstring; LAMB returns new
+    trees either way). ``model_axis`` / ``split``: the leaves are a
+    rank's shards over that axis, those at the paths ``split`` split over
+    it (LARS and LAMB take whole-tensor norms)."""
     lr = float(lr)
     if cfg.kind == "sgdm":
         def upd(p, g, v):
@@ -111,7 +139,7 @@ def update(params, grads, mom, lr, cfg: OptConfig, *, model_axis=None,
             v2 = cfg.momentum * v + lr * g
             step = (cfg.momentum * v2 + lr * g) if cfg.nesterov else v2
             return p - step, v2
-        out = tree_map(upd, params, grads, mom)
+        trees = (params, grads, mom)
     elif cfg.kind == "lars":
         wn, gn = _batched_norms(params, grads, cfg, model_axis, split)
 
@@ -126,7 +154,7 @@ def update(params, grads, mom, lr, cfg: OptConfig, *, model_axis=None,
             g = g + cfg.weight_decay * p
             v2 = cfg.momentum * v + (lr * trust) * g
             return p - v2, v2
-        out = tree_map(upd, params, grads, mom, wn, gn)
+        trees = (params, grads, mom, wn, gn)
     elif cfg.kind == "lamb":
         # You et al. 2020 (LAMB): Adam statistics + per-tensor trust ratio
         # ||w|| / ||update||
@@ -166,6 +194,11 @@ def update(params, grads, mom, lr, cfg: OptConfig, *, model_axis=None,
         return new_params, {"m": new_m, "v": new_v, "count": t}
     else:
         raise ValueError(cfg.kind)
+    if inplace:
+        for leaves in zip(*(tree_leaves(t) for t in trees)):
+            _write_in_place(upd, *leaves)
+        return params, mom
+    out = tree_map(upd, *trees)
     new_params = tree_map(lambda t: t[0], out)
     new_mom = tree_map(lambda t: t[1], out)
     return new_params, new_mom

@@ -32,12 +32,16 @@ prints one JSON object:
   (1 - the union of kernel intervals over the window's span).
 
 ``--model-parallel M`` under ``torch.distributed.run`` (one rank a card)
-serves the dense decoder over the ``(data=world/M, model=M)`` mesh
-(ROADMAP §1 item 6.2): each rank's bf16 shards from ``pinit``, each
-data row's requests ``--batch`` (every model rank the same), the model
-axis's collectives in the ``nccl`` group; rank 0 prints the JSON, with
-``allreduce_us``: one all-reduce over ``model`` of a decode step's (batch,
-1, d) bf16 activations, on CUDA events over 100 calls.
+serves any config the model axis splits (ROADMAP §1 items 6.2-6.2c, and
+6.3's experts: the MoE decoder's ``moe`` phase then holds its two
+all_to_alls a prefill layer, or its local experts' psum a decode step)
+over the ``(data=world/M, model=M)`` mesh: each rank's bf16 shards from
+``pinit``, each data row's requests ``--batch`` (every model rank the
+same), the model axis's collectives in the ``nccl`` group; rank 0 prints
+the JSON, with ``allreduce_us``: one all-reduce over ``model`` of a
+decode step's (batch, 1, d) bf16 activations, on CUDA events over 100
+calls, and ``phase_ms.collectives``: the all-reduce, all-gather and
+all-to-all calls of the split prefill and decode step.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --flash-attention
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch \\
@@ -52,11 +56,12 @@ axis's collectives in the ``nccl`` group; rank 0 prints the JSON, with
                                                  # no profile
   PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 -m \\
       repro_torch.launch.profile_serve --arch qwen1.5-32b --layers 16 \\
-      --model-parallel 4 --flash-attention
+      --model-parallel 4 --flash-attention   # also --arch qwen2-moe-a2.7b
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -152,17 +157,49 @@ class _Phases:
         return out, dict(res, total=total, rest=total - sum(res.values()))
 
 
+#: the ``torch.distributed`` collectives the model axis issues
+COLLECTIVES = ("all_reduce", "all_gather", "all_to_all_single")
+
+
+@contextlib.contextmanager
+def counting_collectives():
+    """Within: each call of a ``COLLECTIVES`` function of
+    ``torch.distributed`` is counted (yields ``{name: calls}``)."""
+    import torch.distributed as dist
+    calls = dict.fromkeys(COLLECTIVES, 0)
+    real = {name: getattr(dist, name) for name in COLLECTIVES}
+
+    def wrap(name):
+        def fn(*a, **kw):
+            calls[name] += 1
+            return real[name](*a, **kw)
+        return fn
+    for name in COLLECTIVES:
+        setattr(dist, name, wrap(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+
+
 def _phases(model, params, batch, cache_len, clock, mesh=None):
-    """Phase split of one prefill and of one decode step after it."""
-    with _Phases(clock) as ph:
+    """Phase split of one prefill and of one decode step after it; over a
+    ``mesh``, ``collectives``: each one's calls of ``COLLECTIVES``."""
+    counting = counting_collectives if mesh is not None \
+        else contextlib.nullcontext
+    with _Phases(clock) as ph, counting() as pre:
         (logits, cache), prefill = ph.split(
             lambda: model.forward_prefill(params, batch, cache_len, mesh))
     tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
     pos = batch["tokens"].shape[1] + prefix_len(model.cfg)
-    with _Phases(clock) as ph:
+    with _Phases(clock) as ph, counting() as dec:
         _, decode = ph.split(
             lambda: model.forward_decode(params, cache, tok, pos, mesh))
-    return {"prefill": prefill, "decode_step": decode}
+    out = {"prefill": prefill, "decode_step": decode}
+    if mesh is not None:
+        out["collectives"] = {"prefill": pre, "decode_step": dec}
+    return out
 
 
 def _allreduce_us(x, axis) -> float:

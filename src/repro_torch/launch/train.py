@@ -28,26 +28,31 @@ An explicit schedule (``--comm naive|psum|bucketed|ring|hierarchical|
 the job (``launch.mesh``: NCCL on the card, gloo on the CPU; one process
 without ``torchrun``); ``--sharding zero1|zero2|zero3`` picks the rung.
 Every ``--arch`` takes it but the MoE ones (qwen2-moe-a2.7b,
-deepseek-v2-236b), which it refuses, naming ROADMAP item 6.3. As in the
+deepseek-v2-236b), which it refuses: the reference's explicit step runs
+the model without a mesh, and its MoE layer runs only over one, so there
+is no such step to port. As in the
 reference, there is no flag for the ``(pod, data)`` mesh. ``--comm xla``
 (the default) is the reference's GSPMD step: on one process the
 single-device step, under a multi-rank launch the ``(data=world/M,
-model=M)`` mesh of ``--model-parallel M`` (ROADMAP §1 items 6.2, 6.2b
-and 6.2c: the leaves of the dense decoder, the hybrid, the xLSTM,
-whisper and the VLM split over ``model``, LAMB and ``--guard`` over it
-too; ResNet-50 splits none and takes its BatchNorm statistics over the
-data axes; at M = 1 pure data parallelism), each rank on the rows of its
-data index. ``--ckpt-dir`` saves the reference's whole arrays there too
+model=M)`` mesh of ``--model-parallel M`` (ROADMAP §1 items 6.2, 6.2b,
+6.2c and 6.3's experts: the leaves of the dense decoder, the MoE
+decoder's (its experts split, each rank routing its own tokens), the
+hybrid, the xLSTM, whisper and the VLM split over ``model``, LAMB and
+``--guard`` over it too; ResNet-50 splits none and takes its BatchNorm
+statistics over the data axes; at M = 1 pure data parallelism), each
+rank on the rows of its data index. ``--ckpt-dir`` saves the reference's whole arrays there too
 (the split leaves gathered), and ``--resume-elastic`` resumes them onto
 this launch's ``(data, model)`` shape, which may differ from the saving
 run's in M and in the data size, as the reference's global arrays do. An
 explicit schedule treats every axis of that mesh as data parallel, as the
-reference's does. At M > 1 the CLI refuses the MoE and MLA configs (item
-6.3), and ``make_train_step`` what the model axis does not split: the
-xLSTM's heads that M does not divide (item 6.2d), ``fsdp`` over more than
-one data rank (item 6.3) and a leaf that M does not divide, which the
-reference cannot place either (whisper-base's and internvl2-2b's
-published vocabularies over model > 1, say). On four cards:
+reference's does. Under a multi-rank launch the CLI refuses MLA
+(deepseek-v2-236b; item 6.3), and ``make_train_step`` what the model axis
+does not split: the xLSTM's heads that M does not divide (item 6.2d),
+``fsdp`` over more than one data rank (item 6.3) and a leaf that M does
+not divide, which the reference cannot place either (whisper-base's and
+internvl2-2b's published vocabularies over model > 1, say); with a MoE
+config the CLI and the forward refuse a ``--seq`` that M does not
+divide, which the reference cannot shard either. On four cards:
   python -m torch.distributed.run --nproc-per-node 4 -m \
       repro_torch.launch.train --arch whisper-base --comm ring \
       --sharding zero1 --steps 3
@@ -85,6 +90,7 @@ from repro_torch.core.schedule import ScheduleConfig, linear_scaled_lr, \
 from repro_torch.data.synthetic import make_batch_fn
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models.common import dp_axes
+from repro_torch.models.moe import uneven_tokens
 from repro_torch.models.registry import build_model
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -94,7 +100,8 @@ from repro_torch.train.faults import FaultInjector, FaultSpecError, \
     parse_faults
 from repro_torch.train.guard import GuardConfig
 from repro_torch.train.state import init_state, sharded_state_kwargs
-from repro_torch.train.step import make_eval_step, make_train_step
+from repro_torch.train.step import explicit_moe, make_eval_step, \
+    make_train_step
 
 #: the explicit-DP schedules, as the reference's CLI offers them
 SCHEDULES = ("naive", "bucketed", "psum", "ring", "hierarchical",
@@ -246,24 +253,18 @@ def main(argv=None):
     world = int(os.environ.get("WORLD_SIZE", 1))
     m = args.model_parallel
     arch = get_config(args.arch)
-    if m > 1:
-        if arch.moe is not None or arch.mla is not None:
-            ap.error(f"--model-parallel {m} with {args.arch}: the "
-                     f"{'MoE layer' if arch.moe is not None else 'MLA'} "
-                     f"over a model axis is not ported to repro_torch yet "
-                     f"(ROADMAP §1 item 6.3)")
+    if arch.mla is not None and args.comm == "xla" and world > 1:
+        ap.error(f"--comm xla over a {world}-rank launch (--model-parallel "
+                 f"{m}) with {args.arch}: MLA over a mesh is not ported to "
+                 f"repro_torch yet (ROADMAP §1 item 6.3)")
     if m < 1 or world % m:
         ap.error(f"--model-parallel {m} does not divide the job's {world} "
                  f"rank(s)")
-    if args.comm == "xla" and world > 1 and arch.moe is not None:
-        ap.error(f"--comm xla over a {world}-rank launch with {args.arch}: "
-                 f"the MoE layer over a mesh is not ported to repro_torch "
-                 f"yet (ROADMAP §1 item 6.3)")
     if args.comm != "xla" and arch.moe is not None:
-        ap.error(f"--comm {args.comm} with {args.arch}: the explicit "
-                 f"schedules run the model without a mesh, and the MoE "
-                 f"layer's experts need a mesh's model axis (ROADMAP §1 item "
-                 f"6.3); train it with --comm xla")
+        ap.error(str(explicit_moe(f"--comm {args.comm}", args.arch)))
+    if arch.moe is not None and args.seq >= m and args.seq % m:
+        ap.error(str(uneven_tokens(f"--seq {args.seq} with {args.arch}",
+                                   args.seq, m)))
     if args.grad_accum > 1 and args.comm != "xla":
         ap.error(f"--grad-accum {args.grad_accum} is a --comm xla option: "
                  f"the explicit schedules do not accumulate. The reference's "
@@ -364,7 +365,7 @@ def _train(args, mesh, reg, saved_plan):
         grad_accum=args.grad_accum,
         profile_batch=(batch_fn(0) if comm.backward_profile == "measured"
                        else None),
-        tracer=tracer, guard=args.guard)
+        tracer=tracer, guard=args.guard, donate=xla)
     if getattr(train_step, "tuned", None) is not None:
         t = train_step.tuned
         reg.event("autotune_plan",

@@ -30,7 +30,11 @@ through ``gather_in``, whose backward does sum. A sum that every rank
 of an axis needs whole and whose every term feeds each rank's loss (the
 norm over a split d_inner,
 the BatchNorm statistics over the data axes) goes through ``all_sum``,
-whose backward sums the cotangents over the same ranks.
+whose backward sums the cotangents over the same ranks. The MoE layer's
+experts (ROADMAP §1 item 6.3) move tokens to the rank that holds their
+expert and back with ``all_to_all``, whose backward is the inverse
+exchange; its output, cut over the sequence, comes back whole through
+``gather_out(..., dim=1)``.
 """
 from __future__ import annotations
 
@@ -153,14 +157,14 @@ class _ReduceOut(torch.autograd.Function):
 
 class _GatherOut(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, size, index):
-        ctx.index, ctx.width = index, x.shape[-1]
-        return _gather_last(x, group, size)
+    def forward(ctx, x, group, size, index, dim):
+        ctx.index, ctx.dim, ctx.width = index, dim, x.shape[dim]
+        return _gather_last(x, group, size, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return (g.narrow(-1, ctx.index * ctx.width, ctx.width).contiguous(),
-                None, None, None)
+        return (g.narrow(ctx.dim, ctx.index * ctx.width,
+                         ctx.width).contiguous(), None, None, None, None)
 
 
 class _GatherIn(torch.autograd.Function):
@@ -181,6 +185,35 @@ def _gather_last(x, group, size, dim=-1):
     parts = [torch.empty_like(x) for _ in range(size)]
     dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts, dim=dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size, split_dim, concat_dim):
+        ctx.args = (group, size, concat_dim, split_dim)
+        return _all_to_all(x, group, size, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, *ctx.args), None, None, None, None
+
+
+def _all_to_all(x, group, size, split_dim, concat_dim):
+    """x's ``split_dim`` cut into ``size`` blocks, block r sent to rank r;
+    the blocks received concatenated along ``concat_dim`` in the order of
+    the ranks that sent them (``jax.lax.all_to_all(..., tiled=True)``).
+    One ``all_to_all_single`` on a contiguous buffer, block-major."""
+    s = x.shape
+    n = s[split_dim] // size
+    send = x.reshape(*s[:split_dim], size, n, *s[split_dim + 1:]) \
+        .movedim(split_dim, 0).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    # recv[r]: rank r's block, x's shape with split_dim cut to n
+    shape = list(s)
+    shape[split_dim] = n
+    shape[concat_dim] *= size
+    return recv.movedim(0, concat_dim).reshape(shape)
 
 
 class _AllSum(torch.autograd.Function):
@@ -238,14 +271,49 @@ def reduce_out(x, axis):
 
 
 def gather_out(x, axis, dim: int = -1):
-    """The model ``axis``'s slices of x's last dim, concatenated in rank
-    order; backward: the rank's own slice of the gradient. ``dim``: another
-    dim, without autograd (a cache's heads)."""
+    """The model ``axis``'s slices of x's ``dim`` (by default the last; a
+    cache's heads, the MoE layer's sequence chunks), concatenated in rank
+    order; backward: the rank's own slice of the gradient."""
     if axis is None:
         return x
-    if dim == -1 and torch.is_grad_enabled() and x.requires_grad:
-        return _GatherOut.apply(x, axis.group, axis.size, axis.index)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherOut.apply(x, axis.group, axis.size, axis.index, dim)
     return _gather_last(x, axis.group, axis.size, dim)
+
+
+def all_to_all(x, axis, split_dim: int, concat_dim: int):
+    """``jax.lax.all_to_all(x, 'model', split_dim, concat_dim,
+    tiled=True)`` over the model ``axis``: x's ``split_dim`` cut into M
+    blocks, block r sent to rank r, the M blocks received concatenated
+    along ``concat_dim`` in rank order. Backward: the inverse exchange
+    (the two dims swapped). None: x itself."""
+    if axis is None:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllToAll.apply(x, axis.group, axis.size, split_dim,
+                               concat_dim)
+    return _all_to_all(x, axis.group, axis.size, split_dim, concat_dim)
+
+
+class _CountedOnce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, size):
+        ctx.size = size
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.size, None
+
+
+def counted_once(x, axis):
+    """x, computed whole and alike on every rank of the model ``axis``
+    from inputs read through ``copy_in`` (whose backward sums the ranks'
+    cotangents): the identity forward, the cotangent divided by M
+    backward, so that the sum over the ranks counts x's gradient once."""
+    if axis is None or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _CountedOnce.apply(x, axis.size)
 
 
 def gather_in(x, axis):

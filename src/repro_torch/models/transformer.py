@@ -22,9 +22,9 @@ application of the hybrid's shared block too),
 
 Each entry point takes ``mesh`` (a ``launch.mesh`` mesh, as the
 reference's take a ``jax.sharding.Mesh``). Over its ``model`` axis
-(ROADMAP §1 items 6.2, 6.2b and 6.2c: the dense decoder, the hybrid, the
-xLSTM stack, whisper and the VLM; ``tp_axis`` refuses the rest) the
-params are a rank's
+(ROADMAP §1 items 6.2, 6.2b, 6.2c and 6.3's experts: the dense decoder,
+the MoE decoder, the hybrid, the xLSTM stack, whisper and the VLM;
+``tp_axis`` refuses MLA and ``fsdp``) the params are a rank's
 shards by their specs, the batch is the rows of the rank's data index
 (the same on every model rank of a data row), and the logits come back
 whole over the vocabulary on every model rank: the vocab-split logits (an untied ``lm_head``'s columns, a tied
@@ -191,31 +191,24 @@ def cache_pd(cfg, batch: int, max_seq: int, m: int = 1):
 # shared pieces
 
 
-#: the families the model axis splits (ROADMAP §1 items 6.2, 6.2b, 6.2c)
-TP_FAMILIES = ("dense", "hybrid", "ssm", "audio", "vlm")
-
-
 def tp_axis(cfg, mesh):
     """The model axis (``launch.mesh.Axis``) the forward over ``mesh``
-    splits ``cfg``'s leaves over, None where it spans one rank. Refuses
-    what the port does not split yet: the MoE layer, MLA and ``fsdp`` over
+    splits ``cfg``'s leaves over, None where it spans one rank. Every LM
+    family splits (items 6.2, 6.2b, 6.2c; the MoE layer's experts, item
+    6.3). Refuses what the port does not split yet: MLA and ``fsdp`` over
     more than one data rank (item 6.3); the xLSTM's heads that M does not
     divide (item 6.2d: the sLSTM's block-diagonal recurrence would split
     inside a head); and a leaf that M does not divide, which the reference
-    cannot place either (``common.uneven_split``). Attention heads that M
-    does not divide where the leaves do (K < M among them) are gathered
-    (``attention.HeadSplit``). Nothing falls back."""
+    cannot place either (``common.uneven_split``; the expert stacks pad to
+    a multiple of 16). Attention heads that M does not divide where the
+    leaves do (K < M among them) are gathered (``attention.HeadSplit``).
+    Nothing falls back."""
     tp = model_axis(mesh)
     if tp is None:
         return None
     m, name = tp.size, cfg.arch_id
-    if cfg.moe is not None:
-        raise not_ported(f"{name}: the MoE layer over a model axis", "6.3")
     if cfg.mla is not None:
         raise not_ported(f"{name}: MLA over a model axis", "6.3")
-    if cfg.family not in TP_FAMILIES:
-        raise not_ported(f"{name}: the {cfg.family} family over a model "
-                         f"axis", "6.2c")
     if cfg.fsdp and any(a.size > 1 for a in mesh.axes if a.name != "model"):
         raise not_ported(f"{name}: fsdp (the masters split over data) "
                          f"with more than one data rank", "6.3")
@@ -329,7 +322,7 @@ def _dense_block(p, x, positions, cfg, *, decode=False, cache=None,
                  pos=None, cache_len=0, tp=None):
     """One decoder layer. Returns (x, aux, new_cache); aux is the MoE
     layer's load-balance loss, None for a dense layer. ``tp``: the model
-    axis (the dense GQA layer only: ``tp_axis``)."""
+    axis (GQA, the SwiGLU and the experts: ``tp_axis`` refuses MLA)."""
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
     if cfg.mla is not None:
         if decode:
@@ -346,9 +339,9 @@ def _dense_block(p, x, positions, cfg, *, decode=False, cache=None,
     h = rms_norm(x, p["ln2"], cfg.rms_eps)
     aux = None
     if cfg.moe is not None:
-        m, aux = moem.moe_apply(p["moe"], h, cfg, decode=decode)
+        m, aux = moem.moe_apply(p["moe"], h, cfg, decode=decode, tp=tp)
         if cfg.moe.n_shared:
-            m = m + mlpm.swiglu_apply(p["shared"], h)
+            m = m + mlpm.swiglu_apply(p["shared"], h, tp)
     else:
         m = mlpm.swiglu_apply(p["mlp"], h, tp)
     return x + m, aux, new_cache
@@ -626,6 +619,16 @@ def _forward(cfg, tp=None):
 # public entry points
 
 
+def _check_tokens(cfg, tp, s: int):
+    """A MoE train or prefill over ``s`` tokens a row splits them over the
+    model axis ``tp`` where s >= M (``moe._a2a``): refused before any
+    collective where M does not divide s, as the reference cannot shard
+    that length either."""
+    if cfg.moe is not None and tp is not None and s >= tp.size \
+            and s % tp.size:
+        raise moem.uneven_tokens(cfg.arch_id, s, tp.size)
+
+
 def forward_train(params, cfg, batch, mesh=None):
     """batch: {'tokens': (B,S)[, 'frames': (B,P,d)]}. Returns (logits
     (B,S',V) f32, aux 0-d f32: the MoE load-balance loss summed over the
@@ -633,6 +636,7 @@ def forward_train(params, cfg, batch, mesh=None):
     prefix takes P positions, else S. ``mesh``: see the module's
     docstring."""
     tp = tp_axis(cfg, mesh)
+    _check_tokens(cfg, tp, batch["tokens"].shape[1])
     if cfg.family == "audio":
         x, _ = _whisper_forward(params, cfg, batch["tokens"],
                                 batch["frames"], mode="train", tp=tp)
@@ -650,6 +654,7 @@ def forward_train(params, cfg, batch, mesh=None):
 def forward_prefill(params, cfg, batch, cache_len: int, mesh=None):
     """Returns (last-position logits (B,1,V) f32, cache)."""
     tp = tp_axis(cfg, mesh)
+    _check_tokens(cfg, tp, batch["tokens"].shape[1])
     if cfg.family == "audio":
         x, cache = _whisper_forward(params, cfg, batch["tokens"],
                                     batch["frames"], mode="prefill",

@@ -13,8 +13,11 @@ distribution paths:
   the master that autograd follows, so the gradients arrive in bf16 and
   the optimizer upcasts them. Without a mesh it runs on one device. Over
   a ``(data, model)`` mesh (``launch.mesh.make_local_mesh(M)``; ROADMAP §1
-  items 6.2, 6.2b and 6.2c) the leaves of the dense decoder, the hybrid,
-  the xLSTM, whisper and the VLM split over ``model`` by their specs (the
+  items 6.2, 6.2b, 6.2c and 6.3's experts) the leaves of the dense
+  decoder, the MoE decoder (its expert stacks on their expert dim; each
+  rank's layer routes its own rows' sequence chunk with its own capacity,
+  as the reference's ``shard_map`` does), the hybrid, the xLSTM, whisper
+  and the VLM split over ``model`` by their specs (the
   VLM's labels IGNORE-padded over its image prefix; the state holds a rank's
   shards: ``init_state(..., **sharded_state_kwargs(step))``), each rank
   takes the rows of its data index, the forward and backward run the
@@ -67,8 +70,10 @@ those collectives fire after it (as in the reference, whose ``lax.scan``
 does the same), and so do the hybrid's shared block's, whose gradient
 sums over every application, the first of them at the forward's start;
 the xLSTM's per-layer leaves reduce inside the backward, a layer at a
-time. The MoE family (qwen2-moe-a2.7b, deepseek-v2-236b) is refused: its
-layer needs a mesh's model axis (ROADMAP §1 item 6.3).
+time. The MoE family (qwen2-moe-a2.7b, deepseek-v2-236b) is refused on
+these schedules: the reference's explicit step runs the model without a
+mesh, and its MoE layer runs only inside ``shard_map`` over one, so the
+reference has no such step to port (``comm='xla'`` trains the family).
 
 ``guard=True`` arms the numerical-integrity sentinel (``train/guard.py``)
 on every path: the step takes ``(state, batch, guard_in)`` and, before it
@@ -144,7 +149,7 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
                     smoothing: float = 0.1, mesh=None, comm="xla",
                     bucket_mb: float = 4.0, comm_dtype: str = "bf16",
                     grad_accum: int = 1, profile_batch=None, tracer=None,
-                    guard: bool = False):
+                    guard: bool = False, donate: bool = False):
     """Returns train_step(state, batch) -> (state, metrics).
 
     ``comm`` is a strategy name ('xla', 'naive', 'psum', 'bucketed',
@@ -166,6 +171,12 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
     consumed. Full params are read through
     ``train.loop.make_params_reader``.
 
+    ``donate=True`` (comm='xla'): the step consumes its input state, as
+    the reference's loop donates it to its jitted step; the LARS and
+    momentum-SGD update writes the new masters and momentum into it
+    (``lars.update(..., inplace=True)``), so the step allocates no second
+    copy of them. The caller must not read the input state afterwards.
+
     ``guard=True`` returns ``train_step(state, batch, guard_in)`` with
     ``guard_in = {'lr_scale', 'loss_scale'}`` (``guard.neutral_inputs()``
     on the happy path); its metrics gain ``gnorm``, ``nonfinite`` and
@@ -181,11 +192,8 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
     if comm_cfg.strategy != "xla":
         loss_fn = make_loss_fn(model, smoothing=smoothing)
         if model.cfg.moe is not None:
-            # the reference's explicit step runs the model without a mesh,
-            # and its MoE layer needs one with a 'model' axis
-            raise not_ported(
-                f"comm={comm_cfg.strategy!r} with a MoE config (the experts "
-                f"run over a mesh's model axis)", "6.3")
+            raise explicit_moe(f"comm={comm_cfg.strategy!r}",
+                               model.cfg.arch_id)
         return _guarded(_explicit_step(model, opt_cfg, schedule, loss_fn,
                                        comm_cfg, mesh, grad_accum, tracer,
                                        profile_batch, smoothing), guard)
@@ -224,6 +232,10 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
             grads = tree_map(lambda g: g / grad_accum, grads)
             metrics = {k: torch.stack([m[k] for m in ms]).mean()
                        for k in ms[0]}
+        # the compute copy is spent: K1's norms pack the masters and the
+        # gradients, and an update not donated allocates new masters and
+        # momentum beside the old, so its bytes matter at the peak
+        del p_in
         if dp:
             # the whole batch's gradient: the data ranks' mean, in f32
             grads = prim.pmean_tree(tree_map(lambda g: g.float(), grads), dp)
@@ -235,7 +247,8 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
             if not ok:
                 return state, dict(metrics, lr=lr)
         params, mom = lars.update(state.params, grads, state.mom, lr,
-                                  opt_cfg, model_axis=tp, split=split)
+                                  opt_cfg, model_axis=tp, split=split,
+                                  inplace=donate)
         metrics = dict(metrics, lr=lr)
         return TrainState(state.step + 1, params, mom, new_bn), metrics
 
@@ -247,18 +260,31 @@ def make_train_step(model, opt_cfg: lars.OptConfig, schedule, *,
     return _guarded(train_step, guard)
 
 
+def explicit_moe(what: str, arch: str) -> NotImplementedError:
+    """The error of an explicit data-parallel schedule with a MoE config:
+    the reference's explicit step runs the model without a mesh, and its
+    MoE layer runs only inside ``shard_map`` over one, so that step cannot
+    run it there and the port has nothing to port (no ROADMAP item)."""
+    return NotImplementedError(
+        f"{what} with {arch}: the reference's explicit data-parallel step "
+        f"runs the model without a mesh, and its MoE layer runs only over "
+        f"one, so no such step exists to port; train the MoE family with "
+        f"comm='xla'")
+
+
 def _xla_mesh(model, mesh):
     """The ``comm='xla'`` step's view of ``mesh``: (the model axis or
     None, the data axes a gradient is meaned over, the paths of the leaves
     split over the model axis). Refuses what is not ported over a
-    multi-rank mesh, naming its ROADMAP item."""
+    multi-rank mesh, naming its ROADMAP item: MLA (item 6.3) over any
+    (``tp_axis`` refuses it over a model axis)."""
     from repro_torch.models import transformer
     if mesh is None or mesh.size == 1:
         return None, (), frozenset()
     cfg = model.cfg
-    if cfg.moe is not None:
-        raise not_ported("comm='xla' with a MoE config over a multi-rank "
-                         "mesh", "6.3")
+    if cfg.mla is not None:
+        raise not_ported(f"{cfg.arch_id}: comm='xla' with MLA over a "
+                         f"multi-rank mesh", "6.3")
     # the conv family splits no leaf: every leaf replicated over 'model',
     # its batch over the data axes alone, as GSPMD places it
     tp = None if cfg.family == "conv" else transformer.tp_axis(cfg, mesh)

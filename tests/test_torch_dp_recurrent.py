@@ -23,8 +23,9 @@ shared block's leaves, read at each application, and the xLSTM's
 per-layer leaves included); zero3 with the model's remat nested inside
 its checkpointed loss, and zero3's gather in the compute dtype, change no
 bit; the sharded state's rows made leaf by leaf equal the packed global
-layout's; the MoE family stays refused under an explicit schedule (item
-6.3), through ``make_train_step`` and the CLI; the CLI's zero3 hybrid
+layout's; the MoE family stays refused under an explicit schedule (the
+reference has no such step: its MoE layer runs only over a mesh), through
+``make_train_step`` and the CLI; the CLI's zero3 hybrid
 run; and (``tier2``) two gloo ranks against the one-rank psum step on
 the whole batch (``torch_ranks.py lm_family_dp``) at
 ``test_torch_lm_dp.py``'s bounds (measured: masters within 5.9e-5 and
@@ -182,19 +183,21 @@ def test_sharded_state_rows_equal_the_packed_layout(mesh, sharding):
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_explicit_schedule_refuses_moe_naming_item_6_3(mesh, capsys, arch):
     """The reference's explicit step runs the model without a mesh, and
-    its MoE layer needs one with a model axis: the port refuses it,
-    through ``make_train_step`` and the CLI, naming ROADMAP item 6.3."""
+    its MoE layer runs only over one: there is no such step to port (no
+    ROADMAP item; ``comm='xla'`` trains the family), and the port refuses
+    it, through ``make_train_step`` and the CLI, saying so."""
     from repro_torch.launch import train as launch
+    words = "no such step exists to port"
     model = build_model(get_config(arch).reduced())
     for comm in ("psum", CommConfig(strategy="ring", sharding="zero3")):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6.3"):
+        with pytest.raises(NotImplementedError, match=words):
             make_train_step(model, lars.OptConfig(), make_schedule(
                 ScheduleConfig(**R.LR)), mesh=mesh, comm=comm)
     with pytest.raises(SystemExit) as exit_info:
         launch.main(["--arch", arch, "--reduced", "--device", "cpu",
                      "--comm", "ring", "--sharding", "zero1"])
     assert exit_info.value.code != 0
-    assert "ROADMAP §1 item 6.3" in capsys.readouterr().err
+    assert words in capsys.readouterr().err
 
 
 def test_cli_zero3_hybrid_reaches_run_stop(capsys):

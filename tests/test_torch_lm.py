@@ -226,8 +226,9 @@ def test_unported_lm_parts_name_roadmap(base, capsys, monkeypatch):
     and the xLSTM since item 6.2b, ``test_torch_tp_recurrent.py``;
     whisper and the VLM since item 6.2c, ``test_torch_tp_frames.py``):
     whisper at ``--model-parallel 2`` under a two-rank launch reaches the
-    run, and what the model axis does not split yet names its item (the
-    MoE layer: 6.3)."""
+    run, and so does the MoE decoder since item 6.3's first part
+    (``test_torch_tp_moe.py``); what the model axis does not split yet
+    names its item (MLA: 6.3)."""
     from repro_torch.configs import _REGISTRY
     from repro_torch.launch import train as cli
     for arch, fam in (("whisper-base", "audio"), ("internvl2-2b", "vlm")):
@@ -248,10 +249,11 @@ def test_unported_lm_parts_name_roadmap(base, capsys, monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
     ran = []
     monkeypatch.setattr(cli, "_run", ran.append)
-    cli.main(["--arch", "whisper-base", "--model-parallel", "2",
-              "--device", "cpu"])
-    assert len(ran) == 1 and ran[0].model_parallel == 2
+    for arch in ("whisper-base", "qwen2-moe-a2.7b"):
+        cli.main(["--arch", arch, "--model-parallel", "2", "--device",
+                  "cpu"])
+        assert len(ran) == 1 and ran.pop().model_parallel == 2
     with pytest.raises(SystemExit):
-        cli.main(["--arch", "qwen2-moe-a2.7b", "--model-parallel", "2",
+        cli.main(["--arch", "deepseek-v2-236b", "--model-parallel", "2",
                   "--device", "cpu"])
     assert "ROADMAP §1 item 6.3" in capsys.readouterr().err

@@ -389,10 +389,12 @@ def test_train_step_matches_reference(ref, base, k):
 @pytest.mark.parametrize("comm", ["psum", "ring"])
 def test_explicit_schedule_with_moe_names_the_model_axis(base, comm):
     """The reference's explicit step runs the model with ``mesh=None`` and
-    its MoE layer needs a mesh's model axis, so it cannot run this
-    combination: the port refuses it, naming item 6."""
+    its MoE layer runs only over a mesh, so it cannot run this
+    combination: the port refuses it, saying that there is no such step
+    to port."""
     mesh = Mesh((Axis("data", 1, 0, (0,), None),), torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6"):
+    with pytest.raises(NotImplementedError,
+                       match="runs only over one, so no such step"):
         make_train_step(build_model(base), lars.OptConfig(),
                         make_schedule(ScheduleConfig(**R.LR)), mesh=mesh,
                         comm=comm)

@@ -38,11 +38,13 @@ equal the whole leaves' slices bit for bit, f32 and bf16. The CLI
 
 Without ranks: every leaf's spec is the reference's, sharding by it and
 gathering back is the identity, and what the port does not split yet is
-refused, naming its item (6.2d, 6.3), or, for a leaf that M does not
-divide, saying that the reference cannot place it either; what item 6.2c
-lifted (whisper, the VLM, heads that M does not divide, checkpoints and
-``--resume-elastic`` under ``--model-parallel``) builds
-(``test_torch_tp_frames.py`` and ``test_torch_tp_ckpt.py`` hold it)."""
+refused, naming its item (6.2d; 6.3: MLA and ``fsdp``), or, for a leaf
+that M does not divide, saying that the reference cannot place it
+either; what item 6.2c lifted (whisper, the VLM, heads that M does not
+divide, checkpoints and ``--resume-elastic`` under ``--model-parallel``)
+and item 6.3's experts lifted (the MoE decoder over a model axis and over
+data ranks) builds (``test_torch_tp_frames.py``, ``test_torch_tp_ckpt.py``
+and ``test_torch_tp_moe.py`` hold it)."""
 import dataclasses
 
 import numpy as np
@@ -108,10 +110,11 @@ def _norm(spec):
 
 
 @pytest.mark.tier1
-@pytest.mark.parametrize("arch", R.TP_ARCHS)
+@pytest.mark.parametrize("arch", (*R.TP_ARCHS, R.MOE_ARCH))
 def test_specs_are_the_references(arch):
     """Every leaf of the params and of the cache is split where the
-    reference's ``PD.spec`` splits it (trailing unsplit dims aside)."""
+    reference's ``PD.spec`` splits it (trailing unsplit dims aside): the
+    MoE decoder's expert stacks on their expert dim, its router whole."""
     jcfg, cfg = jget_config(arch).reduced(), get_config(arch).reduced()
     pairs = [(jtf.lm_pd(jcfg), transformer.lm_pd(cfg)),
              (jtf.cache_pd(jcfg, 4, 16), transformer.cache_pd(cfg, 4, 16))]
@@ -164,7 +167,8 @@ def _refused(fn, item):
 
 @pytest.mark.tier1
 @pytest.mark.parametrize("arch,kw,mesh,item", [
-    ("qwen2-moe-a2.7b", {}, (1, 2), "6.3"),
+    ("qwen2-moe-a2.7b", {}, (1, 2), None),          # ported: item 6.3
+    ("qwen2-moe-a2.7b", {}, (1, 8), UNEVEN),         # 4 experts over 8
     ("deepseek-v2-236b", {}, (1, 2), "6.3"),
     ("deepseek-v2-236b", {"moe": None}, (1, 2), "6.3"),     # MLA alone
     ("zamba2-7b", {}, (1, 2), None),                # ported: item 6.2b
@@ -187,7 +191,8 @@ def test_model_axis_refuses_what_it_does_not_split(arch, kw, mesh, item):
     either), in the forward and in ``make_train_step(comm='xla')``,
     before any collective: nothing falls back. The rows whose item is
     None are ported (the hybrid and the xLSTM, item 6.2b; whisper, the VLM
-    and a kv head fewer than M, item 6.2c): each builds."""
+    and a kv head fewer than M, item 6.2c; the MoE layer's experts, item
+    6.3): each builds."""
     cfg = dataclasses.replace(get_config(arch).reduced(), **kw)
     m = _mesh(*mesh)
     model = build_model(cfg)
@@ -207,8 +212,9 @@ def test_xla_step_refusals_over_a_multi_rank_mesh():
     """What item 6.2b lifted builds: the conv family under comm='xla'
     over several ranks (its BatchNorm statistics over the data axes), the
     guard over a model axis, and LAMB over it (its norms the rank's own
-    where no leaf is split: the no-axis update). A MoE config over a
-    multi-rank mesh still names item 6.3."""
+    where no leaf is split: the no-axis update). What item 6.3 lifted
+    builds: the MoE decoder over data ranks alone and over (data, model).
+    MLA over a multi-rank mesh, even at model 1, still names item 6.3."""
     sched = make_schedule(ScheduleConfig(base_lr=0.1, total_steps=2))
     resnet = build_model(get_config("resnet50").reduced())
     for mesh in ((2, 1), (1, 1), (2, 2)):
@@ -223,13 +229,18 @@ def test_xla_step_refusals_over_a_multi_rank_mesh():
     got = lars.update(*args, model_axis=model_axis(_mesh(1, 2)))
     assert torch.equal(got[0]["w"], lars.update(*args)[0]["w"])
     moe = build_model(get_config("qwen2-moe-a2.7b").reduced())
-    _refused(lambda: make_train_step(moe, lars.OptConfig(), sched,
+    for mesh in ((2, 1), (2, 2)):
+        assert make_train_step(moe, lars.OptConfig(), sched,
+                               mesh=_mesh(*mesh), comm="xla").mesh.size \
+            == mesh[0] * mesh[1]
+    mla = build_model(get_config("deepseek-v2-236b").reduced())
+    _refused(lambda: make_train_step(mla, lars.OptConfig(), sched,
                                      mesh=_mesh(2, 1), comm="xla"), "6.3")
 
 
 @pytest.mark.tier1
 @pytest.mark.parametrize("argv,item", [
-    (["--arch", "qwen2-moe-a2.7b"], "6.3"),
+    (["--arch", "qwen2-moe-a2.7b"], None),
     (["--arch", "deepseek-v2-236b"], "6.3"),
     (["--arch", "zamba2-7b"], None),
     (["--arch", "resnet50"], None),
@@ -242,9 +253,10 @@ def test_xla_step_refusals_over_a_multi_rank_mesh():
 ])
 def test_cli_model_parallel_refusals(argv, item, capsys, monkeypatch):
     """``--model-parallel 2`` under a two-rank launch: what the slice does
-    not cover exits before anything is built, naming its item; what it
-    covers (item None: the hybrid, ResNet-50, the guard, whisper, the VLM,
-    checkpoints and ``--resume-elastic``) reaches the run."""
+    not cover exits before anything is built, naming its item (MLA:
+    6.3); what it covers (item None: the hybrid, ResNet-50, the guard,
+    whisper, the VLM, checkpoints and ``--resume-elastic``, the MoE
+    decoder) reaches the run."""
     from repro_torch.launch import train as cli
     monkeypatch.setenv("WORLD_SIZE", "2")
     ran = []

@@ -147,6 +147,59 @@ def test_lars_update_matches_reference(kind, use_kernel):
                                        atol=atol, err_msg=path)
 
 
+@pytest.mark.parametrize("kind,nesterov", [("lars", False),
+                                            ("sgdm", False), ("sgdm", True)])
+def test_inplace_update_is_bit_equal_to_new_trees(kind, nesterov,
+                                                  monkeypatch):
+    """``lars.update(..., inplace=True)`` writes into the trees it is
+    given, a slice of rows at a time (the slice cut to 7 elements here:
+    a stack takes one row a slice, the others several rows), the same
+    bits as the new trees; a 0-d leaf too."""
+    from repro_torch.tree import tree_map
+    monkeypatch.setattr(lars, "INPLACE_CHUNK", 7)
+    gen = torch.Generator().manual_seed(4)
+    shapes = {"stack": (5, 3, 4), "w": (9, 2), "b": (13,), "s": ()}
+    draw = lambda scale: {k: scale * torch.randn(s, generator=gen)
+                          for k, s in shapes.items()}
+    params, mom = draw(1.0), draw(0.01)
+    grads = tree_map(torch.Tensor.bfloat16, draw(0.1))
+    cfg = lars.OptConfig(kind=kind, nesterov=nesterov)
+    want_p, want_m = lars.update(params, grads, mom, 0.3, cfg)
+    p, m = (tree_map(torch.clone, t) for t in (params, mom))
+    got_p, got_m = lars.update(p, grads, m, 0.3, cfg, inplace=True)
+    assert got_p is p and got_m is m
+    for k in shapes:
+        assert torch.equal(p[k], want_p[k]), k
+        assert torch.equal(m[k], want_m[k]), k
+
+
+def test_donated_xla_step_equals_the_step_that_keeps_its_input():
+    """``make_train_step(..., donate=True)`` writes the masters and the
+    momentum into its input state, the same bits as the step that leaves
+    its input whole (two steps of the reduced dense decoder)."""
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    model = build_model(cfg)
+    sched = make_schedule(ScheduleConfig(base_lr=0.1, warmup_steps=1,
+                                         total_steps=4))
+    keep, donate = (make_train_step(model, lars.OptConfig(), sched,
+                                    comm="xla", donate=d)
+                    for d in (False, True))
+    s1, s2 = (init_state(model, 0, device="cpu") for _ in range(2))
+    for k in range(2):
+        batch = token_batch(cfg, batch=2, seq=16, step=k, device="cpu")
+        s1, _ = keep(s1, batch)
+        held = tree_leaves(s2.params) + tree_leaves(s2.mom)
+        s2, _ = donate(s2, batch)
+        assert all(a is b for a, b in zip(
+            held, tree_leaves(s2.params) + tree_leaves(s2.mom)))
+    for f in ("params", "mom"):
+        for (path, a), (_, b) in zip(tree_flatten(getattr(s1, f)),
+                                     tree_flatten(getattr(s2, f))):
+            assert torch.equal(a, b), (f, path)
+
+
 def test_cli_on_cpu_reaches_run_stop(capsys):
     from repro_torch.launch import train as launch
     history = launch.main(["--arch", "resnet50", "--reduced", "--steps", "2",
@@ -155,38 +208,54 @@ def test_cli_on_cpu_reaches_run_stop(capsys):
     assert "(repro_torch/train/loop.py) run_stop:" in capsys.readouterr().out
 
 
-def test_cli_flag_not_ported_names_roadmap(capsys):
+def test_cli_flag_not_ported_names_roadmap(capsys, monkeypatch):
     """A flag's use the port has not reached names its ROADMAP item:
-    ``--model-parallel`` with a MoE config (item 6.3; ResNet-50 takes it
-    since item 6.2b, whisper since item 6.2c)."""
+    ``--model-parallel`` with MLA (item 6.3). The MoE layer's experts take
+    it since item 6.3's first part (ResNet-50 since item 6.2b, whisper
+    since item 6.2c), and reach the run; with an explicit ``--comm`` a
+    MoE config is refused: the reference has no such step to port."""
     from repro_torch.launch import train as launch
-    with pytest.raises(SystemExit) as exit_info:
-        launch.main(["--arch", "qwen2-moe-a2.7b", "--reduced", "--device",
-                     "cpu", "--comm", "ring", "--model-parallel", "2"])
-    assert exit_info.value.code != 0
-    assert "ROADMAP §1 item 6.3" in capsys.readouterr().err
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    ran = []
+    monkeypatch.setattr(launch, "_run", ran.append)
+    launch.main(["--arch", "qwen2-moe-a2.7b", "--reduced", "--device",
+                 "cpu", "--model-parallel", "2"])
+    assert len(ran) == 1 and ran[0].model_parallel == 2
+    for argv, words in ((["--arch", "deepseek-v2-236b", "--model-parallel",
+                          "2"], "ROADMAP §1 item 6.3"),
+                        (["--arch", "qwen2-moe-a2.7b", "--comm", "ring",
+                          "--model-parallel", "2"],
+                         "no such step exists to port")):
+        with pytest.raises(SystemExit) as exit_info:
+            launch.main([*argv, "--reduced", "--device", "cpu"])
+        assert exit_info.value.code != 0
+        assert words in capsys.readouterr().err
+    assert len(ran) == 1
 
 
 def test_cli_refuses_comm_xla_under_multi_rank_launch(capsys, monkeypatch):
     """Under a launcher that sets WORLD_SIZE > 1, '--comm xla' is the
     reference's GSPMD step over every rank. The conv family takes it since
     item 6.2b (its BatchNorm statistics over the data axes:
-    ``test_torch_xla_conv.py``), so ResNet-50 reaches the run; a MoE
-    config is still refused before anything is built, naming item 6.3."""
+    ``test_torch_xla_conv.py``) and the MoE decoder since item 6.3's
+    first part (each rank routing its own rows: ``test_torch_tp_moe.py``),
+    so ResNet-50 and qwen2-moe-a2.7b reach the run; MLA is still refused
+    before anything is built, naming item 6.3."""
     from repro_torch.launch import train as launch
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setattr(launch, "_run", lambda args: pytest.fail("ran"))
     with pytest.raises(SystemExit) as exit_info:
-        launch.main(["--arch", "qwen2-moe-a2.7b", "--reduced", "--steps",
+        launch.main(["--arch", "deepseek-v2-236b", "--reduced", "--steps",
                      "1", "--device", "cpu"])
     assert exit_info.value.code != 0
     assert "ROADMAP §1 item 6.3" in capsys.readouterr().err
     for world in ("2", "1"):
         monkeypatch.setenv("WORLD_SIZE", world)
-        ran = []
-        monkeypatch.setattr(launch, "_run", ran.append)
-        launch.main(["--arch", "resnet50", "--reduced", "--device", "cpu"])
-        assert len(ran) == 1 and ran[0].comm == "xla"
+        for arch in ("resnet50", "qwen2-moe-a2.7b"):
+            ran = []
+            monkeypatch.setattr(launch, "_run", ran.append)
+            launch.main(["--arch", arch, "--reduced", "--device", "cpu"])
+            assert len(ran) == 1 and ran[0].comm == "xla"
 
 
 @pytest.mark.parametrize("comm", ["naive", "psum", "ring"])

@@ -10,6 +10,7 @@ gloo; ``device="cuda"`` runs them one card each over NCCL.
 
   python tests/torch_ranks.py SCENARIO OUT_DIR cpu|cuda   (env above)
 """
+import contextlib
 import os
 import socket
 import subprocess
@@ -613,10 +614,12 @@ def _rel(got, want) -> float:
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
 
-def _tp_run(model, params, toks, tpm, cache_len, new, frames=None):
+def _tp_run(model, params, toks, tpm, cache_len, new, frames=None,
+            train_len=None):
     """The port over ``tpm`` (a rank's shards ``params``, its data row
     of ``toks`` and of whisper's or the VLM's stub ``frames``): the
-    forward over all of ``toks``, the prefill of all but the last token,
+    forward over all of ``toks`` (its first ``train_len``, given), the
+    prefill of all but the last token,
     one decode step of the last and ``generate``'s ``new`` greedy tokens,
     each gathered over the mesh (the cache over ``model`` by its spec,
     then every output over ``data``; the caches as ``{path: leaf}``), as
@@ -636,8 +639,8 @@ def _tp_run(model, params, toks, tpm, cache_len, new, frames=None):
     P = toks.shape[1] - 1
     m = model_axis(tpm)
     with torch.no_grad():
-        (logits, _), _ = model.forward_train(params, {"tokens": mine,
-                                                      **extra}, mesh=tpm)
+        (logits, _), _ = model.forward_train(
+            params, {"tokens": mine[:, :train_len], **extra}, mesh=tpm)
         last, cache = model.forward_prefill(
             params, {"tokens": mine[:, :P], **extra}, cache_len, tpm)
         pd = transformer.cache_pd(model.cfg, toks.shape[0], cache_len,
@@ -729,12 +732,14 @@ def _sha(tensors) -> np.ndarray:
     return np.frombuffer(h.digest(), np.uint8)
 
 
-def _tp_held(out, tpm, prefix, model, params, r, toks, f32, frames=None):
+def _tp_held(out, tpm, prefix, model, params, r, toks, f32, frames=None,
+             train_len=None):
     """``_tp_run`` over ``tpm`` against the reference's ``_lm_run``
     outputs ``r``: each output's worst difference over the reference's max
     as ``{prefix}/{name}`` (the caches over every leaf), and
     ``{prefix}/ties`` (``check_greedy_tokens`` on the rank's rows; bf16 at
-    the serving margin 3e-2). ``frames``: whisper's and the VLM's."""
+    the serving margin 3e-2). ``frames``: whisper's and the VLM's;
+    ``train_len``: ``_tp_run``'s."""
     import contextlib
 
     import torch
@@ -745,7 +750,7 @@ def _tp_held(out, tpm, prefix, model, params, r, toks, f32, frames=None):
     d = tpm.axis("data")
     compute = precision.f32_compute if f32 else contextlib.nullcontext
     with compute():
-        got = _tp_run(model, params, toks, tpm, C, NEW, frames)
+        got = _tp_run(model, params, toks, tpm, C, NEW, frames, train_len)
     for name in ("train_logits", "prefill_logits", "decode_logits"):
         out[f"{prefix}/{name}"] = _rel(got[name], r[name])
     for name in ("cache", "decode_cache"):
@@ -762,8 +767,11 @@ def _tp_held(out, tpm, prefix, model, params, r, toks, f32, frames=None):
     out[f"{prefix}/ties"] = np.int64(ties.sum())
 
 
-def _tp_self(cfg, tpm, prefix, out, seed=5):
-    """``cfg`` over ``tpm`` against the port with no mesh, wholly in f32
+def _tp_self(cfg, tpm, prefix, out, seed=5, train_len=None,
+             one=contextlib.nullcontext):
+    """``cfg`` over ``tpm`` against the port with no mesh (each of its
+    runs inside ``one()``: the MoE layer's chunked plain function, whose
+    answer is the mesh's; ``train_len``: ``_tp_run``'s), wholly in f32
     (``precision.f32_compute``), from ``pinit``'s params at ``seed``:
     ``{prefix}/logits`` (the forward, prefill and decode, over the logit
     max; whisper's and the VLM's with their stub frames), ``{prefix}/
@@ -793,10 +801,11 @@ def _tp_self(cfg, tpm, prefix, out, seed=5):
     full = pinit.materialize(model.param_pd, seed, "cpu")
     with precision.f32_compute():
         got = _tp_run(model, weights.shard_tree(full, model.param_pd, tpm),
-                      toks, tpm, C, NEW, frames)
-        with torch.no_grad():
+                      toks, tpm, C, NEW, frames, train_len)
+        with torch.no_grad(), one():
             t = torch.from_numpy(toks)
-            (lg, _), _ = model.forward_train(full, {"tokens": t, **extra})
+            (lg, _), _ = model.forward_train(
+                full, {"tokens": t[:, :train_len], **extra})
             last, cache = model.forward_prefill(
                 full, {"tokens": t[:, :P], **extra}, C)
             dl, _ = model.forward_decode(full, cache, t[:, P:],
@@ -805,8 +814,8 @@ def _tp_self(cfg, tpm, prefix, out, seed=5):
         _rel(got["train_logits"], lg.numpy()),
         _rel(got["prefill_logits"], last.numpy()),
         _rel(got["decode_logits"], dl.numpy()))
-    one = make_train_step(model, lars.OptConfig(kind="lars"), sched,
-                          comm="xla", comm_dtype="f32")
+    step1 = make_train_step(model, lars.OptConfig(kind="lars"), sched,
+                            comm="xla", comm_dtype="f32")
     two = make_train_step(model, lars.OptConfig(kind="lars"), sched,
                           mesh=tpm, comm="xla", comm_dtype="f32")
     s1 = init_state(model, seed, device="cpu")
@@ -817,7 +826,8 @@ def _tp_self(cfg, tpm, prefix, out, seed=5):
         batch = token_batch(cfg, batch=R.LM_TRAIN_BATCH, seq=R.LM_TRAIN_SEQ,
                             step=k, kind="lcg", device="cpu")
         with precision.f32_compute():
-            s1, _ = one(s1, batch)
+            with one():
+                s1, _ = step1(s1, batch)
             s2, _ = two(s2, {x: v[d.index * n:(d.index + 1) * n]
                              for x, v in batch.items()})
     got, got_m = (dict(tree_flatten(weights.gather_tree(
@@ -1533,12 +1543,326 @@ def lm_tp_ckpt(mesh, ref_dir):
     return out
 
 
+#: ``lm_tp_moe``'s CLI runs: the reduced qwen2-moe-a2.7b under --comm xla
+#: at --model-parallel 2 and at model 1 over the four ranks
+TP_MOE_CLI = ("--arch", "qwen2-moe-a2.7b", "--reduced", "--comm", "xla",
+              "--device", "cpu", "--steps", "2", "--batch", "4", "--seq",
+              "32")
+
+
+@contextlib.contextmanager
+def _port_routes():
+    """Within: each call of the port's ``moe._route`` records, in call
+    order, (its expert ids, each token's gap between its k-th and
+    (k+1)-th router probabilities, one bf16 ulp of the k-th)."""
+    import torch
+    from repro_torch.models import moe
+    route, ids = moe._route, []
+
+    def recording(x_flat, router_w, e):
+        got = route(x_flat, router_w, e)
+        with torch.no_grad():
+            top = torch.softmax(x_flat.float() @ router_w.float(),
+                                dim=-1).sort(dim=-1, descending=True).values
+        kth = top[:, e.top_k - 1]
+        ids.append((got[1].numpy().copy(),
+                    (kth - top[:, e.top_k]).numpy(),
+                    (2.0 ** (torch.floor(torch.log2(kth)) - 7)).numpy()))
+        return got
+    moe._route = recording
+    try:
+        yield ids
+    finally:
+        moe._route = route
+
+
+def _tp_moe_layer(r, name, tpm, out):
+    """The MoE layer of ``torch_reference.TP_MOE_LAYERS[name]`` over
+    ``tpm`` (the rank's expert shards, its data rows) against the
+    reference's ``r``, as ``{name}/{dtype}/{mode}/...``: ``out`` and
+    ``aux`` (the data ranks' mean) over the reference's largest, ``xs``
+    (this rank's FFN buffers, the largest difference over the largest
+    element) and, in train in f32, ``grads`` (the worst leaf's
+    difference over its largest reference gradient: each param summed
+    over the data ranks and gathered over ``model``, and x gathered over
+    the rows). ``self/{name}``: f32 out and aux against
+    ``moe_apply_chunked`` on the whole batch (its answer is the mesh's)."""
+    import torch
+    import torch.distributed as dist
+    import torch_reference as R
+    from repro_torch import weights
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.common import model_axis
+    cfg = R.moe_case_cfg(get_config, R.TP_MOE_LAYERS[name][0])
+    pd = moe.moe_pd(cfg)
+    tp, d = model_axis(tpm), tpm.axis("data")
+    n = r["x"].shape[0] // d.size
+    rows = slice(d.index * n, (d.index + 1) * n)
+    me = f"d{d.index}m{tp.index}"
+
+    def data_mean(a):
+        a = a.detach().clone()
+        if d.size > 1:
+            dist.all_reduce(a, group=d.group)
+        return float(a) / d.size
+
+    for dt in ("float32", "bfloat16"):
+        whole = {k: torch.from_numpy(v).to(getattr(torch, dt))
+                 for k, v in r["params"].items()}
+        p = weights.shard_tree(whole, pd, tpm)
+        x = torch.from_numpy(r["x"][rows]).to(whole["router"].dtype)
+        for mode in ("train", "decode"):
+            want, key = r[dt][mode], f"{name}/{dt}/{mode}"
+            seen, ffn = [], moe._expert_ffn
+
+            def capturing(wg, wu, wd, xs):
+                seen.append(xs.float().clone())
+                return ffn(wg, wu, wd, xs)
+            moe._expert_ffn = capturing
+            try:
+                with torch.no_grad():
+                    o, a = moe.moe_apply(p, x, cfg, decode=mode == "decode",
+                                         tp=tp)
+            finally:
+                moe._expert_ffn = ffn
+            out[f"{key}/out"] = _rel(_rows(o.float(), d), want["out"])
+            out[f"{key}/aux"] = abs(data_mean(a) - float(want["aux"])) \
+                / abs(float(want["aux"]))
+            if mode == "train":
+                out[f"{key}/xs"] = _rel(seen[0], want["xs"][me])
+            if mode != "train" or dt != "float32":
+                continue
+            leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+            xg = x.clone().requires_grad_()
+            o, a = moe.moe_apply(leaves, xg, cfg, decode=False, tp=tp)
+            ((o * torch.from_numpy(want["ct"][rows])).sum()
+             + 0.01 / d.size * a).backward()
+            grads = {k: v.grad for k, v in leaves.items()}
+            for g in grads.values():
+                if d.size > 1:
+                    dist.all_reduce(g, group=d.group)
+            grads = weights.gather_tree(grads, pd, tpm)
+            errs = [_rel(grads[k], want["grads"][k]) for k in grads]
+            errs.append(_rel(_rows(xg.grad, d), want["grads"]["x"]))
+            out[f"{key}/grads"] = max(errs)
+            # the padded experts of the stack (none on "cap") get none
+            out[f"{key}/dead"] = np.bool_(not any(
+                bool(g[cfg.moe.n_routed:].any()) for k, g in grads.items()
+                if k != "router"))
+    # the mesh's layer against the one-device chunked function, in f32
+    whole = {k: torch.from_numpy(v) for k, v in r["params"].items()}
+    x = torch.from_numpy(r["x"])
+    for mode in ("train", "decode"):
+        with torch.no_grad():
+            o, a = moe.moe_apply(weights.shard_tree(whole, pd, tpm),
+                                 x[rows], cfg, decode=mode == "decode",
+                                 tp=tp)
+            o1, a1 = moe.moe_apply_chunked(whole, x, cfg,
+                                           decode=mode == "decode",
+                                           data=d.size, model=tp.size)
+        out[f"self/{name}/{mode}"] = np.array(
+            [_rel(_rows(o, d), o1.numpy()),
+             abs(data_mean(a) - float(a1)) / abs(float(a1))])
+
+
+def _moe_ckpt(tpm, root, out):
+    """A MoE state at (data 2, model 2), one ``comm='xla'`` step through
+    ``loop.train`` with a checkpoint: ``ckpt/bytes`` (rank 0: the file
+    equals, key by key, the model-1 file of the same state gathered whole)
+    and ``ckpt/elastic`` (loaded at (1, 4) by ``elastic.load_resharded``,
+    the state gathered is the file, bit for bit)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import lars
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.common import dp_axes
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import elastic, loop
+    from repro_torch.train.state import TrainState, init_state, \
+        sharded_state_kwargs
+    from repro_torch.train.step import make_train_step
+    cfg = get_config("qwen2-moe-a2.7b").reduced()
+    model = build_model(cfg)
+    pd = model.param_pd
+    sched = make_schedule(ScheduleConfig(base_lr=0.5, warmup_steps=1,
+                                         total_steps=3, decay="poly2"))
+    shape = InputShape("t", "train", TP_CKPT_SEQ, TP_CKPT_BATCH)
+
+    def fresh(step, seed):
+        return init_state(model, seed, device="cpu",
+                          **sharded_state_kwargs(step))
+
+    step = make_train_step(model, lars.OptConfig(), sched, mesh=tpm,
+                           comm="xla")
+    d1 = os.path.join(root, "moe_ckpt")
+    state = loop.train(fresh(step, 0), step, make_batch_fn(
+        cfg, shape, seed=3, device="cpu", mesh=tpm, axes=dp_axes(tpm)),
+        steps=1, ckpt_dir=d1, ckpt_every=1, log_every=0)[0]
+    data = _ckpt_file(d1)
+    whole = TrainState(state.step, ckpt._whole(state.params, pd, tpm),
+                       ckpt._whole(state.mom, pd, tpm))
+    if tpm.rank == 0:
+        d2 = os.path.join(root, "moe_one")
+        ckpt.save(whole, d2, tag=ckpt.step_tag(1))
+        one = _npz(os.path.join(d2, f"ckpt_{ckpt.step_tag(1)}.npz"))
+        out["ckpt/bytes"] = np.bool_(set(one) == set(data)
+                                     and _equal_arrays(one, data))
+    em = make_local_mesh(4, device="cpu")
+    estep = make_train_step(model, lars.OptConfig(), sched, mesh=em,
+                            comm="xla")
+    s = elastic.load_resharded(d1, fresh(estep, 3), None, 1, mesh=em,
+                               param_pd=pd)
+    out["ckpt/elastic"] = np.bool_(
+        s.step == 1 and _equal_arrays(_ckpt_whole(s, pd, em), data))
+    em.destroy()
+
+
+@contextlib.contextmanager
+def _moe_chunked(data: int = 1, model: int = 1):
+    """Within: the MoE layer as ``moe.moe_apply_chunked`` at (data,
+    model), the mesh's answer on one device (the transformer calls
+    ``moe.moe_apply`` by name; the stand-in takes ``tp`` and ignores
+    it)."""
+    from repro_torch.models import moe
+    real = moe.moe_apply
+
+    def chunked(p, x, cfg, *, decode, tp=None):
+        return moe.moe_apply_chunked(p, x, cfg, decode=decode, data=data,
+                                     model=model)
+    moe.moe_apply = chunked
+    try:
+        yield
+    finally:
+        moe.moe_apply = real
+
+
+def _moe_xla_dp(out):
+    """``comm='xla'`` at (data 4, model 1): each rank routes its own row
+    with its own capacity; two f32 LARS steps against the one-rank step on
+    the whole batch with the layer chunked alike (``_moe_chunked(4, 1)``):
+    ``xla_dp`` = (loss relative, masters over the largest update)."""
+    import torch_reference as R
+    from repro_torch.configs import get_config
+    from repro_torch.core import lars, precision
+    from repro_torch.core.schedule import ScheduleConfig, make_schedule
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_flatten
+    cfg = get_config(R.MOE_ARCH).reduced()
+    model = build_model(cfg)
+    sched = make_schedule(ScheduleConfig(**R.LR))
+    dm = make_local_mesh(1, device="cpu")
+    d = dm.axis("data")
+    one, four = (make_train_step(model, lars.OptConfig(), sched, mesh=m,
+                                 comm="xla", comm_dtype="f32")
+                 for m in (None, dm))
+    s1, s = (init_state(model, 5, device="cpu") for _ in range(2))
+    p0 = dict(tree_flatten(s1.params))
+    n = R.LM_TRAIN_BATCH // d.size
+    worst = [0.0, 0.0]
+    for k in range(R.LM_TRAIN_STEPS):
+        batch = token_batch(cfg, batch=R.LM_TRAIN_BATCH, seq=R.LM_TRAIN_SEQ,
+                            step=k, kind="lcg", device="cpu")
+        with precision.f32_compute():
+            with _moe_chunked(data=d.size):
+                s1, m1 = one(s1, batch)
+            s, m = four(s, {x: v[d.index * n:(d.index + 1) * n]
+                            for x, v in batch.items()})
+        worst[0] = max(worst[0], abs(float(m["loss"]) - float(m1["loss"]))
+                       / abs(float(m1["loss"])))
+    got, want = dict(tree_flatten(s.params)), dict(tree_flatten(s1.params))
+    upd = max(float((want[p] - p0[p]).abs().max()) for p in want)
+    worst[1] = max(float((got[p] - want[p]).abs().max()) for p in want) / upd
+    out["xla_dp"] = np.array(worst)
+    dm.destroy()
+
+
+def lm_tp_moe(mesh, ref_paths):
+    """The MoE layer's experts over the model axis (ROADMAP §1 item 6.3)
+    on four ranks, against the reference's GSPMD runs
+    (``torch_reference.py tp_moe_cases``' parts, read from the
+    comma-separated ``ref_paths``): the
+    layer cases of ``torch_reference.TP_MOE_LAYERS`` on (data 2, model 2)
+    and (1, 4) (``_tp_moe_layer``); the reduced qwen2-moe-a2.7b at (2, 2)
+    in bf16 and f32 (``lm/f{f32}/...``): ``_tp_held``'s outputs and ties
+    (the full forward over the prompt), ``step`` (``_tp_step_errors``:
+    loss, masters, momentum) and ``routes`` (every layer's expert ids of
+    both steps against the reference's device's: (as many layers, equal
+    but at a bf16 tie, the choices that differ)). Within the
+    port, in f32: ``self/lm/...`` (``_tp_self`` at (2, 2) against the
+    one-device port with the layer chunked as the mesh chunks it),
+    ``xla_dp`` (``_moe_xla_dp``), the checkpoint (``_moe_ckpt``); ``cli``:
+    ``TP_MOE_CLI`` at --model-parallel 2, and at model 1, reached
+    run_stop."""
+    import functools
+
+    import torch_reference as R
+    from repro_torch import weights
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.registry import build_model
+
+    meshes = {R.TP_MESH: make_local_mesh(2, device="cpu"),
+              (1, 4): make_local_mesh(4, device="cpu")}
+    ref = {}
+    for path in ref_paths.split(","):
+        ref.update(R.load(path))
+    out = {}
+    for name, (_, shape, _) in R.TP_MOE_LAYERS.items():
+        _tp_moe_layer(ref[name], name, meshes[shape], out)
+    tpm = meshes[R.TP_MESH]
+    base = get_config(R.MOE_ARCH).reduced()
+    model = build_model(base)
+    toks = R.lm_tokens(base)
+    params = weights.lm_params_from_jax(ref["lm"]["params"], base, "cpu",
+                                        mesh=tpm)
+    me = f"d{tpm.axis('data').index}m{tpm.axis('model').index}"
+    for f32 in (0, 1):
+        r = ref["lm"][f"f{f32}"]
+        _tp_held(out, tpm, f"lm/f{f32}", model, params, r["run"], toks, f32,
+                 train_len=R.LM_PROMPT)
+        with _port_routes() as ids:
+            out[f"lm/f{f32}/step"] = np.array(
+                _tp_step_errors(base, r["train"], tpm, bool(f32)))
+        want = [r["train"][f"s{k}"]["route"][f"l{i}"][me]
+                for k in range(R.LM_TRAIN_STEPS)
+                for i in range(base.n_layers)]
+        flips = [(a != b).any(-1) for (a, _, _), b in zip(ids, want)]
+        out[f"lm/f{f32}/routes"] = np.array([
+            len(ids) == len(want), all(
+                # in bf16 a choice may flip only at a tie: its k-th and
+                # (k+1)-th probabilities within one bf16 ulp of the k-th
+                not f.any() or (not f32 and bool((gap[f] <= ulp[f]).all()))
+                for f, (_, gap, ulp) in zip(flips, ids)),
+            sum(int(f.sum()) for f in flips)])
+    _tp_self(base, tpm, "self/lm", out, train_len=R.LM_PROMPT,
+             one=functools.partial(_moe_chunked, *R.TP_MESH))
+    _moe_ckpt(tpm, sys.argv[2], out)
+    _moe_xla_dp(out)
+    out["cli"] = np.bool_(
+        _cli_ok([*TP_MOE_CLI, "--model-parallel", "2"], 2)
+        and _cli_ok(TP_MOE_CLI, 2))
+    for m in meshes.values():
+        m.destroy()
+    return out
+
+
 SCENARIOS = {"schedules": schedules, "zero1_step": zero1_step,
              "zero23_step": zero23_step, "ckpt_zero1": ckpt_zero1,
              "lm_zero1": lm_zero1, "lm_family_dp": lm_family_dp,
              "lm_tp": lm_tp, "lm_xla_dp": lm_xla_dp,
              "lm_tp_recurrent": lm_tp_recurrent, "xla_conv": xla_conv,
-             "lm_tp_frames": lm_tp_frames, "lm_tp_ckpt": lm_tp_ckpt}
+             "lm_tp_frames": lm_tp_frames, "lm_tp_ckpt": lm_tp_ckpt,
+             "lm_tp_moe": lm_tp_moe}
 
 
 def main(scenario: str, out_dir: str, device: str = "cpu"):

@@ -30,6 +30,7 @@ to an ``.npz`` of ``kind/path`` keys.
   python tests/torch_reference.py tp_cases OUT.npz      (4 host devices)
   python tests/torch_reference.py tp_recurrent_cases OUT.npz   (4 devices)
   python tests/torch_reference.py tp_frames_cases OUT.npz      (4 devices)
+  python tests/torch_reference.py tp_moe_cases:layers|lm OUT.npz  (4 devices)
   python tests/torch_reference.py xla_conv_cases OUT.npz       (2 devices)
 
 The reference's explicit data-parallel steps fail under jax 0.9.0 before
@@ -706,8 +707,11 @@ def lm_cases():
 
 
 def _lm_run(model, params, toks, *, prompt=LM_PROMPT, cache_len=LM_CACHE,
-            mesh=None, via_generate=True, decode=None, frames=None):
-    """The full forward over ``toks`` (prompt + 1 tokens; with its aux),
+            mesh=None, via_generate=True, decode=None, frames=None,
+            train_len=None):
+    """The full forward over ``toks`` (prompt + 1 tokens, or its first
+    ``train_len``: the MoE layer over a model axis cannot shard a length
+    the axis does not divide; with its aux),
     the prefill of the prompt, one decode step of the last token from that
     cache, and ``generate``'s LM_NEW greedy tokens; with ``via_generate``
     False the same tokens from the prefill and decode programs already
@@ -725,7 +729,7 @@ def _lm_run(model, params, toks, *, prompt=LM_PROMPT, cache_len=LM_CACHE,
     start = prompt + (model.cfg.encoder.n_frames
                       if model.cfg.family == "vlm" else 0)
     (logits, aux), _ = jax.jit(lambda p, t: model.forward_train(
-        p, {"tokens": t, **extra}, mesh))(params, toks)
+        p, {"tokens": t, **extra}, mesh))(params, toks[:, :train_len])
     last, cache = jax.jit(lambda p, t: model.forward_prefill(
         p, {"tokens": t, **extra}, cache_len, mesh))(params,
                                                     toks[:, :prompt])
@@ -1122,38 +1126,97 @@ def moe_cases():
     return out
 
 
+def _device_index(mesh):
+    """Inside ``shard_map`` over ``mesh``: the device's index along each
+    of its axes (a debug callback fires once a device, with its own)."""
+    import jax
+    import jax.numpy as jnp
+    return jnp.stack([jax.lax.axis_index(a) for a in mesh.axis_names])
+
+
+def _by_device(captured, key, out):
+    """Each device's capture ``captured[(i, j)]`` as ``{key}/d{i}m{j}``;
+    on a one-device mesh as ``{key}`` alone."""
+    if list(captured) == [(0, 0)]:
+        out[key] = captured[(0, 0)]
+        return
+    for (i, j), v in captured.items():
+        out[f"{key}/d{i}m{j}"] = v
+
+
+#: where ``_route_capture``'s callbacks record: a program traced under one
+#: capture and run again under the next records into the current one
+_ROUTED = [None]
+
+
+def _keep_route(idx, ids):
+    _ROUTED[0].setdefault(tuple(int(i) for i in idx), []).append(
+        np.asarray(ids))
+
+
+@contextlib.contextmanager
+def _route_capture(mesh):
+    """Within: each call of ``repro.models.moe._route`` inside the MoE
+    layer's ``shard_map`` over ``mesh`` records its expert ids under the
+    (data, model) index of the device that ran it; yields {index: [ids,
+    ...]}, each device's in the order its layers ran (call
+    ``jax.effects_barrier()`` before reading it)."""
+    import jax
+    from repro.models import moe
+    route = moe._route
+
+    def capturing_route(x_flat, router_w, e):
+        gates, ids, aux = route(x_flat, router_w, e)
+        jax.debug.callback(_keep_route, _device_index(mesh), ids)
+        return gates, ids, aux
+
+    moe._route = capturing_route
+    _ROUTED[0] = {}
+    try:
+        yield _ROUTED[0]
+    finally:
+        moe._route = route
+
+
 def _moe_layer_case(cfg, seed, prefix, mesh, out, *, grads,
-                    modes=("train", "decode")):
-    """``moe_apply`` on ``_moe_inputs(cfg, seed)`` in f32 and bf16, in
+                    modes=("train", "decode"), seq=None, route=True):
+    """``moe_apply`` on ``_moe_inputs(cfg, seed)`` (its first ``seq``
+    tokens a row, given) in f32 and bf16, in
     each of ``modes`` (train, decode): out and aux
-    (``{prefix}/{dt}/{mode}/...``); the routing of ``_route`` on the same
-    x (gates, ids, aux); in train, the (E, C, d)
-    buffers the expert FFN receives (``xs``, captured by a debug
-    callback), and with ``grads``, in f32, the gradients of ``sum(out ·
-    ct) + 0.01 · aux`` with respect to the params and x. The params and x
-    as ``{prefix}/params/...`` and ``{prefix}/x``."""
+    (``{prefix}/{dt}/{mode}/...``); with ``route``, the routing of
+    ``_route`` on the same x (gates, ids, aux); in train, the
+    buffers the expert FFN receives (``xs``: (E, C, d) on one device,
+    each device's (E/M, M·C, d) as ``xs/d{i}m{j}`` on several, captured by
+    a debug callback), and with ``grads``, in f32, the gradients of
+    ``sum(out · ct) + 0.01 · aux`` with respect to the params and x. The
+    params and x as ``{prefix}/params/...`` and ``{prefix}/x``."""
     import jax
     import jax.numpy as jnp
     from repro.models import moe
 
-    captured = []
+    captured = {}
     ffn = moe._expert_ffn
 
+    def keep(idx, xs):
+        captured[tuple(int(i) for i in idx)] = np.asarray(xs, np.float32)
+
     def capturing_ffn(w_gate, w_up, w_down, xs):
-        jax.debug.callback(lambda a: captured.append(np.asarray(
-            a, np.float32)), xs)
+        jax.debug.callback(keep, _device_index(mesh), xs)
         return ffn(w_gate, w_up, w_down, xs)
 
     p32, x32 = _moe_inputs(cfg, seed)
+    if seq is not None:
+        x32 = np.ascontiguousarray(x32[:, :seq])
     _flat(f"{prefix}/params", p32, out)
     out[f"{prefix}/x"] = x32
     for dt in ("float32", "bfloat16"):
         p = jax.tree.map(lambda a: jnp.asarray(a, dt), p32)
         x = jnp.asarray(x32, dt)
-        gates, ids, aux = jax.jit(lambda xf, w: moe._route(
-            xf, w, cfg.moe))(x.reshape(-1, cfg.d_model), p["router"])
-        for name, v in (("gates", gates), ("ids", ids), ("aux", aux)):
-            out[f"{prefix}/{dt}/route/{name}"] = np.asarray(v)
+        if route:
+            gates, ids, aux = jax.jit(lambda xf, w: moe._route(
+                xf, w, cfg.moe))(x.reshape(-1, cfg.d_model), p["router"])
+            for name, v in (("gates", gates), ("ids", ids), ("aux", aux)):
+                out[f"{prefix}/{dt}/route/{name}"] = np.asarray(v)
         for mode in modes:
             key = f"{prefix}/{dt}/{mode}"
             moe._expert_ffn = capturing_ffn
@@ -1168,7 +1231,7 @@ def _moe_layer_case(cfg, seed, prefix, mesh, out, *, grads,
             out[f"{key}/out"] = np.asarray(o, np.float32)
             out[f"{key}/aux"] = np.asarray(a)
             if mode == "train":
-                (out[f"{key}/xs"],) = captured
+                _by_device(captured, f"{key}/xs", out)
             if grads and mode == "train" and dt == "float32":
                 ct = np.random.default_rng(seed + 10).standard_normal(
                     x32.shape).astype(np.float32)
@@ -1189,7 +1252,7 @@ def _lm_family_cases(base, mesh, out):
     steps along its own trajectory from those params, LARS poly2
     (``LR``), the lcg batches of ``lm_train_steps`` (``train/s{k}/...``),
     with each layer's expert ids of the step's forward, in layer order
-    (``train/s{k}/route/l{i}``, captured by a debug callback)."""
+    (``train/s{k}/route/l{i}``, captured by a debug callback: ``_routes``)."""
     import dataclasses
 
     import jax
@@ -1197,7 +1260,6 @@ def _lm_family_cases(base, mesh, out):
     from repro.core import lars
     from repro.core.schedule import ScheduleConfig, make_schedule
     from repro.data.synthetic import token_batch
-    from repro.models import moe
     from repro.models.registry import build_model
     from repro.train.state import TrainState
     from repro.train.step import make_train_step
@@ -1211,15 +1273,6 @@ def _lm_family_cases(base, mesh, out):
         _flat(f"f{flash}", jax.device_get(_lm_run(model, params, toks,
                                                   mesh=mesh)), out)
 
-    # each layer's expert choices of a step's forward, captured in the
-    # order the scan runs the layers
-    route, routed = moe._route, []
-
-    def capturing_route(x_flat, router_w, e):
-        gates, ids, aux = route(x_flat, router_w, e)
-        jax.debug.callback(lambda a: routed.append(np.asarray(a)), ids)
-        return gates, ids, aux
-
     model = build_model(base)
     step = jax.jit(make_train_step(model, lars.OptConfig(kind="lars"),
                                    make_schedule(ScheduleConfig(**LR)),
@@ -1230,16 +1283,13 @@ def _lm_family_cases(base, mesh, out):
         batch = jax.device_get(token_batch(
             base, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, step=k,
             kind="lcg"))
-        moe._route = capturing_route
-        routed.clear()
-        try:
+        # each layer's expert choices of the step's forward, in the order
+        # the scan runs the layers
+        with _route_capture(mesh) as routed:
             s2, m = step(s, batch)
             jax.effects_barrier()
-        finally:
-            moe._route = route
         pre = f"train/s{k}"
-        for i, ids in enumerate(routed):
-            out[f"{pre}/route/l{i}"] = ids
+        _routes(routed, pre, out)
         for io, x in (("in", s), ("out", s2)):
             x = jax.device_get(x)
             out[f"{pre}/{io}/step"] = np.asarray(x.step)
@@ -1250,6 +1300,16 @@ def _lm_family_cases(base, mesh, out):
         # on the host, as the first state: the step then runs the program
         # it compiled (the outputs' mesh shardings would compile another)
         s = jax.device_get(s2)
+
+
+def _routes(routed, pre, out):
+    """``_route_capture``'s ids as ``{pre}/route/l{i}`` (layer i), each
+    device's as ``.../d{d}m{m}`` on a mesh of several."""
+    n = {len(v) for v in routed.values()}
+    assert len(n) == 1, n            # as many layers on every device
+    for i in range(n.pop()):
+        _by_device({idx: v[i] for idx, v in routed.items()},
+                   f"{pre}/route/l{i}", out)
 
 
 #: the MLA setting: the reduced deepseek-v2-236b (2 layers, d 256, 4
@@ -1428,7 +1488,7 @@ def _jax_f32_compute():
 
 
 def _train_steps(base, params, out, *, f32=False, mesh=None,
-                 prefix="train", kind="lars"):
+                 prefix="train", kind="lars", routes=False):
     """``make_train_step(comm='xla', mesh=mesh)``, jitted, LM_TRAIN_STEPS
     steps along its own trajectory from ``params``, ``kind`` (LARS; or
     sgdm, whose update scales with the gradient) poly2 (``LR``),
@@ -1436,7 +1496,9 @@ def _train_steps(base, params, out, *, f32=False, mesh=None,
     states, batch and metrics (``{prefix}/s{k}/...``); with ``f32`` the
     step differentiates the f32 masters (``comm_dtype='f32'``) and the LM
     runs wholly in f32 (``_jax_f32_compute``). With a ``mesh`` the params
-    and momentum are placed by their specs (``_place``)."""
+    and momentum are placed by their specs (``_place``). With ``routes``
+    (a MoE config) each layer's expert ids a device as well
+    (``_route_capture``, ``{prefix}/s{k}/route/...``)."""
     import jax
     import jax.numpy as jnp
     from repro.core import lars
@@ -1460,9 +1522,14 @@ def _train_steps(base, params, out, *, f32=False, mesh=None,
         batch = jax.device_get(token_batch(
             base, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, step=k,
             kind="lcg"))
-        with _jax_f32_compute() if f32 else contextlib.nullcontext():
+        with _jax_f32_compute() if f32 else contextlib.nullcontext(), \
+                _route_capture(mesh) if routes \
+                else contextlib.nullcontext() as routed:
             s2, m = step(s, batch)
+            jax.effects_barrier()
         pre = f"{prefix}/s{k}"
+        if routes:
+            _routes(routed, pre, out)
         for io, x in (("in", s), ("out", s2)):
             x = jax.device_get(x)
             out[f"{pre}/{io}/step"] = np.asarray(x.step)
@@ -2184,6 +2251,65 @@ def tp_frames_cases():
     return out
 
 
+#: the MoE layer's experts over the model axis (ROADMAP §1 item 6.3): name
+#: -> (the MOE_CASES case, mesh, tokens a row or None for MOE_S). "cap"
+#: and "pad" on ``_mesh_tp``; "pad4" on a (1, 4) mesh (8 of the 32 padded
+#: experts a rank: rank 2 holds 4 padded ones, rank 3 only padded ones);
+#: "cap1" at one token a row on (2, 2), S < M: the local-psum branch in
+#: train too
+TP_MOE_LAYERS = {"cap": ("cap", TP_MESH, None), "pad": ("pad", TP_MESH, None),
+                 "pad4": ("pad", (1, 4), None), "cap1": ("cap", TP_MESH, 1)}
+
+
+#: ``tp_moe_cases``' two parts, each its own subprocess (they patch the
+#: same module globals while tracing, so they do not share one in threads)
+TP_MOE_PARTS = ("layers", "lm")
+
+
+def tp_moe_cases(part):
+    """The reference's MoE over the model axis, under the shard_map shim.
+    ``layers``: ``_moe_layer_case`` for each of ``TP_MOE_LAYERS`` on its
+    mesh (the inputs of ``moe_cases``' case; ``{name}/...``, each device's
+    FFN buffers as ``xs/d{i}m{j}``). ``lm``: the reduced
+    qwen2-moe-a2.7b's GSPMD program on ``_mesh_tp``, its params placed by
+    their specs, in bf16 (``f0``) and wholly in f32 (``f1``): ``_lm_run``
+    (the full forward over the prompt, which model 2 divides; greedy
+    tokens from its own programs) and two LARS ``comm='xla'`` steps with
+    each layer's expert ids a device (``_train_steps(routes=True)``), as
+    ``lm/f{f32}/{run,train}/...``, the params as ``lm/params``."""
+    import jax
+    from jax.sharding import AxisType
+    from repro.configs import get_config
+    from repro.models.registry import build_model
+
+    _shard_map_shim()
+    meshes = {TP_MESH: _mesh_tp(),
+              (1, 4): jax.make_mesh((1, 4), ("data", "model"),
+                                    axis_types=(AxisType.Auto,) * 2)}
+    out = {}
+    if part == "layers":
+        for name, (case, mesh, seq) in TP_MOE_LAYERS.items():
+            _moe_layer_case(moe_case_cfg(get_config, case),
+                            10 + list(MOE_CASES).index(case), name,
+                            meshes[mesh], out, grads=True, seq=seq,
+                            route=False)
+        return out
+    base = get_config(MOE_ARCH).reduced()
+    params = lm_params(base)
+    model = build_model(base)
+    mesh = meshes[TP_MESH]
+    _flat("lm/params", params, out)
+    for f32 in (0, 1):
+        with _jax_f32_compute() if f32 else contextlib.nullcontext():
+            run = _lm_run(model, _place(params, model.param_pd, mesh),
+                          lm_tokens(base), mesh=mesh, via_generate=False,
+                          train_len=LM_PROMPT)
+        _flat(f"lm/f{f32}/run", jax.device_get(run), out)
+        _train_steps(base, params, out, f32=bool(f32), mesh=mesh,
+                     prefix=f"lm/f{f32}/train", routes=True)
+    return out
+
+
 #: the model axis for the recurrent families (ROADMAP §1 item 6.2b): the
 #: reduced zamba2-7b and the xLSTM (``tp_config``) on ``_mesh_tp``, wholly
 #: in f32
@@ -2416,8 +2542,8 @@ def xla_conv_cases():
 if __name__ == "__main__":
     what, dest = sys.argv[1], sys.argv[2]
     what, _, arg = what.partition(":")
-    if what == "lm_family_dp_steps":
-        np.savez(dest, **lm_family_dp_steps(arg))
+    if what in ("lm_family_dp_steps", "tp_moe_cases"):
+        np.savez(dest, **globals()[what](arg))
         sys.exit()
     np.savez(dest, **{"resnet_grads": resnet_grads,
                       "train_steps": train_steps,
