@@ -97,10 +97,16 @@ Phases, in order; any failure exits non-zero and prints no result:
               at capacity_factor 16 (prefill and full forward, as
               tests/test_serve.py: the full forward then drops no token
               over capacity, and decode never does)
- 15. serve_qk  qwen3-14b at full width (d 5120, 40 heads on 8 kv heads of
-              128, qk_norm, θ 1e6, vocab 151,936), its depth cut to 4 of
-              its 40 layers (printed), served at the serve phase's sizes
-              (K5 4 times, nothing else) and checked as in serve context
+ 15. serve_qk  qwen3-14b at full width and depth (40 layers, d 5120, 40
+              heads on 8 kv heads of 128, qk_norm, θ 1e6, vocab 151,936:
+              14.77 B params), served at the serve phase's sizes (K5 40
+              times, nothing else) and checked as in serve context
+ 15a. serve_nemo  mistral-nemo-12b at full width and depth (40 layers, d
+              5120, 32 heads on 8 kv heads of 128, d_ff 14,336, vocab
+              131,072, a sliding window of 131,072 tokens: 12.25 B
+              params), served at the serve phase's sizes: K5 40 times (its
+              window path, the window wider than the prompt), nothing else
+ 15b. serve_nemo context  the serve context checks on it within 3e-2
  16. serve_mla  deepseek-v2-236b at full width (MLA: d 5120, 128 heads, q/k
               heads of 128 + 64 rope, v heads of 128, a 512-d latent cache
               and a 64-d shared rope key; 160 routed experts of 1536,
@@ -166,6 +172,12 @@ Phases, in order; any failure exits non-zero and prints no result:
               step, K1 twice, finite losses and a positive aux (the
               router's load-balance loss, 0.01 of it in the loss); prints
               step ms, tokens/s, peak memory and the aux
+ 26a. lm_train_nemo  mistral-nemo-12b at full width, its depth cut to 4 of
+              its 40 layers (2.43 B params), lm_train's recipe at batch 2
+              x seq 4096, 3 steps with the state donated (the update in
+              place), no eval: K4 1 + 1 and K1 2 a step, finite losses
+ 26b. lm_train_nemo context  lm_train context's checks on it (each step's
+              new params moved to the host: four states do not fit)
  27. lm_train_hybrid  zamba2-7b at full width, its depth cut to 12 of its
               81 Mamba layers (2 applications of the shared block;
               printed; 1.37 B params), lm_train_moe's recipe and sizes: K4
@@ -376,13 +388,36 @@ Phases, in order; any failure exits non-zero and prints no result:
               --tp [PHASE ...] (with K5 at TP_K5_SHAPES; the phases of
               TP_PHASES named, all by default; its last lines the card's
               and the ok line)
+ 43. serve_tp_moe, lm_train_tp_moe  ROADMAP §1 item 6.3's experts on the
+              same four ranks (the constants above TP_MOE_DEEP_LAYERS say
+              what each runs)
+ 44. serve_tp_mla, lm_train_tp_mla  item 6.3's MLA part on the same four
+              ranks. serve_tp_mla: deepseek-v2-236b at full width, its
+              depth cut to 8 of 60 layers (33.39 B params, 8.41 B a rank:
+              32 of its 128 MLA heads, 40 of its 160 experts; the latent
+              cache whole on every rank), model 4, flash, 8 prompts of
+              2,048 tokens, 32 new: K5 8 times a rank (once a layer, on
+              its 32 heads at Dk 192 / Dv 128), nothing else; 24
+              all-reduces, 10 all-gathers and 16 all_to_alls a prefill,
+              24 all-reduces and 2 all-gathers a decode step; every rank's
+              tokens equal; then its context at 4 layers as serve_tp_moe's
+              (one card chunked alike, on the ranks' expert choices).
+              lm_train_tp_mla: one layer at full width (5.09 B params),
+              fsdp off, (data 2, model 2), 1 x 1,024 tokens a data rank,
+              remat, 3 steps, the state donated: K4 1 + 1 and K1 2 a
+              step; against the one-card step (donated too) at the global
+              batch with the MoE layer chunked alike: losses 4e-4,
+              masters 5e-2 of the update, the replicated masters the same
+              bits on every rank. Alone: python3 chip_smoke.py --tp
+              serve_tp_mla lm_train_tp_mla
 On one card the ring phases print that they need two or more cards and
 were not run, and K3's launches_by_path has "ring": null; with fewer than
 four, lm_ring, its resume, lm_ring_families and the model-axis phases
 are not run and every kernel's launches_by_path has "lm_ring",
 "lm_resume", "lm_ring_families", "serve_tp", "lm_train_tp",
 "serve_tp_hybrid", "lm_train_tp_xlstm", "resnet_xla", "ckpt_tp",
-"serve_tp_audio", "serve_tp_vlm" and "lm_train_tp_frames" null. The kernels
+"serve_tp_audio", "serve_tp_vlm", "lm_train_tp_frames", "serve_tp_moe",
+"lm_train_tp_moe", "serve_tp_mla" and "lm_train_tp_mla" null. The kernels
 phase also holds K1's multi-buffer form (the sharded step's one call)
 against its plain version at the 4 MB and 0.25 MB plans' shards, K2's
 (the sharded step's one update call) against its plain version and, bit
@@ -400,9 +435,10 @@ the wrapper and by the fold the ring binds once a bucket), the
 reference's shapes, ragged rows, misaligned views and in place, beside
 torch.add; the cli phase also trains the reduced LM. Every
 kernel's launch count is set to 0 just before each path (slice, zero1,
-durability, serve, serve_moe, serve_qk, serve_mla, serve_hybrid,
-serve_xlstm, serve_audio, serve_vlm, lm_train_moe, lm_train_hybrid,
-lm_train_xlstm, lm_train_audio, lm_train_vlm, lm_train,
+durability, serve, serve_moe, serve_qk, serve_nemo, serve_mla,
+serve_hybrid, serve_xlstm, serve_audio, serve_vlm, lm_train_moe,
+lm_train_nemo, lm_train_hybrid, lm_train_xlstm, lm_train_audio,
+lm_train_vlm, lm_train,
 each ring
 and lm_ring configuration and autotune run, the lm_ring resume) and read
 just after: a kernel the path
@@ -462,7 +498,11 @@ BATCH, STEPS = 64, 6
 #: (serve_tp_hybrid: 8 of its 32 heads of 112), in whisper-base's at model
 #: 4 (serve_tp_audio: 2 of its 8 heads of 64, encoder and cross), in
 #: internvl2-2b's (serve_tp_vlm: 4 query heads on 2 kv heads of 128) and
-#: in qwen2-moe-a2.7b's (serve_tp_moe: 4 of its 16 heads of 128)
+#: in qwen2-moe-a2.7b's (serve_tp_moe: 4 of its 16 heads of 128); then
+#: mistral-nemo-12b's prefill (serve_nemo: 32 query heads on 8 kv heads of
+#: 128, its 131,072-token window wider than the prompt) and a rank's launch
+#: in deepseek-v2-236b's at model 4 (serve_tp_mla: 32 of its 128 heads, q/k
+#: 192, v 128)
 FLASH_SHAPES = (("path", 8, 2048, 16, 16, 64, 64, 0, "bfloat16", 1),
                 ("serve_moe", 8, 2048, 16, 16, 128, 128, 0, "bfloat16", 1),
                 ("serve_qk", 8, 2048, 40, 8, 128, 128, 0, "bfloat16", 1),
@@ -487,7 +527,11 @@ FLASH_SHAPES = (("path", 8, 2048, 16, 16, 64, 64, 0, "bfloat16", 1),
                 ("serve_tp_audio_cross", 16, 128, 2, 2, 64, 64, 0,
                  "bfloat16", 1, False, 1500),
                 ("serve_tp_vlm", 8, 2048, 4, 2, 128, 128, 0, "bfloat16", 1),
-                ("serve_tp_moe", 8, 2048, 4, 4, 128, 128, 0, "bfloat16", 1))
+                ("serve_tp_moe", 8, 2048, 4, 4, 128, 128, 0, "bfloat16", 1),
+                ("serve_nemo", 8, 2048, 32, 8, 128, 128, 131_072,
+                 "bfloat16", 1),
+                ("serve_tp_mla", 8, 2048, 32, 32, 192, 128, 0, "bfloat16",
+                 1))
 #: K5's route for each input dtype
 FLASH_ROUTES = {"bfloat16": "tensor cores: mma.sync m16n8k16 bf16, P split "
                             "into bf16 hi + mid + lo, the scale after the "
@@ -592,9 +636,15 @@ SERVE_F32_TOL, SERVE_F32_REQUESTS = 1e-4, 2
 #: a MoE model's decode check runs at this capacity factor, as
 #: tests/test_serve.py does: the full forward then drops no token
 SERVE_MOE_CF = 16.0
-#: serve_qk: qwen3-14b at full width, its 40 layers cut to these, which
-#: keeps pinit short (2.9 B params)
-QK_LAYERS = 4
+#: serve_qk: qwen3-14b at full width and all of its 40 layers (14.77 B
+#: params, 29.5 GB in bf16: one card holds it whole)
+QK_LAYERS = 40
+#: lm_train_nemo: mistral-nemo-12b at full width, its 40 layers cut to
+#: these (2.43 B params: fp32 masters and momentum 19.5 GB, the bf16 copy
+#: and gradients 9.7 GB; PERF.md §4 reckons the rest), trained for these
+#: steps with the state donated, its first state kept on the host for the
+#: context check
+NEMO_TRAIN_LAYERS, NEMO_TRAIN_STEPS = 4, 3
 #: serve_mla: deepseek-v2-236b at full width, its 60 layers cut to these
 #: (17.26 B params, 34.5 GB in bf16: one card, and pinit ~1 min)
 MLA_LAYERS = 4
@@ -2209,12 +2259,14 @@ def check_smoothed_xent(dev):
 
 
 def run_lm_train(dev, name="lm_train", cfg=None, steps=LM_STEPS,
-                 evals=1, batch=LM_BATCH, seq=LM_SEQ):
+                 evals=1, batch=LM_BATCH, seq=LM_SEQ, donate=False):
     """A full-width LM (qwen1.5-0.5b unless ``cfg``) trained through the
     port's entry points, as ``python -m repro.launch.train --arch ...``
     drives the JAX package (here at full width, by default batch 2 x seq
     4096; whisper's and the VLM's batches carry their stub frames):
-    ``steps`` steps, then ``evals`` evals (0 or 1) at the end."""
+    ``steps`` steps, then ``evals`` evals (0 or 1) at the end. ``donate``:
+    the step writes the masters and momentum in place, as the CLI's does,
+    and the first state returned is a copy on the host."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import InputShape
@@ -2236,11 +2288,13 @@ def run_lm_train(dev, name="lm_train", cfg=None, steps=LM_STEPS,
                                          total_steps=steps,
                                          decay="poly2"))
     opt = lars.OptConfig(kind="lars", weight_decay=5e-5, use_kernel=True)
-    train_step = make_train_step(model, opt, sched, smoothing=0.1)
+    train_step = make_train_step(model, opt, sched, smoothing=0.1,
+                                 donate=donate)
     batch_fn = make_batch_fn(cfg, InputShape("train_4k", "train", seq,
                                              batch), device=dev)
     torch.cuda.empty_cache()
     state0 = init_state(model, seed=0, device=dev)
+    kept = _on(state0, "cpu") if donate else state0
     times = []
 
     def timed_step(state, batch):
@@ -2293,7 +2347,36 @@ def run_lm_train(dev, name="lm_train", cfg=None, steps=LM_STEPS,
                           "p75": q3 * 1e3},
               "tokens_per_s": batch * seq / med, "batch": [batch, seq],
               "peak_gib": peak / 2 ** 30, "losses": losses, "aux": aux}
-    return model, state0, batch_fn(0), counts, result
+    return model, kept, batch_fn(0), counts, result
+
+
+def _on(state, dev):
+    """A copy of a replicated LM state's params and momentum on ``dev``."""
+    from repro_torch.tree import tree_map
+    move = lambda x: x.to(dev, copy=True)
+    return state._replace(params=tree_map(move, state.params),
+                          mom=tree_map(move, state.mom))
+
+
+def run_lm_train_nemo(dev):
+    """mistral-nemo-12b at full width, its depth cut to
+    ``NEMO_TRAIN_LAYERS`` layers (its 131,072-token window: the chunked
+    attention's window path), trained with lm_train's recipe for
+    ``NEMO_TRAIN_STEPS`` steps, no eval, the state donated; then checked
+    in context from its first state as lm_train is."""
+    import torch
+    cfg, depth = _cut_depth("lm_train_nemo", "mistral-nemo-12b",
+                            NEMO_TRAIN_LAYERS)
+    model, kept, batch, counts, result = run_lm_train(
+        dev, "lm_train_nemo", cfg, steps=NEMO_TRAIN_STEPS, evals=0,
+        donate=True)
+    result["depth_cut"] = [NEMO_TRAIN_LAYERS, depth]
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("lm_train_nemo context")
+    result["context"] = check_lm_train_in_context(
+        dev, model, _on(kept, dev), batch, name="lm_train_nemo")
+    return counts, result
 
 
 def run_lm_train_moe(dev):
@@ -2345,10 +2428,13 @@ def run_lm_train_frames(dev, name, arch, batch, seq):
     return counts, result
 
 
-def check_lm_train_in_context(dev, model, state0, batch):
+def check_lm_train_in_context(dev, model, state0, batch,
+                              name="lm_train"):
     """One step with the K4 loss and two with the loss built on K4's plain
     version, from one state and batch; and K4's gradient against autograd
-    of the plain version on that step's own logits.
+    of the plain version on that step's own logits. Each step's new params
+    are moved to the host as it ends, its momentum dropped (three new
+    states beside the first would not fit mistral-nemo-12b's on the card).
 
     The new params cannot agree to 1e-5 of each tensor's max, the bound of
     the ResNet context checks (which compare steps with one loss and so
@@ -2368,7 +2454,7 @@ def check_lm_train_in_context(dev, model, state0, batch):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import smoothed_xent as sx
     from repro_torch.train.step import make_train_step
-    from repro_torch.tree import tree_flatten
+    from repro_torch.tree import tree_flatten, tree_map
 
     sched = make_schedule(ScheduleConfig(base_lr=LM_LR,
                                          total_steps=LM_STEPS))
@@ -2376,18 +2462,24 @@ def check_lm_train_in_context(dev, model, state0, batch):
                            smoothing=0.1)
     fwd, bwd = _counters()["k4"], _counters()["k4_bwd"]
     _zero(fwd, bwd)
-    got, m = step(state0, batch)
+
+    def new_params(state, batch):
+        out, metrics = step(state, batch)
+        params = tree_map(lambda x: x.cpu(), out.params)
+        del out
+        return params, metrics
+    got, m = new_params(state0, batch)
     kernel = ops.smoothed_xent_rows
     ops.smoothed_xent_rows = lambda x, y, s: ref.smoothed_xent_rows(
         x, y, smoothing=s)
     try:
-        want, wm = step(state0, batch)
-        again, _ = step(state0, batch)
+        want, wm = new_params(state0, batch)
+        again, _ = new_params(state0, batch)
     finally:
         ops.smoothed_xent_rows = kernel
     torch.cuda.synchronize()
     if (fwd.launches, bwd.launches) != (1, 1):
-        fail(f"lm_train context: K4 launched {fwd.launches} / "
+        fail(f"{name} context: K4 launched {fwd.launches} / "
              f"{bwd.launches} times for one kernel step and two plain steps")
     d_loss = abs(float(m["loss"]) - float(wm["loss"])) / abs(
         float(wm["loss"]))
@@ -2411,15 +2503,16 @@ def check_lm_train_in_context(dev, model, state0, batch):
 
     rows = []
     for (n, a), (_, b), (_, c), (_, p0) in zip(
-            tree_flatten(got.params), tree_flatten(want.params),
-            tree_flatten(again.params), tree_flatten(state0.params)):
+            tree_flatten(got), tree_flatten(want), tree_flatten(again),
+            tree_flatten(state0.params)):
+        a, b, c = (x.to(p0.device) for x in (a, b, c))
         d = (a - b).abs().max().item()
         upd = (b - p0).abs().max().item()
         rows.append((n, d / max(b.abs().max().item(), 1e-30),
                      d / max(upd, 1e-30), upd, torch.equal(b, c)))
     of_max = max(rows, key=lambda r: r[1])
     of_upd = max(rows, key=lambda r: r[2])
-    print(f"lm_train context: K4 loss vs plain loss differ by {d_loss:.3e} "
+    print(f"{name} context: K4 loss vs plain loss differ by {d_loss:.3e} "
           f"relative (limit {LM_CONTEXT_TOL}); dlogits by {dx_err:.3e} at "
           f"most, {dx_per_g:.3e} per unit of g (rtol {rtol}, atol "
           f"{atol}·g); two plain steps "
@@ -2432,7 +2525,8 @@ def check_lm_train_in_context(dev, model, state0, batch):
     if not (d_loss <= LM_CONTEXT_TOL and dx_ok and all(r[4] for r in rows)
             and of_upd[2] <= LM_UPDATE_TOL
             and min(r[3] for r in rows) > 0.0):
-        fail("the step with the K4 loss disagrees with the plain step")
+        fail(f"{name}: the step with the K4 loss disagrees with the "
+             f"plain step")
     return {"loss_rel_diff": d_loss, "dlogits_max_abs_err": dx_err,
             "dlogits_max_err_per_unit_g": dx_per_g,
             "param_diff_of_update": [of_upd[0], of_upd[2]],
@@ -2740,12 +2834,13 @@ def ring_rank():
 #: steps, held against the one-card step at the same global batch: the
 #: masters within LM_UPDATE_TOL of each tensor's largest update, the
 #: losses within TP_LOSS_TOL relative (the bf16 step's loss bound of
-#: tests/test_torch_tp.py)
+#: tests/test_torch_tp.py). TP_TIMEOUT_S bounds the ranks' launch: the
+#: MoE and MLA phases together take ~700 s (PERF.md §6)
 TP_SERVE = (8, 2048, 32)
 TP_CONTEXT_LAYERS, TP_CONTEXT_NEW = 4, 8
 TP_TRAIN, TP_TRAIN_STEPS = (1, 4096), 3
 TP_LOSS_TOL = 4e-4
-TP_TIMEOUT_S = 900
+TP_TIMEOUT_S = 1400
 #: the phase's CLI runs on four ranks, each main() called in the ranks'
 #: own processes: --model-parallel 2 --comm xla with the dense decoder and
 #: with the hybrid (reduced), ResNet-50 under --comm xla; since item 6.2c
@@ -2866,11 +2961,32 @@ SERVE_MOE_ONE_CARD_MS = 345.46
 #: of the token-layers (read: 3.6% and 5.5%; PERF.md §6)
 ROUTE_GAP_TOL = 5e-3
 ROUTE_FLIP_SHARE = 0.1
+#: the slice-21 four-card phases (ROADMAP §1 item 6.3's MLA part).
+#: serve_tp_mla: deepseek-v2-236b at full width, its 60 layers cut to
+#: TP_MLA_LAYERS (33.39 B params; a rank: 32 of 128 heads, 40 of 160
+#: experts, 8.41 B params, 16.8 GB in bf16), model 4, flash_attention, at
+#: TP_SERVE; its context at TP_CONTEXT_LAYERS (serve_mla's MLA_LAYERS)
+#: against one card's run of the same params with the MoE layer chunked as
+#: model 4 chunks it, on the ranks' expert choices (serve_tp_moe's gates).
+#: lm_train_tp_mla: lm_train_tp's recipe at full width, TP_MLA_TRAIN_LAYERS
+#: layers (5.09 B params), (data 2, model 2), TP_MLA_TRAIN a data rank,
+#: the state donated, against one card at the global batch with the MoE
+#: layer chunked alike (one card holds 5.09 B x (4 + 4) bytes of masters
+#: and momentum, the bf16 copy and gradients, the expert stacks' gradients
+#: twice over in the backward and the chunked attention's f32 scores: at
+#: 1 x 2,048 a data rank it ran out of memory, so the sequence is cut to
+#: 1,024; and K1's f32 pack of the whole masters found no room in its
+#: fragmented pool, so the one card takes LARS's per-tensor norms; PERF.md
+#: §6). The
+#: published config's ``fsdp`` (the masters split over data) is item 6.3's
+#: fsdp part, refused over data ranks: the phase trains with it off
+TP_MLA_LAYERS = 8
+TP_MLA_TRAIN_LAYERS, TP_MLA_TRAIN = 1, (1, 1024)
 #: the phases of ``--tp``, in order
 TP_PHASES = ("serve_tp", "lm_train_tp", "serve_tp_hybrid",
              "lm_train_tp_xlstm", "resnet_xla", "ckpt_tp", "serve_tp_audio",
              "serve_tp_vlm", "lm_train_tp_frames", "serve_tp_moe",
-             "lm_train_tp_moe", "cli")
+             "lm_train_tp_moe", "serve_tp_mla", "lm_train_tp_mla", "cli")
 
 
 def _collectives():
@@ -3046,7 +3162,7 @@ def _serve_tp(mesh, say) -> dict:
 
 
 def _lm_train_tp(say, name="lm_train_tp", cfg=None,
-                 rows_seq=TP_TRAIN, moe_chunks=None) -> dict:
+                 rows_seq=TP_TRAIN, moe_chunks=None, donate=False) -> dict:
     """lm_train_tp on this rank: TP_TRAIN_STEPS comm='xla' steps on the
     (data 2, model 2) mesh, then rank 0 runs the one-card step over the
     same global batches from the same initial values and holds the
@@ -3059,8 +3175,13 @@ def _lm_train_tp(say, name="lm_train_tp", cfg=None,
     near-ties, and a flipped choice moves the router's update by far more
     than rounding; the choices that differ are printed), and the
     replicated masters (the router, the norms) must be the same bits on
-    every rank. Rank 0's row."""
+    every rank. ``donate`` (lm_train_tp_mla): both steps write the masters
+    and momentum in place, rank 0 keeps the whole initial and final
+    masters of the mesh's run on the host, and the one card's LARS takes
+    the per-tensor norms (the one card holds one state of the whole model
+    and its step, no more). Rank 0's row."""
     import contextlib
+    import dataclasses
 
     import torch
     import torch.distributed as dist
@@ -3092,13 +3213,22 @@ def _lm_train_tp(say, name="lm_train_tp", cfg=None,
     n_data = mesh.axis("data").size
     shape = InputShape("train_4k", "train", seq, rows_a_rank * n_data)
     step = make_train_step(model, opt, sched, smoothing=0.1, mesh=mesh,
-                           comm="xla")
+                           comm="xla", donate=donate)
     part = make_batch_fn(cfg, shape, device=dev, mesh=mesh,
                          axes=dp_axes(mesh))
     torch.cuda.empty_cache()
     state = init_state(model, 0, device=dev, **sharded_state_kwargs(step))
-    p0 = dict(tree_flatten(weights.gather_tree(state.params, model.param_pd,
-                                               mesh)))
+
+    def whole(params):
+        """The masters gathered whole (a collective), on the host where
+        donated, and only on rank 0."""
+        tree = tree_flatten(weights.gather_tree(params, model.param_pd,
+                                                mesh))
+        if not donate:
+            return dict(tree)
+        return ({p: x.to("cpu", copy=True) for p, x in tree}
+                if mesh.rank == 0 else {})
+    p0 = whole(state.params)
     times, losses = [], []
     pin = _RoutingPin() if moe_chunks is not None else None
     torch.cuda.synchronize()
@@ -3130,17 +3260,21 @@ def _lm_train_tp(say, name="lm_train_tp", cfg=None,
     dist.all_gather_object(peaks, peak)
     if not all(math.isfinite(v) for v in losses):
         fail(f"{name}: losses not all finite: {losses}")
-    got = dict(tree_flatten(weights.gather_tree(state.params,
-                                                model.param_pd, mesh)))
+    got = whole(state.params)
     del state
     gc.collect()
     torch.cuda.empty_cache()
     row = None
     if mesh.rank == 0:
-        one = make_train_step(model, opt, sched, smoothing=0.1, comm="xla")
+        # donated: the one card takes each tensor's norm apart, since
+        # K1's one call packs the whole masters in f32 (19 GiB at 5.09 B
+        # params), which the card's fragmented pool did not find room for
+        one = make_train_step(model, dataclasses.replace(
+            opt, use_kernel=not donate), sched, smoothing=0.1, comm="xla",
+            donate=donate)
         full = make_batch_fn(cfg, shape, device=dev)
         s1 = init_state(model, 0, device=dev)
-        init_same = all(torch.equal(x, p0[p])
+        init_same = all(torch.equal(x, p0[p].to(dev))
                         for p, x in tree_flatten(s1.params))
         ones = []
         pinned = contextlib.nullcontext()
@@ -3149,14 +3283,17 @@ def _lm_train_tp(say, name="lm_train_tp", cfg=None,
             pinned = contextlib.ExitStack()
             pinned.enter_context(_moe_chunked(*moe_chunks))
             pinned.enter_context(replay.replay(routes))
+        torch.cuda.reset_peak_memory_stats(dev)
         with pinned:
             for i in range(TP_TRAIN_STEPS):
                 s1, m1 = one(s1, full(i))
                 ones.append(float(m1["loss"]))
+        one_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         want = dict(tree_flatten(s1.params))
         d_loss = max(abs(a - b) / abs(b) for a, b in zip(losses, ones))
-        worst = max(((got[p] - want[p]).abs().max().item()
-                     / max((want[p] - p0[p]).abs().max().item(), 1e-30), p)
+        worst = max(((got[p].to(dev) - want[p]).abs().max().item()
+                     / max((want[p] - p0[p].to(dev)).abs().max().item(),
+                           1e-30), p)
                     for p in want)
         med = statistics.median(times[1:])
         tokens = rows_a_rank * seq * n_data
@@ -3174,7 +3311,9 @@ def _lm_train_tp(say, name="lm_train_tp", cfg=None,
             f"{[round(x * 1e3, 2) for x in times]}, median after the first "
             f"{med * 1e3:.2f} ms, {tokens / med:.0f} tokens/s on "
             f"{mesh.size} cards; peak memory a rank GiB "
-            f"{[round(p / 2 ** 30, 2) for p in peaks]}; launches K4 "
+            f"{[round(p / 2 ** 30, 2) for p in peaks]} (the one card "
+            f"{one_peak:.2f}{', its LARS without K1' if donate else ''}); "
+            f"launches K4 "
             f"{counts['k4']} + {counts['k4_bwd']}, K1 {counts['k1']}"
             + ("" if rep_same is None else
                f"; the one card's MoE layer chunked as (data "
@@ -3206,7 +3345,8 @@ def _lm_train_tp(say, name="lm_train_tp", cfg=None,
                "masters_of_update": list(worst),
                "step_ms": [x * 1e3 for x in times], "median_ms": med * 1e3,
                "tokens_per_s": tokens / med,
-               "peak_gib": [p / 2 ** 30 for p in peaks], "launches": counts}
+               "peak_gib": [p / 2 ** 30 for p in peaks],
+               "one_card_peak_gib": one_peak, "launches": counts}
         if rep_same is not None:
             row.update(replicated_same=rep_same, flips=replay.flips,
                        choices=replay.choices, max_gap=replay.gap)
@@ -4039,8 +4179,10 @@ def _moe_collectives(cfg) -> tuple:
             {"all_reduce": 3 * L, "all_gather": 2, "all_to_all_single": 0})
 
 
-def _moe_context(model, mesh, params, batch, cache_len, say, cf=None):
-    """serve_tp_moe's context on this rank: ``model`` (at
+def _moe_context(model, mesh, params, batch, cache_len, say, cf=None,
+                 name="serve_tp_moe"):
+    """serve_tp_moe's context (or serve_tp_mla's: ``name``) on this rank:
+    ``model`` (at
     ``capacity_factor`` ``cf`` where given) prefilled and decoding
     TP_CONTEXT_NEW tokens at model 4, then on rank 0's card the same
     params gathered whole, the MoE layer chunked as model 4 chunks it
@@ -4107,12 +4249,11 @@ def _moe_context(model, mesh, params, batch, cache_len, say, cf=None):
                                       cache_len=cache_len)
             with _RoutingPin().replay(pinned(gen_calls)):
                 ties = _greedy_rule(model, whole, batch, tp_tokens,
-                                    one_tokens, cache_len, SERVE_TOL,
-                                    "serve_tp_moe")
+                                    one_tokens, cache_len, SERVE_TOL, name)
         what = (f"one card's MoE layer chunked as model {m} chunks it"
                 if cf is None else f"one card's whole layer, capacity_factor "
                                    f"{cf} (no choice dropped)")
-        say(f"serve_tp_moe context: {cfg.arch_id} at {cfg.n_layers} of its "
+        say(f"{name} context: {cfg.arch_id} at {cfg.n_layers} of its "
             f"layers (full width), model {m} against {what}, on the ranks' "
             f"expert choices: prefill logits differ by {d:.3e} of their max "
             f"(limit {SERVE_TOL}; unpinned {d_free:.3e}, its own top-"
@@ -4122,9 +4263,9 @@ def _moe_context(model, mesh, params, batch, cache_len, say, cf=None):
             f"{ROUTE_GAP_TOL}); {TP_CONTEXT_NEW} greedy tokens within the rule "
             f"(margin {SERVE_TOL} of the max), tied steps a request {ties}")
         if not d <= SERVE_TOL:
-            fail(f"serve_tp_moe context: model {m}'s prefill disagrees with "
+            fail(f"{name} context: model {m}'s prefill disagrees with "
                  f"one card's ({what})")
-        replay.hold("serve_tp_moe context")
+        replay.hold(f"{name} context")
         out = {"prefill_vs_one": d, "unpinned": d_free, "ties": ties,
                "flips": replay.flips, "choices": replay.choices,
                "max_gap": replay.gap, "capacity_factor": cf}
@@ -4134,9 +4275,14 @@ def _moe_context(model, mesh, params, batch, cache_len, say, cf=None):
     return out
 
 
-def _serve_tp_moe(mesh, say) -> dict:
-    """serve_tp_moe on this rank: qwen2-moe-a2.7b whole at model 4, then
-    its two context checks. Rank 0's row."""
+def _serve_tp_moe(mesh, say, name="serve_tp_moe", cfg=None,
+                  context_cfs=(None, SERVE_MOE_CF),
+                  one_card=f"one card {SERVE_MOE_ONE_CARD_MS} ms, serve_moe"
+                  ) -> dict:
+    """serve_tp_moe on this rank: qwen2-moe-a2.7b (or ``cfg``) at model
+    4, then its context checks at TP_CONTEXT_LAYERS layers, one a capacity
+    factor of ``context_cfs`` (``_moe_context``); ``one_card``: the
+    one-card prefill printed beside. Rank 0's row."""
     import dataclasses
 
     import torch
@@ -4144,12 +4290,13 @@ def _serve_tp_moe(mesh, say) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core import pinit
     from repro_torch.models.common import local_shape, model_axis
+    from repro_torch.models.moe import padded_experts
     from repro_torch.models.registry import build_model
     from repro_torch.serve.decode import generate
     from repro_torch.tree import tree_flatten, tree_leaves
 
     dev, n = mesh.device, mesh.size
-    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"),
+    cfg = dataclasses.replace(cfg or get_config("qwen2-moe-a2.7b"),
                               flash_attention=True)
     model = build_model(cfg)
     tp = model_axis(mesh)
@@ -4168,7 +4315,7 @@ def _serve_tp_moe(mesh, say) -> dict:
     all_init_s = time.perf_counter() - t
     n_local = sum(x.numel() for x in tree_leaves(params))
     if n_local != reckoned:
-        fail(f"serve_tp_moe: {n_local} params a rank, the specs give "
+        fail(f"{name}: {n_local} params a rank, the specs give "
              f"{reckoned}")
     gen = torch.Generator().manual_seed(0)
     tokens = torch.randint(0, cfg.vocab_size, (n_req, n_prompt),
@@ -4184,7 +4331,7 @@ def _serve_tp_moe(mesh, say) -> dict:
     out = generate(model, params, batch, max_new=n_new, cache_len=cache_len,
                    timings=timings, mesh=mesh)
     torch.cuda.synchronize()
-    counts = _read_path("serve_tp_moe", {"k5": cfg.n_layers})
+    counts = _read_path(name, {"k5": cfg.n_layers})
     peak = torch.cuda.max_memory_allocated(dev)
     with torch.no_grad(), _collectives() as pre:
         last, cache = model.forward_prefill(params, batch, cache_len, mesh)
@@ -4195,37 +4342,41 @@ def _serve_tp_moe(mesh, say) -> dict:
     for what, got, want in zip(("prefill", "decode step"), (pre, dec),
                                _moe_collectives(cfg)):
         if got != want:
-            fail(f"serve_tp_moe: a {what} calls {got}; the model axis "
+            fail(f"{name}: a {what} calls {got}; the model axis "
                  f"makes {want}")
     if not (bool(torch.isfinite(last).all())
             and bool(torch.isfinite(dl).all())):
-        fail("serve_tp_moe: non-finite logits")
+        fail(f"{name}: non-finite logits")
     outs, peaks, inits = ([None] * n for _ in range(3))
     dist.all_gather_object(outs, out.cpu())
     dist.all_gather_object(peaks, peak)
     dist.all_gather_object(inits, init_s)
     if tuple(out.shape) != (n_req, n_new) or not all(
             torch.equal(o, outs[0]) for o in outs):
-        fail(f"serve_tp_moe: the ranks' tokens differ or have shape "
+        fail(f"{name}: the ranks' tokens differ or have shape "
              f"{tuple(out.shape)}")
     if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
-        fail("serve_tp_moe: a token outside the vocabulary")
+        fail(f"{name}: a token outside the vocabulary")
     q1, med, q3 = statistics.quantiles(timings["decode_ms"], n=4)
     rate = n_req * n_prompt / timings["prefill_ms"] * 1e3
-    say(f"serve_tp_moe: {cfg.arch_id}, {cfg.n_layers} layers at full width, "
-        f"model {n}: {n_local / 1e9:.3f} B params a rank of "
-        f"{n_whole / 1e9:.3f} B (the specs' reckoning, bf16; 16 of the 64 "
-        f"padded experts a rank), pinit {all_init_s:.2f} s (the ranks' own: "
-        f"{[round(s, 2) for s in inits]}); {n_req} requests of {n_prompt} "
-        f"tokens, {n_new} new, cache {cache_len} rows; prefill "
-        f"{timings['prefill_ms']:.2f} ms ({rate:.0f} prompt tokens/s; one "
-        f"card {SERVE_MOE_ONE_CARD_MS} ms, serve_moe); decode ms a token median "
+    E = padded_experts(cfg)
+    full_depth = get_config(cfg.arch_id).n_layers
+    depth = ("" if cfg.n_layers == full_depth
+             else f" (of its {full_depth})")
+    say(f"{name}: {cfg.arch_id}, {cfg.n_layers} layers{depth} at full "
+        f"width, model {n}: {n_local / 1e9:.3f} B params a rank of "
+        f"{n_whole / 1e9:.3f} B (the specs' reckoning, bf16; {E // n} of the "
+        f"{E} padded experts a rank), pinit {all_init_s:.2f} s (the ranks' "
+        f"own: {[round(s, 2) for s in inits]}); {n_req} requests of "
+        f"{n_prompt} tokens, {n_new} new, cache {cache_len} rows; prefill "
+        f"{timings['prefill_ms']:.2f} ms ({rate:.0f} prompt tokens/s; "
+        f"{one_card}); decode ms a token median "
         f"{med:.3f} (p25 {q1:.3f}, p75 {q3:.3f}), {n_req * 1e3 / med:.1f} "
         f"tokens/s; peak memory a rank GiB "
         f"{[round(p / 2 ** 30, 2) for p in peaks]}; a prefill {pre}, a "
         f"decode step {dec}; flash_attention {counts['k5']} launches a "
         f"rank; every rank's tokens equal")
-    say(f"serve_tp_moe: first request's tokens {out[0].tolist()}")
+    say(f"{name}: first request's tokens {out[0].tolist()}")
     row = {"arch": cfg.arch_id, "layers": cfg.n_layers, "model": n,
            "params_a_rank": n_local, "params": n_whole,
            "pinit_s": all_init_s, "pinit_rank_s": inits,
@@ -4241,19 +4392,56 @@ def _serve_tp_moe(mesh, say) -> dict:
     torch.cuda.empty_cache()
 
     # context: TP_CONTEXT_LAYERS layers at full width, model 4 against one
-    # card, chunked alike, then at SERVE_MOE_CF against the whole layer
+    # card, chunked alike (cf None), then (serve_tp_moe) at SERVE_MOE_CF
+    # against the whole layer
     cfg4 = dataclasses.replace(cfg, n_layers=TP_CONTEXT_LAYERS)
     model4 = build_model(cfg4)
     p4 = pinit.materialize(model4.param_pd, seed=0, device=dev,
                            dtype=torch.bfloat16, mesh=mesh)
-    row["context"] = _moe_context(model4, mesh, p4, batch, cache_len, say)
-    row["context_cf"] = _moe_context(model4, mesh, p4, batch, cache_len,
-                                     say, cf=SERVE_MOE_CF)
+    for key, cf in zip(("context", "context_cf"), context_cfs):
+        row[key] = _moe_context(model4, mesh, p4, batch, cache_len, say,
+                                cf=cf, name=name)
     del p4
     gc.collect()
     torch.cuda.empty_cache()
     dist.barrier()
     return row
+
+
+def _serve_tp_mla(mesh, say) -> dict:
+    """serve_tp_mla on this rank: deepseek-v2-236b at full width, its
+    depth cut to TP_MLA_LAYERS, at model 4 (MLA's heads split, the latent
+    whole on every rank; 40 of the 160 experts a rank), then its context
+    at TP_CONTEXT_LAYERS against one card chunked alike. Rank 0's row."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    full = get_config("deepseek-v2-236b")
+    say(f"serve_tp_mla: {full.arch_id}'s depth cut to {TP_MLA_LAYERS} of "
+        f"its {full.n_layers} layers (full width)")
+    return _serve_tp_moe(
+        mesh, say, "serve_tp_mla",
+        dataclasses.replace(full, n_layers=TP_MLA_LAYERS),
+        context_cfs=(None,),
+        one_card=f"one card: serve_mla at {MLA_LAYERS} layers")
+
+
+def _lm_train_tp_mla(say) -> dict:
+    """lm_train_tp_mla on this rank: deepseek-v2-236b at full width, its
+    depth cut to TP_MLA_TRAIN_LAYERS, ``fsdp`` off, lm_train_tp's run at
+    TP_MLA_TRAIN a data rank with the state donated, against one card
+    with the MoE layer chunked as (2, 2) chunks it. Rank 0's row."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    full = get_config("deepseek-v2-236b")
+    say(f"lm_train_tp_mla: {full.arch_id}'s depth cut to "
+        f"{TP_MLA_TRAIN_LAYERS} of its {full.n_layers} layers (full width), "
+        f"fsdp off (the masters whole over data: fsdp over data ranks is "
+        f"item 6.3's fsdp part)")
+    return _lm_train_tp(say, "lm_train_tp_mla", dataclasses.replace(
+        full, n_layers=TP_MLA_TRAIN_LAYERS, fsdp=False), TP_MLA_TRAIN,
+        moe_chunks=(2, 2), donate=True)
 
 
 def _lm_train_tp_moe(mesh4, say) -> dict:
@@ -4628,6 +4816,8 @@ def tp_rank(phases=TP_PHASES):
             "lm_train_tp_frames": lambda: _lm_train_tp_frames(say),
             "serve_tp_moe": lambda: _serve_tp_moe(mesh, say),
             "lm_train_tp_moe": lambda: _lm_train_tp_moe(mesh, say),
+            "serve_tp_mla": lambda: _serve_tp_mla(mesh, say),
+            "lm_train_tp_mla": lambda: _lm_train_tp_mla(say),
             "cli": lambda: _tp_cli_in_process(mesh, say)}
     out, seconds = {"cards": mesh.size}, {}
     for name in TP_PHASES:
@@ -4682,7 +4872,8 @@ def _card_line() -> str:
 #: K5's shapes the ``--tp`` call holds against the plain version: a rank's
 #: launches in the model-axis prefills
 TP_K5_SHAPES = ("serve_tp", "serve_tp_hybrid", "serve_tp_audio_enc",
-                "serve_tp_audio_cross", "serve_tp_vlm", "serve_tp_moe")
+                "serve_tp_audio_cross", "serve_tp_vlm", "serve_tp_moe",
+                "serve_tp_mla")
 
 
 def tp_main(phases=()):
@@ -6013,13 +6204,29 @@ def _cut_depth(name, arch, layers):
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     print(f"{name}: {arch}'s depth cut to {layers} of its {cfg.n_layers} "
-          f"layers (full width)", flush=True)
+          f"layers (full width)" if layers < cfg.n_layers else
+          f"{name}: {arch} at full width and all of its {cfg.n_layers} "
+          f"layers", flush=True)
     return dataclasses.replace(cfg, n_layers=layers), cfg.n_layers
 
 
+def run_serve_nemo(dev):
+    """mistral-nemo-12b at full width and depth (40 layers, 32 query heads
+    on 8 kv heads of 128; its 131,072-token sliding window, wider than the
+    prompt, takes K5's window path) served as serve_qk is, then checked in
+    context."""
+    from repro_torch.configs import get_config
+    model, params, batch, out, counts, result = run_serve(
+        dev, "serve_nemo", get_config("mistral-nemo-12b"))
+    phase("serve_nemo context")
+    result["context"] = check_serve_in_context(dev, model, params, batch,
+                                               out, "serve_nemo")
+    return counts, result
+
+
 def run_serve_qk(dev):
-    """qwen3-14b at full width (qk_norm, 40 query heads on 8 kv heads),
-    its depth cut to ``QK_LAYERS`` layers, served and checked in context."""
+    """qwen3-14b at full width (qk_norm, 40 query heads on 8 kv heads) and
+    depth (``QK_LAYERS``), served and checked in context."""
     cfg, depth = _cut_depth("serve_qk", "qwen3-14b", QK_LAYERS)
     model, params, batch, out, counts, result = run_serve(
         dev, "serve_qk", cfg)
@@ -6564,6 +6771,10 @@ def main():
     by_path["serve_qk"], k5["serve_qk"] = run_serve_qk(dev)
     gc.collect()
 
+    phase("serve_nemo")
+    by_path["serve_nemo"], k5["serve_nemo"] = run_serve_nemo(dev)
+    gc.collect()
+
     phase("serve_mla")
     by_path["serve_mla"], k5["serve_mla"] = run_serve_mla(dev)
     gc.collect()
@@ -6586,6 +6797,10 @@ def main():
 
     phase("lm_train_moe")
     by_path["lm_train_moe"], k4["lm_train_moe"] = run_lm_train_moe(dev)
+    gc.collect()
+
+    phase("lm_train_nemo")
+    by_path["lm_train_nemo"], k4["lm_train_nemo"] = run_lm_train_nemo(dev)
     gc.collect()
 
     phase("lm_train_hybrid")
@@ -6667,7 +6882,8 @@ def main():
     # two sync_bn forms); null with fewer than four cards
     for path in ("serve_tp", "lm_train_tp", "serve_tp_hybrid",
                  "lm_train_tp_xlstm", "ckpt_tp", "serve_tp_audio",
-                 "serve_tp_vlm", "lm_train_tp_frames"):
+                 "serve_tp_vlm", "lm_train_tp_frames", "serve_tp_moe",
+                 "lm_train_tp_moe", "serve_tp_mla", "lm_train_tp_mla"):
         by_path[path] = {key: None if tp is None else
                          tp[path]["launches"][key] for key in entries}
     by_path["resnet_xla"] = {key: None if tp is None else sum(

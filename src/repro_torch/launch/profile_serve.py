@@ -33,8 +33,9 @@ prints one JSON object:
 
 ``--model-parallel M`` under ``torch.distributed.run`` (one rank a card)
 serves any config the model axis splits (ROADMAP §1 items 6.2-6.2c, and
-6.3's experts: the MoE decoder's ``moe`` phase then holds its two
-all_to_alls a prefill layer, or its local experts' psum a decode step)
+6.3's experts and MLA: the MoE decoder's ``moe`` phase then holds its two
+all_to_alls a prefill layer, or its local experts' psum a decode step;
+MLA's ``attention`` phase its one all-reduce a layer)
 over the ``(data=world/M, model=M)`` mesh: each rank's bf16 shards from
 ``pinit``, each data row's requests ``--batch`` (every model rank the
 same), the model axis's collectives in the ``nccl`` group; rank 0 prints
@@ -57,6 +58,9 @@ all-to-all calls of the split prefill and decode step.
   PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 -m \\
       repro_torch.launch.profile_serve --arch qwen1.5-32b --layers 16 \\
       --model-parallel 4 --flash-attention   # also --arch qwen2-moe-a2.7b
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 -m \\
+      repro_torch.launch.profile_serve --arch deepseek-v2-236b --layers 8 \\
+      --model-parallel 4 --flash-attention
 """
 from __future__ import annotations
 

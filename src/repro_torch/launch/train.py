@@ -35,8 +35,9 @@ reference, there is no flag for the ``(pod, data)`` mesh. ``--comm xla``
 (the default) is the reference's GSPMD step: on one process the
 single-device step, under a multi-rank launch the ``(data=world/M,
 model=M)`` mesh of ``--model-parallel M`` (ROADMAP §1 items 6.2, 6.2b,
-6.2c and 6.3's experts: the leaves of the dense decoder, the MoE
-decoder's (its experts split, each rank routing its own tokens), the
+6.2c and 6.3's experts and MLA: the leaves of the dense decoder, the MoE
+decoder's (its experts split, each rank routing its own tokens; MLA's
+heads split, its latent whole on every rank), the
 hybrid, the xLSTM, whisper and the VLM split over ``model``, LAMB and
 ``--guard`` over it too; ResNet-50 splits none and takes its BatchNorm
 statistics over the data axes; at M = 1 pure data parallelism), each
@@ -45,12 +46,12 @@ rank on the rows of its data index. ``--ckpt-dir`` saves the reference's whole a
 this launch's ``(data, model)`` shape, which may differ from the saving
 run's in M and in the data size, as the reference's global arrays do. An
 explicit schedule treats every axis of that mesh as data parallel, as the
-reference's does. Under a multi-rank launch the CLI refuses MLA
-(deepseek-v2-236b; item 6.3), and ``make_train_step`` what the model axis
-does not split: the xLSTM's heads that M does not divide (item 6.2d),
-``fsdp`` over more than one data rank (item 6.3) and a leaf that M does
-not divide, which the reference cannot place either (whisper-base's and
-internvl2-2b's published vocabularies over model > 1, say); with a MoE
+reference's does. ``make_train_step`` refuses what the model axis does
+not split: MLA's and the xLSTM's heads that M does not divide (items
+6.3c, 6.2d), ``fsdp`` over more than one data rank (item 6.3) and a leaf
+that M does not divide, which the reference cannot place either
+(whisper-base's and internvl2-2b's published vocabularies over model >
+1, say); with a MoE
 config the CLI and the forward refuse a ``--seq`` that M does not
 divide, which the reference cannot shard either. On four cards:
   python -m torch.distributed.run --nproc-per-node 4 -m \
@@ -253,10 +254,6 @@ def main(argv=None):
     world = int(os.environ.get("WORLD_SIZE", 1))
     m = args.model_parallel
     arch = get_config(args.arch)
-    if arch.mla is not None and args.comm == "xla" and world > 1:
-        ap.error(f"--comm xla over a {world}-rank launch (--model-parallel "
-                 f"{m}) with {args.arch}: MLA over a mesh is not ported to "
-                 f"repro_torch yet (ROADMAP §1 item 6.3)")
     if m < 1 or world % m:
         ap.error(f"--model-parallel {m} does not divide the job's {world} "
                  f"rank(s)")

@@ -21,7 +21,8 @@ local heads only, so their gradients are summed over the axis
 (``common.copy_in``). Where the columns cut a head (K < M, or H % M != 0:
 ROADMAP §1 item 6.2c, the reference's ``pin`` false case, which it leaves
 to GSPMD) the cut activations are gathered whole and each rank attends
-the heads its columns need (``HeadSplit``).
+the heads its columns need (``HeadSplit``). MLA splits its heads alike
+(item 6.3) and keeps the latent whole on every rank (the MLA section).
 """
 from __future__ import annotations
 
@@ -81,16 +82,25 @@ def gqa_pd(cfg):
 
 
 def mla_pd(cfg):
+    """MLA's leaves, placed as the reference places them: ``wq``, ``wk_b``
+    and ``wv_b`` split their columns (the heads) over ``model``, ``wo``
+    its rows; ``wkv_a`` (the latent and the shared rope key, which every
+    head reads) and ``ckv_norm`` whole on every model rank."""
     m = cfg.mla
     d, H = cfg.d_model, cfg.n_heads
+    dp = "data" if cfg.fsdp else None
     qd = m.nope_head_dim + m.rope_head_dim
     return {
-        "wq": dense_pd(d, H * qd),
-        "wkv_a": dense_pd(d, m.kv_lora_rank + m.rope_head_dim),
+        "wq": dense_pd(d, H * qd, spec=(dp, "model")),
+        "wkv_a": dense_pd(d, m.kv_lora_rank + m.rope_head_dim,
+                          spec=(dp, None)),
         "ckv_norm": PD((m.kv_lora_rank,), init="ones"),
-        "wk_b": dense_pd(m.kv_lora_rank, H * m.nope_head_dim),
-        "wv_b": dense_pd(m.kv_lora_rank, H * m.v_head_dim),
-        "wo": dense_pd(H * m.v_head_dim, d, scale=(H * m.v_head_dim) ** -0.5
+        "wk_b": dense_pd(m.kv_lora_rank, H * m.nope_head_dim,
+                         spec=(dp, "model")),
+        "wv_b": dense_pd(m.kv_lora_rank, H * m.v_head_dim,
+                         spec=(dp, "model")),
+        "wo": dense_pd(H * m.v_head_dim, d, spec=("model", dp),
+                       scale=(H * m.v_head_dim) ** -0.5
                        / math.sqrt(2 * cfg.n_layers)),
     }
 
@@ -386,6 +396,16 @@ def gqa_decode_inplace(p, x, pos: int, cfg, ck_all, cv_all, layer: int,
 
 # ---------------------------------------------------------------------------
 # MLA block (DeepSeek-V2)
+#
+# Over the model axis ``tp`` (ROADMAP §1 item 6.3) a rank holds the columns
+# of ``wq``, ``wk_b`` and ``wv_b`` of its H/M heads and the rows of ``wo``
+# that read them, as ``mla_pd`` places them. Every rank computes the latent
+# and the shared rope key whole from the replicated ``wkv_a`` and keeps
+# the whole latent cache (the reference's ``P(dp, None, None)``); the
+# heads' partial cotangents of the latent are summed over the axis
+# (``copy_in`` on the latent, so the replicated leaves' gradients are every
+# rank's alike), and ``wo``'s partial output is all-reduced: one
+# all-reduce a block in a prefill and in a decode step.
 
 
 def _mla_latent(p, x, positions, cfg):
@@ -400,35 +420,37 @@ def _mla_latent(p, x, positions, cfg):
 
 
 def _mla_q(p, x, positions, cfg):
-    """x's query heads split into the nope part and the rope part, rope
-    applied: (B, S, H, nope_head_dim) and (B, S, H, rope_head_dim)."""
+    """x's query heads (those of the rank's columns of ``wq``) split into
+    the nope part and the rope part, rope applied: (B, S, H', nope_head_dim)
+    and (B, S, H', rope_head_dim)."""
     m = cfg.mla
     B, S = x.shape[:2]
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads,
-                              m.nope_head_dim + m.rope_head_dim)
+    q = (x @ p["wq"]).reshape(B, S, -1, m.nope_head_dim + m.rope_head_dim)
     return q[..., :m.nope_head_dim], rope(q[..., m.nope_head_dim:],
                                           positions, cfg.rope_theta)
 
 
-def mla_parallel(p, x, positions, cfg, *, cache_len: int = 0):
+def mla_parallel(p, x, positions, cfg, *, cache_len: int = 0, tp=None):
     """Train/prefill MLA: keys and values decompressed from the latent,
     the shared rope key broadcast to every head and folded in as extra head
     dims, so q and k are (B, S, H, nope + rope) and v (B, S, H, v_head_dim)
-    through ``_attend`` (K5 with ``cfg.flash_attention``). Returns (out,
-    cache|None); the cache holds the latent and the rope key written into
-    zero (B, cache_len, ·) buffers when cache_len > 0."""
+    through ``_attend`` (K5 with ``cfg.flash_attention``; over the model
+    axis ``tp`` the rank's H/M heads). Returns (out, cache|None); the
+    cache holds the whole latent and the rope key written into zero (B,
+    cache_len, ·) buffers when cache_len > 0."""
     m = cfg.mla
     B, S = x.shape[:2]
-    H = cfg.n_heads
     ckv, krope = _mla_latent(p, x, positions, cfg)
-    q_nope, q_rope = _mla_q(p, x, positions, cfg)
-    k_nope = (ckv @ p["wk_b"]).reshape(B, S, H, m.nope_head_dim)
-    v = (ckv @ p["wv_b"]).reshape(B, S, H, m.v_head_dim)
+    q_nope, q_rope = _mla_q(p, copy_in(x, tp), positions, cfg)
+    H = q_nope.shape[2]
+    lat = copy_in(ckv, tp)
+    k_nope = (lat @ p["wk_b"]).reshape(B, S, H, m.nope_head_dim)
+    v = (lat @ p["wv_b"]).reshape(B, S, H, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, krope[:, :, None].expand(B, S, H,
-                                                    m.rope_head_dim)], dim=-1)
+    k = torch.cat([k_nope, copy_in(krope, tp)[:, :, None].expand(
+        B, S, H, m.rope_head_dim)], dim=-1)
     o = _attend(q, k, v, cfg, causal=True)
-    out = o.reshape(B, S, H * m.v_head_dim) @ p["wo"]
+    out = reduce_out(o.reshape(B, S, H * m.v_head_dim) @ p["wo"], tp)
     cache = None
     if cache_len:
         if cache_len < S:
@@ -441,23 +463,27 @@ def mla_parallel(p, x, positions, cfg, *, cache_len: int = 0):
     return out, cache
 
 
-def _mla_decode_rows(p, x, pos: int, cfg, ckv_c, kr_c):
+def _mla_decode_rows(p, x, pos: int, cfg, ckv_c, kr_c, tp=None):
     """The absorbed decode of one token against one layer's latent cache
     (B, Smax, kv_lora_rank) and rope keys (B, Smax, rope_head_dim), its own
     row written at ``pos`` in place. W^UK is folded into the query
     (``q_abs``, f32, then in the cache's dtype) and W^UV applied to the
     attended latent, with the JAX package's dtypes: scores and softmax in
     f32 over the rows ``[0, pos]`` (the rows its mask keeps), the scale
-    (nope + rope)^-0.5 unrounded. Returns the block's output."""
+    (nope + rope)^-0.5 unrounded. Over the model axis ``tp`` the rank's
+    H/M heads (``wk_b``'s and ``wv_b``'s columns read as (r, H/M, ·)), the
+    whole latent row written on every rank, ``wo``'s partial output
+    all-reduced. Returns the block's output."""
     m = cfg.mla
     _check_pos(pos, ckv_c.shape[1])
-    B, H, r = x.shape[0], cfg.n_heads, m.kv_lora_rank
+    B, r = x.shape[0], m.kv_lora_rank
     pp = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     ckv_new, kr_new = _mla_latent(p, x, pp, cfg)
     ckv_c[:, pos] = ckv_new[:, 0]
     kr_c[:, pos] = kr_new[:, 0]
     ckv, kr = ckv_c[:, :pos + 1].float(), kr_c[:, :pos + 1].float()
     q_nope, q_rope = _mla_q(p, x, pp, cfg)
+    H = q_nope.shape[2]
     wk_b = p["wk_b"].reshape(r, H, m.nope_head_dim).float()
     q_abs = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].float(), wk_b)
     scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
@@ -467,20 +493,25 @@ def _mla_decode_rows(p, x, pos: int, cfg, ckv_c, kr_c):
     o_lat = torch.einsum("bhs,bsr->bhr", prob.to(ckv_c.dtype).float(), ckv)
     wv_b = p["wv_b"].reshape(r, H, m.v_head_dim).float()
     o = torch.einsum("bhr,rhv->bhv", o_lat, wv_b)
-    return o.reshape(B, 1, H * m.v_head_dim).to(x.dtype) @ p["wo"]
+    return reduce_out(o.reshape(B, 1, H * m.v_head_dim).to(x.dtype)
+                      @ p["wo"], tp)
 
 
-def mla_decode(p, x, pos: int, cfg, cache):
+def mla_decode(p, x, pos: int, cfg, cache, tp=None):
     """Absorbed-form MLA decode: scores against the cached latent directly;
     only (ckv, krope) are cached, DeepSeek-V2's KV-cache reduction. cache:
-    {'ckv', 'krope'}, updated IN PLACE at row ``pos`` and returned."""
+    {'ckv', 'krope'}, updated IN PLACE at row ``pos`` and returned.
+    ``tp``: the model axis."""
     return _mla_decode_rows(p, x, pos, cfg, cache["ckv"],
-                            cache["krope"]), cache
+                            cache["krope"], tp), cache
 
 
-def mla_decode_inplace(p, x, pos: int, cfg, ckv_all, kr_all, layer: int):
+def mla_decode_inplace(p, x, pos: int, cfg, ckv_all, kr_all, layer: int,
+                       tp=None):
     """Absorbed MLA decode against the stacked (L, B, Smax, ·) latent
     caches, layer ``layer``'s row ``pos`` written in place. Returns (out,
-    ckv_all, kr_all), the caches being the given ones."""
-    out = _mla_decode_rows(p, x, pos, cfg, ckv_all[layer], kr_all[layer])
+    ckv_all, kr_all), the caches being the given ones. ``tp``: the model
+    axis."""
+    out = _mla_decode_rows(p, x, pos, cfg, ckv_all[layer], kr_all[layer],
+                           tp)
     return out, ckv_all, kr_all

@@ -22,9 +22,10 @@ application of the hybrid's shared block too),
 
 Each entry point takes ``mesh`` (a ``launch.mesh`` mesh, as the
 reference's take a ``jax.sharding.Mesh``). Over its ``model`` axis
-(ROADMAP §1 items 6.2, 6.2b, 6.2c and 6.3's experts: the dense decoder,
-the MoE decoder, the hybrid, the xLSTM stack, whisper and the VLM;
-``tp_axis`` refuses MLA and ``fsdp``) the params are a rank's
+(ROADMAP §1 items 6.2, 6.2b, 6.2c and 6.3's experts and MLA: the dense
+decoder, the MoE decoder with GQA or MLA, the hybrid, the xLSTM stack,
+whisper and the VLM; ``tp_axis`` refuses ``fsdp`` over data ranks) the
+params are a rank's
 shards by their specs, the batch is the rows of the rank's data index
 (the same on every model rank of a data row), and the logits come back
 whole over the vocabulary on every model rank: the vocab-split logits (an untied ``lm_head``'s columns, a tied
@@ -155,12 +156,12 @@ def cache_pd(cfg, batch: int, max_seq: int, m: int = 1):
     ``cross``, the encoder output's (L, batch, n_frames, K, Dh), bf16.
     Every leaf's spec is the reference's: the k and v caches split their
     heads over ``model`` (``P(dp, None, "model", None)``), and so do the
-    Mamba layers' ``conv_x`` and ``state``; the xLSTM's states are whole
-    on every model rank, and so are the k and v caches at ``m`` model
-    ranks where m does not divide the kv heads (``attention.HeadSplit``;
-    the reference's spec holds at the default m = 1). The batch is a
-    rank's own rows."""
-    zeros = lambda *shape: PD(shape, init="zeros", dtype=torch.bfloat16)
+    Mamba layers' ``conv_x`` and ``state``; MLA's latent and rope key
+    (``P(dp, None, None)``) and the xLSTM's states are whole on every
+    model rank, and so are the k and v caches at ``m`` model ranks where
+    m does not divide the kv heads (``attention.HeadSplit``; the
+    reference's spec holds at the default m = 1). The batch is a rank's
+    own rows."""
     split = "model" if cfg.n_kv_heads % m == 0 else None
     heads = lambda *shape: PD(shape, spec=("data", None, split, None),
                               init="zeros", dtype=torch.bfloat16)
@@ -171,8 +172,10 @@ def cache_pd(cfg, batch: int, max_seq: int, m: int = 1):
                 for i in range(cfg.n_layers)}
     if cfg.mla is not None:
         m = cfg.mla
-        return pd_stack({"ckv": zeros(batch, max_seq, m.kv_lora_rank),
-                         "krope": zeros(batch, max_seq, m.rope_head_dim)},
+        whole = lambda *shape: PD(shape, spec=("data", None, None),
+                                  init="zeros", dtype=torch.bfloat16)
+        return pd_stack({"ckv": whole(batch, max_seq, m.kv_lora_rank),
+                         "krope": whole(batch, max_seq, m.rope_head_dim)},
                         cfg.n_layers)
     kv_of = lambda rows: {n: heads(batch, rows, cfg.n_kv_heads,
                                     cfg.resolved_head_dim) for n in "kv"}
@@ -194,32 +197,32 @@ def cache_pd(cfg, batch: int, max_seq: int, m: int = 1):
 def tp_axis(cfg, mesh):
     """The model axis (``launch.mesh.Axis``) the forward over ``mesh``
     splits ``cfg``'s leaves over, None where it spans one rank. Every LM
-    family splits (items 6.2, 6.2b, 6.2c; the MoE layer's experts, item
-    6.3). Refuses what the port does not split yet: MLA and ``fsdp`` over
-    more than one data rank (item 6.3); the xLSTM's heads that M does not
-    divide (item 6.2d: the sLSTM's block-diagonal recurrence would split
-    inside a head); and a leaf that M does not divide, which the reference
-    cannot place either (``common.uneven_split``; the expert stacks pad to
-    a multiple of 16). Attention heads that M does not divide where the
-    leaves do (K < M among them) are gathered (``attention.HeadSplit``).
-    Nothing falls back."""
+    family splits (items 6.2, 6.2b, 6.2c; the MoE layer's experts and MLA,
+    item 6.3). Refuses what the port does not split yet: ``fsdp`` over
+    more than one data rank, at any M (item 6.3); MLA's heads that M does
+    not divide (item 6.3c); the xLSTM's heads that M does not divide (item
+    6.2d: the sLSTM's block-diagonal recurrence would split inside a
+    head); and a leaf that M does not divide, which the reference cannot
+    place either (``common.uneven_split``; the expert stacks pad to a
+    multiple of 16). GQA heads that M does not divide where the leaves do
+    (K < M among them) are gathered (``attention.HeadSplit``). Nothing
+    falls back."""
+    if cfg.fsdp and mesh is not None and any(
+            a.size > 1 for a in mesh.axes if a.name != "model"):
+        raise not_ported(f"{cfg.arch_id}: fsdp (the masters split over "
+                         f"data) with more than one data rank", "6.3")
     tp = model_axis(mesh)
     if tp is None:
         return None
-    m, name = tp.size, cfg.arch_id
-    if cfg.mla is not None:
-        raise not_ported(f"{name}: MLA over a model axis", "6.3")
-    if cfg.fsdp and any(a.size > 1 for a in mesh.axes if a.name != "model"):
-        raise not_ported(f"{name}: fsdp (the masters split over data) "
-                         f"with more than one data rank", "6.3")
-    _check_splits(cfg, m)
+    _check_splits(cfg, tp.size)
     return tp
 
 
 @functools.lru_cache(maxsize=64)
 def _check_splits(cfg, m: int):
     """Every split leaf of ``cfg`` divides over ``m`` model ranks (else
-    ``uneven_split``), and so do the xLSTM's heads (else item 6.2d)."""
+    ``uneven_split``), and so do MLA's heads (else item 6.3c: a rank's
+    columns would cut a head) and the xLSTM's (else item 6.2d)."""
     axis = types.SimpleNamespace(size=m, index=0)
     for path, pd in tree_flatten(lm_pd(cfg)):
         try:
@@ -227,6 +230,10 @@ def _check_splits(cfg, m: int):
         except NotImplementedError:
             raise uneven_split(f"{cfg.arch_id}: {path} {tuple(pd.shape)}",
                                m) from None
+    if cfg.mla is not None and cfg.n_heads % m:
+        raise not_ported(f"{cfg.arch_id}: MLA's n_heads={cfg.n_heads} over "
+                         f"model={m} (a rank's columns cutting a head)",
+                         "6.3c")
     if cfg.xlstm is not None and cfg.n_heads % m:
         raise not_ported(f"{cfg.arch_id}: the xLSTM's n_heads={cfg.n_heads} "
                          f"over model={m} (the sLSTM's block-diagonal "
@@ -322,14 +329,15 @@ def _dense_block(p, x, positions, cfg, *, decode=False, cache=None,
                  pos=None, cache_len=0, tp=None):
     """One decoder layer. Returns (x, aux, new_cache); aux is the MoE
     layer's load-balance loss, None for a dense layer. ``tp``: the model
-    axis (GQA, the SwiGLU and the experts: ``tp_axis`` refuses MLA)."""
+    axis (GQA or MLA, the SwiGLU and the experts)."""
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
     if cfg.mla is not None:
         if decode:
-            a, new_cache = attn.mla_decode(p["attn"], h, pos, cfg, cache)
+            a, new_cache = attn.mla_decode(p["attn"], h, pos, cfg, cache,
+                                           tp=tp)
         else:
             a, new_cache = attn.mla_parallel(p["attn"], h, positions, cfg,
-                                             cache_len=cache_len)
+                                             cache_len=cache_len, tp=tp)
     elif decode:
         a, new_cache = attn.gqa_decode(p["attn"], h, pos, cfg, cache, tp=tp)
     else:

@@ -32,15 +32,15 @@ bf16 weights, as the JAX package's inference does: each leaf is cast as
 ``pinit`` makes it, so the f32 tree never exists (qwen2-moe-a2.7b's
 would take 60.6 GB).
 
-With ``mesh`` (a ``launch.mesh`` mesh, ROADMAP §1 items 6.2, 6.2b and
-6.2c) the dense decoder, the hybrid, the xLSTM, whisper (its frames'
-rows the rank's own) and the VLM (its prefix in every position) serve
-over its model axis: ``params`` are a rank's shards
-(``pinit.materialize(..., mesh=)``), the batch is the rows of the rank's
-data index, each rank keeps the cache of its own kv heads (whisper's
-``cross`` too; all of them where M does not divide the kv heads; the
-Mamba layers' of its SSM heads; the xLSTM's states are whole on every
-rank) and launches K5 on its own heads, and every model rank reads the
+With ``mesh`` (a ``launch.mesh`` mesh, ROADMAP §1 items 6.2, 6.2b, 6.2c
+and 6.3) the dense decoder, the MoE decoder with GQA or MLA, the hybrid,
+the xLSTM, whisper (its frames' rows the rank's own) and the VLM (its
+prefix in every position) serve over its model axis: ``params`` are a
+rank's shards (``pinit.materialize(..., mesh=)``), the batch is the rows
+of the rank's data index, each rank keeps the cache of its own kv heads
+(whisper's ``cross`` too; all of them where M does not divide the kv
+heads; the Mamba layers' of its SSM heads; MLA's latent and the xLSTM's
+states are whole on every rank) and launches K5 on its own heads, and every model rank reads the
 whole vocabulary's logits, so all of them pick the same tokens.
 """
 from __future__ import annotations

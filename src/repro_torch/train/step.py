@@ -96,7 +96,7 @@ from repro_torch.core.label_smoothing import IGNORE, smoothed_xent, \
     top1_accuracy
 from repro_torch.core.precision import cast_to_compute, compute_dtype
 from repro_torch.kernels import ops
-from repro_torch.models.common import local_slice, not_ported
+from repro_torch.models.common import local_slice
 from repro_torch.models.resnet import resnet_forward
 from repro_torch.obs.trace import mark
 from repro_torch.train import guard as guard_lib
@@ -275,16 +275,13 @@ def explicit_moe(what: str, arch: str) -> NotImplementedError:
 def _xla_mesh(model, mesh):
     """The ``comm='xla'`` step's view of ``mesh``: (the model axis or
     None, the data axes a gradient is meaned over, the paths of the leaves
-    split over the model axis). Refuses what is not ported over a
-    multi-rank mesh, naming its ROADMAP item: MLA (item 6.3) over any
-    (``tp_axis`` refuses it over a model axis)."""
+    split over the model axis). What the port does not place yet is
+    refused by ``transformer.tp_axis``, naming its ROADMAP item (``fsdp``
+    over data ranks: item 6.3)."""
     from repro_torch.models import transformer
     if mesh is None or mesh.size == 1:
         return None, (), frozenset()
     cfg = model.cfg
-    if cfg.mla is not None:
-        raise not_ported(f"{cfg.arch_id}: comm='xla' with MLA over a "
-                         f"multi-rank mesh", "6.3")
     # the conv family splits no leaf: every leaf replicated over 'model',
     # its batch over the data axes alone, as GSPMD places it
     tp = None if cfg.family == "conv" else transformer.tp_axis(cfg, mesh)

@@ -217,7 +217,7 @@ def test_serve_entry_points_raise_without_card(monkeypatch):
             main(["--reduced"])
 
 
-def test_unported_lm_parts_name_roadmap(base, capsys, monkeypatch):
+def test_unported_lm_parts_name_roadmap(base, monkeypatch):
     """Item 10.6 is ported: whisper's and the VLM's configs resolve and
     their families build (``test_torch_whisper.py``, ``test_torch_vlm.py``
     hold them against the reference); an unknown arch names the known
@@ -226,9 +226,11 @@ def test_unported_lm_parts_name_roadmap(base, capsys, monkeypatch):
     and the xLSTM since item 6.2b, ``test_torch_tp_recurrent.py``;
     whisper and the VLM since item 6.2c, ``test_torch_tp_frames.py``):
     whisper at ``--model-parallel 2`` under a two-rank launch reaches the
-    run, and so does the MoE decoder since item 6.3's first part
-    (``test_torch_tp_moe.py``); what the model axis does not split yet
-    names its item (MLA: 6.3)."""
+    run, and so do the MoE decoder since item 6.3's first part
+    (``test_torch_tp_moe.py``) and MLA since its MLA part
+    (``test_torch_tp_mla.py``); what the model axis does not split yet
+    names its item (the published deepseek-v2-236b's ``fsdp`` over two
+    data ranks: 6.3)."""
     from repro_torch.configs import _REGISTRY
     from repro_torch.launch import train as cli
     for arch, fam in (("whisper-base", "audio"), ("internvl2-2b", "vlm")):
@@ -249,11 +251,12 @@ def test_unported_lm_parts_name_roadmap(base, capsys, monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
     ran = []
     monkeypatch.setattr(cli, "_run", ran.append)
-    for arch in ("whisper-base", "qwen2-moe-a2.7b"):
+    for arch in ("whisper-base", "qwen2-moe-a2.7b", "deepseek-v2-236b"):
         cli.main(["--arch", arch, "--model-parallel", "2", "--device",
                   "cpu"])
         assert len(ran) == 1 and ran.pop().model_parallel == 2
-    with pytest.raises(SystemExit):
-        cli.main(["--arch", "deepseek-v2-236b", "--model-parallel", "2",
-                  "--device", "cpu"])
-    assert "ROADMAP §1 item 6.3" in capsys.readouterr().err
+    from repro_torch.launch.mesh import Axis, Mesh
+    two = Mesh((Axis("data", 2, 0, (0, 2), None),
+                Axis("model", 2, 0, (0, 1), None)), torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 6\.3\)"):
+        ttf.tp_axis(get_config("deepseek-v2-236b"), two)

@@ -38,13 +38,14 @@ equal the whole leaves' slices bit for bit, f32 and bf16. The CLI
 
 Without ranks: every leaf's spec is the reference's, sharding by it and
 gathering back is the identity, and what the port does not split yet is
-refused, naming its item (6.2d; 6.3: MLA and ``fsdp``), or, for a leaf
-that M does not divide, saying that the reference cannot place it
-either; what item 6.2c lifted (whisper, the VLM, heads that M does not
-divide, checkpoints and ``--resume-elastic`` under ``--model-parallel``)
-and item 6.3's experts lifted (the MoE decoder over a model axis and over
-data ranks) builds (``test_torch_tp_frames.py``, ``test_torch_tp_ckpt.py``
-and ``test_torch_tp_moe.py`` hold it)."""
+refused, naming its item (6.2d; 6.3: ``fsdp``), or, for a leaf that M
+does not divide, saying that the reference cannot place it either; what
+item 6.2c lifted (whisper, the VLM, heads that M does not divide,
+checkpoints and ``--resume-elastic`` under ``--model-parallel``) and item
+6.3's experts and MLA lifted (the MoE decoder with GQA or MLA over a
+model axis and over data ranks) builds (``test_torch_tp_frames.py``,
+``test_torch_tp_ckpt.py``, ``test_torch_tp_moe.py`` and
+``test_torch_tp_mla.py`` hold it)."""
 import dataclasses
 
 import numpy as np
@@ -110,12 +111,19 @@ def _norm(spec):
 
 
 @pytest.mark.tier1
-@pytest.mark.parametrize("arch", (*R.TP_ARCHS, R.MOE_ARCH))
+@pytest.mark.parametrize("arch", (*R.TP_ARCHS, R.MOE_ARCH, R.MLA_ARCH,
+                                  f"{R.MLA_ARCH}:full"))
 def test_specs_are_the_references(arch):
     """Every leaf of the params and of the cache is split where the
     reference's ``PD.spec`` splits it (trailing unsplit dims aside): the
-    MoE decoder's expert stacks on their expert dim, its router whole."""
-    jcfg, cfg = jget_config(arch).reduced(), get_config(arch).reduced()
+    MoE decoder's expert stacks on their expert dim, its router whole;
+    MLA's heads' leaves, its latent projection, norm and cache whole.
+    ``:full``: the published config (descriptors only), whose ``fsdp``
+    puts ``data`` on the leaves too."""
+    arch, _, full = arch.partition(":")
+    jcfg, cfg = jget_config(arch), get_config(arch)
+    if not full:
+        jcfg, cfg = jcfg.reduced(), cfg.reduced()
     pairs = [(jtf.lm_pd(jcfg), transformer.lm_pd(cfg)),
              (jtf.cache_pd(jcfg, 4, 16), transformer.cache_pd(cfg, 4, 16))]
     for jtree, tree in pairs:
@@ -169,8 +177,11 @@ def _refused(fn, item):
 @pytest.mark.parametrize("arch,kw,mesh,item", [
     ("qwen2-moe-a2.7b", {}, (1, 2), None),          # ported: item 6.3
     ("qwen2-moe-a2.7b", {}, (1, 8), UNEVEN),         # 4 experts over 8
-    ("deepseek-v2-236b", {}, (1, 2), "6.3"),
-    ("deepseek-v2-236b", {"moe": None}, (1, 2), "6.3"),     # MLA alone
+    # ported: item 6.3's MLA part (the ids name the item)
+    pytest.param("deepseek-v2-236b", {}, (1, 2), None,
+                 id="deepseek-v2-236b-kw2-mesh2-6.3"),
+    pytest.param("deepseek-v2-236b", {"moe": None}, (1, 2), None,
+                 id="deepseek-v2-236b-kw3-mesh3-6.3"),     # MLA alone
     ("zamba2-7b", {}, (1, 2), None),                # ported: item 6.2b
     ("xlstm-125m", {"d_model": 192}, (1, 2), None),
     ("xlstm-125m", {"n_layers": 7}, (1, 2), UNEVEN),  # sLSTM FFN 341
@@ -191,8 +202,8 @@ def test_model_axis_refuses_what_it_does_not_split(arch, kw, mesh, item):
     either), in the forward and in ``make_train_step(comm='xla')``,
     before any collective: nothing falls back. The rows whose item is
     None are ported (the hybrid and the xLSTM, item 6.2b; whisper, the VLM
-    and a kv head fewer than M, item 6.2c; the MoE layer's experts, item
-    6.3): each builds."""
+    and a kv head fewer than M, item 6.2c; the MoE layer's experts and
+    MLA, item 6.3): each builds."""
     cfg = dataclasses.replace(get_config(arch).reduced(), **kw)
     m = _mesh(*mesh)
     model = build_model(cfg)
@@ -213,8 +224,8 @@ def test_xla_step_refusals_over_a_multi_rank_mesh():
     over several ranks (its BatchNorm statistics over the data axes), the
     guard over a model axis, and LAMB over it (its norms the rank's own
     where no leaf is split: the no-axis update). What item 6.3 lifted
-    builds: the MoE decoder over data ranks alone and over (data, model).
-    MLA over a multi-rank mesh, even at model 1, still names item 6.3."""
+    builds: the MoE decoder over data ranks alone and over (data, model),
+    and so does MLA (item 6.3's MLA part)."""
     sched = make_schedule(ScheduleConfig(base_lr=0.1, total_steps=2))
     resnet = build_model(get_config("resnet50").reduced())
     for mesh in ((2, 1), (1, 1), (2, 2)):
@@ -234,14 +245,17 @@ def test_xla_step_refusals_over_a_multi_rank_mesh():
                                mesh=_mesh(*mesh), comm="xla").mesh.size \
             == mesh[0] * mesh[1]
     mla = build_model(get_config("deepseek-v2-236b").reduced())
-    _refused(lambda: make_train_step(mla, lars.OptConfig(), sched,
-                                     mesh=_mesh(2, 1), comm="xla"), "6.3")
+    for mesh in ((2, 1), (2, 2)):
+        assert make_train_step(mla, lars.OptConfig(), sched,
+                               mesh=_mesh(*mesh), comm="xla").mesh.size \
+            == mesh[0] * mesh[1]
 
 
 @pytest.mark.tier1
 @pytest.mark.parametrize("argv,item", [
     (["--arch", "qwen2-moe-a2.7b"], None),
-    (["--arch", "deepseek-v2-236b"], "6.3"),
+    # ported: item 6.3's MLA part (the id names the item)
+    pytest.param(["--arch", "deepseek-v2-236b"], None, id="argv1-6.3"),
     (["--arch", "zamba2-7b"], None),
     (["--arch", "resnet50"], None),
     (["--arch", "whisper-base"], None),
@@ -253,10 +267,10 @@ def test_xla_step_refusals_over_a_multi_rank_mesh():
 ])
 def test_cli_model_parallel_refusals(argv, item, capsys, monkeypatch):
     """``--model-parallel 2`` under a two-rank launch: what the slice does
-    not cover exits before anything is built, naming its item (MLA:
-    6.3); what it covers (item None: the hybrid, ResNet-50, the guard,
-    whisper, the VLM, checkpoints and ``--resume-elastic``, the MoE
-    decoder) reaches the run."""
+    not cover exits before anything is built, naming its item; what it
+    covers (item None: the hybrid, ResNet-50, the guard, whisper, the VLM,
+    checkpoints and ``--resume-elastic``, the MoE decoder with GQA or
+    MLA) reaches the run."""
     from repro_torch.launch import train as cli
     monkeypatch.setenv("WORLD_SIZE", "2")
     ran = []

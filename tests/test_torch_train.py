@@ -210,48 +210,57 @@ def test_cli_on_cpu_reaches_run_stop(capsys):
 
 def test_cli_flag_not_ported_names_roadmap(capsys, monkeypatch):
     """A flag's use the port has not reached names its ROADMAP item:
-    ``--model-parallel`` with MLA (item 6.3). The MoE layer's experts take
-    it since item 6.3's first part (ResNet-50 since item 6.2b, whisper
-    since item 6.2c), and reach the run; with an explicit ``--comm`` a
-    MoE config is refused: the reference has no such step to port."""
+    ``--model-parallel`` over the published deepseek-v2-236b's ``fsdp``
+    at two data ranks (item 6.3's ``fsdp`` part), refused by the step the
+    run builds (``transformer.tp_axis``). The MoE layer's experts take it
+    since item 6.3's first part and MLA since its MLA part (ResNet-50
+    since item 6.2b, whisper since item 6.2c), and reach the run; with an
+    explicit ``--comm`` a MoE config is refused: the reference has no
+    such step to port."""
     from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import Axis, Mesh
+    from repro_torch.models import transformer
     monkeypatch.setenv("WORLD_SIZE", "2")
     ran = []
     monkeypatch.setattr(launch, "_run", ran.append)
-    launch.main(["--arch", "qwen2-moe-a2.7b", "--reduced", "--device",
-                 "cpu", "--model-parallel", "2"])
-    assert len(ran) == 1 and ran[0].model_parallel == 2
-    for argv, words in ((["--arch", "deepseek-v2-236b", "--model-parallel",
-                          "2"], "ROADMAP §1 item 6.3"),
-                        (["--arch", "qwen2-moe-a2.7b", "--comm", "ring",
-                          "--model-parallel", "2"],
-                         "no such step exists to port")):
-        with pytest.raises(SystemExit) as exit_info:
-            launch.main([*argv, "--reduced", "--device", "cpu"])
-        assert exit_info.value.code != 0
-        assert words in capsys.readouterr().err
-    assert len(ran) == 1
+    for arch in ("qwen2-moe-a2.7b", "deepseek-v2-236b"):
+        launch.main(["--arch", arch, "--reduced", "--device", "cpu",
+                     "--model-parallel", "2"])
+        assert len(ran) == 1 and ran.pop().model_parallel == 2
+    with pytest.raises(SystemExit) as exit_info:
+        launch.main(["--arch", "qwen2-moe-a2.7b", "--comm", "ring",
+                     "--model-parallel", "2", "--reduced", "--device",
+                     "cpu"])
+    assert exit_info.value.code != 0
+    assert "no such step exists to port" in capsys.readouterr().err
+    assert not ran
+    two = Mesh((Axis("data", 2, 0, (0, 1), None),
+                Axis("model", 1, 0, (0,), None)), torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 6\.3\)"):
+        transformer.tp_axis(get_config("deepseek-v2-236b"), two)
 
 
 def test_cli_refuses_comm_xla_under_multi_rank_launch(capsys, monkeypatch):
     """Under a launcher that sets WORLD_SIZE > 1, '--comm xla' is the
     reference's GSPMD step over every rank. The conv family takes it since
     item 6.2b (its BatchNorm statistics over the data axes:
-    ``test_torch_xla_conv.py``) and the MoE decoder since item 6.3's
-    first part (each rank routing its own rows: ``test_torch_tp_moe.py``),
-    so ResNet-50 and qwen2-moe-a2.7b reach the run; MLA is still refused
-    before anything is built, naming item 6.3."""
+    ``test_torch_xla_conv.py``), the MoE decoder since item 6.3's first
+    part (each rank routing its own rows: ``test_torch_tp_moe.py``) and
+    MLA since its MLA part (``test_torch_tp_mla.py``), so ResNet-50,
+    qwen2-moe-a2.7b and deepseek-v2-236b reach the run; '--comm xla' with
+    a sharding rung is refused before anything is built (the rungs are
+    the explicit schedules')."""
     from repro_torch.launch import train as launch
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setattr(launch, "_run", lambda args: pytest.fail("ran"))
     with pytest.raises(SystemExit) as exit_info:
         launch.main(["--arch", "deepseek-v2-236b", "--reduced", "--steps",
-                     "1", "--device", "cpu"])
+                     "1", "--device", "cpu", "--sharding", "zero1"])
     assert exit_info.value.code != 0
-    assert "ROADMAP §1 item 6.3" in capsys.readouterr().err
+    assert "needs an explicit-DP schedule" in capsys.readouterr().err
     for world in ("2", "1"):
         monkeypatch.setenv("WORLD_SIZE", world)
-        for arch in ("resnet50", "qwen2-moe-a2.7b"):
+        for arch in ("resnet50", "qwen2-moe-a2.7b", "deepseek-v2-236b"):
             ran = []
             monkeypatch.setattr(launch, "_run", ran.append)
             launch.main(["--arch", arch, "--reduced", "--device", "cpu"])

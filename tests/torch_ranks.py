@@ -1576,6 +1576,36 @@ def _port_routes():
         moe._route = route
 
 
+@contextlib.contextmanager
+def _pinned_routes(ids):
+    """Within: each call of the port's ``moe._top_k`` (one a MoE layer's
+    forward, in call order) returns the next of the given (T, k) expert
+    ids ``ids`` in place of its own choice, the gates its own
+    probabilities at them; yields a dict that counts ``flips`` (the
+    token-layers whose own choice differs) and ``gap``, the largest
+    distance between such a token's k-th and (k+1)-th probabilities."""
+    import torch
+    from repro_torch.models import moe
+    real, ids = moe._top_k, list(ids)
+    seen = {"flips": 0, "gap": 0.0, "left": ids}
+
+    def top_k(x, k):
+        own = real(x, k)[1]
+        want = torch.from_numpy(ids.pop(0)).long()
+        flip = (own.sort(-1).values != want.sort(-1).values).any(-1)
+        if flip.any():
+            top = x[flip].sort(-1, descending=True).values
+            seen["gap"] = max(seen["gap"],
+                              float((top[:, k - 1] - top[:, k]).max()))
+        seen["flips"] += int(flip.sum())
+        return x.gather(-1, want), want
+    moe._top_k = top_k
+    try:
+        yield seen
+    finally:
+        moe._top_k = real
+
+
 def _tp_moe_layer(r, name, tpm, out):
     """The MoE layer of ``torch_reference.TP_MOE_LAYERS[name]`` over
     ``tpm`` (the rank's expert shards, its data rows) against the
@@ -1666,8 +1696,9 @@ def _tp_moe_layer(r, name, tpm, out):
              abs(data_mean(a) - float(a1)) / abs(float(a1))])
 
 
-def _moe_ckpt(tpm, root, out):
-    """A MoE state at (data 2, model 2), one ``comm='xla'`` step through
+def _moe_ckpt(tpm, root, out, arch="qwen2-moe-a2.7b"):
+    """A MoE state of ``arch`` (reduced) at (data 2, model 2), one
+    ``comm='xla'`` step through
     ``loop.train`` with a checkpoint: ``ckpt/bytes`` (rank 0: the file
     equals, key by key, the model-1 file of the same state gathered whole)
     and ``ckpt/elastic`` (loaded at (1, 4) by ``elastic.load_resharded``,
@@ -1685,7 +1716,7 @@ def _moe_ckpt(tpm, root, out):
     from repro_torch.train.state import TrainState, init_state, \
         sharded_state_kwargs
     from repro_torch.train.step import make_train_step
-    cfg = get_config("qwen2-moe-a2.7b").reduced()
+    cfg = get_config(arch).reduced()
     model = build_model(cfg)
     pd = model.param_pd
     sched = make_schedule(ScheduleConfig(base_lr=0.5, warmup_steps=1,
@@ -1856,13 +1887,169 @@ def lm_tp_moe(mesh, ref_paths):
     return out
 
 
+#: ``lm_tp_mla``'s CLI run: the reduced deepseek-v2-236b under --comm xla
+#: at --model-parallel 2 over the four ranks
+TP_MLA_CLI = ("--arch", "deepseek-v2-236b", "--reduced", "--comm", "xla",
+              "--model-parallel", "2", "--device", "cpu", "--steps", "2",
+              "--batch", "4", "--seq", "32")
+
+
+def _tp_mla_block(r, inputs, name, tpm, out):
+    """The MLA block of ``torch_reference.TP_MLA_BLOCKS[name]`` over
+    ``tpm`` (the rank's columns of ``wq``, ``wk_b``, ``wv_b`` and rows of
+    ``wo``, ``wkv_a`` and ``ckv_norm`` whole; its data rows) against the
+    reference's ``r``, each figure the worst difference over the
+    reference's largest, gathered over the data ranks: ``{name}/{dt}/
+    prefill`` (out and the whole latent cache), ``{name}/{dt}/decode``
+    (the absorbed decode from the reference's prefill cache: out and the
+    cache with its new row), and where the reference has them ``{name}/
+    bfloat16/flash`` (the prefill through K5's plain version on the rank's
+    heads) and ``{name}/grads`` (the f32 gradients of ``sum(out · ct)``:
+    each param summed over the data ranks, the split ones gathered over
+    ``model``, the replicated ones this rank's own; and x)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    import torch_reference as R
+    from repro_torch import weights
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn
+    from repro_torch.models.common import model_axis
+    cfg = get_config(R.MLA_ARCH).reduced()
+    pd = attn.mla_pd(cfg)
+    tp, d = model_axis(tpm), tpm.axis("data")
+    n = R.LM_BATCH // d.size
+    rows = slice(d.index * n, (d.index + 1) * n)
+    positions = torch.arange(R.LM_PROMPT)[None]
+    cache_of = lambda c: max(_rel(_rows(c[k].float(), d), want["cache"][k])
+                             for k in ("ckv", "krope"))
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        p = weights.shard_tree({k: torch.from_numpy(v).to(dtype) for k, v
+                                in inputs["params"].items()}, pd, tpm)
+        x, xd = (torch.from_numpy(inputs[k][rows]).to(dtype)
+                 for k in ("x", "x_dec"))
+        with torch.no_grad():
+            want = r[dt]["prefill"]
+            o, cache = attn.mla_parallel(p, x, positions, cfg,
+                                         cache_len=R.LM_CACHE, tp=tp)
+            out[f"{name}/{dt}/prefill"] = max(
+                _rel(_rows(o.float(), d), want["out"]), cache_of(cache))
+            cache = {k: torch.from_numpy(v[rows]).to(dtype)
+                     for k, v in want["cache"].items()}
+            want = r[dt]["decode"]
+            o, cache = attn.mla_decode(p, xd, R.LM_PROMPT, cfg, cache,
+                                       tp=tp)
+            out[f"{name}/{dt}/decode"] = max(
+                _rel(_rows(o.float(), d), want["out"]), cache_of(cache))
+            if "flash" in r[dt]:
+                o, _ = attn.mla_parallel(p, x, positions, dataclasses.replace(
+                    cfg, flash_attention=True), tp=tp)
+                out[f"{name}/{dt}/flash"] = _rel(_rows(o.float(), d),
+                                                 r[dt]["flash"])
+        if dt != "float32" or "grads" not in r:
+            continue
+        leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+        xg = x.clone().requires_grad_()
+        o, _ = attn.mla_parallel(leaves, xg, positions, cfg, tp=tp)
+        (o * torch.from_numpy(r["ct"][rows])).sum().backward()
+        grads = {k: v.grad for k, v in leaves.items()}
+        for g in grads.values():
+            if d.size > 1:
+                dist.all_reduce(g, group=d.group)
+        grads = weights.gather_tree(grads, pd, tpm)
+        out[f"{name}/grads"] = max(
+            [_rel(grads[k], r["grads"][k]) for k in grads]
+            + [_rel(_rows(xg.grad, d), r["grads"]["x"])])
+
+
+def lm_tp_mla(mesh, ref_paths):
+    """MLA over the model axis (ROADMAP §1 item 6.3's MLA part) on four
+    ranks, against the reference's GSPMD runs (``torch_reference.py
+    tp_mla_cases``' parts, read from the comma-separated ``ref_paths``):
+    the block cases of ``torch_reference.TP_MLA_BLOCKS`` on (data 2, model
+    2) and (1, 4) (``_tp_mla_block``); the reduced deepseek-v2-236b at
+    (2, 2) in bf16 and f32 (``lm/f{f32}/...``): ``_tp_held``'s outputs and
+    ties (the full forward over the prompt), ``step`` (``_tp_step_errors``)
+    and ``routes``: in f32 (as many layers, every layer's expert ids the
+    reference device's), in bf16 the steps run on the reference device's
+    choices (``_pinned_routes``: all consumed, the port's own choices that
+    differ, their largest probability gap); ``dp/step``: two f32 steps at
+    (data 4, model 1) from the reference's inputs. Within the port, in
+    f32: ``self/lm/...`` (``_tp_self`` at (2, 2) against the one-device
+    port with the MoE layer chunked as the mesh chunks it), the checkpoint
+    (``_moe_ckpt``); ``cli``: ``TP_MLA_CLI`` reached run_stop."""
+    import functools
+
+    import torch_reference as R
+    from repro_torch import weights
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.registry import build_model
+
+    def merge(into, tree):
+        for k, v in tree.items():
+            if isinstance(v, dict) and k in into:
+                merge(into[k], v)
+            else:
+                into[k] = v
+        return into
+
+    meshes = {R.TP_MESH: make_local_mesh(2, device="cpu"),
+              (1, 4): make_local_mesh(4, device="cpu"),
+              R.TP_MLA_DP: make_local_mesh(1, device="cpu")}
+    ref = {}
+    for path in ref_paths.split(","):
+        merge(ref, R.load(path))        # the parts share the "lm" subtree
+    out = {}
+    for name, shape in R.TP_MLA_BLOCKS.items():
+        _tp_mla_block(ref[name], ref["inputs"], name, meshes[shape], out)
+    tpm = meshes[R.TP_MESH]
+    base = get_config(R.MLA_ARCH).reduced()
+    model = build_model(base)
+    toks = R.lm_tokens(base)
+    params = weights.lm_params_from_jax(ref["lm"]["params"], base, "cpu",
+                                        mesh=tpm)
+    me = f"d{tpm.axis('data').index}m{tpm.axis('model').index}"
+    for f32 in (0, 1):
+        r = ref["lm"][f"f{f32}"]
+        _tp_held(out, tpm, f"lm/f{f32}", model, params, r["run"], toks, f32,
+                 train_len=R.LM_PROMPT)
+        want = [r["train"][f"s{k}"]["route"][f"l{i}"][me]
+                for k in range(R.LM_TRAIN_STEPS)
+                for i in range(base.n_layers)]
+        if f32:
+            with _port_routes() as ids:
+                out["lm/f1/step"] = np.array(
+                    _tp_step_errors(base, r["train"], tpm, True))
+            out["lm/f1/routes"] = np.array([len(ids) == len(want), all(
+                np.array_equal(a, b) for (a, _, _), b in zip(ids, want))])
+            continue
+        # bf16: on the reference device's expert choices
+        with _pinned_routes(want) as pin:
+            out["lm/f0/step"] = np.array(
+                _tp_step_errors(base, r["train"], tpm, False))
+        out["lm/f0/routes"] = np.array([not pin["left"], pin["flips"],
+                                        pin["gap"]])
+    out["dp/step"] = np.array(_tp_step_errors(
+        base, ref["dp"]["train"], meshes[R.TP_MLA_DP], True))
+    _tp_self(base, tpm, "self/lm", out, train_len=R.LM_PROMPT,
+             one=functools.partial(_moe_chunked, *R.TP_MESH))
+    _moe_ckpt(tpm, sys.argv[2], out, arch=R.MLA_ARCH)
+    out["cli"] = np.bool_(_cli_ok(list(TP_MLA_CLI), 2))
+    for m in meshes.values():
+        m.destroy()
+    return out
+
+
 SCENARIOS = {"schedules": schedules, "zero1_step": zero1_step,
              "zero23_step": zero23_step, "ckpt_zero1": ckpt_zero1,
              "lm_zero1": lm_zero1, "lm_family_dp": lm_family_dp,
              "lm_tp": lm_tp, "lm_xla_dp": lm_xla_dp,
              "lm_tp_recurrent": lm_tp_recurrent, "xla_conv": xla_conv,
              "lm_tp_frames": lm_tp_frames, "lm_tp_ckpt": lm_tp_ckpt,
-             "lm_tp_moe": lm_tp_moe}
+             "lm_tp_moe": lm_tp_moe, "lm_tp_mla": lm_tp_mla}
 
 
 def main(scenario: str, out_dir: str, device: str = "cpu"):

@@ -31,6 +31,8 @@ to an ``.npz`` of ``kind/path`` keys.
   python tests/torch_reference.py tp_recurrent_cases OUT.npz   (4 devices)
   python tests/torch_reference.py tp_frames_cases OUT.npz      (4 devices)
   python tests/torch_reference.py tp_moe_cases:layers|lm OUT.npz  (4 devices)
+  python tests/torch_reference.py tp_mla_cases:PART OUT.npz  (4 devices;
+      PART: block, run, train0, train1)
   python tests/torch_reference.py xla_conv_cases OUT.npz       (2 devices)
 
 The reference's explicit data-parallel steps fail under jax 0.9.0 before
@@ -2310,6 +2312,127 @@ def tp_moe_cases(part):
     return out
 
 
+#: MLA over the model axis (ROADMAP §1 item 6.3's MLA part): the reduced
+#: deepseek-v2-236b's MLA block (4 heads) by name -> mesh: "m2" on
+#: ``_mesh_tp`` (with its f32 gradients and the flash prefill in bf16),
+#: "m4" on a (1, 4) mesh (one head a rank); its LM on ``_mesh_tp`` and its
+#: f32 steps on a (4, 1) mesh (data ranks alone)
+TP_MLA_BLOCKS = {"m2": TP_MESH, "m4": (1, 4)}
+TP_MLA_DP = (4, 1)
+#: ``tp_mla_cases``' parts, each its own subprocess, run at once (they
+#: patch the same module globals while tracing, so they do not share one
+#: in threads)
+TP_MLA_PARTS = ("block", "run", "train0", "train1")
+
+
+def _mla_block_case(cfg, mesh, prefix, out, *, extra):
+    """The MLA block of ``mla_cases``' inputs (``mla/params``, ``mla/x``,
+    ``mla/x_dec``: seeds 31 and 30) on ``mesh``, its params placed by
+    their specs, x over ``data``, in f32 and bf16: ``mla_parallel`` (out
+    and the latent cache of LM_CACHE rows) and, from that cache (placed
+    as ``cache_pd`` places it), ``mla_decode`` of ``x_dec`` at position
+    LM_PROMPT, as ``{prefix}/{dt}/{prefill,decode}/...`` (the inputs as
+    ``inputs/...``). With ``extra``:
+    the flash prefill in bf16 (the Pallas kernel in interpret mode inside
+    ``shard_map`` on each device's heads), ``{prefix}/bfloat16/flash``,
+    and the f32 gradients of ``sum(out · ct)`` w.r.t. the params and x,
+    ``{prefix}/grads/...`` (``ct`` N(0, 1), seed 33)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+    from repro.models import attention as attn
+
+    pd = attn.mla_pd(cfg)
+    rng = np.random.default_rng(30)
+    p32 = draw_params(pd, 31)
+    x32 = rng.standard_normal((LM_BATCH, LM_PROMPT, cfg.d_model)) \
+        .astype(np.float32)
+    xd32 = rng.standard_normal((LM_BATCH, 1, cfg.d_model)).astype(np.float32)
+    _flat("inputs", {"params": p32, "x": x32, "x_dec": xd32}, out)
+    rows = lambda a: jax.device_put(a, NamedSharding(mesh, P("data")))
+    positions = jnp.arange(LM_PROMPT)[None]
+    pos = jnp.int32(LM_PROMPT)
+    for dt in ("float32", "bfloat16"):
+        p = _place(jax.tree.map(lambda a: jnp.asarray(a, dt), p32), pd, mesh)
+        x, xd = rows(jnp.asarray(x32, dt)), rows(jnp.asarray(xd32, dt))
+        o, cache = jax.jit(lambda p, x: attn.mla_parallel(
+            p, x, positions, cfg, cache_len=LM_CACHE, mesh=mesh))(p, x)
+        _flat(f"{prefix}/{dt}/prefill", jax.device_get(
+            {"out": o, "cache": cache}), out)
+        o, c2 = jax.jit(lambda p, x, c, i: attn.mla_decode(
+            p, x, i, cfg, c))(p, xd, jax.tree.map(rows, cache), pos)
+        _flat(f"{prefix}/{dt}/decode", jax.device_get(
+            {"out": o, "cache": c2}), out)
+        if extra and dt == "bfloat16":
+            fc = dataclasses.replace(cfg, flash_attention=True)
+            o, _ = jax.jit(lambda p, x: attn.mla_parallel(
+                p, x, positions, fc, mesh=mesh))(p, x)
+            out[f"{prefix}/{dt}/flash"] = np.asarray(o, np.float32)
+        if extra and dt == "float32":
+            ct = np.random.default_rng(33).standard_normal(
+                (LM_BATCH, LM_PROMPT, cfg.d_model)).astype(np.float32)
+            out[f"{prefix}/ct"] = ct
+
+            def loss(p, x):
+                o, _ = attn.mla_parallel(p, x, positions, cfg, mesh=mesh)
+                return jnp.sum(o * ct)
+            gp, gx = jax.jit(jax.grad(loss, (0, 1)))(p, x)
+            _flat(f"{prefix}/grads", jax.device_get(gp), out)
+            out[f"{prefix}/grads/x"] = np.asarray(gx)
+
+
+def tp_mla_cases(part):
+    """The reference's MLA over the model axis, under the shard_map shim
+    (its MoE layer and flash path run in ``shard_map``). ``block``:
+    ``_mla_block_case`` for each of ``TP_MLA_BLOCKS`` (``{name}/...``).
+    ``run`` and ``train{f32}``: the reduced deepseek-v2-236b's GSPMD
+    program on ``_mesh_tp``, its params placed by their specs
+    (``lm/params``), in bf16 (``f0``) and wholly in f32 (``f1``): ``run``,
+    ``_lm_run`` (the full forward over the prompt, which model 2 divides;
+    greedy tokens from its own programs), ``lm/f{f32}/run/...``;
+    ``train{f32}``, two LARS ``comm='xla'`` steps with each layer's expert
+    ids a device (``_train_steps(routes=True)``), ``lm/f{f32}/train/...``,
+    and in ``train1`` two f32 steps on the (4, 1) mesh (``TP_MLA_DP``),
+    ``dp/train/...``."""
+    import jax
+    from jax.sharding import AxisType
+    from repro.configs import get_config
+    from repro.models.registry import build_model
+
+    _shard_map_shim()
+    mesh_of = lambda shape: jax.make_mesh(shape, ("data", "model"),
+                                          axis_types=(AxisType.Auto,) * 2)
+    base = get_config(MLA_ARCH).reduced()
+    out = {}
+    if part == "block":
+        for name, shape in TP_MLA_BLOCKS.items():
+            _mla_block_case(base, mesh_of(shape), name, out,
+                            extra=shape == TP_MESH)
+        return out
+    params = lm_params(base)
+    model = build_model(base)
+    mesh = mesh_of(TP_MESH)
+    if part != "run":
+        f32 = part == "train1"
+        _train_steps(base, params, out, f32=f32, mesh=mesh,
+                     prefix=f"lm/f{int(f32)}/train", routes=True)
+        if f32:
+            _train_steps(base, params, out, f32=True,
+                         mesh=mesh_of(TP_MLA_DP), prefix="dp/train")
+        return out
+    _flat("lm/params", params, out)
+    for f32 in (0, 1):
+        with _jax_f32_compute() if f32 else contextlib.nullcontext():
+            run = _lm_run(model, _place(params, model.param_pd, mesh),
+                          lm_tokens(base), mesh=mesh, via_generate=False,
+                          train_len=LM_PROMPT)
+        _flat(f"lm/f{f32}/run", jax.device_get(run), out)
+    return out
+
+
 #: the model axis for the recurrent families (ROADMAP §1 item 6.2b): the
 #: reduced zamba2-7b and the xLSTM (``tp_config``) on ``_mesh_tp``, wholly
 #: in f32
@@ -2542,7 +2665,7 @@ def xla_conv_cases():
 if __name__ == "__main__":
     what, dest = sys.argv[1], sys.argv[2]
     what, _, arg = what.partition(":")
-    if what in ("lm_family_dp_steps", "tp_moe_cases"):
+    if what in ("lm_family_dp_steps", "tp_moe_cases", "tp_mla_cases"):
         np.savez(dest, **globals()[what](arg))
         sys.exit()
     np.savez(dest, **{"resnet_grads": resnet_grads,
